@@ -3,31 +3,59 @@
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
-    python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py [--out DIR] [--profile]
 
 Phases (any failure exits non-zero and prints no result line):
 
 1. Card: print the card's name and power limit (nvidia-smi) and build
-   the CUDA kernels from ``horovod_tpu_torch/csrc`` with nvcc.
-2. Kernels against their plain PyTorch versions, on the card, at the
-   shapes of the serve path: one K/V leaf of GPT-2 medium,
+   the CUDA kernels from ``horovod_tpu_torch/csrc`` with nvcc, one
+   compiler per source, side by side.
+2. K2/K4 (int8 codec) against their plain PyTorch versions, on the card,
+   at the shapes of the serve path: one K/V leaf of GPT-2 medium,
    (max_len=1024, 16 heads, 64) bf16, plus ragged sizes. Codes and
    dequantized outputs must match bitwise, scales to 1e-6. Times: CUDA
    graph replay of one handoff's 48 launches over 48 distinct leaves
    (device time per launch), the same eager (host launch included), the
    plain version the same way, and the memory bound at 3.35 TB/s.
-3. End to end: disaggregated serving (one prefill and one decode
-   replica) of GPT-2 medium at full width — 24 layers, hidden 1024,
-   16 heads, MLP 4096, vocab 50257, bf16 compute over fp32 weights from
-   a seeded generator — with a 1024-line cache, 8 slots and prompts up
-   to 256 tokens, over a seeded Poisson trace of 16 requests. The kernel
-   launch counters are zeroed just before this run and read just after
-   it; both kernels must have launched. Every request must complete with
-   its full token count, with zero drops and at least one handoff. A
-   reference check holds the bf16 cache-path logits against the same
-   weights in fp32 on a short prompt.
-4. Result lines: the per-kernel JSON record, the card line, and last
+3. K5/K6/K7 (flash attention forward, dq, dk/dv) against their plain
+   versions on the card: the training shape (8, 512, 16, 64) causal in
+   bf16 and fp32, fp32 with a key mask, D = 128, a ragged S and a
+   nonzero lse cotangent; bounds fp32 2e-4 (forward) and 5e-3
+   (gradients), bf16 2e-2. Times at the training shape in bf16: CUDA
+   graph replay over 8 distinct input sets, eager, the plain version,
+   and the library call ``scaled_dot_product_attention(is_causal=True)``
+   (its forward against K5, its backward — a graph of forward and
+   backward less the forward's — against K6 + K7), beside the bound
+   max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s).
+4. Serving: disaggregated serving (one prefill and one decode replica)
+   of GPT-2 medium at full width — 24 layers, hidden 1024, 16 heads, MLP
+   4096, vocab 50257, bf16 compute over fp32 weights from a seeded
+   generator — with a 1024-line cache, 8 slots and prompts up to 256
+   tokens, over a seeded Poisson trace of 16 requests. The launch
+   counters are zeroed just before this run and read just after it; K2
+   and K4 must have launched. Every request must complete with its full
+   token count, with zero drops and at least one handoff. A reference
+   check holds the bf16 cache-path logits against the same weights in
+   fp32 on a short prompt.
+5. Training: GPT-2 medium at full width (same geometry, seeded weights)
+   on one fixed seeded batch of 8 x 513 tokens (S = 512) through
+   ``hvd.init()`` (NCCL, world size 1), ``broadcast_parameters`` and
+   ``DistributedOptimizer(AdamW(lr=1e-4, weight_decay=1e-4))``: 2
+   warm-up steps, then 5 timed steps with the launch counters zeroed
+   just before them and read just after. Each of K5, K6 and K7 must
+   launch exactly 24 x 5 times, at least one bucket allreduce must be
+   issued per step, every loss must be finite and the last below the
+   first. A reference check first runs one forward and backward on the
+   same weights and batch with the flash kernels and with the plain
+   attention, in bf16 compute (loss within 1e-3 relative, every gradient
+   within 2e-2 relative Frobenius error) and on an fp32 copy of the
+   weights (1e-5 and 1e-3).
+6. Result lines: the per-kernel JSON record, the card line, and last
    ``{"ok": true, "device": {...}}``.
+
+``--profile`` also traces the serve run and two extra training steps
+with torch.profiler (after the timed steps, so the timed numbers stay
+unprofiled) and prints the device busy share and the top device ops.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -37,6 +65,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -45,6 +74,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12              # non-tensor-core fp32 peak
+BF16_OPS_PER_S = 989e12             # dense bf16 tensor-core peak
 HANDOFF_LEAVES = 48                 # gpt_medium: 24 layers x (k, v)
 LEAF = (1024, 16, 64)               # (max_len, heads, head_dim)
 RAGGED = ((37, 16, 64), (5000,), (1,))
@@ -199,6 +229,186 @@ def phase_kernels(torch, K) -> dict:
               f"({records[name]['bound_by']}); plain "
               f"{records[name]['plain_ms'] * 1e3:.2f} us; eager "
               f"{records[name]['eager_ms'] * 1e3:.2f} us", flush=True)
+    return records
+
+
+# (B, S, H, D), dtype name, causal, key mask, nonzero dlse
+FLASH_PATH = (8, 512, 16, 64)       # the training path's attention shape
+FLASH_CASES = (
+    (FLASH_PATH, "bfloat16", True, False, False),
+    (FLASH_PATH, "float32", True, False, False),
+    ((2, 256, 4, 64), "float32", False, True, False),
+    ((2, 256, 4, 128), "float32", True, False, True),
+    ((2, 200, 4, 64), "float32", True, True, True),
+    ((2, 200, 4, 128), "bfloat16", False, False, True),
+)
+FLASH_TOL = {"float32": (2e-4, 5e-3), "bfloat16": (2e-2, 2e-2)}
+FLASH_TIMING_SETS = 8               # distinct inputs per graph replay
+
+
+def close_err(torch, got, want, tol: float, what: str) -> float:
+    """Max |got - want|; fails where it exceeds tol + tol * |want|, and
+    on any non-finite value on either side (a NaN compares false, so it
+    must not reach the comparison)."""
+    got, want = got.float(), want.float()
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(bool(torch.isfinite(want).all()),
+          f"{what}: non-finite plain version")
+    diff = (got - want).abs()
+    bad = diff > tol + tol * want.abs()
+    check(not bool(bad.any()), f"{what}: {int(bad.sum())} elements off "
+                               f"the plain version by more than {tol} "
+                               f"(max abs err {diff.max().item():.3g})")
+    return diff.max().item()
+
+
+def flash_inputs(torch, shape, dtype, mask_on, dlse_on, gen):
+    b, s, h, _ = shape
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    mask = None
+    if mask_on:
+        mask = (torch.rand((b, s), generator=gen, device="cuda") > 0.3
+                ).float()
+        mask[:, 0] = 1.0
+    dlse = torch.randn((b, h, s), generator=gen, device="cuda") \
+        if dlse_on else None
+    return q, k, v, do, mask, dlse
+
+
+def flash_work(shape) -> dict:
+    """Bytes each kernel must move (inputs read once, outputs written
+    once) and FLOPs the causal work needs, at bf16 q/k/v/do/o/dq/dk/dv
+    and fp32 lse/delta, without dlse."""
+    b, s, h, d = shape
+    x = b * s * h * d * 2                  # one bf16 (B, S, H, D) tensor
+    row = b * h * s * 4                    # one fp32 (B, H, S) vector
+    pairs = b * h * s * (s + 1) // 2       # causal (query, key) pairs
+    return {"flash_fwd": (4 * x + row, 4 * pairs * d),
+            "flash_bwd_dq": (5 * x + 2 * row, 6 * pairs * d),
+            "flash_bwd_dkv": (6 * x + 2 * row, 8 * pairs * d)}
+
+
+def phase_flash(torch, K) -> dict:
+    """Hold K5/K6/K7 against their plain versions on the card; time them
+    at the training path's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for shape, dname, causal, mask_on, dlse_on in FLASH_CASES:
+        dtype = getattr(torch, dname)
+        q, k, v, do, mask, dlse = flash_inputs(torch, shape, dtype, mask_on,
+                                               dlse_on, gen)
+        fwd_tol, grad_tol = FLASH_TOL[dname]
+        what = (f"{shape} {dname} causal={causal} mask={mask_on} "
+                f"dlse={dlse_on}")
+        o, lse = K.flash_fwd(q, k, v, mask, causal)
+        o0, lse0 = K._flash_fwd_plain(q, k, v, mask, causal)
+        delta = K.flash_delta(o0, do)
+        dq = K.flash_bwd_dq(q, k, v, mask, causal, do, lse0, delta, dlse)
+        dk, dv = K.flash_bwd_dkv(q, k, v, mask, causal, do, lse0, delta,
+                                 dlse)
+        dq0 = K._flash_bwd_dq_plain(q, k, v, mask, causal, do, lse0, delta,
+                                    dlse)
+        dk0, dv0 = K._flash_bwd_dkv_plain(q, k, v, mask, causal, do, lse0,
+                                          delta, dlse)
+        torch.cuda.synchronize()
+        check(o.dtype == dtype and lse.dtype == torch.float32
+              and dq.dtype == dk.dtype == dv.dtype == dtype,
+              f"flash {what}: output dtypes")
+        errs["flash_fwd"] = max(
+            errs["flash_fwd"],
+            close_err(torch, o, o0, fwd_tol, f"flash_fwd o {what}"),
+            close_err(torch, lse, lse0, fwd_tol, f"flash_fwd lse {what}"))
+        errs["flash_bwd_dq"] = max(
+            errs["flash_bwd_dq"],
+            close_err(torch, dq, dq0, grad_tol, f"flash_bwd_dq {what}"))
+        errs["flash_bwd_dkv"] = max(
+            errs["flash_bwd_dkv"],
+            close_err(torch, dk, dk0, grad_tol, f"flash_bwd_dkv dk {what}"),
+            close_err(torch, dv, dv0, grad_tol, f"flash_bwd_dkv dv {what}"))
+    print(f"kernels: K5/K6/K7 agree with plain on {len(FLASH_CASES)} cases; "
+          f"max abs err {json.dumps(errs)}", flush=True)
+
+    sets = []
+    for _ in range(FLASH_TIMING_SETS):
+        q, k, v, do, _, _ = flash_inputs(torch, FLASH_PATH, torch.bfloat16,
+                                         False, False, gen)
+        o, lse = K._flash_fwd_plain(q, k, v, None, True)
+        sets.append((q, k, v, do, o, lse, K.flash_delta(o, do)))
+    torch.cuda.synchronize()
+    fns = {
+        "flash_fwd": (
+            lambda x: K.flash_fwd(x[0], x[1], x[2], None, True),
+            lambda x: K._flash_fwd_plain(x[0], x[1], x[2], None, True)),
+        "flash_bwd_dq": (
+            lambda x: K.flash_bwd_dq(x[0], x[1], x[2], None, True, x[3],
+                                     x[5], x[6]),
+            lambda x: K._flash_bwd_dq_plain(x[0], x[1], x[2], None, True,
+                                            x[3], x[5], x[6])),
+        "flash_bwd_dkv": (
+            lambda x: K.flash_bwd_dkv(x[0], x[1], x[2], None, True, x[3],
+                                      x[5], x[6]),
+            lambda x: K._flash_bwd_dkv_plain(x[0], x[1], x[2], None, True,
+                                             x[3], x[5], x[6])),
+    }
+    # The yardstick: one PyTorch call of the same function on the same
+    # (B, S, H, D) tensors, viewed as (B, H, S, D). Timed only; the port
+    # never calls it. Its backward is the device time of a graph of
+    # forward + backward less that of the forward alone.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lib_fwd(x):
+        return sdpa(*(t.transpose(1, 2) for t in x[:3]), is_causal=True)
+
+    def lib_fwd_bwd(x):
+        q, k, v = (t.transpose(1, 2).detach().requires_grad_()
+                   for t in x[:3])
+        o = sdpa(q, k, v, is_causal=True)
+        return torch.autograd.grad(o, (q, k, v), x[3].transpose(1, 2))
+
+    fwd_ms = graph_ms(torch, lib_fwd, sets)
+    bwd_ms = graph_ms(torch, lib_fwd_bwd, sets) - fwd_ms
+    library = {"flash_fwd": fwd_ms, "flash_bwd_dq": bwd_ms,
+               "flash_bwd_dkv": bwd_ms}
+    lines = {"flash_fwd": 74, "flash_bwd_dq": 122, "flash_bwd_dkv": 172}
+    records = {}
+    for name, (nbytes, flops) in flash_work(FLASH_PATH).items():
+        fn, plain = fns[name]
+        # Turns: plain, kernel, kernel, plain (one card, one call).
+        p1 = graph_ms(torch, plain, sets)
+        k1 = graph_ms(torch, fn, sets)
+        k2 = graph_ms(torch, fn, sets)
+        p2 = graph_ms(torch, plain, sets)
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops = flops / BF16_OPS_PER_S * 1e3
+        records[name] = {
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"horovod_tpu/ops/flash_attention.py:{lines[name]}",
+            "launches": 0,
+            "max_abs_err": errs[name],
+            "ms": min(k1, k2),
+            "plain_ms": min(p1, p2),
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops
+            else "operations",
+            "library_ms": library[name],
+            "library_call": "scaled_dot_product_attention(is_causal=True) "
+                            + ("forward" if name == "flash_fwd" else
+                               "backward (dq, dk, dv: K6 + K7 together)"),
+            "eager_ms": eager_ms(torch, fn, sets),
+            "plain_eager_ms": eager_ms(torch, plain, sets),
+            "bytes": nbytes, "flops": flops,
+            "shape": list(FLASH_PATH), "dtype": "bfloat16", "causal": True,
+        }
+        r = records[name]
+        print(f"kernel {name}: {r['ms'] * 1e3:.1f} us/launch (graph) vs "
+              f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); plain "
+              f"{r['plain_ms'] * 1e3:.1f} us; library "
+              f"{r['library_ms'] * 1e3:.1f} us; eager "
+              f"{r['eager_ms'] * 1e3:.1f} us", flush=True)
+    del sets
+    torch.cuda.empty_cache()
     return records
 
 
@@ -358,8 +568,9 @@ def phase_serve(torch, K, out_dir: str, profile: bool = False) -> dict:
               f"{req.max_new_tokens}")
         check(all(0 <= t < 50257 for t in done.tokens),
               f"rid {req.rid}: token out of vocab")
-    for name, count in launches.items():
-        check(count > 0, f"{name}: no kernel launch on the main path")
+    for name in ("quantize_int8", "dequantize_int8"):
+        check(launches[name] > 0, f"{name}: no kernel launch on the serve "
+                                  "path")
     leaves = 2 * model.num_layers
     check(launches["quantize_int8"] == leaves * rep["handoffs"],
           f"quantize launches {launches['quantize_int8']} != "
@@ -416,14 +627,197 @@ def phase_serve(torch, K, out_dir: str, profile: bool = False) -> dict:
     return result
 
 
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+# Flash vs plain attention, one forward and backward, by compute dtype:
+# (loss relative error, per-parameter relative Frobenius gradient error).
+REF_RTOL = {"bfloat16": (1e-3, 2e-2), "float32": (1e-5, 1e-3)}
+
+
+def reference_step(torch, model, tokens, gpt_mod, fa) -> dict:
+    """One forward and backward on the same weights and batch, with the
+    flash kernels and with the plain attention; returns the loss gap and
+    the worst per-parameter relative Frobenius gradient error."""
+    def plain_attend(q, k, v, mask=None):
+        return fa.reference_attention(q, k, v, mask, causal=True)
+
+    out = {}
+    for label, attend in (("flash", None), ("plain", plain_attend)):
+        model.attend_fn = attend
+        model.zero_grad(set_to_none=True)
+        loss = gpt_mod.next_token_loss(model(tokens[:, :-1]), tokens[:, 1:])
+        loss.backward()
+        out[label] = (loss.item(), {n: p.grad.clone() for n, p in
+                                    model.named_parameters()})
+    model.attend_fn = None
+    model.zero_grad(set_to_none=True)
+    (lf, gf), (lp, gp) = out["flash"], out["plain"]
+    check(math.isfinite(lf) and math.isfinite(lp),
+          f"reference: non-finite loss {lf} / {lp}")
+    loss_rel = abs(lf - lp) / abs(lp)
+    worst_name, worst = "", 0.0
+    for name, g in gp.items():
+        rel = ((gf[name] - g).norm() / g.norm().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst_name, worst = name, rel
+    del out, gf, gp
+    torch.cuda.empty_cache()
+    return {"loss_flash": lf, "loss_plain": lp, "loss_rel_err": loss_rel,
+            "grad_rel_err_max": worst, "grad_rel_err_param": worst_name}
+
+
+def profile_steps(torch, step, n: int, out_path: str) -> dict:
+    """Trace ``n`` training steps with torch.profiler: the device busy
+    share of the wall time and the top device ops, written to
+    ``out_path``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    dev = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in dev)
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:12]
+    with open(out_path, "w") as f:
+        f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
+    return {"profiled_steps": n, "profiled_wall_s": wall,
+            "device_busy_s": device_us / 1e6,
+            "device_busy_share": device_us / 1e6 / wall,
+            "top_device_ops_ms_per_step": {
+                e.key[:80]: e.self_device_time_total / 1e3 / n
+                for e in top}}
+
+
+def phase_train(torch, K, out_dir: str, profile: bool = False) -> dict:
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import gpt as gpt_mod
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    ctx = hvd.init()
+    check(hvd.size() == 1 and ctx.backend == "nccl",
+          f"init: world {hvd.size()} over {ctx.backend}")
+    with torch.device("cuda"):
+        model = gpt_mod.gpt_medium()
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    check(model.num_layers == 24 and model.hidden == 1024
+          and model.num_heads == 16 and model.mlp_dim == 4096
+          and model.vocab_size == 50257, "gpt_medium geometry")
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    tokens = torch.randint(0, model.vocab_size,
+                           (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           generator=torch.Generator().manual_seed(11)
+                           ).to("cuda")
+    # The same check on an fp32 copy of the weights separates the
+    # kernels' own error from bf16 rounding downstream of attention.
+    with torch.device("cuda"):
+        fp32_model = gpt_mod.gpt_medium(dtype=torch.float32)
+    fp32_model.load_state_dict(model.state_dict())
+    ref = {}
+    for dname, m in (("bfloat16", model), ("float32", fp32_model)):
+        r = ref[dname] = reference_step(torch, m, tokens, gpt_mod, fa)
+        loss_tol, grad_tol = REF_RTOL[dname]
+        print(f"reference ({dname}): flash vs plain attention loss rel "
+              f"err {r['loss_rel_err']:.3g} (limit {loss_tol}); worst grad "
+              f"rel err {r['grad_rel_err_max']:.3g} on "
+              f"{r['grad_rel_err_param']} (limit {grad_tol})", flush=True)
+        check(r["loss_rel_err"] <= loss_tol,
+              f"reference ({dname}): loss rel err {r['loss_rel_err']} > "
+              f"{loss_tol}")
+        check(r["grad_rel_err_max"] <= grad_tol,
+              f"reference ({dname}): {r['grad_rel_err_param']} gradient "
+              f"rel err {r['grad_rel_err_max']} > {grad_tol}")
+    del fp32_model, m
+    torch.cuda.empty_cache()
+
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+    buckets = len(opt._dist_plan.buckets)
+
+    def step():
+        loss = gpt_mod.next_token_loss(model(tokens[:, :-1]), tokens[:, 1:])
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        return loss
+
+    losses = [step().item() for _ in range(TRAIN_WARMUP)]
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    issued0 = opt.bucket_allreduces
+    K.reset_launch_counts()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        s0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - s0)
+        losses.append(loss.item())
+    launches = dict(K.LAUNCHES)
+    issued = opt.bucket_allreduces - issued0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    check(all(map(math.isfinite, losses)),
+          f"train: non-finite loss in {losses}")
+    check(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
+    per_step = model.num_layers * TRAIN_STEPS
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(launches[name] == per_step,
+              f"train: {name} launched {launches[name]} times, expected "
+              f"{model.num_layers} x {TRAIN_STEPS} = {per_step}")
+    check(issued >= TRAIN_STEPS and issued == buckets * TRAIN_STEPS,
+          f"train: {issued} bucket allreduces in {TRAIN_STEPS} steps "
+          f"({buckets} buckets)")
+    step_s = statistics.median(times)
+    result = {
+        "model": "gpt_medium", "layers": 24, "hidden": 1024, "heads": 16,
+        "mlp": 4096, "vocab": 50257, "dtype": "bfloat16",
+        "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "world_size": 1,
+        "backend": ctx.backend, "optimizer": "AdamW(lr=1e-4, wd=1e-4)",
+        "fusion_buckets": buckets, "bucket_allreduces": issued,
+        "warmup_steps": TRAIN_WARMUP, "timed_steps": TRAIN_STEPS,
+        "step_ms": [t * 1e3 for t in times],
+        "step_ms_median": step_s * 1e3,
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+        "peak_mem_gib": peak, "losses": losses,
+        "launches": launches, "reference": ref, "setup_s": setup_s,
+    }
+    if profile:
+        result["profile"] = profile_steps(
+            torch, step, 2, os.path.join(out_dir,
+                                         "chip_smoke_train_profile.txt"))
+        print(f"profile (train): {json.dumps(result['profile'])}",
+              flush=True)
+    with open(os.path.join(out_dir, "chip_smoke_train.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    print(f"train: gpt_medium B={TRAIN_BATCH} S={TRAIN_SEQ}, step "
+          f"{step_s * 1e3:.1f} ms (median of {TRAIN_STEPS}) = "
+          f"{result['tokens_per_s']:.0f} tok/s; peak {peak:.2f} GiB; loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; {issued} bucket "
+          f"allreduces; launches {launches}", flush=True)
+    del opt, model
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out",
                     help="directory for the full JSON records")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serve run with torch.profiler and "
-                         "time its phases (slows the host; its wall "
-                         "numbers are not the unprofiled ones)")
+                    help="trace the serve run and two extra training "
+                         "steps with torch.profiler (slows the host; the "
+                         "serve run's wall numbers are then not the "
+                         "unprofiled ones)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -449,14 +843,18 @@ def main(argv=None) -> int:
         print(f"card: {card}; torch {torch.__version__}, CUDA "
               f"{torch.version.cuda}", flush=True)
         t0 = time.perf_counter()
-        lib = K.build_library()
-        print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        libs = K.build_all()
+        print(f"build: {', '.join(lib.name for lib in libs)} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         records = phase_kernels(torch, K)
+        records.update(phase_flash(torch, K))
         serve = phase_serve(torch, K, args.out, args.profile)
+        train = phase_train(torch, K, args.out, args.profile)
         for name, rec in records.items():
-            rec["launches"] = serve["launches"][name]
-    except (SmokeError, RuntimeError, OSError,
+            path = serve if name in ("quantize_int8", "dequantize_int8") \
+                else train
+            rec["launches"] = path["launches"][name]
+    except (SmokeError, RuntimeError, OSError, ValueError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)
@@ -464,7 +862,7 @@ def main(argv=None) -> int:
     kernels = {"kernels": list(records.values())}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, **kernels,
-                   "serve": serve}, f, indent=1)
+                   "serve": serve, "train": train}, f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

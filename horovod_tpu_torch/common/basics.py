@@ -1,0 +1,150 @@
+"""Runtime context of the port: ``init``/``shutdown`` and the rank queries,
+over ``torch.distributed``.
+
+The port of ``horovod_tpu/common/basics.py``'s ``init`` contract (a bare
+re-``init()`` is idempotent; ``init`` with overrides on a live context
+raises) and of the rank identity ``horovod_tpu/common/topology.py`` reads
+from a launcher's environment:
+
+* ``HVD_TPU_COORDINATOR`` (``host:port`` of rank 0's rendezvous),
+  ``HVD_TPU_NUM_PROC`` and ``HVD_TPU_PROC_ID`` give the world; with none
+  set the world is this one process;
+* ``HVD_TPU_LOCAL_RANK``/``HVD_TPU_LOCAL_SIZE`` place the process on its
+  host (default: every rank on one host, local rank = rank).
+
+Device rule: ``init()`` takes the GPU of its local rank and the ``nccl``
+backend; it takes the CPU and ``gloo`` only when the caller passes
+``device="cpu"``, and without a GPU and without that request it raises.
+
+Process sets and ``comm=`` subset communicators are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Optional, Union
+
+import torch
+import torch.distributed as dist
+
+from . import config as config_lib
+from .device import resolve_device
+from .exceptions import NotInitializedError
+
+
+@dataclasses.dataclass
+class Context:
+    rank: int
+    size: int
+    local_rank: int
+    local_size: int
+    device: torch.device
+    backend: str
+    config: config_lib.Config
+
+
+_context: Optional[Context] = None
+_context_lock = threading.Lock()
+
+
+def _world():
+    """(rank, size, coordinator or None) from the launcher's env."""
+    coord = config_lib.runtime_env("COORDINATOR")
+    nproc = config_lib.runtime_env("NUM_PROC")
+    if not (coord and nproc):
+        return 0, 1, None
+    size = int(nproc)
+    rank = int(config_lib.runtime_env("PROC_ID", "0"))
+    if not 0 <= rank < size:
+        raise ValueError(f"HVD_TPU_PROC_ID={rank} is outside a world of "
+                         f"HVD_TPU_NUM_PROC={size}")
+    return rank, size, coord
+
+
+def init(comm=None, process_sets=None,
+         device: Optional[Union[str, torch.device]] = None,
+         **config_overrides) -> Context:
+    """Initialize the runtime (idempotent for a bare call).
+
+    ``device`` is ``None`` (the GPU of this process's local rank, with
+    ``nccl``) or ``"cpu"`` (``gloo``). ``config_overrides`` are
+    :class:`~.config.Config` fields and win over the environment."""
+    global _context
+    if comm is not None or process_sets:
+        raise NotImplementedError(
+            "comm= and process_sets= are not ported yet; they come with "
+            "the process-set slice of the port")
+    with _context_lock:
+        if _context is not None:
+            if device is not None or config_overrides:
+                raise ValueError(
+                    "init() called with device/config overrides but the "
+                    "runtime is already initialized; call shutdown() "
+                    "first to re-initialize with different settings")
+            return _context
+        cfg = config_lib.Config.from_env(**config_overrides)
+        dev = resolve_device(device)
+        rank, size, coord = _world()
+        local_rank = int(config_lib.runtime_env("LOCAL_RANK", str(rank)))
+        local_size = int(config_lib.runtime_env("LOCAL_SIZE", str(size)))
+        if dev.type == "cuda":
+            if dev.index is None:
+                dev = torch.device("cuda",
+                                   local_rank % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+            backend = "nccl"
+        elif dev.type == "cpu":
+            backend = "gloo"
+        else:
+            raise ValueError(f"init(): unsupported device {dev}")
+        if coord is None:
+            # A world of one: an in-process store, no port to pick.
+            dist.init_process_group(backend, store=dist.HashStore(),
+                                    rank=0, world_size=1)
+        else:
+            dist.init_process_group(backend, init_method=f"tcp://{coord}",
+                                    rank=rank, world_size=size)
+        _context = Context(rank, size, local_rank, local_size, dev, backend,
+                           cfg)
+        return _context
+
+
+def shutdown() -> None:
+    """Tear the process group down; a later ``init()`` starts afresh."""
+    global _context
+    with _context_lock:
+        if _context is not None:
+            dist.destroy_process_group()
+            _context = None
+
+
+def is_initialized() -> bool:
+    return _context is not None
+
+
+def context() -> Context:
+    if _context is None:
+        raise NotInitializedError()
+    return _context
+
+
+def rank() -> int:
+    return context().rank
+
+
+def size() -> int:
+    return context().size
+
+
+def local_rank() -> int:
+    return context().local_rank
+
+
+def local_size() -> int:
+    return context().local_size
+
+
+def device() -> torch.device:
+    """The device this process's collectives and model run on."""
+    return context().device

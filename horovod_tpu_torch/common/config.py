@@ -4,15 +4,28 @@ The port's own copy of the knob registry of
 ``horovod_tpu/common/config.py``: the same ``HVD_TPU_*`` names, so one
 environment drives both packages in a parity test. Only the knobs the
 ported modules read are declared; every ``runtime_env`` read must name a
-declared knob.
+declared knob. :class:`Config` is what ``init()`` resolves from those
+knobs and the caller's overrides.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
 RUNTIME_KNOBS = {
+    # Process identity, exported per process by a launcher (read by
+    # common/basics.py init()).
+    "COORDINATOR": "rendezvous address host:port of rank 0",
+    "NUM_PROC": "world size as launched",
+    "PROC_ID": "this process's rank",
+    "LOCAL_RANK": "rank within the host (default: the rank)",
+    "LOCAL_SIZE": "processes on this host (default: the world size)",
+    # Training plane.
+    "FUSION_THRESHOLD": "gradient fusion bucket size in bytes (64 MiB)",
+    "COMPRESSION": "default gradient wire compression (none/fp16/bf16)",
+    "FLASH_ATTENTION": "flash-attention kernel enable (0 = reference)",
     # Telemetry switches read lazily by their subsystems.
     "METRICS": "registry enable (0 = shared NOOP singletons)",
     "FLIGHTREC": "flight-recorder enable",
@@ -39,3 +52,33 @@ def runtime_env(name: str, default: Optional[str] = None, *,
     if required:
         return os.environ[key]
     return os.environ.get(key, default)
+
+
+DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
+
+
+@dataclasses.dataclass
+class Config:
+    """The ``init()``-resolved settings of the training plane: the
+    environment's knobs, then the caller's overrides."""
+
+    fusion_threshold_bytes: int = DEFAULT_FUSION_THRESHOLD
+    compression: Optional[str] = None
+
+    @classmethod
+    def from_env(cls, **overrides) -> "Config":
+        c = cls()
+        raw = runtime_env("FUSION_THRESHOLD")
+        if raw:
+            c.fusion_threshold_bytes = int(raw)
+        c.compression = runtime_env("COMPRESSION") or None
+        fields = {f.name for f in dataclasses.fields(cls)}
+        for key, value in overrides.items():
+            if key not in fields:
+                raise TypeError(f"init(): unknown setting {key!r}; "
+                                f"known: {sorted(fields)}")
+            setattr(c, key, value)
+        if c.fusion_threshold_bytes < 0:
+            raise ValueError("fusion_threshold_bytes must be >= 0, got "
+                             f"{c.fusion_threshold_bytes}")
+        return c

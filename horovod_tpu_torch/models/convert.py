@@ -1,10 +1,13 @@
-"""Parameter conversion from the JAX package's flax GPT to the port.
+"""Parameter conversion between the JAX package's flax GPT and the port.
 
 ``gpt_params_from_jax`` takes the flax parameter tree as nested dicts
 of numpy arrays (``jax.tree.map(np.asarray, variables)``, with or
 without the top-level ``"params"`` key) and returns a ``state_dict``
 for :class:`~.gpt.GPT`, so the two packages compute the same function.
-This module imports no JAX: the caller hands over numpy arrays.
+``gpt_params_to_jax`` is its inverse: a ``state_dict`` (parameters or
+their gradients) as the flax ``{"params": ...}`` tree of numpy arrays,
+so gradients and updated parameters compare leaf by leaf. This module
+imports no JAX: numpy arrays cross the boundary.
 
 Layout differences handled here: flax ``nn.Dense`` kernels are
 ``(in, out)`` where ``nn.Linear`` weights are ``(out, in)``; flax
@@ -58,3 +61,38 @@ def gpt_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     for leaf, t in _norm(params["final_ln"]).items():
         out[f"final_ln.{leaf}"] = t
     return out
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def gpt_params_to_jax(state: Mapping[str, torch.Tensor]
+                      ) -> Dict[str, Any]:
+    """The port's GPT ``state_dict`` (or a name -> gradient mapping of
+    the same keys) -> the flax ``{"params": ...}`` tree, numpy leaves."""
+    layers = sorted({int(k.split(".")[1]) for k in state
+                     if k.startswith("layers.")})
+    params: Dict[str, Any] = {
+        "tok_emb": {"embedding": _np(state["tok_emb.weight"])},
+        "final_ln": {"scale": _np(state["final_ln.weight"]),
+                     "bias": _np(state["final_ln.bias"])}}
+
+    def dense(prefix):
+        return {"kernel": _np(state[prefix + ".weight"]).T.copy(),
+                "bias": _np(state[prefix + ".bias"])}
+
+    def norm(prefix):
+        return {"scale": _np(state[prefix + ".weight"]),
+                "bias": _np(state[prefix + ".bias"])}
+
+    for i in layers:
+        p = f"layers.{i}"
+        params[f"layer{i}"] = {
+            "LayerNorm_0": norm(p + ".ln1"),
+            "attn": {"qkv": dense(p + ".attn.qkv"),
+                     "out": dense(p + ".attn.out")},
+            "LayerNorm_1": norm(p + ".ln2"),
+            "mlp_in": dense(p + ".mlp_in"),
+            "mlp_out": dense(p + ".mlp_out")}
+    return {"params": params}

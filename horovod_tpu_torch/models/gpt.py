@@ -1,5 +1,6 @@
 """Decoder-only causal LM (GPT-style) as ``nn.Module``s — the port of
-``horovod_tpu/models/gpt.py``'s incremental (KV-cache) path.
+``horovod_tpu/models/gpt.py``'s full-sequence (training) and incremental
+(KV-cache, serving) paths.
 
 Same function as the flax model, layout and numerics included:
 
@@ -11,28 +12,31 @@ Same function as the flax model, layout and numerics included:
   fp32;
 * activations keep the JAX layout ``(B, S, H, D)`` at public functions.
 
-Only the cache path is ported: ``GPT.forward(tokens, cache)``. The
-full-sequence forward (the flash-attention kernel's path), tensor and
-sequence parallelism, MoE and remat belong to later slices of the port
-and raise ``NotImplementedError``.
+``GPT.forward(tokens)`` is the full-sequence path: RoPE at positions
+``0..S-1`` and causal attention through ``attend_fn`` — by default the
+flash-attention kernels (K5 forward, K6/K7 backward) — differentiable
+end to end; :func:`next_token_loss` is the training loss.
+``GPT.forward(tokens, cache)`` is the incremental path (no autograd).
+Tensor and sequence parallelism, MoE and remat belong to later slices of
+the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..common.device import resolve_device
+from ..ops.flash_attention import flash_attention
 
 LN_EPS = 1e-6               # flax nn.LayerNorm's default epsilon
 MASK_VALUE = -1e30          # masked attention logit (not -inf)
 
-_TRAINING_SLICE = ("the training slice of the port (full-sequence "
-                   "forward with the flash-attention kernels)")
+AttendFn = Callable[..., torch.Tensor]
 
 
 def rope(x: torch.Tensor, positions: Optional[torch.Tensor] = None,
@@ -54,6 +58,11 @@ def rope(x: torch.Tensor, positions: Optional[torch.Tensor] = None,
     x1, x2 = xf[..., :half], xf[..., half:]
     rotated = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return rotated.to(x.dtype)
+
+
+def _causal_attend(q, k, v, mask=None):
+    """The default ``attend_fn``: causal flash attention."""
+    return flash_attention(q, k, v, mask=mask, causal=True)
 
 
 def _cache_attend(q: torch.Tensor, k_all: torch.Tensor,
@@ -92,7 +101,8 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 class CausalSelfAttention(nn.Module):
-    """Fused-QKV multi-head attention over the serve KV cache."""
+    """Fused-QKV multi-head attention: causal over the full sequence, or
+    over the serve KV cache."""
 
     def __init__(self, hidden: int, num_heads: int,
                  dtype: torch.dtype = torch.bfloat16):
@@ -105,19 +115,30 @@ class CausalSelfAttention(nn.Module):
         self.qkv = nn.Linear(hidden, 3 * hidden)
         self.out = nn.Linear(hidden, hidden)
 
-    def forward(self, x: torch.Tensor, cache: Dict[str, torch.Tensor],
-                cache_ctx: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]):
-        """Incremental path: RoPE with each token's GLOBAL position,
-        write the new K/V into their ring lines (keys stored already
-        rotated, so positions survive the ring wrap), attend over the
-        cache slab. Returns ``(y, cache)``; the cache is updated in
+    def forward(self, x: torch.Tensor,
+                cache: Optional[Dict[str, torch.Tensor]] = None,
+                cache_ctx: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]] = None,
+                attend_fn: Optional[AttendFn] = None):
+        """Full-sequence path (``cache=None``): RoPE at positions
+        ``0..S-1``, ``attend_fn`` (causal flash by default), output
+        projection. Incremental path: RoPE with each token's GLOBAL
+        position, write the new K/V into their ring lines (keys stored
+        already rotated, so positions survive the ring wrap), attend over
+        the cache slab; returns ``(y, cache)`` with the cache updated in
         place."""
-        from ..serve import kvcache as kv_lib
-
         b, s, h = x.shape
         head_dim = h // self.num_heads
-        idx, q_pos, k_pos = cache_ctx
         q, k, v = _dense(self.qkv, x, self.dtype).split(h, dim=-1)
+        if cache is None:
+            q = rope(q.reshape(b, s, self.num_heads, head_dim))
+            k = rope(k.reshape(b, s, self.num_heads, head_dim))
+            v = v.reshape(b, s, self.num_heads, head_dim)
+            o = (attend_fn or _causal_attend)(q, k, v).reshape(b, s, h)
+            return _dense(self.out, o, self.dtype)
+        from ..serve import kvcache as kv_lib
+
+        idx, q_pos, k_pos = cache_ctx
         q = rope(q.reshape(b, s, self.num_heads, head_dim), q_pos)
         k = rope(k.reshape(b, s, self.num_heads, head_dim), q_pos)
         v = v.reshape(b, s, self.num_heads, head_dim)
@@ -140,17 +161,27 @@ class DecoderLayer(nn.Module):
         self.mlp_in = nn.Linear(hidden, mlp_dim)
         self.mlp_out = nn.Linear(mlp_dim, hidden)
 
-    def forward(self, x, cache, cache_ctx):
+    def forward(self, x, cache=None, cache_ctx=None, attend_fn=None):
+        """``x`` -> ``x`` (full sequence), or ``(x, cache)`` with a
+        cache."""
         y = _layer_norm(self.ln1, x, self.dtype)
-        a, cache = self.attn(y, cache, cache_ctx)
-        x = x + a
+        if cache is None:
+            x = x + self.attn(y, attend_fn=attend_fn)
+        else:
+            a, cache = self.attn(y, cache, cache_ctx)
+            x = x + a
         y = _layer_norm(self.ln2, x, self.dtype)
         y = F.gelu(_dense(self.mlp_in, y, self.dtype), approximate="tanh")
-        return x + _dense(self.mlp_out, y, self.dtype), cache
+        out = x + _dense(self.mlp_out, y, self.dtype)
+        return out if cache is None else (out, cache)
 
 
 class GPT(nn.Module):
     """Pre-LN decoder-only transformer with a weight-tied LM head.
+
+    ``forward(tokens)`` runs the full sequence with autograd and returns
+    logits fp32 (B, S, vocab); attention goes through ``attend_fn``
+    (``None``: causal flash attention, the K5/K6/K7 kernels on the card).
 
     ``forward(tokens, cache)`` is the incremental mode: the ``s_in`` new
     tokens of every slot extend that slot's sequence at global positions
@@ -163,6 +194,7 @@ class GPT(nn.Module):
     def __init__(self, vocab_size: int = 32000, num_layers: int = 12,
                  hidden: int = 768, num_heads: int = 12,
                  mlp_dim: int = 3072, dtype: torch.dtype = torch.bfloat16,
+                 attend_fn: Optional[AttendFn] = None,
                  tp_axis: Optional[str] = None,
                  seq_parallel: Optional[str] = None,
                  moe_experts: int = 0, remat: bool = False):
@@ -182,6 +214,7 @@ class GPT(nn.Module):
         self.num_heads = num_heads
         self.mlp_dim = mlp_dim
         self.dtype = dtype
+        self.attend_fn = attend_fn
         self.tok_emb = nn.Embedding(vocab_size, hidden)
         self.layers = nn.ModuleList(
             DecoderLayer(hidden, num_heads, mlp_dim, dtype)
@@ -206,14 +239,25 @@ class GPT(nn.Module):
                                     generator=generator)
         return self
 
-    @torch.no_grad()
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """Final LayerNorm and the weight-tied head: bf16-rounded
+        operands, fp32 accumulation and output (the JAX model's
+        preferred_element_type=float32 dot)."""
+        x = _layer_norm(self.final_ln, x, self.dtype)
+        emb = self.tok_emb.weight.to(self.dtype).to(torch.float32)
+        return torch.matmul(x.to(torch.float32), emb.t())
+
     def forward(self, tokens: torch.Tensor,
                 cache: Optional[Dict[str, Any]] = None):
-        if cache is None:
-            raise NotImplementedError(
-                "the full-sequence GPT forward is not ported yet; it "
-                f"comes with {_TRAINING_SLICE}. Pass cache= for the "
-                "incremental path.")
+        if cache is not None:
+            with torch.no_grad():
+                return self._forward_cached(tokens, cache)
+        x = self.tok_emb(tokens.long()).to(self.dtype)
+        for layer in self.layers:
+            x = layer(x, attend_fn=self.attend_fn)
+        return self._head(x)
+
+    def _forward_cached(self, tokens: torch.Tensor, cache: Dict[str, Any]):
         b, s_in = tokens.shape
         x = self.tok_emb(tokens.long()).to(self.dtype)
         slot_pos = cache["slot_pos"]
@@ -229,14 +273,20 @@ class GPT(nn.Module):
         for layer, layer_cache in zip(self.layers, cache["layers"]):
             x, layer_cache = layer(x, layer_cache, cache_ctx)
             layers.append(layer_cache)
-        x = _layer_norm(self.final_ln, x, self.dtype)
-        # Weight-tied head: bf16-rounded operands, fp32 accumulation and
-        # output (the JAX model's preferred_element_type=float32 dot).
-        emb = self.tok_emb.weight.to(self.dtype).to(torch.float32)
-        logits = torch.matmul(x.to(torch.float32), emb.t())
+        logits = self._head(x)
         cache["layers"] = layers
         cache["pos"] += s_in
         return logits, cache
+
+
+def next_token_loss(logits: torch.Tensor,
+                    targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token softmax cross-entropy of fp32 ``logits`` (B, S, V)
+    against ``targets`` (B, S) — the JAX package's ``pipeline_fns``
+    ``loss_fn`` and its benchmark's GPT loss."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    return -ll.mean()
 
 
 def gpt_small(**kw) -> GPT:

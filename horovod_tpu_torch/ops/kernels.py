@@ -8,27 +8,39 @@ return contracts of ``horovod_tpu/ops/pallas_kernels.py``
 4096-element block, round half to even, codes clipped to +-127, ``q``
 laid out as ``(rows, 128)`` int8 with ``rows`` a multiple of 32.
 
+K5 ``flash_fwd``, K6 ``flash_bwd_dq`` and K7 ``flash_bwd_dkv`` are the
+flash-attention forward and backward of the training path
+(``ops/flash_attention.py`` wraps them in a ``torch.autograd.Function``).
+They compute what ``horovod_tpu/ops/flash_attention.py``'s
+``_fwd_kernel``/``_dq_kernel``/``_dkv_kernel`` compute, on q, k, v laid
+out ``(B, S, H, D)``: logits scaled by ``1/sqrt(D)``, keys the key mask
+hides at -1e30, keys after the query (causal) and past a ragged ``S``
+left out, fp32 softmax, ``lse`` ``(B, H, S)`` fp32, and the backward's
+``ds = p * (dp - delta + dlse)``. The head dimension is 64 or 128.
+
 Dispatch rule: a tensor on the CPU takes the plain PyTorch version
 beside each kernel; a CUDA tensor launches the CUDA kernel from
-``csrc/int8_codec.cu`` or raises. There is no fallback from a failed
-launch to the plain version.
+``csrc/`` or raises. There is no fallback from a failed build or launch
+to the plain version.
 
-The kernel library is built with ``nvcc`` at first use into
-``build/horovod_tpu_torch/`` beside the package (listed in
-``.gitignore``) and loaded through ``ctypes``; the build is keyed by a
-hash of the source and flags, so an edited source rebuilds.
+Each ``csrc`` source is built with ``nvcc`` at first use into its own
+shared library under ``build/horovod_tpu_torch/`` beside the package
+(listed in ``.gitignore``) and loaded through ``ctypes``; the build is
+keyed by a hash of the source and flags, so an edited source rebuilds.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -45,11 +57,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Kernel launches per wrapper, counted where the kernel is launched and
 #: nowhere else (the plain CPU path never counts). ``chip_smoke.py``
 #: zeroes these before the main path and reads them after it.
-LAUNCHES: Dict[str, int] = {"quantize_int8": 0, "dequantize_int8": 0}
+LAUNCHES: Dict[str, int] = {"quantize_int8": 0, "dequantize_int8": 0,
+                            "flash_fwd": 0, "flash_bwd_dq": 0,
+                            "flash_bwd_dkv": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib = None
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+#: ctypes signature (argtypes, restype) of every C entry point, by source.
+_SIGNATURES = {
+    "int8_codec.cu": {
+        "hvd_quantize_int8": ([_P, _I, _LL, _P, _P, _LL, _P], _I),
+        "hvd_dequantize_int8": ([_P, _P, _LL, _LL, _P, _I, _P], _I),
+    },
+    "flash_attention.cu": {
+        "hvd_flash_attention": ([_I] * 7 + [_F] + [_P] * 13, _I),
+    },
+}
+SOURCES: Tuple[str, ...] = tuple(_SIGNATURES)
+
+_libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 
 
@@ -94,18 +122,24 @@ def build_library(source: str = "int8_codec.cu") -> Path:
     return out
 
 
-def _load():
-    global _lib
+def build_all() -> List[Path]:
+    """Build every ``csrc`` source at once, one ``nvcc`` per source
+    running side by side; returns the libraries in :data:`SOURCES`
+    order. Raises on the first failed build."""
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        return list(pool.map(build_library, SOURCES))
+
+
+def _load(source: str) -> ctypes.CDLL:
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library("int8_codec.cu")))
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.hvd_quantize_int8.argtypes = [p, i, ll, p, p, ll, p]
-            lib.hvd_quantize_int8.restype = i
-            lib.hvd_dequantize_int8.argtypes = [p, p, ll, ll, p, i, p]
-            lib.hvd_dequantize_int8.restype = i
-            _lib = lib
-    return _lib
+        lib = _libs.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_library(source)))
+            for fn, (argtypes, restype) in _SIGNATURES[source].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _libs[source] = lib
+    return lib
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -168,7 +202,7 @@ def quantize_int8(x: torch.Tensor):
     nblocks = rows // _Q_ROWS
     q = torch.empty((rows, _LANES), dtype=torch.int8, device=x.device)
     scales = torch.empty((nblocks,), dtype=torch.float32, device=x.device)
-    err = _load().hvd_quantize_int8(
+    err = _load("int8_codec.cu").hvd_quantize_int8(
         x.data_ptr(), _DTYPE_CODE[x.dtype], n, q.data_ptr(),
         scales.data_ptr(), nblocks, _stream(x))
     _check_launch("quantize_int8", err)
@@ -218,10 +252,232 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, n: int, shape,
     if not (q.is_contiguous() and scales.is_contiguous()):
         raise ValueError("dequantize_int8: inputs must be contiguous")
     out = torch.empty(shape, dtype=dtype, device=q.device)
-    err = _load().hvd_dequantize_int8(
+    err = _load("int8_codec.cu").hvd_dequantize_int8(
         q.data_ptr(), scales.data_ptr(), n, nblocks, out.data_ptr(),
         _DTYPE_CODE[dtype], _stream(q))
     _check_launch("dequantize_int8", err)
     if nblocks:
         LAUNCHES["dequantize_int8"] += 1
     return out
+
+
+# -- K5/K6/K7: flash attention ------------------------------------------------
+
+MASK_VALUE = -1e30          # a masked logit (not -inf: a fully masked row
+                            # averages its keys instead of producing NaN)
+FLASH_HEAD_DIMS = (64, 128)
+_FWD, _DQ, _DKV = 0, 1, 2
+
+
+def _masked_logits(q: torch.Tensor, k: torch.Tensor,
+                   mask: Optional[torch.Tensor], causal: bool
+                   ) -> torch.Tensor:
+    """(B, H, Sq, Sk) fp32 logits of ``(q * scale) . k``: -1e30 where the
+    key mask is 0, -inf after the query when ``causal`` (such a key never
+    contributes)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32) * scale,
+                     k.to(torch.float32))
+    if mask is not None:
+        s = torch.where(mask[:, None, None, :] > 0, s,
+                        torch.full_like(s, MASK_VALUE))
+    if causal:
+        n = s.shape[-1]
+        after = torch.ones((n, n), dtype=torch.bool,
+                           device=s.device).triu(1)
+        s = s.masked_fill(after, float("-inf"))
+    return s
+
+
+def _flash_fwd_plain(q, k, v, mask=None, causal=False):
+    """Plain PyTorch K5: the JAX kernel's math without blocking. Returns
+    ``(o in q's dtype, lse (B, H, S) fp32)``."""
+    s = _masked_logits(q, k, mask, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
+    o = o / l.permute(0, 2, 1, 3)
+    return o.to(q.dtype), (m + torch.log(l)).squeeze(-1)
+
+
+def _flash_probs(q, k, v, mask, causal, do, lse, delta, dlse):
+    """``p = exp(s - lse)`` and ``ds = p * (dp - delta + dlse)``, fp32
+    (B, H, Sq, Sk), as the JAX backward kernels form them."""
+    p = torch.exp(_masked_logits(q, k, mask, causal) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.to(torch.float32),
+                      v.to(torch.float32))
+    shift = -delta if dlse is None else dlse - delta
+    return p, p * (dp + shift[..., None])
+
+
+def _flash_bwd_dq_plain(q, k, v, mask, causal, do, lse, delta, dlse=None):
+    """Plain PyTorch K6: ``dq = ds . k * scale`` in q's dtype."""
+    _, ds = _flash_probs(q, k, v, mask, causal, do, lse, delta, dlse)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.to(torch.float32)) * scale
+    return dq.to(q.dtype)
+
+
+def _flash_bwd_dkv_plain(q, k, v, mask, causal, do, lse, delta, dlse=None):
+    """Plain PyTorch K7: ``dk = ds^T . q * scale``, ``dv = p^T . do``."""
+    p, ds = _flash_probs(q, k, v, mask, causal, do, lse, delta, dlse)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(torch.float32)) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.to(torch.float32))
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(do * o)`` (B, H, S) fp32, from ``o`` as saved —
+    plain PyTorch on every device, as the JAX package keeps it plain
+    jnp beside its backward kernels."""
+    return torch.einsum("bshd,bshd->bhs", do.to(torch.float32),
+                        o.to(torch.float32))
+
+
+def _flash_bwd_plain(q, k, v, mask, causal, o, lse, do, dlse=None):
+    """Plain PyTorch K6 + K7: ``(dq, dk, dv)`` from the forward's saved
+    ``o`` and ``lse`` and the cotangents ``do`` and ``dlse``."""
+    delta = flash_delta(o, do)
+    dq = _flash_bwd_dq_plain(q, k, v, mask, causal, do, lse, delta, dlse)
+    dk, dv = _flash_bwd_dkv_plain(q, k, v, mask, causal, do, lse, delta,
+                                  dlse)
+    return dq, dk, dv
+
+
+def _check_attention(what: str, q, k, v, mask, *rest, do=None) -> str:
+    """Shapes and dtypes every flash wrapper checks (``do``, where the
+    backward takes it, is read through q's shape and dtype); returns the
+    device type (``"cpu"`` or ``"cuda"``)."""
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{what}: q, k, v must share one (B, S, H, D) "
+                         f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    _check_float(q, what)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{what}: q, k, v dtypes differ ({q.dtype}, "
+                        f"{k.dtype}, {v.dtype})")
+    if do is not None:
+        if do.shape != q.shape:
+            raise ValueError(f"{what}: do must have q's shape "
+                             f"{tuple(q.shape)}, got {tuple(do.shape)}")
+        if do.dtype != q.dtype:
+            raise TypeError(f"{what}: do must have q's dtype {q.dtype}, "
+                            f"got {do.dtype}")
+        rest = (do, *rest)
+    b, s = q.shape[:2]
+    if mask is not None and tuple(mask.shape) != (b, s):
+        raise ValueError(f"{what}: key mask must be (B, S) = {(b, s)}, "
+                         f"got {tuple(mask.shape)}")
+    tensors = [t for t in (q, k, v, mask, *rest) if t is not None]
+    if all(t.device.type == "cpu" for t in tensors):
+        return "cpu"
+    if any(t.device != q.device for t in tensors) \
+            or q.device.type != "cuda":
+        raise ValueError(f"{what}: all tensors must be on one CUDA device "
+                         f"(or all on the CPU), got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    d = q.shape[-1]
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"{what}: the CUDA kernel takes head_dim in "
+                         f"{FLASH_HEAD_DIMS}, got {d}")
+    for name, t in (("q", q), ("k", k), ("v", v)) + tuple(
+            (f"input {i}", t) for i, t in enumerate(rest)
+            if t is not None and t.dim() == 4):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} needs a contiguous last "
+                             "(head) dimension")
+    return "cuda"
+
+
+def _f32(t: Optional[torch.Tensor], shape) -> Optional[torch.Tensor]:
+    """An fp32 contiguous side input (mask, lse, delta, dlse) of the
+    given shape, or None."""
+    if t is None:
+        return None
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"flash attention: side input of shape "
+                         f"{tuple(t.shape)}, expected {tuple(shape)}")
+    return t.to(torch.float32).contiguous()
+
+
+def _launch_flash(which: int, name: str, q, k, v, mask, causal, *,
+                  do=None, lse=None, delta=None, dlse=None, out=None,
+                  out2=None, lse_out=None) -> None:
+    b, s, h, d = q.shape
+    strides: List[int] = []
+    for t in (q, k, v, do if do is not None else q):
+        strides += [t.stride(0), t.stride(1), t.stride(2)]
+    strides_arr = (ctypes.c_longlong * 12)(*strides)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _load("flash_attention.cu").hvd_flash_attention(
+        which, _DTYPE_CODE[q.dtype], b, s, h, d, int(bool(causal)),
+        1.0 / math.sqrt(d), ptr(q), ptr(k), ptr(v), ptr(do), ptr(mask),
+        ptr(lse), ptr(delta), ptr(dlse), ptr(out), ptr(out2),
+        ptr(lse_out), strides_arr, _stream(q))
+    _check_launch(name, err)
+    if q.numel():
+        LAUNCHES[name] += 1
+
+
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: Optional[torch.Tensor] = None, causal: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5: attention forward. Returns ``(o (B, S, H, D) in q's dtype,
+    lse (B, H, S) fp32)``. ``mask`` is an optional (B, S) key mask,
+    1 = attend."""
+    if _check_attention("flash_fwd", q, k, v, mask) == "cpu":
+        return _flash_fwd_plain(q, k, v, mask, causal)
+    b, s, h, _ = q.shape
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    _launch_flash(_FWD, "flash_fwd", q, k, v, _f32(mask, (b, s)), causal,
+                  out=o, lse_out=lse)
+    return o, lse
+
+
+def flash_bwd_dq(q, k, v, mask, causal, do, lse, delta, dlse=None
+                 ) -> torch.Tensor:
+    """K6: ``dq`` in q's dtype. ``lse``, ``delta`` and ``dlse`` are
+    (B, H, S) fp32; ``dlse=None`` is a zero cotangent."""
+    if _check_attention("flash_bwd_dq", q, k, v, mask, lse, delta, dlse,
+                        do=do) == "cpu":
+        return _flash_bwd_dq_plain(q, k, v, mask, causal, do, lse, delta,
+                                   dlse)
+    b, s, h, _ = q.shape
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_flash(_DQ, "flash_bwd_dq", q, k, v, _f32(mask, (b, s)), causal,
+                  do=do, lse=_f32(lse, (b, h, s)),
+                  delta=_f32(delta, (b, h, s)), dlse=_f32(dlse, (b, h, s)),
+                  out=dq)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, mask, causal, do, lse, delta, dlse=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K7: ``(dk, dv)`` in k's and v's dtype."""
+    if _check_attention("flash_bwd_dkv", q, k, v, mask, lse, delta, dlse,
+                        do=do) == "cpu":
+        return _flash_bwd_dkv_plain(q, k, v, mask, causal, do, lse, delta,
+                                    dlse)
+    b, s, h, _ = q.shape
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_flash(_DKV, "flash_bwd_dkv", q, k, v, _f32(mask, (b, s)),
+                  causal, do=do, lse=_f32(lse, (b, h, s)),
+                  delta=_f32(delta, (b, h, s)), dlse=_f32(dlse, (b, h, s)),
+                  out=dk, out2=dv)
+    return dk, dv
+
+
+def flash_bwd(q, k, v, mask, causal, o, lse, do, dlse=None):
+    """K6 + K7: ``(dq, dk, dv)`` from the forward's saved ``o`` and
+    ``lse`` and the cotangents ``do`` and ``dlse`` (None = zero)."""
+    delta = flash_delta(o, do)
+    dq = flash_bwd_dq(q, k, v, mask, causal, do, lse, delta, dlse)
+    dk, dv = flash_bwd_dkv(q, k, v, mask, causal, do, lse, delta, dlse)
+    return dq, dk, dv

@@ -126,7 +126,7 @@ def test_cpu_tensor_takes_plain_path_and_counts_no_launch(monkeypatch,
                                                           rng):
     """On the CPU the wrappers never build or load the CUDA library and
     count no kernel launch."""
-    def no_cuda():
+    def no_cuda(*_):
         raise AssertionError("CPU tensors must not reach the CUDA library")
 
     monkeypatch.setattr(kernels, "_load", no_cuda)
@@ -134,7 +134,14 @@ def test_cpu_tensor_takes_plain_path_and_counts_no_launch(monkeypatch,
     _, xt = _inputs(rng, (5000,), "bfloat16")
     q, s, n = kernels.quantize_int8(xt)
     kernels.dequantize_int8(q, s, n, (5000,), torch.bfloat16)
-    assert kernels.LAUNCHES == {"quantize_int8": 0, "dequantize_int8": 0}
+    a = torch.from_numpy(rng.standard_normal((1, 8, 2, 64))
+                         .astype(np.float32))
+    o, lse = kernels.flash_fwd(a, a, a, causal=True)
+    kernels.flash_bwd(a, a, a, None, True, o, lse, a)
+    assert set(kernels.LAUNCHES) == {"quantize_int8", "dequantize_int8",
+                                     "flash_fwd", "flash_bwd_dq",
+                                     "flash_bwd_dkv"}
+    assert all(n == 0 for n in kernels.LAUNCHES.values())
 
 
 def test_wrappers_reject_bad_inputs(rng):

@@ -307,15 +307,18 @@ def test_metrics_and_flight_recorder_see_the_run(runs):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """A fresh interpreter imports the whole port (package, serve stack,
-    models, kernels) and finds no jax, flax or horovod_tpu module
-    loaded."""
+    training stack, models, kernels) and finds no jax, flax or
+    horovod_tpu module loaded."""
     code = (
         "import sys\n"
         "import horovod_tpu_torch\n"
         "from horovod_tpu_torch.serve import controller, engine, batcher,"
         " kvcache, queue, tracing, traffic, overload\n"
         "from horovod_tpu_torch.models import gpt, convert\n"
-        "from horovod_tpu_torch.ops import kernels\n"
+        "from horovod_tpu_torch.ops import kernels, flash_attention,"
+        " collectives, compression\n"
+        "from horovod_tpu_torch.common import basics, fusion, exceptions\n"
+        "from horovod_tpu_torch import optim\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'horovod_tpu'))\n"
         "print(bad)\n"
