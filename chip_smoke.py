@@ -27,7 +27,17 @@ Phases (any failure exits non-zero and prints no result line):
    (its forward against K5, its backward — a graph of forward and
    backward less the forward's — against K6 + K7), beside the bound
    max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s).
-4. Serving: disaggregated serving (one prefill and one decode replica)
+4. K3/K8/K9 (the int8 gradient wire's stochastic quantizer, the Adasum
+   dot/norms and combine) against their plain versions on the card: a
+   64 MiB fp32 gradient bucket, GPT-2 medium's ``tok_emb`` (50257 x
+   1024), bf16 inputs, ragged sizes (1, 4095, 4097, 9001) and zero
+   operands. K3 codes and scales bitwise given the same thresholds; K8
+   within 1e-5 of the fp64 sums (each relative to its own scale) and
+   symmetric in (a, b) to the bit; K9 bitwise given the same scalars,
+   symmetric, and a plain sum where a side is zero. Times at the path
+   shapes (K3 on the bucket, K8/K9 on ``tok_emb``, fp32) as for K2/K4,
+   beside the memory bound.
+5. Serving: disaggregated serving (one prefill and one decode replica)
    of GPT-2 medium at full width — 24 layers, hidden 1024, 16 heads, MLP
    4096, vocab 50257, bf16 compute over fp32 weights from a seeded
    generator — with a 1024-line cache, 8 slots and prompts up to 256
@@ -37,7 +47,7 @@ Phases (any failure exits non-zero and prints no result line):
    token count, with zero drops and at least one handoff. A reference
    check holds the bf16 cache-path logits against the same weights in
    fp32 on a short prompt.
-5. Training: GPT-2 medium at full width (same geometry, seeded weights)
+6. Training: GPT-2 medium at full width (same geometry, seeded weights)
    on one fixed seeded batch of 8 x 513 tokens (S = 512) through
    ``hvd.init()`` (NCCL, world size 1), ``broadcast_parameters`` and
    ``DistributedOptimizer(AdamW(lr=1e-4, weight_decay=1e-4))``: 2
@@ -50,7 +60,32 @@ Phases (any failure exits non-zero and prints no result line):
    attention, in bf16 compute (loss within 1e-3 relative, every gradient
    within 2e-2 relative Frobenius error) and on an fp32 copy of the
    weights (1e-5 and 1e-3).
-6. Result lines: the per-kernel JSON record, the card line, and last
+7. Multi-rank gradient reduction: the script relaunches itself as n
+   rank workers (``--rank-worker``) sharing the one card, each with
+   ``HVD_TPU_COORDINATOR``/``NUM_PROC``/``PROC_ID`` and its own time
+   limit, running ``init(backend="gloo")`` (gloo stages the CUDA tensors
+   through host memory; NCCL refuses two ranks on one GPU). They load
+   the kernels the parent built. Two configurations: n = 2 with GPT-2
+   medium at full width, B = 8, S = 512 per rank; n = 4 with
+   ``gpt_tiny(hidden=128, num_heads=2)``, B = 8, S = 128 (two Adasum
+   levels, 4-way quantized chunks). Each rank has its own seeded batch;
+   each runs both modes from the same seeded weights after
+   ``broadcast_parameters``, 1 checked step and 3 timed steps:
+   ``compression="int8_ef"`` (at the first step one int8 bucket's reduced
+   gradient must lie within ``(sum of s_rank + s_reduced) / n`` of the
+   exact fp32 average of the ranks' buffers, the residual must be finite
+   and nonzero, and K3 must launch exactly 2 x int8 buckets x 3 times)
+   and ``op=hvd.Adasum`` (at the first step one parameter's reduced delta
+   must agree with ``adasum_allreduce_reference`` over the gathered
+   deltas in fp64 to 1e-5 of its largest value, and K8 and K9 must
+   launch exactly parameters x log2(n) x 3 times). Every loss must be
+   finite and, after every step, every rank's per-tensor parameter
+   digests must equal rank 0's. At n = 4 one direct ``adasum_allreduce(
+   wire="int8", key=...)`` must launch K3 once and K4 twice per level.
+   The step times are of gloo over loopback with n processes on one
+   card, not of NCCL or NVLink.
+8. Result lines: the per-kernel JSON record (K2-K9, each with its
+   launches on its path), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` also traces the serve run and two extra training steps
@@ -67,6 +102,7 @@ import contextlib
 import json
 import math
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -408,6 +444,156 @@ def phase_flash(torch, K) -> dict:
               f"{r['library_ms'] * 1e3:.1f} us; eager "
               f"{r['eager_ms'] * 1e3:.1f} us", flush=True)
     del sets
+    torch.cuda.empty_cache()
+    return records
+
+
+REDUCE_BUCKET = 16_777_216          # one 64 MiB fp32 fusion bucket
+TOK_EMB = (50257, 1024)             # gpt_medium's largest gradient
+REDUCE_RAGGED = (1, 4095, 4097, 9001)
+ADASUM_RTOL = 1e-5                  # K8 vs fp64, of each sum's own scale
+REDUCE_TIMING_SETS = 2              # distinct inputs per graph replay
+
+
+def reduce_work(n: int) -> dict:
+    """Bytes each kernel must move (inputs read once, outputs written
+    once) and fp32 operations it does, for n fp32 elements."""
+    rows = -(-n // 4096) * 32
+    nblocks = rows // 32
+    return {"quantize_int8_stochastic": (n * 4 + rows * 128 * 4 + rows * 128
+                                         + nblocks * 4, 8 * n),
+            "adasum_dot_norms": (2 * n * 4, 6 * n),
+            "adasum_combine": (3 * n * 4, 3 * n)}
+
+
+def phase_reduce_kernels(torch, K) -> dict:
+    """Hold K3/K8/K9 against their plain versions on the card at the
+    multi-rank path's shapes; time them."""
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    emb = TOK_EMB[0] * TOK_EMB[1]
+    errs = {"quantize_int8_stochastic": 0.0, "adasum_dot_norms": 0.0,
+            "adasum_combine": 0.0}
+    k8_rel = 0.0            # K8's worst error relative to its sum's scale
+    k3_cases = [(REDUCE_BUCKET, "float32"), (emb, "float32"),
+                (REDUCE_BUCKET, "bfloat16")] + \
+        [(n, d) for n in REDUCE_RAGGED for d in ("float32", "bfloat16")]
+    for n, dname in k3_cases:
+        x = (torch.randn(n, generator=gen, device="cuda") * 3).to(
+            getattr(torch, dname))
+        u = torch.rand((K.stochastic_rows(n), 128), generator=gen,
+                       device="cuda")
+        q, s, _ = K.quantize_int8_stochastic(x, u)
+        q0, s0, _ = K._quantize_stochastic_plain(x, u)
+        torch.cuda.synchronize()
+        check(torch.equal(q, q0), f"K3 {n} {dname}: codes differ from plain")
+        check(torch.equal(s, s0), f"K3 {n} {dname}: scales differ from plain")
+    del x, u, q, s, q0, s0
+    # (elements, dtype, which operands are zero)
+    k89_cases = [(emb, "float32", ""), (emb, "bfloat16", ""),
+                 (REDUCE_BUCKET, "float32", ""), (70_000, "float32", "b"),
+                 (4097, "bfloat16", "ab")] + \
+        [(n, d, "") for n in REDUCE_RAGGED for d in ("float32", "bfloat16")]
+    for n, dname, zero in k89_cases:
+        what = f"{n} {dname} zero={zero or '-'}"
+        a = torch.randn(n, generator=gen, device="cuda")
+        b = 0.6 * a + torch.randn(n, generator=gen, device="cuda")
+        if "a" in zero:
+            a.zero_()
+        if "b" in zero:
+            b.zero_()
+        a, b = a.to(getattr(torch, dname)), b.to(getattr(torch, dname))
+        dn = K.adasum_dot_norms(a, b)
+        dn_swap = K.adasum_dot_norms(b, a)
+        a64, b64 = a.double(), b.double()
+        exact = torch.stack([a64 @ b64, a64 @ a64, b64 @ b64])
+        scale = torch.stack([(exact[1] * exact[2]).sqrt(), exact[1],
+                             exact[2]])
+        off = (dn.double() - exact).abs()
+        check(bool((off <= ADASUM_RTOL * scale).all()),
+              f"K8 {what}: {dn.tolist()} off fp64 {exact.tolist()} by more "
+              f"than {ADASUM_RTOL} of each sum's scale")
+        check(torch.equal(dn[[0, 2, 1]], dn_swap),
+              f"K8 {what}: not symmetric in (a, b)")
+        out = K.adasum_combine(a, b, dn)
+        out0 = K._adasum_combine_plain(a, b, dn)
+        torch.cuda.synchronize()
+        check(torch.equal(out, out0), f"K9 {what}: differs from plain")
+        check(torch.equal(K.adasum_combine(b, a, dn_swap), out),
+              f"K9 {what}: not symmetric in (a, b)")
+        if zero:
+            check(torch.equal(out, (a.float() + b.float()).to(a.dtype)),
+                  f"K9 {what}: zero-norm coefficient is not 1")
+        errs["adasum_dot_norms"] = max(errs["adasum_dot_norms"],
+                                       off.max().item())
+        k8_rel = max(k8_rel, (off / scale.clamp_min(1e-300)).max().item())
+    del a, b, a64, b64, out, out0
+    torch.cuda.empty_cache()
+    print(f"kernels: K3 bitwise equal to plain on {len(k3_cases)} cases; "
+          f"K8 within {ADASUM_RTOL} of fp64 and K9 bitwise equal to plain "
+          f"on {len(k89_cases)} cases, both symmetric in (a, b)",
+          flush=True)
+
+    buckets = []
+    for _ in range(REDUCE_TIMING_SETS):
+        buckets.append((torch.randn(REDUCE_BUCKET, generator=gen,
+                                    device="cuda"),
+                        torch.rand((K.stochastic_rows(REDUCE_BUCKET), 128),
+                                   generator=gen, device="cuda")))
+    pairs = []
+    for _ in range(REDUCE_TIMING_SETS):
+        a = torch.randn(emb, generator=gen, device="cuda")
+        b = 0.6 * a + torch.randn(emb, generator=gen, device="cuda")
+        pairs.append((a, b, K.adasum_dot_norms(a, b)))
+    torch.cuda.synchronize()
+    fns = {
+        "quantize_int8_stochastic": (
+            lambda x: K.quantize_int8_stochastic(x[0], x[1]),
+            lambda x: K._quantize_stochastic_plain(x[0], x[1]), buckets,
+            REDUCE_BUCKET, 275, "int8_codec.cu"),
+        "adasum_dot_norms": (
+            lambda x: K.adasum_dot_norms(x[0], x[1]),
+            lambda x: K._adasum_dot_norms_plain(x[0], x[1]), pairs, emb,
+            125, "adasum.cu"),
+        "adasum_combine": (
+            lambda x: K.adasum_combine(x[0], x[1], x[2]),
+            lambda x: K._adasum_combine_plain(x[0], x[1], x[2]), pairs, emb,
+            175, "adasum.cu"),
+    }
+    records = {}
+    for name, (fn, plain, inputs, n, line, src) in fns.items():
+        nbytes, ops = reduce_work(n)[name]
+        # Turns: plain, kernel, kernel, plain (one card, one call).
+        p1 = graph_ms(torch, plain, inputs)
+        k1 = graph_ms(torch, fn, inputs)
+        k2 = graph_ms(torch, fn, inputs)
+        p2 = graph_ms(torch, plain, inputs)
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops = ops / FP32_OPS_PER_S * 1e3
+        records[name] = {
+            "name": name, "route": "cuda",
+            "source": f"horovod_tpu_torch/csrc/{src}",
+            "replaces": f"horovod_tpu/ops/pallas_kernels.py:{line}",
+            "launches": 0,
+            "max_abs_err": errs[name],
+            "ms": min(k1, k2),
+            "plain_ms": min(p1, p2),
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops
+            else "operations",
+            "library_ms": None,
+            "eager_ms": eager_ms(torch, fn, inputs),
+            "plain_eager_ms": eager_ms(torch, plain, inputs),
+            "bytes": nbytes, "ops": ops,
+            "max_rel_err": k8_rel if name == "adasum_dot_norms" else 0.0,
+            "shape": [n] if name == "quantize_int8_stochastic"
+            else list(TOK_EMB), "dtype": "float32",
+        }
+        r = records[name]
+        print(f"kernel {name}: {r['ms'] * 1e3:.1f} us/launch (graph) vs "
+              f"bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']}); plain "
+              f"{r['plain_ms'] * 1e3:.1f} us; eager "
+              f"{r['eager_ms'] * 1e3:.1f} us", flush=True)
+    del buckets, pairs
     torch.cuda.empty_cache()
     return records
 
@@ -809,6 +995,422 @@ def phase_train(torch, K, out_dir: str, profile: bool = False) -> dict:
     return result
 
 
+# -- multi-rank phase: n processes on the one card, collectives over gloo --
+
+MULTI_WARMUP, MULTI_STEPS = 1, 3
+MULTI_CONFIGS = {
+    # n, model, per-rank batch, sequence length, worker timeout (s)
+    "n2_gpt_medium": (2, "gpt_medium", 8, 512, 600),
+    "n4_gpt_tiny": (4, "gpt_tiny", 8, 128, 300),
+}
+ADASUM_REF_RTOL = 1e-5              # reduced delta vs the fp64 reference
+
+
+def _make_model(torch, gpt_mod, name):
+    with torch.device("cuda"):
+        model = gpt_mod.gpt_medium() if name == "gpt_medium" else \
+            gpt_mod.gpt_tiny(hidden=128, num_heads=2)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    return model
+
+
+class _Digest:
+    """Per-tensor fingerprints of the parameters, on the card: the int32
+    bit patterns of each tensor summed plain and weighted by a fixed
+    pseudo-random int64 sequence (integer sums: exact in any order).
+    Equal parameters give equal digests; a one-bit difference changes
+    them."""
+
+    def __init__(self, torch, params):
+        n = max(p.numel() for p in params)
+        idx = torch.arange(n, device="cuda", dtype=torch.int64)
+        self.weights = (idx * 2654435761) % 2147483647 + 1
+        self.torch = torch
+
+    def __call__(self, params):
+        rows = []
+        for p in params:
+            bits = p.detach().reshape(-1).view(self.torch.int32).to(
+                self.torch.int64)
+            rows.append(self.torch.stack(
+                [bits.sum(), (bits * self.weights[:bits.numel()]).sum()]))
+        return self.torch.stack(rows)
+
+
+def wire_bytes(plan, n: int, adasum_numels=None) -> dict:
+    """Bytes one rank sends per step, counted as a ring moves them: an
+    int8 bucket 2(n-1)/n of its padded codes and scales (the all_to_all
+    and the all_gather), a bf16/native bucket 2(n-1)/n of its payload
+    (all_reduce); an Adasum step each tensor once per level. Beside it
+    the fp32 ring allreduce of the same gradients."""
+    ring = 2 * (n - 1) / n
+    if adasum_numels is not None:
+        total = sum(adasum_numels)
+        return {"wire": (n.bit_length() - 1) * 4 * total,
+                "fp32_ring": ring * 4 * total}
+    wire = fp32 = 0.0
+    for b, w in zip(plan.buckets, plan.wire_dtypes):
+        fp32 += ring * 4 * b.total_elems
+        if w == "int8":
+            padded = -(-b.total_elems // (n * 4096)) * n * 4096
+            wire += ring * (padded + padded // 4096 * 4)
+        else:
+            wire += ring * b.total_elems * (2 if w == "bf16" else 4)
+    return {"wire": wire, "fp32_ring": fp32}
+
+
+def _ef_bound_check(torch, fusion, opt, bi, exact, s_ranks, n) -> dict:
+    """The bucket's reduced gradient against the exact fp32 average of
+    the same buffers, within (sum of s_rank + s_reduced) / n per 4096
+    block (stochastic rounding, r = 1; s_reduced bounded by the exact
+    block absmax plus the first hop's error)."""
+    bucket = opt._dist_plan.buckets[bi]
+    params = opt._dist_params
+    y = fusion.fuse_bucket({i: params[i].grad for i in bucket.leaf_indices},
+                           bucket).double()
+    size = y.numel()
+    pad = (-size) % 4096
+
+    def block_max(v):
+        return torch.nn.functional.pad(v.abs(), (0, pad)).reshape(
+            -1, 4096).amax(1)
+
+    s_red = (block_max(exact * n) + s_ranks) / 127
+    bound = ((s_ranks + s_red) / n).repeat_interleave(4096)[:size]
+    err = (y - exact).abs()
+    check(bool((err <= bound + 1e-7).all()),
+          f"int8_ef: bucket {bi} off the exact average by more than the "
+          f"bound at {int((err > bound + 1e-7).sum())} elements")
+    return {"bucket": bi, "elements": size, "max_err": err.max().item(),
+            "max_bound": bound.max().item(),
+            "worst_err_over_bound": (err / bound.clamp_min(1e-30)).max()
+            .item()}
+
+
+def _adasum_probe(torch, adasum_mod, target: int):
+    """Records the input and output of the ``target``-th per-tensor
+    ``adasum_allreduce`` call of one step (the optimizer calls it through
+    the module, in parameter order). Returns (record, restore)."""
+    orig = adasum_mod.adasum_allreduce
+    seen = {"calls": 0}
+
+    def probe(x, *a, **k):
+        y = orig(x, *a, **k)
+        if seen["calls"] == target:
+            seen["delta"], seen["reduced"] = x.clone(), y.clone()
+        seen["calls"] += 1
+        return y
+
+    adasum_mod.adasum_allreduce = probe
+
+    def restore():
+        adasum_mod.adasum_allreduce = orig
+    return seen, restore
+
+
+@contextlib.contextmanager
+def wire_clock(torch, C, seconds: list):
+    """Adds to ``seconds[0]`` the host time spent in the collectives a
+    reduction runs (``all_to_all``, ``all_gather_stack``,
+    ``pair_exchange``; gloo returns from each after its copies back to
+    the card), each timed from a synchronize of the card's queue."""
+    names = ("all_to_all", "all_gather_stack", "pair_exchange")
+    saved = {name: getattr(C, name) for name in names}
+
+    def timed(fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                seconds[0] += time.perf_counter() - t0
+        return call
+
+    for name, fn in saved.items():
+        setattr(C, name, timed(fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(C, name, fn)
+
+
+def rank_worker(config: str, rank: int, out_path: str) -> None:
+    """One rank of the multi-rank phase (``--rank-worker``): both
+    reduction modes on the config's model, the first step checked
+    against its reference, the timed steps counted and digested."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import fusion
+    from horovod_tpu_torch.models import gpt as gpt_mod
+    from horovod_tpu_torch.ops import adasum as adasum_mod
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n, model_name, batch, seq, _ = MULTI_CONFIGS[config]
+    ctx = hvd.init(backend="gloo")
+    check(ctx.backend == "gloo" and ctx.device.type == "cuda"
+          and hvd.size() == n and hvd.rank() == rank,
+          f"init: rank {hvd.rank()} of {hvd.size()} over {ctx.backend} on "
+          f"{ctx.device}")
+    out = {"config": config, "n": n, "rank": rank, "model": model_name,
+           "batch": batch, "seq_len": seq, "backend": ctx.backend,
+           "modes": {}}
+    for mode in ("int8_ef", "adasum"):
+        model = _make_model(torch, gpt_mod, model_name)
+        hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+        params = list(model.parameters())
+        digest = _Digest(torch, params)
+        tokens = torch.randint(0, model.vocab_size, (batch, seq + 1),
+                               generator=torch.Generator().manual_seed(
+                                   11 + rank)).to("cuda")
+        kw = {"compression": "int8_ef"} if mode == "int8_ef" \
+            else {"op": hvd.Adasum}
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4,
+                              weight_decay=1e-4),
+            named_parameters=model.named_parameters(), **kw)
+        rec = {"params": len(params)}
+
+        def forward_backward():
+            loss = gpt_mod.next_token_loss(model(tokens[:, :-1]),
+                                           tokens[:, 1:])
+            opt.zero_grad()
+            loss.backward()
+            return loss
+
+        # First step: the reference check.
+        loss = forward_backward()
+        if mode == "int8_ef":
+            plan = opt._dist_plan
+            bi = plan.wire_dtypes.index("int8")
+            bucket = plan.buckets[bi]
+            local = fusion.fuse_bucket(
+                {i: opt._dist_params[i].grad for i in bucket.leaf_indices},
+                bucket).float()
+            every = C.all_gather_stack(local).double()
+            pad = (-local.numel()) % 4096
+            s_ranks = torch.nn.functional.pad(every.abs(), (0, pad)).reshape(
+                n, -1, 4096).amax(2).sum(0) / 127
+            exact = every.mean(0)
+            del every
+            opt.step()
+            rec["bound_check"] = _ef_bound_check(torch, fusion, opt, bi,
+                                                 exact, s_ranks, n)
+            del exact, s_ranks, local
+            rec["int8_buckets"] = plan.wire_dtypes.count("int8")
+            rec["buckets"] = len(plan.buckets)
+            rec["wire_dtypes"] = list(plan.wire_dtypes)
+            rec["bytes"] = wire_bytes(plan, n)
+        else:
+            target = max(range(len(params)),
+                         key=lambda i: (params[i].numel() <= 4_194_304,
+                                        params[i].numel()))
+            seen, restore = _adasum_probe(torch, adasum_mod, target)
+            try:
+                opt.step()
+            finally:
+                restore()
+            deltas = C.all_gather_stack(seen["delta"]).double().cpu().numpy()
+            ref = adasum_mod.adasum_allreduce_reference(list(deltas))
+            got = seen["reduced"].double().cpu().numpy()
+            err = float(abs(got - ref).max())
+            scale = float(abs(ref).max())
+            check(err <= ADASUM_REF_RTOL * scale,
+                  f"adasum: parameter {target} reduced delta off the fp64 "
+                  f"reference by {err} > {ADASUM_REF_RTOL} x {scale}")
+            rec["reference_check"] = {"param": target,
+                                      "elements": int(got.size),
+                                      "max_err": err, "max_abs_ref": scale,
+                                      "rel": err / scale}
+            rec["bytes"] = wire_bytes(None, n, [p.numel() for p in params])
+        losses = [loss.item()]
+        d = digest(params)
+        every = C.all_gather_stack(d)
+        check(bool((every == every[0]).all()),
+              f"{mode}: replicas differ after the first step")
+        for _ in range(MULTI_WARMUP - 1):
+            losses.append(forward_backward().item())
+            opt.step()
+        # The timed steps: counts zeroed just before, read just after.
+        torch.cuda.synchronize()
+        hvd.barrier()
+        K.reset_launch_counts()
+        # Each step's host time, split at a synchronize after backward:
+        # forward + backward, then step() (the reduction and the update),
+        # and within step() the time in the reduction's collectives.
+        times, split, equal = [], [], []
+        for _ in range(MULTI_STEPS):
+            t0 = time.perf_counter()
+            loss = forward_backward()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            wire_s = [0.0]
+            with wire_clock(torch, C, wire_s):
+                opt.step()
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            split.append((t1 - t0, time.perf_counter() - t1, wire_s[0]))
+            losses.append(loss.item())
+            every = C.all_gather_stack(digest(params))
+            equal.append(bool((every == every[0]).all()))
+        launches = dict(K.LAUNCHES)
+        check(all(map(math.isfinite, losses)),
+              f"{mode}: non-finite loss in {losses}")
+        check(all(equal), f"{mode}: replicas differ after step(s) "
+                          f"{[i for i, e in enumerate(equal) if not e]}")
+        levels = n.bit_length() - 1
+        flash = model.num_layers * MULTI_STEPS
+        want = {k: 0 for k in launches}
+        want.update(flash_fwd=flash, flash_bwd_dq=flash, flash_bwd_dkv=flash)
+        if mode == "int8_ef":
+            want["quantize_int8_stochastic"] = \
+                2 * rec["int8_buckets"] * MULTI_STEPS
+            res = [r for r in opt._ef_residual.values()]
+            check(all(bool(torch.isfinite(r).all()) for r in res),
+                  "int8_ef: non-finite residual")
+            rec["residual_norm"] = hvd.observe_ef_residual(opt)
+            check(rec["residual_norm"] > 0, "int8_ef: residual is zero")
+        else:
+            want["adasum_dot_norms"] = len(params) * levels * MULTI_STEPS
+            want["adasum_combine"] = len(params) * levels * MULTI_STEPS
+        check(launches == want, f"{mode}: launches {launches}, expected "
+                                f"{want}")
+        step_s = statistics.median(times)
+        rec.update({
+            "losses": losses, "step_ms": [t * 1e3 for t in times],
+            "step_ms_median": step_s * 1e3,
+            "fwd_bwd_ms_median": statistics.median(t[0] for t in split)
+            * 1e3,
+            "step_call_ms_median": statistics.median(t[1] for t in split)
+            * 1e3,
+            "wire_ms_median": statistics.median(t[2] for t in split) * 1e3,
+            "tokens_per_s": n * batch * seq / step_s,
+            "launches": launches, "replicas_equal": equal,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        out["modes"][mode] = rec
+        del opt, model, params, digest
+        torch.cuda.empty_cache()
+    if n == 4:
+        # Adasum's quantized wire with a stochastic key: per level one K3
+        # (this rank's side) and two K4 (both sides dequantized).
+        x = torch.randn(300_000, generator=torch.Generator(
+            device="cuda").manual_seed(rank), device="cuda")
+        K.reset_launch_counts()
+        y = hvd.adasum_allreduce(x, wire="int8", key=(0x5EED, 99))
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        levels = n.bit_length() - 1
+        want = {k: 0 for k in launches}
+        want.update(quantize_int8_stochastic=levels,
+                    dequantize_int8=2 * levels, adasum_dot_norms=levels,
+                    adasum_combine=levels)
+        check(launches == want, f"adasum int8 wire: launches {launches}, "
+                                f"expected {want}")
+        every = C.all_gather_stack(y)
+        check(bool((every == every[0]).all()),
+              "adasum int8 wire: ranks differ")
+        check(bool(torch.isfinite(y).all()), "adasum int8 wire: non-finite")
+        out["adasum_int8_wire"] = {"elements": x.numel(),
+                                   "launches": launches}
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def phase_multirank(torch, out_dir: str) -> dict:
+    """Relaunch this script as n rank workers on the one card for each
+    multi-rank config; any worker's failure fails the phase."""
+    results = {}
+    for config, (n, model_name, batch, seq, timeout) in MULTI_CONFIGS.items():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, HVD_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                   HVD_TPU_NUM_PROC=str(n))
+        paths = [os.path.join(out_dir, f"multirank_{config}_rank{r}.json")
+                 for r in range(n)]
+        for path in paths:
+            if os.path.exists(path):
+                os.remove(path)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-worker",
+             config, str(r), paths[r]],
+            env=dict(env, HVD_TPU_PROC_ID=str(r)), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(n)]
+        logs = [""] * n
+        try:
+            for r, p in enumerate(procs):
+                logs[r] = p.communicate(
+                    timeout=max(1.0, timeout - (time.perf_counter() - t0)))[0]
+        except subprocess.TimeoutExpired:
+            raise SmokeError(f"multi-rank {config}: a worker passed its "
+                             f"{timeout} s limit")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        with open(os.path.join(out_dir, f"multirank_{config}.log"), "w") as f:
+            f.write("\n".join(f"--- rank {r}\n{log}"
+                              for r, log in enumerate(logs)))
+        for r, p in enumerate(procs):
+            check(p.returncode == 0,
+                  f"multi-rank {config}: rank {r} exited {p.returncode}:\n"
+                  f"{logs[r][-3000:]}")
+        ranks = []
+        for path in paths:
+            with open(path) as f:
+                ranks.append(json.load(f))
+        wall = time.perf_counter() - t0
+        res = {"n": n, "model": model_name, "batch_per_rank": batch,
+               "seq_len": seq, "backend": ranks[0]["backend"],
+               "wall_s": wall, "modes": {}}
+        for mode in ("int8_ef", "adasum"):
+            recs = [rk["modes"][mode] for rk in ranks]
+            check(all(rc["launches"] == recs[0]["launches"] for rc in recs),
+                  f"{config} {mode}: ranks counted different launches")
+            step_ms = statistics.median(
+                statistics.median(rc["step_ms"]) for rc in recs)
+            res["modes"][mode] = {
+                "step_ms_median": step_ms,
+                "fwd_bwd_ms_median": recs[0]["fwd_bwd_ms_median"],
+                "step_call_ms_median": recs[0]["step_call_ms_median"],
+                "wire_ms_median": recs[0]["wire_ms_median"],
+                "tokens_per_s": n * batch * seq / (step_ms / 1e3),
+                "losses_rank0": recs[0]["losses"],
+                "launches": recs[0]["launches"],
+                "bytes_per_step_per_rank": recs[0]["bytes"],
+                "peak_mem_gib_rank0": recs[0]["peak_mem_gib"],
+                "check": recs[0].get("bound_check")
+                or recs[0].get("reference_check"),
+                "ranks": recs,
+            }
+            m = res["modes"][mode]
+            print(f"multi-rank {config} {mode} ({res['backend']}, {n} "
+                  f"processes on one card): step {step_ms:.1f} ms "
+                  f"= {m['tokens_per_s']:.0f} tok/s (rank 0: forward + "
+                  f"backward {m['fwd_bwd_ms_median']:.1f} ms, step() "
+                  f"{m['step_call_ms_median']:.1f} ms of which collectives "
+                  f"{m['wire_ms_median']:.1f} ms); wire "
+                  f"{m['bytes_per_step_per_rank']['wire'] / 1e6:.1f} MB/step "
+                  f"per rank (fp32 ring "
+                  f"{m['bytes_per_step_per_rank']['fp32_ring'] / 1e6:.1f}); "
+                  f"check {json.dumps(m['check'])}; launches "
+                  f"{json.dumps(m['launches'])}", flush=True)
+        if "adasum_int8_wire" in ranks[0]:
+            res["adasum_int8_wire"] = ranks[0]["adasum_int8_wire"]
+        results[config] = res
+    with open(os.path.join(out_dir, "chip_smoke_multirank.json"), "w") as f:
+        json.dump(results, f, indent=1)
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out",
@@ -818,6 +1420,10 @@ def main(argv=None) -> int:
                          "steps with torch.profiler (slows the host; the "
                          "serve run's wall numbers are then not the "
                          "unprofiled ones)")
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--rank-worker"]:
+        rank_worker(argv[1], int(argv[2]), argv[3])
+        return 0
     args = ap.parse_args(argv)
     try:
         import torch
@@ -848,12 +1454,19 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         records = phase_kernels(torch, K)
         records.update(phase_flash(torch, K))
+        records.update(phase_reduce_kernels(torch, K))
         serve = phase_serve(torch, K, args.out, args.profile)
         train = phase_train(torch, K, args.out, args.profile)
+        multi = phase_multirank(torch, args.out)
+        n2 = multi["n2_gpt_medium"]["modes"]
+        paths = {"quantize_int8": serve["launches"],
+                 "dequantize_int8": serve["launches"],
+                 "quantize_int8_stochastic": n2["int8_ef"]["launches"],
+                 "adasum_dot_norms": n2["adasum"]["launches"],
+                 "adasum_combine": n2["adasum"]["launches"]}
         for name, rec in records.items():
-            path = serve if name in ("quantize_int8", "dequantize_int8") \
-                else train
-            rec["launches"] = path["launches"][name]
+            rec["launches"] = paths.get(name, train["launches"])[name]
+            check(rec["launches"] > 0, f"{name}: no launch on its path")
     except (SmokeError, RuntimeError, OSError, ValueError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
@@ -862,7 +1475,10 @@ def main(argv=None) -> int:
     kernels = {"kernels": list(records.values())}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, **kernels,
-                   "serve": serve, "train": train}, f, indent=1)
+                   "serve": serve, "train": train,
+                   "multirank": {c: {k: v for k, v in r.items()
+                                     if k != "modes"}
+                                 for c, r in multi.items()}}, f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,13 @@ Ported so far:
   fusion, cast compression, ``DistributedOptimizer`` with fused-bucket
   gradient reduction, ``models.gpt``'s full-sequence forward and
   ``next_token_loss``, and flash attention (``ops.flash_attention``) on
-  the kernels K5 (forward), K6 (dq) and K7 (dk, dv).
+  the kernels K5 (forward), K6 (dq) and K7 (dk, dv);
+* slice 3 — gradient reduction across ranks: ``init(backend="gloo")``
+  for ranks sharing a GPU, ``Compression.int8``/``int8_ef`` with the
+  error-feedback ``quantized_allreduce`` on the stochastic quantizer K3,
+  and ``Adasum`` (``allreduce(op=Adasum)``, ``adasum_allreduce``,
+  ``DistributedOptimizer(op=Adasum)``) on the kernels K8 (dot and norms)
+  and K9 (combine).
 
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request they raise.
@@ -32,36 +38,37 @@ from .common.exceptions import (HorovodInternalError, HorovodTpuError,
                                 NotInitializedError,
                                 TensorShapeMismatchError)
 from .common.metrics import metrics
-from .ops.collectives import (Average, Max, Min, ReduceOp, Sum, allgather,
-                              allreduce, allreduce_async_, barrier,
-                              broadcast, broadcast_, grouped_allreduce)
+from .ops.adasum import adasum_allreduce
+from .ops.collectives import (Adasum, Average, Max, Min, ReduceOp, Sum,
+                              allgather, allreduce, allreduce_async_,
+                              barrier, broadcast, broadcast_,
+                              grouped_allreduce, quantized_allreduce)
 from .ops.compression import Compression
 from .optim import (DistributedOptimizer, broadcast_optimizer_state,
-                    broadcast_parameters)
+                    broadcast_parameters, observe_ef_residual)
 
 __all__ = [
-    "Average", "Compression", "DistributedOptimizer", "HorovodInternalError",
-    "HorovodTpuError", "Max", "Min", "NotInitializedError", "ReduceOp",
-    "Sum", "TensorShapeMismatchError", "allgather", "allreduce",
-    "allreduce_async_", "barrier", "broadcast", "broadcast_",
-    "broadcast_optimizer_state", "broadcast_parameters", "device",
-    "grouped_allreduce", "init", "is_initialized", "local_rank",
-    "local_size", "metrics", "rank", "resolve_device", "shutdown", "size",
+    "Adasum", "Average", "Compression", "DistributedOptimizer",
+    "HorovodInternalError", "HorovodTpuError", "Max", "Min",
+    "NotInitializedError", "ReduceOp", "Sum", "TensorShapeMismatchError",
+    "adasum_allreduce", "allgather", "allreduce", "allreduce_async_",
+    "barrier", "broadcast", "broadcast_", "broadcast_optimizer_state",
+    "broadcast_parameters", "device", "grouped_allreduce", "init",
+    "is_initialized", "local_rank", "local_size", "metrics",
+    "observe_ef_residual", "quantized_allreduce", "rank", "resolve_device",
+    "shutdown", "size",
 ]
 
 # The JAX package's API that later slices of the port bring, by slice.
 _LATER = {
     "the eager-engine slice (with kernel K1)": (
         "allreduce_async", "allgather_async", "broadcast_async", "poll",
-        "synchronize", "join", "alltoall", "reducescatter",
+        "synchronize", "join", "alltoall", "reducescatter", "allgatherv",
         "grouped_allgather", "grouped_reducescatter", "broadcast_object",
         "allgather_object", "start_timeline", "stop_timeline"),
     "the process-set slice": (
         "ProcessSet", "add_process_set", "remove_process_set", "cross_rank",
         "cross_size", "is_homogeneous"),
-    "the multi-rank int8_ef slice (with kernel K3)": (
-        "observe_ef_residual",),
-    "the Adasum slice (with kernels K8/K9)": ("Adasum",),
     "the integrity-guard slice": (
         "integrity", "observe_guard", "current_loss_scale",
         "DivergenceDetector", "NonFiniteError", "DivergenceError"),

@@ -16,6 +16,14 @@ Device rule: ``init()`` takes the GPU of its local rank and the ``nccl``
 backend; it takes the CPU and ``gloo`` only when the caller passes
 ``device="cpu"``, and without a GPU and without that request it raises.
 
+Backend rule: ``backend="gloo"`` keeps the GPU but reduces through gloo,
+which stages CUDA tensors through host memory — the port's counterpart
+of reference Horovod's ``horovodrun --gloo``, and the only way to run
+more ranks on a host than it has GPUs (NCCL refuses two ranks on one
+GPU). ``nccl`` (or the default) with more local ranks than GPUs raises
+before NCCL is reached, naming ``backend="gloo"``; there is no silent
+switch.
+
 Process sets and ``comm=`` subset communicators are not ported yet.
 """
 
@@ -62,14 +70,44 @@ def _world():
     return rank, size, coord
 
 
+_BACKENDS = ("nccl", "gloo")
+
+
+def _resolve_backend(dev: torch.device, backend: Optional[str],
+                     local_size: int) -> str:
+    """The process group's backend for ``dev`` (see the module's backend
+    rule); raises on a combination that cannot work."""
+    if backend is not None and backend not in _BACKENDS:
+        raise ValueError(f"init(): backend must be one of {_BACKENDS} or "
+                         f"None, got {backend!r}")
+    if dev.type == "cpu":
+        if backend == "nccl":
+            raise ValueError("init(): the nccl backend needs the GPU; the "
+                             "CPU reduces through gloo")
+        return "gloo"
+    if dev.type != "cuda":
+        raise ValueError(f"init(): unsupported device {dev}")
+    backend = backend or "nccl"
+    gpus = torch.cuda.device_count()
+    if backend == "nccl" and local_size > gpus:
+        raise ValueError(
+            f"init(): {local_size} ranks on this host but {gpus} GPU(s); "
+            "NCCL takes one GPU per rank. Pass init(backend=\"gloo\") to "
+            "run several ranks on one GPU (collectives then stage through "
+            "host memory)")
+    return backend
+
+
 def init(comm=None, process_sets=None,
          device: Optional[Union[str, torch.device]] = None,
+         backend: Optional[str] = None,
          **config_overrides) -> Context:
     """Initialize the runtime (idempotent for a bare call).
 
-    ``device`` is ``None`` (the GPU of this process's local rank, with
-    ``nccl``) or ``"cpu"`` (``gloo``). ``config_overrides`` are
-    :class:`~.config.Config` fields and win over the environment."""
+    ``device`` is ``None`` (the GPU of this process's local rank) or
+    ``"cpu"``. ``backend`` is ``None`` (``nccl`` on the GPU, ``gloo`` on
+    the CPU), ``"gloo"`` (on either) or ``"nccl"``. ``config_overrides``
+    are :class:`~.config.Config` fields and win over the environment."""
     global _context
     if comm is not None or process_sets:
         raise NotImplementedError(
@@ -77,27 +115,25 @@ def init(comm=None, process_sets=None,
             "the process-set slice of the port")
     with _context_lock:
         if _context is not None:
-            if device is not None or config_overrides:
+            if device is not None or backend is not None \
+                    or config_overrides:
                 raise ValueError(
-                    "init() called with device/config overrides but the "
-                    "runtime is already initialized; call shutdown() "
-                    "first to re-initialize with different settings")
+                    "init() called with device/backend/config overrides "
+                    "but the runtime is already initialized; call "
+                    "shutdown() first to re-initialize with different "
+                    "settings")
             return _context
         cfg = config_lib.Config.from_env(**config_overrides)
         dev = resolve_device(device)
         rank, size, coord = _world()
         local_rank = int(config_lib.runtime_env("LOCAL_RANK", str(rank)))
         local_size = int(config_lib.runtime_env("LOCAL_SIZE", str(size)))
+        backend = _resolve_backend(dev, backend, local_size)
         if dev.type == "cuda":
             if dev.index is None:
                 dev = torch.device("cuda",
                                    local_rank % torch.cuda.device_count())
             torch.cuda.set_device(dev)
-            backend = "nccl"
-        elif dev.type == "cpu":
-            backend = "gloo"
-        else:
-            raise ValueError(f"init(): unsupported device {dev}")
         if coord is None:
             # A world of one: an in-process store, no port to pick.
             dist.init_process_group(backend, store=dist.HashStore(),

@@ -24,7 +24,13 @@ RUNTIME_KNOBS = {
     "LOCAL_SIZE": "processes on this host (default: the world size)",
     # Training plane.
     "FUSION_THRESHOLD": "gradient fusion bucket size in bytes (64 MiB)",
-    "COMPRESSION": "default gradient wire compression (none/fp16/bf16)",
+    "COMPRESSION": "default gradient wire compression "
+                   "(none/fp16/bf16/int8_ef)",
+    "QUANTIZE_MIN_BYTES": "smallest fused bucket the int8_ef wire "
+                          "quantizes (64 KiB; smaller float buckets ride "
+                          "bf16)",
+    "ADASUM_SCALAR_DTYPE": "dtype of Adasum's dot/norm scalars (float32 "
+                           "runs kernel K8; others plain torch)",
     "FLASH_ATTENTION": "flash-attention kernel enable (0 = reference)",
     # Telemetry switches read lazily by their subsystems.
     "METRICS": "registry enable (0 = shared NOOP singletons)",
@@ -55,15 +61,19 @@ def runtime_env(name: str, default: Optional[str] = None, *,
 
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
+DEFAULT_QUANTIZE_MIN_BYTES = 64 * 1024
 
 
 @dataclasses.dataclass
 class Config:
     """The ``init()``-resolved settings of the training plane: the
-    environment's knobs, then the caller's overrides."""
+    environment's knobs, then the caller's overrides. The defaults are
+    the JAX package's (``horovod_tpu/common/config.py``)."""
 
     fusion_threshold_bytes: int = DEFAULT_FUSION_THRESHOLD
     compression: Optional[str] = None
+    quantize_min_bucket_bytes: int = DEFAULT_QUANTIZE_MIN_BYTES
+    adasum_scalar_dtype: str = "float32"
 
     @classmethod
     def from_env(cls, **overrides) -> "Config":
@@ -72,13 +82,19 @@ class Config:
         if raw:
             c.fusion_threshold_bytes = int(raw)
         c.compression = runtime_env("COMPRESSION") or None
+        raw = runtime_env("QUANTIZE_MIN_BYTES")
+        if raw:
+            c.quantize_min_bucket_bytes = int(raw)
+        c.adasum_scalar_dtype = (runtime_env("ADASUM_SCALAR_DTYPE")
+                                 or c.adasum_scalar_dtype)
         fields = {f.name for f in dataclasses.fields(cls)}
         for key, value in overrides.items():
             if key not in fields:
                 raise TypeError(f"init(): unknown setting {key!r}; "
                                 f"known: {sorted(fields)}")
             setattr(c, key, value)
-        if c.fusion_threshold_bytes < 0:
-            raise ValueError("fusion_threshold_bytes must be >= 0, got "
-                             f"{c.fusion_threshold_bytes}")
+        for name in ("fusion_threshold_bytes", "quantize_min_bucket_bytes"):
+            if getattr(c, name) < 0:
+                raise ValueError(f"{name} must be >= 0, got "
+                                 f"{getattr(c, name)}")
         return c

@@ -13,13 +13,14 @@ greedy same-dtype buckets up to the threshold, in ``order`` (``"flatten"``,
 (``"reverse"``/explicit) buckets come out in CLOSING order — sorted by
 the visit position of their last leaf — so issuing collectives in bucket
 order issues them as the gradients complete during backprop.
-``assign_wire_dtypes`` (int8 wires) comes with the multi-rank slice.
+``assign_wire_dtypes`` stamps each bucket's wire format for the int8_ef
+reduction, with the JAX package's decisions.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Sequence, Tuple, Union
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -54,6 +55,10 @@ class FusionPlan:
     buckets: Tuple[Bucket, ...]
     num_leaves: int
     order: str = ORDER_FLATTEN
+    # Per-bucket wire format of the quantized reduction, parallel to
+    # ``buckets`` (WIRE_INT8/WIRE_BF16/WIRE_NONE); None until
+    # :func:`assign_wire_dtypes` stamps the plan.
+    wire_dtypes: Optional[Tuple[str, ...]] = None
 
 
 def _numel(shape) -> int:
@@ -129,6 +134,35 @@ def plan_fusion(leaves: Sequence[torch.Tensor], threshold_bytes: int,
                      .element_size() / threshold_bytes) for b in buckets]
         _M_FILL.set(sum(fills) / len(fills))
     return FusionPlan(buckets, len(leaves), order=order_tag)
+
+
+# Wire formats a bucket can ride in a quantized reduction.
+WIRE_NONE = "none"    # native dtype (ints, half-precision small buckets)
+WIRE_BF16 = "bf16"    # cast to bf16 around the collective (2x over fp32)
+WIRE_INT8 = "int8"    # block-scaled int8 quantized allreduce (4x)
+
+
+def assign_wire_dtypes(plan: FusionPlan, quantize_min_bytes: int,
+                       small_wire: str = WIRE_BF16) -> FusionPlan:
+    """Stamp per-bucket wire decisions onto a plan (the JAX package's
+    rule): float buckets of at least ``quantize_min_bytes`` ride int8,
+    smaller fp32/fp64 buckets ride ``small_wire``, half-precision buckets
+    below the threshold and integer buckets ride uncompressed. A function
+    of the plan and the threshold alone, so every rank stamps the same
+    mapping."""
+    wires = []
+    for b in plan.buckets:
+        if not b.dtype.is_floating_point:
+            wires.append(WIRE_NONE)
+            continue
+        itemsize = torch.empty((), dtype=b.dtype).element_size()
+        if b.total_elems * itemsize >= quantize_min_bytes:
+            wires.append(WIRE_INT8)
+        elif itemsize > 2 and small_wire:
+            wires.append(small_wire)
+        else:
+            wires.append(WIRE_NONE)
+    return dataclasses.replace(plan, wire_dtypes=tuple(wires))
 
 
 def fuse_bucket(leaves: Sequence[torch.Tensor], bucket: Bucket

@@ -1,8 +1,13 @@
 // Block-scaled int8 codec for Hopper (sm_90a): the KV-wire quantize and
-// dequantize kernels of the prefill -> decode handoff.
+// dequantize kernels of the prefill -> decode handoff, and the stochastic
+// quantize of the int8 gradient wire (compression="int8_ef").
 //
 // Replaces the TPU kernels horovod_tpu/ops/pallas_kernels.py::_quant_kernel
-// (quantize_int8) and ::_dequant_kernel (dequantize_int8). The format is
+// (quantize_int8), ::_quant_sr_kernel (quantize_int8_stochastic, K3) and
+// ::_dequant_kernel (dequantize_int8). K3 reads one more fp32 stream, the
+// rounding thresholds u, so at a 64 MiB fp32 gradient bucket it moves
+// 4 + 4 + 1 bytes per element: ~45 us of traffic at 3.35 TB/s, a
+// bandwidth-bound pass like the other two. The format is
 // the JAX package's: the input is read as a flat vector of n elements,
 // cut into 4096-element blocks (32 rows x 128 lanes there), and each block
 // carries one fp32 scale
@@ -95,6 +100,51 @@ quantize_kernel(const T* __restrict__ x, long long n, int8_t* __restrict__ q,
   if (t == 0) scales[blockIdx.x] = s;
 }
 
+// K3: the same block scale as quantize_kernel, then stochastic rounding
+// against the caller's thresholds u (fp32, one per element of the padded
+// (rows, 128) layout, drawn outside the kernel):
+//     scaled = x / s,  q = clip(floor(scaled) + (u < scaled - floor), +-127)
+// Every step is IEEE (divides with __fdiv_rn, floorf, an exact subtract),
+// so the codes equal the plain version's bit for bit given the same u.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+quantize_stochastic_kernel(const T* __restrict__ x, long long n,
+                           const float* __restrict__ u,
+                           int8_t* __restrict__ q,
+                           float* __restrict__ scales) {
+  __shared__ float warp_max[kThreads / 32];
+  const long long base = static_cast<long long>(blockIdx.x) * kBlock;
+  const int t = threadIdx.x;
+
+  float v[kPerThread];
+  float amax = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    const long long i = base + k * kThreads + t;
+    v[k] = i < n ? load_f32(x, i) : 0.0f;
+    amax = fmaxf(amax, fabsf(v[k]));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  if ((t & 31) == 0) warp_max[t >> 5] = amax;
+  __syncthreads();
+  amax = warp_max[0];
+#pragma unroll
+  for (int w = 1; w < kThreads / 32; ++w) amax = fmaxf(amax, warp_max[w]);
+
+  const float s = __fdiv_rn(fmaxf(amax, 1e-30f), 127.0f);
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    const long long i = base + k * kThreads + t;
+    const float scaled = __fdiv_rn(v[k], s);
+    const float fl = floorf(scaled);
+    const float r = u[i] < __fsub_rn(scaled, fl) ? __fadd_rn(fl, 1.0f) : fl;
+    q[i] = static_cast<int8_t>(fminf(fmaxf(r, -127.0f), 127.0f));
+  }
+  if (t == 0) scales[blockIdx.x] = s;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 dequantize_kernel(const int8_t* __restrict__ q,
@@ -129,6 +179,29 @@ extern "C" int hvd_quantize_int8(const void* x, int x_dtype, long long n,
   } else if (x_dtype == kBF16) {
     quantize_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x), n, qp, sp);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hvd_quantize_int8_stochastic(const void* x, int x_dtype,
+                                            long long n, const void* u,
+                                            void* q, void* scales,
+                                            long long nblocks,
+                                            void* stream) {
+  if (nblocks <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* up = static_cast<const float*>(u);
+  int8_t* qp = static_cast<int8_t*>(q);
+  float* sp = static_cast<float*>(scales);
+  const dim3 grid(static_cast<unsigned>(nblocks));
+  if (x_dtype == kF32) {
+    quantize_stochastic_kernel<float><<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(x), n, up, qp, sp);
+  } else if (x_dtype == kBF16) {
+    quantize_stochastic_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), n, up, qp, sp);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,27 +1,48 @@
 """Collective primitives of the port over ``torch.distributed`` — the
-subset of ``horovod_tpu/ops/collectives.py`` the training slice needs.
+subset of ``horovod_tpu/ops/collectives.py`` the training slices need.
 
 The JAX functions reduce over a mesh axis inside a traced program; here
 every call is an eager collective over the default process group that
-``common.basics.init()`` set up (NCCL on the card, gloo on the CPU).
-Results are new tensors unless a name ends in ``_`` (in place).
+``common.basics.init()`` set up (NCCL on the card, gloo on the CPU or
+with ``init(backend="gloo")``). Results are new tensors unless a name
+ends in ``_`` (in place).
 
 Ported: ``ReduceOp`` and its aliases, ``allreduce`` (SUM, AVERAGE, MIN,
-MAX, with pre/postscale), ``grouped_allreduce``, ``allreduce_async_``,
-``allgather``, ``broadcast``/``broadcast_`` and ``barrier``. PRODUCT,
-ADASUM, the quantized and the hierarchical/mesh-routed reductions come
-with later slices and raise ``NotImplementedError``.
+MAX and ADASUM, with pre/postscale), ``grouped_allreduce``,
+``allreduce_async_``, ``allgather``, ``broadcast``/``broadcast_``,
+``barrier``, and the reduce-safe quantized reduction
+(``quantized_reducescatter``, ``quantized_allreduce``: int8 on every hop
+through K2 or K3, K4's format, the documented error bound and the
+error-feedback residual). PRODUCT and the hierarchical/mesh-routed
+reductions come with later slices and raise ``NotImplementedError``.
+
+Every collective here is one that gloo also runs on CUDA tensors
+(staging them through host memory): ``all_reduce``, ``broadcast``,
+``all_gather`` (the list form) and ``all_to_all_single``. A pairwise
+exchange (:func:`pair_exchange`) is an ``all_to_all_single`` whose split
+sizes are zero except toward the partner, since gloo's ``send``/``recv``
+do not take CUDA tensors. The same calls run over NCCL when each rank
+has its own GPU.
+
+Stochastic rounding keys are tuples of ints (the JAX package's
+``jax.random`` keys): :func:`fold_in` appends one, and the thresholds of
+a quantization are ``torch.rand`` draws from a generator seeded by a hash
+of the key, so every rank draws the same ``u`` for the same key, as
+every SPMD rank of the JAX package does. The draws differ from
+``jax.random``'s.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import List, Optional, Sequence
+import hashlib
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from ..common import basics
+from . import kernels
 
 
 class ReduceOp(enum.IntEnum):
@@ -70,10 +91,13 @@ def _divide_by_size(y: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _reduce_in_place(x: torch.Tensor, op: ReduceOp, async_op: bool):
-    if op in (ReduceOp.PRODUCT, ReduceOp.ADASUM):
+    if op == ReduceOp.PRODUCT:
         raise NotImplementedError(
-            f"{op.name} reductions are not ported yet (Adasum comes with "
-            "its own slice of the port, with the K8/K9 kernels)")
+            "PRODUCT reductions are not ported yet; they come with the "
+            "eager-engine slice of the port")
+    if op == ReduceOp.ADASUM:
+        raise ValueError("Adasum is no in-place sum: call allreduce(x, "
+                         "op=Adasum)")
     dist_op = _DIST_OP.get(ReduceOp.SUM if op == ReduceOp.AVERAGE else op)
     if dist_op is None:
         raise ValueError(f"unsupported reduce op: {op}")
@@ -84,10 +108,17 @@ def allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
               prescale_factor: float = 1.0,
               postscale_factor: float = 1.0) -> torch.Tensor:
     """Allreduce of ``x`` across all ranks; returns a new tensor.
-    AVERAGE is a SUM followed by an exact division by the world size."""
+    AVERAGE is a SUM followed by an exact division by the world size;
+    ADASUM is ``adasum.adasum_allreduce`` with the configured scalar
+    dtype (``HVD_TPU_ADASUM_SCALAR_DTYPE``)."""
     op = ReduceOp(op)
     n = basics.size()
     y = _apply_scale(x, prescale_factor)
+    if op == ReduceOp.ADASUM:
+        from . import adasum as adasum_lib
+
+        y = adasum_lib.adasum_allreduce(y)
+        return _apply_scale(x.clone() if y is x else y, postscale_factor)
     if y is x:
         y = x.clone()
     _reduce_in_place(y, op, async_op=False)
@@ -150,3 +181,186 @@ def barrier() -> None:
     """Block until every rank has reached this call."""
     basics.context()
     dist.barrier()
+
+
+# -- exchanges ----------------------------------------------------------------
+
+def all_to_all(x: torch.Tensor) -> torch.Tensor:
+    """Rank ``j`` receives block ``j`` of every rank's ``x`` (blocks along
+    dim 0, one per rank), stacked in rank order."""
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous())
+    return out
+
+
+def all_gather_stack(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``x`` stacked along a new leading dim, in rank order
+    (the list form of ``all_gather``, which gloo runs on CUDA tensors)."""
+    parts = [torch.empty_like(x) for _ in range(basics.size())]
+    dist.all_gather(parts, x.contiguous())
+    return torch.stack(parts)
+
+
+def pair_exchange(x: torch.Tensor, partner: int) -> torch.Tensor:
+    """``partner``'s ``x`` (same shape and dtype on both sides), while
+    ``partner`` receives this rank's: an ``all_to_all_single`` with every
+    split zero but the partner's. Every rank of the world must call it in
+    the same step (each with its own partner)."""
+    n = basics.size()
+    flat = x.contiguous().reshape(-1)
+    splits = [0] * n
+    splits[partner] = flat.numel()
+    out = torch.empty_like(flat)
+    dist.all_to_all_single(out, flat, output_split_sizes=splits,
+                           input_split_sizes=splits)
+    return out.reshape(x.shape)
+
+
+# -- stochastic-rounding keys -------------------------------------------------
+
+def fold_in(key: Tuple[int, ...], data: int) -> Tuple[int, ...]:
+    """A new key from ``key`` and ``data`` (``jax.random.fold_in``)."""
+    return tuple(int(k) for k in key) + (int(data),)
+
+
+def uniform(key: Tuple[int, ...], rows: int,
+            device: torch.device) -> torch.Tensor:
+    """``(rows, 128)`` fp32 draws in [0, 1) from a generator seeded by
+    ``key``: the same on every rank for the same key."""
+    digest = hashlib.blake2b(repr(tuple(int(k) for k in key)).encode(),
+                             digest_size=8).digest()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int.from_bytes(digest, "little") & (2 ** 63 - 1))
+    return torch.rand((rows, 128), generator=gen, device=device,
+                      dtype=torch.float32)
+
+
+# -- reduce-safe quantized allreduce ------------------------------------------
+#
+# The JAX package's EQuARX decomposition (collectives.py:562-749): an int8
+# payload cannot ride a sum (per-block scales do not commute with it), so
+# the allreduce becomes an int8 reduce-scatter (an all_to_all of the
+# quantized chunks with their scales), an fp32 dequantize-and-sum of the
+# chunk each rank owns, a requantization of that chunk and an all-gather
+# of the int8 result.
+
+_Q_BLOCK = kernels.BLOCK
+
+
+def _quantize(flat: torch.Tensor, key):
+    """K2 (``key=None``, round to nearest) or K3 (stochastic, thresholds
+    drawn from ``key``) of a flat fp32 buffer."""
+    if key is None:
+        return kernels.quantize_int8(flat)
+    rows = kernels.stochastic_rows(flat.numel())
+    return kernels.quantize_int8_stochastic(
+        flat, uniform(key, rows, flat.device))
+
+
+def _int8_chunks(flat_pad: torch.Tensor, n: int, key):
+    """Quantize a (n*chunk,) fp32 buffer, chunk % 4096 == 0, into per-rank
+    stacks: q (n, rows, 128) int8 and scales (n, nblocks) fp32."""
+    q, s, _ = _quantize(flat_pad, key)
+    chunk = flat_pad.shape[0] // n
+    return (q.reshape(n, chunk // 128, 128),
+            s.reshape(n, chunk // _Q_BLOCK))
+
+
+def _deq(q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Dequantize a stacked (..., rows, 128) int8 and (..., nblocks) scale
+    pair to fp32 of shape (..., nblocks * 4096): plain torch, as the JAX
+    package's ``_deq`` is plain jnp."""
+    nb = s.shape[-1]
+    lead = tuple(q.shape[:-2])
+    blocks = q.reshape(lead + (nb, _Q_BLOCK)).to(torch.float32)
+    return (blocks * s[..., None]).reshape(lead + (nb * _Q_BLOCK,))
+
+
+def quantized_reducescatter(x: torch.Tensor, op: ReduceOp = ReduceOp.SUM,
+                            key=None, return_residual: bool = False):
+    """Reduce-scatter of a flat buffer with an int8 payload on the wire.
+
+    ``x`` is 1-D with ``x.shape[0] % (n * 4096) == 0`` (zero-pad: pads
+    quantize to exact 0). Returns this rank's reduced chunk of
+    ``x.shape[0] // n`` elements in ``x.dtype``; with
+    ``return_residual=True`` also the full-length fp32 local quantization
+    error ``x - dequant(quant(x))``."""
+    op = ReduceOp(op)
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError("quantized reducescatter supports SUM/AVERAGE")
+    n = basics.size()
+    if x.dim() != 1 or x.shape[0] % (n * _Q_BLOCK):
+        raise ValueError(
+            f"quantized_reducescatter needs a 1-D buffer with length "
+            f"divisible by n*4096 = {n * _Q_BLOCK}; got {tuple(x.shape)} "
+            "(zero-pad — pads quantize to exact 0)")
+    flat = x.to(torch.float32)
+    q, s = _int8_chunks(flat, n, key)
+    if n == 1:
+        own = _deq(q[0], s[0])
+    else:
+        own = _deq(all_to_all(q), all_to_all(s)).sum(dim=0)
+    if op == ReduceOp.AVERAGE:
+        own = _divide_by_size(own, n)
+    if not return_residual:
+        return own.to(x.dtype)
+    return own.to(x.dtype), flat - _deq(q, s).reshape(flat.shape)
+
+
+def quantized_allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
+                        key=None, return_residual: bool = False):
+    """Reduce-safe quantized allreduce: block-scaled int8 on every hop.
+
+    Flatten and zero-pad ``x`` so it splits into ``n`` block-aligned
+    chunks, quantize (stochastically from ``fold_in(key, 0)`` when a key
+    is given), reduce-scatter the int8 chunks (:func:`
+    quantized_reducescatter`), requantize the reduced chunk (from
+    ``fold_in(key, 1)``), all-gather the int8 chunks and scales,
+    dequantize, unpad and reshape.
+
+    Error bound (the JAX package's): each element differs from the exact
+    fp32 sum by at most ``r * (sum over ranks of s_rank + s_reduced)``,
+    ``s`` the per-block scales absmax/127, ``r = 1/2`` round to nearest
+    (``key=None``) and ``r = 1`` stochastic; divide by ``n`` for AVERAGE.
+
+    ``return_residual=True`` also returns the fp32 local error (this
+    rank's contribution rounding over the whole buffer, plus the
+    requantization error of the chunk it owns) for error feedback. At
+    ``n == 1`` nothing is quantized: the result is ``x`` and the residual
+    zero."""
+    op = ReduceOp(op)
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError("quantized allreduce supports SUM/AVERAGE "
+                         "(per-block scales only compose with linear "
+                         "reductions)")
+    n = basics.size()
+    if n == 1:
+        # No wire at all — quantizing would add pure rounding loss.
+        y = x.clone()
+        if return_residual:
+            return y, torch.zeros(x.shape, dtype=torch.float32,
+                                  device=x.device)
+        return y
+    size = x.numel()
+    chunk = -(-size // (n * _Q_BLOCK)) * _Q_BLOCK
+    flat = torch.zeros(n * chunk, dtype=torch.float32, device=x.device)
+    flat[:size] = x.reshape(-1)
+    kc = None if key is None else fold_in(key, 0)
+    rs = quantized_reducescatter(flat, ReduceOp.SUM, key=kc,
+                                 return_residual=return_residual)
+    own, residual = rs if return_residual else (rs, None)
+    kr = None if key is None else fold_in(key, 1)
+    qr, sr = _int8_chunks(own, 1, kr)
+    red = _deq(all_gather_stack(qr[0]), all_gather_stack(sr[0]))
+    y = red.reshape(-1)[:size].reshape(x.shape)
+    if op == ReduceOp.AVERAGE:
+        y = _divide_by_size(y, n)
+    y = y.to(x.dtype)
+    if not return_residual:
+        return y
+    # The requantize error of the owned chunk joins this rank's residual:
+    # residuals are summed across ranks through the next step's
+    # reduction, so the owner carrying it corrects the sum just the same.
+    me = basics.rank()
+    residual[me * chunk:(me + 1) * chunk] += own - _deq(qr[0], sr[0])
+    return y, residual[:size].reshape(x.shape)

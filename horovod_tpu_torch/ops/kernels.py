@@ -8,6 +8,19 @@ return contracts of ``horovod_tpu/ops/pallas_kernels.py``
 4096-element block, round half to even, codes clipped to +-127, ``q``
 laid out as ``(rows, 128)`` int8 with ``rows`` a multiple of 32.
 
+K3 ``quantize_int8_stochastic`` is K2 with unbiased stochastic rounding,
+the quantizer of the int8 gradient wire (``collectives.
+quantized_allreduce``): the same block scale, then ``floor(x/s) + (u <
+frac)`` against fp32 thresholds ``u`` that the caller draws outside the
+kernel, so kernel and plain version agree bit for bit given the same
+``u``.
+
+K8 ``adasum_dot_norms`` and K9 ``adasum_combine`` are the two passes of
+the pairwise Adasum combine (``ops/adasum.py``): ``[a.b, |a|^2, |b|^2]``
+in fp32, then ``a * ca + b * cb`` with the coefficients derived from
+those three scalars in the kernel. Both are symmetric in (a, b) to the
+bit, so the two partners of an Adasum pair hold equal results.
+
 K5 ``flash_fwd``, K6 ``flash_bwd_dq`` and K7 ``flash_bwd_dkv`` are the
 flash-attention forward and backward of the training path
 (``ops/flash_attention.py`` wraps them in a ``torch.autograd.Function``).
@@ -58,8 +71,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: nowhere else (the plain CPU path never counts). ``chip_smoke.py``
 #: zeroes these before the main path and reads them after it.
 LAUNCHES: Dict[str, int] = {"quantize_int8": 0, "dequantize_int8": 0,
+                            "quantize_int8_stochastic": 0,
                             "flash_fwd": 0, "flash_bwd_dq": 0,
-                            "flash_bwd_dkv": 0}
+                            "flash_bwd_dkv": 0, "adasum_dot_norms": 0,
+                            "adasum_combine": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -70,9 +85,15 @@ _SIGNATURES = {
     "int8_codec.cu": {
         "hvd_quantize_int8": ([_P, _I, _LL, _P, _P, _LL, _P], _I),
         "hvd_dequantize_int8": ([_P, _P, _LL, _LL, _P, _I, _P], _I),
+        "hvd_quantize_int8_stochastic": ([_P, _I, _LL, _P, _P, _P, _LL, _P],
+                                         _I),
     },
     "flash_attention.cu": {
         "hvd_flash_attention": ([_I] * 7 + [_F] + [_P] * 13, _I),
+    },
+    "adasum.cu": {
+        "hvd_adasum_dot_norms": ([_P, _P, _I, _LL, _P, _I, _P, _P], _I),
+        "hvd_adasum_combine": ([_P, _P, _I, _LL, _P, _F, _P, _P], _I),
     },
 }
 SOURCES: Tuple[str, ...] = tuple(_SIGNATURES)
@@ -168,9 +189,9 @@ def _check_float(x: torch.Tensor, what: str) -> None:
 
 # -- K2: quantize_int8 ------------------------------------------------------------
 
-def _quantize_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
-                                               int]:
-    """Plain PyTorch K2: the JAX fallback's arithmetic, op for op."""
+def _blocks_and_scales(x: torch.Tensor):
+    """``x`` as zero-padded fp32 (nblocks, 4096) blocks and their scales
+    ``max(absmax, 1e-30) / 127`` — the JAX fallback's arithmetic."""
     n = x.numel()
     rows = _rows(n)
     flat = torch.zeros(rows * _LANES, dtype=torch.float32, device=x.device)
@@ -181,9 +202,15 @@ def _quantize_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
     # turns division by a scalar into multiplication by its reciprocal,
     # which is 1 ulp off the IEEE quotient the kernel and the JAX
     # fallback compute for some blocks.
-    scales = absmax / torch.full_like(absmax, 127.0)
+    return blocks, absmax / torch.full_like(absmax, 127.0)
+
+
+def _quantize_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                               int]:
+    """Plain PyTorch K2: the JAX fallback's arithmetic, op for op."""
+    blocks, scales = _blocks_and_scales(x)
     q = torch.clamp(torch.round(blocks / scales[:, None]), -127, 127)
-    return q.to(torch.int8).reshape(rows, _LANES), scales, n
+    return q.to(torch.int8).reshape(-1, _LANES), scales, x.numel()
 
 
 def quantize_int8(x: torch.Tensor):
@@ -208,6 +235,59 @@ def quantize_int8(x: torch.Tensor):
     _check_launch("quantize_int8", err)
     if nblocks:
         LAUNCHES["quantize_int8"] += 1
+    return q, scales, n
+
+
+# -- K3: quantize_int8_stochastic -----------------------------------------
+
+def _quantize_stochastic_plain(x: torch.Tensor, u: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Plain PyTorch K3: the JAX fallback's arithmetic, op for op."""
+    blocks, scales = _blocks_and_scales(x)
+    scaled = blocks / scales[:, None]
+    fl = torch.floor(scaled)
+    q = fl + (u.reshape(blocks.shape) < (scaled - fl)).to(torch.float32)
+    q = torch.clamp(q, -127, 127)
+    return q.to(torch.int8).reshape(-1, _LANES), scales, x.numel()
+
+
+def stochastic_rows(n: int) -> int:
+    """Rows of the ``(rows, 128)`` fp32 thresholds ``u`` that
+    :func:`quantize_int8_stochastic` takes for ``n`` elements."""
+    return _rows(n)
+
+
+def quantize_int8_stochastic(x: torch.Tensor, u: torch.Tensor):
+    """Block-scaled int8 quantization with unbiased stochastic rounding.
+    ``u`` holds one fp32 threshold in [0, 1) per element of the padded
+    layout, shape ``(stochastic_rows(n), 128)``, on ``x``'s device: an
+    element rounds up where ``u`` is below its fractional part. Returns
+    ``(q, scales, n)`` as :func:`quantize_int8` does."""
+    _check_float(x, "quantize_int8_stochastic")
+    n = x.numel()
+    rows = _rows(n)
+    if u.dtype != torch.float32 or u.numel() != rows * _LANES:
+        raise ValueError(f"quantize_int8_stochastic: u must be float32 with "
+                         f"{rows} x {_LANES} elements, got {u.dtype} "
+                         f"{tuple(u.shape)}")
+    if x.device.type == "cpu" and u.device.type == "cpu":
+        return _quantize_stochastic_plain(x, u)
+    if x.device.type != "cuda" or u.device != x.device:
+        raise ValueError("quantize_int8_stochastic: x and u must be on one "
+                         f"CUDA device (or both on the CPU), got {x.device} "
+                         f"/ {u.device}")
+    if not (x.is_contiguous() and u.is_contiguous()):
+        raise ValueError("quantize_int8_stochastic: inputs must be "
+                         "contiguous")
+    nblocks = rows // _Q_ROWS
+    q = torch.empty((rows, _LANES), dtype=torch.int8, device=x.device)
+    scales = torch.empty((nblocks,), dtype=torch.float32, device=x.device)
+    err = _load("int8_codec.cu").hvd_quantize_int8_stochastic(
+        x.data_ptr(), _DTYPE_CODE[x.dtype], n, u.data_ptr(), q.data_ptr(),
+        scales.data_ptr(), nblocks, _stream(x))
+    _check_launch("quantize_int8_stochastic", err)
+    if nblocks:
+        LAUNCHES["quantize_int8_stochastic"] += 1
     return q, scales, n
 
 
@@ -258,6 +338,113 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, n: int, shape,
     _check_launch("dequantize_int8", err)
     if nblocks:
         LAUNCHES["dequantize_int8"] += 1
+    return out
+
+
+# -- K8/K9: the Adasum combine ------------------------------------------------
+
+ADASUM_EPS = 1e-30
+_DOT_NORMS_MAX_PARTS = 1024         # CTAs of K8's first pass, at most
+
+
+def _dot_norms_parts(n: int) -> int:
+    """CTAs of K8's first pass: a function of ``n`` alone, so the sum's
+    order (and its bits) never depend on anything else."""
+    return max(1, min(-(-n // (256 * 16)), _DOT_NORMS_MAX_PARTS))
+
+
+def _check_pair(what: str, a: torch.Tensor, b: torch.Tensor) -> str:
+    """Dtype, shape and device checks of K8/K9; returns ``"cpu"`` or
+    ``"cuda"``."""
+    _check_float(a, what)
+    if b.dtype != a.dtype:
+        raise TypeError(f"{what}: a and b dtypes differ ({a.dtype}, "
+                        f"{b.dtype})")
+    if a.shape != b.shape:
+        raise ValueError(f"{what}: a and b shapes differ "
+                         f"({tuple(a.shape)}, {tuple(b.shape)})")
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return "cpu"
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"{what}: a and b must be on one CUDA device (or "
+                         f"both on the CPU), got {a.device} / {b.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    return "cuda"
+
+
+def _adasum_dot_norms_plain(a: torch.Tensor, b: torch.Tensor
+                            ) -> torch.Tensor:
+    """Plain PyTorch K8: three fp32 dot products."""
+    af = a.reshape(-1).to(torch.float32)
+    bf = b.reshape(-1).to(torch.float32)
+    return torch.stack([torch.dot(af, bf), torch.dot(af, af),
+                        torch.dot(bf, bf)])
+
+
+def adasum_dot_norms(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K8: ``[a.b, |a|^2, |b|^2]`` as a (3,) fp32 tensor on a's device,
+    summed in fp32 in an order fixed by the element count."""
+    if _check_pair("adasum_dot_norms", a, b) == "cpu":
+        return _adasum_dot_norms_plain(a, b)
+    n = a.numel()
+    out = torch.zeros((3,), dtype=torch.float32, device=a.device)
+    if n == 0:
+        return out
+    parts = _dot_norms_parts(n)
+    scratch = torch.empty((3 * parts,), dtype=torch.float32,
+                          device=a.device)
+    err = _load("adasum.cu").hvd_adasum_dot_norms(
+        a.data_ptr(), b.data_ptr(), _DTYPE_CODE[a.dtype], n,
+        scratch.data_ptr(), parts, out.data_ptr(), _stream(a))
+    _check_launch("adasum_dot_norms", err)
+    LAUNCHES["adasum_dot_norms"] += 1
+    return out
+
+
+def _adasum_coefficient(dot: torch.Tensor, nrm2: torch.Tensor,
+                        eps: float) -> torch.Tensor:
+    """``1 - dot / max(2 |x|^2, eps)``, or 1 where ``|x|^2 = 0``."""
+    return torch.where(nrm2 > 0, 1.0 - dot / torch.clamp(2.0 * nrm2,
+                                                         min=eps),
+                       torch.ones_like(nrm2))
+
+
+def _adasum_combine_plain(a: torch.Tensor, b: torch.Tensor,
+                          dn: torch.Tensor, eps: float = ADASUM_EPS
+                          ) -> torch.Tensor:
+    """Plain PyTorch K9: the coefficients, then ``a * ca``, ``b * cb``
+    and their sum as three separate fp32 ops, cast to a's dtype."""
+    dn = dn.to(torch.float32)
+    ca = _adasum_coefficient(dn[0], dn[1], eps)
+    cb = _adasum_coefficient(dn[0], dn[2], eps)
+    out = a.to(torch.float32) * ca + b.to(torch.float32) * cb
+    return out.to(a.dtype)
+
+
+def adasum_combine(a: torch.Tensor, b: torch.Tensor, dn: torch.Tensor,
+                   eps: float = ADASUM_EPS) -> torch.Tensor:
+    """K9: ``a * ca + b * cb`` in a's dtype and shape, with ``ca = 1 -
+    dot / max(2 |a|^2, eps)`` (1 when ``|a|^2 = 0``) and ``cb`` the same
+    with ``|b|^2``; ``dn`` is K8's ``[a.b, |a|^2, |b|^2]``."""
+    if _check_pair("adasum_combine", a, b) == "cpu":
+        if dn.device.type != "cpu":
+            raise ValueError("adasum_combine: dn must be on the CPU with "
+                             "a and b")
+        return _adasum_combine_plain(a, b, dn, eps)
+    if dn.numel() != 3 or dn.device != a.device:
+        raise ValueError(f"adasum_combine: dn must hold 3 values on "
+                         f"{a.device}, got {tuple(dn.shape)} on {dn.device}")
+    dn = dn.to(torch.float32).contiguous()
+    out = torch.empty(a.shape, dtype=a.dtype, device=a.device)
+    n = a.numel()
+    if n == 0:
+        return out
+    err = _load("adasum.cu").hvd_adasum_combine(
+        a.data_ptr(), b.data_ptr(), _DTYPE_CODE[a.dtype], n, dn.data_ptr(),
+        eps, out.data_ptr(), _stream(a))
+    _check_launch("adasum_combine", err)
+    LAUNCHES["adasum_combine"] += 1
     return out
 
 

@@ -23,14 +23,40 @@ the handles, divides, postscales, decompresses and unfuses into each
 Neither the plan's order nor its bucketing changes the result: every
 element is the same sum.
 
+``compression="int8_ef"`` (``horovod_tpu/optim.py`` ``_reduce_tree_ef``):
+the plan is stamped with ``fusion.assign_wire_dtypes``. A float bucket
+of at least ``quantize_min_bucket_bytes`` reduces ``g + residual``
+through ``collectives.quantized_allreduce`` with the stochastic-rounding
+key ``(0x5EED, step, bucket)`` (the same on every rank) and keeps the
+returned local quantization error as its next residual; a smaller fp32
+bucket rides bf16 with no residual; an integer bucket rides as it is.
+An int8 bucket's reduction takes several hops (quantize, all_to_all,
+dequantize and sum, requantize, all_gather), so it is fused when its
+last gradient lands but reduced when ``synchronize()`` reaches it, not
+overlapped with backprop as the other buckets are. The residual is one
+fp32 flat buffer per int8 bucket, kept on the wrapper (it is not in the
+optimizer's ``state_dict``, so a checkpoint does not carry it), and the
+step counter advances once per reduction round, i.e. once per
+``step()``.
+
+``op=Adasum`` grafts the delta-based mixin instead, as the JAX package's
+PyTorch surface does (``horovod_tpu/torch/__init__.py``
+``_DistributedAdasumMixin``): ``step()`` runs the base optimizer
+locally, takes each parameter's delta, rolls the weights back and
+applies the Adasum of the deltas (``ops/adasum.py``), one tensor at a
+time, so one tensor's coefficients never mix with another's. Adasum is
+not linear, so with ``int8_ef`` the deltas ride uncompressed; with
+``bf16`` they ride the bf16 wire.
+
 Not ported yet (they raise ``NotImplementedError`` naming their slice):
-``op=Adasum``, ``nonfinite_policy``, ``route``, ``zero_stage``,
-``accum_steps``, process sets, int8 compression.
+``nonfinite_policy``, ``route``, ``zero_stage``, ``accum_steps``,
+process sets.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -38,8 +64,25 @@ import torch.distributed as dist
 
 from .common import basics
 from .common import fusion as fusion_lib
+from .common import metrics as metrics_lib
+from .ops import adasum as adasum_lib
 from .ops import collectives as C
-from .ops.compression import Compression, Compressor
+from .ops.compression import (BF16Compressor, Compression, Compressor,
+                              NoneCompressor, _check_reduce_safe)
+
+_M_EF_NORM = metrics_lib.gauge(
+    "hvd_tpu_ef_residual_norm",
+    "global L2 norm of the error-feedback quantization residual "
+    "(observe_ef_residual)")
+
+# Base seed of the stochastic rounding: bucket i at step t rounds with the
+# key (_EF_SEED, t, i), the same on every rank and on every rerun.
+_EF_SEED = 0x5EED
+
+
+def _ef_key(step: int, bucket_index: int):
+    """The stochastic-rounding key of one bucket at one step."""
+    return (_EF_SEED, int(step), int(bucket_index))
 
 _UNPORTED = {
     "nonfinite_policy": "the integrity-guard slice",
@@ -64,7 +107,7 @@ class _DistributedOptimizerMixin:
     """Methods grafted onto the user's optimizer class."""
 
     def _dist_init(self, base_cls, named_parameters, op, k, compression,
-                   predivide, threshold):
+                   predivide, threshold, quantize_min_bytes):
         self._base_cls = base_cls
         self.op = op
         self._compression = compression
@@ -80,6 +123,15 @@ class _DistributedOptimizerMixin:
             self._dist_names = {id(p): n for n, p in named_parameters}
         self._dist_plan = fusion_lib.plan_fusion(
             self._dist_params, threshold, order=fusion_lib.ORDER_REVERSE)
+        #: Error feedback (``int8_ef``): per-bucket wires, the residual of
+        #: every int8 bucket (one fp32 flat buffer, made at first use) and
+        #: the step counter of the stochastic-rounding keys.
+        self._ef = getattr(compression, "error_feedback", False)
+        if self._ef:
+            self._dist_plan = fusion_lib.assign_wire_dtypes(
+                self._dist_plan, quantize_min_bytes)
+        self._ef_residual: Dict[int, torch.Tensor] = {}
+        self._ef_step = 0
         self._bucket_of = {}
         for bi, bucket in enumerate(self._dist_plan.buckets):
             for i in bucket.leaf_indices:
@@ -116,8 +168,20 @@ class _DistributedOptimizerMixin:
             if self._dist_pending[bi] == 0:
                 self._launch(bi)
 
+    def _wire_compressor(self, bi: int):
+        """The compressor bucket ``bi`` rides: the user's, or under
+        ``int8_ef`` bf16 for a small float bucket and none for the rest
+        (an int8 bucket is reduced by :meth:`_reduce_int8` instead)."""
+        if not self._ef:
+            return self._compression
+        wire = self._dist_plan.wire_dtypes[bi]
+        return BF16Compressor if wire == fusion_lib.WIRE_BF16 \
+            else NoneCompressor
+
     def _launch(self, bi: int) -> None:
-        """Fuse, compress, prescale and issue bucket ``bi``'s SUM."""
+        """Fuse, compress, prescale and issue bucket ``bi``'s SUM; an
+        int8_ef bucket is only fused here and reduced at
+        :meth:`synchronize`."""
         bucket = self._dist_plan.buckets[bi]
         grads = {}
         for i in bucket.leaf_indices:
@@ -130,13 +194,37 @@ class _DistributedOptimizerMixin:
                                  "gradient; sparse gradients are not "
                                  "ported yet")
             grads[i] = p.grad
-        wire, ctx = self._compression.compress(
-            fusion_lib.fuse_bucket(grads, bucket))
+        flat = fusion_lib.fuse_bucket(grads, bucket)
+        self.bucket_allreduces += 1
+        if self._ef and \
+                self._dist_plan.wire_dtypes[bi] == fusion_lib.WIRE_INT8:
+            self._dist_inflight[bi] = (None, flat, None)
+            return
+        wire, ctx = self._wire_compressor(bi).compress(flat)
         if self._predivide != 1.0:
             wire = C._apply_scale(wire, 1.0 / self._predivide)
         work = C.allreduce_async_(wire, C.Sum)
         self._dist_inflight[bi] = (work, wire, ctx)
-        self.bucket_allreduces += 1
+
+    def _reduce_int8(self, bi: int, flat: torch.Tensor) -> torch.Tensor:
+        """The error-feedback quantized reduction of bucket ``bi``: reduce
+        ``g + residual`` through ``quantized_allreduce`` and keep its local
+        error as the next residual (in unscaled gradient units)."""
+        res = self._ef_residual.get(bi)
+        corrected = flat.to(torch.float32)
+        if res is not None:
+            corrected = corrected + res
+        op, post = self.op, 1.0
+        if self._predivide != 1.0:
+            corrected = corrected * (1.0 / self._predivide)
+            op, post = C.Sum, self._predivide / basics.size()
+        y, res = C.quantized_allreduce(corrected, op,
+                                       key=_ef_key(self._ef_step, bi),
+                                       return_residual=True)
+        if self._predivide != 1.0:
+            res = res * self._predivide
+        self._ef_residual[bi] = res
+        return C._apply_scale(y, post).to(flat.dtype)
 
     def synchronize(self) -> None:
         """Reduce every bucket not yet issued (a parameter mid-aggregation
@@ -150,19 +238,24 @@ class _DistributedOptimizerMixin:
         n = basics.size()
         for bi in sorted(self._dist_inflight):
             work, wire, ctx = self._dist_inflight[bi]
-            work.wait()
-            if self.op == C.Average:
-                if self._predivide != 1.0:
-                    wire = C._apply_scale(wire, self._predivide / n)
-                else:
-                    wire = C._divide_by_size(wire, n)
-            flat = self._compression.decompress(wire, ctx)
+            if work is None:
+                flat = self._reduce_int8(bi, wire)
+            else:
+                work.wait()
+                if self.op == C.Average:
+                    if self._predivide != 1.0:
+                        wire = C._apply_scale(wire, self._predivide / n)
+                    else:
+                        wire = C._divide_by_size(wire, n)
+                flat = self._wire_compressor(bi).decompress(wire, ctx)
             for i, view in fusion_lib.unfuse_bucket(
                     flat, self._dist_plan.buckets[bi]):
                 self._dist_params[i].grad.copy_(view)
         self._dist_inflight.clear()
         self._reset_counts()
         self._dist_dirty = False
+        if self._ef:
+            self._ef_step += 1
 
     def skip_synchronize(self):
         """Context manager: ``step()`` without synchronizing (after an
@@ -192,6 +285,46 @@ class _DistributedOptimizerMixin:
         return self._base_cls.zero_grad(self, set_to_none=set_to_none)
 
 
+class _DistributedAdasumMixin:
+    """Delta-based Adasum methods grafted onto the user's optimizer class
+    (the JAX package's torch surface, ``_DistributedAdasumMixin``)."""
+
+    def _dist_init(self, base_cls, named_parameters, wire):
+        self._base_cls = base_cls
+        self._adasum_wire = wire
+        self._dist_names = {}
+        if named_parameters is not None:
+            self._dist_names = {id(p): n for n, p in named_parameters}
+        #: Per-tensor Adasum reductions run so far.
+        self.adasum_reductions = 0
+
+    def step(self, closure=None):
+        """The base optimizer's step on the local gradients, then every
+        parameter's delta replaced by the Adasum of all ranks' deltas."""
+        params = [p for group in self.param_groups for p in group["params"]]
+        with torch.no_grad():
+            before = [p.detach().clone() for p in params]
+        result = self._base_cls.step(self, closure)
+        with torch.no_grad():
+            for p, b in zip(params, before):
+                reduced = adasum_lib.adasum_allreduce(
+                    p.detach() - b, wire=self._adasum_wire)
+                p.copy_(b + reduced)
+                self.adasum_reductions += 1
+        return result
+
+
+def _graft(optimizer: torch.optim.Optimizer, mixin) -> Any:
+    """An instance of a dynamic subclass of the user's optimizer class
+    with ``mixin``'s methods, sharing the optimizer's ``__dict__``."""
+    cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
+               {k_: v for k_, v in mixin.__dict__.items()
+                if not k_.startswith("__")})
+    obj = cls.__new__(cls)
+    obj.__dict__.update(optimizer.__dict__)  # share param_groups + state
+    return obj
+
+
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          named_parameters=None,
                          compression=None,
@@ -199,19 +332,25 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          op: C.ReduceOp = C.Average,
                          gradient_predivide_factor: float = 1.0,
                          fusion_threshold_bytes: Optional[int] = None,
+                         quantize_min_bucket_bytes: Optional[int] = None,
                          process_set=None,
                          **unported):
     """Wrap ``optimizer`` so ``step()`` first averages (``op=Average``) or
-    sums (``op=Sum``) the gradients across ranks, in fused buckets.
+    sums (``op=Sum``) the gradients across ranks, in fused buckets, or
+    (``op=Adasum``) reduces the optimizer's per-parameter deltas by
+    Adasum.
 
     ``compression`` is None (``HVD_TPU_COMPRESSION``, default none),
-    ``"none"``/``"fp16"``/``"bf16"`` or a Compressor class.
+    ``"none"``/``"fp16"``/``"bf16"``/``"int8_ef"`` or a Compressor class;
+    ``"int8"`` is a wire format that cannot ride a sum and raises.
     ``backward_passes_per_step=k`` accumulates k local backward passes
-    (summed in ``p.grad``, as PyTorch accumulates) before the reduction.
-    ``gradient_predivide_factor`` f splits the average around the sum
-    (1/f before, f/n after) and requires ``op=Average``.
+    (summed in ``p.grad``, as PyTorch accumulates) before the reduction
+    (not with Adasum). ``gradient_predivide_factor`` f splits the average
+    around the sum (1/f before, f/n after) and requires ``op=Average``.
     ``fusion_threshold_bytes`` defaults to the ``init()`` setting
-    (``HVD_TPU_FUSION_THRESHOLD``, 64 MiB)."""
+    (``HVD_TPU_FUSION_THRESHOLD``, 64 MiB), ``quantize_min_bucket_bytes``
+    (the smallest bucket ``int8_ef`` quantizes) likewise
+    (``HVD_TPU_QUANTIZE_MIN_BYTES``, 64 KiB)."""
     for key in unported:
         if key not in _UNPORTED:
             raise TypeError(f"DistributedOptimizer() got an unexpected "
@@ -220,13 +359,9 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                                   f"ported yet; it comes with "
                                   f"{_UNPORTED[key]} of the port")
     op = C.ReduceOp(op)
-    if op == C.Adasum:
-        raise NotImplementedError("op=Adasum is not ported yet; it comes "
-                                  "with the Adasum slice of the port "
-                                  "(kernels K8/K9)")
-    if op not in (C.Average, C.Sum):
+    if op not in (C.Average, C.Sum, C.Adasum):
         raise ValueError(f"DistributedOptimizer reduces gradients with "
-                         f"Average or Sum, got {op.name}")
+                         f"Average, Sum or Adasum, got {op.name}")
     if gradient_predivide_factor != 1.0 and op != C.Average:
         raise ValueError("gradient_predivide_factor requires op=Average")
     if process_set is not None:
@@ -235,17 +370,46 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     if k < 1:
         raise ValueError(f"backward_passes_per_step must be >= 1, got {k}")
     cfg = basics.context().config
+    compressor = _resolve_compression(compression)
+    _check_reduce_safe(compressor)
+    if op == C.Adasum:
+        if k != 1:
+            raise NotImplementedError(
+                "backward_passes_per_step > 1 is not supported with "
+                "op=Adasum (accumulate locally by skipping zero_grad "
+                "between backwards instead)")
+        if issubclass(compressor, BF16Compressor):
+            wire = "bf16"
+        elif compressor is NoneCompressor or getattr(
+                compressor, "quantized_reduce", False):
+            wire = "none"       # Adasum is not linear: deltas ride as is
+        else:
+            raise ValueError(f"op=Adasum takes compression none, bf16 or "
+                             f"int8_ef, got {compressor.__name__}")
+        obj = _graft(optimizer, _DistributedAdasumMixin)
+        obj._dist_init(optimizer.__class__, named_parameters, wire)
+        return obj
     threshold = cfg.fusion_threshold_bytes if fusion_threshold_bytes is None \
         else int(fusion_threshold_bytes)
-    compressor = _resolve_compression(compression)
-    cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
-               {k_: v for k_, v in _DistributedOptimizerMixin.__dict__.items()
-                if not k_.startswith("__")})
-    obj = cls.__new__(cls)
-    obj.__dict__.update(optimizer.__dict__)  # share param_groups + state
+    qmin = cfg.quantize_min_bucket_bytes if quantize_min_bucket_bytes is None \
+        else int(quantize_min_bucket_bytes)
+    obj = _graft(optimizer, _DistributedOptimizerMixin)
     obj._dist_init(optimizer.__class__, named_parameters, op, k, compressor,
-                   float(gradient_predivide_factor), threshold)
+                   float(gradient_predivide_factor), threshold, qmin)
     return obj
+
+
+def observe_ef_residual(optimizer) -> Optional[float]:
+    """Global L2 norm of an ``int8_ef`` optimizer's error-feedback
+    residual (this rank's), published as the ``hvd_tpu_ef_residual_norm``
+    gauge; None for an optimizer without error feedback."""
+    if not getattr(optimizer, "_ef", False):
+        return None
+    total = sum(float(r.double().pow(2).sum())
+                for r in optimizer._ef_residual.values())
+    norm = math.sqrt(total)
+    _M_EF_NORM.set(norm)
+    return norm
 
 
 def broadcast_parameters(params, root_rank: int = 0) -> None:

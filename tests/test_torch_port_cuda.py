@@ -1,16 +1,29 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the int8 codec (K2/K4) and flash attention (K5/K6/K7), and the two
-paths that run them. Every test here needs an NVIDIA GPU and skips with
-a reason elsewhere. This file imports no JAX, so it also runs on a
-machine without it:
+card: the int8 codec (K2/K4), flash attention (K5/K6/K7), the stochastic
+quantizer (K3) and the Adasum combine (K8/K9), and the paths that run
+them — two of them as two gloo ranks sharing the one card, each a
+process running this file with ``--card-worker``. Every test here needs
+an NVIDIA GPU and skips with a reason elsewhere. This file imports no
+JAX, so it also runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 """
+
+import json
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 import torch
 
 from horovod_tpu_torch.ops import kernels
+
+REPO = Path(__file__).resolve().parents[1]
+NEW_KERNELS = {"quantize_int8_stochastic": 0, "adasum_dot_norms": 0,
+               "adasum_combine": 0}
 
 SCALE_RTOL = 1e-6
 FLASH_FWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -40,7 +53,8 @@ def test_cuda_kernels_match_plain_on_card():
             assert torch.equal(out, out0)
     assert kernels.LAUNCHES == {
         "quantize_int8": 2 * len(shapes), "dequantize_int8": 2 * len(shapes),
-        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        **NEW_KERNELS}
 
 
 @pytest.mark.cuda
@@ -73,7 +87,8 @@ def test_disagg_serving_on_card_runs_the_kernels():
         launches = 4 * rep["handoffs"] if device == "cuda" else 0
         assert kernels.LAUNCHES == {
             "quantize_int8": launches, "dequantize_int8": launches,
-            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            **NEW_KERNELS}
     assert streams["cuda"] == streams["cpu"]
 
 
@@ -126,7 +141,8 @@ def test_flash_kernels_match_plain_on_card(case):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {
         "quantize_int8": 0, "dequantize_int8": 0,
-        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+        **NEW_KERNELS}
     assert o.dtype == dtype and dq.dtype == dtype and lse.dtype == \
         torch.float32
     tol, gtol = FLASH_FWD_TOL[dtype], FLASH_GRAD_TOL[dtype]
@@ -178,10 +194,171 @@ def test_gpt_training_step_on_card_matches_cpu():
             assert kernels.LAUNCHES == {
                 "quantize_int8": 0, "dequantize_int8": 0,
                 "flash_fwd": want, "flash_bwd_dq": want,
-                "flash_bwd_dkv": want}, device
+                "flash_bwd_dkv": want, **NEW_KERNELS}, device
     finally:
         hvd.shutdown()
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
     for name, p in out["cpu"][1].items():
         torch.testing.assert_close(out["cuda"][1][name], p, rtol=1e-4,
                                    atol=1e-4, msg=name)
+
+
+@pytest.mark.cuda
+def test_reduce_kernels_match_plain_on_card():
+    """K3 bitwise given the same thresholds; K8 within 1e-5 of the fp64
+    sums (of each sum's scale) and symmetric in (a, b); K9 bitwise given
+    the same scalars, symmetric, and a plain sum where a side is zero —
+    one counted launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    kernels.reset_launch_counts()
+    sizes = [1, 4095, 4097, 9001, 300_000]
+    calls = 0
+    for n in sizes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(n, generator=gen, device="cuda") * 3).to(dtype)
+            u = torch.rand((kernels.stochastic_rows(n), 128), generator=gen,
+                           device="cuda")
+            q, s, _ = kernels.quantize_int8_stochastic(x, u)
+            q0, s0, _ = kernels._quantize_stochastic_plain(x, u)
+            a = torch.randn(n, generator=gen, device="cuda")
+            b = (0.6 * a + torch.randn(n, generator=gen, device="cuda"))
+            if n == 4097:
+                b.zero_()
+            a, b = a.to(dtype), b.to(dtype)
+            dn = kernels.adasum_dot_norms(a, b)
+            dn_swap = kernels.adasum_dot_norms(b, a)
+            out = kernels.adasum_combine(a, b, dn)
+            out_swap = kernels.adasum_combine(b, a, dn_swap)
+            out0 = kernels._adasum_combine_plain(a, b, dn)
+            torch.cuda.synchronize()
+            calls += 1
+            assert torch.equal(q, q0) and torch.equal(s, s0)
+            a64, b64 = a.double(), b.double()
+            exact = torch.stack([a64 @ b64, a64 @ a64, b64 @ b64])
+            scale = torch.stack([(exact[1] * exact[2]).sqrt(), exact[1],
+                                 exact[2]])
+            assert ((dn.double() - exact).abs() <= 1e-5 * scale).all()
+            assert torch.equal(dn[[0, 2, 1]], dn_swap)
+            assert torch.equal(out, out0) and torch.equal(out, out_swap)
+            if n == 4097:
+                assert torch.equal(out, a)
+    assert kernels.LAUNCHES == {
+        "quantize_int8": 0, "dequantize_int8": 0, "flash_fwd": 0,
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "quantize_int8_stochastic": calls, "adasum_dot_norms": 2 * calls,
+        "adasum_combine": 2 * calls}
+
+
+@pytest.mark.cuda
+def test_init_refuses_nccl_for_ranks_sharing_a_gpu(monkeypatch):
+    """Two local ranks and one GPU: ``init()`` and ``init(backend=
+    "nccl")`` raise before NCCL is reached, naming ``backend="gloo"``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import horovod_tpu_torch as hvd
+
+    monkeypatch.setenv("HVD_TPU_COORDINATOR", "127.0.0.1:1")
+    monkeypatch.setenv("HVD_TPU_NUM_PROC", "2")
+    monkeypatch.setenv("HVD_TPU_PROC_ID", "0")
+    monkeypatch.setenv("HVD_TPU_LOCAL_SIZE",
+                       str(torch.cuda.device_count() + 1))
+    for backend in (None, "nccl"):
+        with pytest.raises(ValueError, match='backend="gloo"'):
+            hvd.init(backend=backend)
+        assert not hvd.is_initialized()
+
+
+def _card_worker(rank: int, out_path: str) -> None:
+    """One of two gloo ranks on the card (run as a script): one step of
+    each reduction mode on a small GPT, with its launches and a digest of
+    the parameters."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import gpt
+
+    ctx = hvd.init(backend="gloo")
+    assert ctx.backend == "gloo" and ctx.device.type == "cuda"
+    out = {}
+    for mode in ("int8_ef", "adasum"):
+        m = gpt.gpt_tiny(hidden=128, num_heads=2).to("cuda")
+        m.init_weights(torch.Generator(device="cuda").manual_seed(0))
+        hvd.broadcast_parameters(m.state_dict(), root_rank=0)
+        kw = {"compression": "int8_ef"} if mode == "int8_ef" \
+            else {"op": hvd.Adasum}
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(m.parameters(), lr=1e-3),
+            named_parameters=m.named_parameters(), **kw)
+        toks = torch.randint(0, 128, (2, 65), generator=torch.Generator()
+                             .manual_seed(rank)).to("cuda")
+        kernels.reset_launch_counts()
+        loss = gpt.next_token_loss(m(toks[:, :-1]), toks[:, 1:])
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        flat = torch.cat([p.detach().reshape(-1) for p in m.parameters()])
+        every = [torch.empty_like(flat) for _ in range(2)]
+        torch.distributed.all_gather(every, flat)
+        out[mode] = {
+            "launches": dict(kernels.LAUNCHES), "loss": loss.item(),
+            "params": len(list(m.parameters())),
+            "layers": m.num_layers,
+            "int8_buckets": list(getattr(opt, "_dist_plan", None)
+                                 .wire_dtypes).count("int8")
+            if mode == "int8_ef" else 0,
+            "replicas_equal": torch.equal(every[0], every[1])}
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_card_reduce_through_the_kernels(tmp_path):
+    """Two processes share the card over gloo: one int8_ef step launches
+    K3 twice per int8 bucket, one Adasum step launches K8 and K9 once per
+    parameter, and both leave the two replicas bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, HVD_TPU_COORDINATOR=f"127.0.0.1:{port}",
+               HVD_TPU_NUM_PROC="2",
+               PYTHONPATH=os.pathsep.join(
+                   [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                  if p]))
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--card-worker", str(r),
+         str(tmp_path / f"rank{r}.json")],
+        env=dict(env, HVD_TPU_PROC_ID=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} failed:\n{logs[r]}"
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.json") as f:
+            res = json.load(f)
+        for mode, rec in res.items():
+            flash = rec["layers"]
+            want = {"quantize_int8": 0, "dequantize_int8": 0,
+                    "flash_fwd": flash, "flash_bwd_dq": flash,
+                    "flash_bwd_dkv": flash, **NEW_KERNELS}
+            if mode == "int8_ef":
+                assert rec["int8_buckets"] >= 1
+                want["quantize_int8_stochastic"] = 2 * rec["int8_buckets"]
+            else:
+                want["adasum_dot_norms"] = rec["params"]
+                want["adasum_combine"] = rec["params"]
+            assert rec["launches"] == want, (r, mode)
+            assert rec["replicas_equal"], (r, mode)
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--card-worker"]:
+    _card_worker(int(sys.argv[2]), sys.argv[3])

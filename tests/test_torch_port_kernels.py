@@ -138,9 +138,15 @@ def test_cpu_tensor_takes_plain_path_and_counts_no_launch(monkeypatch,
                          .astype(np.float32))
     o, lse = kernels.flash_fwd(a, a, a, causal=True)
     kernels.flash_bwd(a, a, a, None, True, o, lse, a)
+    u = torch.zeros((kernels.stochastic_rows(5000), 128))
+    kernels.quantize_int8_stochastic(xt, u)
+    dn = kernels.adasum_dot_norms(xt, xt)
+    kernels.adasum_combine(xt, xt, dn)
     assert set(kernels.LAUNCHES) == {"quantize_int8", "dequantize_int8",
+                                     "quantize_int8_stochastic",
                                      "flash_fwd", "flash_bwd_dq",
-                                     "flash_bwd_dkv"}
+                                     "flash_bwd_dkv", "adasum_dot_norms",
+                                     "adasum_combine"}
     assert all(n == 0 for n in kernels.LAUNCHES.values())
 
 
