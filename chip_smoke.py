@@ -10,6 +10,14 @@ Phases (any failure exits non-zero and prints no result line):
 1. Card: print the card's name and power limit (nvidia-smi) and build
    the CUDA kernels from ``horovod_tpu_torch/csrc`` with nvcc, one
    compiler per source, side by side.
+1b. K1 (the pre/postscale kernel) against its plain version on the card,
+   bitwise: fp32->fp32, bf16->bf16, fp16->fp16 and fp32->bf16, at GPT-2
+   medium's ``tok_emb`` gradient (51,463,168 elements), a 1,024-element
+   bias and ragged sizes (1, 4095, 4097, 9001), scales 1/3, 0.7 and 2.5
+   each rounded to the input's dtype; ``_apply_scale`` equal to the plain
+   version with the rounded scale. Times on ``tok_emb`` and the bias in
+   fp32: CUDA graph replay, eager, the plain version and the library call
+   ``torch.mul(x, s)``, beside the memory bound.
 2. K2/K4 (int8 codec) against their plain PyTorch versions, on the card,
    at the shapes of the serve path: one K/V leaf of GPT-2 medium,
    (max_len=1024, 16 heads, 64) bf16, plus ragged sizes. Codes and
@@ -84,7 +92,33 @@ Phases (any failure exits non-zero and prints no result line):
    wire="int8", key=...)`` must launch K3 once and K4 twice per level.
    The step times are of gloo over loopback with n processes on one
    card, not of NCCL or NVLink.
-8. Result lines: the per-kernel JSON record (K2-K9, each with its
+8. Eager engine: the script relaunches itself as 2 gloo rank workers
+   (``--rank-worker n2_eager``): GPT-2 medium at full width, B = 8,
+   S = 512 per rank, each rank its own seeded batch, ``AdamW`` after
+   ``broadcast_parameters``, trained in Horovod's PyTorch loop — after
+   each backward every gradient goes through ``hvd.allreduce_async(
+   p.grad, name="grad." + pname, op=hvd.Sum, prescale_factor=1/3,
+   postscale_factor=1.5)``, then every handle is synchronized and
+   ``step()`` runs — for 1 checked and 3 timed steps. At the checked step
+   one parameter's reduced gradient must be bitwise the plain
+   ``plain(plain(g0, 1/3) + plain(g1, 1/3), 1.5)`` of the gathered
+   gradients; K1 must launch exactly 2 x 291 x 4 times (counts zeroed
+   just before step 1, read after step 4), the controller must make 291
+   negotiation rounds at step 1 and none after, replicas must be bitwise
+   equal after every step, and a timeline around step 3 must hold one
+   begin/end pair per gradient. Then MoE-shaped exchanges of (4096, 1024)
+   tokens per rank (``alltoall`` on the none/bf16/int8 wires — int8 must
+   launch K2 and K4 — with uneven splits, an Average ``reducescatter``,
+   a ragged ``allgatherv``), held against plain results from every rank's
+   input; ``broadcast_object`` of the optimizer's hyperparameters; and a
+   mismatch (rank 1 submits ``"probe"`` with another shape: both ranks
+   raise ``MismatchError`` naming rank 1 within the controller timeout,
+   and the next collective succeeds). A second configuration
+   (``n2_join``) runs ``init(join_mode=True)``: rank 1 trains 2 steps and
+   joins, rank 0 trains 3 and joins; rank 0's third-step gradients must
+   be bitwise ``plain(plain(g0, 1/3) + 0, 1.5)`` and ``join()`` must
+   return 0 on both. Step times are gloo with 2 processes on one card.
+9. Result lines: the per-kernel JSON record (K1-K9, each with its
    launches on its path), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -596,6 +630,102 @@ def phase_reduce_kernels(torch, K) -> dict:
     del buckets, pairs
     torch.cuda.empty_cache()
     return records
+
+
+SCALE_BIAS = 1024                   # a LayerNorm bias of gpt_medium
+SCALE_SIZES = (TOK_EMB[0] * TOK_EMB[1], SCALE_BIAS) + REDUCE_RAGGED
+SCALE_FACTORS = (1 / 3, 0.7, 2.5)
+# (input dtype, output dtype)
+SCALE_CASES = (("float32", "float32"), ("bfloat16", "bfloat16"),
+               ("float16", "float16"), ("float32", "bfloat16"))
+
+
+def phase_scale_kernel(torch, K, C) -> dict:
+    """Hold K1 against its plain version on the card, bitwise, at the
+    eager path's sizes (GPT-2 medium's ``tok_emb`` gradient and a
+    1,024-element bias) and ragged ones, for every dtype pair the path
+    and the API take, with each scale rounded to the input's dtype as
+    ``_apply_scale`` rounds it; and hold ``_apply_scale`` itself to the
+    plain version with the rounded scale. Time it on ``tok_emb`` and on
+    the bias in fp32 beside the bound and ``torch.mul``."""
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    checked = 0
+    for n in SCALE_SIZES:
+        base = torch.randn(n, generator=gen, device="cuda") * 3
+        for din, dout in SCALE_CASES:
+            tin, tout = getattr(torch, din), getattr(torch, dout)
+            x = base.to(tin)
+            for s in SCALE_FACTORS:
+                rounded = torch.tensor(s, dtype=tin).item()
+                got = K.scale_buffer(x, rounded, tout)
+                want = K.scale_buffer_plain(x, rounded, tout)
+                check(torch.equal(got.view(-1), want.view(-1)),
+                      f"K1 {n} {din}->{dout} scale {s}: differs from plain")
+                if din == dout:
+                    check(torch.equal(C._apply_scale(x, s).view(-1),
+                                      want.view(-1)),
+                          f"_apply_scale {n} {din} {s}: differs from the "
+                          "plain K1 with the rounded scale")
+                checked += 1
+        del base, x, got, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"kernels: K1 bitwise equal to plain in {checked} cases "
+          f"({len(SCALE_SIZES)} sizes x {len(SCALE_CASES)} dtype pairs x "
+          f"{len(SCALE_FACTORS)} scales), _apply_scale with it", flush=True)
+
+    s = torch.tensor(1 / 3, dtype=torch.float32).item()
+    timing = {}
+    for label, n in (("tok_emb", SCALE_SIZES[0]), ("bias", SCALE_BIAS)):
+        inputs = [torch.randn(n, generator=gen, device="cuda")
+                  for _ in range(REDUCE_TIMING_SETS)]
+
+        def kern(x):
+            return K.scale_buffer(x, s)
+
+        def plain(x):
+            return K.scale_buffer_plain(x, s)
+
+        def lib(x):
+            return torch.mul(x, s)
+
+        # Turns: plain, kernel, kernel, plain (one card, one call).
+        p1 = graph_ms(torch, plain, inputs)
+        k1 = graph_ms(torch, kern, inputs)
+        k2 = graph_ms(torch, kern, inputs)
+        p2 = graph_ms(torch, plain, inputs)
+        timing[label] = {
+            "elements": n, "ms": min(k1, k2), "plain_ms": min(p1, p2),
+            "library_ms": graph_ms(torch, lib, inputs),
+            "eager_ms": eager_ms(torch, kern, inputs),
+            "plain_eager_ms": eager_ms(torch, plain, inputs),
+            "bytes": 8 * n, "ops": n,
+            "bound_bytes_ms": 8 * n / HBM_BYTES_PER_S * 1e3,
+            "bound_ops_ms": n / FP32_OPS_PER_S * 1e3}
+        t = timing[label]
+        print(f"kernel scale_buffer ({label}, {n} fp32): {t['ms'] * 1e3:.2f} "
+              f"us/launch (graph) vs bound "
+              f"{max(t['bound_bytes_ms'], t['bound_ops_ms']) * 1e3:.3f} us; "
+              f"plain {t['plain_ms'] * 1e3:.2f} us; torch.mul "
+              f"{t['library_ms'] * 1e3:.2f} us; eager "
+              f"{t['eager_ms'] * 1e3:.2f} us", flush=True)
+        del inputs
+    torch.cuda.empty_cache()
+    t = timing["tok_emb"]
+    return {"scale_buffer": {
+        "name": "scale_buffer", "route": "cuda",
+        "source": "horovod_tpu_torch/csrc/scale_buffer.cu",
+        "replaces": "horovod_tpu/ops/pallas_kernels.py:87",
+        "launches": 0, "max_abs_err": 0.0,
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": max(t["bound_bytes_ms"], t["bound_ops_ms"]),
+        "bound_by": "bytes" if t["bound_bytes_ms"] >= t["bound_ops_ms"]
+        else "operations",
+        "library_ms": t["library_ms"], "library_call": "torch.mul(x, s)",
+        "eager_ms": t["eager_ms"], "plain_eager_ms": t["plain_eager_ms"],
+        "bytes": t["bytes"], "ops": t["ops"], "shape": [t["elements"]],
+        "dtype": "float32", "bias": timing["bias"],
+        "cases_checked": checked}}
 
 
 @contextlib.contextmanager
@@ -1322,52 +1452,61 @@ def rank_worker(config: str, rank: int, out_path: str) -> None:
         json.dump(out, f)
 
 
+def run_workers(config: str, n: int, timeout: float, out_dir: str):
+    """Relaunch this script as the n rank workers of ``config`` on the
+    one card, each with HVD_TPU_COORDINATOR/NUM_PROC/PROC_ID; any
+    worker's failure or overrun fails the phase. Returns each rank's JSON
+    record and the wall seconds; the logs go to
+    ``multirank_<config>.log``."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, HVD_TPU_COORDINATOR=f"127.0.0.1:{port}",
+               HVD_TPU_NUM_PROC=str(n))
+    paths = [os.path.join(out_dir, f"multirank_{config}_rank{r}.json")
+             for r in range(n)]
+    for path in paths:
+        if os.path.exists(path):
+            os.remove(path)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank-worker",
+         config, str(r), paths[r]],
+        env=dict(env, HVD_TPU_PROC_ID=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    logs = [""] * n
+    try:
+        for r, p in enumerate(procs):
+            logs[r] = p.communicate(
+                timeout=max(1.0, timeout - (time.perf_counter() - t0)))[0]
+    except subprocess.TimeoutExpired:
+        raise SmokeError(f"multi-rank {config}: a worker passed its "
+                         f"{timeout} s limit")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    with open(os.path.join(out_dir, f"multirank_{config}.log"), "w") as f:
+        f.write("\n".join(f"--- rank {r}\n{log}"
+                          for r, log in enumerate(logs)))
+    for r, p in enumerate(procs):
+        check(p.returncode == 0,
+              f"multi-rank {config}: rank {r} exited {p.returncode}:\n"
+              f"{logs[r][-3000:]}")
+    ranks = []
+    for path in paths:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return ranks, time.perf_counter() - t0
+
+
 def phase_multirank(torch, out_dir: str) -> dict:
-    """Relaunch this script as n rank workers on the one card for each
-    multi-rank config; any worker's failure fails the phase."""
+    """Run the n rank workers of each multi-rank reduction config on the
+    one card."""
     results = {}
     for config, (n, model_name, batch, seq, timeout) in MULTI_CONFIGS.items():
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
-        env = dict(os.environ, HVD_TPU_COORDINATOR=f"127.0.0.1:{port}",
-                   HVD_TPU_NUM_PROC=str(n))
-        paths = [os.path.join(out_dir, f"multirank_{config}_rank{r}.json")
-                 for r in range(n)]
-        for path in paths:
-            if os.path.exists(path):
-                os.remove(path)
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--rank-worker",
-             config, str(r), paths[r]],
-            env=dict(env, HVD_TPU_PROC_ID=str(r)), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(n)]
-        logs = [""] * n
-        try:
-            for r, p in enumerate(procs):
-                logs[r] = p.communicate(
-                    timeout=max(1.0, timeout - (time.perf_counter() - t0)))[0]
-        except subprocess.TimeoutExpired:
-            raise SmokeError(f"multi-rank {config}: a worker passed its "
-                             f"{timeout} s limit")
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        with open(os.path.join(out_dir, f"multirank_{config}.log"), "w") as f:
-            f.write("\n".join(f"--- rank {r}\n{log}"
-                              for r, log in enumerate(logs)))
-        for r, p in enumerate(procs):
-            check(p.returncode == 0,
-                  f"multi-rank {config}: rank {r} exited {p.returncode}:\n"
-                  f"{logs[r][-3000:]}")
-        ranks = []
-        for path in paths:
-            with open(path) as f:
-                ranks.append(json.load(f))
-        wall = time.perf_counter() - t0
+        ranks, wall = run_workers(config, n, timeout, out_dir)
         res = {"n": n, "model": model_name, "batch_per_rank": batch,
                "seq_len": seq, "backend": ranks[0]["backend"],
                "wall_s": wall, "modes": {}}
@@ -1411,6 +1550,378 @@ def phase_multirank(torch, out_dir: str) -> dict:
     return results
 
 
+# -- eager phase: Horovod's PyTorch loop through the eager engine -----------
+
+EAGER_CONFIGS = {
+    # n, model, per-rank batch, sequence length, worker timeout (s)
+    "n2_eager": (2, "gpt_medium", 8, 512, 900),
+    "n2_join": (2, "gpt_medium", 8, 512, 600),
+}
+EAGER_PRE, EAGER_POST = 1 / 3, 1.5  # predivide 3 at n = 2, split as the
+                                    # JAX torch shim's _launch splits it
+EAGER_STEPS = 4                     # 1 checked + 3 timed
+JOIN_STEPS = (3, 2)                 # rank 0, rank 1, before join()
+MOE_TOKENS = (4096, 1024)           # tokens per rank x model width
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Same shape, dtype and bit patterns (-0.0 differs from 0.0)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    view = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
+def _eager_setup(torch, hvd, gpt_mod, config, rank, **init_kw):
+    n, model_name, batch, seq, _ = EAGER_CONFIGS[config]
+    ctx = hvd.init(backend="gloo", **init_kw)
+    check(ctx.backend == "gloo" and ctx.device.type == "cuda"
+          and hvd.size() == n and hvd.rank() == rank,
+          f"init: rank {hvd.rank()} of {hvd.size()} over {ctx.backend} on "
+          f"{ctx.device}")
+    model = _make_model(torch, gpt_mod, model_name)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    tokens = torch.randint(0, model.vocab_size, (batch, seq + 1),
+                           generator=torch.Generator().manual_seed(
+                               11 + rank)).to("cuda")
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4)
+
+    def fwd_bwd():
+        loss = gpt_mod.next_token_loss(model(tokens[:, :-1]), tokens[:, 1:])
+        opt.zero_grad()
+        loss.backward()
+        return loss
+    return ctx, model, opt, list(model.named_parameters()), fwd_bwd
+
+
+def eager_reduce(hvd, named) -> None:
+    """Horovod's PyTorch loop: one named asynchronous allreduce per
+    gradient (SUM, predivide 3 as prescale 1/3 and postscale 1.5), then
+    every handle synchronized into its gradient."""
+    handles = [(p, hvd.allreduce_async(
+        p.grad, op=hvd.Sum, name="grad." + name,
+        prescale_factor=EAGER_PRE, postscale_factor=EAGER_POST))
+        for name, p in named]
+    for p, h in handles:
+        p.grad = hvd.synchronize(h)
+
+
+def _moe_exchanges(torch, hvd, K, n: int, rank: int) -> dict:
+    """MoE-shaped exchanges at the model's width, each held against a
+    plain result from every rank's input (regenerated from its seed on
+    every rank): bitwise for the none/bf16 wires, the uneven exchange,
+    the gathers and the reduce-scatter; bitwise against the plain K2/K4
+    of the same chunks for the int8 wire, which must launch K2 and K4."""
+    rows, width = MOE_TOKENS
+
+    def tokens(seed, nrows, dtype=torch.bfloat16):
+        return torch.randn((nrows, width), generator=torch.Generator(
+            device="cuda").manual_seed(seed), device="cuda").to(dtype)
+
+    rec = {}
+    t0 = time.perf_counter()
+    xs = [tokens(100 + r, rows) for r in range(n)]
+    check(torch.equal(hvd.allgather(xs[rank][None], name="moe.gather"),
+                      torch.stack(xs)), "allgather: differs from the inputs")
+    half = rows // n
+    want = torch.cat([xs[src][rank * half:(rank + 1) * half]
+                      for src in range(n)])
+    for wire in ("none", "bf16"):
+        y = hvd.alltoall(xs[rank], name=f"moe.{wire}", wire=wire)
+        check(bits_equal(torch, y, want), f"alltoall wire={wire}: differs")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    y = hvd.alltoall(xs[rank], name="moe.int8", wire="int8")
+    torch.cuda.synchronize()
+    rec["int8_launches"] = dict(K.LAUNCHES)
+    check(rec["int8_launches"]["quantize_int8"] == 1
+          and rec["int8_launches"]["dequantize_int8"] == 1,
+          f"alltoall wire=int8: launches {rec['int8_launches']}, expected "
+          "one K2 and one K4")
+    c = half * width
+    padded = c + (-c % K.BLOCK)
+    parts = []
+    for src in range(n):
+        flat = torch.nn.functional.pad(
+            xs[src].reshape(n, c).float(), (0, padded - c)).reshape(-1)
+        q, scales, _ = K._quantize_plain(flat)
+        qrows, nblocks = padded // 128, padded // K.BLOCK
+        parts.append(K._dequantize_plain(
+            q[rank * qrows:(rank + 1) * qrows],
+            scales[rank * nblocks:(rank + 1) * nblocks], padded,
+            (padded,), torch.bfloat16)[:c].reshape(half, width))
+    check(bits_equal(torch, y, torch.cat(parts)),
+          "alltoall wire=int8: differs from the plain K2/K4 of the chunks")
+    rec["int8_max_abs_err_vs_exact"] = (y.float() - want.float()).abs() \
+        .max().item()
+    splits = torch.randint(256, 3840, (n, n), generator=torch.Generator()
+                           .manual_seed(9)).tolist()
+    xv = [tokens(200 + r, sum(splits[r])) for r in range(n)]
+    y = hvd.alltoall(xv[rank], name="moe.uneven", splits=splits[rank])
+    want = torch.cat([xv[src][sum(splits[src][:rank]):
+                              sum(splits[src][:rank + 1])]
+                      for src in range(n)])
+    check(bits_equal(torch, y, want), "alltoall with splits: differs")
+    xr = [tokens(300 + r, rows, torch.float32) for r in range(n)]
+    y = hvd.reducescatter(xr[rank], op=hvd.Average, name="moe.rs")
+    acc = xr[0][rank * half:(rank + 1) * half].clone()
+    for src in range(1, n):
+        acc += xr[src][rank * half:(rank + 1) * half]
+    want = acc / torch.full((1,), n, dtype=acc.dtype, device="cuda")
+    check(bits_equal(torch, y, want), "reducescatter Average: differs")
+    xg = [tokens(400 + r, rows - 1024 * r) for r in range(n)]
+    y = hvd.allgatherv(xg[rank], name="moe.ragged")
+    check(bits_equal(torch, y, torch.cat(xg)), "ragged allgather: differs")
+    torch.cuda.synchronize()
+    rec["seconds"] = time.perf_counter() - t0
+    rec["uneven_splits"] = splits
+    return rec
+
+
+def eager_worker(config: str, rank: int, out_path: str) -> None:
+    """One rank of the eager phase (``--rank-worker n2_eager``): GPT-2
+    medium trained 1 checked + 3 timed steps in Horovod's PyTorch loop,
+    then the timeline, the MoE-shaped exchanges, an object broadcast and a
+    mismatch."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import gpt as gpt_mod
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n, model_name, batch, seq, _ = EAGER_CONFIGS[config]
+    ctx, model, opt, named, fwd_bwd = _eager_setup(torch, hvd, gpt_mod,
+                                                   config, rank)
+    ctl = ctx.controller
+    params = [p for _, p in named]
+    digest = _Digest(torch, params)
+    target = max(range(len(params)),
+                 key=lambda i: (params[i].numel() <= 4_194_304,
+                                params[i].numel()))
+    timeline = os.path.join(os.path.dirname(out_path),
+                            f"eager_timeline_rank{rank}.json")
+    out = {"config": config, "n": n, "rank": rank, "model": model_name,
+           "batch": batch, "seq_len": seq, "backend": ctx.backend,
+           "params": len(params)}
+    times, split, rounds, equal, losses = [], [], [], [], []
+    torch.cuda.synchronize()
+    hvd.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    # The main path: launch counts zeroed just before it, read just after.
+    K.reset_launch_counts()
+    for step in range(EAGER_STEPS):
+        t0 = time.perf_counter()
+        loss = fwd_bwd()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if step == 0:
+            g = params[target].grad.clone()
+        if step == 2:
+            hvd.start_timeline(timeline)
+        r0 = ctl.negotiation_rounds
+        eager_reduce(hvd, named)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        rounds.append(ctl.negotiation_rounds - r0)
+        if step == 2:
+            hvd.stop_timeline()
+        if step == 0:
+            every = hvd.allgather(g[None], name="check")
+            acc = K.scale_buffer_plain(every[0], EAGER_PRE)
+            for r in range(1, n):
+                acc = acc + K.scale_buffer_plain(every[r], EAGER_PRE)
+            want = K.scale_buffer_plain(acc, EAGER_POST)
+            check(bits_equal(torch, params[target].grad, want),
+                  f"eager: parameter {named[target][0]}'s reduced gradient "
+                  "differs from plain(plain(g0, 1/3) + plain(g1, 1/3), 1.5)")
+            out["check"] = {"param": named[target][0],
+                            "elements": g.numel(), "bitwise": True}
+            del every, acc, want, g
+        t3 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        losses.append(loss.item())
+        every = C.all_gather_stack(digest(params))
+        equal.append(bool((every == every[0]).all()))
+        times.append((t2 - t0) + (t4 - t3))
+        split.append((t1 - t0, t2 - t1, t4 - t3))
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(math.isfinite(v) for v in losses),
+          f"eager: non-finite loss in {losses}")
+    check(all(equal), f"eager: replicas differ after step(s) "
+                      f"{[i for i, e in enumerate(equal) if not e]}")
+    check(rounds == [len(params)] + [0] * (EAGER_STEPS - 1),
+          f"eager: negotiation rounds per step {rounds}, expected "
+          f"{len(params)} then 0")
+    flash = model.num_layers * EAGER_STEPS
+    want_launches = {k: 0 for k in launches}
+    want_launches.update(scale_buffer=2 * len(params) * EAGER_STEPS,
+                         flash_fwd=flash, flash_bwd_dq=flash,
+                         flash_bwd_dkv=flash)
+    check(launches == want_launches, f"eager: launches {launches}, "
+                                     f"expected {want_launches}")
+    with open(timeline) as f:
+        events = json.load(f)["traceEvents"]
+    phases = {}
+    for e in events:
+        if e.get("ph") in ("B", "E"):
+            phases.setdefault(e["tid"], []).append(e["ph"])
+    names = {"allreduce.grad." + name for name, _ in named}
+    check(set(phases) == names and all(v == ["B", "E"]
+                                       for v in phases.values()),
+          f"timeline: {len(phases)} tensors traced, expected one begin/end "
+          f"pair for each of {len(names)} gradients")
+    out["moe"] = _moe_exchanges(torch, hvd, K, n, rank)
+    hp = {k: v for k, v in opt.param_groups[0].items() if k != "params"}
+    got = hvd.broadcast_object(dict(hp, lr=hp["lr"] * (rank + 1)),
+                               root_rank=0, name="hyperparameters")
+    check(got == hp, f"broadcast_object: {got} != rank 0's {hp}")
+    t0 = time.perf_counter()
+    try:
+        hvd.allreduce(torch.ones(4 + rank, device="cuda"), name="probe")
+        raise SmokeError("mismatch: no MismatchError raised")
+    except hvd.MismatchError as e:
+        out["mismatch"] = {"ranks": list(e.ranks),
+                           "seconds": time.perf_counter() - t0,
+                           "timeout_s": ctl.timeout_s}
+    check(out["mismatch"]["ranks"] == [1]
+          and out["mismatch"]["seconds"] < ctl.timeout_s,
+          f"mismatch: {out['mismatch']}")
+    after = hvd.allreduce(torch.ones(3, device="cuda"), op=hvd.Sum,
+                          name="after")
+    check(bool((after == n).all()), "mismatch: the next collective failed")
+    numel = sum(p.numel() for p in params)
+    out.update({
+        "losses": losses, "step_ms": [t * 1e3 for t in times[1:]],
+        "first_step_ms": times[0] * 1e3,
+        "first_sync_loop_ms": split[0][1] * 1e3,
+        "step_ms_median": statistics.median(times[1:]) * 1e3,
+        "fwd_bwd_ms_median": statistics.median(t[0] for t in split[1:])
+        * 1e3,
+        "sync_loop_ms_median": statistics.median(t[1] for t in split[1:])
+        * 1e3,
+        "opt_step_ms_median": statistics.median(t[2] for t in split[1:])
+        * 1e3,
+        "negotiation_rounds": rounds, "launches": launches,
+        "replicas_equal": equal, "peak_mem_gib": peak,
+        "wire_bytes_per_step": 2 * (n - 1) / n * 4 * numel,
+        "raw_bytes_per_step": 4 * numel,
+        "timeline_tensors": len(phases), "hyperparameters": repr(hp)})
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def join_worker(config: str, rank: int, out_path: str) -> None:
+    """One rank of the join check (``--rank-worker n2_join``): with
+    ``init(join_mode=True)`` rank 1 trains 2 steps and joins, rank 0
+    trains 3 and joins; rank 0's third-step gradients must be the plain
+    arithmetic with zeros from rank 1."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import gpt as gpt_mod
+    from horovod_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx, model, opt, named, fwd_bwd = _eager_setup(
+        torch, hvd, gpt_mod, config, rank, join_mode=True)
+    steps = JOIN_STEPS[rank]
+    out = {"config": config, "rank": rank, "steps": steps,
+           "join_mode": ctx.config.join_mode, "step_ms": []}
+    K.reset_launch_counts()
+    for step in range(steps):
+        t0 = time.perf_counter()
+        loss = fwd_bwd()
+        local = [p.grad.clone() for _, p in named] if step == 2 else None
+        eager_reduce(hvd, named)
+        if local is not None:
+            bad = [name for (name, p), g in zip(named, local)
+                   if not bits_equal(torch, p.grad, K.scale_buffer_plain(
+                       K.scale_buffer_plain(g, EAGER_PRE)
+                       + torch.zeros_like(g), EAGER_POST))]
+            check(not bad, f"join: {len(bad)} gradients of rank 0's third "
+                           f"step differ, e.g. {bad[:3]}")
+            out["checked_gradients"] = len(local)
+            del local
+        opt.step()
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        check(math.isfinite(loss.item()), "join: non-finite loss")
+    t0 = time.perf_counter()
+    out["last"] = hvd.join()
+    out["join_s"] = time.perf_counter() - t0
+    out["launches"] = dict(K.LAUNCHES)
+    check(out["last"] == 0, f"join: returned {out['last']}, expected 0")
+    check(out["launches"]["scale_buffer"] == 2 * len(named) * steps,
+          f"join: K1 launched {out['launches']['scale_buffer']} times, "
+          f"expected {2 * len(named) * steps}")
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def phase_eager(torch, out_dir: str) -> dict:
+    """The eager phase: both worker configs; any check failing in a
+    worker fails it."""
+    n, model_name, batch, seq, timeout = EAGER_CONFIGS["n2_eager"]
+    ranks, wall = run_workers("n2_eager", n, timeout, out_dir)
+    check(all(rk["launches"] == ranks[0]["launches"] for rk in ranks),
+          "eager: ranks counted different launches")
+    step_ms = statistics.median(rk["step_ms_median"] for rk in ranks)
+    r0 = ranks[0]
+    res = {"n": n, "model": model_name, "batch_per_rank": batch,
+           "seq_len": seq, "backend": r0["backend"], "wall_s": wall,
+           "label": "gloo, 2 processes on one card",
+           "step_ms_median": step_ms,
+           "tokens_per_s": n * batch * seq / (step_ms / 1e3),
+           "fwd_bwd_ms_median": r0["fwd_bwd_ms_median"],
+           "sync_loop_ms_median": r0["sync_loop_ms_median"],
+           "opt_step_ms_median": r0["opt_step_ms_median"],
+           "first_step_ms": r0["first_step_ms"],
+           "first_sync_loop_ms": r0["first_sync_loop_ms"],
+           "negotiation_rounds": r0["negotiation_rounds"],
+           "launches": r0["launches"], "check": r0["check"],
+           "wire_bytes_per_step_per_rank": r0["wire_bytes_per_step"],
+           "peak_mem_gib_rank0": r0["peak_mem_gib"],
+           "losses_rank0": r0["losses"], "moe": r0["moe"],
+           "mismatch": r0["mismatch"], "ranks": ranks}
+    print(f"eager (gloo, 2 processes on one card): gpt_medium B={batch} "
+          f"S={seq} per rank, step {step_ms:.1f} ms = "
+          f"{res['tokens_per_s']:.0f} tok/s (rank 0: forward + backward "
+          f"{res['fwd_bwd_ms_median']:.1f} ms, allreduce_async + "
+          f"synchronize loop {res['sync_loop_ms_median']:.1f} ms, step() "
+          f"{res['opt_step_ms_median']:.1f} ms; step 1 "
+          f"{res['first_step_ms']:.1f} ms, its loop with "
+          f"{res['negotiation_rounds'][0]} negotiation rounds "
+          f"{res['first_sync_loop_ms']:.1f} ms); "
+          f"{res['wire_bytes_per_step_per_rank'] / 1e9:.3f} GB/step per "
+          f"rank (ring); peak {res['peak_mem_gib_rank0']:.2f} GiB; "
+          f"negotiation rounds per step {res['negotiation_rounds']}; "
+          f"check {json.dumps(res['check'])}; mismatch "
+          f"{json.dumps(res['mismatch'])}; moe exchanges "
+          f"{res['moe']['seconds']:.2f} s; launches "
+          f"{json.dumps(res['launches'])}", flush=True)
+    n, _, _, _, timeout = EAGER_CONFIGS["n2_join"]
+    jranks, jwall = run_workers("n2_join", n, timeout, out_dir)
+    res["join"] = {"wall_s": jwall, "ranks": jranks}
+    print(f"join (gloo, 2 processes on one card): rank 1 joined after "
+          f"{jranks[1]['steps']} steps, rank 0 after {jranks[0]['steps']}; "
+          f"join() returned {[rk['last'] for rk in jranks]}; rank 0 step "
+          f"ms {[round(t, 1) for t in jranks[0]['step_ms']]}; "
+          f"{jranks[0]['checked_gradients']} third-step gradients bitwise",
+          flush=True)
+    with open(os.path.join(out_dir, "chip_smoke_eager.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out",
@@ -1422,7 +1933,9 @@ def main(argv=None) -> int:
                          "unprofiled ones)")
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--rank-worker"]:
-        rank_worker(argv[1], int(argv[2]), argv[3])
+        worker = {"n2_eager": eager_worker, "n2_join": join_worker}.get(
+            argv[1], rank_worker)
+        worker(argv[1], int(argv[2]), argv[3])
         return 0
     args = ap.parse_args(argv)
     try:
@@ -1452,14 +1965,19 @@ def main(argv=None) -> int:
         libs = K.build_all()
         print(f"build: {', '.join(lib.name for lib in libs)} in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        records = phase_kernels(torch, K)
+        from horovod_tpu_torch.ops import collectives as C
+
+        records = phase_scale_kernel(torch, K, C)
+        records.update(phase_kernels(torch, K))
         records.update(phase_flash(torch, K))
         records.update(phase_reduce_kernels(torch, K))
         serve = phase_serve(torch, K, args.out, args.profile)
         train = phase_train(torch, K, args.out, args.profile)
         multi = phase_multirank(torch, args.out)
+        eager = phase_eager(torch, args.out)
         n2 = multi["n2_gpt_medium"]["modes"]
-        paths = {"quantize_int8": serve["launches"],
+        paths = {"scale_buffer": eager["launches"],
+                 "quantize_int8": serve["launches"],
                  "dequantize_int8": serve["launches"],
                  "quantize_int8_stochastic": n2["int8_ef"]["launches"],
                  "adasum_dot_norms": n2["adasum"]["launches"],
@@ -1478,7 +1996,9 @@ def main(argv=None) -> int:
                    "serve": serve, "train": train,
                    "multirank": {c: {k: v for k, v in r.items()
                                      if k != "modes"}
-                                 for c, r in multi.items()}}, f, indent=1)
+                                 for c, r in multi.items()},
+                   "eager": {k: v for k, v in eager.items()
+                             if k not in ("ranks", "join")}}, f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

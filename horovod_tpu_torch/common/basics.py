@@ -24,6 +24,14 @@ GPU). ``nccl`` (or the default) with more local ranks than GPUs raises
 before NCCL is reached, naming ``backend="gloo"``; there is no silent
 switch.
 
+Eager engine: ``init()`` also builds the eager collective engine
+(``ops/eager.py``) and its timeline (``common/timeline.py``), and, when
+the world has more than one rank, the controller that negotiates its
+collectives (``common/controller.py``) over the process group's c10d
+store, its keys namespaced per ``init()`` generation. ``shutdown()``
+synchronizes the engine's outstanding handles and stops the timeline
+before it destroys the process group.
+
 Process sets and ``comm=`` subset communicators are not ported yet.
 """
 
@@ -31,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -50,10 +58,14 @@ class Context:
     device: torch.device
     backend: str
     config: config_lib.Config
+    controller: Any = None      # common.controller.Controller when size > 1
+    engine: Any = None          # ops.eager.EagerEngine
+    timeline: Any = None        # common.timeline.Timeline
 
 
 _context: Optional[Context] = None
 _context_lock = threading.Lock()
+_init_count = 0                 # init() generations, for controller keys
 
 
 def _world():
@@ -108,7 +120,7 @@ def init(comm=None, process_sets=None,
     ``"cpu"``. ``backend`` is ``None`` (``nccl`` on the GPU, ``gloo`` on
     the CPU), ``"gloo"`` (on either) or ``"nccl"``. ``config_overrides``
     are :class:`~.config.Config` fields and win over the environment."""
-    global _context
+    global _context, _init_count
     if comm is not None or process_sets:
         raise NotImplementedError(
             "comm= and process_sets= are not ported yet; they come with "
@@ -141,18 +153,43 @@ def init(comm=None, process_sets=None,
         else:
             dist.init_process_group(backend, init_method=f"tcp://{coord}",
                                     rank=rank, world_size=size)
+        from ..ops.eager import EagerEngine
+        from .controller import Controller, StoreTransport
+        from .timeline import Timeline
+
+        _init_count += 1
+        controller = None
+        if size > 1:
+            controller = Controller(
+                rank, size,
+                StoreTransport(dist.distributed_c10d._get_default_store()),
+                timeout_s=cfg.stall_check_time_seconds,
+                incarnation=_init_count)
+        timeline = Timeline()
+        try:
+            engine = EagerEngine(cfg, dev, rank, size,
+                                 controller=controller, timeline=timeline)
+        except Exception:
+            dist.destroy_process_group()
+            raise
         _context = Context(rank, size, local_rank, local_size, dev, backend,
-                           cfg)
+                           cfg, controller, engine, timeline)
         return _context
 
 
 def shutdown() -> None:
-    """Tear the process group down; a later ``init()`` starts afresh."""
+    """Synchronize the eager engine's outstanding handles, stop the
+    timeline and tear the process group down; a later ``init()`` starts
+    afresh."""
     global _context
     with _context_lock:
         if _context is not None:
-            dist.destroy_process_group()
-            _context = None
+            try:
+                _context.engine.drain()
+                _context.timeline.stop()
+            finally:
+                dist.destroy_process_group()
+                _context = None
 
 
 def is_initialized() -> bool:

@@ -32,6 +32,15 @@ RUNTIME_KNOBS = {
     "ADASUM_SCALAR_DTYPE": "dtype of Adasum's dot/norm scalars (float32 "
                            "runs kernel K8; others plain torch)",
     "FLASH_ATTENTION": "flash-attention kernel enable (0 = reference)",
+    # Eager collective engine.
+    "CACHE_CAPACITY": "eager signature-cache capacity (1024)",
+    "JOIN_MODE": "every eager collective runs a coordination round so "
+                 "hvd.join() works (0/1)",
+    "STALL_CHECK_TIME_SECONDS": "controller round timeout in seconds (60)",
+    "STALL_SHUTDOWN_TIME_SECONDS": "how long a joined process waits for "
+                                   "its peers before it raises (600; 0 = "
+                                   "forever)",
+    "MAX_RETAINED_HANDLES": "eager-engine completed-handle cap",
     # Telemetry switches read lazily by their subsystems.
     "METRICS": "registry enable (0 = shared NOOP singletons)",
     "FLIGHTREC": "flight-recorder enable",
@@ -63,6 +72,18 @@ def runtime_env(name: str, default: Optional[str] = None, *,
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 DEFAULT_QUANTIZE_MIN_BYTES = 64 * 1024
 
+# Settings of the JAX package's Config that later slices of the port
+# bring: passing one to init() raises, naming the slice.
+_LATER_SETTINGS = {
+    "hierarchical_allreduce": "slice 3b (mesh routing)",
+    "hierarchical_allgather": "slice 3b (mesh routing)",
+    "autotune": "the autotune slice",
+}
+
+
+def _truthy(raw: str) -> bool:
+    return raw.strip().lower() in ("1", "true", "yes", "on")
+
 
 @dataclasses.dataclass
 class Config:
@@ -74,6 +95,16 @@ class Config:
     compression: Optional[str] = None
     quantize_min_bucket_bytes: int = DEFAULT_QUANTIZE_MIN_BYTES
     adasum_scalar_dtype: str = "float32"
+    # Eager engine: the signature cache's capacity, join mode (every
+    # collective a coordination round), the controller's round timeout
+    # (the JAX package's stall-check time) and how long a joined process
+    # waits for its peers. The JAX package's default for the last is 0,
+    # a wait its stall inspector watches; the port has no stall
+    # inspector, so a joined wait is bounded instead.
+    cache_capacity: int = 1024
+    join_mode: bool = False
+    stall_check_time_seconds: float = 60.0
+    stall_shutdown_time_seconds: float = 600.0
 
     @classmethod
     def from_env(cls, **overrides) -> "Config":
@@ -87,8 +118,21 @@ class Config:
             c.quantize_min_bucket_bytes = int(raw)
         c.adasum_scalar_dtype = (runtime_env("ADASUM_SCALAR_DTYPE")
                                  or c.adasum_scalar_dtype)
+        raw = runtime_env("CACHE_CAPACITY")
+        if raw:
+            c.cache_capacity = int(raw)
+        c.join_mode = _truthy(runtime_env("JOIN_MODE") or "0")
+        for name in ("stall_check_time_seconds",
+                     "stall_shutdown_time_seconds"):
+            raw = runtime_env(name.upper())
+            if raw:
+                setattr(c, name, float(raw))
         fields = {f.name for f in dataclasses.fields(cls)}
         for key, value in overrides.items():
+            if key in _LATER_SETTINGS:
+                raise NotImplementedError(
+                    f"init({key}=...) is not ported yet; it comes with "
+                    f"{_LATER_SETTINGS[key]} of the port")
             if key not in fields:
                 raise TypeError(f"init(): unknown setting {key!r}; "
                                 f"known: {sorted(fields)}")

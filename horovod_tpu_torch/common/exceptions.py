@@ -24,3 +24,24 @@ class NotInitializedError(HorovodTpuError):
 
 class TensorShapeMismatchError(HorovodTpuError):
     """Cross-rank shape/dtype validation failed."""
+
+
+class MismatchError(TensorShapeMismatchError):
+    """Ranks submitted different collective signatures (shape, dtype, op,
+    wire) for the same tensor name; ``ranks`` names the offending global
+    ranks. A :class:`TensorShapeMismatchError`, so its handlers keep
+    working."""
+
+    def __init__(self, message: str, ranks=()):
+        super().__init__(message)
+        self.ranks = tuple(ranks)
+
+
+class DuplicateTensorNameError(HorovodTpuError):
+    """A tensor name was submitted again while its previous submission
+    never completed."""
+
+
+class AlltoallvLayoutError(HorovodTpuError, NotImplementedError):
+    """The controller-negotiated ``alltoallv`` was called in a layout it
+    does not support; the eager engine assumes one rank per process."""

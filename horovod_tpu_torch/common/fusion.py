@@ -165,6 +165,17 @@ def assign_wire_dtypes(plan: FusionPlan, quantize_min_bytes: int,
     return dataclasses.replace(plan, wire_dtypes=tuple(wires))
 
 
+def assign_alltoall_wire(nbytes: int, quantize_min_bytes: int,
+                         small_wire: str = WIRE_BF16) -> str:
+    """Wire format of one alltoall payload of ``nbytes`` raw bytes (the
+    eager ``alltoall(wire="auto")``): int8 at or above the threshold, the
+    ``small_wire`` cast below it — the JAX planner's rule, the same on
+    every rank without negotiation."""
+    if nbytes >= quantize_min_bytes:
+        return WIRE_INT8
+    return small_wire or WIRE_NONE
+
+
 def fuse_bucket(leaves: Sequence[torch.Tensor], bucket: Bucket
                 ) -> torch.Tensor:
     """One bucket's leaves concatenated into one flat tensor."""

@@ -328,6 +328,11 @@ def registry() -> MetricsRegistry:
     return _registry
 
 
+def enabled() -> bool:
+    """Whether the registry records (``HVD_TPU_METRICS``, default on)."""
+    return registry().enabled
+
+
 def counter(name: str, help: str = "", labels: Sequence[str] = ()):
     return registry().counter(name, help, labels)
 

@@ -1,5 +1,5 @@
 """Collective primitives of the port over ``torch.distributed`` — the
-subset of ``horovod_tpu/ops/collectives.py`` the training slices need.
+per-process counterparts of ``horovod_tpu/ops/collectives.py``.
 
 The JAX functions reduce over a mesh axis inside a traced program; here
 every call is an eager collective over the default process group that
@@ -8,17 +8,27 @@ with ``init(backend="gloo")``). Results are new tensors unless a name
 ends in ``_`` (in place).
 
 Ported: ``ReduceOp`` and its aliases, ``allreduce`` (SUM, AVERAGE, MIN,
-MAX and ADASUM, with pre/postscale), ``grouped_allreduce``,
-``allreduce_async_``, ``allgather``, ``broadcast``/``broadcast_``,
-``barrier``, and the reduce-safe quantized reduction
-(``quantized_reducescatter``, ``quantized_allreduce``: int8 on every hop
-through K2 or K3, K4's format, the documented error bound and the
-error-feedback residual). PRODUCT and the hierarchical/mesh-routed
-reductions come with later slices and raise ``NotImplementedError``.
+MAX, PRODUCT and ADASUM, with pre/postscale through ``_apply_scale`` —
+kernel K1 on a CUDA tensor), ``allreduce_async_``, ``allgather`` and the
+ragged ``allgatherv``, ``broadcast``/``broadcast_``, ``join_allreduce``,
+the exchanges (even and
+uneven ``alltoall``, ``compressed_alltoall`` on the bf16 and int8 wires
+through K2/K4, ``reducescatter``), and the reduce-safe quantized
+reduction (``quantized_reducescatter``, ``quantized_allreduce``: int8 on
+every hop through K2 or K3, K4's format, the documented error bound and
+the error-feedback residual). The hierarchical/mesh-routed reductions
+come with a later slice.
+
+A collective the eager engine runs asynchronously comes as an
+``*_issue`` function returning :data:`Issued` — the works in flight and
+the step that finishes the result after them (a division, a postscale,
+a decompression); the blocking form waits at once.
 
 Every collective here is one that gloo also runs on CUDA tensors
 (staging them through host memory): ``all_reduce``, ``broadcast``,
-``all_gather`` (the list form) and ``all_to_all_single``. A pairwise
+``all_gather`` (the list form) and ``all_to_all_single`` (with split
+sizes too). A reduce-scatter is an ``all_to_all_single`` and a sum in
+rank order; a ragged gather pads to the longest rank. A pairwise
 exchange (:func:`pair_exchange`) is an ``all_to_all_single`` whose split
 sizes are zero except toward the partner, since gloo's ``send``/``recv``
 do not take CUDA tensors. The same calls run over NCCL when each rank
@@ -36,7 +46,7 @@ from __future__ import annotations
 
 import enum
 import hashlib
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -64,18 +74,31 @@ Max = ReduceOp.MAX
 Product = ReduceOp.PRODUCT
 
 _DIST_OP = {ReduceOp.SUM: dist.ReduceOp.SUM, ReduceOp.MIN: dist.ReduceOp.MIN,
-            ReduceOp.MAX: dist.ReduceOp.MAX}
+            ReduceOp.MAX: dist.ReduceOp.MAX,
+            ReduceOp.PRODUCT: dist.ReduceOp.PRODUCT}
+
+
+_SCALED_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 
 def _apply_scale(x: torch.Tensor, scale: Optional[float]) -> torch.Tensor:
-    """Pre/post-scaling: ``x`` itself at 1.0 (no multiply); integer
-    tensors scale in fp64 and cast back (a cast scale would floor 0.5 to
-    0), floats multiply in their own dtype."""
+    """Pre/post-scaling, the JAX package's ``x * asarray(scale, x.dtype)``:
+    ``x`` itself at 1.0 (no multiply). A float32/bf16/fp16 tensor is
+    multiplied by the scale rounded to its own dtype, in fp32 with one
+    rounding back — kernel K1 on a CUDA tensor, its plain version on the
+    CPU; for bf16 and fp16 the fp32 product of two such values is exact,
+    so the result is the correctly rounded product in the tensor's dtype.
+    Integer tensors scale in fp64 and cast back (the JAX package's x64
+    path: a cast scale would floor 0.5 to 0); float64 and complex tensors
+    multiply in their own dtype."""
     if scale is None or scale == 1.0:
         return x
     if not (x.is_floating_point() or x.is_complex()):
         return (x.to(torch.float64) * scale).to(x.dtype)
-    return x * scale
+    if x.dtype not in _SCALED_FLOATS:
+        return x * scale
+    rounded = torch.tensor(scale, dtype=x.dtype).item()
+    return kernels.scale_buffer(x.contiguous(), rounded)
 
 
 def _divide_by_size(y: torch.Tensor, n: int) -> torch.Tensor:
@@ -91,10 +114,6 @@ def _divide_by_size(y: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _reduce_in_place(x: torch.Tensor, op: ReduceOp, async_op: bool):
-    if op == ReduceOp.PRODUCT:
-        raise NotImplementedError(
-            "PRODUCT reductions are not ported yet; they come with the "
-            "eager-engine slice of the port")
     if op == ReduceOp.ADASUM:
         raise ValueError("Adasum is no in-place sum: call allreduce(x, "
                          "op=Adasum)")
@@ -104,13 +123,39 @@ def _reduce_in_place(x: torch.Tensor, op: ReduceOp, async_op: bool):
     return dist.all_reduce(x, op=dist_op, async_op=async_op)
 
 
-def allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
-              prescale_factor: float = 1.0,
-              postscale_factor: float = 1.0) -> torch.Tensor:
-    """Allreduce of ``x`` across all ranks; returns a new tensor.
-    AVERAGE is a SUM followed by an exact division by the world size;
-    ADASUM is ``adasum.adasum_allreduce`` with the configured scalar
-    dtype (``HVD_TPU_ADASUM_SCALAR_DTYPE``)."""
+# An issued collective: the ``torch.distributed`` works in flight and the
+# step that turns their buffers into the result once every work has
+# landed. The eager engine keeps it in a handle; the blocking forms below
+# wait at once.
+Issued = Tuple[List, Callable[[], Any]]
+
+
+def wait_issued(issued: Issued):
+    """Wait for every work of ``issued`` and return its result."""
+    works, finish = issued
+    for work in works:
+        work.wait()
+    return finish()
+
+
+def _done(y) -> Issued:
+    return [], lambda: y
+
+
+def _owned(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``y`` as a contiguous buffer the caller may overwrite (a copy when
+    it is still the caller's ``x``)."""
+    if y is x or not y.is_contiguous():
+        return y.detach().clone(memory_format=torch.contiguous_format)
+    return y
+
+
+def allreduce_issue(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
+                    prescale_factor: float = 1.0,
+                    postscale_factor: float = 1.0) -> Issued:
+    """:func:`allreduce`, issued: the prescale and the reduction are
+    queued; the division (AVERAGE) and the postscale run at the finish.
+    ADASUM runs to its end here."""
     op = ReduceOp(op)
     n = basics.size()
     y = _apply_scale(x, prescale_factor)
@@ -118,43 +163,85 @@ def allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
         from . import adasum as adasum_lib
 
         y = adasum_lib.adasum_allreduce(y)
-        return _apply_scale(x.clone() if y is x else y, postscale_factor)
-    if y is x:
-        y = x.clone()
-    _reduce_in_place(y, op, async_op=False)
-    if op == ReduceOp.AVERAGE:
-        y = _divide_by_size(y, n)
-    return _apply_scale(y, postscale_factor)
+        return _done(_apply_scale(x.clone() if y is x else y,
+                                  postscale_factor))
+    y = _owned(x, y)
+    work = _reduce_in_place(y, op, async_op=True)
+
+    def finish():
+        z = _divide_by_size(y, n) if op == ReduceOp.AVERAGE else y
+        return _apply_scale(z, postscale_factor)
+    return [work], finish
+
+
+def allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
+              prescale_factor: float = 1.0,
+              postscale_factor: float = 1.0) -> torch.Tensor:
+    """Allreduce of ``x`` across all ranks; returns a new tensor.
+    AVERAGE is a SUM followed by an exact division by the world size;
+    PRODUCT, MIN and MAX reduce elementwise; ADASUM is
+    ``adasum.adasum_allreduce`` with the configured scalar dtype
+    (``HVD_TPU_ADASUM_SCALAR_DTYPE``)."""
+    return wait_issued(allreduce_issue(x, op, prescale_factor,
+                                       postscale_factor))
 
 
 def allreduce_async_(x: torch.Tensor, op: ReduceOp = ReduceOp.SUM):
-    """In-place SUM/MIN/MAX allreduce of ``x``, issued asynchronously;
-    returns the ``torch.distributed`` work handle (``.wait()`` before
-    reading ``x``). AVERAGE needs a division after the wait: use
-    :func:`allreduce`, or SUM and divide."""
+    """In-place SUM/MIN/MAX/PRODUCT allreduce of ``x``, issued
+    asynchronously; returns the ``torch.distributed`` work handle
+    (``.wait()`` before reading ``x``). AVERAGE needs a division after
+    the wait: use :func:`allreduce`, or SUM and divide."""
     op = ReduceOp(op)
     if op == ReduceOp.AVERAGE:
-        raise ValueError("allreduce_async_ takes SUM/MIN/MAX; AVERAGE is "
-                         "a SUM followed by a division after the wait")
+        raise ValueError("allreduce_async_ takes SUM/MIN/MAX/PRODUCT; "
+                         "AVERAGE is a SUM followed by a division after "
+                         "the wait")
     basics.context()
     return _reduce_in_place(x, op, async_op=True)
 
 
-def grouped_allreduce(xs: Sequence[torch.Tensor],
-                      op: ReduceOp = ReduceOp.AVERAGE,
-                      prescale_factor: float = 1.0,
-                      postscale_factor: float = 1.0) -> List[torch.Tensor]:
-    """Allreduce a list of tensors as one logical step (callers wanting
-    explicit fusion use ``common.fusion`` buckets)."""
-    return [allreduce(x, op, prescale_factor, postscale_factor) for x in xs]
+def join_allreduce(x: torch.Tensor, joined: bool, active: int,
+                   op: ReduceOp = ReduceOp.AVERAGE) -> torch.Tensor:
+    """Allreduce in which a rank that has joined contributes zeros and
+    AVERAGE divides by the ``active`` ranks (at least 1) — the reference's
+    JoinOp, ``horovod_tpu/ops/collectives.py`` ``join_allreduce``. Every
+    rank passes the same ``active`` (the join round tells it)."""
+    op = ReduceOp(op)
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError("join supports SUM/AVERAGE")
+    y = torch.zeros_like(x) if joined else _owned(x, x)
+    _reduce_in_place(y, ReduceOp.SUM, async_op=False)
+    if op == ReduceOp.AVERAGE:
+        y = _divide_by_size(y, max(active, 1))
+    return y
 
 
-def allgather(x: torch.Tensor) -> torch.Tensor:
-    """Concatenate every rank's ``x`` along dim 0 (all ranks' shapes must
-    be equal)."""
-    parts = [torch.empty_like(x) for _ in range(basics.size())]
-    dist.all_gather(parts, x.contiguous())
-    return torch.cat(parts, dim=0)
+def allgather_issue(x: torch.Tensor) -> Issued:
+    """:func:`allgather`, issued."""
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+             for _ in range(basics.size())]
+    work = dist.all_gather(parts, x.contiguous(), async_op=True)
+    return [work], lambda: torch.cat(parts, dim=0)
+
+
+def allgatherv_issue(x: torch.Tensor, sizes: Sequence[int]) -> Issued:
+    """Ragged allgather: rank ``r`` holds ``sizes[r]`` rows (the table
+    every rank agrees on, ``horovod_tpu/ops/collectives.py``
+    ``allgatherv``); the result is every rank's rows in rank order. Each
+    buffer is zero-padded to ``max(sizes)`` rows and gathered with the
+    even list-form ``all_gather`` (which gloo runs on CUDA tensors)."""
+    n = basics.size()
+    me = basics.rank()
+    if len(sizes) != n or x.shape[0] != sizes[me]:
+        raise ValueError(f"allgatherv: rank {me} holds {x.shape[0]} rows; "
+                         f"the size table says {list(sizes)}")
+    maxs = max(sizes)
+    padded = x.new_zeros((maxs,) + tuple(x.shape[1:]))
+    padded[:x.shape[0]] = x
+    parts = [torch.empty_like(padded) for _ in range(n)]
+    work = dist.all_gather(parts, padded, async_op=True)
+    return [work], lambda: torch.cat(
+        [p[:k] for p, k in zip(parts, sizes)], dim=0)
 
 
 def broadcast_(x: torch.Tensor, root_rank: int = 0) -> torch.Tensor:
@@ -172,15 +259,11 @@ def broadcast_(x: torch.Tensor, root_rank: int = 0) -> torch.Tensor:
     return x
 
 
-def broadcast(x: torch.Tensor, root_rank: int = 0) -> torch.Tensor:
-    """``root_rank``'s value of ``x`` as a new tensor on every rank."""
-    return broadcast_(x.detach().clone(), root_rank)
-
-
-def barrier() -> None:
-    """Block until every rank has reached this call."""
-    basics.context()
-    dist.barrier()
+def broadcast_issue(x: torch.Tensor, root_rank: int = 0) -> Issued:
+    """``root_rank``'s value of ``x`` as a new tensor, issued."""
+    y = _owned(x, x)
+    work = dist.broadcast(y, src=root_rank, async_op=True)
+    return [work], lambda: y
 
 
 # -- exchanges ----------------------------------------------------------------
@@ -214,6 +297,108 @@ def pair_exchange(x: torch.Tensor, partner: int) -> torch.Tensor:
     dist.all_to_all_single(out, flat, output_split_sizes=splits,
                            input_split_sizes=splits)
     return out.reshape(x.shape)
+
+
+def _even_rows(x: torch.Tensor, n: int, what: str) -> int:
+    if x.dim() == 0 or x.shape[0] % n:
+        raise ValueError(f"{what}: dim 0 ({tuple(x.shape)[:1]}) must divide "
+                         f"into {n} chunks")
+    return x.shape[0] // n
+
+
+def alltoall_issue(x: torch.Tensor) -> Issued:
+    """Even all-to-all (``horovod_tpu/ops/collectives.py`` ``alltoall``):
+    dim 0 splits into ``n`` equal chunks, chunk ``j`` goes to rank ``j``,
+    and the received chunks concatenate along dim 0 in rank order."""
+    _even_rows(x, basics.size(), "alltoall")
+    xc = x.contiguous()
+    out = torch.empty_like(xc)
+    work = dist.all_to_all_single(out, xc, async_op=True)
+    return [work], lambda: out
+
+
+def alltoallv_issue(x: torch.Tensor, splits: Sequence[int],
+                    recv_splits: Sequence[int]) -> Issued:
+    """Uneven all-to-all: this rank sends ``splits[d]`` consecutive rows
+    to rank ``d`` and receives ``recv_splits[s]`` from rank ``s``,
+    concatenated in rank order (one ``all_to_all_single`` with split
+    sizes, which gloo runs on CUDA tensors)."""
+    splits, recv_splits = [int(s) for s in splits], \
+        [int(s) for s in recv_splits]
+    if sum(splits) != x.shape[0]:
+        raise ValueError(f"alltoallv: sum(splits) = {sum(splits)} != send "
+                         f"rows {x.shape[0]}")
+    xc = x.contiguous()
+    out = xc.new_empty((sum(recv_splits),) + tuple(x.shape[1:]))
+    work = dist.all_to_all_single(out, xc, output_split_sizes=recv_splits,
+                                  input_split_sizes=splits, async_op=True)
+    return [work], lambda: out
+
+
+WIRES = ("none", "bf16", "int8")
+
+
+def compressed_alltoall_issue(x: torch.Tensor, wire: str = "int8"
+                              ) -> Issued:
+    """Wire-compressed even all-to-all (``horovod_tpu/ops/collectives.py``
+    ``compressed_alltoall``): ``"none"`` sends the native dtype,
+    ``"bf16"`` casts around the exchange, ``"int8"`` quantizes each
+    rank's chunks with K2 (one fp32 scale per 4096-element block, each
+    chunk zero-padded to whole blocks), exchanges codes and scales, and
+    dequantizes what arrived with K4. Integer payloads, and any payload
+    in a world of one, ride uncompressed. Error bound per element (lossy
+    wires): half a block scale (int8), one bf16 step (bf16)."""
+    if wire not in WIRES:
+        raise ValueError(f"unknown wire format {wire!r}; choose from "
+                         f"{WIRES}")
+    n = basics.size()
+    m = _even_rows(x, n, "compressed_alltoall")
+    if n == 1 or wire == "none" or not x.is_floating_point():
+        return alltoall_issue(x)
+    if wire == "bf16":
+        works, finish = alltoall_issue(x.to(torch.bfloat16))
+        return works, lambda: finish().to(x.dtype)
+    rest = tuple(x.shape[1:])
+    c = x.numel() // n
+    pad = -c % _Q_BLOCK
+    chunks = x.reshape(n, c).to(torch.float32)
+    flat = torch.nn.functional.pad(chunks, (0, pad)).reshape(-1)
+    q, s = _int8_chunks(flat, n, None)
+    q, s = q.reshape(-1, q.shape[-1]), s.reshape(-1)
+    qx, sx = torch.empty_like(q), torch.empty_like(s)
+    works = [dist.all_to_all_single(qx, q, async_op=True),
+             dist.all_to_all_single(sx, s, async_op=True)]
+    deq_dtype = x.dtype if x.dtype in (torch.float32, torch.bfloat16) \
+        else torch.float32
+
+    def finish():
+        out = kernels.dequantize_int8(qx, sx, flat.numel(), (n, c + pad),
+                                      deq_dtype)
+        return out[:, :c].to(x.dtype).reshape((n * m,) + rest)
+    return works, finish
+
+
+def reducescatter_issue(x: torch.Tensor, op: ReduceOp = ReduceOp.SUM
+                        ) -> Issued:
+    """Reduce-scatter along dim 0 (``horovod_tpu/ops/collectives.py``
+    ``reducescatter``): this rank's 1/n slice of the elementwise SUM (or
+    AVERAGE) over ranks. One ``all_to_all_single`` brings every rank's
+    copy of this rank's slice here; they are summed in rank order, the
+    same on NCCL and on gloo (whose ``reduce_scatter`` is not used)."""
+    op = ReduceOp(op)
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        raise ValueError("reducescatter supports SUM/AVERAGE")
+    n = basics.size()
+    m = _even_rows(x, n, "reducescatter")
+    works, exchanged = alltoall_issue(x)
+
+    def finish():
+        parts = exchanged().reshape((n, m) + tuple(x.shape[1:]))
+        acc = parts[0].clone()
+        for src in range(1, n):
+            acc += parts[src]
+        return _divide_by_size(acc, n) if op == ReduceOp.AVERAGE else acc
+    return works, finish
 
 
 # -- stochastic-rounding keys -------------------------------------------------

@@ -1,5 +1,12 @@
 """Hand-written Hopper kernels of the port and their plain versions.
 
+K1 ``scale_buffer`` is the pre/postscale pass of the eager collective
+engine (``collectives._apply_scale``): ``cast_out(float(x) * s)`` with one
+fp32 multiply and one rounding, fp32/bf16/fp16 in and out. It keeps
+``horovod_tpu/ops/pallas_kernels.py`` ``scale_buffer``'s contract: the
+scale is taken in fp32 as given; ``_apply_scale`` rounds it to the
+tensor's dtype first.
+
 K2 ``quantize_int8`` and K4 ``dequantize_int8`` are the block-scaled
 int8 wire codec the serve plane's prefill -> decode handoff rides
 (``serve/kvcache.py`` export/import). They keep the signatures and
@@ -70,18 +77,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 #: Kernel launches per wrapper, counted where the kernel is launched and
 #: nowhere else (the plain CPU path never counts). ``chip_smoke.py``
 #: zeroes these before the main path and reads them after it.
-LAUNCHES: Dict[str, int] = {"quantize_int8": 0, "dequantize_int8": 0,
+LAUNCHES: Dict[str, int] = {"scale_buffer": 0, "quantize_int8": 0,
+                            "dequantize_int8": 0,
                             "quantize_int8_stochastic": 0,
                             "flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0, "adasum_dot_norms": 0,
                             "adasum_combine": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_SCALE_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 #: ctypes signature (argtypes, restype) of every C entry point, by source.
 _SIGNATURES = {
+    "scale_buffer.cu": {
+        "hvd_scale_buffer": ([_P, _I, _P, _I, _LL, _F, _P], _I),
+    },
     "int8_codec.cu": {
         "hvd_quantize_int8": ([_P, _I, _LL, _P, _P, _LL, _P], _I),
         "hvd_dequantize_int8": ([_P, _P, _LL, _LL, _P, _I, _P], _I),
@@ -185,6 +197,45 @@ def _check_float(x: torch.Tensor, what: str) -> None:
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{what}: dtype {x.dtype} not supported "
                         "(float32 or bfloat16)")
+
+
+# -- K1: scale_buffer -------------------------------------------------------------
+
+def scale_buffer_plain(x: torch.Tensor, scale: float,
+                       out_dtype: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
+    """Plain PyTorch K1: an fp32 product with the scale in fp32, cast
+    once to ``out_dtype`` (the JAX fallback's arithmetic)."""
+    out_dtype = out_dtype or x.dtype
+    return (x.float() * torch.tensor(scale, dtype=torch.float32)
+            ).to(out_dtype)
+
+
+def scale_buffer(x: torch.Tensor, scale: float,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """K1: ``cast_out(float(x) * scale)`` in x's shape, ``scale`` taken in
+    fp32 as given; x and ``out_dtype`` (default x's) are each fp32, bf16
+    or fp16."""
+    out_dtype = out_dtype or x.dtype
+    for dt, what in ((x.dtype, "input"), (out_dtype, "output")):
+        if dt not in _SCALE_DTYPE_CODE:
+            raise TypeError(f"scale_buffer: {what} dtype {dt} not supported "
+                            "(float32, bfloat16 or float16)")
+    if x.device.type == "cpu":
+        return scale_buffer_plain(x, scale, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"scale_buffer: unsupported device {x.device}")
+    if not x.is_contiguous():
+        raise ValueError("scale_buffer: input must be contiguous")
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    n = x.numel()
+    err = _load("scale_buffer.cu").hvd_scale_buffer(
+        x.data_ptr(), _SCALE_DTYPE_CODE[x.dtype], out.data_ptr(),
+        _SCALE_DTYPE_CODE[out_dtype], n, float(scale), _stream(x))
+    _check_launch("scale_buffer", err)
+    if n:
+        LAUNCHES["scale_buffer"] += 1
+    return out
 
 
 # -- K2: quantize_int8 ------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the int8 codec (K2/K4), flash attention (K5/K6/K7), the stochastic
-quantizer (K3) and the Adasum combine (K8/K9), and the paths that run
-them — two of them as two gloo ranks sharing the one card, each a
-process running this file with ``--card-worker``. Every test here needs
+card: the scale kernel (K1), the int8 codec (K2/K4), flash attention
+(K5/K6/K7), the stochastic quantizer (K3) and the Adasum combine
+(K8/K9), and the paths that run them — two of them as two gloo ranks
+sharing the one card, each a process running this file with
+``--card-worker``. Every test here needs
 an NVIDIA GPU and skips with a reason elsewhere. This file imports no
 JAX, so it also runs on a machine without it:
 
@@ -22,8 +23,8 @@ import torch
 from horovod_tpu_torch.ops import kernels
 
 REPO = Path(__file__).resolve().parents[1]
-NEW_KERNELS = {"quantize_int8_stochastic": 0, "adasum_dot_norms": 0,
-               "adasum_combine": 0}
+NEW_KERNELS = {"scale_buffer": 0, "quantize_int8_stochastic": 0,
+               "adasum_dot_norms": 0, "adasum_combine": 0}
 
 SCALE_RTOL = 1e-6
 FLASH_FWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -245,10 +246,40 @@ def test_reduce_kernels_match_plain_on_card():
             if n == 4097:
                 assert torch.equal(out, a)
     assert kernels.LAUNCHES == {
-        "quantize_int8": 0, "dequantize_int8": 0, "flash_fwd": 0,
-        "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "scale_buffer": 0, "quantize_int8": 0, "dequantize_int8": 0,
+        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
         "quantize_int8_stochastic": calls, "adasum_dot_norms": 2 * calls,
         "adasum_combine": 2 * calls}
+
+
+@pytest.mark.cuda
+def test_scale_kernel_matches_plain_on_card():
+    """K1 bitwise equal to its plain version for every pair of fp32, bf16
+    and fp16 in and out, at ragged sizes and from an address off the
+    16-byte grid (the scalar path), with one counted launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    kernels.reset_launch_counts()
+    calls = 0
+    for n in (1, 7, 1024, 4095, 4097, 9001, 300_001):
+        base = torch.randn(n + 1, generator=gen, device="cuda") * 3
+        for din in dtypes:
+            for x in (base[:n].to(din), base.to(din)[1:]):
+                for dout in dtypes:
+                    for scale in (1 / 3, 0.7, 2.5):
+                        got = kernels.scale_buffer(x, scale, dout)
+                        want = kernels.scale_buffer_plain(x, scale, dout)
+                        calls += 1
+                        assert got.dtype == dout
+                        assert torch.equal(got.view(-1), want.view(-1)), (
+                            n, din, dout, scale)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {
+        "quantize_int8": 0, "dequantize_int8": 0, "flash_fwd": 0,
+        "flash_bwd_dq": 0, "flash_bwd_dkv": 0, **NEW_KERNELS,
+        "scale_buffer": calls}
 
 
 @pytest.mark.cuda
@@ -280,6 +311,19 @@ def _card_worker(rank: int, out_path: str) -> None:
     ctx = hvd.init(backend="gloo")
     assert ctx.backend == "gloo" and ctx.device.type == "cuda"
     out = {}
+    # The eager engine: pre/postscale through K1, once each.
+    g = torch.randn(5000, generator=torch.Generator(device="cuda")
+                    .manual_seed(rank), device="cuda")
+    kernels.reset_launch_counts()
+    h = hvd.allreduce_async(g, op=hvd.Sum, name="g", prescale_factor=1 / 3,
+                            postscale_factor=1.5)
+    y = hvd.synchronize(h)
+    every = hvd.allgather(g[None])
+    want = kernels.scale_buffer_plain(
+        kernels.scale_buffer_plain(every[0], 1 / 3)
+        + kernels.scale_buffer_plain(every[1], 1 / 3), 1.5)
+    out["eager"] = {"launches": dict(kernels.LAUNCHES),
+                    "equal": torch.equal(y, want)}
     for mode in ("int8_ef", "adasum"):
         m = gpt.gpt_tiny(hidden=128, num_heads=2).to("cuda")
         m.init_weights(torch.Generator(device="cuda").manual_seed(0))
@@ -315,9 +359,11 @@ def _card_worker(rank: int, out_path: str) -> None:
 
 @pytest.mark.cuda
 def test_two_gloo_ranks_on_card_reduce_through_the_kernels(tmp_path):
-    """Two processes share the card over gloo: one int8_ef step launches
-    K3 twice per int8 bucket, one Adasum step launches K8 and K9 once per
-    parameter, and both leave the two replicas bitwise equal."""
+    """Two processes share the card over gloo: an eager allreduce with
+    pre/postscale launches K1 twice and gives the plain arithmetic's
+    bits; one int8_ef step launches K3 twice per int8 bucket, one Adasum
+    step launches K8 and K9 once per parameter, and both leave the two
+    replicas bitwise equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     with socket.socket() as sock:
@@ -345,6 +391,12 @@ def test_two_gloo_ranks_on_card_reduce_through_the_kernels(tmp_path):
     for r in range(2):
         with open(tmp_path / f"rank{r}.json") as f:
             res = json.load(f)
+        eager = res.pop("eager")
+        assert eager["equal"], r
+        assert eager["launches"] == {
+            "quantize_int8": 0, "dequantize_int8": 0, "flash_fwd": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, **NEW_KERNELS,
+            "scale_buffer": 2}, r
         for mode, rec in res.items():
             flash = rec["layers"]
             want = {"quantize_int8": 0, "dequantize_int8": 0,

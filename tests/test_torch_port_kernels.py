@@ -1,5 +1,16 @@
-"""The port's int8 KV-wire codec (K2 ``quantize_int8``, K4
-``dequantize_int8``) against the JAX package's.
+"""The port's scale kernel (K1 ``scale_buffer``) and int8 KV-wire codec
+(K2 ``quantize_int8``, K4 ``dequantize_int8``) against the JAX package's.
+
+K1: the plain version bitwise equal to ``pallas_kernels.scale_buffer``
+as its jnp fallback and as the Pallas body in interpret mode, fp32/bf16
+in and out; ``collectives._apply_scale`` bitwise equal to the JAX
+``_apply_scale`` for fp32, bf16 and fp16 at scales no power of two; and
+a 2-rank gloo ``allreduce(op=Average, prescale_factor=1/3,
+postscale_factor=0.7)`` in bf16 (each rank a process running this file
+with ``--scale-worker``) bitwise equal to the JAX ``allreduce`` under
+``shard_map`` on a 2-device mesh, compiled so that it rounds where its
+code says (XLA's CPU compiler otherwise keeps the prescaled bf16
+operand in fp32 across its fp32-promoted all-reduce).
 
 On the CPU the port's wrappers take their plain PyTorch versions; those
 are held here against ``horovod_tpu.ops.pallas_kernels`` run both as its
@@ -19,18 +30,29 @@ interpret path the codes are therefore bitwise wherever the two scales
 are bitwise equal, and within 1 elsewhere.
 """
 
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
 import torch
 
 from horovod_tpu.ops import pallas_kernels as pk
-from horovod_tpu_torch.ops import kernels
+from horovod_tpu_torch.ops import collectives, kernels
+
+REPO = Path(__file__).resolve().parents[1]
 
 SCALE_RTOL = 1e-6
 
-_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+_JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
+        "float16": jnp.float16}
+SCALES = (1 / 3, 0.1, 0.7, 2.5)
 
 
 def _inputs(rng, shape, dtype):
@@ -42,6 +64,121 @@ def _inputs(rng, shape, dtype):
         _TORCH[dtype])
     return x, xt
 
+
+def _bits(x):
+    """The bit patterns of a float array (jax or torch) as int32."""
+    if isinstance(x, torch.Tensor):
+        x = x.to(torch.float32).numpy()
+    return np.asarray(np.asarray(x, np.float32)).view(np.int32)
+
+
+# -- K1: scale_buffer --------------------------------------------------------
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [7, 1024, 5000])
+def test_scale_buffer_matches_jax(rng, n, dtype, out_dtype, use_pallas):
+    """The plain K1 (the CPU path of the wrapper) gives the JAX function's
+    bits, from its fallback and from the Pallas body."""
+    x, xt = _inputs(rng, (n,), dtype)
+    for scale in (2.5, 1 / 3):
+        want = pk.scale_buffer(x, scale, out_dtype=_JAX[out_dtype],
+                               use_pallas=use_pallas)
+        got = kernels.scale_buffer(xt, scale, _TORCH[out_dtype])
+        assert got.dtype == _TORCH[out_dtype] and got.shape == xt.shape
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+        np.testing.assert_array_equal(
+            _bits(got), _bits(kernels.scale_buffer_plain(
+                xt, scale, _TORCH[out_dtype])))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("n", [1, 4095, 9001])
+def test_apply_scale_matches_jax(rng, n, dtype):
+    """``_apply_scale`` rounds the scale to the tensor's dtype, as the JAX
+    function does; a product in fp32 with the unrounded scale (the port's
+    arithmetic before) differs in bf16 and fp16."""
+    from horovod_tpu.ops import collectives as jC
+
+    x, xt = _inputs(rng, (n,), dtype)
+    for scale in SCALES:
+        got = collectives._apply_scale(xt, scale)
+        assert got.dtype == xt.dtype
+        np.testing.assert_array_equal(_bits(got),
+                                      _bits(jC._apply_scale(x, scale)))
+    assert collectives._apply_scale(xt, 1.0) is xt
+    ints = torch.tensor([1, 3, 5])
+    assert collectives._apply_scale(ints, 0.5).tolist() == [0, 1, 2]
+
+
+def test_scale_buffer_rejects_bad_inputs():
+    x = torch.ones(10)
+    with pytest.raises(TypeError):
+        kernels.scale_buffer(x.double(), 2.0)
+    with pytest.raises(TypeError):
+        kernels.scale_buffer(x, 2.0, torch.int32)
+
+
+def _scale_data():
+    rng = np.random.default_rng(31)
+    return (rng.standard_normal((2, 9001)) * 3).astype(np.float32)
+
+
+def _scale_worker(rank: int, out_path: str) -> None:
+    """One rank of a 2-process gloo world (run as a script)."""
+    import horovod_tpu_torch as hvd
+
+    hvd.init(device="cpu")
+    x = torch.from_numpy(_scale_data()[rank]).to(torch.bfloat16)
+    y = hvd.allreduce(x, op=hvd.Average, name="scaled",
+                      prescale_factor=1 / 3, postscale_factor=0.7)
+    hvd.shutdown()
+    np.save(out_path, y.to(torch.float32).numpy())
+
+
+def test_two_rank_scaled_bf16_allreduce_matches_jax(tmp_path):
+    import jax
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    from horovod_tpu.ops import collectives as jC
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, HVD_TPU_COORDINATOR=f"127.0.0.1:{port}",
+               HVD_TPU_NUM_PROC="2", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                  if p]))
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--scale-worker", str(r),
+         str(tmp_path / f"rank{r}.npy")], env=dict(env, HVD_TPU_PROC_ID=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} failed:\n{logs[r]}"
+
+    mesh = Mesh(np.array(jax.devices()[:2]), ("hvd",))
+    f = jax.jit(jax.shard_map(
+        lambda v: jC.allreduce(v[0], jC.ReduceOp.AVERAGE, "hvd", 1 / 3,
+                               0.7)[None],
+        mesh=mesh, in_specs=P("hvd"), out_specs=P("hvd")))
+    x = jnp.asarray(_scale_data(), jnp.bfloat16)
+    want = f.lower(x).compile(
+        compiler_options={"xla_allow_excess_precision": False})(x)
+    for r in range(2):
+        np.testing.assert_array_equal(
+            _bits(np.load(tmp_path / f"rank{r}.npy")),
+            _bits(np.asarray(want[r].astype(jnp.float32))))
+
+
+# -- K2 / K4 --------------------------------------------------------------------
 
 def _assert_quant_equal(jq, tq):
     """Codes bitwise in every block whose scale is bitwise equal (all
@@ -132,6 +269,7 @@ def test_cpu_tensor_takes_plain_path_and_counts_no_launch(monkeypatch,
     monkeypatch.setattr(kernels, "_load", no_cuda)
     kernels.reset_launch_counts()
     _, xt = _inputs(rng, (5000,), "bfloat16")
+    kernels.scale_buffer(xt, 0.5, torch.float32)
     q, s, n = kernels.quantize_int8(xt)
     kernels.dequantize_int8(q, s, n, (5000,), torch.bfloat16)
     a = torch.from_numpy(rng.standard_normal((1, 8, 2, 64))
@@ -142,7 +280,8 @@ def test_cpu_tensor_takes_plain_path_and_counts_no_launch(monkeypatch,
     kernels.quantize_int8_stochastic(xt, u)
     dn = kernels.adasum_dot_norms(xt, xt)
     kernels.adasum_combine(xt, xt, dn)
-    assert set(kernels.LAUNCHES) == {"quantize_int8", "dequantize_int8",
+    assert set(kernels.LAUNCHES) == {"scale_buffer", "quantize_int8",
+                                     "dequantize_int8",
                                      "quantize_int8_stochastic",
                                      "flash_fwd", "flash_bwd_dq",
                                      "flash_bwd_dkv", "adasum_dot_norms",
@@ -161,3 +300,7 @@ def test_wrappers_reject_bad_inputs(rng):
         kernels.dequantize_int8(q, s, n, (101,))
     with pytest.raises(TypeError):
         kernels.dequantize_int8(q.to(torch.int16), s, n, (100,))
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--scale-worker"]:
+    _scale_worker(int(sys.argv[2]), sys.argv[3])

@@ -13,7 +13,7 @@
   three steps; the result must match the JAX ``DistributedOptimizer``
   under ``shard_map`` on a 2-device mesh to 1e-5, for Average, Sum,
   ``backward_passes_per_step=2``, fp16 and bf16 compression, the
-  predivide factor, and after ``broadcast_parameters`` +
+  predivide factors 2 and 3, and after ``broadcast_parameters`` +
   ``broadcast_optimizer_state``.
 
 JAX is imported lazily (the ``J`` fixture): the worker processes import
@@ -40,7 +40,8 @@ GPT_TOL = 1e-4          # logits, loss and gradients, fp32
 DP_TOL = 1e-5           # updated parameters, 2-rank DP vs JAX
 DP_STEPS = 3
 DP_THRESHOLD = 64       # bytes: three fusion buckets for the MLP
-DP_CASES = ("average", "sum", "bpps2", "fp16", "bf16", "predivide")
+DP_CASES = ("average", "sum", "bpps2", "fp16", "bf16", "predivide",
+            "predivide3")
 
 
 @pytest.fixture(scope="module")
@@ -238,8 +239,7 @@ def test_collectives_world_of_one(world1):
     torch.testing.assert_close(y, x)
     with pytest.raises(ValueError):
         hvd.allreduce_async_(y, hvd.Average)
-    with pytest.raises(NotImplementedError):
-        hvd.allreduce(x, op=hvd.ReduceOp.PRODUCT)
+    torch.testing.assert_close(hvd.allreduce(x, op=hvd.ReduceOp.PRODUCT), x)
     # Adasum runs no level in a world of one.
     torch.testing.assert_close(hvd.allreduce(x, op=hvd.ReduceOp.ADASUM), x)
     hvd.barrier()
@@ -298,9 +298,10 @@ def test_distributed_optimizer_contract(world1):
                                  op=hvd.Sum, gradient_predivide_factor=2.0)
 
 
-@pytest.mark.parametrize("name", ["alltoall", "ProcessSet", "ZeroOptimizer",
-                                  "accumulate_gradients", "join",
-                                  "models.bert_large", "models.ResNet50"])
+@pytest.mark.parametrize("name", ["add_process_set", "ProcessSet",
+                                  "ZeroOptimizer", "accumulate_gradients",
+                                  "observe_guard", "models.bert_large",
+                                  "models.ResNet50"])
 def test_later_slices_raise_not_implemented(name):
     """The JAX package's API that later slices bring is present by name
     and raises NotImplementedError naming its slice."""
@@ -343,7 +344,8 @@ def _dp_worker(rank: int, out_path: str) -> None:
               "bpps2": {"backward_passes_per_step": 2},
               "fp16": {"compression": "fp16"},
               "bf16": {"compression": hvd.Compression.bf16},
-              "predivide": {"gradient_predivide_factor": 2.0}}
+              "predivide": {"gradient_predivide_factor": 2.0},
+              "predivide3": {"gradient_predivide_factor": 3.0}}
     out = {}
     for case in DP_CASES:
         m = _mlp_model(data["params"])
@@ -448,7 +450,8 @@ def test_two_rank_dp_matches_jax(J, dp_ranks, case):
                      "average_aggregated_gradients": False},
            "fp16": {"compression": J.Compression.fp16},
            "bf16": {"compression": J.Compression.bf16},
-           "predivide": {"prescale_factor": 0.5, "postscale_factor": 2.0}}
+           "predivide": {"prescale_factor": 0.5, "postscale_factor": 2.0},
+           "predivide3": {"prescale_factor": 1 / 3, "postscale_factor": 3.0}}
     tx = J.hvd.DistributedOptimizer(J.optax.sgd(0.1), axis_name="hvd",
                                     fusion_threshold_bytes=DP_THRESHOLD,
                                     **jkw[case])
