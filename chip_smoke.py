@@ -28,8 +28,12 @@ Phases (any failure exits non-zero and prints no result line):
 3. K5/K6/K7 (flash attention forward, dq, dk/dv) against their plain
    versions on the card: the training shape (8, 512, 16, 64) causal in
    bf16 and fp32, fp32 with a key mask, D = 128, a ragged S and a
-   nonzero lse cotangent; bounds fp32 2e-4 (forward) and 5e-3
-   (gradients), bf16 2e-2. Times at the training shape in bf16: CUDA
+   nonzero lse cotangent; in bf16 (where K5 and K7 are the wgmma/TMA
+   kernels) also a ragged S with a key mask and dlse, the training shape
+   with q, k, v as ``split`` views of one fused QKV tensor, and D = 128
+   causal; bounds fp32 2e-4 (forward) and 5e-3 (gradients), bf16 2e-2.
+   Each record names its route by dtype. Times at the training shape in
+   bf16: CUDA
    graph replay over 8 distinct input sets, eager, the plain version,
    and the library call ``scaled_dot_product_attention(is_causal=True)``
    (its forward against K5, its backward — a graph of forward and
@@ -302,15 +306,20 @@ def phase_kernels(torch, K) -> dict:
     return records
 
 
-# (B, S, H, D), dtype name, causal, key mask, nonzero dlse
+# (B, S, H, D), dtype name, causal, key mask, nonzero dlse, and whether
+# q, k, v are ``split`` views of one (B, S, 3 H D) tensor, as
+# ``CausalSelfAttention`` makes them (row stride 3 H D: the TMA strides)
 FLASH_PATH = (8, 512, 16, 64)       # the training path's attention shape
 FLASH_CASES = (
-    (FLASH_PATH, "bfloat16", True, False, False),
-    (FLASH_PATH, "float32", True, False, False),
-    ((2, 256, 4, 64), "float32", False, True, False),
-    ((2, 256, 4, 128), "float32", True, False, True),
-    ((2, 200, 4, 64), "float32", True, True, True),
-    ((2, 200, 4, 128), "bfloat16", False, False, True),
+    (FLASH_PATH, "bfloat16", True, False, False, False),
+    (FLASH_PATH, "float32", True, False, False, False),
+    ((2, 256, 4, 64), "float32", False, True, False, False),
+    ((2, 256, 4, 128), "float32", True, False, True, False),
+    ((2, 200, 4, 64), "float32", True, True, True, False),
+    ((2, 200, 4, 128), "bfloat16", False, False, True, False),
+    ((2, 200, 4, 64), "bfloat16", True, True, True, False),
+    (FLASH_PATH, "bfloat16", True, False, False, True),
+    ((2, 256, 4, 128), "bfloat16", True, False, False, False),
 )
 FLASH_TOL = {"float32": (2e-4, 5e-3), "bfloat16": (2e-2, 2e-2)}
 FLASH_TIMING_SETS = 8               # distinct inputs per graph replay
@@ -332,10 +341,14 @@ def close_err(torch, got, want, tol: float, what: str) -> float:
     return diff.max().item()
 
 
-def flash_inputs(torch, shape, dtype, mask_on, dlse_on, gen):
-    b, s, h, _ = shape
+def flash_inputs(torch, shape, dtype, mask_on, dlse_on, gen,
+                 fused=False):
+    b, s, h, d = shape
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                    .to(dtype) for _ in range(4))
+    if fused:
+        qkv = torch.cat([t.reshape(b, s, h * d) for t in (q, k, v)], -1)
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, -1))
     mask = None
     if mask_on:
         mask = (torch.rand((b, s), generator=gen, device="cuda") > 0.3
@@ -364,13 +377,13 @@ def phase_flash(torch, K) -> dict:
     at the training path's shape."""
     gen = torch.Generator(device="cuda").manual_seed(4321)
     errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    for shape, dname, causal, mask_on, dlse_on in FLASH_CASES:
+    for shape, dname, causal, mask_on, dlse_on, fused in FLASH_CASES:
         dtype = getattr(torch, dname)
         q, k, v, do, mask, dlse = flash_inputs(torch, shape, dtype, mask_on,
-                                               dlse_on, gen)
+                                               dlse_on, gen, fused)
         fwd_tol, grad_tol = FLASH_TOL[dname]
         what = (f"{shape} {dname} causal={causal} mask={mask_on} "
-                f"dlse={dlse_on}")
+                f"dlse={dlse_on} fused={fused}")
         o, lse = K.flash_fwd(q, k, v, mask, causal)
         o0, lse0 = K._flash_fwd_plain(q, k, v, mask, causal)
         delta = K.flash_delta(o0, do)
@@ -441,6 +454,16 @@ def phase_flash(torch, K) -> dict:
     library = {"flash_fwd": fwd_ms, "flash_bwd_dq": bwd_ms,
                "flash_bwd_dkv": bwd_ms}
     lines = {"flash_fwd": 74, "flash_bwd_dq": 122, "flash_bwd_dkv": 172}
+    # Each kernel's route by dtype inside the one C entry point.
+    sm90 = "bf16: wgmma m64n64k16 on TMA-fed 128B-swizzled tiles ({})"
+    cores = "fp32: CUDA-core FMAs ({})"
+    designs = {
+        "flash_fwd": sm90.format("flash_fwd_sm90") + "; "
+        + cores.format("flash_fwd_kernel"),
+        "flash_bwd_dq": "bf16 and " + cores.format("flash_bwd_dq_kernel"),
+        "flash_bwd_dkv": sm90.format("flash_bwd_dkv_sm90") + "; "
+        + cores.format("flash_bwd_dkv_kernel"),
+    }
     records = {}
     for name, (nbytes, flops) in flash_work(FLASH_PATH).items():
         fn, plain = fns[name]
@@ -456,6 +479,7 @@ def phase_flash(torch, K) -> dict:
             "source": "horovod_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"horovod_tpu/ops/flash_attention.py:{lines[name]}",
             "launches": 0,
+            "design": designs[name],
             "max_abs_err": errs[name],
             "ms": min(k1, k2),
             "plain_ms": min(p1, p2),
@@ -476,7 +500,7 @@ def phase_flash(torch, K) -> dict:
               f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); plain "
               f"{r['plain_ms'] * 1e3:.1f} us; library "
               f"{r['library_ms'] * 1e3:.1f} us; eager "
-              f"{r['eager_ms'] * 1e3:.1f} us", flush=True)
+              f"{r['eager_ms'] * 1e3:.1f} us; {r['design']}", flush=True)
     del sets
     torch.cuda.empty_cache()
     return records

@@ -36,7 +36,18 @@ They compute what ``horovod_tpu/ops/flash_attention.py``'s
 out ``(B, S, H, D)``: logits scaled by ``1/sqrt(D)``, keys the key mask
 hides at -1e30, keys after the query (causal) and past a ragged ``S``
 left out, fp32 softmax, ``lse`` ``(B, H, S)`` fp32, and the backward's
-``ds = p * (dp - delta + dlse)``. The head dimension is 64 or 128.
+``ds = p * (dp - delta + dlse)``. The head dimension is 64 or 128. At
+the training shape they are bound by bytes (10.1, 12.7 and 15.2 us at
+3.35 TB/s). One C entry point takes two routes by dtype. bf16 K5 and
+K7 are Hopper kernels: ``wgmma`` products on 64 x 64 tiles that TMA
+lands in swizzled shared memory through a 2-stage ring, with P and dS
+rounded to bf16 before the products that take them (the one numeric
+difference from the JAX kernels, inside the bf16 tolerance); their
+wrapper hands them q, k, v (and do) whose base and strides are
+multiples of 16 bytes (:func:`tma_layout_ok`), copying any other once.
+fp32, and bf16 K6, stay on the CUDA-core kernels: fp32 FMAs, since
+TF32 could not meet the fp32 tolerances. ``csrc/flash_attention.cu``'s
+header has the design and the compiler's registers and shared memory.
 
 Dispatch rule: a tensor on the CPU takes the plain PyTorch version
 beside each kernel; a CUDA tensor launches the CUDA kernel from
@@ -640,13 +651,42 @@ def _f32(t: Optional[torch.Tensor], shape) -> Optional[torch.Tensor]:
     return t.to(torch.float32).contiguous()
 
 
+def tma_layout_ok(shape, strides, elem_size: int, data_ptr: int) -> bool:
+    """Whether the bf16 K5/K7 can read a ``(B, S, H, D)`` tensor in place
+    through a TMA map: the head dimension contiguous, the base address
+    and the stride of every other dimension longer than 1 whole multiples
+    of 16 bytes. The fused QKV projection's ``split`` views pass."""
+    if strides[-1] != 1 or data_ptr % 16:
+        return False
+    return all(n == 1 or st * elem_size % 16 == 0
+               for n, st in zip(shape[:-1], strides[:-1]))
+
+
+def _tma_operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where :func:`tma_layout_ok`, else one contiguous copy
+    (the kernel still reads it; there is no plain path)."""
+    if tma_layout_ok(tuple(t.shape), t.stride(), t.element_size(),
+                     t.data_ptr()):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _bsh_strides(t: torch.Tensor) -> List[int]:
+    """Element strides of (b, s, h); a dimension of length 1 gets the
+    dense stride, since no kernel steps along it and a TMA map takes no
+    stride that is not a multiple of 16 bytes."""
+    _, s, h, d = t.shape
+    dense = (s * h * d, h * d, d)
+    return [dense[i] if t.shape[i] == 1 else t.stride(i) for i in range(3)]
+
+
 def _launch_flash(which: int, name: str, q, k, v, mask, causal, *,
                   do=None, lse=None, delta=None, dlse=None, out=None,
                   out2=None, lse_out=None) -> None:
     b, s, h, d = q.shape
     strides: List[int] = []
     for t in (q, k, v, do if do is not None else q):
-        strides += [t.stride(0), t.stride(1), t.stride(2)]
+        strides += _bsh_strides(t)
     strides_arr = (ctypes.c_longlong * 12)(*strides)
 
     def ptr(t):
@@ -670,6 +710,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     1 = attend."""
     if _check_attention("flash_fwd", q, k, v, mask) == "cpu":
         return _flash_fwd_plain(q, k, v, mask, causal)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_tma_operand(t) for t in (q, k, v))
     b, s, h, _ = q.shape
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
@@ -702,6 +744,8 @@ def flash_bwd_dkv(q, k, v, mask, causal, do, lse, delta, dlse=None
                         do=do) == "cpu":
         return _flash_bwd_dkv_plain(q, k, v, mask, causal, do, lse, delta,
                                     dlse)
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = (_tma_operand(t) for t in (q, k, v, do))
     b, s, h, _ = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)

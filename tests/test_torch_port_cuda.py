@@ -93,14 +93,18 @@ def test_disagg_serving_on_card_runs_the_kernels():
     assert streams["cuda"] == streams["cpu"]
 
 
-# (B, S, H, D), dtype, causal, key mask, nonzero dlse
+# (B, S, H, D), dtype, causal, key mask, nonzero dlse, q/k/v as split
+# views of one fused (B, S, 3 H D) tensor
 FLASH_CASES = [
-    ((8, 512, 16, 64), torch.bfloat16, True, False, False),
-    ((8, 512, 16, 64), torch.float32, True, False, False),
-    ((2, 256, 4, 64), torch.float32, False, True, False),
-    ((2, 256, 4, 128), torch.float32, True, False, True),
-    ((2, 200, 4, 64), torch.float32, True, True, True),
-    ((2, 200, 4, 128), torch.bfloat16, False, False, True),
+    ((8, 512, 16, 64), torch.bfloat16, True, False, False, False),
+    ((8, 512, 16, 64), torch.float32, True, False, False, False),
+    ((2, 256, 4, 64), torch.float32, False, True, False, False),
+    ((2, 256, 4, 128), torch.float32, True, False, True, False),
+    ((2, 200, 4, 64), torch.float32, True, True, True, False),
+    ((2, 200, 4, 128), torch.bfloat16, False, False, True, False),
+    ((2, 200, 4, 64), torch.bfloat16, True, True, True, False),
+    ((8, 512, 16, 64), torch.bfloat16, True, False, False, True),
+    ((2, 256, 4, 128), torch.bfloat16, True, False, False, False),
 ]
 
 
@@ -108,19 +112,25 @@ FLASH_CASES = [
 @pytest.mark.parametrize("case", FLASH_CASES,
                          ids=lambda c: "x".join(map(str, c[0]))
                          + f"-{str(c[1])[6:]}-causal{int(c[2])}"
-                         f"-mask{int(c[3])}-dlse{int(c[4])}")
+                         f"-mask{int(c[3])}-dlse{int(c[4])}"
+                         + ("-fused" if c[5] else ""))
 def test_flash_kernels_match_plain_on_card(case):
     """K5, K6 and K7 launched on the card against their plain versions on
     the same inputs — the training shape, fp32 and bf16, key mask, D =
-    128, a ragged S and a nonzero lse cotangent — one counted launch of
+    128, a ragged S and a nonzero lse cotangent; in bf16 (the wgmma/TMA
+    route of K5 and K7) also a ragged S with a key mask, D = 128 causal
+    and the fused QKV views of the training path — one counted launch of
     each per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    shape, dtype, causal, use_mask, use_dlse = case
+    shape, dtype, causal, use_mask, use_dlse, fused = case
     gen = torch.Generator(device="cuda").manual_seed(1)
-    b, s, h, _ = shape
+    b, s, h, d = shape
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
                    .to(dtype) for _ in range(4))
+    if fused:
+        qkv = torch.cat([t.reshape(b, s, h * d) for t in (q, k, v)], -1)
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, -1))
     mask = None
     if use_mask:
         mask = (torch.rand((b, s), generator=gen, device="cuda") > 0.3
