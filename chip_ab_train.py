@@ -12,8 +12,9 @@ unpacked into an ignored directory:
 Each run imports ``chip_smoke`` and ``horovod_tpu_torch`` from TREE,
 builds its kernels, and prints one line ``AB {json}``:
 
-- ``{fwd,dq,dkv}_{S}_host_us``: host seconds per call of
-  ``flash_fwd``/``flash_bwd_dq``/``flash_bwd_dkv`` (bf16, causal),
+- ``{fwd,dq,dkv,bwd}_{S}_host_us``: host µs per call of
+  ``flash_fwd``/``flash_bwd_dq``/``flash_bwd_dkv``/``flash_bwd`` (the
+  training path's backward: delta, K6 and K7; bf16, causal),
   launched back to back without a synchronize, at (1, 64, 1, 64), where
   the device work is negligible, and at the training shape (8, 512, 16,
   64); ``..._wall_us`` the same up to the synchronize after the last
@@ -60,6 +61,7 @@ def main(tree: str) -> int:
                                          delta),
             "dkv": lambda: K.flash_bwd_dkv(q, k, v, None, True, do, lse,
                                            delta),
+            "bwd": lambda: K.flash_bwd(q, k, v, None, True, o, lse, do),
         }
         n = 200 if shape[0] == 1 else 50
         for name, fn in fns.items():

@@ -13,11 +13,13 @@ Phases (any failure exits non-zero and prints no result line):
 1b. K1 (the pre/postscale kernel) against its plain version on the card,
    bitwise: fp32->fp32, bf16->bf16, fp16->fp16 and fp32->bf16, at GPT-2
    medium's ``tok_emb`` gradient (51,463,168 elements), a 1,024-element
-   bias and ragged sizes (1, 4095, 4097, 9001), scales 1/3, 0.7 and 2.5
-   each rounded to the input's dtype; ``_apply_scale`` equal to the plain
-   version with the rounded scale. Times on ``tok_emb`` and the bias in
-   fp32: CUDA graph replay, eager, the plain version and the library call
-   ``torch.mul(x, s)``, beside the memory bound.
+   bias and ragged sizes (1, 4095, 4097, 9001), each also as a view one
+   element past a 16-byte boundary (the kernel's scalar path), scales
+   1/3, 0.7 and 2.5 each rounded to the input's dtype; ``_apply_scale``
+   equal to the plain version with the rounded scale. Times on
+   ``tok_emb`` and the bias in fp32: CUDA graph replay, eager, the plain
+   version and the library call ``torch.mul(x, s)`` in turns, beside the
+   memory bound (the bias with 64 launches a replay).
 2. K2/K4 (int8 codec) against their plain PyTorch versions, on the card,
    at the shapes of the serve path: one K/V leaf of GPT-2 medium,
    (max_len=1024, 16 heads, 64) bf16, plus ragged sizes. Codes and
@@ -28,16 +30,18 @@ Phases (any failure exits non-zero and prints no result line):
 3. K5/K6/K7 (flash attention forward, dq, dk/dv) against their plain
    versions on the card: the training shape (8, 512, 16, 64) causal in
    bf16 and fp32, fp32 with a key mask, D = 128, a ragged S and a
-   nonzero lse cotangent; in bf16 (where K5 and K7 are the wgmma/TMA
-   kernels) also a ragged S with a key mask and dlse, the training shape
-   with q, k, v as ``split`` views of one fused QKV tensor, and D = 128
-   causal; bounds fp32 2e-4 (forward) and 5e-3 (gradients), bf16 2e-2.
-   Each record names its route by dtype. Times at the training shape in
-   bf16: CUDA
-   graph replay over 8 distinct input sets, eager, the plain version,
-   and the library call ``scaled_dot_product_attention(is_causal=True)``
-   (its forward against K5, its backward — a graph of forward and
-   backward less the forward's — against K6 + K7), beside the bound
+   nonzero lse cotangent; in bf16 (where K5, K6 and K7 are the
+   wgmma/TMA kernels) also a ragged S with a key mask and dlse, the
+   training shape with q, k, v as ``split`` views of one fused QKV
+   tensor, and D = 128 causal; bounds fp32 2e-4 (forward) and 5e-3
+   (gradients), bf16 2e-2. K6 and K7 are held there both as two calls
+   and as the training path's one backward call (``flash_bwd``). Each
+   record names its route by dtype. Times at the training shape in
+   bf16: CUDA graph replay over 8 distinct input sets, eager, the plain
+   version, and the library call ``scaled_dot_product_attention(
+   is_causal=True)`` (its forward against K5, its backward — a graph of
+   forward and backward less the forward's — against K6 + K7, beside
+   which the one-call backward is timed too), beside the bound
    max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s).
 4. K3/K8/K9 (the int8 gradient wire's stochastic quantizer, the Adasum
    dot/norms and combine) against their plain versions on the card: a
@@ -394,10 +398,16 @@ def phase_flash(torch, K) -> dict:
                                     dlse)
         dk0, dv0 = K._flash_bwd_dkv_plain(q, k, v, mask, causal, do, lse0,
                                           delta, dlse)
+        bwd = K.flash_bwd(q, k, v, mask, causal, o0, lse0, do, dlse)
         torch.cuda.synchronize()
         check(o.dtype == dtype and lse.dtype == torch.float32
               and dq.dtype == dk.dtype == dv.dtype == dtype,
               f"flash {what}: output dtypes")
+        for got, want, label, key in zip(
+                bwd, (dq0, dk0, dv0), ("dq", "dk", "dv"),
+                ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dkv")):
+            errs[key] = max(errs[key], close_err(
+                torch, got, want, grad_tol, f"flash_bwd {label} {what}"))
         errs["flash_fwd"] = max(
             errs["flash_fwd"],
             close_err(torch, o, o0, fwd_tol, f"flash_fwd o {what}"),
@@ -460,10 +470,15 @@ def phase_flash(torch, K) -> dict:
     designs = {
         "flash_fwd": sm90.format("flash_fwd_sm90") + "; "
         + cores.format("flash_fwd_kernel"),
-        "flash_bwd_dq": "bf16 and " + cores.format("flash_bwd_dq_kernel"),
+        "flash_bwd_dq": sm90.format("flash_bwd_dq_sm90") + "; "
+        + cores.format("flash_bwd_dq_kernel"),
         "flash_bwd_dkv": sm90.format("flash_bwd_dkv_sm90") + "; "
         + cores.format("flash_bwd_dkv_kernel"),
     }
+    # The training path's backward: K6 then K7 in one call.
+    bwd_one = [graph_ms(torch, lambda x: K.flash_bwd(
+        x[0], x[1], x[2], None, True, x[4], x[5], x[3]), sets)
+        for _ in range(2)]
     records = {}
     for name, (nbytes, flops) in flash_work(FLASH_PATH).items():
         fn, plain = fns[name]
@@ -495,12 +510,18 @@ def phase_flash(torch, K) -> dict:
             "bytes": nbytes, "flops": flops,
             "shape": list(FLASH_PATH), "dtype": "bfloat16", "causal": True,
         }
+        if name != "flash_fwd":
+            # delta = rowsum(do * o) included, as in SDPA's backward
+            records[name]["bwd_one_call_ms"] = min(bwd_one)
         r = records[name]
         print(f"kernel {name}: {r['ms'] * 1e3:.1f} us/launch (graph) vs "
               f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); plain "
               f"{r['plain_ms'] * 1e3:.1f} us; library "
               f"{r['library_ms'] * 1e3:.1f} us; eager "
               f"{r['eager_ms'] * 1e3:.1f} us; {r['design']}", flush=True)
+    print(f"kernel flash_bwd (K6 + K7, one call, delta included): "
+          f"{min(bwd_one) * 1e3:.1f} us (graph) vs SDPA backward "
+          f"{bwd_ms * 1e3:.1f} us", flush=True)
     del sets
     torch.cuda.empty_cache()
     return records
@@ -675,34 +696,41 @@ def phase_scale_kernel(torch, K, C) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(77)
     checked = 0
     for n in SCALE_SIZES:
-        base = torch.randn(n, generator=gen, device="cuda") * 3
+        full = torch.randn(n + 1, generator=gen, device="cuda") * 3
         for din, dout in SCALE_CASES:
             tin, tout = getattr(torch, din), getattr(torch, dout)
-            x = base.to(tin)
-            for s in SCALE_FACTORS:
-                rounded = torch.tensor(s, dtype=tin).item()
-                got = K.scale_buffer(x, rounded, tout)
-                want = K.scale_buffer_plain(x, rounded, tout)
-                check(torch.equal(got.view(-1), want.view(-1)),
-                      f"K1 {n} {din}->{dout} scale {s}: differs from plain")
-                if din == dout:
-                    check(torch.equal(C._apply_scale(x, s).view(-1),
-                                      want.view(-1)),
-                          f"_apply_scale {n} {din} {s}: differs from the "
-                          "plain K1 with the rounded scale")
-                checked += 1
-        del base, x, got, want
+            # aligned, and one element past a 16-byte boundary
+            for x, at in ((full[:n].to(tin), "aligned"),
+                          (full.to(tin)[1:], "offset 1")):
+                for s in SCALE_FACTORS:
+                    rounded = torch.tensor(s, dtype=tin).item()
+                    got = K.scale_buffer(x, rounded, tout)
+                    want = K.scale_buffer_plain(x, rounded, tout)
+                    check(torch.equal(got.view(-1), want.view(-1)),
+                          f"K1 {n} {at} {din}->{dout} scale {s}: differs "
+                          "from plain")
+                    if din == dout:
+                        check(torch.equal(C._apply_scale(x, s).view(-1),
+                                          want.view(-1)),
+                              f"_apply_scale {n} {at} {din} {s}: differs "
+                              "from the plain K1 with the rounded scale")
+                    checked += 1
+        del full, x, got, want
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     print(f"kernels: K1 bitwise equal to plain in {checked} cases "
-          f"({len(SCALE_SIZES)} sizes x {len(SCALE_CASES)} dtype pairs x "
-          f"{len(SCALE_FACTORS)} scales), _apply_scale with it", flush=True)
+          f"({len(SCALE_SIZES)} sizes x 2 alignments x {len(SCALE_CASES)} "
+          f"dtype pairs x {len(SCALE_FACTORS)} scales), _apply_scale with "
+          "it", flush=True)
 
     s = torch.tensor(1 / 3, dtype=torch.float32).item()
     timing = {}
-    for label, n in (("tok_emb", SCALE_SIZES[0]), ("bias", SCALE_BIAS)):
+    # The bias is launch-bound: 64 launches a replay, so that the
+    # replay's own fixed cost is spread thin.
+    for label, n, sets in (("tok_emb", SCALE_SIZES[0], REDUCE_TIMING_SETS),
+                           ("bias", SCALE_BIAS, 64)):
         inputs = [torch.randn(n, generator=gen, device="cuda")
-                  for _ in range(REDUCE_TIMING_SETS)]
+                  for _ in range(sets)]
 
         def kern(x):
             return K.scale_buffer(x, s)
@@ -713,14 +741,18 @@ def phase_scale_kernel(torch, K, C) -> dict:
         def lib(x):
             return torch.mul(x, s)
 
-        # Turns: plain, kernel, kernel, plain (one card, one call).
+        # Turns: plain, kernel, library, library, kernel, plain (one
+        # card, one call).
         p1 = graph_ms(torch, plain, inputs)
         k1 = graph_ms(torch, kern, inputs)
+        l1 = graph_ms(torch, lib, inputs)
+        l2 = graph_ms(torch, lib, inputs)
         k2 = graph_ms(torch, kern, inputs)
         p2 = graph_ms(torch, plain, inputs)
         timing[label] = {
-            "elements": n, "ms": min(k1, k2), "plain_ms": min(p1, p2),
-            "library_ms": graph_ms(torch, lib, inputs),
+            "elements": n, "launches_per_replay": sets,
+            "ms": min(k1, k2), "plain_ms": min(p1, p2),
+            "library_ms": min(l1, l2),
             "eager_ms": eager_ms(torch, kern, inputs),
             "plain_eager_ms": eager_ms(torch, plain, inputs),
             "bytes": 8 * n, "ops": n,
@@ -741,6 +773,9 @@ def phase_scale_kernel(torch, K, C) -> dict:
         "source": "horovod_tpu_torch/csrc/scale_buffer.cu",
         "replaces": "horovod_tpu/ops/pallas_kernels.py:87",
         "launches": 0, "max_abs_err": 0.0,
+        "design": "streaming: one chunk of 2 x 256 16-byte vectors a "
+                  "block, both ld.global.nc loads in flight before the "
+                  "multiplies, st.global.cs stores",
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": max(t["bound_bytes_ms"], t["bound_ops_ms"]),
         "bound_by": "bytes" if t["bound_bytes_ms"] >= t["bound_ops_ms"]
@@ -1031,7 +1066,10 @@ def profile_steps(torch, step, n: int, out_path: str) -> dict:
             "device_busy_share": device_us / 1e6 / wall,
             "top_device_ops_ms_per_step": {
                 e.key[:80]: e.self_device_time_total / 1e3 / n
-                for e in top}}
+                for e in top},
+            "flash_kernels_ms_per_step": {
+                e.key[:80]: e.self_device_time_total / 1e3 / n
+                for e in dev if "flash_" in e.key}}
 
 
 def phase_train(torch, K, out_dir: str, profile: bool = False) -> dict:

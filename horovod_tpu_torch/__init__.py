@@ -30,7 +30,8 @@ Ported so far:
   fp16, bf16 and int8_ef compression), ``grouped_allreduce`` (fused),
   ``allgather``/``allgatherv``, ``broadcast``, ``alltoall`` (wires none,
   bf16, int8 on K2/K4; uneven splits), ``reducescatter``, ``barrier``,
-  ``join``, the async handles (``*_async``, ``poll``, ``synchronize``),
+  ``join``, the async handles (``*_async``, ``allreduce_async_``, which
+  writes in place at ``synchronize``, ``poll``, ``synchronize``),
   ``broadcast_object``/``allgather_object``, and the timeline; collectives
   are negotiated across ranks by the controller (``common/controller.py``)
   over the c10d store, once per signature.
@@ -53,9 +54,9 @@ from .common.metrics import metrics
 from .functions import allgather_object, broadcast_object
 from .ops.adasum import adasum_allreduce
 from .ops.collectives import (Adasum, Average, Max, Min, Product, ReduceOp,
-                              Sum, allreduce_async_, broadcast_,
-                              quantized_allreduce)
+                              Sum, broadcast_, quantized_allreduce)
 from .ops.compression import Compression
+from .ops import eager as _eager
 from .optim import (DistributedOptimizer, broadcast_optimizer_state,
                     broadcast_parameters, observe_ef_residual)
 
@@ -112,6 +113,17 @@ def allreduce_async(x, op: ReduceOp = Average, name=None,
     e = _engine()
     return e.async_call(e.allreduce, x, op, name, prescale_factor,
                         postscale_factor, compression)
+
+
+def allreduce_async_(tensor, op: ReduceOp = Average, name=None,
+                     process_set=None) -> int:
+    """In-place :func:`allreduce_async` (Horovod's ``torch/mpi_ops.py``
+    ``allreduce_async_``): returns a handle whose :func:`synchronize`
+    writes the reduction of every rank's ``tensor`` into ``tensor`` and
+    returns ``tensor``."""
+    e = _engine(process_set)
+    return e.async_call(_eager.InPlace, e.allreduce(tensor, op, name),
+                        tensor)
 
 
 def grouped_allreduce(tensors, op: ReduceOp = Average, name=None,

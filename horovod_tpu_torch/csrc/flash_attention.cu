@@ -26,49 +26,54 @@
 //
 // Two routes, chosen by dtype inside hvd_flash_attention:
 //
-// bf16, K5 and K7: flash_fwd_sm90 and flash_bwd_dkv_sm90, Hopper kernels
-// (sm_90a). At the training shape (B = 8, S = 512, H = 16, D = 64,
-// causal) K5 must move ~34 MB (q, k, v, o once) and K7 ~51 MB (q, k, v,
-// do, dk, dv), 10.1 and 15.2 us at 3.35 TB/s, against 4.3 and 8.6 GFLOP
-// of causal products, 4.3 and 8.7 us at the 989 TFLOP/s bf16 tensor-core
-// peak: bound by bytes, and only a tensor-core kernel comes near either
-// bound. So every product is a wgmma m64n64k16 (bf16 in, fp32
-// accumulate): S = Q K^T and, in K7, S^T = K Q^T and dP^T = V dO^T read
-// both operands from shared memory; P V, P^T dO and dS^T Q take P or dS
-// from registers, converted to bf16 in place (the fp32 accumulator's
-// fragment layout is the A operand's), as every Hopper flash kernel
-// does. Tiles are 64 x 64 bf16, moved by TMA (4-D maps over the (b, s, h)
-// strides, encoded per call on the host, passed as __grid_constant__)
-// into 128-byte-swizzled shared memory, with one mbarrier per stage of a
-// 2-stage ring: K5 streams K and V past a resident Q, K7 streams Q and dO
-// past resident K and V, so the next tile's load overlaps this tile's
-// products. K5 runs the online softmax in the accumulator's layout (a
-// row's max over the 4 lanes that hold it, exp2 with log2(e) folded into
-// the scale) and launches its q blocks heaviest first; K7 computes
-// everything transposed, keys as the 64 M rows, from the causal lower
-// bound lo = kb, with D / 64 warpgroups each owning 64 columns of dk
-// and dv. Masks (causal, key mask, ragged S) are evaluated only on the
+// bf16, K5, K6 and K7: flash_fwd_sm90, flash_bwd_dq_sm90 and
+// flash_bwd_dkv_sm90, Hopper kernels (sm_90a). At the training shape
+// (B = 8, S = 512, H = 16, D = 64, causal) K5 must move ~34 MB (q, k, v,
+// o once), K6 ~42 MB (q, k, v, do, dq) and K7 ~51 MB (q, k, v, do, dk,
+// dv), 10.1, 12.7 and 15.2 us at 3.35 TB/s, against 4.3, 6.5 and 8.6
+// GFLOP of causal products, 4.3, 6.5 and 8.7 us at the 989 TFLOP/s bf16
+// tensor-core peak: bound by bytes, and only a tensor-core kernel comes
+// near either bound. So every product is a wgmma m64n64k16 (bf16 in,
+// fp32 accumulate): S = Q K^T and, in K6, dP = dO V^T, in K7 S^T = K Q^T
+// and dP^T = V dO^T, read both operands from shared memory; P V, dS K,
+// P^T dO and dS^T Q take P or dS from registers, converted to bf16 in
+// place (the fp32 accumulator's fragment layout is the A operand's), as
+// every Hopper flash kernel does. Tiles are 64 x 64 bf16, moved by TMA
+// (4-D maps over the (b, s, h) strides, encoded per call on the host,
+// passed as __grid_constant__; one backward call encodes q, k, v and do
+// once for K6 and K7) into 128-byte-swizzled shared memory, with one
+// mbarrier per stage of a 2-stage ring: K5 and K6 stream K and V past a
+// resident Q (and dO), K7 streams Q and dO past resident K and V, so the
+// next tile's load overlaps this tile's products. K5 runs the online
+// softmax in the accumulator's layout (a row's max over the 4 lanes that
+// hold it, exp2 with log2(e) folded into the scale); K5 and K6 launch
+// their q blocks heaviest first, up to the causal bound hi = qb + 1; K7
+// computes everything transposed, keys as the 64 M rows, from the causal
+// lower bound lo = kb, with D / 64 warpgroups each owning 64 columns of
+// dk and dv. Masks (causal, key mask, ragged S) are evaluated only on the
 // tiles that need them. TMA fills rows past S with zeros; they still get
-// p = 0. The wrapper hands these kernels tensors whose base and
-// strides are multiples of 16 bytes (the fused QKV views are), copying
-// any other once. ptxas (nvcc 12.9, -O3, sm_90a; python3 -m
+// p = 0. The wrapper hands these kernels tensors whose base and strides
+// are multiples of 16 bytes (the fused QKV views are), copying any other
+// once. ptxas (nvcc 12.9, -O3, sm_90a; python3 -m
 // horovod_tpu_torch.ops.kernel_report): flash_fwd_sm90<64> 107
-// registers, flash_bwd_dkv_sm90<64> 204 (D = 128: 140 and 204), no
-// spills; dynamic shared memory 42,048 and 50,240 bytes (D = 128: 83,008
-// and 99,392). Rounding P and dS to bf16 before the products is the one
-// numeric difference from the fp32 JAX kernels; it stays inside the
-// bf16 tolerance (tests/test_torch_port_flash_sm90.py).
+// registers, flash_bwd_dq_sm90<64> 122, flash_bwd_dkv_sm90<64> 204
+// (D = 128: 140, 154 and 204), no spills; dynamic shared memory
+// 42,048 bytes for K5 and 50,240 for K6 and K7 (D = 128: 83,008 and
+// 99,392), above the 48 KB default, so the opt-in attribute is set per
+// kernel and device. Rounding P and dS to
+// bf16 before the products is the one numeric difference from the fp32
+// JAX kernels; it stays inside the bf16 tolerance
+// (tests/test_torch_port_flash_sm90.py).
 //
-// fp32 (K5, K6, K7) and bf16 K6: the CUDA-core kernels. One CTA of
-// 256 threads per (q-block of 64 rows, head, batch) for K5/K6, looping
-// over 64-key tiles up to the causal bound hi = min(ceil((qb + 64) / 64),
-// nk); K7 one per (k-block, head, batch) from lo = kb / 64. Tiles are
-// loaded element by element into padded fp32 shared memory; thread
-// (ty, tx) = (tid / 16, tid % 16) owns rows ty + 16 i and columns
-// tx + 16 j, so a row's reduction is a 16-lane shuffle; every product is
-// an fp32 FMA. TF32 tensor cores could not meet the fp32 tolerances
-// (2e-4 forward, 5e-3 gradients), so fp32 stays here; bf16 K6 is the
-// next kernel to move onto the helpers of the Hopper route.
+// fp32 (K5, K6, K7): the CUDA-core kernels. One CTA of 256 threads per
+// (q-block of 64 rows, head, batch) for K5/K6, looping over 64-key tiles
+// up to the causal bound hi = min(ceil((qb + 64) / 64), nk); K7 one per
+// (k-block, head, batch) from lo = kb / 64. Tiles are loaded element by
+// element into padded fp32 shared memory; thread (ty, tx) = (tid / 16,
+// tid % 16) owns rows ty + 16 i and columns tx + 16 j, so a row's
+// reduction is a 16-lane shuffle; every product is an fp32 FMA. TF32
+// tensor cores could not meet the fp32 tolerances (2e-4 forward, 5e-3
+// gradients), so fp32 stays here.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -101,7 +106,8 @@ struct Args {
   const float* delta;           // (B, H, S), backward only
   const float* dlse;            // (B, H, S), backward only; null = 0
   void* o;                      // forward: o; K6: dq; K7: dk
-  void* o2;                     // K7: dv
+  void* o2;                     // K7: dv; K6 then K7: dk
+  void* o3;                     // K6 then K7: dv
   float* lse_out;               // forward: lse
   Strides sq, sk, sv, sdo;
   int S, H;
@@ -110,13 +116,7 @@ struct Args {
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void from_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // Copy rows [row0, row0 + 64) of head h, batch b into a padded fp32 tile
 // (row stride D + 1), times `mul`; rows past S are zero.
@@ -272,7 +272,7 @@ flash_fwd_kernel(const Args a) {
   }
 }
 
-// ------------------------------------ CUDA-core K6 (fp32 and bf16) ------
+// ------------------------------------------ CUDA-core K6 (fp32) ------
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -512,7 +512,7 @@ flash_bwd_dkv_kernel(const Args a) {
   }
 }
 
-// ------------------------------------------- bf16 K5 and K7 for sm_90a ------
+// --------------------------------------- bf16 K5, K6 and K7 for sm_90a ------
 //
 // Tiles are 64 rows x 64 bf16 columns (one 128-byte row per tile row),
 // landed by TMA with the 128-byte swizzle, 8 KB and 1024-byte aligned; a
@@ -831,6 +831,159 @@ flash_fwd_sm90(const __grid_constant__ TmaParams p) {
   }
 }
 
+// K6, bf16. K5's structure with one more product and no online
+// softmax: one CTA (one warpgroup) per (head, batch, 64-row q block), q
+// blocks launched heaviest first. Q and dO land once; K and V stream
+// through a 2-stage ring up to the causal bound. S = Q K^T and dP =
+// dO V^T (both operands K-major) are one commit group; P = exp(s - lse)
+// and dS = P (dP - delta + dlse) are formed in the accumulator's layout,
+// where each thread's two query rows (acc_row(0), acc_row(2)) are fixed
+// for the CTA, so lse and dlse - delta are loaded once; then dQ += dS K
+// with dS as bf16 register operands and K the MN-major B operand, as K5
+// takes V. Rows past S are computed but never written: a dQ row depends
+// on its own dS row alone.
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+flash_bwd_dq_sm90(const __grid_constant__ TmaParams p) {
+  constexpr int NT = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align_1024(smem_raw);
+  uint8_t* Qs = base;                      // NT tiles
+  uint8_t* dOs = Qs + NT * kTileBytes;     // NT tiles
+  uint8_t* Ks = dOs + NT * kTileBytes;     // [2 stages][NT]
+  uint8_t* Vs = Ks + 2 * NT * kTileBytes;  // [2 stages][NT]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + 2 * NT * kTileBytes);
+
+  const Args& a = p.a;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qb = gridDim.z - 1 - blockIdx.z;
+  const int q0 = qb * kBQ;
+  const int nk = (a.S + kBK - 1) / kBK;
+  const int hi = a.causal ? min(qb + 1, nk) : nk;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(&bars[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto load_kv = [&](int stage, int j) {
+    mbar_expect(&bars[1 + stage], 2 * NT * kTileBytes);
+    for (int t = 0; t < NT; ++t) {
+      tma_tile(Ks + (stage * NT + t) * kTileBytes, &p.k, &bars[1 + stage],
+               64 * t, h, j * kBK, b);
+      tma_tile(Vs + (stage * NT + t) * kTileBytes, &p.v, &bars[1 + stage],
+               64 * t, h, j * kBK, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect(&bars[0], 2 * NT * kTileBytes);
+    for (int t = 0; t < NT; ++t) {
+      tma_tile(Qs + t * kTileBytes, &p.q, &bars[0], 64 * t, h, q0, b);
+      tma_tile(dOs + t * kTileBytes, &p.dout, &bars[0], 64 * t, h, q0, b);
+    }
+    for (int j = 0; j < min(2, hi); ++j) load_kv(j, j);
+  }
+
+  const float sl2 = a.scale * kLog2e;
+  const long long bh = (static_cast<long long>(b) * a.H + h) * a.S;
+  // lse (natural and log2 units) and dlse - delta of this thread's two
+  // query rows, loaded while Q and dO land.
+  float lse[2], lse2[2], dterm[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + acc_row(2 * r);
+    const bool in = row < a.S;
+    lse[r] = in ? a.lse[bh + row] : 0.0f;
+    lse2[r] = lse[r] * kLog2e;
+    dterm[r] = in ? (a.dlse != nullptr ? a.dlse[bh + row] : 0.0f) -
+                        a.delta[bh + row]
+                  : 0.0f;
+  }
+  const float* kmask =
+      a.mask != nullptr ? a.mask + static_cast<long long>(b) * a.S : nullptr;
+  float dq[NT][32];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[t][i] = 0.0f;
+
+  mbar_wait(&bars[0], 0);
+  for (int j = 0; j < hi; ++j) {
+    const int stage = j & 1;
+    const int k0 = j * kBK;
+    mbar_wait(&bars[1 + stage], (j >> 1) & 1);
+    const uint8_t* Kt = Ks + stage * NT * kTileBytes;
+    const uint8_t* Vt = Vs + stage * NT * kTileBytes;
+
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, tile_desc(Qs + (kk / 4) * kTileBytes) + 2 * (kk % 4),
+               tile_desc(Kt + (kk / 4) * kTileBytes) + 2 * (kk % 4),
+               kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, tile_desc(dOs + (kk / 4) * kTileBytes) + 2 * (kk % 4),
+               tile_desc(Vt + (kk / 4) * kTileBytes) + 2 * (kk % 4),
+               kk > 0);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_acc(s);
+    fence_acc(dp);
+
+    const bool edge = (a.causal && k0 + kBK - 1 > q0) || kmask != nullptr ||
+                      k0 + kBK > a.S;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      float pr = exp2f(s[i] * sl2 - lse2[r]);
+      if (edge) {
+        const int key = k0 + acc_col(i), row = q0 + acc_row(i);
+        if (key >= a.S || (a.causal && key > row))
+          pr = 0.0f;
+        else if (kmask != nullptr && !(kmask[key] > 0.0f))
+          pr = expf(kMaskValue - lse[r]);     // the -1e30 logit's p
+      }
+      dp[i] = pr * (dp[i] + dterm[r]);
+    }
+
+    uint32_t dsa[4][4];
+    acc_to_a(dp, dsa);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(dq[t], dsa[kk], tile_desc(Kt + t * kTileBytes) + 128 * kk);
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int t = 0; t < NT; ++t) fence_acc(dq[t]);
+
+    __syncthreads();                      // every warp is done with stage
+    if (threadIdx.x == 0 && j + 2 < hi) load_kv(stage, j + 2);
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.o);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + acc_row(2 * r);
+    if (row >= a.S) continue;
+    const long long rb =
+        ((static_cast<long long>(b) * a.S + row) * a.H + h) * D;
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int i = 4 * n + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(out + rb + 64 * t + acc_col(i)) =
+            __floats2bfloat162_rn(dq[t][i] * a.scale,
+                                  dq[t][i + 1] * a.scale);
+      }
+  }
+}
+
 // K7, bf16. One CTA per (head, batch, 64-key block); D / 64 warpgroups.
 // K and V stay resident; Q and dO stream through a 2-stage ring from the
 // causal lower bound. Everything is transposed so keys are the M rows:
@@ -999,33 +1152,42 @@ constexpr size_t dkv_smem(int D) {
   return sizeof(float) * (4 * 64 * (D + 1) + 2 * 64 * 65 + 2 * 64);
 }
 
-enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+// kBwd: K6 then K7 in one call (dq into o, dk into o2, dv into o3), with
+// the bf16 tensor maps encoded once for both.
+enum Which { kFwd = 0, kDq = 1, kDkv = 2, kBwd = 3 };
+
+constexpr int kMaxDevices = 64;
 
 // Above 48 KB a kernel must opt in to dynamic shared memory. The
-// attribute is set once per kernel, at its first launch, so that later
-// launches (inside a CUDA graph capture too) are launches only.
+// attribute belongs to the current device, so it is set once per kernel
+// and device, at the kernel's first launch there; later launches (inside
+// a CUDA graph capture too) are launches only. A device past
+// kMaxDevices sets it at every launch.
 template <typename Kernel>
-int allow_smem(Kernel kernel, size_t smem, bool& configured) {
-  if (configured) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  configured = err == cudaSuccess;
+int allow_smem(Kernel kernel, size_t smem, bool (&configured)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < kMaxDevices && configured[dev]) return 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess && dev < kMaxDevices) configured[dev] = true;
   return static_cast<int>(err);
 }
 
-// The CUDA-core kernels: every fp32 launch, and K6 in bf16.
-template <typename T, int D, int W>
+// The CUDA-core kernels: every fp32 launch.
+template <int D, int W>
 int launch_cc(const Args& a, int B, cudaStream_t st) {
   constexpr size_t smem = W == kFwd  ? fwd_smem(D)
                           : W == kDq ? dq_smem(D)
                                      : dkv_smem(D);
   auto kernel = [] {                      // instantiates only kernel W
-    if constexpr (W == kFwd) return flash_fwd_kernel<T, D>;
-    else if constexpr (W == kDq) return flash_bwd_dq_kernel<T, D>;
-    else return flash_bwd_dkv_kernel<T, D>;
+    if constexpr (W == kFwd) return flash_fwd_kernel<float, D>;
+    else if constexpr (W == kDq) return flash_bwd_dq_kernel<float, D>;
+    else return flash_bwd_dkv_kernel<float, D>;
   }();
-  static bool configured = false;
+  static bool configured[kMaxDevices] = {};
   if (const int err = allow_smem(kernel, smem, configured)) return err;
   const dim3 grid((a.S + 63) / 64, a.H, B);
   kernel<<<grid, kThreads, smem, st>>>(a);
@@ -1082,52 +1244,71 @@ bool tile_map(CUtensorMap* map, const void* ptr, const Strides& st, int B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The bf16 K5 (W = kFwd) and K7 (W = kDkv).
+// One bf16 Hopper kernel W on maps already encoded in p.
 template <int D, int W>
-int launch_sm90(const Args& a, int B, cudaStream_t st) {
+int run_sm90(const TmaParams& p, int B, cudaStream_t st) {
+  constexpr int tiles = (W == kFwd ? 5 : 6) * (D / 64);
+  constexpr size_t smem = 1024 + tiles * kTileBytes + 64;
+  auto kernel = [] {                      // instantiates only kernel W
+    if constexpr (W == kFwd) return flash_fwd_sm90<D>;
+    else if constexpr (W == kDq) return flash_bwd_dq_sm90<D>;
+    else return flash_bwd_dkv_sm90<D>;
+  }();
+  static bool configured[kMaxDevices] = {};
+  if (const int err = allow_smem(kernel, smem, configured)) return err;
+  const dim3 grid(p.a.H, B, (p.a.S + 63) / 64);
+  kernel<<<grid, W == kDkv ? 2 * D : 128, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 route: K5, K6, K7, or K6 then K7 on one set of maps.
+template <int D>
+int launch_sm90(int which, const Args& a, int B, cudaStream_t st) {
   TmaParams p;
   memset(&p, 0, sizeof(p));
   p.a = a;
   if (!tile_map(&p.q, a.q, a.sq, B, a.S, a.H, D) ||
       !tile_map(&p.k, a.k, a.sk, B, a.S, a.H, D) ||
       !tile_map(&p.v, a.v, a.sv, B, a.S, a.H, D) ||
-      (W == kDkv && !tile_map(&p.dout, a.dout, a.sdo, B, a.S, a.H, D)))
+      (which != kFwd && !tile_map(&p.dout, a.dout, a.sdo, B, a.S, a.H, D)))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int tiles = (W == kFwd ? 5 : 6) * (D / 64);
-  constexpr size_t smem = 1024 + tiles * kTileBytes + 64;
-  auto kernel = W == kFwd ? flash_fwd_sm90<D> : flash_bwd_dkv_sm90<D>;
-  static bool configured = false;
-  if (const int err = allow_smem(kernel, smem, configured)) return err;
-  const dim3 grid(a.H, B, (a.S + 63) / 64);
-  kernel<<<grid, W == kFwd ? 128 : 2 * D, smem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (which == kFwd) return run_sm90<D, kFwd>(p, B, st);
+  if (which == kDkv) return run_sm90<D, kDkv>(p, B, st);
+  if (const int err = run_sm90<D, kDq>(p, B, st)) return err;
+  if (which == kDq) return 0;
+  p.a.o = a.o2;
+  p.a.o2 = a.o3;
+  return run_sm90<D, kDkv>(p, B, st);
 }
 
 template <int D>
 int dispatch(int which, int dtype, const Args& a, int B, cudaStream_t st) {
-  if (dtype == kF32) {
-    if (which == kFwd) return launch_cc<float, D, kFwd>(a, B, st);
-    if (which == kDq) return launch_cc<float, D, kDq>(a, B, st);
-    return launch_cc<float, D, kDkv>(a, B, st);
-  }
-  if (which == kFwd) return launch_sm90<D, kFwd>(a, B, st);
-  if (which == kDq) return launch_cc<__nv_bfloat16, D, kDq>(a, B, st);
-  return launch_sm90<D, kDkv>(a, B, st);
+  if (dtype == kBF16) return launch_sm90<D>(which, a, B, st);
+  if (which == kFwd) return launch_cc<D, kFwd>(a, B, st);
+  if (which == kDkv) return launch_cc<D, kDkv>(a, B, st);
+  if (const int err = launch_cc<D, kDq>(a, B, st)) return err;
+  if (which == kDq) return 0;
+  Args a7 = a;
+  a7.o = a.o2;
+  a7.o2 = a.o3;
+  return launch_cc<D, kDkv>(a7, B, st);
 }
 
 }  // namespace
 
 // Plain C interface for ctypes. `which`: 0 = K5 forward (o, lse_out),
-// 1 = K6 (dq into o), 2 = K7 (dk into o, dv into o2). `strides` holds 12
+// 1 = K6 (dq into o), 2 = K7 (dk into o, dv into o2), 3 = K6 then K7 on
+// the same stream (dq into o, dk into o2, dv into o3). `strides` holds 12
 // element strides: (b, s, h) of q, k, v and do. Pointers are device
-// pointers; `stream` is a cudaStream_t. Returns cudaGetLastError() after
-// the launch (0 = launched), or cudaErrorInvalidValue for a dtype, head
-// dimension or (bf16 K5/K7) a layout the kernels do not take.
+// pointers; `stream` is a cudaStream_t; the launch goes to the current
+// device. Returns cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a dtype, head dimension or (bf16) a layout
+// the kernels do not take.
 extern "C" int hvd_flash_attention(
     int which, int dtype, int B, int S, int H, int D, int causal, float scale,
     const void* q, const void* k, const void* v, const void* dout,
     const void* mask, const void* lse, const void* delta, const void* dlse,
-    void* o, void* o2, void* lse_out, const long long* strides,
+    void* o, void* o2, void* o3, void* lse_out, const long long* strides,
     void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   Args a;
@@ -1141,6 +1322,7 @@ extern "C" int hvd_flash_attention(
   a.dlse = static_cast<const float*>(dlse);
   a.o = o;
   a.o2 = o2;
+  a.o3 = o3;
   a.lse_out = static_cast<float*>(lse_out);
   a.sq = {strides[0], strides[1], strides[2]};
   a.sk = {strides[3], strides[4], strides[5]};
@@ -1151,7 +1333,7 @@ extern "C" int hvd_flash_attention(
   a.causal = causal;
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (which < kFwd || which > kDkv || (dtype != kF32 && dtype != kBF16))
+  if (which < kFwd || which > kBwd || (dtype != kF32 && dtype != kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
   if (D == 64) return dispatch<64>(which, dtype, a, B, st);
   if (D == 128) return dispatch<128>(which, dtype, a, B, st);

@@ -24,14 +24,23 @@
 //   rounded product the JAX package computes as x * s in the tensor's
 //   dtype. (A NaN input gives CUDA's canonical NaN, which can differ in
 //   its payload bits from PyTorch's.)
-// - A grid-stride loop over 16-byte input vectors (4 fp32 or 8 bf16/fp16
-//   elements), so that a warp's loads, and its stores when the dtypes
-//   match, are 512 contiguous bytes, where both pointers are 16-byte
-//   aligned; then a masked scalar loop over the tail (and over everything
-//   when a pointer is not aligned). No shared memory: each element is
-//   touched once. (A first version took 8 elements a thread, two 16-byte
-//   accesses 32 bytes apart, and ran at 1.72x the bound on tok_emb against
-//   torch.mul's 1.15x.)
+// - A streaming pass over 16-byte input vectors (4 fp32 or 8 bf16/fp16
+//   elements) where both pointers are 16-byte aligned. Each block takes
+//   one chunk of kUnroll x kThreads vectors and exits: each thread issues
+//   its kUnroll independent vector loads before its first multiply, then
+//   its kUnroll stores, and vector u of a thread is u block-widths after
+//   vector 0, so every warp access is 512 contiguous bytes. Each byte is
+//   touched once: the loads bypass L1 (ld.global.nc.L1::no_allocate) and
+//   the stores are streaming (st.global.cs). A grid-stride scalar loop
+//   takes the tail, and everything when a pointer is not aligned. No
+//   shared memory. (Measured on tok_emb against the bound: a first
+//   version, 8 elements a thread in two 16-byte accesses 32 bytes apart,
+//   at 1.72x; one vector a thread in flight over a grid-stride loop
+//   capped at 132 x 16 blocks, at 1.18x; a persistent grid of SMs x
+//   resident blocks with four loads in flight a thread, at 1.23x, while
+//   torch.mul ran at 1.14-1.15x: on this card a grid that holds its
+//   blocks to the end loses to one whose blocks retire and are
+//   replaced.)
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -75,15 +84,36 @@ struct F16 {
 template <typename D>
 constexpr int kLanes = 16 / static_cast<int>(sizeof(typename D::S));
 
-// One 16-byte vector of D from aligned storage, widened to fp32.
+constexpr int kUnroll = 2;      // vector loads in flight per thread
+
+// One 16-byte vector, read once: no L1 allocation, non-coherent path.
+__device__ __forceinline__ uint4 load_stream(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ void store_stream(void* p, uint4 v) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void store_stream(void* p, uint2 v) {
+  asm volatile("st.global.cs.v2.u32 [%0], {%1, %2};" ::"l"(p), "r"(v.x),
+               "r"(v.y)
+               : "memory");
+}
+
+// A 16-byte vector of D, widened to fp32.
 template <typename D>
-__device__ __forceinline__ void load16(const typename D::S* __restrict__ p,
-                                       float (&f)[kLanes<D>]) {
+__device__ __forceinline__ void widen(uint4 w, float (&f)[kLanes<D>]) {
   if constexpr (sizeof(typename D::S) == 4) {
-    const float4 a = *reinterpret_cast<const float4*>(p);
-    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+    f[0] = __uint_as_float(w.x); f[1] = __uint_as_float(w.y);
+    f[2] = __uint_as_float(w.z); f[3] = __uint_as_float(w.w);
   } else {
-    const uint4 w = *reinterpret_cast<const uint4*>(p);
     const unsigned u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
@@ -93,18 +123,18 @@ __device__ __forceinline__ void load16(const typename D::S* __restrict__ p,
   }
 }
 
-// K fp32 values narrowed to E and written to aligned storage: one
-// 16-byte store when the dtypes match, 8 bytes for fp32 -> 16-bit, two
-// 16-byte stores for 16-bit -> fp32.
+// K fp32 values narrowed to E and written to aligned storage, streaming:
+// one 16-byte store when the dtypes match, 8 bytes for fp32 -> 16-bit,
+// two 16-byte stores for 16-bit -> fp32.
 template <typename E, int K>
-__device__ __forceinline__ void store(typename E::S* __restrict__ p,
-                                      const float (&f)[K]) {
+__device__ __forceinline__ void store(typename E::S* p, const float (&f)[K]) {
   if constexpr (sizeof(typename E::S) == 4) {
 #pragma unroll
-    for (int k = 0; k < K; k += 4) {
-      reinterpret_cast<float4*>(p)[k / 4] =
-          make_float4(f[k], f[k + 1], f[k + 2], f[k + 3]);
-    }
+    for (int k = 0; k < K; k += 4)
+      store_stream(p + k, make_uint4(__float_as_uint(f[k]),
+                                     __float_as_uint(f[k + 1]),
+                                     __float_as_uint(f[k + 2]),
+                                     __float_as_uint(f[k + 3])));
   } else {
     unsigned u[K / 2];
 #pragma unroll
@@ -113,11 +143,23 @@ __device__ __forceinline__ void store(typename E::S* __restrict__ p,
              (static_cast<unsigned>(E::from_f32(f[2 * k + 1])) << 16);
     }
     if constexpr (K == 8) {
-      *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+      store_stream(p, make_uint4(u[0], u[1], u[2], u[3]));
     } else {
-      *reinterpret_cast<uint2*>(p) = make_uint2(u[0], u[1]);
+      store_stream(p, make_uint2(u[0], u[1]));
     }
   }
+}
+
+// Vector g of x, scaled, into out.
+template <typename D, typename E>
+__device__ __forceinline__ void scale_vector(
+    uint4 w, typename E::S* __restrict__ out, long long g, float s) {
+  constexpr int K = kLanes<D>;
+  float f[K];
+  widen<D>(w, f);
+#pragma unroll
+  for (int k = 0; k < K; ++k) f[k] = __fmul_rn(f[k], s);
+  store<E, K>(out + g * K, f);
 }
 
 template <typename D, typename E>
@@ -126,25 +168,22 @@ scale_kernel(const typename D::S* __restrict__ x,
              typename E::S* __restrict__ out, long long n, long long groups,
              float s) {
   constexpr int K = kLanes<D>;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const long long first =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  for (long long g = first; g < groups; g += stride) {
-    float f[K];
-    load16<D>(x + g * K, f);
+  const long long g0 =
+      static_cast<long long>(blockIdx.x) * kThreads * kUnroll + threadIdx.x;
+  uint4 w[kUnroll];
 #pragma unroll
-    for (int k = 0; k < K; ++k) f[k] = __fmul_rn(f[k], s);
-    store<E, K>(out + g * K, f);
-  }
-  for (long long i = groups * K + first; i < n; i += stride) {
+  for (int u = 0; u < kUnroll; ++u)
+    if (g0 + u * kThreads < groups)
+      w[u] = load_stream(x + (g0 + u * kThreads) * K);
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u)
+    if (g0 + u * kThreads < groups)
+      scale_vector<D, E>(w[u], out, g0 + u * kThreads, s);
+  const long long threads = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long i = groups * K + static_cast<long long>(blockIdx.x) *
+                                      kThreads + threadIdx.x;
+       i < n; i += threads)
     out[i] = E::from_f32(__fmul_rn(D::to_f32(x[i]), s));
-  }
-}
-
-unsigned grid_for(long long work) {
-  long long blocks = (work + kThreads - 1) / kThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
-  return static_cast<unsigned>(blocks < 1 ? 1 : blocks);
 }
 
 template <typename D, typename E>
@@ -154,9 +193,13 @@ int launch(const void* x, void* out, long long n, float s,
                        (reinterpret_cast<std::uintptr_t>(out) % 16 == 0);
   const long long groups = aligned ? n / kLanes<D> : 0;
   const long long tail = n - groups * kLanes<D>;
-  scale_kernel<D, E><<<grid_for(groups > tail ? groups : tail), kThreads, 0,
-                       st>>>(static_cast<const typename D::S*>(x),
-                             static_cast<typename E::S*>(out), n, groups, s);
+  const long long chunks =
+      (groups + kThreads * kUnroll - 1) / (kThreads * kUnroll);
+  const long long tail_blocks = (tail + kThreads - 1) / kThreads;
+  const long long blocks = chunks > tail_blocks ? chunks : tail_blocks;
+  scale_kernel<D, E><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+      static_cast<const typename D::S*>(x),
+      static_cast<typename E::S*>(out), n, groups, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -175,8 +218,9 @@ int launch_out(const void* x, void* out, int out_dtype, long long n, float s,
 
 // Plain C interface for ctypes. `x` and `out` are device pointers of n
 // elements of their dtypes (0 = fp32, 1 = bf16, 2 = fp16); `stream` is a
-// cudaStream_t. Returns cudaGetLastError() after the launch (0 =
-// launched), or cudaErrorInvalidValue for a dtype it does not take.
+// cudaStream_t; the launch goes to the current device. Returns
+// cudaGetLastError() after the launch (0 = launched), or
+// cudaErrorInvalidValue for a dtype it does not take.
 extern "C" int hvd_scale_buffer(const void* x, int in_dtype, void* out,
                                 int out_dtype, long long n, float scale,
                                 void* stream) {

@@ -9,7 +9,8 @@ ends in ``_`` (in place).
 
 Ported: ``ReduceOp`` and its aliases, ``allreduce`` (SUM, AVERAGE, MIN,
 MAX, PRODUCT and ADASUM, with pre/postscale through ``_apply_scale`` —
-kernel K1 on a CUDA tensor), ``allreduce_async_``, ``allgather`` and the
+kernel K1 on a CUDA tensor), the optimizer's in-place asynchronous SUM
+``_allreduce_async_inplace``, ``allgather`` and the
 ragged ``allgatherv``, ``broadcast``/``broadcast_``, ``join_allreduce``,
 the exchanges (even and
 uneven ``alltoall``, ``compressed_alltoall`` on the bf16 and int8 wires
@@ -186,16 +187,19 @@ def allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
                                        postscale_factor))
 
 
-def allreduce_async_(x: torch.Tensor, op: ReduceOp = ReduceOp.SUM):
+def _allreduce_async_inplace(x: torch.Tensor, op: ReduceOp = ReduceOp.SUM):
     """In-place SUM/MIN/MAX/PRODUCT allreduce of ``x``, issued
     asynchronously; returns the ``torch.distributed`` work handle
     (``.wait()`` before reading ``x``). AVERAGE needs a division after
-    the wait: use :func:`allreduce`, or SUM and divide."""
+    the wait: use :func:`allreduce`, or SUM and divide. The fused-bucket
+    primitive of ``DistributedOptimizer``; Horovod's public
+    ``allreduce_async_`` (an int handle) is the package's, on the eager
+    engine."""
     op = ReduceOp(op)
     if op == ReduceOp.AVERAGE:
-        raise ValueError("allreduce_async_ takes SUM/MIN/MAX/PRODUCT; "
-                         "AVERAGE is a SUM followed by a division after "
-                         "the wait")
+        raise ValueError("_allreduce_async_inplace takes SUM/MIN/MAX/"
+                         "PRODUCT; AVERAGE is a SUM followed by a "
+                         "division after the wait")
     basics.context()
     return _reduce_in_place(x, op, async_op=True)
 

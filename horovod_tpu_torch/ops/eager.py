@@ -165,6 +165,24 @@ class _Pending:
         return self._result
 
 
+class InPlace:
+    """A pending collective whose result ``wait`` writes into ``target``
+    and returns ``target`` — the handles of the ``*_async_`` calls."""
+
+    __slots__ = ("_pending", "_target")
+
+    def __init__(self, pending: _Pending, target: torch.Tensor):
+        self._pending = pending
+        self._target = target
+
+    def ready(self) -> bool:
+        return self._pending.ready()
+
+    def wait(self) -> torch.Tensor:
+        self._target.copy_(self._pending.wait())
+        return self._target
+
+
 class HandleManager:
     """int handle -> pending result (reference
     ``torch/handle_manager.cc``), the port of the JAX engine's.

@@ -9,7 +9,8 @@ backward's ``ds``, which blockwise callers such as ring attention need).
 
 :class:`_FlashAttention` wraps the forward kernel K5
 (``ops.kernels.flash_fwd``) and the backward kernels K6/K7
-(``flash_bwd_dq``/``flash_bwd_dkv``) as one ``torch.autograd.Function``.
+(``ops.kernels.flash_bwd``, one C call for both) as one
+``torch.autograd.Function``.
 A CUDA tensor launches the kernels or raises; a CPU tensor takes their
 plain PyTorch versions. ``delta = rowsum(do * o)`` stays a plain torch
 op, as it is plain jnp in the JAX package.

@@ -38,21 +38,23 @@ hides at -1e30, keys after the query (causal) and past a ragged ``S``
 left out, fp32 softmax, ``lse`` ``(B, H, S)`` fp32, and the backward's
 ``ds = p * (dp - delta + dlse)``. The head dimension is 64 or 128. At
 the training shape they are bound by bytes (10.1, 12.7 and 15.2 us at
-3.35 TB/s). One C entry point takes two routes by dtype. bf16 K5 and
-K7 are Hopper kernels: ``wgmma`` products on 64 x 64 tiles that TMA
+3.35 TB/s). One C entry point takes two routes by dtype. bf16 K5, K6
+and K7 are Hopper kernels: ``wgmma`` products on 64 x 64 tiles that TMA
 lands in swizzled shared memory through a 2-stage ring, with P and dS
 rounded to bf16 before the products that take them (the one numeric
 difference from the JAX kernels, inside the bf16 tolerance); their
-wrapper hands them q, k, v (and do) whose base and strides are
+wrappers hand them q, k, v (and do) whose base and strides are
 multiples of 16 bytes (:func:`tma_layout_ok`), copying any other once.
-fp32, and bf16 K6, stay on the CUDA-core kernels: fp32 FMAs, since
-TF32 could not meet the fp32 tolerances. ``csrc/flash_attention.cu``'s
-header has the design and the compiler's registers and shared memory.
+fp32 stays on the CUDA-core kernels: fp32 FMAs, since TF32 could not
+meet the fp32 tolerances. :func:`flash_bwd`, the training path's
+backward, launches K6 and then K7 in one C call.
+``csrc/flash_attention.cu``'s header has the design and the compiler's
+registers and shared memory.
 
 Dispatch rule: a tensor on the CPU takes the plain PyTorch version
 beside each kernel; a CUDA tensor launches the CUDA kernel from
-``csrc/`` or raises. There is no fallback from a failed build or launch
-to the plain version.
+``csrc/`` on the tensor's own device (:func:`_launch`) or raises. There
+is no fallback from a failed build or launch to the plain version.
 
 Each ``csrc`` source is built with ``nvcc`` at first use into its own
 shared library under ``build/horovod_tpu_torch/`` beside the package
@@ -112,7 +114,7 @@ _SIGNATURES = {
                                          _I),
     },
     "flash_attention.cu": {
-        "hvd_flash_attention": ([_I] * 7 + [_F] + [_P] * 13, _I),
+        "hvd_flash_attention": ([_I] * 7 + [_F] + [_P] * 14, _I),
     },
     "adasum.cu": {
         "hvd_adasum_dot_norms": ([_P, _P, _I, _LL, _P, _I, _P, _P], _I),
@@ -186,11 +188,17 @@ def _load(source: str) -> ctypes.CDLL:
     return lib
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _check_launch(name: str, err: int) -> None:
+def _launch(name: str, t: torch.Tensor, source: str, fn: str,
+            *args) -> None:
+    """Call C entry point ``fn`` of ``source`` with ``args`` and, last,
+    the current stream of ``t``'s device, under a ``torch.cuda.device``
+    guard on that device: the C side launches on the current device and
+    keeps its per-device state (the shared-memory opt-in) by it. Raises
+    if the launch failed. Every kernel launch of this module goes through
+    here."""
+    entry = getattr(_load(source), fn)
+    with torch.cuda.device(t.device):
+        err = entry(*args, torch.cuda.current_stream(t.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed "
                            f"(cudaError {err})")
@@ -240,10 +248,9 @@ def scale_buffer(x: torch.Tensor, scale: float,
         raise ValueError("scale_buffer: input must be contiguous")
     out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     n = x.numel()
-    err = _load("scale_buffer.cu").hvd_scale_buffer(
-        x.data_ptr(), _SCALE_DTYPE_CODE[x.dtype], out.data_ptr(),
-        _SCALE_DTYPE_CODE[out_dtype], n, float(scale), _stream(x))
-    _check_launch("scale_buffer", err)
+    _launch("scale_buffer", x, "scale_buffer.cu", "hvd_scale_buffer",
+            x.data_ptr(), _SCALE_DTYPE_CODE[x.dtype], out.data_ptr(),
+            _SCALE_DTYPE_CODE[out_dtype], n, float(scale))
     if n:
         LAUNCHES["scale_buffer"] += 1
     return out
@@ -291,10 +298,9 @@ def quantize_int8(x: torch.Tensor):
     nblocks = rows // _Q_ROWS
     q = torch.empty((rows, _LANES), dtype=torch.int8, device=x.device)
     scales = torch.empty((nblocks,), dtype=torch.float32, device=x.device)
-    err = _load("int8_codec.cu").hvd_quantize_int8(
-        x.data_ptr(), _DTYPE_CODE[x.dtype], n, q.data_ptr(),
-        scales.data_ptr(), nblocks, _stream(x))
-    _check_launch("quantize_int8", err)
+    _launch("quantize_int8", x, "int8_codec.cu", "hvd_quantize_int8",
+            x.data_ptr(), _DTYPE_CODE[x.dtype], n, q.data_ptr(),
+            scales.data_ptr(), nblocks)
     if nblocks:
         LAUNCHES["quantize_int8"] += 1
     return q, scales, n
@@ -344,10 +350,10 @@ def quantize_int8_stochastic(x: torch.Tensor, u: torch.Tensor):
     nblocks = rows // _Q_ROWS
     q = torch.empty((rows, _LANES), dtype=torch.int8, device=x.device)
     scales = torch.empty((nblocks,), dtype=torch.float32, device=x.device)
-    err = _load("int8_codec.cu").hvd_quantize_int8_stochastic(
-        x.data_ptr(), _DTYPE_CODE[x.dtype], n, u.data_ptr(), q.data_ptr(),
-        scales.data_ptr(), nblocks, _stream(x))
-    _check_launch("quantize_int8_stochastic", err)
+    _launch("quantize_int8_stochastic", x, "int8_codec.cu",
+            "hvd_quantize_int8_stochastic", x.data_ptr(),
+            _DTYPE_CODE[x.dtype], n, u.data_ptr(), q.data_ptr(),
+            scales.data_ptr(), nblocks)
     if nblocks:
         LAUNCHES["quantize_int8_stochastic"] += 1
     return q, scales, n
@@ -394,10 +400,9 @@ def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, n: int, shape,
     if not (q.is_contiguous() and scales.is_contiguous()):
         raise ValueError("dequantize_int8: inputs must be contiguous")
     out = torch.empty(shape, dtype=dtype, device=q.device)
-    err = _load("int8_codec.cu").hvd_dequantize_int8(
-        q.data_ptr(), scales.data_ptr(), n, nblocks, out.data_ptr(),
-        _DTYPE_CODE[dtype], _stream(q))
-    _check_launch("dequantize_int8", err)
+    _launch("dequantize_int8", q, "int8_codec.cu", "hvd_dequantize_int8",
+            q.data_ptr(), scales.data_ptr(), n, nblocks, out.data_ptr(),
+            _DTYPE_CODE[dtype])
     if nblocks:
         LAUNCHES["dequantize_int8"] += 1
     return out
@@ -456,10 +461,9 @@ def adasum_dot_norms(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     parts = _dot_norms_parts(n)
     scratch = torch.empty((3 * parts,), dtype=torch.float32,
                           device=a.device)
-    err = _load("adasum.cu").hvd_adasum_dot_norms(
-        a.data_ptr(), b.data_ptr(), _DTYPE_CODE[a.dtype], n,
-        scratch.data_ptr(), parts, out.data_ptr(), _stream(a))
-    _check_launch("adasum_dot_norms", err)
+    _launch("adasum_dot_norms", a, "adasum.cu", "hvd_adasum_dot_norms",
+            a.data_ptr(), b.data_ptr(), _DTYPE_CODE[a.dtype], n,
+            scratch.data_ptr(), parts, out.data_ptr())
     LAUNCHES["adasum_dot_norms"] += 1
     return out
 
@@ -502,10 +506,9 @@ def adasum_combine(a: torch.Tensor, b: torch.Tensor, dn: torch.Tensor,
     n = a.numel()
     if n == 0:
         return out
-    err = _load("adasum.cu").hvd_adasum_combine(
-        a.data_ptr(), b.data_ptr(), _DTYPE_CODE[a.dtype], n, dn.data_ptr(),
-        eps, out.data_ptr(), _stream(a))
-    _check_launch("adasum_combine", err)
+    _launch("adasum_combine", a, "adasum.cu", "hvd_adasum_combine",
+            a.data_ptr(), b.data_ptr(), _DTYPE_CODE[a.dtype], n,
+            dn.data_ptr(), eps, out.data_ptr())
     LAUNCHES["adasum_combine"] += 1
     return out
 
@@ -515,7 +518,7 @@ def adasum_combine(a: torch.Tensor, b: torch.Tensor, dn: torch.Tensor,
 MASK_VALUE = -1e30          # a masked logit (not -inf: a fully masked row
                             # averages its keys instead of producing NaN)
 FLASH_HEAD_DIMS = (64, 128)
-_FWD, _DQ, _DKV = 0, 1, 2
+_FWD, _DQ, _DKV, _BWD = 0, 1, 2, 3
 
 
 def _masked_logits(q: torch.Tensor, k: torch.Tensor,
@@ -580,9 +583,11 @@ def _flash_bwd_dkv_plain(q, k, v, mask, causal, do, lse, delta, dlse=None):
 def flash_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """``delta = rowsum(do * o)`` (B, H, S) fp32, from ``o`` as saved —
     plain PyTorch on every device, as the JAX package keeps it plain
-    jnp beside its backward kernels."""
-    return torch.einsum("bshd,bshd->bhs", do.to(torch.float32),
-                        o.to(torch.float32))
+    jnp beside its backward kernels. An fp32 product and a row sum: on
+    the card the einsum form, which PyTorch runs as a batched matmul
+    over copies, was the slower one."""
+    return (do.to(torch.float32) * o.to(torch.float32)).sum(-1).transpose(
+        1, 2)
 
 
 def _flash_bwd_plain(q, k, v, mask, causal, o, lse, do, dlse=None):
@@ -680,9 +685,9 @@ def _bsh_strides(t: torch.Tensor) -> List[int]:
     return [dense[i] if t.shape[i] == 1 else t.stride(i) for i in range(3)]
 
 
-def _launch_flash(which: int, name: str, q, k, v, mask, causal, *,
-                  do=None, lse=None, delta=None, dlse=None, out=None,
-                  out2=None, lse_out=None) -> None:
+def _launch_flash(which: int, names: Tuple[str, ...], q, k, v, mask,
+                  causal, *, do=None, lse=None, delta=None, dlse=None,
+                  out=None, out2=None, out3=None, lse_out=None) -> None:
     b, s, h, d = q.shape
     strides: List[int] = []
     for t in (q, k, v, do if do is not None else q):
@@ -692,14 +697,14 @@ def _launch_flash(which: int, name: str, q, k, v, mask, causal, *,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = _load("flash_attention.cu").hvd_flash_attention(
-        which, _DTYPE_CODE[q.dtype], b, s, h, d, int(bool(causal)),
-        1.0 / math.sqrt(d), ptr(q), ptr(k), ptr(v), ptr(do), ptr(mask),
-        ptr(lse), ptr(delta), ptr(dlse), ptr(out), ptr(out2),
-        ptr(lse_out), strides_arr, _stream(q))
-    _check_launch(name, err)
+    _launch("+".join(names), q, "flash_attention.cu", "hvd_flash_attention",
+            which, _DTYPE_CODE[q.dtype], b, s, h, d, int(bool(causal)),
+            1.0 / math.sqrt(d), ptr(q), ptr(k), ptr(v), ptr(do), ptr(mask),
+            ptr(lse), ptr(delta), ptr(dlse), ptr(out), ptr(out2), ptr(out3),
+            ptr(lse_out), strides_arr)
     if q.numel():
-        LAUNCHES[name] += 1
+        for name in names:
+            LAUNCHES[name] += 1
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -715,8 +720,8 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, _ = q.shape
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch_flash(_FWD, "flash_fwd", q, k, v, _f32(mask, (b, s)), causal,
-                  out=o, lse_out=lse)
+    _launch_flash(_FWD, ("flash_fwd",), q, k, v, _f32(mask, (b, s)),
+                  causal, out=o, lse_out=lse)
     return o, lse
 
 
@@ -728,10 +733,12 @@ def flash_bwd_dq(q, k, v, mask, causal, do, lse, delta, dlse=None
                         do=do) == "cpu":
         return _flash_bwd_dq_plain(q, k, v, mask, causal, do, lse, delta,
                                    dlse)
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = (_tma_operand(t) for t in (q, k, v, do))
     b, s, h, _ = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch_flash(_DQ, "flash_bwd_dq", q, k, v, _f32(mask, (b, s)), causal,
-                  do=do, lse=_f32(lse, (b, h, s)),
+    _launch_flash(_DQ, ("flash_bwd_dq",), q, k, v, _f32(mask, (b, s)),
+                  causal, do=do, lse=_f32(lse, (b, h, s)),
                   delta=_f32(delta, (b, h, s)), dlse=_f32(dlse, (b, h, s)),
                   out=dq)
     return dq
@@ -749,7 +756,7 @@ def flash_bwd_dkv(q, k, v, mask, causal, do, lse, delta, dlse=None
     b, s, h, _ = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    _launch_flash(_DKV, "flash_bwd_dkv", q, k, v, _f32(mask, (b, s)),
+    _launch_flash(_DKV, ("flash_bwd_dkv",), q, k, v, _f32(mask, (b, s)),
                   causal, do=do, lse=_f32(lse, (b, h, s)),
                   delta=_f32(delta, (b, h, s)), dlse=_f32(dlse, (b, h, s)),
                   out=dk, out2=dv)
@@ -758,8 +765,22 @@ def flash_bwd_dkv(q, k, v, mask, causal, do, lse, delta, dlse=None
 
 def flash_bwd(q, k, v, mask, causal, o, lse, do, dlse=None):
     """K6 + K7: ``(dq, dk, dv)`` from the forward's saved ``o`` and
-    ``lse`` and the cotangents ``do`` and ``dlse`` (None = zero)."""
-    delta = flash_delta(o, do)
-    dq = flash_bwd_dq(q, k, v, mask, causal, do, lse, delta, dlse)
-    dk, dv = flash_bwd_dkv(q, k, v, mask, causal, do, lse, delta, dlse)
+    ``lse`` and the cotangents ``do`` and ``dlse`` (None = zero). On the
+    card one C call launches K6 and then K7 on the same stream, with the
+    inputs checked, laid out and converted once for both (and, in bf16,
+    their four TMA maps encoded once); each kernel counts its launch."""
+    if _check_attention("flash_bwd", q, k, v, mask, lse, dlse,
+                        do=do) == "cpu":
+        return _flash_bwd_plain(q, k, v, mask, causal, o, lse, do, dlse)
+    b, s, h, _ = q.shape
+    delta = _f32(flash_delta(o, do), (b, h, s))
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = (_tma_operand(t) for t in (q, k, v, do))
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    _launch_flash(_BWD, ("flash_bwd_dq", "flash_bwd_dkv"), q, k, v,
+                  _f32(mask, (b, s)), causal, do=do,
+                  lse=_f32(lse, (b, h, s)), delta=delta,
+                  dlse=_f32(dlse, (b, h, s)), out=dq, out2=dk, out3=dv)
     return dq, dk, dv

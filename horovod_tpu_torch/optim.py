@@ -34,10 +34,13 @@ An int8 bucket's reduction takes several hops (quantize, all_to_all,
 dequantize and sum, requantize, all_gather), so it is fused when its
 last gradient lands but reduced when ``synchronize()`` reaches it, not
 overlapped with backprop as the other buckets are. The residual is one
-fp32 flat buffer per int8 bucket, kept on the wrapper (it is not in the
-optimizer's ``state_dict``, so a checkpoint does not carry it), and the
-step counter advances once per reduction round, i.e. once per
-``step()``.
+fp32 flat buffer per int8 bucket, and the step counter advances once per
+reduction round, i.e. once per ``step()``. Both are this rank's state,
+as in the JAX optimizer's ``_EFState``: ``state_dict()`` carries them
+under ``"ef_state"`` and ``load_state_dict()`` restores them, so a run
+restored from a checkpoint continues as the uninterrupted run would;
+``broadcast_optimizer_state`` leaves them out (each rank keeps its own
+residual).
 
 ``op=Adasum`` grafts the delta-based mixin instead, as the JAX package's
 PyTorch surface does (``horovod_tpu/torch/__init__.py``
@@ -78,6 +81,8 @@ _M_EF_NORM = metrics_lib.gauge(
 # Base seed of the stochastic rounding: bucket i at step t rounds with the
 # key (_EF_SEED, t, i), the same on every rank and on every rerun.
 _EF_SEED = 0x5EED
+# The state_dict key of this rank's error-feedback state.
+_EF_STATE = "ef_state"
 
 
 def _ef_key(step: int, bucket_index: int):
@@ -203,7 +208,7 @@ class _DistributedOptimizerMixin:
         wire, ctx = self._wire_compressor(bi).compress(flat)
         if self._predivide != 1.0:
             wire = C._apply_scale(wire, 1.0 / self._predivide)
-        work = C.allreduce_async_(wire, C.Sum)
+        work = C._allreduce_async_inplace(wire, C.Sum)
         self._dist_inflight[bi] = (work, wire, ctx)
 
     def _reduce_int8(self, bi: int, flat: torch.Tensor) -> torch.Tensor:
@@ -256,6 +261,40 @@ class _DistributedOptimizerMixin:
         self._dist_dirty = False
         if self._ef:
             self._ef_step += 1
+
+    def state_dict(self):
+        """The base optimizer's state dict and, under ``int8_ef``, this
+        rank's error-feedback state: ``"ef_state": {"step": int,
+        "residual": {bucket index: fp32 flat residual}}``."""
+        sd = self._base_cls.state_dict(self)
+        if self._ef:
+            sd[_EF_STATE] = {"step": self._ef_step,
+                             "residual": dict(self._ef_residual)}
+        return sd
+
+    def load_state_dict(self, state_dict) -> None:
+        """The base optimizer's ``load_state_dict`` and, where the dict
+        carries one, this rank's error-feedback state (residuals copied
+        onto their buckets' device)."""
+        sd = dict(state_dict)
+        ef = sd.pop(_EF_STATE, None)
+        self._base_cls.load_state_dict(self, sd)
+        if ef is None or not self._ef:
+            return
+        buckets = self._dist_plan.buckets
+        residual = {}
+        for bi, r in ef["residual"].items():
+            bi = int(bi)
+            if not 0 <= bi < len(buckets) \
+                    or r.numel() != buckets[bi].total_elems:
+                raise ValueError(
+                    f"load_state_dict: error-feedback residual of bucket "
+                    f"{bi} ({r.numel()} elements) does not fit this "
+                    f"optimizer's {len(buckets)} buckets")
+            dev = self._dist_params[buckets[bi].leaf_indices[0]].device
+            residual[bi] = r.to(device=dev, dtype=torch.float32).clone()
+        self._ef_residual = residual
+        self._ef_step = int(ef["step"])
 
     def skip_synchronize(self):
         """Context manager: ``step()`` without synchronizing (after an
@@ -449,7 +488,8 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
     ``root_rank``'s: the state dict's structure and scalars travel as
     one object, then each state tensor is broadcast, in the order both
     sides visit them. A rank whose state is still empty (no step yet)
-    receives the root's."""
+    receives the root's. An ``int8_ef`` optimizer's error-feedback state
+    is each rank's own and is not broadcast."""
     root = basics.rank() == root_rank
     tensors: List[torch.Tensor] = []
 
@@ -463,7 +503,11 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
             device="cpu" if slot.on_cpu else basics.device()))
         return tensors[-1]
 
-    box = [_map_tensors(optimizer.state_dict(), take) if root else None]
+    box = [None]
+    if root:
+        sd = optimizer.state_dict()
+        sd.pop(_EF_STATE, None)
+        box = [_map_tensors(sd, take)]
     dist.broadcast_object_list(box, src=root_rank)
     state = None if root else _map_tensors(box[0], alloc)
     for t in tensors:

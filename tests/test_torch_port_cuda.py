@@ -165,6 +165,94 @@ def test_flash_kernels_match_plain_on_card(case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=lambda c: "x".join(map(str, c[0]))
+                         + f"-{str(c[1])[6:]}-causal{int(c[2])}"
+                         f"-mask{int(c[3])}-dlse{int(c[4])}"
+                         + ("-fused" if c[5] else ""))
+def test_flash_backward_one_call_matches_plain_on_card(case):
+    """The training path's backward, ``flash_bwd`` — one C call that
+    launches K6 (in bf16 ``flash_bwd_dq_sm90``) and then K7 — against
+    the plain K6 + K7 on the same inputs, one counted launch of each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    shape, dtype, causal, use_mask, use_dlse, fused = case
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    b, s, h, d = shape
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    if fused:
+        qkv = torch.cat([t.reshape(b, s, h * d) for t in (q, k, v)], -1)
+        q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, -1))
+    mask = None
+    if use_mask:
+        mask = (torch.rand((b, s), generator=gen, device="cuda") > 0.3
+                ).float()
+        mask[:, 0] = 1.0
+    dlse = torch.randn((b, h, s), generator=gen, device="cuda") \
+        if use_dlse else None
+    o0, lse0 = kernels._flash_fwd_plain(q, k, v, mask, causal)
+    kernels.reset_launch_counts()
+    got = kernels.flash_bwd(q, k, v, mask, causal, o0, lse0, do, dlse)
+    want = kernels._flash_bwd_plain(q, k, v, mask, causal, o0, lse0, do,
+                                    dlse)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {
+        "quantize_int8": 0, "dequantize_int8": 0, "flash_fwd": 0,
+        "flash_bwd_dq": 1, "flash_bwd_dkv": 1, **NEW_KERNELS}
+    gtol = FLASH_GRAD_TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=gtol,
+                                   atol=gtol)
+
+
+@pytest.mark.cuda
+def test_every_kernel_launches_inside_an_explicit_device_guard():
+    """Inside ``torch.cuda.device(0)`` each of K1-K9 launches once on
+    device 0's tensors and agrees with its plain version (the wrappers'
+    own guard nests in the caller's). A second device is not exercised:
+    it needs a machine with two cards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    kernels.reset_launch_counts()
+    with torch.cuda.device(0):
+        x = torch.randn(9001, generator=gen, device="cuda:0")
+        assert torch.equal(kernels.scale_buffer(x, 0.7),
+                           kernels.scale_buffer_plain(x, 0.7))
+        q, sc, n = kernels.quantize_int8(x)
+        q0, sc0, _ = kernels._quantize_plain(x)
+        assert torch.equal(q, q0)
+        assert torch.equal(kernels.dequantize_int8(q, sc, n, x.shape),
+                           kernels._dequantize_plain(q, sc, n, x.shape,
+                                                     torch.float32))
+        u = torch.rand((kernels.stochastic_rows(n), 128), generator=gen,
+                       device="cuda:0")
+        assert torch.equal(kernels.quantize_int8_stochastic(x, u)[0],
+                           kernels._quantize_stochastic_plain(x, u)[0])
+        y = torch.randn(9001, generator=gen, device="cuda:0")
+        dn = kernels.adasum_dot_norms(x, y)
+        assert torch.equal(kernels.adasum_combine(x, y, dn),
+                           kernels._adasum_combine_plain(x, y, dn))
+        shape = (2, 128, 2, 64)
+        qa, ka, va, do = (torch.randn(shape, generator=gen,
+                                      device="cuda:0").to(torch.bfloat16)
+                          for _ in range(4))
+        o, lse = kernels.flash_fwd(qa, ka, va, None, True)
+        o0, lse0 = kernels._flash_fwd_plain(qa, ka, va, None, True)
+        grads = kernels.flash_bwd(qa, ka, va, None, True, o0, lse0, do)
+        want = kernels._flash_bwd_plain(qa, ka, va, None, True, o0, lse0,
+                                        do)
+        torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), o0.float(), rtol=2e-2, atol=2e-2)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                   atol=2e-2)
+    assert kernels.LAUNCHES == {name: 1 for name in kernels.LAUNCHES}
+
+
+@pytest.mark.cuda
 def test_gpt_training_step_on_card_matches_cpu():
     """One DistributedOptimizer(SGD) step of a small fp32 GPT (head dim
     64) on the card — through NCCL, with K5/K6/K7 launched once per
@@ -265,15 +353,16 @@ def test_reduce_kernels_match_plain_on_card():
 @pytest.mark.cuda
 def test_scale_kernel_matches_plain_on_card():
     """K1 bitwise equal to its plain version for every pair of fp32, bf16
-    and fp16 in and out, at ragged sizes and from an address off the
-    16-byte grid (the scalar path), with one counted launch per call."""
+    and fp16 in and out, at ragged sizes (around the streaming pass's
+    whole trips too) and from an address one element off the 16-byte
+    grid (the scalar path), with one counted launch per call."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     gen = torch.Generator(device="cuda").manual_seed(5)
     dtypes = (torch.float32, torch.bfloat16, torch.float16)
     kernels.reset_launch_counts()
     calls = 0
-    for n in (1, 7, 1024, 4095, 4097, 9001, 300_001):
+    for n in (1, 7, 1024, 4095, 4097, 9001, 300_001, 5_000_003):
         base = torch.randn(n + 1, generator=gen, device="cuda") * 3
         for din in dtypes:
             for x in (base[:n].to(din), base.to(din)[1:]):

@@ -370,6 +370,12 @@ def _eager_worker(rank: int, n: int, out_path: str) -> None:
     out["async"] = _np(hvd.synchronize(h))
     out["async/poll"] = np.array(hvd.poll(h))
     out["rounds/repeat"] = np.array(ctl.negotiation_rounds - rounds)
+    for dt in DTYPES:
+        t = _to(d["ar"][rank], dt).clone()     # not a view of the data
+        h = hvd.allreduce_async_(t, name=f"ar_.{dt}")
+        out[f"ar_/{dt}/handle"] = np.array(type(h).__name__)
+        out[f"ar_/{dt}/in_place"] = np.array(hvd.synchronize(h) is t)
+        out[f"ar_/{dt}"] = _np(t)
     grp = [_to(g[rank], "float32") for g in d["grp"]]
     for label, kw in (("sum", {"op": hvd.Sum, "prescale_factor": PRE,
                                "postscale_factor": POST}),
@@ -563,6 +569,20 @@ def test_async_handles_and_the_signature_cache(world):
         np.testing.assert_array_equal(ranks[r]["async"],
                                       ranks[r]["ar/float32/sum"])
         assert ranks[r]["async/poll"] and ranks[r]["rounds/repeat"] == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_allreduce_async_inplace_averages_into_the_tensor(world, dtype):
+    """Horovod's ``allreduce_async_(t, name=...)`` (the JAX package's
+    PyTorch surface, ``horovod_tpu/torch/__init__.py``): an int handle,
+    and ``synchronize`` writes the average into ``t`` and returns ``t``,
+    bitwise the result of ``allreduce(t, op=Average)``."""
+    n, ranks = world
+    for r in range(n):
+        assert ranks[r][f"ar_/{dtype}/handle"] == "int"
+        assert ranks[r][f"ar_/{dtype}/in_place"]
+        np.testing.assert_array_equal(ranks[r][f"ar_/{dtype}"],
+                                      ranks[r][f"ar/{dtype}/average"])
 
 
 @pytest.mark.parametrize("label", ["sum", "average"])

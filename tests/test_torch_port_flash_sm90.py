@@ -1,5 +1,5 @@
-"""What the bf16 Hopper route of K5 (flash forward) and K7 (flash dK/dV)
-changes, checked on the CPU.
+"""What the bf16 Hopper route of K5 (flash forward), K6 (flash dQ) and K7
+(flash dK/dV) changes, checked on the CPU.
 
 1. The wrapper's layout rule (``kernels.tma_layout_ok``): a pure function
    of shape, strides, element size and data pointer. The fused QKV
@@ -7,15 +7,15 @@ changes, checked on the CPU.
    stride or base address is not a multiple of 16 bytes is copied once
    (the kernel still reads the copy).
 2. The new kernels' roundings: they round P and dS to bf16 before the
-   products P.V, P^T.dO and dS^T.Q, where the JAX kernels and the
+   products P.V, dS.K, P^T.dO and dS^T.Q, where the JAX kernels and the
    package's plain versions keep them fp32. An emulation of those
-   roundings, defined here (K5's online softmax over 64-key tiles, as the
-   kernel runs it), is held at (2, 512, 4, 64) on bf16-valued inputs,
-   causal, causal with a key mask and with a key mask alone, to the bf16
-   tolerance 2e-2 against
-   ``_flash_fwd_plain``/``_flash_bwd_dkv_plain`` and against the JAX
-   ``_fwd_kernel``/``_dkv_kernel`` run in interpret mode on the same
-   numpy inputs.
+   roundings, defined here (K5's online softmax and K6's sum over 64-key
+   tiles, as the kernels run them), is held at (2, 512, 4, 64) on
+   bf16-valued inputs, causal, causal with a key mask and with a key mask
+   alone, to the bf16 tolerance 2e-2 against ``_flash_fwd_plain``/
+   ``_flash_bwd_dq_plain``/``_flash_bwd_dkv_plain`` and against the JAX
+   ``_fwd_kernel``/``_dq_kernel``/``_dkv_kernel`` run in interpret mode
+   on the same numpy inputs.
 """
 
 import math
@@ -140,6 +140,21 @@ def _emulated_fwd(q, k, v, mask, causal):
     return o, (m + torch.log(l)).squeeze(-1)
 
 
+def _emulated_dq(q, k, v, mask, causal, do, lse, delta, dlse):
+    """K6's bf16 route: P and dS in fp32, each 64-key tile's dS rounded
+    to bf16 before dS.K, the tiles' products summed in fp32; dq scaled
+    and rounded to bf16."""
+    p = torch.exp(_logits(q, k, mask, causal) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = p * (dp - delta[..., None] + dlse[..., None])
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, ds.shape[-1], TILE):
+        acc = acc + torch.einsum("bhqk,bkhd->bqhd",
+                                 _bf16(ds[..., k0:k0 + TILE]),
+                                 k[:, k0:k0 + TILE])
+    return _bf16(acc / math.sqrt(q.shape[-1]))
+
+
 def _emulated_dkv(q, k, v, mask, causal, do, lse, delta, dlse):
     """K7's bf16 route: P and dS in fp32, each rounded to bf16 before
     P^T.dO and dS^T.Q; dk and dv rounded to bf16."""
@@ -223,6 +238,27 @@ def test_bf16_dkv_rounding_within_tolerance(causal, masked):
                                        (jnp.asarray(do), jnp.asarray(dlse)))
     _close(dk, jdk, "dk vs the JAX _dkv_kernel")
     _close(dv, jdv, "dv vs the JAX _dkv_kernel")
+
+
+@pytest.mark.parametrize("causal,masked", CASES, ids=IDS)
+def test_bf16_dq_rounding_within_tolerance(causal, masked):
+    """K6's roundings against the plain version and the JAX kernel, with
+    lse, delta and a nonzero dlse from the plain forward."""
+    q, k, v, do, dlse, mask = _inputs(13, masked)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    tdo, tdlse = torch.from_numpy(do), torch.from_numpy(dlse)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    o0, lse0 = kernels._flash_fwd_plain(*t, tmask, causal)
+    delta = kernels.flash_delta(o0, tdo)
+    dq = _emulated_dq(*t, tmask, causal, tdo, lse0, delta, tdlse)
+    dq0 = kernels._flash_bwd_dq_plain(*t, tmask, causal, tdo, lse0, delta,
+                                      tdlse)
+    _close(dq, dq0, "dq vs plain")
+    res = (*(jnp.asarray(a) for a in (q, k, v)), _jax_mask(mask),
+           jnp.asarray(o0.numpy()), jnp.asarray(lse0.numpy()))
+    jdq, _, _, _ = jflash._flash_bwd(causal, TILE, TILE, True, res,
+                                     (jnp.asarray(do), jnp.asarray(dlse)))
+    _close(dq, jdq, "dq vs the JAX _dq_kernel")
 
 
 def test_length_one_dimension_gets_the_dense_stride():

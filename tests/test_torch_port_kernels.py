@@ -28,12 +28,20 @@ quotient its jnp fallback (and the port, and the CUDA kernel) computes,
 and a code in that block can then round the other way. Against the
 interpret path the codes are therefore bitwise wherever the two scales
 are bitwise equal, and within 1 elsewhere.
+
+Every kernel launch goes through ``kernels._launch``, which calls the C
+entry point under a ``torch.cuda.device`` guard on the tensor's device
+(the C side launches on the current device): checked here with the
+guard and the stream query replaced by recorders, and by reading which
+functions of the module reach the libraries.
 """
 
+import ast
 import os
 import socket
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -304,3 +312,76 @@ def test_wrappers_reject_bad_inputs(rng):
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--scale-worker"]:
     _scale_worker(int(sys.argv[2]), sys.argv[3])
+
+
+# -- the device guard of every launch --------------------------------------
+
+def test_launch_runs_under_a_guard_on_the_tensor_device(monkeypatch):
+    """``_launch`` enters ``torch.cuda.device(t.device)``, queries that
+    device's current stream, calls the C entry point with the stream as
+    its last argument, and leaves the guard; a nonzero return raises
+    naming the CUDA error, with the guard left all the same."""
+    events = []
+
+    class Guard:
+        def __init__(self, dev):
+            self.dev = dev
+
+        def __enter__(self):
+            events.append(("enter", self.dev))
+
+        def __exit__(self, *exc):
+            events.append(("exit", self.dev))
+            return False
+
+    def current_stream(dev=None):
+        events.append(("stream", dev))
+        return types.SimpleNamespace(cuda_stream=0xBEEF)
+
+    calls = []
+
+    def entry(*args):
+        events.append(("call",))
+        calls.append(args)
+        return 0
+
+    lib = types.SimpleNamespace(hvd_probe=entry)
+    monkeypatch.setattr(kernels, "_load", lambda source: lib)
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+    dev = torch.device("cuda", 1)
+    t = types.SimpleNamespace(device=dev)
+    kernels._launch("probe", t, "probe.cu", "hvd_probe", 3, 4.5)
+    assert events == [("enter", dev), ("stream", dev), ("call",),
+                      ("exit", dev)]
+    assert calls == [(3, 4.5, 0xBEEF)]
+    events.clear()
+    lib.hvd_probe = lambda *args: 700
+    with pytest.raises(RuntimeError, match="probe: .*cudaError 700"):
+        kernels._launch("probe", t, "probe.cu", "hvd_probe")
+    assert events[-1] == ("exit", dev)
+
+
+def test_every_kernel_launch_goes_through_the_guard():
+    """The C libraries are reached only from ``_launch``: no other
+    function of ``ops/kernels.py`` calls ``_load`` or reads a stream, and
+    every C entry point of every source is named in a ``_launch`` call."""
+    tree = ast.parse(Path(kernels.__file__).read_text())
+    loads, streams, launched = set(), set(), set()
+    for fn in ast.walk(tree):
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        for node in ast.walk(fn):
+            if isinstance(node, ast.Call) and isinstance(node.func,
+                                                         ast.Name):
+                if node.func.id == "_load":
+                    loads.add(fn.name)
+                if node.func.id == "_launch" and len(node.args) >= 4 \
+                        and isinstance(node.args[3], ast.Constant):
+                    launched.add(node.args[3].value)
+            if isinstance(node, ast.Attribute) and node.attr in (
+                    "current_stream", "cuda_stream"):
+                streams.add(fn.name)
+    assert loads == {"_launch"} and streams == {"_launch"}
+    assert launched == {fn for sigs in kernels._SIGNATURES.values()
+                        for fn in sigs}

@@ -35,7 +35,9 @@ planner and ``DistributedOptimizer`` with ``compression="int8_ef"`` and
   within 2% of the port's own fp32 run (the JAX package's gate,
   ``test_compression_e2e.py``); ``op=Adasum`` equal to a numpy oracle
   (each rank's local SGD delta, then ``adasum_allreduce_reference``) to
-  1e-5, with bitwise-equal replicas.
+  1e-5, with bitwise-equal replicas; an int8_ef run restored from its
+  ``state_dict`` (the error-feedback residual and step included)
+  continuing bitwise as the uninterrupted run.
 
 JAX is imported only inside the ``J`` fixture: the worker processes
 import this file and must not pay for it.
@@ -69,6 +71,7 @@ SIZE = 9001             # a ragged element count: three 4096 blocks, padded
 OPT_STEPS = 3
 OPT_THRESHOLD = 64      # bytes: three fusion buckets for the small MLP
 GATE_STEPS = 20
+RESUME_STEPS = (3, 3)   # int8_ef steps before the checkpoint, and after
 
 
 @pytest.fixture(scope="module")
@@ -392,6 +395,65 @@ def _gate_run(rank, compression):
     return float(hvd.allreduce(loss.detach(), op=hvd.Average))
 
 
+def _resume_runs(rank):
+    """The toy classifier under SGD with momentum and every bucket int8
+    with error feedback: k + m steps uninterrupted; k steps, a checkpoint
+    through ``torch.save``, then a fresh model and wrapper restored from
+    it for m more; and the same with the checkpoint's error-feedback
+    state dropped. Returns each run's parameters and the checkpoint's
+    error-feedback step and residual norm."""
+    import io
+
+    x, y = _gate_data()
+    xb, yb = torch.from_numpy(x[rank]), torch.from_numpy(y[rank])
+    k, m_steps = RESUME_STEPS
+
+    def fresh():
+        torch.manual_seed(0)
+        m = torch.nn.Sequential(torch.nn.Linear(64, 64), torch.nn.ReLU(),
+                                torch.nn.Linear(64, 10))
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(m.parameters(), lr=0.1, momentum=0.9),
+            named_parameters=m.named_parameters(), compression="int8_ef",
+            quantize_min_bucket_bytes=0)
+        return m, opt
+
+    def train(m, opt, steps):
+        for _ in range(steps):
+            loss = torch.nn.functional.cross_entropy(m(xb), yb)
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+
+    def params(m, label):
+        return {f"resume/{label}/{n}": v.detach().numpy().copy()
+                for n, v in m.state_dict().items()}
+
+    out = {}
+    m, opt = fresh()
+    train(m, opt, k + m_steps)
+    out.update(params(m, "whole"))
+    m, opt = fresh()
+    train(m, opt, k)
+    buf = io.BytesIO()
+    torch.save({"model": m.state_dict(), "opt": opt.state_dict()}, buf)
+    ef = opt.state_dict()["ef_state"]
+    out["resume/ef_step"] = np.array(ef["step"])
+    out["resume/ef_norm"] = np.array(float(sum(
+        r.double().pow(2).sum() for r in ef["residual"].values())) ** 0.5)
+    for label, keep_ef in (("restored", True), ("no_ef", False)):
+        buf.seek(0)
+        ckpt = torch.load(buf)
+        if not keep_ef:
+            del ckpt["opt"]["ef_state"]
+        m, opt = fresh()
+        m.load_state_dict(ckpt["model"])
+        opt.load_state_dict(ckpt["opt"])
+        train(m, opt, m_steps)
+        out.update(params(m, label))
+    return out
+
+
 def _reduce_worker(rank: int, n: int, out_path: str) -> None:
     """One rank of an n-process gloo world (run as a script)."""
     hvd.init(device="cpu")
@@ -438,6 +500,7 @@ def _reduce_worker(rank: int, n: int, out_path: str) -> None:
                     out[f"{case}/{step}/{k}"] = v.numpy().copy()
         for comp in ("none", "int8_ef"):
             out[f"gate/{comp}"] = np.float64(_gate_run(rank, comp))
+        out.update(_resume_runs(rank))
     hvd.shutdown()
     np.savez(out_path, **out)
 
@@ -645,6 +708,28 @@ def test_int8_ef_trains_within_2pct_of_fp32(world2):
     fp32, ef = float(ranks[0]["gate/none"]), float(ranks[0]["gate/int8_ef"])
     assert np.isfinite(fp32) and np.isfinite(ef)
     assert abs(ef - fp32) / fp32 < 0.02, (fp32, ef)
+
+
+def test_int8_ef_checkpoint_resumes_bitwise(world2):
+    """An int8_ef run saved after k steps (``state_dict`` through
+    ``torch.save``) and restored into a fresh model and wrapper continues
+    bitwise as the uninterrupted k + m step run on every rank; the
+    checkpoint holds the error-feedback step k and a nonzero residual,
+    without which the continuation differs."""
+    k, _ = RESUME_STEPS
+    for r, rank in enumerate(world2):
+        assert int(rank["resume/ef_step"]) == k, r
+        assert float(rank["resume/ef_norm"]) > 0, r
+        names = [key[len("resume/whole/"):] for key in rank
+                 if key.startswith("resume/whole/")]
+        assert names
+        for name in names:
+            np.testing.assert_array_equal(
+                rank[f"resume/restored/{name}"], rank[f"resume/whole/{name}"],
+                err_msg=f"rank {r} {name}")
+        assert any(not np.array_equal(rank[f"resume/no_ef/{name}"],
+                                      rank[f"resume/whole/{name}"])
+                   for name in names), r
 
 
 def test_adasum_optimizer_matches_numpy_oracle(world2):

@@ -233,12 +233,15 @@ def test_collectives_world_of_one(world1):
     assert len(hvd.grouped_allreduce([x, x * 2])) == 2
     torch.testing.assert_close(hvd.allgather(x[None]), x[None])
     torch.testing.assert_close(hvd.broadcast(x, 0), x)
+    # Horovod's in-place async allreduce: an int handle; synchronize
+    # writes the average (over a world of one, x) into y and returns y.
     y = x.clone()
-    work = hvd.allreduce_async_(y, hvd.Sum)
-    work.wait()
+    h = hvd.allreduce_async_(y, name="y")
+    assert isinstance(h, int)
+    assert hvd.synchronize(h) is y
     torch.testing.assert_close(y, x)
-    with pytest.raises(ValueError):
-        hvd.allreduce_async_(y, hvd.Average)
+    with pytest.raises(NotImplementedError, match="process-set slice"):
+        hvd.allreduce_async_(y, name="y", process_set=object())
     torch.testing.assert_close(hvd.allreduce(x, op=hvd.ReduceOp.PRODUCT), x)
     # Adasum runs no level in a world of one.
     torch.testing.assert_close(hvd.allreduce(x, op=hvd.ReduceOp.ADASUM), x)
