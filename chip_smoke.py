@@ -22,11 +22,20 @@ Phases (any failure exits non-zero and prints no result line):
    memory bound (the bias with 64 launches a replay).
 2. K2/K4 (int8 codec) against their plain PyTorch versions, on the card,
    at the shapes of the serve path: one K/V leaf of GPT-2 medium,
-   (max_len=1024, 16 heads, 64) bf16, plus ragged sizes. Codes and
-   dequantized outputs must match bitwise, scales to 1e-6. Times: CUDA
-   graph replay of one handoff's 48 launches over 48 distinct leaves
-   (device time per launch), the same eager (host launch included), the
-   plain version the same way, and the memory bound at 3.35 TB/s.
+   (max_len=1024, 16 heads, 64) bf16, plus ragged sizes, one leaf a
+   launch; then grouped (``quantize_int8_group``/``dequantize_int8_into``):
+   the 48 handoff leaves, two fp32 leaves, the ragged sizes 1, 4095,
+   4097, 5000 and (37, 16, 64) in both dtypes, a bf16 and an fp32 view one
+   element past a 16-byte boundary (the scalar path) and an all-zero
+   block, 62 leaves in one launch a side, and the same plus 8 leaves in
+   two; and K4 into slot 3 of an (8, 1024, 16, 64) bf16 slab whose other
+   slots must keep a NaN sentinel to the bit. Codes and dequantized
+   outputs must match bitwise, scales to 1e-6. Times, in turns: CUDA
+   graph replay of 48 single-leaf launches over 48 distinct leaves
+   (device time per launch), one handoff as one grouped launch and as
+   48 single launches (device time per handoff), each also eager
+   (synchronized) and as host time alone, the plain version per leaf,
+   and the memory bounds at 3.35 TB/s per leaf and per handoff.
 3. K5/K6/K7 (flash attention forward, dq, dk/dv) against their plain
    versions on the card: the training shape (8, 512, 16, 64) causal in
    bf16 and fp32, fp32 with a key mask, D = 128, a ragged S and a
@@ -58,8 +67,9 @@ Phases (any failure exits non-zero and prints no result line):
    4096, vocab 50257, bf16 compute over fp32 weights from a seeded
    generator — with a 1024-line cache, 8 slots and prompts up to 256
    tokens, over a seeded Poisson trace of 16 requests. The launch
-   counters are zeroed just before this run and read just after it; K2
-   and K4 must have launched. Every request must complete with its full
+   counters are zeroed just before this run and read just after it: K2
+   and K4 must each have launched exactly once per handoff, coding 48
+   leaves each time. Every request must complete with its full
    token count, with zero drops and at least one handoff. A reference
    check holds the bf16 cache-path logits against the same weights in
    fp32 on a short prompt.
@@ -156,6 +166,7 @@ BF16_OPS_PER_S = 989e12             # dense bf16 tensor-core peak
 HANDOFF_LEAVES = 48                 # gpt_medium: 24 layers x (k, v)
 LEAF = (1024, 16, 64)               # (max_len, heads, head_dim)
 RAGGED = ((37, 16, 64), (5000,), (1,))
+RAGGED_GROUP = ((1,), (4095,), (4097,), (5000,), (37, 16, 64))
 REF_LOGIT_RTOL = 5e-2               # bf16 vs fp32 logits, of max |logit|
 
 
@@ -218,8 +229,96 @@ def eager_ms(torch, fn, inputs, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def codec_group(torch, gen) -> list:
+    """The grouped codec case: the 48 handoff leaves (bf16), two fp32
+    leaves of the same shape, every RAGGED_GROUP size in bf16 and fp32, a
+    bf16 and an fp32 view one element past a 16-byte boundary (the
+    kernels' scalar path), and an all-zero first block in leaf 0: 62
+    leaves, one launch a side."""
+    xs = [torch.randn(LEAF, generator=gen, device="cuda").to(torch.bfloat16)
+          for _ in range(HANDOFF_LEAVES)]
+    xs += [torch.randn(LEAF, generator=gen, device="cuda") for _ in range(2)]
+    for dtype in (torch.bfloat16, torch.float32):
+        xs += [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for shape in RAGGED_GROUP]
+        xs.append(torch.randn(9001, generator=gen, device="cuda")
+                  .to(dtype)[1:])
+    xs[0].view(-1)[:4096] = 0
+    return xs
+
+
+def check_codec_group(torch, K, xs, launches: int) -> tuple:
+    """quantize_int8_group, then dequantize_int8_into (a misaligned input
+    into a misaligned output), against the plain versions leaf by leaf:
+    codes and outputs bitwise, scales to 1e-6; each side ``launches``
+    launches coding ``len(xs)`` leaves. Returns the largest code/scale
+    and output differences."""
+    K.reset_launch_counts()
+    got = K.quantize_int8_group(xs)
+    outs = [torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")[1:]
+            .view(x.shape) if x.data_ptr() % 16 else torch.empty_like(x)
+            for x in xs]
+    K.dequantize_int8_into(got, outs)
+    torch.cuda.synchronize()
+    counts, leaves = dict(K.LAUNCHES), dict(K.CODEC_LEAVES)
+    K.reset_launch_counts()
+    what = f"grouped codec ({len(xs)} leaves)"
+    for side in ("quantize_int8", "dequantize_int8"):
+        check(counts[side] == launches and leaves[side] == len(xs),
+              f"{what}: {side} made {counts[side]} launches over "
+              f"{leaves[side]} leaves, expected {launches} over {len(xs)}")
+    q_err = deq_err = 0.0
+    for i, (x, (q, s, n), out) in enumerate(zip(xs, got, outs)):
+        q0, s0, n0 = K._quantize_plain(x)
+        out0 = K._dequantize_plain(q0, s0, n0, x.shape, x.dtype)
+        check(n == n0 and q.shape == q0.shape and torch.equal(q, q0),
+              f"{what}: leaf {i} {tuple(x.shape)} {x.dtype}: codes differ "
+              "from plain")
+        rel = ((s - s0).abs() / s0.abs()).max().item()
+        check(rel <= 1e-6, f"{what}: leaf {i}: scale rel err {rel} > 1e-6")
+        check(torch.equal(out, out0), f"{what}: leaf {i}: output differs "
+                                      "from plain")
+        q_err = max(q_err, (s - s0).abs().max().item())
+        deq_err = max(deq_err, (out.float() - out0.float()).abs()
+                      .max().item())
+    return q_err, deq_err
+
+
+def check_slot_sentinel(torch, K, gen) -> None:
+    """K4 into slot 3 of an (8, 1024, 16, 64) bf16 slab filled with a NaN
+    sentinel: the slot bitwise the plain version's, the other seven
+    slots the sentinel to the bit."""
+    slab = torch.empty((8,) + LEAF, dtype=torch.bfloat16, device="cuda")
+    slab.view(torch.int16).fill_(0x7FA5)
+    x = torch.randn(LEAF, generator=gen, device="cuda").to(torch.bfloat16)
+    q, s, n = K.quantize_int8(x)
+    K.dequantize_int8_into([(q, s, n)], [slab[3]])
+    want = K._dequantize_plain(q, s, n, LEAF, torch.bfloat16)
+    torch.cuda.synchronize()
+    check(torch.equal(slab[3], want), "dequantize_int8_into: the cache "
+                                      "slot differs from plain")
+    others = torch.cat([slab[:3], slab[4:]]).view(torch.int16)
+    check(bool((others == 0x7FA5).all()), "dequantize_int8_into: wrote "
+                                          "outside its cache slot")
+
+
+def host_ms(torch, fn, inputs, reps: int = 20) -> float:
+    """Host ms per call: the time ``fn`` takes to return (argument
+    checks, allocation, launch), the device's work left out."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for x in inputs:
+            fn(x)
+        times.append((time.perf_counter() - start) * 1e3 / len(inputs))
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def phase_kernels(torch, K) -> dict:
-    """Hold K2/K4 against their plain versions on the card; time them."""
+    """Hold K2/K4 against their plain versions on the card, per leaf and
+    grouped; time one leaf a launch and one handoff a launch."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
     cases = [(LEAF, torch.bfloat16), (LEAF, torch.float32)] + \
         [(s, torch.bfloat16) for s in RAGGED] + \
@@ -249,12 +348,24 @@ def phase_kernels(torch, K) -> dict:
                     (s - s0).abs().max().item())
         deq_err = max(deq_err, (out.float() - out0.float()).abs()
                       .max().item())
-    print(f"kernels: K2/K4 bitwise equal to plain on {len(cases)} shapes",
-          flush=True)
+    group = codec_group(torch, gen)
+    errs = [check_codec_group(torch, K, group, 1)]
+    extra = [torch.randn(4096 * (1 + i % 3) - i, generator=gen,
+                         device="cuda") for i in range(8)]
+    errs.append(check_codec_group(torch, K, group + extra, 2))
+    check_slot_sentinel(torch, K, gen)
+    q_err = max([q_err] + [e[0] for e in errs])
+    deq_err = max([deq_err] + [e[1] for e in errs])
+    print(f"kernels: K2/K4 bitwise equal to plain on {len(cases)} shapes, "
+          f"grouped on {len(group)} leaves (one launch a side) and "
+          f"{len(group) + len(extra)} (two), and into a cache slot with "
+          "the other slots untouched", flush=True)
+    del group, extra
 
     leaves = [torch.randn(LEAF, generator=gen, device="cuda")
               .to(torch.bfloat16) for _ in range(HANDOFF_LEAVES)]
     blobs = [K.quantize_int8(x) for x in leaves]
+    outs = [torch.empty_like(x) for x in leaves]
     torch.cuda.synchronize()
 
     def quant(x):
@@ -263,25 +374,44 @@ def phase_kernels(torch, K) -> dict:
     def quant_plain(x):
         return K._quantize_plain(x)
 
+    def quant_group(xs):
+        return K.quantize_int8_group(xs)
+
+    def quant_singles(xs):
+        return [K.quantize_int8(x) for x in xs]
+
     def deq(b):
         return K.dequantize_int8(b[0], b[1], b[2], LEAF, torch.bfloat16)
 
     def deq_plain(b):
         return K._dequantize_plain(b[0], b[1], b[2], LEAF, torch.bfloat16)
 
+    def deq_group(bs):
+        K.dequantize_int8_into(bs, outs)
+
+    def deq_singles(bs):
+        for b, o in zip(bs, outs):
+            K.dequantize_int8_into([b], [o])
+
     n = leaves[0].numel()
     nblocks = -(-n // K.BLOCK)
     q_bytes = n * 2 + nblocks * K.BLOCK + nblocks * 4
     d_bytes = nblocks * K.BLOCK + nblocks * 4 + n * 2
     records = {}
-    for name, fn, plain, inputs, nbytes, ops, err, line in (
-            ("quantize_int8", quant, quant_plain, leaves, q_bytes, 6 * n,
-             q_err, 225),
-            ("dequantize_int8", deq, deq_plain, blobs, d_bytes, 2 * n,
-             deq_err, 233)):
-        # Turns: plain, kernel, kernel, plain (one card, one call).
+    for name, fn, plain, grouped, singles, inputs, nbytes, ops, err, \
+            line in (
+            ("quantize_int8", quant, quant_plain, quant_group,
+             quant_singles, leaves, q_bytes, 6 * n, q_err, 225),
+            ("dequantize_int8", deq, deq_plain, deq_group, deq_singles,
+             blobs, d_bytes, 2 * n, deq_err, 233)):
+        # Turns: plain, one leaf a launch, a handoff as 48 launches, a
+        # handoff as one launch, then back in reverse (one card, one call).
         p1 = graph_ms(torch, plain, inputs)
         k1 = graph_ms(torch, fn, inputs)
+        c1 = graph_ms(torch, singles, [inputs])
+        g1 = graph_ms(torch, grouped, [inputs])
+        g2 = graph_ms(torch, grouped, [inputs])
+        c2 = graph_ms(torch, singles, [inputs])
         k2 = graph_ms(torch, fn, inputs)
         p2 = graph_ms(torch, plain, inputs)
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -300,13 +430,32 @@ def phase_kernels(torch, K) -> dict:
             "library_ms": None,
             "eager_ms": eager_ms(torch, fn, inputs),
             "plain_eager_ms": eager_ms(torch, plain, inputs),
+            "handoff_ms": min(g1, g2),
+            "handoff_bound_ms": HANDOFF_LEAVES * nbytes / HBM_BYTES_PER_S
+            * 1e3,
+            "handoff_single_ms": min(c1, c2),
+            "handoff_eager_ms": eager_ms(torch, grouped, [inputs], reps=20),
+            "handoff_single_eager_ms": eager_ms(torch, singles, [inputs],
+                                                reps=20),
+            "handoff_host_ms": host_ms(torch, grouped, [inputs]),
+            "handoff_single_host_ms": host_ms(torch, singles, [inputs]),
+            "handoff_leaves": HANDOFF_LEAVES,
             "shape": list(LEAF), "dtype": "bfloat16",
         }
-        print(f"kernel {name}: {records[name]['ms'] * 1e3:.2f} us/launch "
-              f"(graph) vs bound {records[name]['bound_ms'] * 1e3:.2f} us "
-              f"({records[name]['bound_by']}); plain "
-              f"{records[name]['plain_ms'] * 1e3:.2f} us; eager "
-              f"{records[name]['eager_ms'] * 1e3:.2f} us", flush=True)
+        r = records[name]
+        print(f"kernel {name}: {r['ms'] * 1e3:.2f} us/launch (graph) vs "
+              f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); "
+              f"plain {r['plain_ms'] * 1e3:.2f} us; eager "
+              f"{r['eager_ms'] * 1e3:.2f} us; handoff of "
+              f"{HANDOFF_LEAVES} leaves: one launch "
+              f"{r['handoff_ms'] * 1e3:.2f} us (graph), "
+              f"{r['handoff_eager_ms'] * 1e3:.2f} us (eager), "
+              f"{HANDOFF_LEAVES} launches "
+              f"{r['handoff_single_ms'] * 1e3:.2f} us (graph), "
+              f"{r['handoff_single_eager_ms'] * 1e3:.2f} us (eager), "
+              f"bound {r['handoff_bound_ms'] * 1e3:.2f} us; host "
+              f"{r['handoff_host_ms'] * 1e3:.1f} vs "
+              f"{r['handoff_single_host_ms'] * 1e3:.1f} us", flush=True)
     return records
 
 
@@ -838,6 +987,13 @@ def attribution(torch, out_dir: str, phases: dict, enabled: bool):
     phases["profiled_wall_s"] = wall
     phases["device_busy_s"] = device_us / 1e6
     phases["device_busy_share"] = device_us / 1e6 / wall
+    for side, kernel in (("quantize", "quantize_group_kernel"),
+                         ("dequantize", "dequantize_group_kernel")):
+        rows = [e for e in ka if kernel in e.key and (
+            side == "dequantize" or "dequantize" not in e.key)]
+        phases[f"codec_{side}_device_s"] = sum(
+            e.self_device_time_total for e in rows) / 1e6
+        phases[f"codec_{side}_kernels"] = sum(e.count for e in rows)
     with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
         f.write("\n")
@@ -929,7 +1085,16 @@ def phase_serve(torch, K, out_dir: str, profile: bool = False) -> dict:
         torch.cuda.synchronize()
         round_t.append(time.perf_counter())
         launches = dict(K.LAUNCHES)
+        codec_leaves = dict(K.CODEC_LEAVES)
 
+    for side in ("quantize", "dequantize"):
+        if f"codec_{side}_kernels" in phases:
+            phases[f"codec_{side}_us_per_handoff"] = \
+                phases[f"codec_{side}_device_s"] * 1e6 / rep["handoffs"]
+            print(f"profile: {side} codec {phases[f'codec_{side}_kernels']} "
+                  f"kernels, "
+                  f"{phases[f'codec_{side}_us_per_handoff']:.2f} us of "
+                  "device time per handoff", flush=True)
     check(rep["dropped"] == 0, f"dropped {rep['dropped']}")
     check(rep["completed"] == rep["submitted"] == 16,
           f"completed {rep['completed']} of {rep['submitted']}")
@@ -943,13 +1108,16 @@ def phase_serve(torch, K, out_dir: str, profile: bool = False) -> dict:
               f"{req.max_new_tokens}")
         check(all(0 <= t < 50257 for t in done.tokens),
               f"rid {req.rid}: token out of vocab")
+    leaves = 2 * model.num_layers
     for name in ("quantize_int8", "dequantize_int8"):
         check(launches[name] > 0, f"{name}: no kernel launch on the serve "
                                   "path")
-    leaves = 2 * model.num_layers
-    check(launches["quantize_int8"] == leaves * rep["handoffs"],
-          f"quantize launches {launches['quantize_int8']} != "
-          f"{leaves} x {rep['handoffs']} handoffs")
+        check(launches[name] == rep["handoffs"],
+              f"{name}: {launches[name]} launches != one grouped launch "
+              f"for each of {rep['handoffs']} handoffs")
+        check(codec_leaves[name] == leaves * rep["handoffs"],
+              f"{name}: {codec_leaves[name]} leaves coded != {leaves} x "
+              f"{rep['handoffs']} handoffs")
 
     # Wall-clock view of the virtual-time run: a round's wall span is
     # hook(r) .. hook(r + 1).
@@ -985,6 +1153,7 @@ def phase_serve(torch, K, out_dir: str, profile: bool = False) -> dict:
         "ttft_virtual_p50_s": rep["ttft_p50_s"],
         "tpot_virtual_p50_s": rep["tpot_p50_s"],
         "launches": launches,
+        "codec_leaves": codec_leaves,
         "ref_logit_err": ref_err,
         "setup_s": setup_s,
         "profiled": profile,
@@ -2047,6 +2216,8 @@ def main(argv=None) -> int:
         for name, rec in records.items():
             rec["launches"] = paths.get(name, train["launches"])[name]
             check(rec["launches"] > 0, f"{name}: no launch on its path")
+        for name in ("quantize_int8", "dequantize_int8"):
+            records[name]["leaves_on_path"] = serve["codec_leaves"][name]
     except (SmokeError, RuntimeError, OSError, ValueError,
             subprocess.SubprocessError) as e:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",

@@ -13,7 +13,12 @@ int8 wire codec the serve plane's prefill -> decode handoff rides
 return contracts of ``horovod_tpu/ops/pallas_kernels.py``
 ``quantize_int8``/``dequantize_int8``: one fp32 absmax scale per
 4096-element block, round half to even, codes clipped to +-127, ``q``
-laid out as ``(rows, 128)`` int8 with ``rows`` a multiple of 32.
+laid out as ``(rows, 128)`` int8 with ``rows`` a multiple of 32. The
+handoff codes all of a slot's leaves in one launch a side:
+:func:`quantize_int8_group` (codes and scales of every leaf as views of
+one buffer each) and :func:`dequantize_int8_into` (straight into the
+caller's tensors, the cache slots); the per-leaf functions are groups of
+one through the same C entry points.
 
 K3 ``quantize_int8_stochastic`` is K2 with unbiased stochastic rounding,
 the quantizer of the int8 gradient wire (``collectives.
@@ -69,6 +74,7 @@ import hashlib
 import math
 import os
 import shutil
+import struct
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -96,6 +102,9 @@ LAUNCHES: Dict[str, int] = {"scale_buffer": 0, "quantize_int8": 0,
                             "flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0, "adasum_dot_norms": 0,
                             "adasum_combine": 0}
+#: Leaves coded by the K2/K4 launches counted in :data:`LAUNCHES` (a
+#: grouped launch codes many).
+CODEC_LEAVES: Dict[str, int] = {"quantize_int8": 0, "dequantize_int8": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _SCALE_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -108,8 +117,8 @@ _SIGNATURES = {
         "hvd_scale_buffer": ([_P, _I, _P, _I, _LL, _F, _P], _I),
     },
     "int8_codec.cu": {
-        "hvd_quantize_int8": ([_P, _I, _LL, _P, _P, _LL, _P], _I),
-        "hvd_dequantize_int8": ([_P, _P, _LL, _LL, _P, _I, _P], _I),
+        "hvd_quantize_int8_group": ([_P, _I, _LL, _P], _I),
+        "hvd_dequantize_int8_group": ([_P, _I, _LL, _P], _I),
         "hvd_quantize_int8_stochastic": ([_P, _I, _LL, _P, _P, _P, _LL, _P],
                                          _I),
     },
@@ -128,8 +137,9 @@ _lib_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, CODEC_LEAVES):
+        for name in counts:
+            counts[name] = 0
 
 
 # -- build + load -------------------------------------------------------------
@@ -285,25 +295,10 @@ def _quantize_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
 def quantize_int8(x: torch.Tensor):
     """Block-scaled int8 quantization. Returns ``(q, scales, n)``: ``q``
     is (rows, 128) int8 (zero codes past ``n``), ``scales`` one fp32
-    scale per 4096-element block, ``n`` the element count."""
+    scale per 4096-element block, ``n`` the element count. A group of
+    one of :func:`quantize_int8_group`."""
     _check_float(x, "quantize_int8")
-    if x.device.type == "cpu":
-        return _quantize_plain(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"quantize_int8: unsupported device {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("quantize_int8: input must be contiguous")
-    n = x.numel()
-    rows = _rows(n)
-    nblocks = rows // _Q_ROWS
-    q = torch.empty((rows, _LANES), dtype=torch.int8, device=x.device)
-    scales = torch.empty((nblocks,), dtype=torch.float32, device=x.device)
-    _launch("quantize_int8", x, "int8_codec.cu", "hvd_quantize_int8",
-            x.data_ptr(), _DTYPE_CODE[x.dtype], n, q.data_ptr(),
-            scales.data_ptr(), nblocks)
-    if nblocks:
-        LAUNCHES["quantize_int8"] += 1
-    return q, scales, n
+    return quantize_int8_group([x])[0]
 
 
 # -- K3: quantize_int8_stochastic -----------------------------------------
@@ -373,39 +368,145 @@ def _dequantize_plain(q: torch.Tensor, scales: torch.Tensor, n: int,
 def dequantize_int8(q: torch.Tensor, scales: torch.Tensor, n: int, shape,
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Inverse of :func:`quantize_int8`: the first ``n`` values, scaled
-    back, cast to ``dtype`` and shaped ``shape``."""
+    back, cast to ``dtype`` and shaped ``shape``. A group of one of
+    :func:`dequantize_int8_into` into a new tensor."""
     if dtype not in _DTYPE_CODE:
         raise TypeError(f"dequantize_int8: output dtype {dtype} not "
                         "supported (float32 or bfloat16)")
-    if q.dtype != torch.int8 or scales.dtype != torch.float32:
-        raise TypeError("dequantize_int8: needs int8 codes and float32 "
-                        f"scales, got {q.dtype} / {scales.dtype}")
     n = int(n)
     shape = tuple(int(d) for d in shape)
-    numel = 1
-    for d in shape:
-        numel *= d
-    nblocks = -(-n // BLOCK)
-    if numel != n or q.numel() < nblocks * BLOCK \
-            or scales.numel() < nblocks:
-        raise ValueError(
-            f"dequantize_int8: shape {shape} / n {n} do not fit codes "
-            f"{tuple(q.shape)} and {scales.numel()} scales")
-    if q.device.type == "cpu":
-        return _dequantize_plain(q, scales, n, shape, dtype)
-    if q.device.type != "cuda" or scales.device != q.device:
-        raise ValueError("dequantize_int8: codes and scales must be on "
-                         f"one CUDA device, got {q.device} / "
-                         f"{scales.device}")
-    if not (q.is_contiguous() and scales.is_contiguous()):
-        raise ValueError("dequantize_int8: inputs must be contiguous")
+    if math.prod(shape) != n:
+        raise ValueError(f"dequantize_int8: shape {shape} does not hold "
+                         f"n = {n} values")
     out = torch.empty(shape, dtype=dtype, device=q.device)
-    _launch("dequantize_int8", q, "int8_codec.cu", "hvd_dequantize_int8",
-            q.data_ptr(), scales.data_ptr(), n, nblocks, out.data_ptr(),
-            _DTYPE_CODE[dtype])
-    if nblocks:
-        LAUNCHES["dequantize_int8"] += 1
+    dequantize_int8_into([(q, scales, n)], [out])
     return out
+
+
+# -- K2/K4 grouped: one launch codes up to 64 leaves -------------------------
+
+_GROUP_LEAVES = 64              # table entries a launch (csrc kMaxLeaves)
+#: One table entry of a grouped K2/K4 launch, ``CodecLeaf`` of
+#: ``csrc/int8_codec.cu`` (48 bytes, no padding): ``src``, ``dst``,
+#: ``scales`` (device pointers; K2 reads ``src`` and writes the codes to
+#: ``dst``, K4 reads the codes from ``src`` and writes ``dst``), ``n``,
+#: ``first`` (the leaf's first block in the launch's grid), ``dtype`` (of
+#: K2's input or K4's output) and ``vec`` (1 where both ``src`` and
+#: ``dst`` are 16-byte aligned, else the kernel's scalar path).
+_LEAF = struct.Struct("=QQQqqii")
+
+
+def _codec_tables(leaves):
+    """Cut ``(src, dst, scales, n, dtype)`` records of leaves with
+    ``n > 0`` into launches of at most 64 leaves; yields ``(table,
+    nleaves, blocks)``: the packed entries, ``first`` a prefix sum of
+    block counts from 0 in each launch."""
+    for start in range(0, len(leaves), _GROUP_LEAVES):
+        chunk = leaves[start:start + _GROUP_LEAVES]
+        entries, blocks = [], 0
+        for src, dst, scales, n, dtype in chunk:
+            entries.append(_LEAF.pack(src, dst, scales, n, blocks, dtype,
+                                      int(src % 16 == 0 and dst % 16 == 0)))
+            blocks += -(-n // BLOCK)
+        yield b"".join(entries), len(chunk), blocks
+
+
+def _group_device(what: str, tensors) -> torch.device:
+    """The one device of ``tensors``: the CPU, or a CUDA device on which
+    every tensor is contiguous; raises otherwise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{what}: tensors on more than one device "
+                         f"{sorted(str(d) for d in devices)}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what}: tensors must be contiguous")
+    return dev
+
+
+def quantize_int8_group(xs) -> List[Tuple[torch.Tensor, torch.Tensor, int]]:
+    """K2 over a group of fp32/bf16 tensors, one launch per 64 of them:
+    ``[(q, scales, n), ...]`` in ``xs`` order, each as
+    :func:`quantize_int8` returns it. On the card every ``q`` is a view
+    of one code buffer (each leaf's codes start at a multiple of 4096
+    bytes) and every ``scales`` a view of one scale buffer."""
+    xs = list(xs)
+    for x in xs:
+        _check_float(x, "quantize_int8_group")
+    if not xs:
+        return []
+    dev = _group_device("quantize_int8_group", xs)
+    if dev.type == "cpu":
+        return [_quantize_plain(x) for x in xs]
+    ns = [x.nelement() for x in xs]
+    nblocks = [-(-n // BLOCK) for n in ns]
+    total = sum(nblocks)
+    codes = torch.empty((total * _Q_ROWS, _LANES), dtype=torch.int8,
+                        device=dev)
+    scales = torch.empty((total,), dtype=torch.float32, device=dev)
+    q_base, s_base = codes.data_ptr(), scales.data_ptr()
+    leaves, first = [], 0
+    for x, n, nb in zip(xs, ns, nblocks):
+        if nb:
+            leaves.append((x.data_ptr(), q_base + first * BLOCK,
+                           s_base + first * 4, n, _DTYPE_CODE[x.dtype]))
+        first += nb
+    for table, nleaves, blocks in _codec_tables(leaves):
+        _launch("quantize_int8", xs[0], "int8_codec.cu",
+                "hvd_quantize_int8_group", table, nleaves, blocks)
+        LAUNCHES["quantize_int8"] += 1
+        CODEC_LEAVES["quantize_int8"] += nleaves
+    return list(zip(codes.split([nb * _Q_ROWS for nb in nblocks]),
+                    scales.split(nblocks), ns))
+
+
+def dequantize_int8_into(items, outs) -> None:
+    """K4 over a group, one launch per 64 leaves: ``items[i] = (q,
+    scales, n)`` as :func:`quantize_int8` returns it is dequantized in
+    place into ``outs[i]``, an fp32 or bf16 tensor of ``n`` elements in
+    any shape (contiguous on the card), such as a cache slot."""
+    items, outs = list(items), list(outs)
+    if len(items) != len(outs):
+        raise ValueError(f"dequantize_int8_into: {len(items)} items but "
+                         f"{len(outs)} outputs")
+    tensors = []
+    for (q, scales, n), out in zip(items, outs):
+        if out.dtype not in _DTYPE_CODE:
+            raise TypeError(f"dequantize_int8_into: output dtype "
+                            f"{out.dtype} not supported (float32 or "
+                            "bfloat16)")
+        if q.dtype != torch.int8 or scales.dtype != torch.float32:
+            raise TypeError("dequantize_int8_into: needs int8 codes and "
+                            f"float32 scales, got {q.dtype} / "
+                            f"{scales.dtype}")
+        nblocks = -(-int(n) // BLOCK)
+        if out.nelement() != n or q.nelement() < nblocks * BLOCK \
+                or scales.nelement() < nblocks:
+            raise ValueError(
+                f"dequantize_int8_into: an output of {out.nelement()} "
+                f"elements / n {n} do not fit codes {tuple(q.shape)} and "
+                f"{scales.nelement()} scales")
+        tensors += (q, scales, out)
+    if not items:
+        return
+    dev = _group_device("dequantize_int8_into", tensors)
+    if dev.type == "cpu":
+        for (q, scales, n), out in zip(items, outs):
+            out.copy_(_dequantize_plain(q, scales, n, out.shape,
+                                        out.dtype))
+        return
+    leaves = [(q.data_ptr(), out.data_ptr(), scales.data_ptr(), int(n),
+               _DTYPE_CODE[out.dtype])
+              for (q, scales, n), out in zip(items, outs) if n]
+    for table, nleaves, blocks in _codec_tables(leaves):
+        _launch("dequantize_int8", outs[0], "int8_codec.cu",
+                "hvd_dequantize_int8_group", table, nleaves, blocks)
+        LAUNCHES["dequantize_int8"] += 1
+        CODEC_LEAVES["dequantize_int8"] += nleaves
 
 
 # -- K8/K9: the Adasum combine ------------------------------------------------

@@ -23,7 +23,8 @@ step does not copy the whole cache.
 Slot movement between replicas (the prefill -> decode handoff) ships
 every model-dtype K/V leaf through the int8 wire codec of
 ``ops/kernels.py`` — the hand-written CUDA kernels K2/K4 on a GPU, their
-plain versions on the CPU.
+plain versions on the CPU — all of a slot's leaves in one grouped call a
+side, the import dequantizing straight into the cache slots.
 """
 
 from __future__ import annotations
@@ -172,12 +173,14 @@ def write_slot(cache: Dict[str, Any], slot: int,
 def export_slot(cache: Dict[str, Any], slot: int,
                 exact: bool = False) -> Dict[str, Any]:
     """One slot's cache lines as an int8 block-scaled wire blob: every
-    model-dtype K/V leaf rides :func:`kernels.quantize_int8` (K2); int8
-    leaves and the int8 kind's fp32 scale leaves (``*_s``) ship raw, so
-    an int8 -> int8 migration is bit-exact. ``exact=True`` ships every
-    leaf raw. The bookkeeping vectors travel exact. Raw leaves are
-    copies: the source slot may be overwritten while the blob waits."""
+    model-dtype K/V leaf rides :func:`kernels.quantize_int8_group` (K2,
+    one launch for all of them); int8 leaves and the int8 kind's fp32
+    scale leaves (``*_s``) ship raw, so an int8 -> int8 migration is
+    bit-exact. ``exact=True`` ships every leaf raw. The bookkeeping
+    vectors travel exact. Raw leaves are copies: the source slot may be
+    overwritten while the blob waits."""
     out_layers = []
+    pending = []                    # (packed, name, slot view) to quantize
     for layer in cache["layers"]:
         packed = {}
         for name, leaf in layer.items():
@@ -185,11 +188,13 @@ def export_slot(cache: Dict[str, Any], slot: int,
             if exact or arr.dtype == torch.int8 or name.endswith("_s"):
                 packed[name] = {"raw": arr.clone()}
             else:
-                q, s, n = kernels.quantize_int8(arr)
-                packed[name] = {"q": q, "s": s, "n": n,
-                                "shape": tuple(arr.shape),
-                                "dtype": str(arr.dtype).split(".")[-1]}
+                packed[name] = None
+                pending.append((packed, name, arr))
         out_layers.append(packed)
+    coded = kernels.quantize_int8_group([arr for _, _, arr in pending])
+    for (packed, name, arr), (q, s, n) in zip(pending, coded):
+        packed[name] = {"q": q, "s": s, "n": n, "shape": tuple(arr.shape),
+                        "dtype": str(arr.dtype).split(".")[-1]}
     return {
         "layers": out_layers,
         "pos": cache["pos"][slot].clone(),
@@ -200,18 +205,37 @@ def export_slot(cache: Dict[str, Any], slot: int,
 def import_slot(cache: Dict[str, Any], slot: int,
                 blob: Dict[str, Any]) -> Dict[str, Any]:
     """Inverse of :func:`export_slot`: land a wire blob in ``slot`` of a
-    same-geometry cache (quantized leaves through
-    :func:`kernels.dequantize_int8`, K4)."""
+    same-geometry cache. The quantized leaves go through one
+    :func:`kernels.dequantize_int8_into` call (K4): straight into
+    ``leaf[slot]`` where the blob's dtype is the leaf's, and into a
+    blob-dtype temporary that is then cast into the slot where it is not
+    (as the JAX package's ``.at[slot].set`` casts)."""
+    items, outs, casts = [], [], []
     for dst, packed in zip(cache["layers"], blob["layers"]):
         for name, leaf in dst.items():
             item = packed[name]
+            dest = leaf[slot]
             if "raw" in item:
-                arr = item["raw"]
-            else:
-                arr = kernels.dequantize_int8(
-                    item["q"], item["s"], item["n"], item["shape"],
-                    dtype=_DTYPES[item["dtype"]])
-            leaf[slot].copy_(arr)
+                dest.copy_(item["raw"])
+                continue
+            if tuple(item["shape"]) != tuple(dest.shape):
+                raise ValueError(f"import_slot: leaf {name!r} of shape "
+                                 f"{tuple(item['shape'])} does not fit "
+                                 f"the slot's {tuple(dest.shape)}")
+            if not dest.is_contiguous():
+                raise ValueError(f"import_slot: slot {slot} of leaf "
+                                 f"{name!r} is not contiguous")
+            dtype = _DTYPES[item["dtype"]]
+            if dtype != leaf.dtype:
+                tmp = torch.empty(dest.shape, dtype=dtype,
+                                  device=dest.device)
+                casts.append((dest, tmp))
+                dest = tmp
+            items.append((item["q"], item["s"], item["n"]))
+            outs.append(dest)
+    kernels.dequantize_int8_into(items, outs)
+    for dest, tmp in casts:
+        dest.copy_(tmp)
     cache["pos"][slot] = blob["pos"]
     cache["slot_pos"][slot].copy_(blob["slot_pos"])
     return cache

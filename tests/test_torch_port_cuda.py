@@ -1,9 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
-card: the scale kernel (K1), the int8 codec (K2/K4), flash attention
-(K5/K6/K7), the stochastic quantizer (K3) and the Adasum combine
-(K8/K9), and the paths that run them — two of them as two gloo ranks
-sharing the one card, each a process running this file with
-``--card-worker``. Every test here needs
+card: the scale kernel (K1), the int8 codec (K2/K4, per leaf, grouped
+and into a cache slot), flash attention (K5/K6/K7), the stochastic
+quantizer (K3) and the Adasum combine (K8/K9), and the paths that run
+them — two of them as two gloo ranks sharing the one card, each a
+process running this file with ``--card-worker``. Every test here needs
 an NVIDIA GPU and skips with a reason elsewhere. This file imports no
 JAX, so it also runs on a machine without it:
 
@@ -56,15 +56,104 @@ def test_cuda_kernels_match_plain_on_card():
         "quantize_int8": 2 * len(shapes), "dequantize_int8": 2 * len(shapes),
         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
         **NEW_KERNELS}
+    assert kernels.CODEC_LEAVES == {"quantize_int8": 2 * len(shapes),
+                                    "dequantize_int8": 2 * len(shapes)}
+
+
+def _codec_group(gen):
+    """The grouped case: 48 handoff leaves (1024, 16, 64) bf16, two fp32
+    leaves, the ragged sizes in both dtypes, a bf16 and an fp32 view one
+    element past a 16-byte boundary (the scalar path), and an all-zero
+    first block in leaf 0: 62 leaves."""
+    xs = [torch.randn((1024, 16, 64), generator=gen, device="cuda")
+          .to(torch.bfloat16) for _ in range(48)]
+    xs += [torch.randn((1024, 16, 64), generator=gen, device="cuda")
+           for _ in range(2)]
+    for dtype in (torch.bfloat16, torch.float32):
+        xs += [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for shape in ((1,), (4095,), (4097,), (5000,), (37, 16, 64))]
+        xs.append(torch.randn(9001, generator=gen, device="cuda")
+                  .to(dtype)[1:])
+    xs[0].view(-1)[:4096] = 0
+    return xs
+
+
+def _check_group(xs):
+    """quantize_int8_group then dequantize_int8_into over ``xs`` (each
+    misaligned input dequantized into a misaligned output), leaf by leaf
+    against the plain versions: codes and outputs bitwise, scales to
+    1e-6."""
+    got = kernels.quantize_int8_group(xs)
+    outs = [torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")[1:]
+            .view(x.shape) if x.data_ptr() % 16 else torch.empty_like(x)
+            for x in xs]
+    kernels.dequantize_int8_into(got, outs)
+    torch.cuda.synchronize()
+    for x, (q, s, n), out in zip(xs, got, outs):
+        q0, s0, n0 = kernels._quantize_plain(x)
+        assert n == n0 and torch.equal(q, q0)
+        assert ((s - s0).abs() / s0).max().item() <= SCALE_RTOL
+        want = kernels._dequantize_plain(q0, s0, n0, x.shape, x.dtype)
+        assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_grouped_codec_matches_plain_on_card():
+    """One grouped K2 launch and one grouped K4 launch code 62 leaves of
+    mixed dtypes, ragged sizes and alignments (two misaligned views take
+    the scalar path) bitwise like the plain versions leaf by leaf; 65
+    leaves or more split into two launches a side."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    xs = _codec_group(gen)
+    assert len(xs) == 62
+    assert sum(x.data_ptr() % 16 != 0 for x in xs) == 2
+    kernels.reset_launch_counts()
+    _check_group(xs)
+    assert kernels.LAUNCHES["quantize_int8"] == 1
+    assert kernels.LAUNCHES["dequantize_int8"] == 1
+    assert kernels.CODEC_LEAVES == {"quantize_int8": 62,
+                                    "dequantize_int8": 62}
+    more = xs + [torch.randn(4096 * (1 + i % 3) - i, generator=gen,
+                             device="cuda") for i in range(8)]
+    kernels.reset_launch_counts()
+    _check_group(more)
+    assert kernels.LAUNCHES["quantize_int8"] == 2
+    assert kernels.LAUNCHES["dequantize_int8"] == 2
+    assert kernels.CODEC_LEAVES == {"quantize_int8": 70,
+                                    "dequantize_int8": 70}
+
+
+@pytest.mark.cuda
+def test_dequantize_into_a_cache_slot_keeps_the_other_slots():
+    """K4 into slot 3 of an (8, 1024, 16, 64) bf16 slab filled with a
+    NaN sentinel: the slot is bitwise the plain version's, the other
+    seven slots keep the sentinel to the bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    slab = torch.empty((8, 1024, 16, 64), dtype=torch.bfloat16,
+                       device="cuda")
+    slab.view(torch.int16).fill_(0x7FA5)
+    x = torch.randn((1024, 16, 64), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    q, s, n = kernels.quantize_int8(x)
+    kernels.dequantize_int8_into([(q, s, n)], [slab[3]])
+    want = kernels._dequantize_plain(q, s, n, x.shape, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(slab[3], want)
+    others = torch.cat([slab[:3], slab[4:]]).view(torch.int16)
+    assert bool((others == 0x7FA5).all())
 
 
 @pytest.mark.cuda
 def test_disagg_serving_on_card_runs_the_kernels():
     """The slice's path on the card: a disaggregated gpt_tiny cluster
     (fp32, seeded weights) hands every sequence over through the CUDA
-    codec — 2 layers x (k, v) = 4 launches of each kernel per handoff —
-    and gives the same greedy token streams as the same weights on the
-    CPU, where the plain codec runs."""
+    codec — one grouped launch of each kernel per handoff, coding 2
+    layers x (k, v) = 4 leaves — and gives the same greedy token streams
+    as the same weights on the CPU, where the plain codec runs."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from horovod_tpu_torch.models import gpt
@@ -85,11 +174,13 @@ def test_disagg_serving_on_card_runs_the_kernels():
                                                 rate_rps=20.0))
         assert rep["dropped"] == 0 and rep["handoffs"] >= 1
         streams[device] = {r.rid: r.tokens for r in cluster.completed}
-        launches = 4 * rep["handoffs"] if device == "cuda" else 0
+        launches = rep["handoffs"] if device == "cuda" else 0
         assert kernels.LAUNCHES == {
             "quantize_int8": launches, "dequantize_int8": launches,
             "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
             **NEW_KERNELS}
+        assert kernels.CODEC_LEAVES == {"quantize_int8": 4 * launches,
+                                        "dequantize_int8": 4 * launches}
     assert streams["cuda"] == streams["cpu"]
 
 

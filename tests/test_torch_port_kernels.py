@@ -235,6 +235,275 @@ def test_dequantize_matches_jax(rng, shape, dtype, use_pallas):
         np.asarray(want.astype(jnp.float32)))
 
 
+# The grouped entries: leaves of mixed dtypes and ragged sizes, one call.
+GROUP_SHAPES = [(1,), (4095,), (4097,), (5000,), (37, 16, 64)]
+
+
+def _group_inputs(rng):
+    """Every GROUP_SHAPES size in both dtypes, interleaved: (jax, torch)
+    pairs."""
+    return [_inputs(rng, shape, dtype) for shape in GROUP_SHAPES
+            for dtype in ("bfloat16", "float32")]
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_quantize_group_matches_jax(rng, use_pallas):
+    """``quantize_int8_group`` over mixed bf16/fp32 leaves of ragged
+    sizes gives, leaf by leaf, the JAX ``quantize_int8``'s codes and
+    scales (bitwise against its fallback; within the interpret path's
+    reciprocal quirk against the Pallas body) and the per-leaf wrapper's
+    bits."""
+    pairs = _group_inputs(rng)
+    got = kernels.quantize_int8_group([xt for _, xt in pairs])
+    assert len(got) == len(pairs)
+    for (x, xt), tq in zip(pairs, got):
+        jq = pk.quantize_int8(x, use_pallas=use_pallas)
+        assert tuple(tq[0].shape) == tuple(jq[0].shape)
+        same = _assert_quant_equal(jq, tq)
+        if not use_pallas:
+            assert same.all()
+        one = kernels.quantize_int8(xt)
+        assert torch.equal(tq[0], one[0]) and torch.equal(tq[1], one[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dequantize_into_slot_views_matches_jax(rng, dtype):
+    """``dequantize_int8_into`` writes two leaves straight into slot
+    views of a CPU slab, each bitwise the JAX ``dequantize_int8``; the
+    other slots keep their sentinel to the bit."""
+    shape = (37, 16, 64)
+    slab = torch.full((4,) + shape, -7.25, dtype=_TORCH[dtype])
+    before = slab.clone()
+    wants, items = {}, []
+    for slot in (1, 3):
+        x, _ = _inputs(rng, shape, dtype)
+        q, s, n = pk.quantize_int8(x, use_pallas=False)
+        wants[slot] = pk.dequantize_int8(q, s, n, shape, dtype=_JAX[dtype],
+                                         use_pallas=False)
+        items.append((torch.from_numpy(np.array(q)),
+                      torch.from_numpy(np.array(s)), n))
+    kernels.dequantize_int8_into(items, [slab[1], slab[3]])
+    for slot in range(4):
+        if slot in wants:
+            np.testing.assert_array_equal(_bits(slab[slot]),
+                                          _bits(wants[slot]))
+        else:
+            np.testing.assert_array_equal(_bits(slab[slot]),
+                                          _bits(before[slot]))
+
+
+class _OnCard:
+    """A CPU tensor that reports CUDA device 0: drives the wrappers' card
+    path down to ``_launch`` (replaced by a recorder) on the CPU."""
+
+    device = torch.device("cuda", 0)
+
+    def __init__(self, t):
+        self.t = t
+
+    dtype = property(lambda self: self.t.dtype)
+    shape = property(lambda self: self.t.shape)
+
+    def nelement(self):
+        return self.t.nelement()
+
+    numel = nelement
+
+    def is_contiguous(self):
+        return self.t.is_contiguous()
+
+    def data_ptr(self):
+        return self.t.data_ptr()
+
+
+@pytest.fixture
+def card_path(monkeypatch):
+    """Route the wrappers' card path to a recorder: ``torch.empty`` on a
+    CUDA device allocates on the CPU, and every ``_launch`` is recorded
+    with a copy of its table. Yields the list of launches."""
+    launches = []
+    empty = torch.empty
+
+    def cpu_empty(*shape, device=None, **kw):
+        if device is not None and torch.device(device).type == "cuda":
+            device = "cpu"
+        return empty(*shape, device=device, **kw)
+
+    def record(name, t, source, fn, table, nleaves, blocks):
+        assert len(table) == nleaves * kernels._LEAF.size
+        launches.append({
+            "name": name, "device": t.device, "source": source, "fn": fn,
+            "nleaves": nleaves, "blocks": blocks,
+            "leaves": [row for row in kernels._LEAF.iter_unpack(table)]})
+
+    monkeypatch.setattr(torch, "empty", cpu_empty)
+    monkeypatch.setattr(kernels, "_launch", record)
+    kernels.reset_launch_counts()
+    yield launches
+    kernels.reset_launch_counts()
+
+
+def test_codec_table_layout_matches_the_c_struct():
+    """The packed table entry has the size and field offsets that
+    ``csrc/int8_codec.cu`` asserts for ``CodecLeaf``, and its table
+    limit is the C side's."""
+    import re
+    import struct
+
+    src = (REPO / "horovod_tpu_torch" / "csrc" / "int8_codec.cu"
+           ).read_text()
+    fmt = kernels._LEAF.format
+    assert f"sizeof(CodecLeaf) == {kernels._LEAF.size}" in src
+    fields = ("src", "dst", "scales", "n", "first", "dtype", "vec")
+    offsets = {f: struct.calcsize(fmt[:i + 1]) for i, f in enumerate(fields)}
+    want = re.findall(r"offsetof\(CodecLeaf, (\w+)\) == (\d+)", src)
+    assert len(want) == 4
+    assert all(offsets[f] == int(o) for f, o in want)
+    assert f"kMaxLeaves = {kernels._GROUP_LEAVES};" in src
+    assert kernels._LEAF.size * kernels._GROUP_LEAVES + 8 <= 4096
+
+
+@pytest.mark.parametrize("count,want", [(1, [1]), (64, [64]),
+                                        (65, [64, 1]), (130, [64, 64, 2])])
+def test_group_splits_every_64_leaves(card_path, count, want):
+    """A group of more than 64 leaves makes ceil(count / 64) launches of
+    each kernel, every table's firsts a prefix sum from 0 ending at its
+    launch's block count; ``LAUNCHES`` counts launches, ``CODEC_LEAVES``
+    leaves; the codes of leaf i start 4096 bytes x (blocks before it)
+    into one buffer; an empty leaf rides along uncounted."""
+    sizes = [4096 * (1 + i % 3) - (i % 2) for i in range(count)]
+    xs = [_OnCard(torch.zeros(n, dtype=torch.bfloat16)) for n in sizes]
+    out = kernels.quantize_int8_group(xs + [_OnCard(torch.zeros(0))])
+    assert [c["nleaves"] for c in card_path] == want
+    assert {(c["name"], c["fn"], c["source"]) for c in card_path} == \
+        {("quantize_int8", "hvd_quantize_int8_group", "int8_codec.cu")}
+    base = out[0][0].data_ptr()
+    blocks_before = 0
+    rows = [r for c in card_path for r in c["leaves"]]
+    for (q, s, n), x, row in zip(out, xs, rows):
+        nb = -(-n // 4096)
+        assert tuple(q.shape) == (32 * nb, 128) and s.numel() == nb
+        assert q.data_ptr() == base + 4096 * blocks_before
+        assert row[:4] == (x.data_ptr(), q.data_ptr(), s.data_ptr(), n)
+        assert row[5:] == (1, 1)
+        blocks_before += nb
+    assert out[-1][0].numel() == 0 and out[-1][2] == 0
+    for c in card_path:
+        firsts = [r[4] for r in c["leaves"]]
+        nbs = [-(-r[3] // 4096) for r in c["leaves"]]
+        assert firsts == [sum(nbs[:i]) for i in range(len(nbs))]
+        assert c["blocks"] == sum(nbs)
+    assert kernels.LAUNCHES["quantize_int8"] == len(want)
+    assert kernels.CODEC_LEAVES["quantize_int8"] == count
+
+    card_path.clear()
+    outs = [_OnCard(torch.empty(n, dtype=torch.float32)) for n in sizes]
+    kernels.dequantize_int8_into(
+        [(_OnCard(q), _OnCard(s), n) for q, s, n in out[:-1]], outs)
+    assert [c["nleaves"] for c in card_path] == want
+    assert {c["fn"] for c in card_path} == {"hvd_dequantize_int8_group"}
+    rows = [r for c in card_path for r in c["leaves"]]
+    assert [r[:4] for r in rows] == [
+        (q.data_ptr(), o.data_ptr(), s.data_ptr(), n)
+        for (q, s, n), o in zip(out, outs)]
+    assert all(r[5:] == (0, 1) for r in rows)
+    assert kernels.LAUNCHES["dequantize_int8"] == len(want)
+    assert kernels.CODEC_LEAVES["dequantize_int8"] == count
+    assert kernels.LAUNCHES["quantize_int8_stochastic"] == 0
+
+
+def test_group_flags_unaligned_leaves_for_the_scalar_path(card_path):
+    """A leaf whose base is one element past a 16-byte boundary (input
+    of K2, output of K4) is marked for the scalar path; its aligned
+    neighbours keep the vector path."""
+    bf = torch.zeros(4097 + 1, dtype=torch.bfloat16)
+    f32 = torch.zeros(5000 + 1, dtype=torch.float32)
+    xs = [_OnCard(bf[:4097]), _OnCard(bf[1:]), _OnCard(f32[1:]),
+          _OnCard(f32[:5000])]
+    out = kernels.quantize_int8_group(xs)
+    (launch,) = card_path
+    assert [r[6] for r in launch["leaves"]] == [1, 0, 0, 1]
+    assert [r[5] for r in launch["leaves"]] == [1, 1, 0, 0]
+    card_path.clear()
+    kernels.dequantize_int8_into(
+        [(_OnCard(q), _OnCard(s), n) for q, s, n in out], xs)
+    (launch,) = card_path
+    assert [r[6] for r in launch["leaves"]] == [1, 0, 0, 1]
+
+
+def _rejections():
+    x = torch.zeros(5000)
+    q, s, n = kernels.quantize_int8(x)
+    card = _OnCard(x)
+    out = torch.zeros(5000)
+    return {
+        "quantize float16": (TypeError, lambda: kernels.quantize_int8_group(
+            [x, x.to(torch.float16)])),
+        "quantize mixed devices": (ValueError,
+                                   lambda: kernels.quantize_int8_group(
+                                       [x, card])),
+        "quantize meta device": (ValueError,
+                                 lambda: kernels.quantize_int8_group(
+                                     [torch.zeros(10, device="meta")])),
+        "quantize non-contiguous": (ValueError,
+                                    lambda: kernels.quantize_int8_group(
+                                        [card, _OnCard(x[::2])])),
+        "dequantize float16 out": (TypeError,
+                                   lambda: kernels.dequantize_int8_into(
+                                       [(q, s, n)], [out.half()])),
+        "dequantize int16 codes": (TypeError,
+                                   lambda: kernels.dequantize_int8_into(
+                                       [(q.to(torch.int16), s, n)], [out])),
+        "dequantize float64 scales": (TypeError,
+                                      lambda: kernels.dequantize_int8_into(
+                                          [(q, s.double(), n)], [out])),
+        "dequantize out numel": (ValueError,
+                                 lambda: kernels.dequantize_int8_into(
+                                     [(q, s, n)], [torch.zeros(5001)])),
+        "dequantize n past the codes": (ValueError,
+                                        lambda: kernels.dequantize_int8_into(
+                                            [(q, s, 8193)],
+                                            [torch.zeros(8193)])),
+        "dequantize lengths": (ValueError,
+                               lambda: kernels.dequantize_int8_into(
+                                   [(q, s, n)], [out, out])),
+        "dequantize mixed devices": (ValueError,
+                                     lambda: kernels.dequantize_int8_into(
+                                         [(q, s, n)], [_OnCard(out)])),
+        "dequantize non-contiguous out": (
+            ValueError, lambda: kernels.dequantize_int8_into(
+                [(_OnCard(q), _OnCard(s), n)],
+                [_OnCard(torch.zeros(10000)[::2])])),
+        "dequantize non-contiguous codes": (
+            ValueError, lambda: kernels.dequantize_int8_into(
+                [(_OnCard(torch.zeros((64, 128), dtype=torch.int8)[::2]),
+                  _OnCard(s), n)], [_OnCard(out)])),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_rejections()))
+def test_group_entries_reject_bad_inputs(card_path, case):
+    """Every input the grouped entries do not take raises before any
+    launch, on the CPU path and on the card path alike."""
+    exc, call = _rejections()[case]
+    with pytest.raises(exc):
+        call()
+    assert card_path == []
+
+
+def test_empty_group_launches_nothing(card_path):
+    assert kernels.quantize_int8_group([]) == []
+    assert kernels.dequantize_int8_into([], []) is None
+    x = _OnCard(torch.zeros(0))
+    (q, s, n), = kernels.quantize_int8_group([x])
+    assert n == 0 and q.numel() == 0 and s.numel() == 0
+    kernels.dequantize_int8_into([(_OnCard(q), _OnCard(s), 0)], [x])
+    assert card_path == []
+    assert kernels.LAUNCHES["quantize_int8"] == 0
+    assert kernels.CODEC_LEAVES == {"quantize_int8": 0,
+                                    "dequantize_int8": 0}
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_quantize_ties_and_zero_block_match_jax(dtype):
     """Exact .5 ties round half to even (rint, not round-half-away), an

@@ -7,8 +7,8 @@ seeded Poisson trace on a ``roles={"prefill": 1, "decode": 1}`` cluster
 (gpt_tiny, fp32 cache kind, 4 slots, 32 lines, prompts up to 16) through
 both packages must give identical per-request token streams, identical
 event and decision logs, identical trace ledgers, zero drops, and a K2/K4
-codec call on every K/V leaf of every handoff. The port's repeat run is
-byte-identical.
+codec call on every K/V leaf of every handoff, all of a handoff side's
+leaves in one grouped call. The port's repeat run is byte-identical.
 """
 
 import hashlib
@@ -130,6 +130,183 @@ def test_every_handoff_runs_the_codec(runs):
     leaves = 2 * 2
     assert calls == {"quantize": leaves * rep["handoffs"],
                      "dequantize": leaves * rep["handoffs"]}
+
+
+@pytest.fixture(scope="module")
+def grouped_calls(flax_tiny):
+    """One port run of the disaggregated cluster with spies on the
+    grouped codec entries: the leaves of each call, by side."""
+    _, _, np_params = flax_tiny
+    calls = {"quantize": [], "dequantize": []}
+    group, into = kernels.quantize_int8_group, kernels.dequantize_int8_into
+
+    def spy_group(xs):
+        xs = list(xs)
+        calls["quantize"].append(len(xs))
+        return group(xs)
+
+    def spy_into(items, outs):
+        items = list(items)
+        calls["dequantize"].append(len(items))
+        return into(items, outs)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(kernels, "quantize_int8_group", spy_group)
+    mp.setattr(kernels, "dequantize_int8_into", spy_into)
+    try:
+        tracing.reset()
+        c = controller.ServeCluster(
+            engine.make_engine_factory(_port_model(np_params),
+                                       device="cpu", **GEOMETRY),
+            policy=controller.SLOPolicy(), roles=ROLES, step_s=0.05,
+            log_path="")
+        rep = c.run(traffic.poisson_trace(**_trace_args()))
+    finally:
+        mp.undo()
+    return rep, calls
+
+
+def test_each_handoff_side_is_one_grouped_codec_call(grouped_calls):
+    """Export makes one ``quantize_int8_group`` call and import one
+    ``dequantize_int8_into`` call per handoff, each carrying all four
+    K/V leaves of gpt_tiny's two layers."""
+    rep, calls = grouped_calls
+    assert rep["handoffs"] >= 1
+    assert calls == {"quantize": [4] * rep["handoffs"],
+                     "dequantize": [4] * rep["handoffs"]}
+
+
+def _spy_import(monkeypatch, cache):
+    """Spy on one ``import_slot`` into ``cache``: the outputs of each
+    ``dequantize_int8_into`` call as (data_ptr, storage ptr, dtype,
+    shape), and the ``copy_`` calls made outside it whose destination
+    is a K/V leaf of ``cache`` (inside it, the CPU's plain version
+    writes its result with a ``copy_``; the card's kernel stores in
+    place)."""
+    ptrs = {leaf.untyped_storage().data_ptr()
+            for layer in cache["layers"] for leaf in layer.values()}
+    seen = {"calls": [], "copies": 0, "inside": False}
+    copy, into = torch.Tensor.copy_, kernels.dequantize_int8_into
+
+    def spy_copy(self, src, *a, **k):
+        if not seen["inside"] and self.untyped_storage().data_ptr() in ptrs:
+            seen["copies"] += 1
+        return copy(self, src, *a, **k)
+
+    def spy_into(items, outs):
+        seen["calls"].append([(o.data_ptr(), o.untyped_storage().data_ptr(),
+                               o.dtype, tuple(o.shape)) for o in outs])
+        seen["inside"] = True
+        try:
+            return into(items, outs)
+        finally:
+            seen["inside"] = False
+
+    monkeypatch.setattr(torch.Tensor, "copy_", spy_copy)
+    monkeypatch.setattr(kernels, "dequantize_int8_into", spy_into)
+    return seen, ptrs
+
+
+def _bf16_pair(rng):
+    """A JAX and a port bf16 fp32-kind cache with the same contents."""
+    shape = (3, 32, 4, 16)
+    jc = jkv.init_cache(2, 3, 32, 4, 16, dtype=jax.numpy.bfloat16)
+    tc = kv.init_cache(2, 3, 32, 4, 16, dtype=torch.bfloat16, device="cpu")
+    layers = []
+    for jl, tl in zip(jc["layers"], tc["layers"]):
+        new = {}
+        for name in jl:
+            a = jax.numpy.asarray(rng.standard_normal(shape) * 2,
+                                  jax.numpy.bfloat16)
+            new[name] = a
+            tl[name].copy_(torch.from_numpy(
+                np.array(a.astype(jax.numpy.float32))))
+        layers.append(new)
+    pos = np.array([5, 9, 32], np.int32)
+    sp = rng.integers(-1, 32, (3, 32)).astype(np.int32)
+    jc = {"layers": tuple(layers), "pos": jax.numpy.asarray(pos),
+          "slot_pos": jax.numpy.asarray(sp)}
+    tc["pos"].copy_(torch.from_numpy(pos))
+    tc["slot_pos"].copy_(torch.from_numpy(sp))
+    return jc, tc
+
+
+def test_import_dequantizes_straight_into_the_slot(rng, monkeypatch):
+    """Blob dtype equal to the cache's: one ``dequantize_int8_into``
+    call whose outputs ARE the ``leaf[slot]`` views, no temporary and no
+    ``copy_`` into a K/V leaf; the landed values equal the JAX
+    ``import_slot``'s bitwise."""
+    jc, tc = _bf16_pair(rng)
+    jblob = jkv.export_slot(jc, 2, use_pallas=False)
+    tblob = kv.export_slot(tc, 2)
+    dest = kv.init_cache(2, 2, 32, 4, 16, dtype=torch.bfloat16,
+                         device="cpu")
+    seen, _ = _spy_import(monkeypatch, dest)
+    kv.import_slot(dest, 1, tblob)
+    assert seen["calls"] == [[
+        (leaf[1].data_ptr(), leaf.untyped_storage().data_ptr(),
+         torch.bfloat16, (32, 4, 16))
+        for layer in dest["layers"] for leaf in layer.values()]]
+    assert seen["copies"] == 0
+    monkeypatch.undo()
+    jdest = jkv.import_slot(
+        jkv.init_cache(2, 2, 32, 4, 16, dtype=jax.numpy.bfloat16), 1,
+        jblob, use_pallas=False)
+    for jl, tl in zip(jdest["layers"], dest["layers"]):
+        for name in jl:
+            np.testing.assert_array_equal(
+                tl[name].to(torch.float32).numpy(),
+                np.asarray(jl[name].astype(jax.numpy.float32)))
+
+
+def test_import_casts_a_bf16_blob_into_an_fp32_cache_like_jax(rng,
+                                                              monkeypatch):
+    """Blob dtype other than the cache's: the one grouped call
+    dequantizes into bf16 temporaries, each then cast into its slot by a
+    ``copy_`` (one rounding to bf16, then an exact widening), bitwise the
+    JAX ``import_slot`` of the same bf16 blob into an fp32 cache."""
+    jc, tc = _bf16_pair(rng)
+    jblob = jkv.export_slot(jc, 0, use_pallas=False)
+    tblob = kv.export_slot(tc, 0)
+    dest = kv.init_cache(2, 2, 32, 4, 16, dtype=torch.float32,
+                         device="cpu")
+    seen, leaf_ptrs = _spy_import(monkeypatch, dest)
+    kv.import_slot(dest, 1, tblob)
+    (outs,) = seen["calls"]
+    assert len(outs) == 4
+    assert all(dt == torch.bfloat16 and ptr not in leaf_ptrs
+               for _, ptr, dt, _ in outs)
+    assert seen["copies"] == 4
+    monkeypatch.undo()
+    jdest = jkv.import_slot(jkv.init_cache(2, 2, 32, 4, 16), 1, jblob,
+                            use_pallas=False)
+    for jl, tl in zip(jdest["layers"], dest["layers"]):
+        for name in jl:
+            assert tl[name].dtype == torch.float32
+            np.testing.assert_array_equal(tl[name].numpy(),
+                                          np.asarray(jl[name]))
+
+
+def test_import_refuses_a_non_contiguous_slot():
+    """The import writes the slot in place and never stages a copy: a
+    cache whose slot view is not contiguous raises."""
+    src = kv.init_cache(1, 2, 32, 4, 16, device="cpu")
+    blob = kv.export_slot(src, 0)
+    dest = kv.init_cache(1, 2, 32, 4, 16, device="cpu")
+    for name, leaf in dest["layers"][0].items():
+        dest["layers"][0][name] = leaf.transpose(1, 2).contiguous() \
+            .transpose(1, 2)
+    with pytest.raises(ValueError, match="not contiguous"):
+        kv.import_slot(dest, 0, blob)
+
+
+def test_import_refuses_a_blob_of_another_geometry():
+    """A blob whose leaves hold as many values as the slot in another
+    shape raises instead of landing reshaped."""
+    blob = kv.export_slot(kv.init_cache(1, 2, 32, 4, 16, device="cpu"), 0)
+    dest = kv.init_cache(1, 2, 32, 16, 4, device="cpu")
+    with pytest.raises(ValueError, match="does not fit"):
+        kv.import_slot(dest, 0, blob)
 
 
 def test_port_repeat_is_byte_identical(runs):
