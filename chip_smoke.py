@@ -42,13 +42,17 @@ Phases (any failure exits non-zero and prints no result line):
    nonzero lse cotangent; in bf16 (where K5, K6 and K7 are the
    wgmma/TMA kernels) also a ragged S with a key mask and dlse, the
    training shape with q, k, v as ``split`` views of one fused QKV
-   tensor, and D = 128 causal; bounds fp32 2e-4 (forward) and 5e-3
-   (gradients), bf16 2e-2. K6 and K7 are held there both as two calls
-   and as the training path's one backward call (``flash_bwd``). Each
-   record names its route by dtype. Times at the training shape in
-   bf16: CUDA graph replay over 8 distinct input sets, eager, the plain
-   version, and the library call ``scaled_dot_product_attention(
-   is_causal=True)`` (its forward against K5, its backward — a graph of
+   tensor, D = 128 causal, BERT-large's (8, 512, 16, 64) non-causal
+   under a padded batch's key mask and ViT-B/16's (64, 197, 12, 64)
+   non-causal (a ragged last tile), both fused; bounds fp32 2e-4
+   (forward) and 5e-3 (gradients), bf16 2e-2. K6 and K7 are held there
+   both as two calls and as the training paths' one backward call
+   (``flash_bwd``). Each record names its route by dtype. Times at each
+   path's shape in bf16 (GPT training causal, BERT with its key mask,
+   ViT): CUDA graph replay over 8 distinct input sets, eager, the plain
+   version, and the library call ``scaled_dot_product_attention`` with
+   the path's ``is_causal`` or the same key mask as a boolean
+   ``attn_mask`` (its forward against K5, its backward — a graph of
    forward and backward less the forward's — against K6 + K7, beside
    which the one-call backward is timed too), beside the bound
    max(bytes / 3.35 TB/s, FLOPs / 989 TFLOP/s).
@@ -86,6 +90,23 @@ Phases (any failure exits non-zero and prints no result line):
    attention, in bf16 compute (loss within 1e-3 relative, every gradient
    within 2e-2 relative Frobenius error) and on an fp32 copy of the
    weights (1e-5 and 1e-3).
+6b. BERT-large MLM pretraining (24 layers, hidden 1024, 16 heads, MLP
+   4096, vocab 30522; seeded weights, bf16 over fp32) at B = 8, S = 512
+   with a padded batch's key mask (per-sample lengths in [S/2, S]) and
+   the loss over 15% of the unpadded positions (labels = tokens), through
+   ``DistributedOptimizer(AdamW(lr=1e-4, weight_decay=1e-4))`` over NCCL
+   at world size 1: a flash-vs-plain reference step (loss 1e-3, grads
+   2e-2), 2 warm-up and 5 timed steps; K5, K6 and K7 must each launch
+   exactly 24 x 5 times, the loss must fall.
+6c. ViT-B/16 classification training on 224x224 images, B = 64 (S =
+   197), the same reference check, 2 warm-up and 3 timed steps; K5/K6/K7
+   exactly 12 x 3 times each.
+6d. ResNet-50 with the space-to-depth stem, channels_last, B = 256,
+   224x224: its bf16 forward against the fp32 forward of the same weights
+   on 32 images (5e-2 of the largest logit), then 2 warm-up and 3 timed
+   steps. Then one checked training step (finite loss and gradients)
+   each of VGG-16 (B = 32, 224), Inception V3 (B = 32, 299), MLP and
+   ConvNet (B = 64, 28x28).
 7. Multi-rank gradient reduction: the script relaunches itself as n
    rank workers (``--rank-worker``) sharing the one card, each with
    ``HVD_TPU_COORDINATOR``/``NUM_PROC``/``PROC_ID`` and its own time
@@ -109,7 +130,10 @@ Phases (any failure exits non-zero and prints no result line):
    digests must equal rank 0's. At n = 4 one direct ``adasum_allreduce(
    wire="int8", key=...)`` must launch K3 once and K4 twice per level.
    The step times are of gloo over loopback with n processes on one
-   card, not of NCCL or NVLink.
+   card, not of NCCL or NVLink. At n = 2 each rank also runs
+   ``SyncBatchNorm`` over its own (32, 64, 28, 28) batch on the card:
+   its output, input gradient and running statistics must match a
+   ``BatchNorm2d`` over the gathered batch to 1e-5 of the largest value.
 8. Eager engine: the script relaunches itself as 2 gloo rank workers
    (``--rank-worker n2_eager``): GPT-2 medium at full width, B = 8,
    S = 512 per rank, each rank its own seeded batch, ``AdamW`` after
@@ -131,18 +155,25 @@ Phases (any failure exits non-zero and prints no result line):
    input; ``broadcast_object`` of the optimizer's hyperparameters; and a
    mismatch (rank 1 submits ``"probe"`` with another shape: both ranks
    raise ``MismatchError`` naming rank 1 within the controller timeout,
-   and the next collective succeeds). A second configuration
-   (``n2_join``) runs ``init(join_mode=True)``: rank 1 trains 2 steps and
+   and the next collective succeeds); then ``grouped_allreduce_`` (Sum
+   and Average), ``allreduce_``, ``broadcast_async_`` -> ``synchronize``,
+   ``alltoall_async`` and ``sparse_allreduce_async`` (Sum and Average of
+   a (50257, 1024) embedding gradient's 4096 rows per rank) on CUDA
+   tensors, each bitwise against the same reduction done by hand. A
+   second configuration (``n2_join``) runs ``init(join_mode=True)``: rank 1 trains 2 steps and
    joins, rank 0 trains 3 and joins; rank 0's third-step gradients must
    be bitwise ``plain(plain(g0, 1/3) + 0, 1.5)`` and ``join()`` must
    return 0 on both. Step times are gloo with 2 processes on one card.
 9. Result lines: the per-kernel JSON record (K1-K9, each with its
-   launches on its path), the card line, and last
+   launches on its path; K5/K6/K7 with ``launches_by_path`` for the GPT
+   training, BERT and ViT runs, each above 0, and ``launches`` their
+   sum), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
-``--profile`` also traces the serve run and two extra training steps
-with torch.profiler (after the timed steps, so the timed numbers stay
-unprofiled) and prints the device busy share and the top device ops.
+``--profile`` also traces the serve run and two extra training steps of
+GPT-2 medium, BERT-large, ViT-B/16 and ResNet-50 with torch.profiler
+(after the timed steps, so the timed numbers stay unprofiled) and prints
+the device busy share and the top device ops.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -459,23 +490,33 @@ def phase_kernels(torch, K) -> dict:
     return records
 
 
-# (B, S, H, D), dtype name, causal, key mask, nonzero dlse, and whether
-# q, k, v are ``split`` views of one (B, S, 3 H D) tensor, as
-# ``CausalSelfAttention`` makes them (row stride 3 H D: the TMA strides)
-FLASH_PATH = (8, 512, 16, 64)       # the training path's attention shape
+# (B, S, H, D), dtype name, causal, key mask ("random": 70% of keys,
+# "lengths": a padded batch's per-sample lengths in [S/2, S]), nonzero
+# dlse, and whether q, k, v are ``split`` views of one (B, S, 3 H D)
+# tensor, as the models' fused QKV projection makes them (row stride
+# 3 H D: the TMA strides)
+FLASH_PATH = (8, 512, 16, 64)       # the GPT training path's shape
+BERT_PATH = (8, 512, 16, 64)        # BERT-large, non-causal, key mask
+VIT_PATH = (64, 197, 12, 64)        # ViT-B/16 at 224: 196 patches + CLS
 FLASH_CASES = (
-    (FLASH_PATH, "bfloat16", True, False, False, False),
-    (FLASH_PATH, "float32", True, False, False, False),
-    ((2, 256, 4, 64), "float32", False, True, False, False),
-    ((2, 256, 4, 128), "float32", True, False, True, False),
-    ((2, 200, 4, 64), "float32", True, True, True, False),
-    ((2, 200, 4, 128), "bfloat16", False, False, True, False),
-    ((2, 200, 4, 64), "bfloat16", True, True, True, False),
-    (FLASH_PATH, "bfloat16", True, False, False, True),
-    ((2, 256, 4, 128), "bfloat16", True, False, False, False),
+    (FLASH_PATH, "bfloat16", True, None, False, False),
+    (FLASH_PATH, "float32", True, None, False, False),
+    ((2, 256, 4, 64), "float32", False, "random", False, False),
+    ((2, 256, 4, 128), "float32", True, None, True, False),
+    ((2, 200, 4, 64), "float32", True, "random", True, False),
+    ((2, 200, 4, 128), "bfloat16", False, None, True, False),
+    ((2, 200, 4, 64), "bfloat16", True, "random", True, False),
+    (FLASH_PATH, "bfloat16", True, None, False, True),
+    ((2, 256, 4, 128), "bfloat16", True, None, False, False),
+    (BERT_PATH, "bfloat16", False, "lengths", False, True),
+    (VIT_PATH, "bfloat16", False, None, False, True),
 )
 FLASH_TOL = {"float32": (2e-4, 5e-3), "bfloat16": (2e-2, 2e-2)}
 FLASH_TIMING_SETS = 8               # distinct inputs per graph replay
+# The timed paths: (shape, causal, key mask) of each model's attention.
+FLASH_TIMED = {"gpt_train": (FLASH_PATH, True, None),
+               "bert": (BERT_PATH, False, "lengths"),
+               "vit": (VIT_PATH, False, None)}
 
 
 def close_err(torch, got, want, tol: float, what: str) -> float:
@@ -494,7 +535,16 @@ def close_err(torch, got, want, tol: float, what: str) -> float:
     return diff.max().item()
 
 
-def flash_inputs(torch, shape, dtype, mask_on, dlse_on, gen,
+def length_mask(torch, b: int, s: int, gen):
+    """A padded batch's key mask: sample i attends to its first
+    ``lengths[i]`` keys, lengths drawn in [S/2, S] from ``gen``."""
+    lengths = torch.randint(s // 2, s + 1, (b,), generator=gen,
+                            device=gen.device)
+    return (torch.arange(s, device=gen.device)[None, :]
+            < lengths[:, None]).float()
+
+
+def flash_inputs(torch, shape, dtype, mask_kind, dlse_on, gen,
                  fused=False):
     b, s, h, d = shape
     q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
@@ -503,39 +553,133 @@ def flash_inputs(torch, shape, dtype, mask_on, dlse_on, gen,
         qkv = torch.cat([t.reshape(b, s, h * d) for t in (q, k, v)], -1)
         q, k, v = (t.reshape(b, s, h, d) for t in qkv.split(h * d, -1))
     mask = None
-    if mask_on:
+    if mask_kind == "random":
         mask = (torch.rand((b, s), generator=gen, device="cuda") > 0.3
                 ).float()
         mask[:, 0] = 1.0
+    elif mask_kind == "lengths":
+        mask = length_mask(torch, b, s, gen)
     dlse = torch.randn((b, h, s), generator=gen, device="cuda") \
         if dlse_on else None
     return q, k, v, do, mask, dlse
 
 
-def flash_work(shape) -> dict:
+def flash_work(shape, causal: bool, mask) -> dict:
     """Bytes each kernel must move (inputs read once, outputs written
-    once) and FLOPs the causal work needs, at bf16 q/k/v/do/o/dq/dk/dv
-    and fp32 lse/delta, without dlse."""
+    once) and FLOPs the work needs, at bf16 q/k/v/do/o/dq/dk/dv, fp32
+    lse/delta and an fp32 key mask, without dlse. Causal work is the
+    (query, key) pairs at or below the diagonal; a key mask does not
+    shrink it (the kernels visit every tile and mask inside it)."""
     b, s, h, d = shape
     x = b * s * h * d * 2                  # one bf16 (B, S, H, D) tensor
     row = b * h * s * 4                    # one fp32 (B, H, S) vector
-    pairs = b * h * s * (s + 1) // 2       # causal (query, key) pairs
-    return {"flash_fwd": (4 * x + row, 4 * pairs * d),
-            "flash_bwd_dq": (5 * x + 2 * row, 6 * pairs * d),
-            "flash_bwd_dkv": (6 * x + 2 * row, 8 * pairs * d)}
+    m = 0 if mask is None else b * s * 4
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    return {"flash_fwd": (4 * x + row + m, 4 * pairs * d),
+            "flash_bwd_dq": (5 * x + 2 * row + m, 6 * pairs * d),
+            "flash_bwd_dkv": (6 * x + 2 * row + m, 8 * pairs * d)}
+
+
+def time_flash(torch, K, shape, causal: bool, mask_kind, gen) -> dict:
+    """K5/K6/K7 at one path's shape in bf16: CUDA graph replay over
+    distinct input sets (in turns with the plain version: plain, kernel,
+    kernel, plain), eager, the bound, and the library call
+    ``scaled_dot_product_attention`` (``is_causal`` or the same key mask
+    as a boolean ``attn_mask``): its forward against K5, its backward (a
+    graph of forward + backward less the forward's) against K6 + K7."""
+    sets = []
+    for _ in range(FLASH_TIMING_SETS):
+        q, k, v, do, mask, _ = flash_inputs(torch, shape, torch.bfloat16,
+                                            mask_kind, False, gen)
+        o, lse = K._flash_fwd_plain(q, k, v, mask, causal)
+        sets.append((q, k, v, do, o, lse, K.flash_delta(o, do), mask))
+    torch.cuda.synchronize()
+    fns = {
+        "flash_fwd": (
+            lambda x: K.flash_fwd(x[0], x[1], x[2], x[7], causal),
+            lambda x: K._flash_fwd_plain(x[0], x[1], x[2], x[7], causal)),
+        "flash_bwd_dq": (
+            lambda x: K.flash_bwd_dq(x[0], x[1], x[2], x[7], causal, x[3],
+                                     x[5], x[6]),
+            lambda x: K._flash_bwd_dq_plain(x[0], x[1], x[2], x[7], causal,
+                                            x[3], x[5], x[6])),
+        "flash_bwd_dkv": (
+            lambda x: K.flash_bwd_dkv(x[0], x[1], x[2], x[7], causal, x[3],
+                                      x[5], x[6]),
+            lambda x: K._flash_bwd_dkv_plain(x[0], x[1], x[2], x[7], causal,
+                                             x[3], x[5], x[6])),
+    }
+    # The yardstick: one PyTorch call of the same function on the same
+    # (B, S, H, D) tensors, viewed as (B, H, S, D). Timed only; the port
+    # never calls it.
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lib_kw(x):
+        if causal:
+            return {"is_causal": True}
+        if x[7] is None:
+            return {}
+        return {"attn_mask": (x[7] > 0)[:, None, None, :]}
+
+    def lib_fwd(x):
+        return sdpa(*(t.transpose(1, 2) for t in x[:3]), **lib_kw(x))
+
+    def lib_fwd_bwd(x):
+        q, k, v = (t.transpose(1, 2).detach().requires_grad_()
+                   for t in x[:3])
+        o = sdpa(q, k, v, **lib_kw(x))
+        return torch.autograd.grad(o, (q, k, v), x[3].transpose(1, 2))
+
+    fwd_ms = graph_ms(torch, lib_fwd, sets)
+    bwd_ms = graph_ms(torch, lib_fwd_bwd, sets) - fwd_ms
+    library = {"flash_fwd": fwd_ms, "flash_bwd_dq": bwd_ms,
+               "flash_bwd_dkv": bwd_ms}
+    # The training paths' backward: K6 then K7 in one call.
+    bwd_one = min(graph_ms(torch, lambda x: K.flash_bwd(
+        x[0], x[1], x[2], x[7], causal, x[4], x[5], x[3]), sets)
+        for _ in range(2))
+    out = {}
+    for name, (nbytes, flops) in flash_work(shape, causal,
+                                            mask_kind).items():
+        fn, plain = fns[name]
+        p1 = graph_ms(torch, plain, sets)
+        k1 = graph_ms(torch, fn, sets)
+        k2 = graph_ms(torch, fn, sets)
+        p2 = graph_ms(torch, plain, sets)
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops = flops / BF16_OPS_PER_S * 1e3
+        out[name] = {
+            "ms": min(k1, k2), "plain_ms": min(p1, p2),
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_bytes_ms": bound_bytes, "bound_ops_ms": bound_ops,
+            "bound_by": "bytes" if bound_bytes >= bound_ops
+            else "operations",
+            "library_ms": library[name],
+            "eager_ms": eager_ms(torch, fn, sets),
+            "plain_eager_ms": eager_ms(torch, plain, sets),
+            "bytes": nbytes, "flops": flops, "shape": list(shape),
+            "dtype": "bfloat16", "causal": causal, "key_mask": mask_kind,
+        }
+        if name != "flash_fwd":
+            # delta = rowsum(do * o) included, as in SDPA's backward
+            out[name]["bwd_one_call_ms"] = bwd_one
+    del sets
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_flash(torch, K) -> dict:
     """Hold K5/K6/K7 against their plain versions on the card; time them
-    at the training path's shape."""
+    at the attention shapes of the GPT training, BERT and ViT paths."""
     gen = torch.Generator(device="cuda").manual_seed(4321)
     errs = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    for shape, dname, causal, mask_on, dlse_on, fused in FLASH_CASES:
+    for shape, dname, causal, mask_kind, dlse_on, fused in FLASH_CASES:
         dtype = getattr(torch, dname)
-        q, k, v, do, mask, dlse = flash_inputs(torch, shape, dtype, mask_on,
-                                               dlse_on, gen, fused)
+        q, k, v, do, mask, dlse = flash_inputs(torch, shape, dtype,
+                                               mask_kind, dlse_on, gen,
+                                               fused)
         fwd_tol, grad_tol = FLASH_TOL[dname]
-        what = (f"{shape} {dname} causal={causal} mask={mask_on} "
+        what = (f"{shape} {dname} causal={causal} mask={mask_kind} "
                 f"dlse={dlse_on} fused={fused}")
         o, lse = K.flash_fwd(q, k, v, mask, causal)
         o0, lse0 = K._flash_fwd_plain(q, k, v, mask, causal)
@@ -568,50 +712,14 @@ def phase_flash(torch, K) -> dict:
             errs["flash_bwd_dkv"],
             close_err(torch, dk, dk0, grad_tol, f"flash_bwd_dkv dk {what}"),
             close_err(torch, dv, dv0, grad_tol, f"flash_bwd_dkv dv {what}"))
+        del q, k, v, do, o, lse, o0, lse0, delta, dq, dk, dv, dq0, dk0, dv0
+        del bwd
+    torch.cuda.empty_cache()
     print(f"kernels: K5/K6/K7 agree with plain on {len(FLASH_CASES)} cases; "
           f"max abs err {json.dumps(errs)}", flush=True)
 
-    sets = []
-    for _ in range(FLASH_TIMING_SETS):
-        q, k, v, do, _, _ = flash_inputs(torch, FLASH_PATH, torch.bfloat16,
-                                         False, False, gen)
-        o, lse = K._flash_fwd_plain(q, k, v, None, True)
-        sets.append((q, k, v, do, o, lse, K.flash_delta(o, do)))
-    torch.cuda.synchronize()
-    fns = {
-        "flash_fwd": (
-            lambda x: K.flash_fwd(x[0], x[1], x[2], None, True),
-            lambda x: K._flash_fwd_plain(x[0], x[1], x[2], None, True)),
-        "flash_bwd_dq": (
-            lambda x: K.flash_bwd_dq(x[0], x[1], x[2], None, True, x[3],
-                                     x[5], x[6]),
-            lambda x: K._flash_bwd_dq_plain(x[0], x[1], x[2], None, True,
-                                            x[3], x[5], x[6])),
-        "flash_bwd_dkv": (
-            lambda x: K.flash_bwd_dkv(x[0], x[1], x[2], None, True, x[3],
-                                      x[5], x[6]),
-            lambda x: K._flash_bwd_dkv_plain(x[0], x[1], x[2], None, True,
-                                             x[3], x[5], x[6])),
-    }
-    # The yardstick: one PyTorch call of the same function on the same
-    # (B, S, H, D) tensors, viewed as (B, H, S, D). Timed only; the port
-    # never calls it. Its backward is the device time of a graph of
-    # forward + backward less that of the forward alone.
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-
-    def lib_fwd(x):
-        return sdpa(*(t.transpose(1, 2) for t in x[:3]), is_causal=True)
-
-    def lib_fwd_bwd(x):
-        q, k, v = (t.transpose(1, 2).detach().requires_grad_()
-                   for t in x[:3])
-        o = sdpa(q, k, v, is_causal=True)
-        return torch.autograd.grad(o, (q, k, v), x[3].transpose(1, 2))
-
-    fwd_ms = graph_ms(torch, lib_fwd, sets)
-    bwd_ms = graph_ms(torch, lib_fwd_bwd, sets) - fwd_ms
-    library = {"flash_fwd": fwd_ms, "flash_bwd_dq": bwd_ms,
-               "flash_bwd_dkv": bwd_ms}
+    timed = {path: time_flash(torch, K, *spec, gen)
+             for path, spec in FLASH_TIMED.items()}
     lines = {"flash_fwd": 74, "flash_bwd_dq": 122, "flash_bwd_dkv": 172}
     # Each kernel's route by dtype inside the one C entry point.
     sm90 = "bf16: wgmma m64n64k16 on TMA-fed 128B-swizzled tiles ({})"
@@ -624,20 +732,11 @@ def phase_flash(torch, K) -> dict:
         "flash_bwd_dkv": sm90.format("flash_bwd_dkv_sm90") + "; "
         + cores.format("flash_bwd_dkv_kernel"),
     }
-    # The training path's backward: K6 then K7 in one call.
-    bwd_one = [graph_ms(torch, lambda x: K.flash_bwd(
-        x[0], x[1], x[2], None, True, x[4], x[5], x[3]), sets)
-        for _ in range(2)]
     records = {}
-    for name, (nbytes, flops) in flash_work(FLASH_PATH).items():
-        fn, plain = fns[name]
-        # Turns: plain, kernel, kernel, plain (one card, one call).
-        p1 = graph_ms(torch, plain, sets)
-        k1 = graph_ms(torch, fn, sets)
-        k2 = graph_ms(torch, fn, sets)
-        p2 = graph_ms(torch, plain, sets)
-        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ops = flops / BF16_OPS_PER_S * 1e3
+    for name in lines:
+        # The top-level numbers are the GPT training path's, as before;
+        # every path's are under "paths".
+        main = timed["gpt_train"][name]
         records[name] = {
             "name": name, "route": "cuda",
             "source": "horovod_tpu_torch/csrc/flash_attention.cu",
@@ -645,34 +744,27 @@ def phase_flash(torch, K) -> dict:
             "launches": 0,
             "design": designs[name],
             "max_abs_err": errs[name],
-            "ms": min(k1, k2),
-            "plain_ms": min(p1, p2),
-            "bound_ms": max(bound_bytes, bound_ops),
-            "bound_by": "bytes" if bound_bytes >= bound_ops
-            else "operations",
-            "library_ms": library[name],
-            "library_call": "scaled_dot_product_attention(is_causal=True) "
+            **main,
+            "library_call": "scaled_dot_product_attention "
                             + ("forward" if name == "flash_fwd" else
-                               "backward (dq, dk, dv: K6 + K7 together)"),
-            "eager_ms": eager_ms(torch, fn, sets),
-            "plain_eager_ms": eager_ms(torch, plain, sets),
-            "bytes": nbytes, "flops": flops,
-            "shape": list(FLASH_PATH), "dtype": "bfloat16", "causal": True,
+                               "backward (dq, dk, dv: K6 + K7 together)")
+                            + " with the path's is_causal or attn_mask",
+            "paths": {path: t[name] for path, t in timed.items()},
         }
-        if name != "flash_fwd":
-            # delta = rowsum(do * o) included, as in SDPA's backward
-            records[name]["bwd_one_call_ms"] = min(bwd_one)
-        r = records[name]
-        print(f"kernel {name}: {r['ms'] * 1e3:.1f} us/launch (graph) vs "
-              f"bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); plain "
-              f"{r['plain_ms'] * 1e3:.1f} us; library "
-              f"{r['library_ms'] * 1e3:.1f} us; eager "
-              f"{r['eager_ms'] * 1e3:.1f} us; {r['design']}", flush=True)
-    print(f"kernel flash_bwd (K6 + K7, one call, delta included): "
-          f"{min(bwd_one) * 1e3:.1f} us (graph) vs SDPA backward "
-          f"{bwd_ms * 1e3:.1f} us", flush=True)
-    del sets
-    torch.cuda.empty_cache()
+        for path, t in timed.items():
+            r = t[name]
+            print(f"kernel {name} [{path} {tuple(r['shape'])} "
+                  f"causal={r['causal']} mask={r['key_mask']}]: "
+                  f"{r['ms'] * 1e3:.1f} us/launch (graph) vs bound "
+                  f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}); plain "
+                  f"{r['plain_ms'] * 1e3:.1f} us; library "
+                  f"{r['library_ms'] * 1e3:.1f} us; eager "
+                  f"{r['eager_ms'] * 1e3:.1f} us", flush=True)
+    for path, t in timed.items():
+        print(f"kernel flash_bwd [{path}] (K6 + K7, one call, delta "
+              f"included): {t['flash_bwd_dq']['bwd_one_call_ms'] * 1e3:.1f} "
+              f"us (graph) vs SDPA backward "
+              f"{t['flash_bwd_dq']['library_ms'] * 1e3:.1f} us", flush=True)
     return records
 
 
@@ -1178,18 +1270,16 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 5
 REF_RTOL = {"bfloat16": (1e-3, 2e-2), "float32": (1e-5, 1e-3)}
 
 
-def reference_step(torch, model, tokens, gpt_mod, fa) -> dict:
-    """One forward and backward on the same weights and batch, with the
-    flash kernels and with the plain attention; returns the loss gap and
-    the worst per-parameter relative Frobenius gradient error."""
-    def plain_attend(q, k, v, mask=None):
-        return fa.reference_attention(q, k, v, mask, causal=True)
-
+def reference_step(torch, model, loss_fn, plain_attend) -> dict:
+    """One forward and backward of ``loss_fn()`` on the same weights and
+    batch, with the flash kernels (``model.attend_fn = None``) and with
+    ``plain_attend``; returns the loss gap and the worst per-parameter
+    relative Frobenius gradient error."""
     out = {}
     for label, attend in (("flash", None), ("plain", plain_attend)):
         model.attend_fn = attend
         model.zero_grad(set_to_none=True)
-        loss = gpt_mod.next_token_loss(model(tokens[:, :-1]), tokens[:, 1:])
+        loss = loss_fn()
         loss.backward()
         out[label] = (loss.item(), {n: p.grad.clone() for n, p in
                                     model.named_parameters()})
@@ -1208,6 +1298,20 @@ def reference_step(torch, model, tokens, gpt_mod, fa) -> dict:
     torch.cuda.empty_cache()
     return {"loss_flash": lf, "loss_plain": lp, "loss_rel_err": loss_rel,
             "grad_rel_err_max": worst, "grad_rel_err_param": worst_name}
+
+
+def check_reference(r: dict, dname: str, what: str) -> None:
+    loss_tol, grad_tol = REF_RTOL[dname]
+    print(f"reference ({what}, {dname}): flash vs plain attention loss rel "
+          f"err {r['loss_rel_err']:.3g} (limit {loss_tol}); worst grad "
+          f"rel err {r['grad_rel_err_max']:.3g} on "
+          f"{r['grad_rel_err_param']} (limit {grad_tol})", flush=True)
+    check(r["loss_rel_err"] <= loss_tol,
+          f"reference ({what}, {dname}): loss rel err {r['loss_rel_err']} "
+          f"> {loss_tol}")
+    check(r["grad_rel_err_max"] <= grad_tol,
+          f"reference ({what}, {dname}): {r['grad_rel_err_param']} "
+          f"gradient rel err {r['grad_rel_err_max']} > {grad_tol}")
 
 
 def profile_steps(torch, step, n: int, out_path: str) -> dict:
@@ -1266,20 +1370,16 @@ def phase_train(torch, K, out_dir: str, profile: bool = False) -> dict:
     with torch.device("cuda"):
         fp32_model = gpt_mod.gpt_medium(dtype=torch.float32)
     fp32_model.load_state_dict(model.state_dict())
+    def plain_attend(q, k, v, mask=None):
+        return fa.reference_attention(q, k, v, mask, causal=True)
+
     ref = {}
     for dname, m in (("bfloat16", model), ("float32", fp32_model)):
-        r = ref[dname] = reference_step(torch, m, tokens, gpt_mod, fa)
-        loss_tol, grad_tol = REF_RTOL[dname]
-        print(f"reference ({dname}): flash vs plain attention loss rel "
-              f"err {r['loss_rel_err']:.3g} (limit {loss_tol}); worst grad "
-              f"rel err {r['grad_rel_err_max']:.3g} on "
-              f"{r['grad_rel_err_param']} (limit {grad_tol})", flush=True)
-        check(r["loss_rel_err"] <= loss_tol,
-              f"reference ({dname}): loss rel err {r['loss_rel_err']} > "
-              f"{loss_tol}")
-        check(r["grad_rel_err_max"] <= grad_tol,
-              f"reference ({dname}): {r['grad_rel_err_param']} gradient "
-              f"rel err {r['grad_rel_err_max']} > {grad_tol}")
+        ref[dname] = reference_step(
+            torch, m, lambda: gpt_mod.next_token_loss(m(tokens[:, :-1]),
+                                                      tokens[:, 1:]),
+            plain_attend)
+        check_reference(ref[dname], dname, "gpt_medium")
     del fp32_model, m
     torch.cuda.empty_cache()
 
@@ -1354,6 +1454,314 @@ def phase_train(torch, K, out_dir: str, profile: bool = False) -> dict:
     hvd.shutdown()
     torch.cuda.empty_cache()
     return result
+
+
+# -- the model zoo: BERT-large, ViT-B/16, ResNet-50 and one step of the rest
+
+BERT_BATCH, BERT_SEQ, BERT_MLM = 8, 512, 0.15
+VIT_BATCH, VIT_IMAGE = 64, 224
+RESNET_BATCH, RESNET_IMAGE = 256, 224
+ZOO_WARMUP, BERT_STEPS, IMAGE_STEPS = 2, 5, 3
+RESNET_REF_BATCH = 32               # images in the bf16 vs fp32 check
+RESNET_REF_RTOL = 5e-2              # bf16 vs fp32 logits, of max |logit|
+FLASH_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def timed_steps(torch, K, step, warmup: int, steps: int) -> dict:
+    """``warmup`` steps, then ``steps`` timed ones (host clock around a
+    synchronized step) with the launch counters zeroed just before them
+    and read just after, and the peak memory of the timed steps."""
+    losses = [step().item() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        s0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - s0)
+        losses.append(loss.item())
+    launches = dict(K.LAUNCHES)
+    check(all(map(math.isfinite, losses)), f"non-finite loss in {losses}")
+    return {"warmup_steps": warmup, "timed_steps": steps,
+            "step_ms": [t * 1e3 for t in times],
+            "step_ms_median": statistics.median(times) * 1e3,
+            "losses": losses, "launches": launches,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def check_flash_launches(run: dict, layers: int, what: str) -> None:
+    want = layers * run["timed_steps"]
+    for name in FLASH_NAMES:
+        check(run["launches"][name] == want,
+              f"{what}: {name} launched {run['launches'][name]} times, "
+              f"expected {layers} x {run['timed_steps']} = {want}")
+
+
+def seeded(torch, make, **kw):
+    """A model built on the card with seeded random weights."""
+    with torch.device("cuda"):
+        model = make(**kw)
+    return model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+
+
+def distributed_adamw(torch, hvd, model):
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    return hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+
+
+def phase_bert(torch, K, out_dir: str, profile: bool = False) -> dict:
+    """BERT-large MLM pretraining steps: B = 8, S = 512, a padded batch's
+    key mask (per-sample lengths in [S/2, S]) so that the key-mask path of
+    K5/K6/K7 runs, the loss over 15% of the unpadded positions with the
+    labels equal to the tokens."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import bert as bert_mod
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    ctx = hvd.init()
+    check(hvd.size() == 1 and ctx.backend == "nccl",
+          f"init: world {hvd.size()} over {ctx.backend}")
+    model = seeded(torch, bert_mod.bert_large, max_len=BERT_SEQ)
+    check(model.num_layers == 24 and model.hidden_size == 1024
+          and model.num_heads == 16 and model.mlp_dim == 4096
+          and model.vocab_size == 30522, "bert_large geometry")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    tokens = torch.randint(0, model.vocab_size, (BERT_BATCH, BERT_SEQ),
+                           generator=gen, device="cuda")
+    mask = length_mask(torch, BERT_BATCH, BERT_SEQ, gen)
+    weights = (torch.rand((BERT_BATCH, BERT_SEQ), generator=gen,
+                          device="cuda") < BERT_MLM).float() * mask
+
+    def loss_fn():
+        return bert_mod.mlm_loss(model(tokens, mask), tokens, weights)
+
+    def plain_attend(q, k, v, m=None):
+        return fa.reference_attention(q, k, v, m)
+
+    ref = reference_step(torch, model, loss_fn, plain_attend)
+    check_reference(ref, "bfloat16", "bert_large")
+    opt = distributed_adamw(torch, hvd, model)
+
+    def step():
+        loss = loss_fn()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        return loss
+
+    run = timed_steps(torch, K, step, ZOO_WARMUP, BERT_STEPS)
+    check_flash_launches(run, model.num_layers, "bert")
+    check(run["losses"][-1] < run["losses"][0],
+          f"bert: loss did not fall: {run['losses']}")
+    step_s = run["step_ms_median"] / 1e3
+    result = {
+        "model": "bert_large", "layers": 24, "hidden": 1024, "heads": 16,
+        "mlp": 4096, "vocab": 30522, "dtype": "bfloat16",
+        "batch": BERT_BATCH, "seq_len": BERT_SEQ, "world_size": 1,
+        "backend": ctx.backend, "optimizer": "AdamW(lr=1e-4, wd=1e-4)",
+        "mlm_fraction": BERT_MLM, "key_mask": "per-sample lengths in "
+        "[S/2, S]", "attended_keys": int(mask.sum().item()),
+        "mlm_positions": int(weights.sum().item()),
+        **run, "samples_per_s": BERT_BATCH / step_s,
+        "tokens_per_s": BERT_BATCH * BERT_SEQ / step_s,
+        "reference": ref, "setup_s": time.perf_counter() - t0}
+    if profile:
+        result["profile"] = profile_steps(
+            torch, step, 2, os.path.join(out_dir,
+                                         "chip_smoke_bert_profile.txt"))
+        print(f"profile (bert): {json.dumps(result['profile'])}",
+              flush=True)
+    with open(os.path.join(out_dir, "chip_smoke_bert.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    print(f"bert: bert_large B={BERT_BATCH} S={BERT_SEQ} with a key mask "
+          f"({result['attended_keys']} of {BERT_BATCH * BERT_SEQ} keys), "
+          f"step {run['step_ms_median']:.1f} ms (median of {BERT_STEPS}) = "
+          f"{result['samples_per_s']:.1f} samples/s; peak "
+          f"{run['peak_mem_gib']:.2f} GiB; loss {run['losses'][0]:.4f} -> "
+          f"{run['losses'][-1]:.4f}; launches {run['launches']}", flush=True)
+    del opt, model
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    return result
+
+
+def classify_step(torch, model, opt, images, labels):
+    def step():
+        loss = torch.nn.functional.cross_entropy(model(images), labels)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        return loss
+    return step
+
+
+def image_batch(torch, b: int, size: int, classes: int, seed: int,
+                channels: int = 3):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    images = torch.randn((b, channels, size, size), generator=gen,
+                         device="cuda")
+    return images, torch.randint(0, classes, (b,), generator=gen,
+                                 device="cuda")
+
+
+def phase_vit(torch, K, out_dir: str, profile: bool = False) -> dict:
+    """ViT-B/16 classification training on 224x224 images (S = 197
+    tokens, a ragged last tile of 5), with the flash-vs-plain check."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import vit as vit_mod
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    ctx = hvd.init()
+    model = seeded(torch, vit_mod.vit_base, image_size=VIT_IMAGE)
+    check(model.num_layers == 12 and model.hidden == 768
+          and model.pos_embed.shape[1] == VIT_PATH[1], "vit_base geometry")
+    images, labels = image_batch(torch, VIT_BATCH, VIT_IMAGE, 1000, 13)
+
+    def loss_fn():
+        return torch.nn.functional.cross_entropy(model(images), labels)
+
+    def plain_attend(q, k, v, m=None):
+        return fa.reference_attention(q, k, v, m)
+
+    ref = reference_step(torch, model, loss_fn, plain_attend)
+    check_reference(ref, "bfloat16", "vit_base")
+    opt = distributed_adamw(torch, hvd, model)
+    step = classify_step(torch, model, opt, images, labels)
+    run = timed_steps(torch, K, step, ZOO_WARMUP, IMAGE_STEPS)
+    check_flash_launches(run, model.num_layers, "vit")
+    result = {"model": "vit_base", "patch": 16, "layers": 12, "hidden": 768,
+              "heads": 12, "tokens": VIT_PATH[1], "dtype": "bfloat16",
+              "batch": VIT_BATCH, "image": VIT_IMAGE, "world_size": 1,
+              "backend": ctx.backend, **run,
+              "images_per_s": VIT_BATCH / (run["step_ms_median"] / 1e3),
+              "reference": ref}
+    if profile:
+        result["profile"] = profile_steps(
+            torch, step, 2, os.path.join(out_dir,
+                                         "chip_smoke_vit_profile.txt"))
+        print(f"profile (vit): {json.dumps(result['profile'])}",
+              flush=True)
+    with open(os.path.join(out_dir, "chip_smoke_vit.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    print(f"vit: vit_base B={VIT_BATCH} {VIT_IMAGE}x{VIT_IMAGE} (S = "
+          f"{VIT_PATH[1]}), step {run['step_ms_median']:.1f} ms (median of "
+          f"{IMAGE_STEPS}) = {result['images_per_s']:.1f} img/s; peak "
+          f"{run['peak_mem_gib']:.2f} GiB; loss {run['losses'][0]:.4f} -> "
+          f"{run['losses'][-1]:.4f}; launches {run['launches']}", flush=True)
+    del opt, model
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_resnet(torch, K, out_dir: str, profile: bool = False) -> dict:
+    """ResNet-50 with the space-to-depth stem, classification training at
+    B = 256 on 224x224 images (channels_last), after a check of its bf16
+    forward against the fp32 forward of the same weights."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import resnet as resnet_mod
+
+    ctx = hvd.init()
+    model = seeded(torch, resnet_mod.ResNet50, space_to_depth=True)
+    model = model.to(memory_format=torch.channels_last)
+    images, labels = image_batch(torch, RESNET_BATCH, RESNET_IMAGE, 1000, 14)
+    images = images.contiguous(memory_format=torch.channels_last)
+    # bf16 vs fp32 forward (training mode: batch statistics) on copies,
+    # so the trained model's running statistics stay its own.
+    outs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        with torch.device("cuda"):
+            copy = resnet_mod.ResNet50(space_to_depth=True, dtype=dtype)
+        copy.load_state_dict(model.state_dict())
+        with torch.no_grad():
+            outs[dtype] = copy(images[:RESNET_REF_BATCH])
+        del copy
+    b16, f32 = outs[torch.bfloat16], outs[torch.float32]
+    check(bool(torch.isfinite(b16).all()), "resnet: non-finite logits")
+    ref_err = ((b16 - f32).abs().max() / f32.abs().max()).item()
+    check(ref_err <= RESNET_REF_RTOL,
+          f"resnet: bf16 logits off fp32 by {ref_err} of max|logit| > "
+          f"{RESNET_REF_RTOL}")
+    print(f"reference (resnet50): bf16 vs fp32 forward, {RESNET_REF_BATCH} "
+          f"images, max err {ref_err:.3g} of max|logit| (limit "
+          f"{RESNET_REF_RTOL})", flush=True)
+    opt = distributed_adamw(torch, hvd, model)
+    step = classify_step(torch, model, opt, images, labels)
+    run = timed_steps(torch, K, step, ZOO_WARMUP, IMAGE_STEPS)
+    n_params = sum(p.numel() for p in model.parameters())
+    result = {"model": "resnet50", "space_to_depth": True,
+              "memory_format": "channels_last", "params": n_params,
+              "dtype": "bfloat16", "batch": RESNET_BATCH,
+              "image": RESNET_IMAGE, "world_size": 1,
+              "backend": ctx.backend, **run,
+              "images_per_s": RESNET_BATCH / (run["step_ms_median"] / 1e3),
+              "reference": {"batch": RESNET_REF_BATCH, "rel_err": ref_err,
+                            "limit": RESNET_REF_RTOL}}
+    if profile:
+        result["profile"] = profile_steps(
+            torch, step, 2, os.path.join(out_dir,
+                                         "chip_smoke_resnet_profile.txt"))
+        print(f"profile (resnet): {json.dumps(result['profile'])}",
+              flush=True)
+    with open(os.path.join(out_dir, "chip_smoke_resnet.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    print(f"resnet: resnet50 (s2d stem, {n_params} params) B={RESNET_BATCH} "
+          f"{RESNET_IMAGE}x{RESNET_IMAGE}, step {run['step_ms_median']:.1f} "
+          f"ms (median of {IMAGE_STEPS}) = {result['images_per_s']:.1f} "
+          f"img/s; peak {run['peak_mem_gib']:.2f} GiB; loss "
+          f"{run['losses'][0]:.4f} -> {run['losses'][-1]:.4f}", flush=True)
+    del opt, model, outs, b16, f32
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    return result
+
+
+# name: (constructor in horovod_tpu_torch.models, batch, image size,
+# channels); the MNIST models take 10 classes, the others 1000
+ZOO_ONE_STEP = {
+    "vgg16": ("VGG16", 32, 224, 3),
+    "inception_v3": ("InceptionV3", 32, 299, 3),
+    "mlp": ("MLP", 64, 28, 1),
+    "convnet": ("ConvNet", 64, 28, 1),
+}
+
+
+def phase_zoo(torch) -> dict:
+    """One checked training step (forward and backward, AdamW) of each
+    other model: a finite loss and finite gradients."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import models
+
+    hvd.init()
+    out = {}
+    for name, (ctor, b, size, c) in ZOO_ONE_STEP.items():
+        model = seeded(torch, getattr(models, ctor))
+        images, labels = image_batch(torch, b, size, 10 if c == 1 else 1000,
+                                     15, channels=c)
+        opt = distributed_adamw(torch, hvd, model)
+        s0 = time.perf_counter()
+        loss = classify_step(torch, model, opt, images, labels)()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - s0
+        finite = all(bool(torch.isfinite(p.grad).all())
+                     for p in model.parameters())
+        check(math.isfinite(loss.item()) and finite,
+              f"{name}: loss {loss.item()}, gradients finite: {finite}")
+        out[name] = {"batch": b, "image": size, "loss": loss.item(),
+                     "first_step_s": wall, "dtype": str(model.dtype),
+                     "params": sum(p.numel() for p in model.parameters())}
+        print(f"zoo: {name} B={b} {size}x{size}: one step, loss "
+              f"{loss.item():.4f}, {out[name]['params']} params, "
+              f"{wall:.2f} s (first step)", flush=True)
+        del opt, model, images, labels
+        torch.cuda.empty_cache()
+    hvd.shutdown()
+    return out
 
 
 # -- multi-rank phase: n processes on the one card, collectives over gloo --
@@ -1678,9 +2086,46 @@ def rank_worker(config: str, rank: int, out_path: str) -> None:
         check(bool(torch.isfinite(y).all()), "adasum int8 wire: non-finite")
         out["adasum_int8_wire"] = {"elements": x.numel(),
                                    "launches": launches}
+    if n == 2:
+        out["sync_batch_norm"] = sync_bn_check(torch, hvd, rank)
     hvd.shutdown()
     with open(out_path, "w") as f:
         json.dump(out, f)
+
+
+SBN_SHAPE = (32, 64, 28, 28)        # one rank's batch (N, C, H, W)
+SBN_RTOL = 1e-5                     # of the largest |value| of BatchNorm's
+
+
+def sync_bn_check(torch, hvd, rank: int) -> dict:
+    """``SyncBatchNorm`` over the ranks' own batches on the card against
+    a ``BatchNorm2d`` over the concatenated batch (gathered): this rank's
+    output and input gradient, and the running statistics."""
+    gen = torch.Generator(device="cuda").manual_seed(100 + rank)
+    x = torch.randn(SBN_SHAPE, generator=gen, device="cuda") * 2 + 0.5
+    cot = torch.randn(SBN_SHAPE, generator=gen, device="cuda")
+    x.requires_grad_(True)
+    sbn = hvd.SyncBatchNorm(SBN_SHAPE[1]).to(x.device)
+    y = sbn(x)
+    (y * cot).sum().backward()
+    every_x = hvd.allgather(x.detach(), name="sbn.x")
+    every_cot = hvd.allgather(cot, name="sbn.cot")
+    ref_x = every_x.clone().requires_grad_(True)
+    bn = torch.nn.BatchNorm2d(SBN_SHAPE[1]).to(x.device)
+    ref_y = bn(ref_x)
+    (ref_y * every_cot).sum().backward()
+    rows = slice(rank * SBN_SHAPE[0], (rank + 1) * SBN_SHAPE[0])
+    errs = {}
+    for what, got, want in (
+            ("y", y, ref_y[rows]), ("dx", x.grad, ref_x.grad[rows]),
+            ("running_mean", sbn.running_mean, bn.running_mean),
+            ("running_var", sbn.running_var, bn.running_var)):
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        check(err <= SBN_RTOL, f"SyncBatchNorm {what}: off BatchNorm of "
+                               f"the whole batch by {err} > {SBN_RTOL}")
+        errs[what] = err
+    return {"shape_per_rank": list(SBN_SHAPE), "rel_err": errs,
+            "limit": SBN_RTOL}
 
 
 def run_workers(config: str, n: int, timeout: float, out_dir: str):
@@ -1775,6 +2220,11 @@ def phase_multirank(torch, out_dir: str) -> dict:
                   f"{json.dumps(m['launches'])}", flush=True)
         if "adasum_int8_wire" in ranks[0]:
             res["adasum_int8_wire"] = ranks[0]["adasum_int8_wire"]
+        if "sync_batch_norm" in ranks[0]:
+            res["sync_batch_norm"] = [rk["sync_batch_norm"] for rk in ranks]
+            print(f"multi-rank {config} SyncBatchNorm ({n} ranks, "
+                  f"{SBN_SHAPE} each) vs BatchNorm2d of the whole batch: "
+                  f"rel err {json.dumps(res['sync_batch_norm'])}", flush=True)
         results[config] = res
     with open(os.path.join(out_dir, "chip_smoke_multirank.json"), "w") as f:
         json.dump(results, f, indent=1)
@@ -1909,6 +2359,84 @@ def _moe_exchanges(torch, hvd, K, n: int, rank: int) -> dict:
     return rec
 
 
+SURFACE_SHAPES = ((1000,), (37, 5), (4096, 16))
+SPARSE_SHAPE, SPARSE_NNZ = (50257, 1024), 4096   # an embedding gradient
+
+
+def _surface_calls(torch, hvd, n: int, rank: int) -> dict:
+    """Horovod's in-place and sparse calls on the card (``allreduce_``,
+    ``grouped_allreduce_`` Sum and Average, ``broadcast_async_`` ->
+    ``synchronize``, ``alltoall_async``, ``sparse_allreduce_async`` Sum
+    and Average), each held bitwise against the same reduction done by
+    hand from every rank's input (regenerated from its seed on every
+    rank)."""
+    def vec(seed, shape):
+        return torch.randn(shape, generator=torch.Generator(
+            device="cuda").manual_seed(seed), device="cuda")
+
+    def total(tensors):
+        acc = tensors[0].clone()
+        for t in tensors[1:]:
+            acc += t
+        return acc
+
+    def size_tensor(dtype):
+        return torch.full((1,), n, dtype=dtype, device="cuda")
+
+    t0 = time.perf_counter()
+    xs = [[vec(500 + 10 * r + i, s) for i, s in enumerate(SURFACE_SHAPES)]
+          for r in range(n)]
+    for op, label in ((hvd.Sum, "sum"), (hvd.Average, "average")):
+        ts = [x.clone() for x in xs[rank]]
+        ret = hvd.grouped_allreduce_(ts, op=op, name=f"surface.grp.{label}")
+        check(all(a is b for a, b in zip(ret, ts)),
+              "grouped_allreduce_: did not return its tensors")
+        for i, t in enumerate(ts):
+            want = total([xs[r][i] for r in range(n)])
+            if op == hvd.Average:
+                want = want / size_tensor(want.dtype)
+            check(bits_equal(torch, t, want),
+                  f"grouped_allreduce_ {label}: tensor {i} differs")
+    t = xs[rank][2].clone()
+    check(hvd.allreduce_(t, op=hvd.Sum, name="surface.ar_") is t
+          and bits_equal(torch, t, total([xs[r][2] for r in range(n)])),
+          "allreduce_: differs")
+    t = xs[rank][1].clone()
+    h = hvd.broadcast_async_(t, root_rank=n - 1, name="surface.bcast_")
+    check(hvd.synchronize(h) is t and bits_equal(torch, t, xs[n - 1][1]),
+          "broadcast_async_ -> synchronize: not the root's tensor in place")
+    h = hvd.alltoall_async(xs[rank][2], name="surface.a2a")
+    rows = SURFACE_SHAPES[2][0] // n
+    want = torch.cat([xs[src][2][rank * rows:(rank + 1) * rows]
+                      for src in range(n)])
+    check(bits_equal(torch, hvd.synchronize(h), want),
+          "alltoall_async: differs")
+
+    def sparse(r):
+        gen = torch.Generator(device="cuda").manual_seed(600 + r)
+        rows = torch.randint(0, SPARSE_SHAPE[0], (SPARSE_NNZ,),
+                             generator=gen, device="cuda")
+        values = torch.randn((SPARSE_NNZ, SPARSE_SHAPE[1]), generator=gen,
+                             device="cuda")
+        return torch.sparse_coo_tensor(rows[None], values, SPARSE_SHAPE)
+
+    dense = total([sparse(r).coalesce().to_dense() for r in range(n)])
+    for op, label in ((hvd.Sum, "sum"), (hvd.Average, "average")):
+        got = hvd.sparse_allreduce_async(sparse(rank), name=f"surface.sp."
+                                         f"{label}", op=op)()
+        check(got.is_sparse and got.device.type == "cuda",
+              f"sparse_allreduce_async {label}: not a sparse CUDA tensor")
+        want = dense if op == hvd.Sum else \
+            (dense.to(torch.float64) / n).to(dense.dtype)
+        check(bits_equal(torch, got.to_dense(), want),
+              f"sparse_allreduce_async {label}: differs")
+    torch.cuda.synchronize()
+    return {"seconds": time.perf_counter() - t0,
+            "shapes": [list(sh) for sh in SURFACE_SHAPES],
+            "sparse": {"shape": list(SPARSE_SHAPE), "rows_per_rank":
+                       SPARSE_NNZ}, "bitwise": True}
+
+
 def eager_worker(config: str, rank: int, out_path: str) -> None:
     """One rank of the eager phase (``--rank-worker n2_eager``): GPT-2
     medium trained 1 checked + 3 timed steps in Horovod's PyTorch loop,
@@ -2008,6 +2536,7 @@ def eager_worker(config: str, rank: int, out_path: str) -> None:
           f"timeline: {len(phases)} tensors traced, expected one begin/end "
           f"pair for each of {len(names)} gradients")
     out["moe"] = _moe_exchanges(torch, hvd, K, n, rank)
+    out["surface"] = _surface_calls(torch, hvd, n, rank)
     hp = {k: v for k, v in opt.param_groups[0].items() if k != "params"}
     got = hvd.broadcast_object(dict(hp, lr=hp["lr"] * (rank + 1)),
                                root_rank=0, name="hyperparameters")
@@ -2122,6 +2651,7 @@ def phase_eager(torch, out_dir: str) -> dict:
            "wire_bytes_per_step_per_rank": r0["wire_bytes_per_step"],
            "peak_mem_gib_rank0": r0["peak_mem_gib"],
            "losses_rank0": r0["losses"], "moe": r0["moe"],
+           "surface": r0["surface"],
            "mismatch": r0["mismatch"], "ranks": ranks}
     print(f"eager (gloo, 2 processes on one card): gpt_medium B={batch} "
           f"S={seq} per rank, step {step_ms:.1f} ms = "
@@ -2137,7 +2667,8 @@ def phase_eager(torch, out_dir: str) -> dict:
           f"negotiation rounds per step {res['negotiation_rounds']}; "
           f"check {json.dumps(res['check'])}; mismatch "
           f"{json.dumps(res['mismatch'])}; moe exchanges "
-          f"{res['moe']['seconds']:.2f} s; launches "
+          f"{res['moe']['seconds']:.2f} s; in-place and sparse calls "
+          f"bitwise in {res['surface']['seconds']:.2f} s; launches "
           f"{json.dumps(res['launches'])}", flush=True)
     n, _, _, _, timeout = EAGER_CONFIGS["n2_join"]
     jranks, jwall = run_workers("n2_join", n, timeout, out_dir)
@@ -2159,9 +2690,10 @@ def main(argv=None) -> int:
                     help="directory for the full JSON records")
     ap.add_argument("--profile", action="store_true",
                     help="trace the serve run and two extra training "
-                         "steps with torch.profiler (slows the host; the "
-                         "serve run's wall numbers are then not the "
-                         "unprofiled ones)")
+                         "steps of each trained model with "
+                         "torch.profiler (slows the host; the serve "
+                         "run's wall numbers are then not the unprofiled "
+                         "ones)")
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--rank-worker"]:
         worker = {"n2_eager": eager_worker, "n2_join": join_worker}.get(
@@ -2204,6 +2736,10 @@ def main(argv=None) -> int:
         records.update(phase_reduce_kernels(torch, K))
         serve = phase_serve(torch, K, args.out, args.profile)
         train = phase_train(torch, K, args.out, args.profile)
+        bert = phase_bert(torch, K, args.out, args.profile)
+        vit = phase_vit(torch, K, args.out, args.profile)
+        resnet = phase_resnet(torch, K, args.out, args.profile)
+        zoo = phase_zoo(torch)
         multi = phase_multirank(torch, args.out)
         eager = phase_eager(torch, args.out)
         n2 = multi["n2_gpt_medium"]["modes"]
@@ -2213,8 +2749,18 @@ def main(argv=None) -> int:
                  "quantize_int8_stochastic": n2["int8_ef"]["launches"],
                  "adasum_dot_norms": n2["adasum"]["launches"],
                  "adasum_combine": n2["adasum"]["launches"]}
+        flash_paths = {"gpt_train": train["launches"],
+                       "bert": bert["launches"], "vit": vit["launches"]}
         for name, rec in records.items():
-            rec["launches"] = paths.get(name, train["launches"])[name]
+            if name in FLASH_NAMES:
+                # K5/K6/K7 run on three paths: each must launch them.
+                by_path = {p: c[name] for p, c in flash_paths.items()}
+                check(min(by_path.values()) > 0,
+                      f"{name}: no launch on a path: {by_path}")
+                rec["launches_by_path"] = by_path
+                rec["launches"] = sum(by_path.values())
+            else:
+                rec["launches"] = paths[name][name]
             check(rec["launches"] > 0, f"{name}: no launch on its path")
         for name in ("quantize_int8", "dequantize_int8"):
             records[name]["leaves_on_path"] = serve["codec_leaves"][name]
@@ -2226,7 +2772,8 @@ def main(argv=None) -> int:
     kernels = {"kernels": list(records.values())}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, **kernels,
-                   "serve": serve, "train": train,
+                   "serve": serve, "train": train, "bert": bert,
+                   "vit": vit, "resnet": resnet, "zoo": zoo,
                    "multirank": {c: {k: v for k, v in r.items()
                                      if k != "modes"}
                                  for c, r in multi.items()},

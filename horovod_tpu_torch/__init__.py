@@ -42,6 +42,8 @@ Names of the JAX package's API that later slices bring raise
 ``NotImplementedError`` naming their slice.
 """
 
+import torch
+
 from .common.basics import (device, init, is_initialized, local_rank,
                             local_size, rank, shutdown, size)
 from .common.device import resolve_device
@@ -59,22 +61,25 @@ from .ops.compression import Compression
 from .ops import eager as _eager
 from .optim import (DistributedOptimizer, broadcast_optimizer_state,
                     broadcast_parameters, observe_ef_residual)
+from .sync_batch_norm import SyncBatchNorm
 
 __all__ = [
     "Adasum", "AlltoallvLayoutError", "Average", "Compression",
     "DistributedOptimizer", "DuplicateTensorNameError",
     "HorovodInternalError", "HorovodTpuError", "Max", "Min",
     "MismatchError", "NotInitializedError", "Product", "ReduceOp", "Sum",
-    "TensorShapeMismatchError", "adasum_allreduce", "allgather",
-    "allgather_async", "allgather_object", "allgatherv", "allreduce",
-    "allreduce_async", "allreduce_async_", "alltoall", "barrier",
-    "broadcast", "broadcast_", "broadcast_async", "broadcast_object",
+    "SyncBatchNorm", "TensorShapeMismatchError", "adasum_allreduce",
+    "allgather", "allgather_async", "allgather_object", "allgatherv",
+    "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
+    "alltoall", "alltoall_async", "barrier", "broadcast", "broadcast_",
+    "broadcast_async", "broadcast_async_", "broadcast_object",
     "broadcast_optimizer_state", "broadcast_parameters", "device",
-    "grouped_allgather", "grouped_allreduce", "grouped_reducescatter",
-    "init", "is_initialized", "join", "local_rank", "local_size",
-    "metrics", "observe_ef_residual", "poll", "quantized_allreduce", "rank",
-    "reducescatter", "resolve_device", "shutdown", "size",
-    "start_timeline", "stop_timeline", "synchronize",
+    "grouped_allgather", "grouped_allreduce", "grouped_allreduce_",
+    "grouped_reducescatter", "init", "is_initialized", "join", "local_rank",
+    "local_size", "metrics", "observe_ef_residual", "poll",
+    "quantized_allreduce", "rank", "reducescatter", "resolve_device",
+    "shutdown", "size", "sparse_allreduce_async", "start_timeline",
+    "stop_timeline", "synchronize",
 ]
 
 
@@ -103,6 +108,13 @@ def allreduce(x, op: ReduceOp = Average, name=None,
     JAX package)."""
     return _engine(process_set).allreduce(
         x, op, name, prescale_factor, postscale_factor, compression).wait()
+
+
+def allreduce_(tensor, op: ReduceOp = Average, name=None, process_set=None):
+    """In-place :func:`allreduce` (Horovod's ``allreduce_``): writes the
+    reduction into ``tensor`` and returns ``tensor``."""
+    tensor.copy_(allreduce(tensor, op, name, process_set=process_set))
+    return tensor
 
 
 def allreduce_async(x, op: ReduceOp = Average, name=None,
@@ -134,6 +146,61 @@ def grouped_allreduce(tensors, op: ReduceOp = Average, name=None,
     return _engine(process_set).allreduce_tree(
         tensors, op, name, compression, prescale_factor,
         postscale_factor).wait()
+
+
+def grouped_allreduce_(tensors, op: ReduceOp = Average, name=None,
+                       prescale_factor: float = 1.0,
+                       postscale_factor: float = 1.0, compression=None,
+                       process_set=None):
+    """In-place :func:`grouped_allreduce` (Horovod's
+    ``grouped_allreduce_``, in the argument order of the JAX package's
+    PyTorch surface: scales before ``compression``): writes each
+    reduction into its tensor and returns ``tensors``."""
+    outs = grouped_allreduce(tensors, op, name, compression,
+                             prescale_factor, postscale_factor, process_set)
+    for t, o in zip(tensors, outs):
+        t.copy_(o)
+    return tensors
+
+
+def sparse_allreduce_async(tensor, name=None, op: ReduceOp = Average,
+                           process_set=None):
+    """Allreduce a sparse COO tensor (Horovod's
+    ``sparse_allreduce_async``): every rank's values and indices ride a
+    ragged :func:`allgatherv`, the sum of the sparse operands. Returns a
+    zero-argument callable that waits and returns the reduced sparse
+    tensor: duplicates coalesced (summed in the values' dtype), then for
+    AVERAGE divided by the world size in fp64 (rounded back for integer
+    values). Only Sum and Average are defined."""
+    if not tensor.is_sparse:
+        raise ValueError("sparse_allreduce_async needs a sparse COO "
+                         "tensor; use allreduce/allreduce_async for dense "
+                         "tensors")
+    op = ReduceOp(op)
+    if op not in (Average, Sum):
+        raise NotImplementedError("sparse allreduce supports Average/Sum")
+    e = _engine(process_set)
+    t = tensor.coalesce()
+    # COO indices are (ndim, nnz): gather along nnz, so transpose first.
+    vals = e.allgatherv(t.values(), f"{name}.values" if name else None)
+    idxs = e.allgatherv(t.indices().t().contiguous(),
+                        f"{name}.indices" if name else None)
+    # Only the shape and dtype outlive the call: the handle must not pin
+    # the input gradient.
+    shape, dtype, n = tuple(tensor.shape), tensor.dtype, e.size
+
+    def handle():
+        out = torch.sparse_coo_tensor(idxs.wait().t(), vals.wait(),
+                                      size=shape).coalesce()
+        values = out.values()
+        if op == Average:
+            values = values.to(torch.float64) / n
+            if not dtype.is_floating_point:
+                values = values.round()
+        return torch.sparse_coo_tensor(out.indices(), values.to(dtype),
+                                       size=shape)
+
+    return handle
 
 
 def allgather(x, name=None, process_set=None):
@@ -171,6 +238,16 @@ def broadcast_async(x, root_rank: int = 0, name=None) -> int:
     return e.async_call(e.broadcast, x, root_rank, name)
 
 
+def broadcast_async_(tensor, root_rank: int = 0, name=None,
+                     process_set=None) -> int:
+    """In-place :func:`broadcast_async` (Horovod's ``broadcast_async_``):
+    :func:`synchronize` writes ``root_rank``'s tensor into ``tensor`` and
+    returns ``tensor``."""
+    e = _engine(process_set)
+    return e.async_call(_eager.InPlace, e.broadcast(tensor, root_rank, name),
+                        tensor)
+
+
 def alltoall(x, name=None, splits=None, process_set=None, chunked=None,
              wire=None):
     """Even all-to-all (dim 0 in ``size`` equal chunks, chunk ``j`` to
@@ -180,6 +257,13 @@ def alltoall(x, name=None, splits=None, process_set=None, chunked=None,
     exchange's payload."""
     return _engine(process_set).alltoall(x, name, splits=splits,
                                          chunked=chunked, wire=wire).wait()
+
+
+def alltoall_async(x, name=None, process_set=None) -> int:
+    """The even :func:`alltoall`, issued: :func:`synchronize` returns the
+    chunks received, in source-rank order."""
+    e = _engine(process_set)
+    return e.async_call(e.alltoall, x, name)
 
 
 def reducescatter(x, op: ReduceOp = None, name=None, process_set=None):

@@ -1,4 +1,5 @@
-"""Parameter conversion between the JAX package's flax GPT and the port.
+"""Parameter conversion between the JAX package's flax models and the
+port's.
 
 ``gpt_params_from_jax`` takes the flax parameter tree as nested dicts
 of numpy arrays (``jax.tree.map(np.asarray, variables)``, with or
@@ -13,11 +14,24 @@ Layout differences handled here: flax ``nn.Dense`` kernels are
 ``(in, out)`` where ``nn.Linear`` weights are ``(out, in)``; flax
 LayerNorm ``scale`` is ``weight``; the embedding table is the same
 ``(vocab, hidden)`` array under another name.
+
+Every pair (``gpt_``, ``bert_``, ``vit_``, ``resnet_``, ``vgg_``,
+``inception_`` and ``mlp_params_from_jax`` / ``..._to_jax``; the ``mlp``
+pair serves :class:`~.mlp.MLP` and :class:`~.mlp.ConvNet`) renames
+module paths by a table of rules, one per family, and converts leaves
+the same way in every family: a Dense kernel is transposed, a conv kernel
+``(kh, kw, in, out)`` becomes ``(out, in, kh, kw)``, a norm's ``scale``
+becomes ``weight``, and ``batch_stats`` ``mean``/``var`` become the
+``running_mean``/``running_var`` buffers (the ``to_jax`` side returns
+them under ``"batch_stats"``). A bare top-level parameter (``pos_emb``,
+``cls``, ``pos_embed``) keeps its name and shape. Every round trip is
+exact.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import re
+from typing import Any, Callable, Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,72 +41,165 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
-def _dense(node: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    return {"weight": _tensor(node["kernel"]).t().contiguous(),
-            "bias": _tensor(node["bias"])}
-
-
-def _norm(node: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    return {"weight": _tensor(node["scale"]), "bias": _tensor(node["bias"])}
-
-
-def gpt_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax GPT params (numpy leaves) -> the port's GPT ``state_dict``."""
-    params = tree.get("params", tree)
-    layer_keys = sorted((k for k in params if k.startswith("layer")),
-                        key=lambda k: int(k[len("layer"):]))
-    out: Dict[str, torch.Tensor] = {
-        "tok_emb.weight": _tensor(params["tok_emb"]["embedding"])}
-    for i, key in enumerate(layer_keys):
-        node = params[key]
-        if "attn" not in node or "mlp_in" not in node:
-            raise ValueError(
-                f"{key}: not a dense GPT decoder layer (MoE layers are "
-                "not ported yet)")
-        parts = {"ln1": _norm(node["LayerNorm_0"]),
-                 "attn.qkv": _dense(node["attn"]["qkv"]),
-                 "attn.out": _dense(node["attn"]["out"]),
-                 "ln2": _norm(node["LayerNorm_1"]),
-                 "mlp_in": _dense(node["mlp_in"]),
-                 "mlp_out": _dense(node["mlp_out"])}
-        for name, tensors in parts.items():
-            for leaf, t in tensors.items():
-                out[f"layers.{i}.{name}.{leaf}"] = t
-    for leaf, t in _norm(params["final_ln"]).items():
-        out[f"final_ln.{leaf}"] = t
-    return out
-
-
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32).numpy().copy()
 
 
-def gpt_params_to_jax(state: Mapping[str, torch.Tensor]
-                      ) -> Dict[str, Any]:
-    """The port's GPT ``state_dict`` (or a name -> gradient mapping of
-    the same keys) -> the flax ``{"params": ...}`` tree, numpy leaves."""
-    layers = sorted({int(k.split(".")[1]) for k in state
-                     if k.startswith("layers.")})
-    params: Dict[str, Any] = {
-        "tok_emb": {"embedding": _np(state["tok_emb.weight"])},
-        "final_ln": {"scale": _np(state["final_ln.weight"]),
-                     "bias": _np(state["final_ln.bias"])}}
+# -- module names renamed by a family's rules --------------------------------
 
-    def dense(prefix):
-        return {"kernel": _np(state[prefix + ".weight"]).T.copy(),
-                "bias": _np(state[prefix + ".bias"])}
+# (flax module name, port module path); "{i}" stands for a decimal index.
+# A module name no rule matches keeps its name.
+Rules = Sequence[Tuple[str, str]]
 
-    def norm(prefix):
-        return {"scale": _np(state[prefix + ".weight"]),
-                "bias": _np(state[prefix + ".bias"])}
+_GPT: Rules = (("layer{i}", "layers.{i}"), ("LayerNorm_0", "ln1"),
+               ("LayerNorm_1", "ln2"))
+_BLOCK = (("LayerNorm_0", "ln1"), ("LayerNorm_1", "ln2"),
+          ("Dense_0", "mlp_in"), ("Dense_1", "mlp_out"))
+_BERT: Rules = (("layer_{i}", "layers.{i}"),) + _BLOCK
+_VIT: Rules = (("layer{i}", "layers.{i}"),) + _BLOCK
+_RESNET: Rules = (("BottleneckBlock_{i}", "blocks.{i}"),
+                  ("Conv_0", "conv1"), ("Conv_1", "conv2"),
+                  ("Conv_2", "conv3"), ("BatchNorm_0", "bn1"),
+                  ("BatchNorm_1", "bn2"), ("BatchNorm_2", "bn3"))
+_INCEPTION: Rules = (("ConvBN_{i}", "convs.{i}"),
+                     ("InceptionA_{i}", "inception_a.{i}"),
+                     ("InceptionB_{i}", "inception_b.{i}"),
+                     ("InceptionC_{i}", "inception_c.{i}"),
+                     ("InceptionD_{i}", "inception_d.{i}"),
+                     ("InceptionE_{i}", "inception_e.{i}"),
+                     ("Conv_0", "conv"), ("BatchNorm_0", "bn"))
+_VGG: Rules = ()
+_MLP: Rules = (("Dense_{i}", "layers.{i}"), ("Conv_{i}", "convs.{i}"))
 
-    for i in layers:
-        p = f"layers.{i}"
-        params[f"layer{i}"] = {
-            "LayerNorm_0": norm(p + ".ln1"),
-            "attn": {"qkv": dense(p + ".attn.qkv"),
-                     "out": dense(p + ".attn.out")},
-            "LayerNorm_1": norm(p + ".ln2"),
-            "mlp_in": dense(p + ".mlp_in"),
-            "mlp_out": dense(p + ".mlp_out")}
-    return {"params": params}
+_PARAM_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+               "bias": "bias"}
+_STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
+_STAT_FLAX = {v: k for k, v in _STAT_LEAF.items()}
+
+
+def _pattern(p: str) -> "re.Pattern":
+    return re.compile(re.escape(p).replace(re.escape("{i}"), r"(\d+)"))
+
+
+def _to_port_path(mods: Sequence[str], rules: Rules) -> str:
+    parts = []
+    for m in mods:
+        for flax_p, port_p in rules:
+            hit = _pattern(flax_p).fullmatch(m)
+            if hit:
+                parts.append(port_p.format(i=hit.group(1)) if hit.groups()
+                             else port_p)
+                break
+        else:
+            parts.append(m)
+    return ".".join(parts)
+
+
+def _to_flax_path(segs: Sequence[str], rules: Rules) -> List[str]:
+    out, pos = [], 0
+    while pos < len(segs):
+        for flax_p, port_p in rules:
+            want = port_p.split(".")
+            got = segs[pos:pos + len(want)]
+            hits = [_pattern(w).fullmatch(g) for w, g in zip(want, got)]
+            if len(got) == len(want) and all(hits):
+                index = [h.group(1) for h in hits if h.groups()]
+                out.append(flax_p.format(i=index[0]) if index else flax_p)
+                pos += len(want)
+                break
+        else:
+            out.append(segs[pos])
+            pos += 1
+    return out
+
+
+def _leaves(node: Mapping[str, Any], path=()):
+    for k, v in node.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _from_jax(tree: Mapping[str, Any], rules: Rules
+              ) -> Dict[str, torch.Tensor]:
+    params = tree.get("params", tree)
+    stats = tree.get("batch_stats", {}) if "params" in tree else {}
+    out: Dict[str, torch.Tensor] = {}
+    for names, node in ((_PARAM_LEAF, params), (_STAT_LEAF, stats)):
+        for (*mods, leaf), a in _leaves(node):
+            a = np.asarray(a, dtype=np.float32)
+            if not mods:                    # a bare top-level parameter
+                out[leaf] = _tensor(a)
+                continue
+            if leaf == "kernel":
+                a = a.T if a.ndim == 2 else a.transpose(3, 2, 0, 1)
+            out[f"{_to_port_path(mods, rules)}.{names[leaf]}"] = \
+                _tensor(np.ascontiguousarray(a))
+    return out
+
+
+def _to_jax(state: Mapping[str, torch.Tensor], rules: Rules,
+            embeddings: Sequence[str] = ()) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {"params": {}}
+    for key, t in state.items():
+        *segs, name = key.split(".")
+        a = _np(t)
+        coll, leaf = "params", name
+        if name in _STAT_FLAX:
+            coll, leaf = "batch_stats", _STAT_FLAX[name]
+        elif segs and name == "weight":
+            if a.ndim == 1:
+                leaf = "scale"
+            elif segs[-1] in embeddings:
+                leaf = "embedding"
+            else:
+                leaf = "kernel"
+                a = (a.T if a.ndim == 2 else a.transpose(2, 3, 1, 0)).copy()
+        node = tree.setdefault(coll, {})
+        for m in _to_flax_path(segs, rules):
+            node = node.setdefault(m, {})
+        node[leaf] = a
+    return tree
+
+
+def _pair(family: str, rules: Rules, embeddings: Sequence[str] = ()
+          ) -> Tuple[Callable, Callable]:
+    def from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+        return _from_jax(tree, rules)
+
+    def to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+        return _to_jax(state, rules, embeddings)
+
+    from_jax.__name__ = f"{family}_params_from_jax"
+    from_jax.__doc__ = (f"flax {family} variables (numpy leaves; with or "
+                        f"without the ``params`` key) -> the port's "
+                        f"``state_dict``.")
+    to_jax.__name__ = f"{family}_params_to_jax"
+    to_jax.__doc__ = (f"The port's {family} ``state_dict`` (or a name -> "
+                      f"gradient mapping) -> the flax ``{{\"params\": ..., "
+                      f"\"batch_stats\": ...}}`` tree, numpy leaves.")
+    return from_jax, to_jax
+
+
+_gpt_from_jax, gpt_params_to_jax = _pair("gpt", _GPT, ("tok_emb",))
+
+
+def gpt_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax GPT params (numpy leaves) -> the port's GPT ``state_dict``."""
+    for key, node in tree.get("params", tree).items():
+        if key.startswith("layer") and ("attn" not in node
+                                        or "mlp_in" not in node):
+            raise ValueError(
+                f"{key}: not a dense GPT decoder layer (MoE layers are "
+                "not ported yet)")
+    return _gpt_from_jax(tree)
+
+
+bert_params_from_jax, bert_params_to_jax = _pair("bert", _BERT, ("tok_emb",))
+vit_params_from_jax, vit_params_to_jax = _pair("vit", _VIT)
+resnet_params_from_jax, resnet_params_to_jax = _pair("resnet", _RESNET)
+vgg_params_from_jax, vgg_params_to_jax = _pair("vgg", _VGG)
+inception_params_from_jax, inception_params_to_jax = _pair("inception",
+                                                           _INCEPTION)
+mlp_params_from_jax, mlp_params_to_jax = _pair("mlp", _MLP)

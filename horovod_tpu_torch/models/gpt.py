@@ -32,8 +32,10 @@ from torch import nn
 
 from ..common.device import resolve_device
 from ..ops.flash_attention import flash_attention
+from ._layers import LN_EPS
+from ._layers import dense as _dense
+from ._layers import layer_norm as _layer_norm
 
-LN_EPS = 1e-6               # flax nn.LayerNorm's default epsilon
 MASK_VALUE = -1e30          # masked attention logit (not -inf)
 
 AttendFn = Callable[..., torch.Tensor]
@@ -84,20 +86,6 @@ def _cache_attend(q: torch.Tensor, k_all: torch.Tensor,
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w,
                         v_all.to(torch.float32)).to(q.dtype)
-
-
-def _dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=dtype, param_dtype=float32)``: input, kernel
-    and bias cast to the compute dtype."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype),
-                    layer.bias.to(dtype))
-
-
-def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype) -> torch.Tensor:
-    """flax ``nn.LayerNorm(dtype=dtype)``: statistics and scale in fp32,
-    output in the compute dtype."""
-    return F.layer_norm(x.to(torch.float32), ln.normalized_shape,
-                        ln.weight, ln.bias, ln.eps).to(dtype)
 
 
 class CausalSelfAttention(nn.Module):

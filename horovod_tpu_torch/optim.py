@@ -112,8 +112,10 @@ class _DistributedOptimizerMixin:
     """Methods grafted onto the user's optimizer class."""
 
     def _dist_init(self, base_cls, named_parameters, op, k, compression,
-                   predivide, threshold, quantize_min_bytes):
+                   predivide, threshold, quantize_min_bytes,
+                   sparse_as_dense):
         self._base_cls = base_cls
+        self._sparse_as_dense = sparse_as_dense
         self.op = op
         self._compression = compression
         self._predivide = predivide
@@ -157,8 +159,19 @@ class _DistributedOptimizerMixin:
         self._dist_pending = [len(b.leaf_indices)
                               for b in self._dist_plan.buckets]
 
+    def _check_sparse_grad(self, p: torch.Tensor) -> None:
+        if (p.grad is not None and p.grad.is_sparse
+                and not self._sparse_as_dense):
+            raise ValueError(
+                "DistributedOptimizer got a sparse gradient; pass "
+                "sparse_as_dense=True (densify + allreduce) or "
+                "reduce it yourself via sparse_allreduce_async")
+
     def _hook(self, p: torch.Tensor) -> None:
         pid = id(p)
+        # Checked before the delay counter moves, so that a retried
+        # backward raises the same error.
+        self._check_sparse_grad(p)
         if self._dist_delay[pid] <= 0:
             raise AssertionError(
                 f"Gradients of {self._dist_names.get(pid, 'a parameter')} "
@@ -195,9 +208,8 @@ class _DistributedOptimizerMixin:
                 # A parameter backprop did not reach contributes zeros.
                 p.grad = torch.zeros_like(p)
             if p.grad.is_sparse:
-                raise ValueError("DistributedOptimizer got a sparse "
-                                 "gradient; sparse gradients are not "
-                                 "ported yet")
+                self._check_sparse_grad(p)
+                p.grad = p.grad.to_dense()
             grads[i] = p.grad
         flat = fusion_lib.fuse_bucket(grads, bucket)
         self.bucket_allreduces += 1
@@ -373,6 +385,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          fusion_threshold_bytes: Optional[int] = None,
                          quantize_min_bucket_bytes: Optional[int] = None,
                          process_set=None,
+                         sparse_as_dense: bool = False,
                          **unported):
     """Wrap ``optimizer`` so ``step()`` first averages (``op=Average``) or
     sums (``op=Sum``) the gradients across ranks, in fused buckets, or
@@ -389,7 +402,9 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     ``fusion_threshold_bytes`` defaults to the ``init()`` setting
     (``HVD_TPU_FUSION_THRESHOLD``, 64 MiB), ``quantize_min_bucket_bytes``
     (the smallest bucket ``int8_ef`` quantizes) likewise
-    (``HVD_TPU_QUANTIZE_MIN_BYTES``, 64 KiB)."""
+    (``HVD_TPU_QUANTIZE_MIN_BYTES``, 64 KiB). ``sparse_as_dense=True``
+    densifies a sparse gradient (``nn.Embedding(sparse=True)``) before it
+    enters its bucket; with False a sparse gradient raises."""
     for key in unported:
         if key not in _UNPORTED:
             raise TypeError(f"DistributedOptimizer() got an unexpected "
@@ -434,7 +449,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
         else int(quantize_min_bucket_bytes)
     obj = _graft(optimizer, _DistributedOptimizerMixin)
     obj._dist_init(optimizer.__class__, named_parameters, op, k, compressor,
-                   float(gradient_predivide_factor), threshold, qmin)
+                   float(gradient_predivide_factor), threshold, qmin,
+                   bool(sparse_as_dense))
     return obj
 
 

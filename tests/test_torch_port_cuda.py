@@ -393,6 +393,70 @@ def test_gpt_training_step_on_card_matches_cpu():
                                    atol=1e-4, msg=name)
 
 
+def _model_case(name):
+    """(model on the card in bf16 with seeded weights, loss of it): head
+    dim 64, the smallest the card kernels take."""
+    from horovod_tpu_torch.models import bert, vit
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if name == "bert":
+        with torch.device("cuda"):
+            m = bert.bert_tiny(hidden_size=128, num_heads=2)
+        ids = torch.randint(0, 1024, (3, 100), generator=gen, device="cuda")
+        lengths = torch.tensor([100, 61, 50], device="cuda")
+        mask = (torch.arange(100, device="cuda")[None] < lengths[:, None])
+        w = (torch.rand((3, 100), generator=gen, device="cuda") < 0.15
+             ).float() * mask
+
+        def loss():
+            return bert.mlm_loss(m(ids, mask.float()), ids, w)
+    else:
+        with torch.device("cuda"):
+            m = vit.vit_tiny(hidden=128, num_heads=2, dtype=torch.bfloat16,
+                             patch_size=16, image_size=224)
+        x = torch.randn((4, 3, 224, 224), generator=gen, device="cuda")
+        y = torch.randint(0, 10, (4,), generator=gen, device="cuda")
+
+        def loss():
+            return torch.nn.functional.cross_entropy(m(x), y)
+    m.init_weights(torch.Generator(device="cuda").manual_seed(1))
+    return m, loss
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["bert", "vit"])
+def test_models_on_card_run_the_flash_kernels_non_causally(name):
+    """bf16 BERT-tiny under a padded batch's key mask (S = 100) and
+    ViT-tiny on 224x224 images (S = 197, a ragged last tile), head dim
+    64: one forward and backward launches K5/K6/K7 once per layer each,
+    and matches the same step with ``reference_attention`` — loss to
+    1e-3 relative, every gradient to 2e-2 relative Frobenius error (the
+    GPT training phase's bf16 bounds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch.ops.flash_attention import reference_attention
+
+    m, loss_fn = _model_case(name)
+    out = {}
+    for label, attend in (("flash", None), ("plain", reference_attention)):
+        m.attend_fn = attend
+        m.zero_grad(set_to_none=True)
+        kernels.reset_launch_counts()
+        loss = loss_fn()
+        loss.backward()
+        torch.cuda.synchronize()
+        want = m.num_layers if attend is None else 0
+        assert {k: kernels.LAUNCHES[k] for k in
+                ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")} == {
+            "flash_fwd": want, "flash_bwd_dq": want, "flash_bwd_dkv": want}
+        out[label] = (loss.item(), {n: p.grad.float().clone()
+                                    for n, p in m.named_parameters()})
+    (lf, gf), (lp, gp) = out["flash"], out["plain"]
+    assert abs(lf - lp) <= 1e-3 * abs(lp)
+    for n, g in gp.items():
+        assert ((gf[n] - g).norm() / g.norm()).item() <= 2e-2, n
+
+
 @pytest.mark.cuda
 def test_reduce_kernels_match_plain_on_card():
     """K3 bitwise given the same thresholds; K8 within 1e-5 of the fp64

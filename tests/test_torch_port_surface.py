@@ -1,0 +1,362 @@
+"""The rest of Horovod's PyTorch surface in the port, against the JAX
+package's PyTorch shim (``horovod_tpu.torch``).
+
+Gloo ranks (each a process running this file with ``--surface-worker``,
+as ``test_torch_port_eager.py`` runs its ranks) at n = 2, and at n = 1
+for ``SyncBatchNorm``, call ``allreduce_``, ``grouped_allreduce_``,
+``broadcast_async_``, ``alltoall_async``, ``sparse_allreduce_async``,
+``DistributedOptimizer(sparse_as_dense=...)`` and ``SyncBatchNorm``.
+
+* Replicated inputs (every rank the same tensor, the shim's world): the
+  results must equal the shim's, run in a subprocess
+  (``--shim-oracle``) on an n-device CPU mesh, bitwise — except those of
+  ``SyncBatchNorm`` and the optimizer step, within 1e-6 of the largest
+  magnitude, since the shim reduces through XLA.
+* Each rank its own inputs: the results must equal the reduction done
+  by hand from every rank's input — bitwise for the sums of two
+  operands, within 1e-6 for the optimizer step, and ``SyncBatchNorm``'s
+  output, running statistics and input gradients within 1e-5 of a
+  ``BatchNorm1d`` over the concatenated batch.
+* ``sparse_as_dense=False`` raises the shim's error on a sparse gradient.
+"""
+
+import os
+import socket
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import horovod_tpu_torch as hvd
+
+REPO = Path(__file__).resolve().parents[1]
+PRE, POST = 1 / 3, 0.7
+ORACLE_TOL = 1e-6       # XLA-reduced shim results (SyncBatchNorm, SGD)
+SBN_TOL = 1e-5          # SyncBatchNorm vs BatchNorm of the whole batch
+SGD_LR = 0.1
+
+
+def _data(rank):
+    """Seeded inputs: ``rank=None`` the replicated ones (the same on
+    every rank), else this rank's own."""
+    rng = np.random.default_rng(800 if rank is None else 810 + rank)
+    return {
+        "ar": rng.standard_normal((5, 7)).astype(np.float32),
+        "grp": [rng.standard_normal(s).astype(np.float32)
+                for s in ((11,), (4, 6))],
+        "a2a": rng.standard_normal((4, 3)).astype(np.float32),
+        "sp_idx": rng.integers(0, 4, (2, 6)),
+        "sp_val": rng.standard_normal(6).astype(np.float32),
+        "sp_int": rng.integers(-9, 10, 6),
+        "tokens": rng.integers(0, 10, (3, 5)),
+        "bn_x": rng.standard_normal((6, 4, 3)).astype(np.float32),
+        "bn_cot": rng.standard_normal((6, 4, 3)).astype(np.float32),
+    }
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def _sparse(d, values):
+    return torch.sparse_coo_tensor(_t(d["sp_idx"]), _t(values), (4, 5))
+
+
+def _emb_model():
+    torch.manual_seed(0)
+    return torch.nn.Sequential(torch.nn.Embedding(10, 4, sparse=True),
+                               torch.nn.Linear(4, 2))
+
+
+def _emb_loss(model, tokens):
+    return model(_t(tokens)).square().mean()
+
+
+def _run_ops(api, d, out, prefix, n):
+    """The calls both surfaces share, on the inputs ``d``."""
+    t = _t(d["ar"])
+    out[f"{prefix}ar_/same"] = np.array(api.allreduce_(t, op=api.Sum,
+                                                       name="ar_s") is t)
+    out[f"{prefix}ar_/sum"] = t.numpy()
+    t = _t(d["ar"])
+    api.allreduce_(t, op=api.Average, name="ar_a")
+    out[f"{prefix}ar_/avg"] = t.numpy()
+    grp = [_t(g) for g in d["grp"]]
+    ret = api.grouped_allreduce_(grp, op=api.Sum, name="gar",
+                                 prescale_factor=PRE, postscale_factor=POST)
+    out[f"{prefix}gar_/same"] = np.array(all(a is b for a, b in
+                                             zip(ret, grp)))
+    for i, g in enumerate(grp):
+        out[f"{prefix}gar_/{i}"] = g.numpy()
+    t = _t(d["ar"])
+    h = api.broadcast_async_(t, root_rank=n - 1, name="bca")
+    out[f"{prefix}bca_/same"] = np.array(api.synchronize(h) is t)
+    out[f"{prefix}bca_"] = t.numpy()
+    h = api.alltoall_async(_t(d["a2a"]), name="a2a")
+    out[f"{prefix}a2a"] = api.synchronize(h).numpy()
+    for op, code in (("sum", api.Sum), ("avg", api.Average)):
+        for kind in ("val", "int"):
+            sp = _sparse(d, d[f"sp_{kind}"])
+            got = api.sparse_allreduce_async(sp, name=f"sp.{op}.{kind}",
+                                             op=code)()
+            assert got.is_sparse and got.dtype == sp.dtype
+            out[f"{prefix}sp/{op}/{kind}"] = got.to_dense().numpy()
+
+
+def _run_optimizer(api, d, out, prefix):
+    model = _emb_model()
+    opt = api.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=SGD_LR),
+        named_parameters=model.named_parameters(), sparse_as_dense=True)
+    _emb_loss(model, d["tokens"]).backward()
+    opt.step()
+    for name, p in model.named_parameters():
+        out[f"{prefix}opt/{name}"] = p.detach().numpy().copy()
+    model = _emb_model()
+    opt = api.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=SGD_LR),
+        named_parameters=model.named_parameters())
+    try:
+        _emb_loss(model, d["tokens"]).backward()
+        out[f"{prefix}opt/error"] = np.array("")
+    except ValueError as e:
+        out[f"{prefix}opt/error"] = np.array(str(e))
+
+
+def _run_sync_bn(api, d, out, prefix):
+    x = _t(d["bn_x"]).requires_grad_(True)
+    sbn = api.SyncBatchNorm(4, momentum=0.1)
+    y = sbn(x)
+    (y * _t(d["bn_cot"])).sum().backward()
+    out[f"{prefix}sbn/y"] = y.detach().numpy()
+    out[f"{prefix}sbn/dx"] = x.grad.numpy()
+    out[f"{prefix}sbn/dw"] = sbn.weight.grad.numpy()
+    out[f"{prefix}sbn/db"] = sbn.bias.grad.numpy()
+    out[f"{prefix}sbn/mean"] = sbn.running_mean.numpy().copy()
+    out[f"{prefix}sbn/var"] = sbn.running_var.numpy().copy()
+    sbn.eval()
+    out[f"{prefix}sbn/eval"] = sbn(_t(d["bn_x"])).detach().numpy()
+
+
+def _surface_worker(rank: int, n: int, out_path: str) -> None:
+    """One rank of an n-process gloo world (run as a script)."""
+    hvd.init(device="cpu")
+    assert hvd.rank() == rank and hvd.size() == n
+    out = {}
+    _run_sync_bn(hvd, _data(None), out, "rep/")
+    _run_sync_bn(hvd, _data(rank), out, "own/")
+    if n > 1:
+        _run_ops(hvd, _data(None), out, "rep/", n)
+        _run_ops(hvd, _data(rank), out, "own/", n)
+        _run_optimizer(hvd, _data(None), out, "rep/")
+        _run_optimizer(hvd, _data(rank), out, "own/")
+        # This rank's own dense embedding gradient, for the hand check.
+        model = _emb_model()
+        _emb_loss(model, _data(rank)["tokens"]).backward()
+        for name, p in model.named_parameters():
+            g = p.grad.to_dense() if p.grad.is_sparse else p.grad
+            out[f"own/grad/{name}"] = g.numpy()
+    hvd.shutdown()
+    np.savez(out_path, **out)
+
+
+def _shim_oracle(n: int, out_path: str) -> None:
+    """The shim on an n-device CPU mesh, on the replicated inputs (run as
+    a script)."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import horovod_tpu as jhvd
+    import horovod_tpu.torch as hvdt
+
+    jhvd.init()
+    assert jhvd.size() == n
+    out = {}
+    _run_sync_bn(hvdt, _data(None), out, "rep/")
+    if n > 1:
+        _run_ops(hvdt, _data(None), out, "rep/", n)
+        _run_optimizer(hvdt, _data(None), out, "rep/")
+    np.savez(out_path, **out)
+
+
+def _env(**kw):
+    return dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+        **kw)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both gloo worlds (n = 1, 2) and both shim oracles, run side by
+    side."""
+    tmp = tmp_path_factory.mktemp("surface")
+    procs = {}
+    for n in (1, 2):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        for r in range(n):
+            procs[f"port{n}.{r}"] = subprocess.Popen(
+                [sys.executable, __file__, "--surface-worker", str(r),
+                 str(n), str(tmp / f"port{n}.{r}.npz")],
+                env=_env(HVD_TPU_COORDINATOR=f"127.0.0.1:{port}",
+                         HVD_TPU_NUM_PROC=str(n), HVD_TPU_PROC_ID=str(r)),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs[f"shim{n}"] = subprocess.Popen(
+            [sys.executable, __file__, "--shim-oracle", str(n),
+             str(tmp / f"shim{n}.npz")],
+            env=_env(JAX_PLATFORMS="cpu", HVD_TPU_FORCE_CPU_DEVICES=str(n),
+                     XLA_FLAGS=f"--xla_force_host_platform_device_count={n}"),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    logs = {}
+    try:
+        for key, p in procs.items():
+            logs[key] = p.communicate(timeout=240)[0]
+    finally:
+        for p in procs.values():
+            p.kill()
+    for key, p in procs.items():
+        assert p.returncode == 0, f"{key} failed:\n{logs[key]}"
+    return {key: dict(np.load(tmp / f"{key}.npz")) for key in procs}
+
+
+def _close(got, want, tol, what):
+    scale = max(np.abs(want).max(), 1e-30)
+    err = np.abs(np.asarray(got, np.float64) - want).max()
+    assert err <= tol * scale, f"{what}: max err {err:.3g} > {tol} x {scale}"
+
+
+OPS = ("ar_/sum", "ar_/avg", "gar_/0", "gar_/1", "bca_", "a2a",
+       "sp/sum/val", "sp/avg/val", "sp/sum/int", "sp/avg/int")
+
+
+@pytest.mark.parametrize("key", OPS)
+def test_surface_matches_the_shim_at_n2(runs, key):
+    """Replicated inputs: the port's result on every rank equals the
+    shim's, bitwise; the in-place calls return their tensors."""
+    want = runs["shim2"][f"rep/{key}"]
+    # The shim reports rank 0's side of the exchange; rank 1's receives
+    # the other chunks (checked by hand below).
+    for r in (0,) if key == "a2a" else (0, 1):
+        got = runs[f"port2.{r}"][f"rep/{key}"]
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got, want, err_msg=f"rank {r}")
+    for r in range(2):
+        for same in ("ar_", "gar_", "bca_"):
+            assert runs[f"port2.{r}"][f"rep/{same}/same"]
+
+
+@pytest.fixture(scope="module")
+def own(runs):
+    return [runs[f"port2.{r}"] for r in range(2)], [_data(r) for r in (0, 1)]
+
+
+def test_in_place_calls_reduce_each_ranks_own_inputs(own):
+    """Each rank its own inputs: sums of two operands bitwise, as done by
+    hand; the broadcast is rank 1's tensor; the alltoall sends chunk j to
+    rank j."""
+    outs, data = own
+    total = data[0]["ar"] + data[1]["ar"]
+    for r in range(2):
+        o = outs[r]
+        np.testing.assert_array_equal(o["own/ar_/sum"], total)
+        np.testing.assert_array_equal(o["own/ar_/avg"],
+                                      (torch.from_numpy(total) /
+                                       torch.tensor(2.0)).numpy())
+        np.testing.assert_array_equal(o["own/bca_"], data[1]["ar"])
+        np.testing.assert_array_equal(
+            o["own/a2a"], np.concatenate([data[s]["a2a"][2 * r:2 * r + 2]
+                                          for s in range(2)]))
+        for i in range(2):
+            pre = np.float32(PRE)
+            want = (data[0]["grp"][i] * pre + data[1]["grp"][i] * pre) \
+                * np.float32(POST)
+            np.testing.assert_array_equal(o[f"own/gar_/{i}"], want)
+
+
+def test_sparse_allreduce_reduces_each_ranks_own_inputs(own):
+    outs, data = own
+    for kind in ("val", "int"):
+        dense = [_sparse(d, d[f"sp_{kind}"]).to_dense() for d in data]
+        total = (dense[0] + dense[1]).numpy()
+        avg = (torch.from_numpy(total).to(torch.float64) / 2)
+        if kind == "int":
+            avg = avg.round()
+        for r in range(2):
+            np.testing.assert_array_equal(outs[r][f"own/sp/sum/{kind}"],
+                                          total)
+            np.testing.assert_array_equal(
+                outs[r][f"own/sp/avg/{kind}"],
+                avg.to(dense[0].dtype).numpy())
+
+
+def test_sparse_as_dense_optimizer(runs, own):
+    """``sparse_as_dense=True``: the shim's step on replicated inputs, and
+    on each rank's own the SGD step with the average of both ranks' dense
+    gradients; replicas equal. ``False``: the shim's error."""
+    outs, _ = own
+    shim = runs["shim2"]
+    names = [k[len("rep/opt/"):] for k in shim
+             if k.startswith("rep/opt/") and k != "rep/opt/error"]
+    assert names
+    w0 = {n: p.detach().numpy() for n, p in _emb_model().named_parameters()}
+    for name in names:
+        for r in range(2):
+            _close(outs[r][f"rep/opt/{name}"], shim[f"rep/opt/{name}"],
+                   ORACLE_TOL, f"rep {name} rank {r}")
+        g = (outs[0][f"own/grad/{name}"] + outs[1][f"own/grad/{name}"]) / 2
+        _close(outs[0][f"own/opt/{name}"], w0[name] - SGD_LR * g,
+               ORACLE_TOL, f"own {name}")
+        np.testing.assert_array_equal(outs[0][f"own/opt/{name}"],
+                                      outs[1][f"own/opt/{name}"])
+    want = str(shim["rep/opt/error"])
+    assert "sparse_as_dense" in want
+    for r in range(2):
+        for p in ("rep", "own"):
+            assert str(outs[r][f"{p}/opt/error"]) == want
+
+
+SBN_KEYS = ("y", "dx", "dw", "db", "mean", "var", "eval")
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_sync_batch_norm_matches_the_shim(runs, n):
+    shim = runs[f"shim{n}"]
+    for r in range(n):
+        for key in SBN_KEYS:
+            _close(runs[f"port{n}.{r}"][f"rep/sbn/{key}"],
+                   shim[f"rep/sbn/{key}"], ORACLE_TOL,
+                   f"n={n} rank {r} {key}")
+
+
+def test_sync_batch_norm_is_batch_norm_of_the_global_batch(own):
+    """Each rank its own batch: output, input gradient and running
+    statistics equal a BatchNorm1d over both ranks' batches."""
+    outs, data = own
+    x = torch.from_numpy(np.concatenate([d["bn_x"] for d in data]))
+    x.requires_grad_(True)
+    bn = torch.nn.BatchNorm1d(4, momentum=0.1)
+    y = bn(x)
+    (y * torch.from_numpy(np.concatenate([d["bn_cot"] for d in data]))
+     ).sum().backward()
+    for r in range(2):
+        rows = slice(6 * r, 6 * r + 6)
+        o = outs[r]
+        _close(o["own/sbn/y"], y.detach().numpy()[rows], SBN_TOL, "y")
+        _close(o["own/sbn/dx"], x.grad.numpy()[rows], SBN_TOL, "dx")
+        _close(o["own/sbn/mean"], bn.running_mean.numpy(), SBN_TOL, "mean")
+        _close(o["own/sbn/var"], bn.running_var.numpy(), SBN_TOL, "var")
+        # weight and bias gradients are this rank's share of the sums
+        _close(outs[0]["own/sbn/dw"] + outs[1]["own/sbn/dw"],
+               bn.weight.grad.numpy(), SBN_TOL, "dw")
+        _close(outs[0]["own/sbn/db"] + outs[1]["own/sbn/db"],
+               bn.bias.grad.numpy(), SBN_TOL, "db")
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--surface-worker"]:
+    _surface_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+if __name__ == "__main__" and sys.argv[1:2] == ["--shim-oracle"]:
+    _shim_oracle(int(sys.argv[2]), sys.argv[3])
