@@ -90,6 +90,36 @@ Phases (any failure exits non-zero and prints no result line):
    attention, in bf16 compute (loss within 1e-3 relative, every gradient
    within 2e-2 relative Frobenius error) and on an fp32 copy of the
    weights (1e-5 and 1e-3).
+6a. Integrity: GPT-2 medium at full width (seeded weights, bf16 over
+   fp32) through ``hvd.init()`` (NCCL, world size 1),
+   ``DistributedOptimizer(AdamW, accum_steps=4, remat_policy=...,
+   nonfinite_policy=...)``, ``optimizer.accumulate``, pinned host batches
+   of 32 x 513 tokens fed by ``DeviceInfeed(depth=2)`` on its copy
+   stream, and the ``BroadcastVariablesCallback`` and
+   ``LearningRateWarmupCallback`` around the steps. First, on one model
+   without optimizer hooks, ``accumulate_gradients`` under remat ``full``
+   against ``none`` (loss within 1e-3 relative, every gradient within
+   2e-2 relative Frobenius error; bitwise equality reported) and 4
+   microbatches of 2 rows against the 8 rows fused (the same limits).
+   Then four runs, remat ``none``/``full`` x ``scale_backoff``/no guard,
+   each 2 warm-up and 5 timed steps (median step ms, tokens/s = 32 x 512
+   / step, peak GiB, infeed wait ms a batch; the guard's cost is the
+   step time with it less the step time without): in the timed steps K1
+   (the unscale) must launch buckets x 5 times with the guard and never
+   without, K5 24 x 4 x 5 times (twice that under ``full``, the
+   recompute), K6 and K7 24 x 4 x 5 times, one bucket round and one
+   guard agreement a step. The ``none``/``scale_backoff`` run first takes
+   the guard drill: at effective step 3 a hook puts +Inf into the first
+   element of the first parameter's gradient; every weight and AdamW
+   state tensor must stay bitwise unchanged, the loss scale go 2^15 ->
+   2^14, with 1 non-finite and 0 good steps, and the next step apply.
+   Last, GPT-2 medium's widths at 4 layers through ``CheckpointManager(
+   max_to_keep=2)`` in a temporary directory (deleted after): saves at
+   steps 2 and 4 (model, AdamW and guard state), two more steps; step 4
+   restored into a fresh model and optimizer must repeat them bitwise;
+   after ``_corrupt_step(4, "bitflip")`` ``restore()`` must walk back to
+   step 2, counting one corruption. Printed: the caller-blocked save ms,
+   the background write s, the bytes, the verify counts.
 6b. BERT-large MLM pretraining (24 layers, hidden 1024, 16 heads, MLP
    4096, vocab 30522; seeded weights, bf16 over fp32) at B = 8, S = 512
    with a padded batch's key mask (per-sample lengths in [S/2, S]) and
@@ -134,6 +164,14 @@ Phases (any failure exits non-zero and prints no result line):
    ``SyncBatchNorm`` over its own (32, 64, 28, 28) batch on the card:
    its output, input gradient and running statistics must match a
    ``BatchNorm2d`` over the gathered batch to 1e-5 of the largest value.
+   At n = 4 each rank also runs two drills: ``compression="int8_ef",
+   nonfinite_policy="skip_step"`` for 3 steps with a NaN in rank 1's
+   first gradient element at step 2 (one guard agreement a step, every
+   rank skips, weights, int8_ef residuals and rounding step bitwise
+   unchanged across the skip, replicas bitwise equal after every step);
+   and ``DivergenceDetector(every_steps=2, policy="resync")`` after one
+   weight of rank 2 is perturbed (every rank names rank 2,
+   ``broadcast_parameters`` heals it, replicas bitwise equal again).
 8. Eager engine: the script relaunches itself as 2 gloo rank workers
    (``--rank-worker n2_eager``): GPT-2 medium at full width, B = 8,
    S = 512 per rank, each rank its own seeded batch, ``AdamW`` after
@@ -166,12 +204,14 @@ Phases (any failure exits non-zero and prints no result line):
    return 0 on both. Step times are gloo with 2 processes on one card.
 9. Result lines: the per-kernel JSON record (K1-K9, each with its
    launches on its path; K5/K6/K7 with ``launches_by_path`` for the GPT
-   training, BERT and ViT runs, each above 0, and ``launches`` their
-   sum), the card line, and last
+   training, BERT, ViT and the two guarded integrity runs, K1 for the
+   eager loop and the integrity unscale, each above 0, and ``launches``
+   their sum), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 ``--profile`` also traces the serve run and two extra training steps of
-GPT-2 medium, BERT-large, ViT-B/16 and ResNet-50 with torch.profiler
+GPT-2 medium, each integrity run, BERT-large, ViT-B/16 and ResNet-50
+with torch.profiler
 (after the timed steps, so the timed numbers stay unprofiled) and prints
 the device busy share and the top device ops.
 
@@ -1456,6 +1496,561 @@ def phase_train(torch, K, out_dir: str, profile: bool = False) -> dict:
     return result
 
 
+# -- integrity: the guard, accumulation with remat, the infeed, checkpoints --
+
+INTEG_MICRO, INTEG_ACCUM = 8, 4     # microbatch rows, microbatches a step
+INTEG_WARMUP, INTEG_STEPS = 2, 5
+INTEG_POISON_STEP = 3               # the effective step the guard drill hits
+LOSS_SCALE0 = 2.0 ** 15             # ScaleConfig's initial loss scale
+CKPT_LAYERS = 4                     # GPT-2 medium widths, cut in depth
+CKPT_SAVES, CKPT_STEPS = (2, 4), 6
+INTEG_CONFIGS = (("none", "scale_backoff"), ("none", None),
+                 ("full", "scale_backoff"), ("full", None))
+
+
+def _sync(torch, dev: str) -> None:
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def integrity_model(torch, gpt_mod, dev: str, layers: int = 24,
+                    seed: int = 0, **kw):
+    """GPT-2 medium's widths (``layers`` deep) with seeded weights on
+    ``dev``."""
+    with torch.device(dev):
+        model = gpt_mod.GPT(num_layers=layers, hidden=1024, num_heads=16,
+                            mlp_dim=4096, vocab_size=50257, **kw)
+    return model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+
+
+def integrity_batches(torch, vocab: int, n: int, rows: int, seed: int,
+                      dev: str) -> list:
+    """``n`` host batches of ``rows`` x (S + 1) tokens, pinned for the
+    copy stream on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        t = torch.randint(0, vocab, (rows, TRAIN_SEQ + 1), generator=gen)
+        out.append(t.pin_memory() if dev == "cuda" else t)
+    return out
+
+
+def poison_first_grad(torch, model, value: float):
+    """A tensor hook putting ``value`` into the first element of the first
+    parameter's gradient (the lane the JAX package's ``chaos_poison``
+    picks). Returns the hook's handle."""
+    first = next(model.parameters())
+
+    def hook(g):
+        g = g.clone()
+        g.view(-1)[0] = value
+        return g
+    return first.register_hook(hook)
+
+
+def grads_of(torch, model, run) -> tuple:
+    model.zero_grad(set_to_none=True)
+    loss = float(run())
+    return loss, {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
+def compare_grads(torch, a: tuple, b: tuple, what: str) -> dict:
+    """Loss relative error and the worst per-parameter relative Frobenius
+    gradient error of ``a`` against ``b`` (the train phase's bf16
+    limits), and whether the two are bitwise equal."""
+    (la, ga), (lb, gb) = a, b
+    loss_tol, grad_tol = REF_RTOL["bfloat16"]
+    worst_name, worst = "", 0.0
+    bitwise = la == lb
+    for name, g in gb.items():
+        bitwise = bitwise and torch.equal(ga[name], g)
+        rel = ((ga[name] - g).norm() / g.norm().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst_name, worst = name, rel
+    loss_rel = abs(la - lb) / abs(lb)
+    check(math.isfinite(la) and loss_rel <= loss_tol,
+          f"{what}: loss {la} vs {lb}, rel err {loss_rel} > {loss_tol}")
+    check(worst <= grad_tol, f"{what}: {worst_name} gradient rel err "
+                             f"{worst} > {grad_tol}")
+    return {"loss_a": la, "loss_b": lb, "loss_rel_err": loss_rel,
+            "grad_rel_err_max": worst, "grad_rel_err_param": worst_name,
+            "bitwise_equal": bool(bitwise)}
+
+
+def state_snapshot(model, opt) -> list:
+    """Every weight and every optimizer state tensor, cloned."""
+    out = [p.detach().clone() for p in model.parameters()]
+    for st in opt.state.values():
+        out += [v.clone() for v in st.values() if hasattr(v, "clone")]
+    return out
+
+
+def release(torch, opt, dev: str) -> None:
+    """Drop a DistributedOptimizer's backward hooks (they hold it and its
+    model alive) and give the freed memory back, so that the next run's
+    peak is its own."""
+    import gc
+
+    for h in opt._dist_hooks:
+        h.remove()
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+
+
+def integrity_run(torch, K, hvd, gpt_mod, cb, remat: str, policy,
+                  dev: str, layers: int, drill: bool, out_dir: str,
+                  profile: bool = False) -> dict:
+    """GPT-2 medium trained through ``DistributedOptimizer(accum_steps=4,
+    remat_policy=remat, nonfinite_policy=policy)`` on 32 x 512 tokens a
+    step fed by ``DeviceInfeed(depth=2)``, with the broadcast and warmup
+    callbacks: ``INTEG_WARMUP`` steps, with ``drill`` the guard drill
+    (a +Inf gradient lane at effective step ``INTEG_POISON_STEP``, then a
+    step that applies), then ``INTEG_STEPS`` timed steps with the launch
+    counters zeroed just before them; with ``profile`` two more steps
+    under torch.profiler."""
+    model = integrity_model(torch, gpt_mod, dev, layers)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(),
+        accum_steps=INTEG_ACCUM, remat_policy=remat,
+        nonfinite_policy=policy)
+    buckets = len(opt._dist_plan.buckets)
+    drill_steps = 2 if drill else 0
+    total = INTEG_WARMUP + drill_steps + INTEG_STEPS
+    trainer = cb.Trainer(model, opt)
+    cbs = cb.CallbackList([
+        cb.BroadcastVariablesCallback(root_rank=0),
+        cb.LearningRateWarmupCallback(initial_lr=1e-4, warmup_epochs=1,
+                                      steps_per_epoch=total)], trainer)
+    fn = opt.accumulate(lambda t: gpt_mod.next_token_loss(
+        model(t[:, :-1]), t[:, 1:]) * hvd.current_loss_scale(opt))
+    batches = integrity_batches(torch, model.vocab_size, total,
+                                INTEG_MICRO * INTEG_ACCUM, 21, dev)
+    cbs.on_train_begin()
+    cbs.on_epoch_begin(0)
+    losses, times, waits, rec = [], [], [], {}
+    timed0 = INTEG_WARMUP + drill_steps
+    with hvd.DeviceInfeed(iter(batches), depth=2) as feed:
+        check(feed.device.type == dev, f"infeed on {feed.device}, not {dev}")
+        for i in range(total):
+            if i == timed0:
+                _sync(torch, dev)
+                if dev == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
+                K.reset_launch_counts()
+                issued0, agreed0 = opt.bucket_allreduces, \
+                    opt.guard_agreements
+            t0 = time.perf_counter()
+            batch = next(feed)
+            t1 = time.perf_counter()
+            check(batch.device.type == dev, f"batch on {batch.device}")
+            cbs.on_batch_begin(i)
+            poisoned = drill and i + 1 == INTEG_POISON_STEP
+            if poisoned:
+                before = state_snapshot(model, opt)
+                guard0 = hvd.observe_guard(opt, name="integrity")
+                handle = poison_first_grad(torch, model, float("inf"))
+            scale = hvd.current_loss_scale(opt)
+            opt.zero_grad()
+            loss = fn(batch)
+            opt.step()
+            _sync(torch, dev)
+            if i >= timed0:
+                times.append(time.perf_counter() - t1)
+                waits.append(t1 - t0)
+            losses.append(float(loss) / scale)
+            cbs.on_batch_end(i)
+            if poisoned:
+                handle.remove()
+                after = state_snapshot(model, opt)
+                unchanged = len(before) == len(after) and all(
+                    torch.equal(a, b) for a, b in zip(before, after))
+                snap = hvd.observe_guard(opt, name="integrity")
+                rec["guard_drill"] = {"step": i + 1, "before": guard0,
+                                      "after": snap,
+                                      "state_tensors": len(before),
+                                      "state_bitwise_unchanged": unchanged}
+                check(unchanged, "guard: the skipped step changed a weight "
+                                 "or an AdamW state tensor")
+                check(guard0["loss_scale"] == LOSS_SCALE0
+                      and snap["loss_scale"] == LOSS_SCALE0 / 2
+                      and snap["nonfinite_steps"] == 1
+                      and snap["good_steps"] == 0 and not snap["last_ok"],
+                      f"guard: snapshot {guard0} -> {snap}")
+                first_before = before[0]
+                del before, after
+            elif drill and i == INTEG_POISON_STEP:
+                applied = not torch.equal(
+                    next(model.parameters()).detach(), first_before)
+                rec["guard_drill"]["next_step_applied"] = applied
+                check(applied, "guard: the step after the skip applied no "
+                               "update")
+                del first_before
+    cbs.on_epoch_end(0)
+    cbs.on_train_end()
+    launches = dict(K.LAUNCHES)
+    issued = opt.bucket_allreduces - issued0
+    agreed = opt.guard_agreements - agreed0
+    check(all(map(math.isfinite, losses)), f"non-finite loss: {losses}")
+    per = model.num_layers * INTEG_ACCUM * INTEG_STEPS
+    want = {k: 0 for k in launches}
+    want.update(flash_fwd=per * (2 if remat == "full" else 1),
+                flash_bwd_dq=per, flash_bwd_dkv=per,
+                scale_buffer=buckets * INTEG_STEPS
+                if policy == "scale_backoff" else 0)
+    if dev == "cuda":
+        check(launches == want, f"integrity ({remat}, {policy}): launches "
+                                f"{launches}, expected {want}")
+    check(issued == buckets * INTEG_STEPS,
+          f"integrity: {issued} bucket allreduces in {INTEG_STEPS} steps "
+          f"({buckets} buckets): more than one round a step")
+    check(agreed == (INTEG_STEPS if policy else 0),
+          f"integrity: {agreed} guard agreements in {INTEG_STEPS} steps")
+    step_s = statistics.median(times)
+    rec.update({
+        "remat_policy": remat, "nonfinite_policy": policy,
+        "layers": model.num_layers, "accum_steps": INTEG_ACCUM,
+        "microbatch": INTEG_MICRO, "seq_len": TRAIN_SEQ,
+        "fusion_buckets": buckets, "bucket_allreduces": issued,
+        "guard_agreements": agreed, "step_ms": [t * 1e3 for t in times],
+        "step_ms_median": step_s * 1e3,
+        "tokens_per_s": INTEG_MICRO * INTEG_ACCUM * TRAIN_SEQ / step_s,
+        "infeed_wait_ms_per_batch": statistics.mean(waits) * 1e3,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30
+        if dev == "cuda" else None,
+        "losses": losses, "launches": launches,
+        "guard": hvd.observe_guard(opt, name="integrity-end")})
+    if profile:
+        tokens = batches[-1].to(dev)
+
+        def step():
+            opt.zero_grad()
+            loss = fn(tokens)
+            opt.step()
+            return loss
+
+        rec["profile"] = profile_steps(torch, step, 2, os.path.join(
+            out_dir, f"chip_smoke_integrity_{remat}_{policy}_profile.txt"))
+        print(f"profile (integrity {remat}/{policy}): "
+              f"{json.dumps(rec['profile'])}", flush=True)
+    release(torch, opt, dev)
+    return rec
+
+
+def _verify_counts(hvd) -> dict:
+    fam = hvd.metrics().get("hvd_tpu_checkpoint_verify_total", {})
+    return {s["labels"]["result"]: s["value"]
+            for s in fam.get("samples", [])}
+
+
+def checkpoint_drill(torch, hvd, gpt_mod, dev: str, layers: int) -> dict:
+    """GPT-2 medium's widths at ``layers`` deep, AdamW and the
+    scale_backoff guard through ``CheckpointManager(max_to_keep=2)`` in a
+    temporary directory: saves at steps 2 and 4, two more steps; step 4
+    restored into a fresh model and optimizer must repeat those two steps
+    bitwise; then step 4 bit-flipped, and ``restore()`` must walk back to
+    step 2, counting one corruption."""
+    import shutil
+    import tempfile
+
+    def make(seed):
+        model = integrity_model(torch, gpt_mod, dev, layers, seed=seed)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4,
+                              weight_decay=1e-4),
+            named_parameters=model.named_parameters(),
+            accum_steps=INTEG_ACCUM, nonfinite_policy="scale_backoff")
+        fn = opt.accumulate(lambda t: gpt_mod.next_token_loss(
+            model(t[:, :-1]), t[:, 1:]) * hvd.current_loss_scale(opt))
+        return model, opt, fn
+
+    batches = [b.to(dev) for b in integrity_batches(
+        torch, 50257, CKPT_STEPS, INTEG_MICRO * INTEG_ACCUM, 41, dev)]
+
+    def step(opt, fn, s):
+        opt.zero_grad()
+        fn(batches[s - 1])
+        opt.step()
+
+    directory = tempfile.mkdtemp(prefix="hvd_tpu_torch_ckpt_")
+    try:
+        model, opt, fn = make(0)
+        mgr = hvd.CheckpointManager(directory, max_to_keep=2)
+        save_ms = {}
+        for s in range(1, CKPT_STEPS + 1):
+            step(opt, fn, s)
+            if s in CKPT_SAVES:
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                mgr.save(s, {"model": model.state_dict(),
+                             "optimizer": opt.state_dict()})
+                save_ms[s] = (time.perf_counter() - t0) * 1e3
+        _sync(torch, dev)
+        final = [p.detach().clone() for p in model.parameters()]
+        t0 = time.perf_counter()
+        mgr.wait()
+        drain_s = time.perf_counter() - t0
+        check(mgr.all_steps() == list(CKPT_SAVES),
+              f"checkpoint: steps on disk {mgr.all_steps()}")
+        release(torch, opt, dev)
+        del model, opt, fn
+        counts0 = _verify_counts(hvd)
+        model, opt, fn = make(1)
+        t0 = time.perf_counter()
+        tree = mgr.restore()
+        restore_s = time.perf_counter() - t0
+        check(mgr.last_restored_step == CKPT_SAVES[-1],
+              f"checkpoint: restored step {mgr.last_restored_step}")
+        model.load_state_dict(tree["model"])
+        opt.load_state_dict(tree["optimizer"])
+        del tree
+        for s in range(CKPT_SAVES[-1] + 1, CKPT_STEPS + 1):
+            step(opt, fn, s)
+        _sync(torch, dev)
+        equal = all(torch.equal(a, p.detach())
+                    for a, p in zip(final, model.parameters()))
+        check(equal, "checkpoint: the restored run's weights differ from "
+                     "the uninterrupted run's")
+        release(torch, opt, dev)
+        counts1 = _verify_counts(hvd)
+        corrupt0 = hvd.recovery_stats()["checkpoint_corruptions"]
+        mgr._corrupt_step(CKPT_SAVES[-1], "bitflip")
+        mgr.restore()
+        walked = mgr.last_restored_step
+        counts2 = _verify_counts(hvd)
+        delta = {k: counts2.get(k, 0) - counts1.get(k, 0) for k in counts2}
+        corrupted = hvd.recovery_stats()["checkpoint_corruptions"] - corrupt0
+        check(walked == CKPT_SAVES[0] and delta.get("corrupt") == 1
+              and delta.get("ok") == 1 and corrupted == 1,
+              f"checkpoint: walk-back landed on {walked}, verify counts "
+              f"{delta}, corruptions {corrupted}")
+        rec = {"layers": layers, "saves": list(CKPT_SAVES),
+               "steps": CKPT_STEPS, "max_to_keep": 2,
+               "save_caller_ms": save_ms,
+               "write_s": dict(mgr.write_seconds),
+               "bytes": dict(mgr.payload_bytes), "drain_s": drain_s,
+               "restore_s": restore_s, "resumed_bitwise": equal,
+               "verify_counts_restore": {
+                   k: counts1.get(k, 0) - counts0.get(k, 0)
+                   for k in counts1},
+               "walk_back_to": walked, "verify_counts_walk_back": delta,
+               "corruptions_counted": corrupted}
+        mgr.close()
+        del model, opt, fn, final
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    return rec
+
+
+def phase_integrity(torch, K, out_dir: str, profile: bool = False,
+                    dev: str = "cuda", layers: int = 24,
+                    ckpt_layers: int = CKPT_LAYERS) -> dict:
+    """The guard, accumulation with remat, the infeed and verified
+    checkpoints on GPT-2 medium at full width, world size 1 (NCCL)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import callbacks as cb
+    from horovod_tpu_torch.models import gpt as gpt_mod
+
+    t0 = time.perf_counter()
+    ctx = hvd.init(device=None if dev == "cuda" else dev)
+    check(hvd.size() == 1 and (dev != "cuda" or ctx.backend == "nccl"),
+          f"init: world {hvd.size()} over {ctx.backend}")
+    result = {"model": "gpt_medium", "layers": layers, "hidden": 1024,
+              "heads": 16, "mlp": 4096, "vocab": 50257,
+              "dtype": "bfloat16", "accum_steps": INTEG_ACCUM,
+              "microbatch": INTEG_MICRO, "seq_len": TRAIN_SEQ,
+              "world_size": 1, "backend": ctx.backend,
+              "optimizer": "AdamW(lr=1e-4, wd=1e-4)"}
+    # (a) remat full against none, (b) 4 x 2 rows against 8 fused, on one
+    # model with no optimizer hooks.
+    model = integrity_model(torch, gpt_mod, dev, layers)
+    batch = integrity_batches(torch, model.vocab_size, 1,
+                              INTEG_MICRO * INTEG_ACCUM, 31, dev)[0].to(dev)
+
+    def loss(t):
+        return gpt_mod.next_token_loss(model(t[:, :-1]), t[:, 1:])
+
+    def fused(t):
+        value = loss(t)
+        value.backward()
+        return value.detach()
+
+    none = grads_of(torch, model, lambda: hvd.accumulate_gradients(
+        loss, INTEG_ACCUM, "none")(batch))
+    full = grads_of(torch, model, lambda: hvd.accumulate_gradients(
+        loss, INTEG_ACCUM, "full")(batch))
+    result["remat_full_vs_none"] = compare_grads(torch, full, none,
+                                                 "remat full vs none")
+    del none, full
+    rows = batch[:INTEG_ACCUM * 2]
+    accum = grads_of(torch, model, lambda: hvd.accumulate_gradients(
+        loss, INTEG_ACCUM)(rows))
+    one = grads_of(torch, model, lambda: fused(rows))
+    result["accum_vs_fused"] = compare_grads(torch, accum, one,
+                                             "4 x 2 rows vs 8 fused")
+    del accum, one, model, batch, rows
+    import gc
+
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    runs = {}
+    for remat, policy in INTEG_CONFIGS:
+        runs[f"{remat}/{policy}"] = integrity_run(
+            torch, K, hvd, gpt_mod, cb, remat, policy, dev, layers,
+            drill=(remat, policy) == INTEG_CONFIGS[0], out_dir=out_dir,
+            profile=profile and dev == "cuda")
+    result["runs"] = runs
+    result["guard_cost_ms"] = {
+        remat: runs[f"{remat}/scale_backoff"]["step_ms_median"]
+        - runs[f"{remat}/None"]["step_ms_median"]
+        for remat in ("none", "full")}
+    result["checkpoint"] = checkpoint_drill(torch, hvd, gpt_mod, dev,
+                                            ckpt_layers)
+    result["setup_and_run_s"] = time.perf_counter() - t0
+    hvd.shutdown()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, "chip_smoke_integrity.json"), "w") as f:
+        json.dump(result, f, indent=1)
+    for what in ("remat_full_vs_none", "accum_vs_fused"):
+        r = result[what]
+        print(f"integrity {what}: loss rel err {r['loss_rel_err']:.3g}, "
+              f"worst grad rel err {r['grad_rel_err_max']:.3g} on "
+              f"{r['grad_rel_err_param']} (limits 1e-3, 2e-2); bitwise "
+              f"equal: {r['bitwise_equal']}", flush=True)
+    for key, r in runs.items():
+        print(f"integrity {key}: gpt_medium {INTEG_ACCUM} x {INTEG_MICRO} "
+              f"x {TRAIN_SEQ} a step, step {r['step_ms_median']:.1f} ms "
+              f"(median of {INTEG_STEPS}) = {r['tokens_per_s']:.0f} tok/s; "
+              f"peak {r['peak_mem_gib']} GiB; infeed wait "
+              f"{r['infeed_wait_ms_per_batch']:.3f} ms/batch; loss "
+              f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; "
+              f"{r['bucket_allreduces']} bucket allreduces, "
+              f"{r['guard_agreements']} agreements; launches "
+              f"{json.dumps(r['launches'])}", flush=True)
+    drill = runs[f"{INTEG_CONFIGS[0][0]}/{INTEG_CONFIGS[0][1]}"][
+        "guard_drill"]
+    print(f"integrity guard drill: +Inf at step {drill['step']}: "
+          f"{drill['state_tensors']} weight and AdamW tensors bitwise "
+          f"unchanged: {drill['state_bitwise_unchanged']}; guard "
+          f"{json.dumps(drill['before'])} -> {json.dumps(drill['after'])}; "
+          f"next step applied: {drill['next_step_applied']}; guard cost "
+          f"(scale_backoff - off) {json.dumps(result['guard_cost_ms'])} ms",
+          flush=True)
+    c = result["checkpoint"]
+    print(f"integrity checkpoint ({c['layers']} layers): save blocks the "
+          f"caller {json.dumps(c['save_caller_ms'])} ms, background write "
+          f"{json.dumps(c['write_s'])} s, {json.dumps(c['bytes'])} bytes; "
+          f"restore {c['restore_s']:.2f} s, resumed bitwise "
+          f"{c['resumed_bitwise']}; bit flip -> walked back to step "
+          f"{c['walk_back_to']}, verify counts "
+          f"{json.dumps(c['verify_counts_walk_back'])}", flush=True)
+    return result
+
+
+# -- the multi-rank drills of the n = 4 rank workers -------------------------
+
+GUARD_DRILL_STEPS, GUARD_BAD = 3, (2, 1)   # steps; (bad step, bad rank)
+
+
+def guard_drill(torch, hvd, gpt_mod, C, model, tokens, rank: int) -> dict:
+    """``compression="int8_ef", nonfinite_policy="skip_step"`` over the
+    ranks, a NaN lane in rank 1's gradient at step 2: one agreement a
+    step; every rank skips; the int8_ef residuals and rounding step and
+    every weight bitwise unchanged across the skip; replicas bitwise equal
+    after every step."""
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    params = list(model.parameters())
+    digest = _Digest(torch, params)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(), compression="int8_ef",
+        nonfinite_policy="skip_step")
+    int8 = opt._dist_plan.wire_dtypes.count("int8")
+    check(int8 > 0, "guard drill: no int8 bucket")
+    rec = {"steps": [], "int8_buckets": int8}
+    for step in range(1, GUARD_DRILL_STEPS + 1):
+        res0 = {b: r.clone() for b, r in opt._ef_residual.items()}
+        ef0 = opt._ef_step
+        w0 = [p.detach().clone() for p in params]
+        opt.zero_grad()
+        bad = (step, rank) == GUARD_BAD
+        handle = poison_first_grad(torch, model, float("nan")) if bad \
+            else None
+        gpt_mod.next_token_loss(model(tokens[:, :-1]),
+                                tokens[:, 1:]).backward()
+        if handle is not None:
+            handle.remove()
+        opt.step()
+        snap = hvd.observe_guard(opt, name="guard-drill")
+        every = C.all_gather_stack(digest(params))
+        equal = bool((every == every[0]).all())
+        same_w = all(torch.equal(a, p.detach()) for a, p in zip(w0, params))
+        same_res = len(res0) == len(opt._ef_residual) and all(
+            torch.equal(res0[b], r) for b, r in opt._ef_residual.items())
+        skipped = step == GUARD_BAD[0]
+        check(equal, f"guard drill: replicas differ after step {step}")
+        if skipped:
+            check(same_w and same_res and opt._ef_step == ef0
+                  and snap["nonfinite_steps"] == 1 and not snap["last_ok"],
+                  f"guard drill: rank {rank} did not skip step {step} "
+                  f"cleanly (weights {same_w}, residual {same_res}, ef step "
+                  f"{ef0} -> {opt._ef_step}, guard {snap})")
+        else:
+            check(not same_w and opt._ef_step == ef0 + 1 and snap["last_ok"],
+                  f"guard drill: step {step} did not apply on rank {rank}")
+        rec["steps"].append({"step": step, "skipped": skipped,
+                             "replicas_equal": equal,
+                             "weights_unchanged": same_w,
+                             "residual_unchanged": same_res,
+                             "ef_step": opt._ef_step, "guard": snap})
+    check(opt.guard_agreements == GUARD_DRILL_STEPS,
+          f"guard drill: {opt.guard_agreements} agreements in "
+          f"{GUARD_DRILL_STEPS} steps")
+    rec["guard_agreements"] = opt.guard_agreements
+    for h in opt._dist_hooks:
+        h.remove()
+    return rec
+
+
+DIVERGE_RANK = 2
+
+
+def divergence_drill(torch, hvd, model, rank: int) -> dict:
+    """``DivergenceDetector(every_steps=2, policy="resync")`` after one
+    weight of rank 2 is perturbed: every rank's detector names rank 2,
+    ``broadcast_parameters`` heals it, and the replicas are bitwise equal
+    again."""
+    from horovod_tpu_torch.ops import collectives as C
+
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    params = list(model.parameters())
+    digest = _Digest(torch, params)
+    det = hvd.DivergenceDetector(every_steps=2, policy="resync")
+    check(det.check(model, step=1) is None, "divergence: off-cadence check")
+    clean = det.check(model, step=2)
+    if rank == DIVERGE_RANK:
+        with torch.no_grad():
+            params[0].view(-1)[0] += 1e-3
+    report = det.check(model, step=4)
+    check(not report["ok"] and report["ranks"] == (DIVERGE_RANK,)
+          and report["needs_resync"],
+          f"divergence: rank {rank} reported {report}")
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    every = C.all_gather_stack(digest(params))
+    healed = bool((every == every[0]).all())
+    diverged, dev = hvd.integrity.check_divergence(model)
+    after = det.check(model, step=6)
+    check(clean["ok"] and healed and not diverged and dev == 0.0
+          and after["ok"], f"divergence: not healed on rank {rank} "
+                           f"(digests {healed}, spread {dev}, {after})")
+    return {"clean": clean["ok"], "named": list(report["ranks"]),
+            "needs_resync": report["needs_resync"], "healed": healed,
+            "spread_after": dev, "checks": det.checks}
+
+
 # -- the model zoo: BERT-large, ViT-B/16, ResNet-50 and one step of the rest
 
 BERT_BATCH, BERT_SEQ, BERT_MLM = 8, 512, 0.15
@@ -1792,7 +2387,7 @@ class _Digest:
 
     def __init__(self, torch, params):
         n = max(p.numel() for p in params)
-        idx = torch.arange(n, device="cuda", dtype=torch.int64)
+        idx = torch.arange(n, device=params[0].device, dtype=torch.int64)
         self.weights = (idx * 2654435761) % 2147483647 + 1
         self.torch = torch
 
@@ -2086,6 +2681,15 @@ def rank_worker(config: str, rank: int, out_path: str) -> None:
         check(bool(torch.isfinite(y).all()), "adasum int8 wire: non-finite")
         out["adasum_int8_wire"] = {"elements": x.numel(),
                                    "launches": launches}
+    if n == 4:
+        tokens = torch.randint(0, 128, (batch, seq + 1),
+                               generator=torch.Generator().manual_seed(
+                                   11 + rank)).to("cuda")
+        out["guard_drill"] = guard_drill(
+            torch, hvd, gpt_mod, C, _make_model(torch, gpt_mod, model_name),
+            tokens, rank)
+        out["divergence_drill"] = divergence_drill(
+            torch, hvd, _make_model(torch, gpt_mod, model_name), rank)
     if n == 2:
         out["sync_batch_norm"] = sync_bn_check(torch, hvd, rank)
     hvd.shutdown()
@@ -2220,6 +2824,19 @@ def phase_multirank(torch, out_dir: str) -> dict:
                   f"{json.dumps(m['launches'])}", flush=True)
         if "adasum_int8_wire" in ranks[0]:
             res["adasum_int8_wire"] = ranks[0]["adasum_int8_wire"]
+        if "guard_drill" in ranks[0]:
+            res["guard_drill"] = [rk["guard_drill"] for rk in ranks]
+            res["divergence_drill"] = [rk["divergence_drill"]
+                                       for rk in ranks]
+            print(f"multi-rank {config} guard drill (int8_ef, skip_step, NaN "
+                  f"on rank {GUARD_BAD[1]} at step {GUARD_BAD[0]}): "
+                  f"{json.dumps([rk['guard_drill']['steps'] for rk in ranks][0])}"
+                  f"; agreements "
+                  f"{[rk['guard_drill']['guard_agreements'] for rk in ranks]}",
+                  flush=True)
+            print(f"multi-rank {config} divergence drill (rank "
+                  f"{DIVERGE_RANK} perturbed, resync): "
+                  f"{json.dumps(res['divergence_drill'])}", flush=True)
         if "sync_batch_norm" in ranks[0]:
             res["sync_batch_norm"] = [rk["sync_batch_norm"] for rk in ranks]
             print(f"multi-rank {config} SyncBatchNorm ({n} ranks, "
@@ -2736,6 +3353,7 @@ def main(argv=None) -> int:
         records.update(phase_reduce_kernels(torch, K))
         serve = phase_serve(torch, K, args.out, args.profile)
         train = phase_train(torch, K, args.out, args.profile)
+        integ = phase_integrity(torch, K, args.out, args.profile)
         bert = phase_bert(torch, K, args.out, args.profile)
         vit = phase_vit(torch, K, args.out, args.profile)
         resnet = phase_resnet(torch, K, args.out, args.profile)
@@ -2743,18 +3361,30 @@ def main(argv=None) -> int:
         multi = phase_multirank(torch, args.out)
         eager = phase_eager(torch, args.out)
         n2 = multi["n2_gpt_medium"]["modes"]
-        paths = {"scale_buffer": eager["launches"],
-                 "quantize_int8": serve["launches"],
+        paths = {"quantize_int8": serve["launches"],
                  "dequantize_int8": serve["launches"],
                  "quantize_int8_stochastic": n2["int8_ef"]["launches"],
                  "adasum_dot_norms": n2["adasum"]["launches"],
                  "adasum_combine": n2["adasum"]["launches"]}
+        integ_runs = integ["runs"]
         flash_paths = {"gpt_train": train["launches"],
-                       "bert": bert["launches"], "vit": vit["launches"]}
+                       "bert": bert["launches"], "vit": vit["launches"],
+                       "integrity_none": integ_runs["none/scale_backoff"][
+                           "launches"],
+                       "integrity_full": integ_runs["full/scale_backoff"][
+                           "launches"]}
+        # K1 runs on the eager path (pre/postscale) and as the guard's
+        # unscale on the integrity path.
+        scale_paths = {"eager": eager["launches"],
+                       "integrity_unscale": {"scale_buffer": sum(
+                           r["launches"]["scale_buffer"]
+                           for r in integ_runs.values())}}
         for name, rec in records.items():
-            if name in FLASH_NAMES:
-                # K5/K6/K7 run on three paths: each must launch them.
-                by_path = {p: c[name] for p, c in flash_paths.items()}
+            if name in FLASH_NAMES or name == "scale_buffer":
+                # Kernels on several paths: each path must launch them.
+                by_path = {p: c[name] for p, c in (
+                    scale_paths if name == "scale_buffer"
+                    else flash_paths).items()}
                 check(min(by_path.values()) > 0,
                       f"{name}: no launch on a path: {by_path}")
                 rec["launches_by_path"] = by_path
@@ -2772,7 +3402,8 @@ def main(argv=None) -> int:
     kernels = {"kernels": list(records.values())}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, **kernels,
-                   "serve": serve, "train": train, "bert": bert,
+                   "serve": serve, "train": train, "integrity": integ,
+                   "bert": bert,
                    "vit": vit, "resnet": resnet, "zoo": zoo,
                    "multirank": {c: {k: v for k, v in r.items()
                                      if k != "modes"}

@@ -34,7 +34,18 @@ Ported so far:
   writes in place at ``synchronize``, ``poll``, ``synchronize``),
   ``broadcast_object``/``allgather_object``, and the timeline; collectives
   are negotiated across ranks by the controller (``common/controller.py``)
-  over the c10d store, once per signature.
+  over the c10d store, once per signature;
+* slice 8 — the rest of Horovod's PyTorch surface and the model zoo;
+* slice 9 — what a long job needs to run safely: the integrity guard
+  (``DistributedOptimizer(nonfinite_policy=)`` with K1 unscaling under
+  ``scale_backoff``, ``observe_guard``, ``current_loss_scale``,
+  ``DivergenceDetector``; ``common/integrity.py``), accumulation with
+  remat (``DistributedOptimizer(accum_steps=, remat_policy=)``,
+  ``optimizer.accumulate``, ``accumulate_gradients``), the CUDA infeed
+  (``data.py``: ``DeviceInfeed`` on a copy stream, ``shard_batch``,
+  ``ElasticSampler``), verified checkpoints (``checkpoint.py``:
+  ``CheckpointManager`` with CRC sidecars and walk-back) and the training
+  callbacks (``callbacks.py``).
 
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request they raise.
@@ -47,11 +58,17 @@ import torch
 from .common.basics import (device, init, is_initialized, local_rank,
                             local_size, rank, shutdown, size)
 from .common.device import resolve_device
+from .common import integrity
 from .common.exceptions import (AlltoallvLayoutError,
+                                CheckpointCorruptError, DivergenceError,
                                 DuplicateTensorNameError,
                                 HorovodInternalError, HorovodTpuError,
-                                MismatchError, NotInitializedError,
+                                MismatchError, NonFiniteError,
+                                NotInitializedError,
                                 TensorShapeMismatchError)
+from .common.faults import recovery_stats
+from .common.integrity import (DivergenceDetector, current_loss_scale,
+                               observe_guard)
 from .common.metrics import metrics
 from .functions import allgather_object, broadcast_object
 from .ops.adasum import adasum_allreduce
@@ -59,27 +76,38 @@ from .ops.collectives import (Adasum, Average, Max, Min, Product, ReduceOp,
                               Sum, broadcast_, quantized_allreduce)
 from .ops.compression import Compression
 from .ops import eager as _eager
-from .optim import (DistributedOptimizer, broadcast_optimizer_state,
-                    broadcast_parameters, observe_ef_residual)
+from .optim import (DistributedOptimizer, accumulate_gradients,
+                    broadcast_optimizer_state, broadcast_parameters,
+                    observe_ef_residual, resolve_remat_policy)
 from .sync_batch_norm import SyncBatchNorm
+from . import callbacks, checkpoint
+from .checkpoint import CheckpointManager, ObjectStore
+from .data import (BackgroundPrefetcher, DeviceInfeed, ElasticSampler,
+                   infeed_pipeline, prefetch_to_device, shard_batch)
 
 __all__ = [
-    "Adasum", "AlltoallvLayoutError", "Average", "Compression",
-    "DistributedOptimizer", "DuplicateTensorNameError",
+    "Adasum", "AlltoallvLayoutError", "Average", "BackgroundPrefetcher",
+    "CheckpointCorruptError", "CheckpointManager", "Compression",
+    "DeviceInfeed", "DistributedOptimizer", "DivergenceDetector",
+    "DivergenceError", "DuplicateTensorNameError", "ElasticSampler",
     "HorovodInternalError", "HorovodTpuError", "Max", "Min",
-    "MismatchError", "NotInitializedError", "Product", "ReduceOp", "Sum",
-    "SyncBatchNorm", "TensorShapeMismatchError", "adasum_allreduce",
+    "MismatchError", "NonFiniteError", "NotInitializedError",
+    "ObjectStore", "Product", "ReduceOp", "Sum", "SyncBatchNorm",
+    "TensorShapeMismatchError", "accumulate_gradients", "adasum_allreduce",
     "allgather", "allgather_async", "allgather_object", "allgatherv",
     "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
     "alltoall", "alltoall_async", "barrier", "broadcast", "broadcast_",
     "broadcast_async", "broadcast_async_", "broadcast_object",
-    "broadcast_optimizer_state", "broadcast_parameters", "device",
-    "grouped_allgather", "grouped_allreduce", "grouped_allreduce_",
-    "grouped_reducescatter", "init", "is_initialized", "join", "local_rank",
-    "local_size", "metrics", "observe_ef_residual", "poll",
-    "quantized_allreduce", "rank", "reducescatter", "resolve_device",
-    "shutdown", "size", "sparse_allreduce_async", "start_timeline",
-    "stop_timeline", "synchronize",
+    "broadcast_optimizer_state", "broadcast_parameters", "callbacks",
+    "checkpoint", "current_loss_scale", "device", "grouped_allgather",
+    "grouped_allreduce", "grouped_allreduce_", "grouped_reducescatter",
+    "infeed_pipeline", "init", "integrity", "is_initialized", "join",
+    "local_rank", "local_size", "metrics", "observe_ef_residual",
+    "observe_guard", "poll", "prefetch_to_device", "quantized_allreduce",
+    "rank", "recovery_stats", "reducescatter", "resolve_device",
+    "resolve_remat_policy", "shard_batch", "shutdown", "size",
+    "sparse_allreduce_async", "start_timeline", "stop_timeline",
+    "synchronize",
 ]
 
 
@@ -327,20 +355,13 @@ _LATER = {
     "the process-set slice": (
         "ProcessSet", "add_process_set", "remove_process_set", "cross_rank",
         "cross_size", "is_homogeneous"),
-    "the integrity-guard slice": (
-        "integrity", "observe_guard", "current_loss_scale",
-        "DivergenceDetector", "NonFiniteError", "DivergenceError"),
-    "the accumulation-with-remat slice": (
-        "accumulate_gradients", "resolve_remat_policy", "DeviceInfeed",
-        "prefetch_to_device", "BackgroundPrefetcher", "infeed_pipeline",
-        "shard_batch"),
     "the ZeRO/FSDP slice": (
         "ShardedOptimizer", "FSDPOptimizer", "ZeroOptimizer",
         "sharded_init", "sharded_update", "auto_shard_threshold",
-        "should_shard_update"),
+        "should_shard_update", "save_sharded", "restore_sharded"),
     "the elastic and launcher slice": (
-        "run", "recovery_stats", "HostsUpdatedInterrupt",
-        "CheckpointCorruptError", "flight_recorder"),
+        "run", "HostsUpdatedInterrupt", "flight_recorder", "save_state",
+        "restore_state", "chaos_poison", "chaos_perturb"),
     "the parallel-roles slice": (
         "ParallelSpec", "parallel_spec", "parallel_mesh",
         "pipeline_accumulate_gradients", "pipeline_apply",

@@ -1,0 +1,444 @@
+"""Verified asynchronous checkpoints of the port — its copy of
+``horovod_tpu/checkpoint.py`` over ``torch.save`` and ``zlib``.
+
+``CheckpointManager.save(step, tree)`` copies every tensor of the tree to
+the host on the caller's thread, so the copy is complete before ``save``
+returns and the next step cannot tear it; a background thread then
+``torch.save``s it into ``<dir>/<step>.tmp``, commits the directory with
+``os.replace`` to ``<dir>/<step>``, and writes the integrity sidecar
+``hvd_integrity.json`` in it (tmp file plus ``os.replace``): the JAX
+package's schema ``{"algo", "step", "files": {name: {"size", "crc"}}}``
+with its ``"crc32"`` algorithm (``zlib.crc32``, eight hex digits).
+
+``restore()`` verifies the newest step against its sidecar and, on a
+corrupt one (a torn write, a flipped bit, a truncated file, a damaged
+sidecar), walks back to the newest step that verifies, raising
+:class:`CheckpointCorruptError` when none is left. Each verification
+bumps ``hvd_tpu_checkpoint_verify_total{result=}`` (ok / corrupt /
+missing) and a corruption ``RecoveryStats.checkpoint_corruptions``.
+
+In a multi-rank world the state is replicated: rank 0 writes, and every
+rank may restore once rank 0's ``wait()`` has returned. Sharded saves
+(``save_sharded``) come with the ZeRO/FSDP slice of the port, and an
+elastic state's ``save_state``/``restore_state`` with the elastic and
+launcher slice.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import pickle
+import queue as queue_mod
+import shutil
+import threading
+import time
+import zlib
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from .common import basics
+from .common import faults as faults_lib
+from .common import metrics as metrics_lib
+from .common import tree as tree_lib
+from .common.exceptions import CheckpointCorruptError
+
+logger = logging.getLogger("horovod_tpu_torch")
+
+SIDECAR_NAME = "hvd_integrity.json"
+PAYLOAD_NAME = "tree.pt"
+_CRC_ALGO = "crc32"
+
+_M_VERIFY = metrics_lib.counter(
+    "hvd_tpu_checkpoint_verify_total",
+    "checkpoint integrity verifications by result (ok / corrupt / "
+    "missing sidecar)",
+    labels=("result",))
+for _r in ("ok", "corrupt", "missing"):
+    _M_VERIFY.labels(result=_r)
+del _r
+
+
+def _crc_file(path: str) -> str:
+    crc = 0
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            crc = zlib.crc32(chunk, crc)
+    return f"{crc & 0xFFFFFFFF:08x}"
+
+
+def _to_host(tree):
+    """Every tensor of ``tree`` copied to host memory (detached)."""
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().to("cpu", copy=True)
+        return x
+
+    return tree_lib.map_tree(one, tree)
+
+
+class CheckpointManager:
+    """A versioned, asynchronous, garbage-collected checkpoint directory
+    whose steps are verified on restore::
+
+        mgr = hvd.CheckpointManager("/ckpts", max_to_keep=3)
+        mgr.save(step, {"model": model.state_dict(),
+                        "optimizer": opt.state_dict()})
+        tree = mgr.restore()            # the newest verified step
+
+    ``save_interval_steps`` skips a ``save`` whose step is less than that
+    many past the last saved one (``force=True`` saves anyway);
+    ``max_to_keep`` removes the oldest committed steps beyond it;
+    ``verify`` (None: ``init(checkpoint_verify=)`` /
+    ``HVD_TPU_CHECKPOINT_VERIFY``, default on) writes and checks the CRC
+    sidecars."""
+
+    def __init__(self, directory: str, max_to_keep: int = 5,
+                 save_interval_steps: int = 1,
+                 verify: Optional[bool] = None):
+        if verify is None:
+            if basics.is_initialized():
+                verify = basics.context().config.checkpoint_verify
+            else:
+                from .common.config import _truthy, runtime_env
+
+                verify = _truthy(runtime_env("CHECKPOINT_VERIFY") or "1")
+        self.verify = bool(verify)
+        self.max_to_keep = int(max_to_keep)
+        self.save_interval_steps = int(save_interval_steps)
+        self.directory = os.path.abspath(directory)
+        #: The step the most recent restore() loaded (after any walk-back).
+        self.last_restored_step: Optional[int] = None
+        #: Seconds the background thread spent writing each saved step,
+        #: and each step's payload bytes.
+        self.write_seconds: Dict[int, float] = {}
+        self.payload_bytes: Dict[int, int] = {}
+        self._last_saved: Optional[int] = None
+        self._writer = basics.rank() == 0 if basics.is_initialized() \
+            else True
+        self._error: Optional[BaseException] = None
+        self._jobs: "queue_mod.Queue" = queue_mod.Queue()
+        self._thread: Optional[threading.Thread] = None
+        os.makedirs(self.directory, exist_ok=True)
+
+    # -- write side ---------------------------------------------------------
+
+    def save(self, step: int, tree: Any, force: bool = False) -> bool:
+        """Save ``tree`` at ``step``: the host copy now, the files in the
+        background. Returns False when the save interval skipped it."""
+        step = int(step)
+        self._raise_pending()
+        if not force and self._last_saved is not None and \
+                step - self._last_saved < self.save_interval_steps:
+            return False
+        if step in self.all_steps():
+            raise ValueError(f"checkpoint step {step} already exists under "
+                             f"{self.directory}")
+        host = _to_host(tree)
+        self._last_saved = step
+        if not self._writer:
+            return True
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._drain, daemon=True,
+                                            name="hvd-checkpoint-writer")
+            self._thread.start()
+        self._jobs.put((step, host))
+        return True
+
+    def _drain(self) -> None:
+        while True:
+            job = self._jobs.get()
+            try:
+                if job is None:
+                    return
+                self._write(*job)
+            except Exception as e:  # raised on the next call
+                self._error = e
+            finally:
+                self._jobs.task_done()
+
+    def _write(self, step: int, host: Any) -> None:
+        t0 = time.perf_counter()
+        final = self._step_dir(step)
+        tmp = final + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        path = os.path.join(tmp, PAYLOAD_NAME)
+        with open(path, "wb") as f:
+            torch.save(host, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, final)
+        if self.verify:
+            self._write_sidecar(step)
+        self.write_seconds[step] = time.perf_counter() - t0
+        self.payload_bytes[step] = os.path.getsize(
+            os.path.join(final, PAYLOAD_NAME))
+        self._collect()
+
+    def _collect(self) -> None:
+        """Remove the oldest committed steps beyond ``max_to_keep``."""
+        steps = self.all_steps()
+        for step in steps[:max(len(steps) - self.max_to_keep, 0)]:
+            shutil.rmtree(self._step_dir(step), ignore_errors=True)
+
+    def wait(self) -> None:
+        """Block until every save so far is on disk (and verified
+        sidecars written); raises what a background write raised."""
+        if self._thread is not None:
+            self._jobs.join()
+        self._raise_pending()
+
+    def _raise_pending(self) -> None:
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    # -- integrity sidecars -------------------------------------------------
+
+    def _step_dir(self, step: int) -> str:
+        return os.path.join(self.directory, str(step))
+
+    def _sidecar_path(self, step: int) -> str:
+        return os.path.join(self._step_dir(step), SIDECAR_NAME)
+
+    def _manifest(self, step: int) -> Dict[str, Dict[str, Any]]:
+        root = self._step_dir(step)
+        files: Dict[str, Dict[str, Any]] = {}
+        for dirpath, _dirs, names in os.walk(root):
+            for name in sorted(names):
+                if name == SIDECAR_NAME or name.endswith(".tmp"):
+                    continue
+                path = os.path.join(dirpath, name)
+                files[os.path.relpath(path, root)] = {
+                    "size": os.path.getsize(path), "crc": _crc_file(path)}
+        return files
+
+    def _write_sidecar(self, step: int) -> None:
+        sidecar = self._sidecar_path(step)
+        payload = {"algo": _CRC_ALGO, "step": int(step),
+                   "files": self._manifest(step)}
+        tmp = sidecar + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(payload, f)
+        os.replace(tmp, sidecar)
+
+    def verify_step(self, step: int) -> str:
+        """Verify one step against its sidecar: ``"ok"`` | ``"corrupt"``
+        (size or CRC mismatch, a missing payload file, an unreadable
+        sidecar) | ``"missing"`` (no sidecar). Counted in
+        ``hvd_tpu_checkpoint_verify_total{result=}``."""
+        result = self._verify_quiet(step)
+        _M_VERIFY.labels(result=result).inc()
+        if result == "corrupt":
+            faults_lib.stats.bump("checkpoint_corruptions")
+        return result
+
+    def _verify_quiet(self, step: int) -> str:
+        try:
+            with open(self._sidecar_path(step)) as f:
+                payload = json.load(f)
+        except FileNotFoundError:
+            return "missing"
+        except (OSError, ValueError):
+            return "corrupt"
+        if payload.get("algo") != _CRC_ALGO:
+            # Another writer's algorithm cannot be checked here.
+            return "missing"
+        root = self._step_dir(step)
+        for rel, meta in payload.get("files", {}).items():
+            path = os.path.join(root, rel)
+            try:
+                if os.path.getsize(path) != meta["size"] or \
+                        _crc_file(path) != meta["crc"]:
+                    return "corrupt"
+            except OSError:
+                return "corrupt"
+        return "ok"
+
+    def _corrupt_step(self, step: int, mode: str = "bitflip") -> None:
+        """Damage a committed step (for tests and drills): ``bitflip``
+        flips the middle byte of the largest payload file, ``truncate``
+        halves it, ``sidecar`` corrupts the manifest itself."""
+        root = self._step_dir(step)
+        if mode == "sidecar":
+            with open(self._sidecar_path(step), "w") as f:
+                f.write("{corrupt")
+            return
+        best, best_size = None, -1
+        for dirpath, _dirs, names in os.walk(root):
+            for name in names:
+                if name == SIDECAR_NAME:
+                    continue
+                p = os.path.join(dirpath, name)
+                s = os.path.getsize(p)
+                if s > best_size:
+                    best, best_size = p, s
+        if best is None:
+            return
+        logger.warning("corrupting checkpoint step %d (%s, %s)", step, mode,
+                       os.path.relpath(best, root))
+        with open(best, "r+b") as f:
+            if mode == "truncate":
+                f.truncate(max(best_size // 2, 0))
+            else:
+                f.seek(best_size // 2)
+                b = f.read(1)
+                f.seek(best_size // 2)
+                f.write(bytes([(b[0] ^ 0xFF) if b else 0xFF]))
+
+    # -- read side ----------------------------------------------------------
+
+    def all_steps(self) -> List[int]:
+        """The committed steps, oldest first."""
+        try:
+            names = os.listdir(self.directory)
+        except FileNotFoundError:
+            return []
+        return sorted(int(n) for n in names if n.isdigit()
+                      and os.path.isdir(os.path.join(self.directory, n)))
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def restore(self, step: Optional[int] = None, target: Any = None,
+                verify: bool = True) -> Any:
+        """Load ``step`` (default: the newest verified step, walking back
+        past corrupt ones). A pinned ``step`` that fails verification
+        raises :class:`CheckpointCorruptError` (no silent substitute);
+        a step without a sidecar loads with a warning. ``target`` (a tree
+        of the same structure) gives each tensor its dtype and device;
+        without it the tensors come back on the host as saved.
+        ``verify=False`` (or a manager built with ``verify=False``) loads
+        without checking."""
+        self.wait()
+        check = self.verify and verify
+        if step is None:
+            step = self._latest_verified_step(check)
+        elif check and self.verify_step(step) == "corrupt":
+            raise CheckpointCorruptError(
+                f"checkpoint step {step} under {self.directory} failed "
+                f"integrity verification ({_CRC_ALGO}+size sidecar "
+                "mismatch); refusing to load a corrupt checkpoint that "
+                "was pinned explicitly")
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        self.last_restored_step = step
+        with open(os.path.join(self._step_dir(step), PAYLOAD_NAME),
+                  "rb") as f:
+            tree = torch.load(f, map_location="cpu", weights_only=False)
+        if target is None:
+            return tree
+        return _like(tree, target)
+
+    def latest_verified_step(self) -> Optional[int]:
+        """The step a default ``restore()`` would load."""
+        self.wait()
+        return self._latest_verified_step(self.verify)
+
+    def _latest_verified_step(self, check: bool) -> Optional[int]:
+        """The newest step that passes verification: the walk-back
+        (corrupt steps are skipped with a warning, never deleted)."""
+        steps = sorted(self.all_steps(), reverse=True)
+        if not steps:
+            return None
+        if not check:
+            return steps[0]
+        corrupt = []
+        for step in steps:
+            result = self.verify_step(step)
+            if result == "corrupt":
+                corrupt.append(step)
+                logger.warning(
+                    "checkpoint step %d failed integrity verification "
+                    "(%s+size sidecar mismatch); walking back to the "
+                    "previous verified step", step, _CRC_ALGO)
+                continue
+            if result == "missing":
+                logger.warning("checkpoint step %d has no integrity "
+                               "sidecar; restoring unverified", step)
+            if corrupt:
+                logger.warning("checkpoint: restored step %d after "
+                               "skipping corrupt step(s) %s", step, corrupt)
+            return step
+        raise CheckpointCorruptError(
+            f"every checkpoint under {self.directory} failed integrity "
+            f"verification (corrupt steps: {corrupt}); no last-good step "
+            "to fall back to")
+
+    def close(self) -> None:
+        """Finish the pending writes and stop the writer thread."""
+        if self._thread is not None:
+            self._jobs.join()
+            self._jobs.put(None)
+            self._thread.join()
+            self._thread = None
+        self._raise_pending()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _like(tree, target):
+    """``tree`` with each tensor given the dtype and device of the tensor
+    at the same place in ``target``."""
+    if isinstance(target, torch.Tensor):
+        return torch.as_tensor(tree).to(device=target.device,
+                                        dtype=target.dtype)
+    if isinstance(target, dict):
+        return type(tree)((k, _like(v, target[k]) if k in target else v)
+                          for k, v in tree.items())
+    if isinstance(target, (list, tuple)) and isinstance(tree, (list, tuple)):
+        parts = [_like(a, b) for a, b in zip(tree, target)]
+        return type(tree)(*parts) if hasattr(tree, "_fields") \
+            else type(tree)(parts)
+    return tree
+
+
+class ObjectStore:
+    """A pickle store for small host objects (RNG state, epoch counters,
+    data-loader cursors) beside the tensor checkpoints."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, name: str) -> str:
+        return os.path.join(self.directory, f"{name}.pkl")
+
+    def put(self, name: str, obj: Any) -> None:
+        tmp = self._path(name) + ".tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(obj, f)
+        os.replace(tmp, self._path(name))
+
+    def get(self, name: str, default: Any = None) -> Any:
+        try:
+            with open(self._path(name), "rb") as f:
+                return pickle.load(f)
+        except FileNotFoundError:
+            return default
+
+    def exists(self, name: str) -> bool:
+        return os.path.exists(self._path(name))
+
+
+_LATER = {"save_state": "the elastic and launcher slice",
+          "restore_state": "the elastic and launcher slice",
+          "save_sharded": "the ZeRO/FSDP slice",
+          "restore_sharded": "the ZeRO/FSDP slice"}
+
+
+def __getattr__(name):
+    where = _LATER.get(name)
+    if where is None:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    raise NotImplementedError(f"checkpoint.{name} is not ported yet; it "
+                              f"comes with {where} of the port")

@@ -32,6 +32,25 @@ RUNTIME_KNOBS = {
     "ADASUM_SCALAR_DTYPE": "dtype of Adasum's dot/norm scalars (float32 "
                            "runs kernel K8; others plain torch)",
     "FLASH_ATTENTION": "flash-attention kernel enable (0 = reference)",
+    # Training integrity, accumulation and the infeed (Config fields).
+    "NONFINITE_POLICY": "non-finite gradient policy (off/warn/skip_step/"
+                        "zero/scale_backoff/abort)",
+    "DIVERGE_CHECK_STEPS": "divergence-detector cadence in steps (0 = off)",
+    "DIVERGE_POLICY": "divergence policy (warn/abort/resync)",
+    "CHECKPOINT_VERIFY": "verify checkpoints against their CRC sidecar "
+                         "(0/1, default 1)",
+    "ACCUM_STEPS": "default microbatch count of accumulate() (1 = off)",
+    "REMAT_POLICY": "remat policy of the microbatch loss (none/full/dots/"
+                    "dots_no_batch)",
+    "PREFETCH": "default infeed mode (off/single/double)",
+    # Dynamic loss scaling of the scale_backoff policy (ScaleConfig).
+    "SCALE_INIT": "initial loss scale (2**15)",
+    "SCALE_BACKOFF_FACTOR": "loss-scale factor on a bad step (0.5)",
+    "SCALE_GROWTH_FACTOR": "loss-scale factor after a good streak (2.0)",
+    "SCALE_GROWTH_STEPS": "good steps before the scale grows (200)",
+    "SCALE_MIN": "smallest loss scale (1.0)",
+    "SCALE_MAX": "largest loss scale (2**24)",
+    "RECOVERY_STATS_FILE": "at-exit recovery-counter dump path",
     # Eager collective engine.
     "CACHE_CAPACITY": "eager signature-cache capacity (1024)",
     "JOIN_MODE": "every eager collective runs a coordination round so "
@@ -85,6 +104,24 @@ def _truthy(raw: str) -> bool:
     return raw.strip().lower() in ("1", "true", "yes", "on")
 
 
+def env_int(name: str, default: int) -> int:
+    """A registered knob as an int; unset or unparsable gives
+    ``default`` (the JAX package's ``_env_int``)."""
+    try:
+        return int(runtime_env(name, str(default)))
+    except ValueError:
+        return default
+
+
+def env_float(name: str, default: float) -> float:
+    """A registered knob as a float; unset or unparsable gives
+    ``default`` (the JAX package's ``_env_float``)."""
+    try:
+        return float(runtime_env(name, str(default)))
+    except ValueError:
+        return default
+
+
 @dataclasses.dataclass
 class Config:
     """The ``init()``-resolved settings of the training plane: the
@@ -103,6 +140,19 @@ class Config:
     # inspector, so a joined wait is bounded instead.
     cache_capacity: int = 1024
     join_mode: bool = False
+    # Training integrity (common/integrity.py): the non-finite gradient
+    # policy (None/"off" disables), the divergence detector's cadence (0 =
+    # off) and policy, and checkpoint verification against the sidecar.
+    nonfinite_policy: Optional[str] = None
+    diverge_check_steps: int = 0
+    diverge_policy: str = "warn"
+    checkpoint_verify: bool = True
+    # Accumulation (optim.accumulate_gradients, accum_steps=): the default
+    # microbatch count (1 = off) and the remat policy of the microbatch
+    # loss; the infeed mode of data.infeed_pipeline.
+    accum_steps: int = 1
+    remat_policy: Optional[str] = None
+    prefetch: Optional[str] = None
     stall_check_time_seconds: float = 60.0
     stall_shutdown_time_seconds: float = 600.0
 
@@ -122,6 +172,14 @@ class Config:
         if raw:
             c.cache_capacity = int(raw)
         c.join_mode = _truthy(runtime_env("JOIN_MODE") or "0")
+        c.nonfinite_policy = runtime_env("NONFINITE_POLICY")
+        c.diverge_check_steps = env_int("DIVERGE_CHECK_STEPS", 0)
+        c.diverge_policy = runtime_env("DIVERGE_POLICY") or "warn"
+        c.checkpoint_verify = _truthy(runtime_env("CHECKPOINT_VERIFY")
+                                      or "1")
+        c.accum_steps = env_int("ACCUM_STEPS", 1)
+        c.remat_policy = runtime_env("REMAT_POLICY")
+        c.prefetch = runtime_env("PREFETCH")
         for name in ("stall_check_time_seconds",
                      "stall_shutdown_time_seconds"):
             raw = runtime_env(name.upper())

@@ -45,3 +45,26 @@ class DuplicateTensorNameError(HorovodTpuError):
 class AlltoallvLayoutError(HorovodTpuError, NotImplementedError):
     """The controller-negotiated ``alltoallv`` was called in a layout it
     does not support; the eager engine assumes one rank per process."""
+
+
+class NonFiniteError(HorovodTpuError):
+    """A non-finite (NaN/Inf) gradient step was observed under the
+    ``abort`` non-finite policy (``HVD_TPU_NONFINITE_POLICY=abort``).
+    Raised host-side by ``observe_guard``/``integrity.check_abort``; the
+    optimizer skipped the step first, so its state is intact."""
+
+
+class DivergenceError(HorovodTpuError):
+    """Replica parameters diverged across ranks under the ``abort``
+    divergence policy (``HVD_TPU_DIVERGE_POLICY=abort``). ``ranks`` names
+    the diverged ranks when the detector identified them."""
+
+    def __init__(self, message: str, ranks=()):
+        super().__init__(message)
+        self.ranks = tuple(ranks)
+
+
+class CheckpointCorruptError(HorovodTpuError):
+    """Checkpoint verification failed (CRC/size mismatch against the
+    sidecar manifest) and no earlier verified step is left to fall back
+    to (``checkpoint.py``)."""

@@ -51,23 +51,51 @@ time, so one tensor's coefficients never mix with another's. Adasum is
 not linear, so with ``int8_ef`` the deltas ride uncompressed; with
 ``bf16`` they ride the bf16 wire.
 
+``nonfinite_policy`` (``common/integrity.py``) arms the non-finite
+guard, in the JAX optimizer's order: when a bucket closes, its fused
+LOCAL gradients are unscaled first under ``scale_backoff`` (K1
+``scale_buffer`` by ``1 / loss_scale`` rounded to the bucket's dtype),
+their all-finite flag is ANDed into one device boolean, and under
+``zero`` the non-finite entries become 0, all before compression and
+before an int8_ef residual is added. ``synchronize()`` agrees the flag
+with one MIN all-reduce of one int32. ``warn`` and ``zero`` never
+branch; ``skip_step``, ``scale_backoff`` and ``abort`` read the agreed
+flag on the host once a step and, on a bad step, discard the in-flight
+results, reduce no int8 bucket (its residual and the rounding step stay
+as they were), leave every ``p.grad`` as backprop left it, and
+``step()`` does not call the base optimizer. ``state_dict()`` carries
+the guard under ``"guard_state"``.
+
+``accum_steps=k`` (with ``remat_policy``) is the JAX optimizer's
+scan-based accumulation: ``optimizer.accumulate(loss_fn)`` returns
+``fn(*batch)``, which runs ``loss_fn`` on k microbatches (the batch split
+along dim 0), each forward and backward in turn, and leaves the MEAN
+gradient in ``p.grad`` (an fp32 sum, divided by k, cast back). The
+backward hooks launch no bucket before the k-th microbatch, so the
+collective round, the guard's agreement and the int8_ef step advance
+run once per effective step.
+
 Not ported yet (they raise ``NotImplementedError`` naming their slice):
-``nonfinite_policy``, ``route``, ``zero_stage``, ``accum_steps``,
-process sets.
+``route``, ``zero_stage``, process sets, and a non-finite guard or
+``accum_steps`` with ``op=Adasum``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
 
 from .common import basics
+from .common import config as config_lib
 from .common import fusion as fusion_lib
+from .common import integrity as integrity_lib
 from .common import metrics as metrics_lib
+from .common import tree as tree_lib
 from .ops import adasum as adasum_lib
 from .ops import collectives as C
 from .ops.compression import (BF16Compressor, Compression, Compressor,
@@ -81,8 +109,10 @@ _M_EF_NORM = metrics_lib.gauge(
 # Base seed of the stochastic rounding: bucket i at step t rounds with the
 # key (_EF_SEED, t, i), the same on every rank and on every rerun.
 _EF_SEED = 0x5EED
-# The state_dict key of this rank's error-feedback state.
+# The state_dict keys of this rank's error-feedback state and of the
+# non-finite guard's state.
 _EF_STATE = "ef_state"
+_GUARD_STATE = "guard_state"
 
 
 def _ef_key(step: int, bucket_index: int):
@@ -90,11 +120,272 @@ def _ef_key(step: int, bucket_index: int):
     return (_EF_SEED, int(step), int(bucket_index))
 
 _UNPORTED = {
-    "nonfinite_policy": "the integrity-guard slice",
     "route": "the mesh-routing slice",
     "zero_stage": "the ZeRO/FSDP slice",
-    "accum_steps": "the accumulation-with-remat slice",
 }
+# What Queue 1 of ROADMAP.md still owes the Adasum optimizer.
+_ADASUM_LATER = ("a later item of Queue 1 of the port (the Adasum "
+                 "optimizer with {what})")
+
+
+# -- accumulation with remat (horovod_tpu/optim.py:598-755) -----------------
+
+_REMAT_POLICY_NAMES = ("none", "full", "dots", "dots_no_batch")
+
+
+def resolve_remat_policy(policy: Optional[str] = None):
+    """A remat-policy name as ``(name, wrap, saved_ops)``. ``None``
+    consults the configured default (``init(remat_policy=)`` /
+    ``HVD_TPU_REMAT_POLICY``). Each microbatch loss runs under
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``:
+    ``"full"`` recomputes everything in backward; ``"dots"`` saves the
+    outputs of ``mm``, ``addmm``, ``bmm`` and ``baddbmm`` and recomputes
+    the rest (``create_selective_checkpoint_contexts``);
+    ``"dots_no_batch"`` saves ``mm`` and ``addmm`` only."""
+    if policy is None:
+        cfg = basics.context().config if basics.is_initialized() else None
+        policy = cfg.remat_policy if cfg is not None \
+            else config_lib.runtime_env("REMAT_POLICY")
+    if policy is None or policy in ("none", "off", ""):
+        return "none", False, None
+    if policy == "full":
+        return "full", True, None
+    aten = torch.ops.aten
+    if policy == "dots":
+        return "dots", True, (aten.mm.default, aten.addmm.default,
+                              aten.bmm.default, aten.baddbmm.default)
+    if policy == "dots_no_batch":
+        return "dots_no_batch", True, (aten.mm.default, aten.addmm.default)
+    raise ValueError(f"unknown remat policy {policy!r}; choose from "
+                     f"{_REMAT_POLICY_NAMES}")
+
+
+def _resolve_accum_steps(explicit: Optional[int] = None) -> int:
+    """None -> the configured default (``init(accum_steps=)`` /
+    ``HVD_TPU_ACCUM_STEPS``, else 1); an explicit value wins."""
+    if explicit is not None:
+        k = int(explicit)
+    elif basics.is_initialized():
+        k = int(basics.context().config.accum_steps)
+    else:
+        k = config_lib.env_int("ACCUM_STEPS", 1)
+    if k < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {k}")
+    return k
+
+
+def _split_microbatches(batch_args, k: int) -> List[Any]:
+    """The k microbatches of the batch trees: each tensor leaf ``(b,
+    ...)`` viewed as ``(k, b // k, ...)`` and indexed. Raises, naming
+    the leaf's shape, when a leading dim does not divide."""
+    def split(x):
+        x = torch.as_tensor(x)
+        if x.dim() == 0 or x.shape[0] % k:
+            raise ValueError(
+                f"accum_steps={k} does not divide the leading batch dim "
+                f"of a batch leaf with shape {tuple(x.shape)}; every batch "
+                "array must carry b = k * microbatch rows")
+        return x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:]))
+
+    stacked = tree_lib.map_tree(split, tuple(batch_args))
+    return [tree_lib.map_tree(lambda x, i=i: x[i], stacked)
+            for i in range(k)]
+
+
+def _remat(loss_fn: Callable, wrap: bool, saved_ops) -> Callable:
+    if not wrap:
+        return loss_fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    kw = {"use_reentrant": False}
+    if saved_ops is not None:
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, list(saved_ops))
+
+    def wrapped(*args):
+        return checkpoint(loss_fn, *args, **kw)
+
+    return wrapped
+
+
+def _graph_params(out: torch.Tensor) -> List[torch.Tensor]:
+    """The leaf tensors ``out.backward()`` accumulates into (the
+    ``AccumulateGrad`` nodes of its graph), in a fixed order."""
+    seen, found, stack = set(), [], [out.grad_fn]
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        var = getattr(node, "variable", None)
+        if var is not None:
+            found.append(var)
+        stack.extend(fn for fn, _ in node.next_functions)
+    return found
+
+
+class _Accumulator:
+    """The fp32 running sums of one accumulated step: ``add`` takes a
+    microbatch's ``p.grad`` into the sum and clears it; ``finish`` leaves
+    the mean (the sum divided by k, cast to the parameter's dtype) in
+    ``p.grad``. Microbatch i's gradient joins as ``((g0 + g1) + ...)``,
+    the JAX scan's order."""
+
+    def __init__(self, k: int):
+        self.k = k
+        self.index = 0
+        self.sums: Dict[torch.Tensor, torch.Tensor] = {}
+        self._divisor: Dict[torch.device, torch.Tensor] = {}
+
+    def add(self, p: torch.Tensor) -> None:
+        g = p.grad.to(torch.float32)
+        prev = self.sums.get(p)
+        self.sums[p] = g if prev is None else prev + g
+        p.grad = None
+
+    def finish(self, p: torch.Tensor) -> None:
+        if p.grad is not None:
+            self.add(p)
+        total = self.sums.pop(p)
+        # A division by a device tensor: PyTorch turns a CUDA tensor's
+        # division by a Python scalar into a multiply by its reciprocal.
+        div = self._divisor.get(total.device)
+        if div is None:
+            div = self._divisor[total.device] = torch.full(
+                (), float(self.k), dtype=torch.float32, device=total.device)
+        p.grad = (total / div).to(p.dtype)
+
+
+def _mean_value(v_sum: torch.Tensor, k: int, like: torch.Tensor):
+    return (v_sum / torch.full((), float(k), dtype=torch.float32,
+                               device=v_sum.device)).to(like.dtype)
+
+
+def _is_float(x) -> bool:
+    return isinstance(x, torch.Tensor) and x.is_floating_point()
+
+
+def _aux_add(acc, new):
+    """Float aux leaves summed in fp32; other leaves keep the latest
+    microbatch's value."""
+    if isinstance(new, dict):
+        return type(new)((k, _aux_add(None if acc is None else acc[k], v))
+                         for k, v in new.items())
+    if isinstance(new, (list, tuple)):
+        parts = [_aux_add(None if acc is None else a, v)
+                 for a, v in zip(acc if acc is not None else [None] *
+                                 len(new), new)]
+        return type(new)(*parts) if hasattr(new, "_fields") \
+            else type(new)(parts)
+    if _is_float(new):
+        x = new.detach().to(torch.float32)
+        return x if acc is None else acc + x
+    return new
+
+
+def _aux_mean(acc, like, k: int):
+    """The float aux sums divided by k, cast to the last microbatch's
+    dtypes; the rest as they are."""
+    if isinstance(like, dict):
+        return type(like)((key, _aux_mean(acc[key], v, k))
+                          for key, v in like.items())
+    if isinstance(like, (list, tuple)):
+        parts = [_aux_mean(a, v, k) for a, v in zip(acc, like)]
+        return type(like)(*parts) if hasattr(like, "_fields") \
+            else type(like)(parts)
+    if _is_float(like):
+        return _mean_value(acc, k, like)
+    return acc
+
+
+def _accumulate_run(loss_fn: Callable, k: int, remat: str, has_aux: bool,
+                    batch, optimizer=None):
+    """One accumulated step (see :func:`accumulate_gradients`); with
+    ``optimizer`` (a ``DistributedOptimizer``) its backward hooks take the
+    microbatch gradients, so its buckets launch on the k-th."""
+    _, wrap, saved_ops = resolve_remat_policy(remat)
+    inner = _remat(loss_fn, wrap, saved_ops)
+
+    def split(out):
+        return out if has_aux else (out, None)
+
+    if k == 1:
+        value, aux = split(inner(*batch))
+        value.backward()
+        return (value.detach(), aux) if has_aux else value.detach()
+    mbs = _split_microbatches(batch, k)
+    acc = _Accumulator(k)
+    stashed: Dict[torch.Tensor, Optional[torch.Tensor]] = {}
+    params: List[torch.Tensor] = []
+    v_sum = aux_sum = value = aux = None
+    if optimizer is not None:
+        optimizer._accum = acc
+    try:
+        for i, mb in enumerate(mbs):
+            acc.index = i
+            value, aux = split(inner(*mb))
+            if optimizer is None and i == 0:
+                # Gradients already in p.grad are kept apart and added
+                # back to the mean, as one backward of the fused batch
+                # would add to them.
+                params = _graph_params(value)
+                for p in params:
+                    stashed[p], p.grad = p.grad, None
+            value.backward()
+            if optimizer is None:
+                for p in params:
+                    if p.grad is not None:
+                        acc.add(p)
+            v = value.detach().to(torch.float32)
+            v_sum = v if v_sum is None else v_sum + v
+            if has_aux:
+                aux_sum = _aux_add(aux_sum, aux)
+    finally:
+        if optimizer is not None:
+            optimizer._accum = None
+    if optimizer is not None:
+        optimizer._finish_accumulation(acc)
+    else:
+        for p in list(acc.sums):
+            acc.finish(p)
+        for p, old in stashed.items():
+            if old is not None:
+                p.grad = old if p.grad is None else old + p.grad
+    mean = _mean_value(v_sum, k, value)
+    if has_aux:
+        return mean, _aux_mean(aux_sum, aux, k)
+    return mean
+
+
+def accumulate_gradients(loss_fn: Callable,
+                         accum_steps: Optional[int] = None,
+                         remat_policy: Optional[str] = None,
+                         has_aux: bool = False) -> Callable:
+    """Gradient accumulation over microbatches: returns ``fn(*batch)``,
+    which splits every tensor of the batch along dim 0 into
+    ``accum_steps`` microbatches and runs ``loss_fn(*microbatch)``
+    forward and backward on each in turn, so that activation memory
+    peaks at one microbatch. It leaves the MEAN of the microbatch
+    gradients in ``p.grad`` (added to what was there), computed as the
+    JAX package does: an fp32 sum over the microbatches, divided by k,
+    cast to the parameter's dtype. A loss that is a mean over its rows
+    thus gives the gradient of the fused batch. Returns the mean loss
+    (fp32 sum / k), or ``(mean loss, aux)`` with ``has_aux`` (float aux
+    leaves averaged, others the last microbatch's).
+
+    ``remat_policy`` (:func:`resolve_remat_policy`) wraps each
+    microbatch loss in ``torch.utils.checkpoint``. No collective runs in
+    here: with a ``DistributedOptimizer`` use its own
+    ``accumulate(loss_fn)`` (``accum_steps=`` on the optimizer), whose
+    buckets then launch once per effective step."""
+    k = _resolve_accum_steps(accum_steps)
+    name, _, _ = resolve_remat_policy(remat_policy)
+
+    def fn(*batch):
+        return _accumulate_run(loss_fn, k, name, has_aux, batch)
+
+    return fn
 
 
 def _resolve_compression(compression) -> type:
@@ -113,7 +404,8 @@ class _DistributedOptimizerMixin:
 
     def _dist_init(self, base_cls, named_parameters, op, k, compression,
                    predivide, threshold, quantize_min_bytes,
-                   sparse_as_dense):
+                   sparse_as_dense, guard_policy=None, scale_cfg=None,
+                   accum_k=1, remat_name="none"):
         self._base_cls = base_cls
         self._sparse_as_dense = sparse_as_dense
         self.op = op
@@ -148,6 +440,25 @@ class _DistributedOptimizerMixin:
         self._dist_inflight: Dict[int, Any] = {}
         #: Bucket allreduces issued so far (every world size, 1 included).
         self.bucket_allreduces = 0
+        #: The non-finite guard (None when off): its state, its loss-scale
+        #: schedule, this round's local all-finite flag (a device bool)
+        #: and whether the last agreed step was skipped.
+        self._guard = None
+        if guard_policy is not None:
+            dev = self._dist_params[0].device if self._dist_params \
+                else basics.device()
+            self._guard = integrity_lib.init_guard_state(guard_policy,
+                                                         scale_cfg, dev)
+        self._scale_cfg = scale_cfg
+        self._guard_ok: Optional[torch.Tensor] = None
+        self._guard_skip = False
+        #: Guard agreements run so far (one a reduction round).
+        self.guard_agreements = 0
+        #: Accumulation: microbatches per effective step, the remat
+        #: policy, and the running sums while ``accumulate``'s step runs.
+        self.accum_steps = accum_k
+        self.remat_policy = remat_name
+        self._accum: Optional[_Accumulator] = None
         self._reset_counts()
         self._dist_hooks = [
             p.register_post_accumulate_grad_hook(self._hook)
@@ -168,10 +479,21 @@ class _DistributedOptimizerMixin:
                 "reduce it yourself via sparse_allreduce_async")
 
     def _hook(self, p: torch.Tensor) -> None:
-        pid = id(p)
         # Checked before the delay counter moves, so that a retried
         # backward raises the same error.
         self._check_sparse_grad(p)
+        acc = self._accum
+        if acc is not None:
+            # accumulate(): microbatches before the k-th only add to the
+            # running sum; the k-th leaves the mean and closes buckets.
+            if acc.index < acc.k - 1:
+                acc.add(p)
+                return
+            acc.finish(p)
+        self._count(p)
+
+    def _count(self, p: torch.Tensor) -> None:
+        pid = id(p)
         if self._dist_delay[pid] <= 0:
             raise AssertionError(
                 f"Gradients of {self._dist_names.get(pid, 'a parameter')} "
@@ -196,9 +518,69 @@ class _DistributedOptimizerMixin:
         return BF16Compressor if wire == fusion_lib.WIRE_BF16 \
             else NoneCompressor
 
+    def _finish_accumulation(self, acc: _Accumulator) -> None:
+        """After ``accumulate``'s k-th microbatch: a parameter whose
+        gradient the k-th backward did not reach still gets its mean and
+        its count."""
+        for p in list(acc.sums):
+            acc.finish(p)
+            self._count(p)
+
+    def accumulate(self, loss_fn: Callable, has_aux: bool = False
+                   ) -> Callable:
+        """:func:`accumulate_gradients` bound to this optimizer's
+        ``accum_steps`` and ``remat_policy``: ``fn(*batch)`` leaves the
+        mean gradient in ``p.grad`` and launches every bucket once, on
+        the last microbatch; then call ``step()``."""
+        def fn(*batch):
+            return _accumulate_run(loss_fn, self.accum_steps,
+                                   self.remat_policy, has_aux, batch,
+                                   optimizer=self)
+
+        return fn
+
+    def _guard_bucket(self, flat: torch.Tensor) -> torch.Tensor:
+        """The non-finite guard on one fused bucket of LOCAL gradients:
+        unscale (``scale_backoff``, K1 with ``1 / loss_scale`` rounded to
+        the bucket's dtype), AND its all-finite flag into this round's,
+        and under ``zero`` replace non-finite entries with 0."""
+        policy = self._guard.policy
+        if policy == "scale_backoff":
+            flat = C._apply_scale(flat, float(integrity_lib.inverse_scale(
+                self._guard)))
+        finite = torch.isfinite(flat)
+        ok = finite.all()
+        self._guard_ok = ok if self._guard_ok is None \
+            else torch.logical_and(self._guard_ok, ok)
+        if policy == "zero":
+            flat = torch.where(finite, flat, torch.zeros_like(flat))
+        return flat
+
+    def _agree(self) -> Optional[bool]:
+        """This round's flag agreed across ranks: one MIN all-reduce of
+        one int32. Under the skipping policies the agreed flag is read on
+        the host (the step's one device-to-host read) and returned; under
+        ``warn``/``zero`` the counters advance on the device and None is
+        returned."""
+        local = self._guard_ok
+        self._guard_ok = None
+        dev = self._guard.nonfinite_steps.device \
+            if isinstance(self._guard.nonfinite_steps, torch.Tensor) \
+            else basics.device()
+        flag = (torch.ones(1, dtype=torch.int32, device=dev)
+                if local is None else local.reshape(1).to(torch.int32))
+        flag = C.allreduce(flag, C.Min)
+        self.guard_agreements += 1
+        if self._guard.policy in integrity_lib.SKIPPING_POLICIES:
+            ok = bool(flag.item())
+            integrity_lib.advance(self._guard, ok, self._scale_cfg)
+            return ok
+        integrity_lib.advance(self._guard, flag[0] > 0, self._scale_cfg)
+        return None
+
     def _launch(self, bi: int) -> None:
-        """Fuse, compress, prescale and issue bucket ``bi``'s SUM; an
-        int8_ef bucket is only fused here and reduced at
+        """Fuse, guard, compress, prescale and issue bucket ``bi``'s SUM;
+        an int8_ef bucket is only fused (and guarded) here and reduced at
         :meth:`synchronize`."""
         bucket = self._dist_plan.buckets[bi]
         grads = {}
@@ -212,6 +594,8 @@ class _DistributedOptimizerMixin:
                 p.grad = p.grad.to_dense()
             grads[i] = p.grad
         flat = fusion_lib.fuse_bucket(grads, bucket)
+        if self._guard is not None and flat.is_floating_point():
+            flat = self._guard_bucket(flat)
         self.bucket_allreduces += 1
         if self._ef and \
                 self._dist_plan.wire_dtypes[bi] == fusion_lib.WIRE_INT8:
@@ -252,6 +636,20 @@ class _DistributedOptimizerMixin:
         for bi in range(len(self._dist_plan.buckets)):
             if bi not in self._dist_inflight:
                 self._launch(bi)
+        if self._guard is not None and self._agree() is False:
+            # A globally agreed bad step: finish the bucket collectives
+            # every rank issued, discard their results, reduce no int8
+            # bucket (residual and rounding step unchanged) and leave
+            # p.grad as backprop left it; step() skips the update.
+            for work, _, _ in self._dist_inflight.values():
+                if work is not None:
+                    work.wait()
+            self._dist_inflight.clear()
+            self._reset_counts()
+            self._dist_dirty = False
+            self._guard_skip = True
+            return
+        self._guard_skip = False
         n = basics.size()
         for bi in sorted(self._dist_inflight):
             work, wire, ctx = self._dist_inflight[bi]
@@ -277,20 +675,27 @@ class _DistributedOptimizerMixin:
     def state_dict(self):
         """The base optimizer's state dict and, under ``int8_ef``, this
         rank's error-feedback state: ``"ef_state": {"step": int,
-        "residual": {bucket index: fp32 flat residual}}``."""
+        "residual": {bucket index: fp32 flat residual}}``; with a
+        non-finite guard its counters and loss scale under
+        ``"guard_state"``."""
         sd = self._base_cls.state_dict(self)
         if self._ef:
             sd[_EF_STATE] = {"step": self._ef_step,
                              "residual": dict(self._ef_residual)}
+        if self._guard is not None:
+            sd[_GUARD_STATE] = self._guard.snapshot()
         return sd
 
     def load_state_dict(self, state_dict) -> None:
         """The base optimizer's ``load_state_dict`` and, where the dict
-        carries one, this rank's error-feedback state (residuals copied
-        onto their buckets' device)."""
+        carries them, the guard's state and this rank's error-feedback
+        state (residuals copied onto their buckets' device)."""
         sd = dict(state_dict)
         ef = sd.pop(_EF_STATE, None)
+        guard = sd.pop(_GUARD_STATE, None)
         self._base_cls.load_state_dict(self, sd)
+        if guard is not None and self._guard is not None:
+            self._guard.load(guard)
         if ef is None or not self._ef:
             return
         buckets = self._dist_plan.buckets
@@ -323,8 +728,13 @@ class _DistributedOptimizerMixin:
         return ctx()
 
     def step(self, closure=None):
+        """Synchronize (unless inside ``skip_synchronize``), then the base
+        optimizer's step, which a step the guard skipped does not run."""
         if self._should_synchronize:
             self.synchronize()
+        if self._guard_skip:
+            self._guard_skip = False
+            return None
         return self._base_cls.step(self, closure)
 
     def zero_grad(self, set_to_none: bool = True):
@@ -386,6 +796,9 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          quantize_min_bucket_bytes: Optional[int] = None,
                          process_set=None,
                          sparse_as_dense: bool = False,
+                         nonfinite_policy: Optional[str] = None,
+                         accum_steps: Optional[int] = None,
+                         remat_policy: Optional[str] = None,
                          **unported):
     """Wrap ``optimizer`` so ``step()`` first averages (``op=Average``) or
     sums (``op=Sum``) the gradients across ranks, in fused buckets, or
@@ -404,7 +817,15 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     (the smallest bucket ``int8_ef`` quantizes) likewise
     (``HVD_TPU_QUANTIZE_MIN_BYTES``, 64 KiB). ``sparse_as_dense=True``
     densifies a sparse gradient (``nn.Embedding(sparse=True)``) before it
-    enters its bucket; with False a sparse gradient raises."""
+    enters its bucket; with False a sparse gradient raises.
+
+    ``nonfinite_policy`` (None: ``init(nonfinite_policy=)`` /
+    ``HVD_TPU_NONFINITE_POLICY``; ``"off"`` disables) arms the non-finite
+    guard (``common/integrity.py``); ``accum_steps`` (None: the
+    configured default, 1) and ``remat_policy`` set up
+    ``optimizer.accumulate(loss_fn)``. ``accum_steps > 1`` and
+    ``backward_passes_per_step > 1`` are two spellings of accumulation
+    and raise together."""
     for key in unported:
         if key not in _UNPORTED:
             raise TypeError(f"DistributedOptimizer() got an unexpected "
@@ -426,7 +847,24 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     cfg = basics.context().config
     compressor = _resolve_compression(compression)
     _check_reduce_safe(compressor)
+    accum_k = _resolve_accum_steps(accum_steps)
+    # Resolved once here: a later knob change must not re-shape the
+    # accumulation of a live optimizer.
+    remat_name, _, _ = resolve_remat_policy(remat_policy)
+    if accum_k > 1 and k > 1:
+        raise ValueError(
+            "accum_steps and backward_passes_per_step are two spellings "
+            "of gradient accumulation — pick one (accum_steps is the "
+            "microbatched accumulate(); backward_passes_per_step the "
+            "call-per-microbatch aggregation)")
+    guard_policy = integrity_lib.resolve_nonfinite_policy(nonfinite_policy)
     if op == C.Adasum:
+        for what, on in (("a non-finite guard", guard_policy is not None),
+                         ("accum_steps > 1", accum_k > 1)):
+            if on:
+                raise NotImplementedError(
+                    f"op=Adasum with {what} is not ported yet; it comes "
+                    f"with " + _ADASUM_LATER.format(what=what))
         if k != 1:
             raise NotImplementedError(
                 "backward_passes_per_step > 1 is not supported with "
@@ -450,7 +888,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     obj = _graft(optimizer, _DistributedOptimizerMixin)
     obj._dist_init(optimizer.__class__, named_parameters, op, k, compressor,
                    float(gradient_predivide_factor), threshold, qmin,
-                   bool(sparse_as_dense))
+                   bool(sparse_as_dense), guard_policy,
+                   integrity_lib.ScaleConfig.from_env(), accum_k, remat_name)
     return obj
 
 

@@ -555,6 +555,130 @@ def test_init_refuses_nccl_for_ranks_sharing_a_gpu(monkeypatch):
         assert not hvd.is_initialized()
 
 
+@pytest.mark.cuda
+def test_device_infeed_copy_stream_survives_reallocation():
+    """``DeviceInfeed`` on its copy stream delivers every batch bitwise
+    while the consumer frees and reallocates memory of the batch's size
+    between steps and reads each batch behind a queue of work: the
+    ``record_stream`` hand-over keeps the allocator from reusing a batch's
+    memory on the copy stream before the consumer is done with it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from horovod_tpu_torch import data as data_lib
+
+    gen = torch.Generator().manual_seed(3)
+    host = [(torch.randn(1 << 20, generator=gen),
+             torch.randint(0, 50257, (8, 513), generator=gen))
+            for _ in range(12)]
+    big = torch.randn(2048, 2048, device="cuda")
+    with data_lib.DeviceInfeed(iter(host), depth=2, device="cuda") as feed:
+        assert feed._stream is not None
+        for i, (x, tok) in enumerate(feed):
+            assert x.is_cuda and tok.is_cuda
+            for _ in range(4):          # work queued ahead of the reads
+                big = big @ big * 1e-3
+            got = (x * 1.0).cpu(), tok.clone().cpu()
+            junk = [torch.full_like(x, float("nan")) for _ in range(3)]
+            del x, tok, junk
+            assert torch.equal(got[0], host[i][0]), i
+            assert torch.equal(got[1], host[i][1]), i
+    assert i == len(host) - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scale_backoff_unscale_runs_k1_bitwise(dtype):
+    """``scale_backoff`` unscales each fused bucket with K1: bitwise
+    ``scale_buffer_plain`` at ``1 / loss_scale`` rounded to the bucket's
+    dtype, one K1 launch per bucket a step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import horovod_tpu_torch as hvd
+
+    hvd.init()
+    try:
+        torch.manual_seed(0)
+        m = torch.nn.Sequential(torch.nn.Linear(64, 64),
+                                torch.nn.Linear(64, 8)).to("cuda", dtype)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(m.parameters(), lr=0.1),
+            named_parameters=m.named_parameters(),
+            nonfinite_policy="scale_backoff", fusion_threshold_bytes=4096)
+        flat = (torch.randn(9001, device="cuda") * 3e4).to(dtype)
+        kernels.reset_launch_counts()
+        got = opt._guard_bucket(flat)
+        inv = torch.tensor(2.0 ** -15, dtype=dtype).item()
+        assert torch.equal(got, kernels.scale_buffer_plain(flat, inv))
+        assert kernels.LAUNCHES["scale_buffer"] == 1
+        opt._guard_ok = None
+        x = torch.randn(16, 64, device="cuda", dtype=dtype)
+        kernels.reset_launch_counts()
+        for _ in range(2):
+            opt.zero_grad()
+            (m(x).float().pow(2).mean() * hvd.current_loss_scale(opt)
+             ).backward()
+            opt.step()
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["scale_buffer"] == \
+            2 * len(opt._dist_plan.buckets)
+        assert hvd.observe_guard(opt)["nonfinite_steps"] == 0
+    finally:
+        hvd.shutdown()
+
+
+@pytest.mark.cuda
+def test_skipped_step_leaves_gpt_and_adamw_unchanged_on_card():
+    """A tiny GPT on the card under ``skip_step``: a step whose first
+    gradient element is +Inf leaves every weight and every AdamW state
+    tensor bitwise unchanged; the next step applies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import gpt
+
+    hvd.init()
+    try:
+        with torch.device("cuda"):
+            m = gpt.gpt_tiny(hidden=128, num_heads=2, num_layers=2,
+                             dtype=torch.bfloat16)
+        m.init_weights(torch.Generator(device="cuda").manual_seed(0))
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(m.parameters(), lr=1e-3),
+            named_parameters=m.named_parameters(),
+            nonfinite_policy="skip_step")
+        toks = torch.randint(0, 128, (2, 65), device="cuda")
+        first = next(m.parameters())
+
+        def step(poison):
+            opt.zero_grad()
+            h = first.register_hook(
+                lambda g: g.flatten().index_fill(
+                    0, torch.zeros(1, dtype=torch.long, device=g.device),
+                    float("inf")).view_as(g)) if poison else None
+            gpt.next_token_loss(m(toks[:, :-1]), toks[:, 1:]).backward()
+            if h is not None:
+                h.remove()
+            opt.step()
+
+        def snapshot():
+            return ([p.detach().clone() for p in m.parameters()],
+                    [v.clone() for s in opt.state.values()
+                     for v in s.values() if torch.is_tensor(v)])
+
+        step(False)
+        before = snapshot()
+        step(True)
+        after = snapshot()
+        for a, b in zip(before[0] + before[1], after[0] + after[1]):
+            assert torch.equal(a, b)
+        snap = hvd.observe_guard(opt)
+        assert snap["nonfinite_steps"] == 1 and snap["good_steps"] == 0
+        step(False)
+        assert not torch.equal(next(m.parameters()), before[0][0])
+    finally:
+        hvd.shutdown()
+
+
 def _card_worker(rank: int, out_path: str) -> None:
     """One of two gloo ranks on the card (run as a script): one step of
     each reduction mode on a small GPT, with its launches and a digest of

@@ -286,11 +286,16 @@ def test_distributed_optimizer_contract(world1):
         opt.step()
     assert opt.bucket_allreduces == 3       # no second reduction
     opt.zero_grad()
-    for kw in ({"nonfinite_policy": "skip_step"}, {"route": "staged"},
-               {"zero_stage": 1}, {"accum_steps": 2}):
+    for kw in ({"route": "staged"}, {"zero_stage": 1},
+               {"nonfinite_policy": "skip_step", "op": hvd.Adasum},
+               {"accum_steps": 2, "op": hvd.Adasum}):
         with pytest.raises(NotImplementedError):
             hvd.DistributedOptimizer(torch.optim.SGD(m.parameters(),
                                                      lr=0.1), **kw)
+    # The guard and accumulation are ported (slice 9): accepted.
+    for kw in ({"nonfinite_policy": "skip_step"}, {"accum_steps": 2}):
+        hvd.DistributedOptimizer(torch.optim.SGD(m.parameters(), lr=0.1),
+                                 **kw)
     # The int8 wire format cannot ride a sum (int8_ef is the reduce-safe
     # form); int8_ef and Adasum are tested in test_torch_port_reduce.py.
     with pytest.raises(ValueError, match="int8_ef"):
@@ -304,15 +309,17 @@ def test_distributed_optimizer_contract(world1):
 @pytest.mark.parametrize("name", ["add_process_set", "ProcessSet",
                                   "ZeroOptimizer", "accumulate_gradients",
                                   "observe_guard", "models.bert_large",
-                                  "models.ResNet50"])
+                                  "models.ResNet50", "save_sharded",
+                                  "chaos_poison"])
 def test_later_slices_raise_not_implemented(name):
     """The JAX package's API that later slices bring is present by name
     and raises NotImplementedError naming its slice. The models slice
-    (BERT, ResNet, ...) is ported: its names resolve to the models."""
+    (BERT, ResNet, ...) and slice 9 (``accumulate_gradients``,
+    ``observe_guard``, ...) are ported: their names resolve."""
     import horovod_tpu_torch.models as models
 
     mod, attr = (models, name.split(".")[1]) if "." in name else (hvd, name)
-    if mod is models:
+    if mod is models or name in ("accumulate_gradients", "observe_guard"):
         assert callable(getattr(mod, attr))
     else:
         with pytest.raises(NotImplementedError, match="slice"):
