@@ -172,6 +172,50 @@ Phases (any failure exits non-zero and prints no result line):
    and ``DivergenceDetector(every_steps=2, policy="resync")`` after one
    weight of rank 2 is perturbed (every rank names rank 2,
    ``broadcast_parameters`` heals it, replicas bitwise equal again).
+7b. Mesh routing over a simulated 2x2 mesh: the script relaunches itself
+   as 4 gloo rank workers (``--rank-worker n4_mesh``) sharing the one
+   card, each with ``HVD_TPU_MESH_SHAPE=2x2`` (local axis {0, 1} and
+   {2, 3}, cross axis {0, 2} and {1, 3}) and
+   ``init(hierarchical_allreduce=True, hierarchical_allgather=True)``.
+   GPT-2 medium at full width, B = 4, S = 512 per rank, each rank its
+   own seeded batch after ``broadcast_parameters``, 1 checked and 3
+   timed steps in each of two modes: (a) ``compression="int8_ef",
+   route="staged_int8"`` (local:none, cross:int8): at the checked step
+   one int8 bucket's reduced gradient must lie within ``(sum over hosts
+   of s_host + s_reduced) / 4`` of the exact fp32 average (s the block
+   scales of each host's local sum), the residual must be finite and
+   nonzero, and in the timed steps K3 must launch exactly 2 (the cross
+   hop's reduce-scatter and all-gather) x int8 buckets x 3 times and K2
+   and K4 never; (b) ``op=hvd.Adasum, route="staged"``: one parameter's
+   reduced delta must equal ``adasum_allreduce_reference`` over the two
+   local groups' average deltas in fp64 to 1e-5 of its largest value,
+   and K8 and K9 must launch exactly parameters x log2(2) x 3 times.
+   Every loss finite, every rank's parameter digests equal to rank 0's
+   after every step. Then (c) eager calls on CUDA tensors of
+   ``tok_emb``'s shape: the hierarchical ``allreduce(op=Sum,
+   prescale_factor=1/3, postscale_factor=1.5)`` bitwise equal on every
+   rank, within 1e-6 of sum |x| of the fp64 result and with exactly 2
+   K1 launches; one ``quantized_hierarchical_allreduce`` with exactly 2
+   K2 and 2 K4 launches, within its bound of the exact sum; the
+   hierarchical allgather bitwise the flat one. (d) Process sets [0, 2]
+   and [1, 3]: allreduce, allgather, broadcast from a global root and
+   alltoall over each, bitwise against the same reductions by hand; a
+   non-member's call raising ``ValueError``; ``gpt_tiny(hidden=128,
+   num_heads=2)`` trained 2 steps per set through
+   ``DistributedOptimizer(process_set=)``, replicas bitwise equal within
+   a set and apart between sets. (e) The chunked ``alltoall(splits=,
+   chunked=True)`` of (rows, 1024) bf16 tokens on a skewed table on the
+   none/bf16/int8 wires (none and bf16 bitwise; int8 within half a block
+   scale, with n - 1 = 3 K2 launches and no K4), and
+   ``wired_ppermute(wire="int8")`` over the local axis on (4096, 1024)
+   fp32 activations, forward and backward (the cotangent on the inverse
+   shift), each within half a block scale, with 2 K2 launches. Every
+   section's launch counts are zeroed just before it and read just
+   after; their sum is the mesh path's count. Printed: the median step
+   ms of each mode and the bytes each rank puts on each axis
+   (``mesh_wire_cost`` of the padded lengths) beside a flat fp32 ring;
+   these are gloo-over-loopback times of 4 processes on one card, not
+   NCCL or NVLink.
 8. Eager engine: the script relaunches itself as 2 gloo rank workers
    (``--rank-worker n2_eager``): GPT-2 medium at full width, B = 8,
    S = 512 per rank, each rank its own seeded batch, ``AdamW`` after
@@ -202,12 +246,13 @@ Phases (any failure exits non-zero and prints no result line):
    joins, rank 0 trains 3 and joins; rank 0's third-step gradients must
    be bitwise ``plain(plain(g0, 1/3) + 0, 1.5)`` and ``join()`` must
    return 0 on both. Step times are gloo with 2 processes on one card.
-9. Result lines: the per-kernel JSON record (K1-K9, each with its
-   launches on its path; K5/K6/K7 with ``launches_by_path`` for the GPT
-   training, BERT, ViT and the two guarded integrity runs, K1 for the
-   eager loop and the integrity unscale, each above 0, and ``launches``
-   their sum), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+9. Result lines: the per-kernel JSON record (K1-K9, each with
+   ``launches_by_path``, every path above 0, and ``launches`` their
+   sum: K5/K6/K7 for the GPT training, BERT, ViT and the two guarded
+   integrity runs; K1 for the eager loop, the integrity unscale and the
+   mesh phase; K2/K4 for serving and the mesh phase; K3, K8 and K9 for
+   the n = 2 multi-rank run and the mesh phase), the card line, and
+   last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` also traces the serve run and two extra training steps of
 GPT-2 medium, each integrity run, BERT-large, ViT-B/16 and ResNet-50
@@ -2732,17 +2777,18 @@ def sync_bn_check(torch, hvd, rank: int) -> dict:
             "limit": SBN_RTOL}
 
 
-def run_workers(config: str, n: int, timeout: float, out_dir: str):
+def run_workers(config: str, n: int, timeout: float, out_dir: str,
+                env_extra=None):
     """Relaunch this script as the n rank workers of ``config`` on the
-    one card, each with HVD_TPU_COORDINATOR/NUM_PROC/PROC_ID; any
-    worker's failure or overrun fails the phase. Returns each rank's JSON
-    record and the wall seconds; the logs go to
+    one card, each with HVD_TPU_COORDINATOR/NUM_PROC/PROC_ID (and
+    ``env_extra``); any worker's failure or overrun fails the phase.
+    Returns each rank's JSON record and the wall seconds; the logs go to
     ``multirank_<config>.log``."""
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     env = dict(os.environ, HVD_TPU_COORDINATOR=f"127.0.0.1:{port}",
-               HVD_TPU_NUM_PROC=str(n))
+               HVD_TPU_NUM_PROC=str(n), **(env_extra or {}))
     paths = [os.path.join(out_dir, f"multirank_{config}_rank{r}.json")
              for r in range(n)]
     for path in paths:
@@ -2846,6 +2892,524 @@ def phase_multirank(torch, out_dir: str) -> dict:
     with open(os.path.join(out_dir, "chip_smoke_multirank.json"), "w") as f:
         json.dump(results, f, indent=1)
     return results
+
+
+# -- phase 7b: mesh routing over a simulated 2x2 mesh ------------------------
+
+MESH_CONFIG = "n4_mesh"
+# n, model, per-rank batch, sequence length, worker timeout (s)
+MESH_RUN = (4, "gpt_medium", 4, 512, 900)
+MESH_SHAPE = "2x2"                  # cross x local: local {0,1},{2,3}
+MESH_TIMED = 3                      # timed steps after the checked one
+MESH_SETS = ((0, 2), (1, 3))
+MESH_TOK_EMB_RTOL = 1e-6            # eager hierarchical vs fp64, of sum |x|
+TINY_STEPS = 2
+
+
+def _mesh_bytes(C, plan, ns, items, n) -> dict:
+    """Bytes one rank puts on each axis a step, from ``mesh_wire_cost``
+    over the padded length each routed reduction sends, beside a flat
+    fp32 ring allreduce of the same elements. ``items``: (elements,
+    plan, op, itemsize, grid) per reduction."""
+    axes = {p.axis: 0.0 for p in plan.phases}
+    ring = 0.0
+    for elems, p, op, itemsize, grid in items:
+        padded = -(-elems // grid) * grid
+        cost = C.mesh_wire_cost(p, padded, ns, op, itemsize)
+        for a in axes:
+            axes[a] += cost[a]["bytes"]
+        ring += 2 * (n - 1) / n * 4 * elems
+    return {"per_axis": axes, "flat_fp32_ring": ring}
+
+
+def _mesh_opt_bytes(C, opt, plan, ns, n) -> dict:
+    """Per-axis bytes of one routed int8_ef step: int8 buckets take the
+    plan (4096-element blocks a rank), small float buckets ride it in
+    bf16 with wires none, others native."""
+    items = []
+    for b, w in zip(opt._dist_plan.buckets, opt._dist_plan.wire_dtypes):
+        if w == "int8":
+            items.append((b.total_elems, plan, C.Sum, 4, n * 4096))
+        else:
+            items.append((b.total_elems, plan.with_wires("none"), C.Sum,
+                          2 if w == "bf16" else 4, n))
+    return _mesh_bytes(C, plan, ns, items, n)
+
+
+def _mesh_probe(C, target: int):
+    """Records the input and output of the ``target``-th
+    ``mesh_allreduce`` call of one step (the Adasum optimizer calls it
+    once a parameter, in order). Returns (record, restore)."""
+    orig = C.mesh_allreduce
+    seen = {"calls": 0}
+
+    def probe(x, *a, **k):
+        y = orig(x, *a, **k)
+        if seen["calls"] == target:
+            seen["delta"], seen["reduced"] = x.clone(), y.clone()
+        seen["calls"] += 1
+        return y
+
+    C.mesh_allreduce = probe
+
+    def restore():
+        C.mesh_allreduce = orig
+    return seen, restore
+
+
+def _block_scales(torch, v, pad):
+    """Per-4096-block absmax / 127 of a flat tensor zero-padded by
+    ``pad``."""
+    return torch.nn.functional.pad(v.abs(), (0, pad)).reshape(
+        -1, 4096).amax(1) / 127
+
+
+def _mesh_train(torch, hvd, gpt_mod, C, K, fusion, mode, rank, n):
+    """One routed training mode of GPT-2 medium: the checked step and the
+    timed steps, with the launch counts zeroed just before the timed
+    steps and read just after."""
+    _, model_name, batch, seq, _ = MESH_RUN
+    plan = C.WirePlan.resolve("staged_int8" if mode == "int8_ef"
+                              else "staged")
+    ns = [C._axis(p.axis).size for p in plan.phases]
+    model = _make_model(torch, gpt_mod, model_name)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    params = list(model.parameters())
+    digest = _Digest(torch, params)
+    tokens = torch.randint(0, model.vocab_size, (batch, seq + 1),
+                           generator=torch.Generator().manual_seed(
+                               21 + rank)).to("cuda")
+    kw = {"compression": "int8_ef", "route": "staged_int8"} \
+        if mode == "int8_ef" else {"op": hvd.Adasum, "route": "staged"}
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(), **kw)
+    check(opt._route == plan, f"mesh {mode}: route {opt._route}")
+    rec = {"plan": plan.describe(), "params": len(params)}
+
+    def forward_backward():
+        loss = gpt_mod.next_token_loss(model(tokens[:, :-1]), tokens[:, 1:])
+        opt.zero_grad()
+        loss.backward()
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    loss = forward_backward()
+    if mode == "int8_ef":
+        dplan = opt._dist_plan
+        bi = dplan.wire_dtypes.index("int8")
+        bucket = dplan.buckets[bi]
+        local = fusion.fuse_bucket(
+            {i: opt._dist_params[i].grad for i in bucket.leaf_indices},
+            bucket).float()
+        every = C.all_gather_stack(local).double()
+        pad = (-local.numel()) % 4096
+        # The cross hop quantizes each host's local sum: its block
+        # scales bound the contributions' rounding.
+        s_cross = sum(_block_scales(torch, every[c * 2] + every[c * 2 + 1],
+                                    pad) for c in range(2))
+        exact = every.mean(0)
+        del every
+        opt.step()
+        rec["bound_check"] = _ef_bound_check(torch, fusion, opt, bi, exact,
+                                             s_cross, n)
+        del exact, s_cross, local
+        rec["int8_buckets"] = dplan.wire_dtypes.count("int8")
+        rec["buckets"] = len(dplan.buckets)
+        rec["bytes"] = _mesh_opt_bytes(C, opt, plan, ns, n)
+        rec["int8_hops_per_bucket"] = 2   # the cross hop's RS and AG
+    else:
+        target = max(range(len(params)),
+                     key=lambda i: (params[i].numel() <= 4_194_304,
+                                    params[i].numel()))
+        seen, restore = _mesh_probe(C, target)
+        try:
+            opt.step()
+        finally:
+            restore()
+        deltas = C.all_gather_stack(seen["delta"]).double().cpu().numpy()
+        from horovod_tpu_torch.ops import adasum as adasum_mod
+
+        ref = adasum_mod.adasum_allreduce_reference(
+            [deltas[0:2].mean(0), deltas[2:4].mean(0)])
+        got = seen["reduced"].double().cpu().numpy()
+        err, scale = float(abs(got - ref).max()), float(abs(ref).max())
+        check(err <= ADASUM_REF_RTOL * scale,
+              f"mesh adasum: parameter {target} reduced delta off the fp64 "
+              f"reference over the local averages by {err} > "
+              f"{ADASUM_REF_RTOL} x {scale}")
+        rec["reference_check"] = {"param": target, "elements": int(got.size),
+                                  "max_err": err, "max_abs_ref": scale,
+                                  "rel": err / scale}
+        rec["bytes"] = _mesh_bytes(C, plan, ns, [
+            (p.numel(), plan, C.Adasum, 4, n) for p in params], n)
+    losses = [loss.item()]
+    every = C.all_gather_stack(digest(params))
+    check(bool((every == every[0]).all()),
+          f"mesh {mode}: replicas differ after the checked step")
+    torch.cuda.synchronize()
+    hvd.barrier()
+    K.reset_launch_counts()
+    times, equal = [], []
+    for _ in range(MESH_TIMED):
+        t0 = time.perf_counter()
+        loss = forward_backward()
+        opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        every = C.all_gather_stack(digest(params))
+        equal.append(bool((every == every[0]).all()))
+    launches = dict(K.LAUNCHES)
+    check(all(map(math.isfinite, losses)),
+          f"mesh {mode}: non-finite loss in {losses}")
+    check(all(equal), f"mesh {mode}: replicas differ after timed step(s) "
+                      f"{[i for i, e in enumerate(equal) if not e]}")
+    flash = model.num_layers * MESH_TIMED
+    want = {k: 0 for k in launches}
+    want.update(flash_fwd=flash, flash_bwd_dq=flash, flash_bwd_dkv=flash)
+    if mode == "int8_ef":
+        want["quantize_int8_stochastic"] = \
+            rec["int8_hops_per_bucket"] * rec["int8_buckets"] * MESH_TIMED
+        res = list(opt._ef_residual.values())
+        check(all(bool(torch.isfinite(r).all()) for r in res),
+              "mesh int8_ef: non-finite residual")
+        rec["residual_norm"] = hvd.observe_ef_residual(opt)
+        check(rec["residual_norm"] > 0, "mesh int8_ef: residual is zero")
+    else:
+        levels = ns[-1].bit_length() - 1
+        want["adasum_dot_norms"] = len(params) * levels * MESH_TIMED
+        want["adasum_combine"] = len(params) * levels * MESH_TIMED
+    check(launches == want, f"mesh {mode}: launches {launches}, expected "
+                            f"{want}")
+    rec.update({"losses": losses, "step_ms": [t * 1e3 for t in times],
+                "step_ms_median": statistics.median(times) * 1e3,
+                "launches": launches, "replicas_equal": equal,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    if hasattr(opt, "_dist_hooks"):
+        release(torch, opt, "cuda")
+    del opt, model, params, digest
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _counted(torch, K, fn):
+    """``fn()`` with the launch counts zeroed just before and read just
+    after; returns (its result, the counts)."""
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(K.LAUNCHES)
+
+
+def _expect(launches, what, **want):
+    full = {k: 0 for k in launches}
+    full.update(want)
+    check(launches == full, f"{what}: launches {launches}, expected {full}")
+
+
+def _mesh_eager(torch, hvd, C, K, rank, n) -> dict:
+    """(c): ``init(hierarchical_allreduce=True)``'s allreduce with pre- and
+    postscale on ``tok_emb``'s shape, a direct
+    ``quantized_hierarchical_allreduce`` and the hierarchical
+    allgather."""
+    def emb(r):
+        return torch.randn(TOK_EMB, generator=torch.Generator(
+            device="cuda").manual_seed(700 + r), device="cuda")
+
+    rec, x = {}, emb(rank)
+    y, rec["allreduce_launches"] = _counted(torch, K, lambda: hvd.allreduce(
+        x, op=hvd.Sum, name="mesh.tok_emb", prescale_factor=1 / 3,
+        postscale_factor=1.5))
+    _expect(rec["allreduce_launches"], "hierarchical allreduce",
+            scale_buffer=2)
+    digests = C.all_gather_stack(_Digest(torch, [y])([y]))
+    check(bool((digests == digests[0]).all()),
+          "hierarchical allreduce: ranks differ")
+    pre = torch.tensor(1 / 3, dtype=torch.float32).item()
+    post = torch.tensor(1.5, dtype=torch.float32).item()
+    plain = torch.zeros(TOK_EMB, dtype=torch.float64, device="cuda")
+    mag = torch.zeros_like(plain)
+    for r in range(n):
+        xr = emb(r).double()
+        plain += xr * pre
+        mag += xr.abs()
+    plain *= post
+    err = (y.double() - plain).abs().max().item()
+    limit = MESH_TOK_EMB_RTOL * mag.max().item()
+    check(err <= limit, f"hierarchical allreduce: off the plain result by "
+                        f"{err} > {limit}")
+    rec["allreduce_max_err"], rec["allreduce_limit"] = err, limit
+    del plain, mag, y
+    # dim 0 must divide by the local size: tok_emb's 50257 rows flat.
+    q, rec["qhar_launches"] = _counted(
+        torch, K, lambda: C.quantized_hierarchical_allreduce(
+            x.reshape(-1), C.Sum).reshape(TOK_EMB))
+    _expect(rec["qhar_launches"], "quantized_hierarchical_allreduce",
+            quantize_int8=2, dequantize_int8=2)
+    local = [emb(2 * c) + emb(2 * c + 1) for c in range(2)]
+    exact = local[0] + local[1]
+    # Round to nearest: half a scale of each host's chunk and of the
+    # reduced chunk, bounded by the global absmaxes.
+    bound = (sum(v.abs().max() for v in local) + exact.abs().max()).item() \
+        / 127
+    err = (q - exact).abs().max().item()
+    check(err <= bound, f"quantized_hierarchical_allreduce: error {err} "
+                        f"> {bound}")
+    rec["qhar_max_err"], rec["qhar_bound"] = err, bound
+    del q, local, exact
+    g = hvd.allgather(x[:4096], name="mesh.ag")
+    check(bits_equal(torch, g, C.allgather(x[:4096])),
+          "hierarchical allgather: differs from the flat one")
+    return rec
+
+
+def _mesh_sets(torch, hvd, gpt_mod, C, rank) -> dict:
+    """(d): process sets evens and odds; set-scoped calls against the
+    same reductions by hand (inputs regenerated from their seeds), a
+    non-member's call, and gpt_tiny trained per set."""
+    sets = [hvd.add_process_set(list(s)) for s in MESH_SETS]
+    mine = sets[rank % 2]
+    other = sets[1 - rank % 2]
+    members = list(mine.ranks)
+    width = MOE_TOKENS[1]
+
+    def vec(r):
+        return torch.randn((64, width), generator=torch.Generator(
+            device="cuda").manual_seed(800 + r), device="cuda")
+
+    xs = {r: vec(r) for r in range(4)}
+    got = hvd.allreduce(xs[rank], op=hvd.Sum, name="ps.ar", process_set=mine)
+    check(bits_equal(torch, got, xs[members[0]] + xs[members[1]]),
+          "process set allreduce: differs")
+    got = hvd.allgather(xs[rank], name="ps.ag", process_set=mine)
+    check(bits_equal(torch, got, torch.cat([xs[m] for m in members])),
+          "process set allgather: differs")
+    got = hvd.broadcast(xs[rank], root_rank=members[1], name="ps.bc",
+                        process_set=mine)
+    check(bits_equal(torch, got, xs[members[1]]),
+          "process set broadcast (global root): differs")
+    pos = members.index(rank)
+    got = hvd.alltoall(xs[rank], name="ps.a2a", process_set=mine)
+    check(bits_equal(torch, got, torch.cat(
+        [xs[m][pos * 32:(pos + 1) * 32] for m in members])),
+        "process set alltoall: differs")
+    try:
+        hvd.allreduce(xs[rank], name="ps.bad", process_set=other)
+        raise SmokeError("process set: a non-member's call did not raise")
+    except ValueError:
+        pass
+    model = _make_model(torch, gpt_mod, "gpt_tiny")
+    tokens = torch.randint(0, 128, (8, 129), generator=torch.Generator()
+                           .manual_seed(31 + rank)).to("cuda")
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-3),
+        named_parameters=model.named_parameters(), process_set=mine)
+    params = list(model.parameters())
+    losses = []
+    for _ in range(TINY_STEPS):
+        loss = gpt_mod.next_token_loss(model(tokens[:, :-1]), tokens[:, 1:])
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    check(all(map(math.isfinite, losses)), f"process set: losses {losses}")
+    every = C.all_gather_stack(_Digest(torch, params)(params))
+    for s in MESH_SETS:
+        check(bool((every[s[0]] == every[s[1]]).all()),
+              f"process set {list(s)}: replicas differ")
+    check(not bool((every[0] == every[1]).all()),
+          "process sets: the two sets trained to the same weights")
+    release(torch, opt, "cuda")
+    return {"sets": [list(s) for s in MESH_SETS], "tiny_losses": losses,
+            "bitwise": True}
+
+
+def _mesh_exchanges(torch, hvd, C, K, rank, n) -> dict:
+    """(e): the chunked uneven alltoall of MoE-shaped tokens on each wire
+    against the plain exchange, and ``wired_ppermute`` over the local
+    axis on the int8 wire, forward and backward."""
+    rows, width = MOE_TOKENS
+    splits = torch.randint(64, 512, (n, n), generator=torch.Generator()
+                           .manual_seed(19)).tolist()
+    splits[0][1] = rows - sum(splits[0]) + splits[0][1]   # skewed: one
+    rec = {"splits": splits}                            # row sums to 4096
+
+    def tokens(r):
+        return torch.randn((sum(splits[r]), width), generator=torch.Generator(
+            device="cuda").manual_seed(900 + r), device="cuda").to(
+                torch.bfloat16)
+
+    xs = [tokens(r) for r in range(n)]
+    segs = [xs[s][sum(splits[s][:rank]):sum(splits[s][:rank + 1])]
+            for s in range(n)]
+    want = torch.cat(segs)
+    for wire in ("none", "bf16", "int8"):
+        got, launches = _counted(torch, K, lambda: hvd.alltoall(
+            xs[rank], name=f"mesh.a2a.{wire}", splits=splits[rank],
+            chunked=True, wire=None if wire == "none" else wire))
+        if wire == "int8":
+            _expect(launches, "chunked alltoall int8", quantize_int8=n - 1)
+            rec["int8_launches"] = launches
+            # Half a block scale of each hop's chunk, then the bf16
+            # rounding of the output.
+            lim = torch.cat([torch.full((s.shape[0], 1), s.float().abs().max()
+                                        .item() / 254, device="cuda")
+                             for s in segs])
+            err = (got.float() - want.float()).abs()
+            check(bool((err <= lim + want.float().abs() * 2 ** -8).all()),
+                  "chunked alltoall int8: off the exchange by more than "
+                  "half a block scale")
+            rec["int8_max_abs_err"] = err.max().item()
+        else:
+            _expect(launches, f"chunked alltoall {wire}")
+            check(bits_equal(torch, got, want),
+                  f"chunked alltoall {wire}: differs")
+    local = C._axis("local")
+    shift = [(i, (i + 1) % local.size) for i in range(local.size)]
+    src_pos = (local.index - 1) % local.size
+    dst_pos = (local.index + 1) % local.size
+
+    def act(r, seed):
+        return torch.randn(MOE_TOKENS, generator=torch.Generator(
+            device="cuda").manual_seed(seed + r), device="cuda")
+
+    x = act(rank, 1000).requires_grad_(True)
+    cot = act(rank, 1100)
+
+    def run():
+        y = C.wired_ppermute(x, "local", shift, "int8")
+        (y * cot).sum().backward()
+        return y.detach()
+
+    y, launches = _counted(torch, K, run)
+    _expect(launches, "wired_ppermute int8", quantize_int8=2)
+    rec["ppermute_launches"] = launches
+    want_y = act(local.ranks[src_pos], 1000)
+    want_g = act(local.ranks[dst_pos], 1100)
+    for what, got, exact in (("forward", y, want_y),
+                             ("backward", x.grad, want_g)):
+        err = (got - exact).abs().max().item()
+        lim = exact.abs().max().item() / 254
+        check(err <= lim, f"wired_ppermute int8 {what}: error {err} > half "
+                          f"a block scale {lim}")
+        rec[f"ppermute_{what}_max_err"] = err
+    return rec
+
+
+def mesh_worker(config: str, rank: int, out_path: str) -> None:
+    """One rank of phase 7b (``--rank-worker n4_mesh``), launched with
+    ``HVD_TPU_MESH_SHAPE=2x2``: the two routed training modes, the eager
+    hierarchical calls, process sets and the wired exchanges; every
+    section's launch counts zeroed just before it and read just after."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import fusion
+    from horovod_tpu_torch.models import gpt as gpt_mod
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n, model_name, batch, seq, _ = MESH_RUN
+    ctx = hvd.init(backend="gloo", hierarchical_allreduce=True,
+                   hierarchical_allgather=True)
+    axes = {a.name: (a.size, list(a.ranks)) for a in ctx.axes.values()}
+    check(hvd.size() == n and hvd.rank() == rank and ctx.hier_axes()
+          and axes["local"][0] == 2 and axes["cross"][0] == 2
+          and axes["local"][1] == [2 * (rank // 2), 2 * (rank // 2) + 1],
+          f"mesh: rank {rank} axes {axes}")
+    out = {"config": config, "rank": rank, "model": model_name,
+           "batch": batch, "seq_len": seq, "backend": ctx.backend,
+           "axes": axes, "modes": {}}
+    for mode in ("int8_ef", "adasum"):
+        out["modes"][mode] = rec = _mesh_train(torch, hvd, gpt_mod, C, K,
+                                               fusion, mode, rank, n)
+        print(f"rank {rank} {mode}: step ms {rec['step_ms']}, launches "
+              f"{rec['launches']}", flush=True)
+    out["eager"] = _mesh_eager(torch, hvd, C, K, rank, n)
+    print(f"rank {rank} eager: {out['eager']}", flush=True)
+    out["process_sets"] = _mesh_sets(torch, hvd, gpt_mod, C, rank)
+    out["exchanges"] = _mesh_exchanges(torch, hvd, C, K, rank, n)
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def phase_mesh(torch, out_dir: str) -> dict:
+    """Phase 7b: the four rank workers of the 2x2 mesh on the one card.
+    Returns the phase's record with ``launches``, the mesh path's counts
+    summed over its counted sections."""
+    n, model_name, batch, seq, timeout = MESH_RUN
+    os.makedirs(out_dir, exist_ok=True)
+    ranks, wall = run_workers(MESH_CONFIG, n, timeout, out_dir,
+                              {"HVD_TPU_MESH_SHAPE": MESH_SHAPE})
+    r0 = ranks[0]
+    res = {"n": n, "mesh_shape": MESH_SHAPE, "model": model_name,
+           "batch_per_rank": batch, "seq_len": seq, "wall_s": wall,
+           "label": "gloo, 4 processes on one card (not NCCL or NVLink)",
+           "modes": {}}
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for mode in ("int8_ef", "adasum"):
+        recs = [rk["modes"][mode] for rk in ranks]
+        check(all(rc["launches"] == recs[0]["launches"] for rc in recs),
+              f"mesh {mode}: ranks counted different launches")
+        step_ms = statistics.median(
+            statistics.median(rc["step_ms"]) for rc in recs)
+        m = res["modes"][mode] = {
+            "plan": recs[0]["plan"], "step_ms_median": step_ms,
+            "step_ms_rank0": recs[0]["step_ms"],
+            "tokens_per_s": n * batch * seq / (step_ms / 1e3),
+            "losses_rank0": recs[0]["losses"],
+            "launches": recs[0]["launches"],
+            "bytes_per_step_per_rank": recs[0]["bytes"],
+            "peak_mem_gib": max(rc["peak_mem_gib"] for rc in recs),
+            "check": recs[0].get("bound_check")
+            or recs[0].get("reference_check")}
+        add(m["launches"])
+        b = m["bytes_per_step_per_rank"]
+        print(f"mesh 2x2 {mode} ({m['plan']}; gloo, 4 processes on one "
+              f"card): gpt_medium B={batch} S={seq} per rank, step "
+              f"{step_ms:.1f} ms = {m['tokens_per_s']:.0f} tok/s; bytes a "
+              f"rank a step: "
+              + ", ".join(f"{a} {v / 1e6:.1f} MB" for a, v in
+                          b["per_axis"].items())
+              + f" (flat fp32 ring {b['flat_fp32_ring'] / 1e6:.1f} MB); "
+              f"peak {m['peak_mem_gib']:.2f} GiB; check "
+              f"{json.dumps(m['check'])}; launches "
+              f"{json.dumps(m['launches'])}", flush=True)
+    res["eager"] = r0["eager"]
+    add(r0["eager"]["allreduce_launches"])
+    add(r0["eager"]["qhar_launches"])
+    res["process_sets"] = r0["process_sets"]
+    res["exchanges"] = {k: v for k, v in r0["exchanges"].items()
+                        if k != "splits"}
+    ex = r0["exchanges"]
+    add(ex["int8_launches"])
+    add(ex["ppermute_launches"])
+    res["launches"] = launches
+    print(f"mesh 2x2 eager: hierarchical allreduce of {TOK_EMB} max err "
+          f"{res['eager']['allreduce_max_err']:.3g} (limit "
+          f"{res['eager']['allreduce_limit']:.3g}), launches "
+          f"{json.dumps(res['eager']['allreduce_launches'])}; quantized "
+          f"hierarchical max err {res['eager']['qhar_max_err']:.3g} (bound "
+          f"{res['eager']['qhar_bound']:.3g}); process sets "
+          f"{res['process_sets']['sets']} bitwise, tiny losses "
+          f"{res['process_sets']['tiny_losses']}; chunked alltoall int8 max "
+          f"err {ex['int8_max_abs_err']:.3g}; wired_ppermute int8 err "
+          f"{ex['ppermute_forward_max_err']:.3g} / "
+          f"{ex['ppermute_backward_max_err']:.3g}; mesh path launches "
+          f"{json.dumps(launches)}", flush=True)
+    with open(os.path.join(out_dir, "chip_smoke_mesh.json"), "w") as f:
+        json.dump(dict(res, ranks=ranks), f, indent=1)
+    return res
 
 
 # -- eager phase: Horovod's PyTorch loop through the eager engine -----------
@@ -3313,8 +3877,8 @@ def main(argv=None) -> int:
                          "ones)")
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--rank-worker"]:
-        worker = {"n2_eager": eager_worker, "n2_join": join_worker}.get(
-            argv[1], rank_worker)
+        worker = {"n2_eager": eager_worker, "n2_join": join_worker,
+                  MESH_CONFIG: mesh_worker}.get(argv[1], rank_worker)
         worker(argv[1], int(argv[2]), argv[3])
         return 0
     args = ap.parse_args(argv)
@@ -3360,12 +3924,18 @@ def main(argv=None) -> int:
         zoo = phase_zoo(torch)
         multi = phase_multirank(torch, args.out)
         eager = phase_eager(torch, args.out)
+        mesh = phase_mesh(torch, args.out)
         n2 = multi["n2_gpt_medium"]["modes"]
-        paths = {"quantize_int8": serve["launches"],
-                 "dequantize_int8": serve["launches"],
-                 "quantize_int8_stochastic": n2["int8_ef"]["launches"],
-                 "adasum_dot_norms": n2["adasum"]["launches"],
-                 "adasum_combine": n2["adasum"]["launches"]}
+        # Every path a kernel runs on, each counted from zero around it;
+        # the mesh path (phase 7b) is one of them for K1-K4, K8 and K9.
+        paths = {"quantize_int8": {"serve": serve["launches"]},
+                 "dequantize_int8": {"serve": serve["launches"]},
+                 "quantize_int8_stochastic": {
+                     "multirank_n2": n2["int8_ef"]["launches"]},
+                 "adasum_dot_norms": {
+                     "multirank_n2": n2["adasum"]["launches"]},
+                 "adasum_combine": {
+                     "multirank_n2": n2["adasum"]["launches"]}}
         integ_runs = integ["runs"]
         flash_paths = {"gpt_train": train["launches"],
                        "bert": bert["launches"], "vit": vit["launches"],
@@ -3375,23 +3945,23 @@ def main(argv=None) -> int:
                            "launches"]}
         # K1 runs on the eager path (pre/postscale) and as the guard's
         # unscale on the integrity path.
-        scale_paths = {"eager": eager["launches"],
-                       "integrity_unscale": {"scale_buffer": sum(
-                           r["launches"]["scale_buffer"]
-                           for r in integ_runs.values())}}
+        paths["scale_buffer"] = {
+            "eager": eager["launches"],
+            "integrity_unscale": {"scale_buffer": sum(
+                r["launches"]["scale_buffer"] for r in integ_runs.values())}}
+        for name in ("scale_buffer", "quantize_int8", "dequantize_int8",
+                     "quantize_int8_stochastic", "adasum_dot_norms",
+                     "adasum_combine"):
+            paths[name]["mesh"] = mesh["launches"]
+        for name in FLASH_NAMES:
+            paths[name] = flash_paths
         for name, rec in records.items():
-            if name in FLASH_NAMES or name == "scale_buffer":
-                # Kernels on several paths: each path must launch them.
-                by_path = {p: c[name] for p, c in (
-                    scale_paths if name == "scale_buffer"
-                    else flash_paths).items()}
-                check(min(by_path.values()) > 0,
-                      f"{name}: no launch on a path: {by_path}")
-                rec["launches_by_path"] = by_path
-                rec["launches"] = sum(by_path.values())
-            else:
-                rec["launches"] = paths[name][name]
-            check(rec["launches"] > 0, f"{name}: no launch on its path")
+            # Each path a kernel is on must launch it.
+            by_path = {p: c[name] for p, c in paths[name].items()}
+            check(min(by_path.values()) > 0,
+                  f"{name}: no launch on a path: {by_path}")
+            rec["launches_by_path"] = by_path
+            rec["launches"] = sum(by_path.values())
         for name in ("quantize_int8", "dequantize_int8"):
             records[name]["leaves_on_path"] = serve["codec_leaves"][name]
     except (SmokeError, RuntimeError, OSError, ValueError,
@@ -3409,7 +3979,8 @@ def main(argv=None) -> int:
                                      if k != "modes"}
                                  for c, r in multi.items()},
                    "eager": {k: v for k, v in eager.items()
-                             if k not in ("ranks", "join")}}, f, indent=1)
+                             if k not in ("ranks", "join")},
+                   "mesh": mesh}, f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -45,7 +45,17 @@ Ported so far:
   (``data.py``: ``DeviceInfeed`` on a copy stream, ``shard_batch``,
   ``ElasticSampler``), verified checkpoints (``checkpoint.py``:
   ``CheckpointManager`` with CRC sidecars and walk-back) and the training
-  callbacks (``callbacks.py``).
+  callbacks (``callbacks.py``);
+* slice 10 — process sets and the topology: ``init(comm=,
+  process_sets=, mesh_shape=)``, ``cross_rank``/``cross_size``/
+  ``is_homogeneous``, ``ProcessSet`` with ``add_process_set``/
+  ``remove_process_set`` and ``process_set=`` on every eager call and on
+  ``DistributedOptimizer``; the mesh router (``WirePlan``,
+  ``ops.collectives.mesh_allreduce`` with a wire per axis, hierarchical
+  Adasum, ``DistributedOptimizer(route=)``), the two-level eager
+  allreduce/allgather (``init(hierarchical_allreduce=True)``), the
+  chunked ``alltoall(splits=, chunked=, wire=)`` and
+  ``ops.collectives.wired_ppermute``.
 
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request they raise.
@@ -55,7 +65,8 @@ Names of the JAX package's API that later slices bring raise
 
 import torch
 
-from .common.basics import (device, init, is_initialized, local_rank,
+from .common.basics import (cross_rank, cross_size, device, init,
+                            is_homogeneous, is_initialized, local_rank,
                             local_size, rank, shutdown, size)
 from .common.device import resolve_device
 from .common import integrity
@@ -73,12 +84,14 @@ from .common.metrics import metrics
 from .functions import allgather_object, broadcast_object
 from .ops.adasum import adasum_allreduce
 from .ops.collectives import (Adasum, Average, Max, Min, Product, ReduceOp,
-                              Sum, broadcast_, quantized_allreduce)
+                              Sum, WirePlan, broadcast_, quantized_allreduce)
 from .ops.compression import Compression
 from .ops import eager as _eager
 from .optim import (DistributedOptimizer, accumulate_gradients,
                     broadcast_optimizer_state, broadcast_parameters,
                     observe_ef_residual, resolve_remat_policy)
+from .process_set import (ProcessSet, add_process_set,
+                          member_engine as _engine, remove_process_set)
 from .sync_batch_norm import SyncBatchNorm
 from . import callbacks, checkpoint
 from .checkpoint import CheckpointManager, ObjectStore
@@ -92,19 +105,23 @@ __all__ = [
     "DivergenceError", "DuplicateTensorNameError", "ElasticSampler",
     "HorovodInternalError", "HorovodTpuError", "Max", "Min",
     "MismatchError", "NonFiniteError", "NotInitializedError",
-    "ObjectStore", "Product", "ReduceOp", "Sum", "SyncBatchNorm",
-    "TensorShapeMismatchError", "accumulate_gradients", "adasum_allreduce",
+    "ObjectStore", "ProcessSet", "Product", "ReduceOp", "Sum",
+    "SyncBatchNorm", "TensorShapeMismatchError", "WirePlan",
+    "accumulate_gradients", "add_process_set", "adasum_allreduce",
     "allgather", "allgather_async", "allgather_object", "allgatherv",
     "allreduce", "allreduce_", "allreduce_async", "allreduce_async_",
     "alltoall", "alltoall_async", "barrier", "broadcast", "broadcast_",
     "broadcast_async", "broadcast_async_", "broadcast_object",
     "broadcast_optimizer_state", "broadcast_parameters", "callbacks",
-    "checkpoint", "current_loss_scale", "device", "grouped_allgather",
+    "checkpoint", "cross_rank", "cross_size", "current_loss_scale",
+    "device", "grouped_allgather",
     "grouped_allreduce", "grouped_allreduce_", "grouped_reducescatter",
-    "infeed_pipeline", "init", "integrity", "is_initialized", "join",
+    "infeed_pipeline", "init", "integrity", "is_homogeneous",
+    "is_initialized", "join",
     "local_rank", "local_size", "metrics", "observe_ef_residual",
     "observe_guard", "poll", "prefetch_to_device", "quantized_allreduce",
-    "rank", "recovery_stats", "reducescatter", "resolve_device",
+    "rank", "recovery_stats", "reducescatter", "remove_process_set",
+    "resolve_device",
     "resolve_remat_policy", "shard_batch", "shutdown", "size",
     "sparse_allreduce_async", "start_timeline", "stop_timeline",
     "synchronize",
@@ -112,15 +129,11 @@ __all__ = [
 
 
 # -- the eager API (the JAX package's signatures, one rank per process) ----
+#
+# ``_engine(process_set)`` is the world's engine or a registered set's.
+# Async handles of every engine live in the world engine's table, which
+# ``poll`` and ``synchronize`` read.
 
-def _engine(process_set=None):
-    if process_set is not None:
-        raise NotImplementedError(
-            "process_set= is not ported yet; it comes with the "
-            "process-set slice of the port")
-    from .common import basics as _basics
-
-    return _basics.context().engine
 
 
 def allreduce(x, op: ReduceOp = Average, name=None,
@@ -147,12 +160,14 @@ def allreduce_(tensor, op: ReduceOp = Average, name=None, process_set=None):
 
 def allreduce_async(x, op: ReduceOp = Average, name=None,
                     prescale_factor: float = 1.0,
-                    postscale_factor: float = 1.0, compression=None) -> int:
+                    postscale_factor: float = 1.0, compression=None,
+                    process_set=None) -> int:
     """:func:`allreduce`, issued: returns a handle for :func:`poll` and
-    :func:`synchronize` (which returns the result)."""
-    e = _engine()
-    return e.async_call(e.allreduce, x, op, name, prescale_factor,
-                        postscale_factor, compression)
+    :func:`synchronize` (which returns the result). Handles live in the
+    world engine's table, whichever engine runs the collective."""
+    e = _engine(process_set)
+    return _engine().async_call(e.allreduce, x, op, name, prescale_factor,
+                                postscale_factor, compression)
 
 
 def allreduce_async_(tensor, op: ReduceOp = Average, name=None,
@@ -162,8 +177,8 @@ def allreduce_async_(tensor, op: ReduceOp = Average, name=None,
     writes the reduction of every rank's ``tensor`` into ``tensor`` and
     returns ``tensor``."""
     e = _engine(process_set)
-    return e.async_call(_eager.InPlace, e.allreduce(tensor, op, name),
-                        tensor)
+    return _engine().async_call(_eager.InPlace,
+                                e.allreduce(tensor, op, name), tensor)
 
 
 def grouped_allreduce(tensors, op: ReduceOp = Average, name=None,
@@ -243,9 +258,9 @@ def allgatherv(x, name=None, process_set=None):
     return _engine(process_set).allgatherv(x, name).wait()
 
 
-def allgather_async(x, name=None) -> int:
-    e = _engine()
-    return e.async_call(e.allgather, x, name)
+def allgather_async(x, name=None, process_set=None) -> int:
+    e = _engine(process_set)
+    return _engine().async_call(e.allgather, x, name)
 
 
 def grouped_allgather(tensors, name=None, process_set=None):
@@ -256,14 +271,28 @@ def grouped_allgather(tensors, name=None, process_set=None):
     return [p.wait() for p in pend]
 
 
+def _set_root(root_rank: int, process_set) -> int:
+    """A broadcast root, a GLOBAL rank, as its position in the set."""
+    if process_set is None:
+        return root_rank
+    if root_rank not in process_set.ranks:
+        raise ValueError(f"root_rank {root_rank} is not a member of "
+                         f"{process_set!r}")
+    return process_set.ranks.index(root_rank)
+
+
 def broadcast(x, root_rank: int = 0, name=None, process_set=None):
-    """``root_rank``'s ``x`` as a new tensor on every rank."""
-    return _engine(process_set).broadcast(x, root_rank, name).wait()
+    """``root_rank``'s ``x`` as a new tensor on every rank (with
+    ``process_set``, ``root_rank`` is still a global rank)."""
+    e = _engine(process_set)
+    return e.broadcast(x, _set_root(root_rank, process_set), name).wait()
 
 
-def broadcast_async(x, root_rank: int = 0, name=None) -> int:
-    e = _engine()
-    return e.async_call(e.broadcast, x, root_rank, name)
+def broadcast_async(x, root_rank: int = 0, name=None,
+                    process_set=None) -> int:
+    e = _engine(process_set)
+    return _engine().async_call(e.broadcast, x,
+                                _set_root(root_rank, process_set), name)
 
 
 def broadcast_async_(tensor, root_rank: int = 0, name=None,
@@ -272,8 +301,8 @@ def broadcast_async_(tensor, root_rank: int = 0, name=None,
     :func:`synchronize` writes ``root_rank``'s tensor into ``tensor`` and
     returns ``tensor``."""
     e = _engine(process_set)
-    return e.async_call(_eager.InPlace, e.broadcast(tensor, root_rank, name),
-                        tensor)
+    return _engine().async_call(_eager.InPlace, e.broadcast(
+        tensor, _set_root(root_rank, process_set), name), tensor)
 
 
 def alltoall(x, name=None, splits=None, process_set=None, chunked=None,
@@ -282,7 +311,9 @@ def alltoall(x, name=None, splits=None, process_set=None, chunked=None,
     rank ``j``), or with ``splits`` — this rank's send counts — the
     uneven one, whose receive counts are negotiated. ``wire`` ("bf16",
     "int8", "auto" or a ``Compression`` class) compresses the even
-    exchange's payload."""
+    exchange's payload, or the uneven one's chunked hops (``chunked``:
+    True forces the per-hop padded exchange, False the flat one, None
+    takes the chunked one for a wire and the flat one otherwise)."""
     return _engine(process_set).alltoall(x, name, splits=splits,
                                          chunked=chunked, wire=wire).wait()
 
@@ -291,7 +322,7 @@ def alltoall_async(x, name=None, process_set=None) -> int:
     """The even :func:`alltoall`, issued: :func:`synchronize` returns the
     chunks received, in source-rank order."""
     e = _engine(process_set)
-    return e.async_call(e.alltoall, x, name)
+    return _engine().async_call(e.alltoall, x, name)
 
 
 def reducescatter(x, op: ReduceOp = None, name=None, process_set=None):
@@ -352,9 +383,6 @@ def stop_timeline() -> None:
 
 # The JAX package's API that later slices of the port bring, by slice.
 _LATER = {
-    "the process-set slice": (
-        "ProcessSet", "add_process_set", "remove_process_set", "cross_rank",
-        "cross_size", "is_homogeneous"),
     "the ZeRO/FSDP slice": (
         "ShardedOptimizer", "FSDPOptimizer", "ZeroOptimizer",
         "sharded_init", "sharded_update", "auto_shard_threshold",

@@ -32,21 +32,48 @@ store, its keys namespaced per ``init()`` generation. ``shutdown()``
 synchronizes the engine's outstanding handles and stops the timeline
 before it destroys the process group.
 
-Process sets and ``comm=`` subset communicators are not ported yet.
+Topology (``common/topology.py``): ``init()`` resolves the routing
+mesh (``init(mesh_shape=)`` / ``HVD_TPU_MESH_SHAPE``, else cross x local
+from the launcher, else flat) and makes one ``torch.distributed``
+subgroup per line of every axis, on every rank in one fixed order; the
+context's :class:`~.topology.Axis` handles (``context().axes``) are
+what the collectives of ``ops/collectives.py`` take as ``axis=``. Every
+rank must pass the same mesh shape: the shapes are compared through the
+controller's store before any group is made, and a mismatch raises.
+
+``init(comm=[ranks])`` makes a world of the listed processes alone: each
+member calls it with the same list and becomes rank ``comm.index(its
+launcher rank)``; a process not in the list raises. Disjoint comm worlds
+may start at once: each rendezvous under its own key prefix (the comm
+list and how many times this process has joined it) on one store at the
+launcher's coordinator, which the launcher's rank 0 hosts from its first
+``init(comm=)`` for the life of its process. So rank 0 is a member of
+some comm, and at exit waits (up to ``stall_check_time_seconds``) for
+the comm worlds that are still up to shut down. A job uses either
+``init(comm=)`` or the plain ``init()`` on one coordinator.
+``process_sets=`` registers :class:`~..process_set.ProcessSet` s at
+once, as :func:`add_process_set` does afterwards.
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
+import json
+import logging
 import threading
-from typing import Any, Optional, Union
+import time
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import torch
 import torch.distributed as dist
 
 from . import config as config_lib
+from . import topology as topo_lib
 from .device import resolve_device
 from .exceptions import NotInitializedError
+
+logger = logging.getLogger("horovod_tpu_torch")
 
 
 @dataclasses.dataclass
@@ -61,11 +88,49 @@ class Context:
     controller: Any = None      # common.controller.Controller when size > 1
     engine: Any = None          # ops.eager.EagerEngine
     timeline: Any = None        # common.timeline.Timeline
+    topology: Optional[topo_lib.Topology] = None
+    #: The routing axes, fast first (``topology.mesh_axes``), and the
+    #: axis handles by name ("hvd" is the world).
+    mesh_axes: tuple = ()
+    axes: Dict[str, topo_lib.Axis] = dataclasses.field(default_factory=dict)
+    #: Registered process sets, in registration order, and how many were
+    #: ever registered (the key of each registration's agreement round).
+    process_sets: List[Any] = dataclasses.field(default_factory=list)
+    process_set_seq: int = 0
+
+    @property
+    def world_axis(self) -> topo_lib.Axis:
+        return self.axes["hvd"]
+
+    def axis(self, name: str) -> topo_lib.Axis:
+        """The handle of mesh axis ``name``; raises naming the known
+        axes."""
+        try:
+            return self.axes[name]
+        except KeyError:
+            raise ValueError(
+                f"no mesh axis {name!r} in this world (axes "
+                f"{sorted(self.axes)}; set init(mesh_shape=) or "
+                "HVD_TPU_MESH_SHAPE for a multi-axis mesh)") from None
+
+    def hier_axes(self):
+        """``(cross, local)`` of a 2-D mesh, else None."""
+        names = [a.name for a in self.mesh_axes]
+        if sorted(names) == ["cross", "local"]:
+            return self.axes["cross"], self.axes["local"]
+        return None
 
 
 _context: Optional[Context] = None
 _context_lock = threading.Lock()
 _init_count = 0                 # init() generations, for controller keys
+# The comm worlds' rendezvous: the coordinator's store (one a process),
+# how many times this process joined each comm list there, and the store
+# this process's live comm world is counted on.
+_comm_stores: Dict[str, Any] = {}
+_comm_joins: Dict[tuple, int] = {}
+_comm_live: Optional[Any] = None
+_COMM_LIVE_KEY = "hvd_tpu/comm/live"
 
 
 def _world():
@@ -119,25 +184,29 @@ def init(comm=None, process_sets=None,
     ``device`` is ``None`` (the GPU of this process's local rank) or
     ``"cpu"``. ``backend`` is ``None`` (``nccl`` on the GPU, ``gloo`` on
     the CPU), ``"gloo"`` (on either) or ``"nccl"``. ``config_overrides``
-    are :class:`~.config.Config` fields and win over the environment."""
+    are :class:`~.config.Config` fields and win over the environment
+    (``mesh_shape``, ``route``, ``hierarchical_allreduce`` ... included).
+    ``comm`` lists the launcher ranks that form this world (every member
+    passes the same list); ``process_sets`` are registered in order once
+    the world is up (every rank passes the same sets)."""
     global _context, _init_count
-    if comm is not None or process_sets:
-        raise NotImplementedError(
-            "comm= and process_sets= are not ported yet; they come with "
-            "the process-set slice of the port")
     with _context_lock:
         if _context is not None:
             if device is not None or backend is not None \
-                    or config_overrides:
+                    or config_overrides or comm is not None or process_sets:
                 raise ValueError(
-                    "init() called with device/backend/config overrides "
-                    "but the runtime is already initialized; call "
-                    "shutdown() first to re-initialize with different "
-                    "settings")
+                    "init() called with comm/process_sets/device/backend/"
+                    "config overrides but the runtime is already "
+                    "initialized; call shutdown() first to re-initialize "
+                    "with different settings")
             return _context
         cfg = config_lib.Config.from_env(**config_overrides)
         dev = resolve_device(device)
-        rank, size, coord = _world()
+        launch_rank, size, coord = _world()
+        members = None if comm is None else _members(comm, launch_rank,
+                                                      size)
+        rank, size = (launch_rank, size) if members is None else \
+            (members.index(launch_rank), len(members))
         local_rank = int(config_lib.runtime_env("LOCAL_RANK", str(rank)))
         local_size = int(config_lib.runtime_env("LOCAL_SIZE", str(size)))
         backend = _resolve_backend(dev, backend, local_size)
@@ -150,6 +219,14 @@ def init(comm=None, process_sets=None,
             # A world of one: an in-process store, no port to pick.
             dist.init_process_group(backend, store=dist.HashStore(),
                                     rank=0, world_size=1)
+        elif members is not None:
+            store = _comm_store(coord, launch_rank, members, cfg)
+            try:
+                dist.init_process_group(backend, store=store, rank=rank,
+                                        world_size=size)
+            except Exception:
+                _leave_comm_world()
+                raise
         else:
             dist.init_process_group(backend, init_method=f"tcp://{coord}",
                                     rank=rank, world_size=size)
@@ -164,17 +241,102 @@ def init(comm=None, process_sets=None,
                 rank, size,
                 StoreTransport(dist.distributed_c10d._get_default_store()),
                 timeout_s=cfg.stall_check_time_seconds,
-                incarnation=_init_count)
+                # A comm world's store prefix is already its own join's,
+                # and its members may have joined other worlds before.
+                incarnation=_init_count if members is None else 0)
         timeline = Timeline()
         try:
-            engine = EagerEngine(cfg, dev, rank, size,
-                                 controller=controller, timeline=timeline)
+            topo = topo_lib.Topology(rank, size, local_rank, local_size)
+            maxes = _mesh_axes(topo, cfg, controller)
+            axes = topo_lib.build_axes(maxes, rank, size, dist.new_group)
+            ctx = Context(rank, size, local_rank, local_size, dev, backend,
+                          cfg, controller, None, timeline, topo, maxes, axes)
+            ctx.engine = EagerEngine(cfg, dev, rank, size,
+                                     controller=controller,
+                                     timeline=timeline,
+                                     hier_mesh=ctx.hier_axes(),
+                                     axis=ctx.world_axis)
         except Exception:
             dist.destroy_process_group()
+            _leave_comm_world()
             raise
-        _context = Context(rank, size, local_rank, local_size, dev, backend,
-                           cfg, controller, engine, timeline)
-        return _context
+        _context = ctx
+    if process_sets:
+        from ..process_set import add_process_set
+
+        for ps in process_sets:
+            add_process_set(ps)
+    return _context
+
+
+def _members(comm: Sequence[int], rank: int, size: int) -> List[int]:
+    """``comm``'s launcher ranks, checked: distinct, in the launched
+    world, and this process among them."""
+    members = [int(r) for r in comm]
+    if not members or len(set(members)) != len(members) \
+            or any(not 0 <= r < size for r in members):
+        raise ValueError(f"init(comm={list(comm)}): needs distinct ranks of "
+                         f"the launched world of {size}")
+    if rank not in members:
+        raise ValueError(
+            f"init(comm={members}): process {rank} is not in comm; only "
+            "the member processes call init(comm=...)")
+    return members
+
+
+def _comm_store(coord: str, launch_rank: int, members: List[int], cfg):
+    """The rendezvous of the comm world ``members``: a prefix of its own
+    on the coordinator's store (hosted by launcher rank 0), counted live
+    until :func:`shutdown`."""
+    global _comm_live
+    store = _comm_stores.get(coord)
+    if store is None:
+        host, port = coord.rsplit(":", 1)
+        master = launch_rank == 0
+        store = dist.TCPStore(host, int(port), is_master=master,
+                              wait_for_workers=False)
+        _comm_stores[coord] = store
+        if master:
+            atexit.register(_await_comm_worlds, store,
+                            cfg.stall_check_time_seconds)
+    key = (coord, tuple(members))
+    joins = _comm_joins.get(key, 0)
+    _comm_joins[key] = joins + 1
+    store.add(_COMM_LIVE_KEY, 1)
+    _comm_live = store
+    return dist.PrefixStore(
+        f"hvd_tpu/comm/{'-'.join(map(str, members))}/{joins}", store)
+
+
+def _await_comm_worlds(store, timeout_s: float) -> None:
+    """At rank 0's exit: keep the store up until every comm world that
+    joined it has shut down, or ``timeout_s`` passed."""
+    deadline = time.monotonic() + timeout_s
+    while store.add(_COMM_LIVE_KEY, 0) > 0 and time.monotonic() < deadline:
+        time.sleep(0.05)
+
+
+def _mesh_axes(topo: topo_lib.Topology, cfg, controller) -> tuple:
+    """The routing axes of this world (an invalid shape falls back to the
+    flat axis with a warning, as in the JAX package). With more than one
+    rank every rank's factorization is compared through the store
+    first: a rank making other groups would hang the world."""
+    try:
+        maxes = topo_lib.mesh_axes(
+            topo, topo_lib.parse_mesh_shape(cfg.mesh_shape))
+    except ValueError as e:
+        logger.warning("mesh shape invalid for this world (%s); routing "
+                       "falls back to the flat axis", e)
+        maxes = topo_lib.mesh_axes(topo, (topo.size,))
+    if controller is not None:
+        mine = json.dumps([[a.name, a.size] for a in maxes])
+        bad = controller.agree("mesh_axes", mine)
+        if bad:
+            raise ValueError(
+                f"init(): ranks {bad} resolved another mesh than rank "
+                f"{topo.rank} ({mine}); pass the same mesh_shape / "
+                "HVD_TPU_MESH_SHAPE on every rank")
+    return maxes
 
 
 def shutdown() -> None:
@@ -185,11 +347,21 @@ def shutdown() -> None:
     with _context_lock:
         if _context is not None:
             try:
+                for ps in _context.process_sets:
+                    ps._engine, ps.axis = None, None
                 _context.engine.drain()
                 _context.timeline.stop()
             finally:
                 dist.destroy_process_group()
                 _context = None
+                _leave_comm_world()
+
+
+def _leave_comm_world() -> None:
+    global _comm_live
+    if _comm_live is not None:
+        _comm_live.add(_COMM_LIVE_KEY, -1)
+        _comm_live = None
 
 
 def is_initialized() -> bool:
@@ -221,3 +393,18 @@ def local_size() -> int:
 def device() -> torch.device:
     """The device this process's collectives and model run on."""
     return context().device
+
+
+def cross_rank() -> int:
+    """The host index of this rank (``rank // local_size``)."""
+    return context().topology.cross_rank
+
+
+def cross_size() -> int:
+    """The number of hosts (``size // local_size``)."""
+    return context().topology.cross_size
+
+
+def is_homogeneous() -> bool:
+    """Every host runs ``local_size`` processes."""
+    return context().topology.is_homogeneous

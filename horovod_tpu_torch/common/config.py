@@ -40,6 +40,15 @@ RUNTIME_KNOBS = {
     "CHECKPOINT_VERIFY": "verify checkpoints against their CRC sidecar "
                          "(0/1, default 1)",
     "ACCUM_STEPS": "default microbatch count of accumulate() (1 = off)",
+    # Topology-aware routing (common/topology.py, ops/collectives.py).
+    "ROUTE": "default route of the optimizer's reduction (flat/staged/"
+             "staged_int8 or a spec like local:none,cross:int8)",
+    "MESH_SHAPE": "routing mesh factorization, slow axis first (e.g. 2x2; "
+                  "simulates a multi-host mesh on any world)",
+    "HIERARCHICAL_ALLREDUCE": "eager allreduce over local then cross "
+                              "(0/1)",
+    "HIERARCHICAL_ALLGATHER": "eager allgather over local then cross "
+                              "(0/1)",
     "REMAT_POLICY": "remat policy of the microbatch loss (none/full/dots/"
                     "dots_no_batch)",
     "PREFETCH": "default infeed mode (off/single/double)",
@@ -94,8 +103,6 @@ DEFAULT_QUANTIZE_MIN_BYTES = 64 * 1024
 # Settings of the JAX package's Config that later slices of the port
 # bring: passing one to init() raises, naming the slice.
 _LATER_SETTINGS = {
-    "hierarchical_allreduce": "slice 3b (mesh routing)",
-    "hierarchical_allgather": "slice 3b (mesh routing)",
     "autotune": "the autotune slice",
 }
 
@@ -155,6 +162,15 @@ class Config:
     prefetch: Optional[str] = None
     stall_check_time_seconds: float = 60.0
     stall_shutdown_time_seconds: float = 600.0
+    # Routing (common/topology.py): the optimizer's default route (None =
+    # the flat axis unless a call passes route=), the mesh factorization
+    # (slow axis first, e.g. "2x2"; None = cross x local from the
+    # launcher), and the eager engine's two-level allreduce/allgather
+    # over the mesh's local and cross axes.
+    route: Optional[str] = None
+    mesh_shape: Optional[str] = None
+    hierarchical_allreduce: bool = False
+    hierarchical_allgather: bool = False
 
     @classmethod
     def from_env(cls, **overrides) -> "Config":
@@ -180,6 +196,12 @@ class Config:
         c.accum_steps = env_int("ACCUM_STEPS", 1)
         c.remat_policy = runtime_env("REMAT_POLICY")
         c.prefetch = runtime_env("PREFETCH")
+        c.route = runtime_env("ROUTE") or None
+        c.mesh_shape = runtime_env("MESH_SHAPE") or None
+        c.hierarchical_allreduce = _truthy(
+            runtime_env("HIERARCHICAL_ALLREDUCE") or "0")
+        c.hierarchical_allgather = _truthy(
+            runtime_env("HIERARCHICAL_ALLGATHER") or "0")
         for name in ("stall_check_time_seconds",
                      "stall_shutdown_time_seconds"):
             raw = runtime_env(name.upper())

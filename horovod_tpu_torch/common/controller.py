@@ -334,6 +334,14 @@ class Controller:
         self.transport.read_by(f"{base}/read", self.size, keys)
         return out
 
+    def agree(self, tag: str, value: str) -> List[int]:
+        """One :meth:`exchange` round; returns the ranks whose ``value``
+        differs from this rank's (empty when all agree). A rank that does
+        not take part makes the others raise ``HorovodInternalError``
+        after the timeout."""
+        return [r for r, v in enumerate(self.exchange(tag, value))
+                if v != value]
+
     def cache_size(self) -> int:
         with self._lock:
             return len(self._cache)

@@ -21,9 +21,15 @@ torch, as the JAX package does in jnp.
 ``key``, and K4): both partners dequantize BOTH sides of the pair before
 the combine; ``wire="bf16"`` likewise casts both sides.
 
-Not ported here: the hierarchical and mesh-routed forms
-(``adasum_hierarchical``, ``scalar_axes``), which come with the
-mesh-routing slice.
+The recursion runs over any axis (``axis=``, the world by default). On
+the mesh router's shards (``collectives.mesh_allreduce(op=ADASUM)``)
+``scalar_axes`` names the fast axes the shards were reduce-scattered
+over: K8's three scalars are gathered over them and summed in axis
+order before K9, so every shard takes the full vector's coefficients
+and the two partners of a pair the same bits — the reference's vector
+halving with its three scalars reduced over the reduction communicator.
+:func:`adasum_hierarchical` is the full-vector form: the local average,
+then the recursion over the cross axis.
 """
 
 from __future__ import annotations
@@ -67,15 +73,20 @@ def _combine_from_norms(a: torch.Tensor, b: torch.Tensor, dn: torch.Tensor,
 
 def _pairwise_combine(a: torch.Tensor, b: torch.Tensor,
                       scalar_dtype: torch.dtype = torch.float32,
-                      eps: float = kernels.ADASUM_EPS) -> torch.Tensor:
+                      eps: float = kernels.ADASUM_EPS,
+                      scalar_axes: Sequence = ()) -> torch.Tensor:
     """The adaptive combine of two same-shaped tensors: a plain sum when
     they are orthogonal, their average when they are parallel; a side of
-    zero norm takes coefficient 1."""
+    zero norm takes coefficient 1. With ``scalar_axes`` (``a`` and ``b``
+    shards of longer vectors) the scalars are summed over those axes
+    first, in axis order."""
     dn = _dot_norms(a, b, scalar_dtype)
+    for ax in scalar_axes:
+        dn = C.all_gather_stack(dn, ax).sum(dim=0)
     return _combine_from_norms(a, b, dn, scalar_dtype, eps)
 
 
-def _exchange(x: torch.Tensor, partner: int, wire: str, key
+def _exchange(x: torch.Tensor, partner: int, wire: str, key, axis=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pairwise hop in the level's wire format. Returns ``(a, b)``,
     the SELF and PARTNER views the combine consumes; on a lossy wire both
@@ -83,21 +94,25 @@ def _exchange(x: torch.Tensor, partner: int, wire: str, key
     identical combines."""
     if wire == "int8":
         q, s, n = C._quantize(x.contiguous().reshape(-1), key)
-        qp = C.pair_exchange(q, partner)
-        sp = C.pair_exchange(s, partner)
+        qp = C.pair_exchange(q, partner, axis)
+        sp = C.pair_exchange(s, partner, axis)
         a = kernels.dequantize_int8(q, s, n, x.shape, torch.float32)
         b = kernels.dequantize_int8(qp, sp, n, x.shape, torch.float32)
         return a.to(x.dtype), b.to(x.dtype)
     if wire == "bf16":
         xl = x.to(torch.bfloat16)
-        return xl.to(x.dtype), C.pair_exchange(xl, partner).to(x.dtype)
-    return x, C.pair_exchange(x, partner)
+        return xl.to(x.dtype), C.pair_exchange(xl, partner,
+                                               axis).to(x.dtype)
+    return x, C.pair_exchange(x, partner, axis)
 
 
 def adasum_allreduce(x: torch.Tensor,
                      scalar_dtype: Optional[torch.dtype] = None,
-                     wire: str = "none", key=None) -> torch.Tensor:
-    """Adasum-allreduce ``x`` over every rank of the world.
+                     wire: str = "none", key=None, axis=None,
+                     scalar_axes: Sequence = ()) -> torch.Tensor:
+    """Adasum-allreduce ``x`` over every rank of ``axis`` (the world by
+    default); ``scalar_axes`` sums the dot/norm scalars over further
+    axes, for shards (see the module's docstring).
 
     Requires a power-of-two world size (the reference's VHDD makes the
     same assumption). ``scalar_dtype`` None is the configured dtype of
@@ -109,18 +124,32 @@ def adasum_allreduce(x: torch.Tensor,
     (no level runs)."""
     if wire not in WIRES:
         raise ValueError(f"unsupported Adasum wire {wire!r}; one of {WIRES}")
-    n = basics.size()
+    ax = C._axis(axis)
+    scalar_axes = [C._axis(a) for a in scalar_axes]
+    n = ax.size
     if n & (n - 1) != 0:
         raise ValueError(f"Adasum requires power-of-two ranks, got {n}")
     if scalar_dtype is None:
         scalar_dtype = getattr(
             torch, basics.context().config.adasum_scalar_dtype)
-    me = basics.rank()
     for lvl in range(n.bit_length() - 1):
         kl = None if key is None else C.fold_in(key, lvl)
-        a, b = _exchange(x, me ^ (1 << lvl), wire, kl)
-        x = _pairwise_combine(a, b, scalar_dtype)
+        a, b = _exchange(x, ax.index ^ (1 << lvl), wire, kl, ax)
+        x = _pairwise_combine(a, b, scalar_dtype, scalar_axes=scalar_axes)
     return x
+
+
+def adasum_hierarchical(x: torch.Tensor, local_axis="local",
+                        cross_axis="cross",
+                        scalar_dtype: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """Hierarchical Adasum, the full-vector form: the average over the
+    local axis, then the Adasum recursion over the cross axis
+    (``horovod_tpu/ops/adasum.py`` ``adasum_hierarchical``). The sharded
+    form, with the same result, is ``collectives.mesh_allreduce(op=
+    ADASUM)``."""
+    local_avg = C.allreduce(x, C.ReduceOp.AVERAGE, axis=local_axis)
+    return adasum_allreduce(local_avg, scalar_dtype, axis=cross_axis)
 
 
 def adasum_allreduce_reference(tensors: Sequence,

@@ -36,10 +36,25 @@ runs ``collectives.quantized_allreduce`` (round to nearest: an eager call
 carries no error-feedback residual), a smaller fp32 one the bf16 cast.
 ``op=Adasum`` runs ``ops/adasum.py``. Both run to their end at issue.
 
+An engine runs over one axis (``axis``, a :class:`~..common.topology.Axis`:
+the world, or a process set's subgroup, whose engine has no controller
+and ``ps_tag`` naming it). With the mesh's ``(cross, local)`` axes
+(``hier_mesh``) and ``init(hierarchical_allreduce=True)`` a SUM/AVERAGE
+allreduce runs over the local axis then the cross axis
+(``collectives.hierarchical_allreduce``), and with
+``hierarchical_allgather=True`` an allgather does
+(``collectives.hierarchical_allgather``); both run to their end at issue,
+and the hierarchical allreduce refuses a quantized default compression.
+``alltoall`` with ``splits`` takes the chunked exchange
+(``collectives.alltoallv_chunked``: per-hop padding, a none/bf16/int8
+wire) when ``chunked=True`` or a wire is asked for, and otherwise one
+``all_to_all_single`` with the true split sizes. The JAX engine's
+auto-route of skewed tables to the chunked form does not apply here:
+its flat form pads every segment to the largest, the port's does not,
+so the chunked form would only add hops and padding.
+
 Left out, each raising ``NotImplementedError`` naming its slice: the
-hierarchical mesh (``hier_mesh``) and the chunked ``alltoallv`` with its
-wire (slice 3b, mesh routing), process sets (``ps_tag``), the autotuner,
-the stall inspector and fault injection.
+autotuner, the stall inspector and fault injection.
 """
 
 from __future__ import annotations
@@ -48,6 +63,7 @@ import dataclasses
 import hashlib
 import json
 import logging
+import math
 import threading
 import time
 import zlib
@@ -285,12 +301,14 @@ class EagerEngine:
 
     def __init__(self, config, device: torch.device, rank: int, size: int,
                  controller=None, timeline=None, hier_mesh=None,
-                 stall_inspector=None, autotuner=None, ps_tag: str = ""):
+                 stall_inspector=None, autotuner=None, ps_tag: str = "",
+                 axis=None):
+        """``axis`` is the axis the collectives run over (None: the
+        world); ``hier_mesh`` the mesh's ``(cross, local)`` axes or None;
+        ``ps_tag`` names a process set's engine."""
         for value, what, where in (
-                (hier_mesh, "hier_mesh", "slice 3b (mesh routing)"),
                 (stall_inspector, "stall_inspector", "the telemetry slice"),
-                (autotuner, "autotuner", "the autotune slice"),
-                (ps_tag, "ps_tag", "the process-set slice")):
+                (autotuner, "autotuner", "the autotune slice")):
             if value:
                 raise NotImplementedError(
                     f"EagerEngine({what}=...) is not ported yet; it comes "
@@ -301,6 +319,9 @@ class EagerEngine:
         self.size = size
         self.controller = controller
         self.timeline = timeline
+        self.axis = axis
+        self.hier_mesh = hier_mesh
+        self.ps_tag = ps_tag
         comp = Compression.by_name(config.compression)
         if not getattr(comp, "reduce_safe", True):
             raise ValueError(
@@ -632,17 +653,26 @@ class EagerEngine:
 
     # -- allreduce -------------------------------------------------------
 
-    @staticmethod
-    def _cast_reduce(x, op, prescale, postscale, cast) -> C.Issued:
+    def _cast_reduce(self, x, op, prescale, postscale, cast) -> C.Issued:
         """The allreduce of ``x`` with a cast compressor around it."""
         w, ctx = cast.compress(x)
-        works, finish = C.allreduce_issue(w, op, prescale, postscale)
+        works, finish = C.allreduce_issue(w, op, prescale, postscale,
+                                          self.axis)
         return works, lambda: cast.decompress(finish(), ctx)
 
-    @staticmethod
-    def _quantized_reduce(x, op, prescale, postscale) -> C.Issued:
-        y = C.quantized_allreduce(C._apply_scale(x, prescale), op)
+    def _quantized_reduce(self, x, op, prescale, postscale) -> C.Issued:
+        y = C.quantized_allreduce(C._apply_scale(x, prescale), op,
+                                  axis=self.axis)
         return C._done(C._apply_scale(y, postscale))
+
+    def _hier_reduce(self, x, op, prescale, postscale, cast) -> C.Issued:
+        """The two-level allreduce over the mesh's local and cross axes,
+        run to its end here."""
+        cross, local = self.hier_mesh
+        w, ctx = cast.compress(x)
+        w = C._apply_scale(w, prescale)
+        w = C.hierarchical_allreduce(w, op, local, cross)
+        return C._done(cast.decompress(C._apply_scale(w, postscale), ctx))
 
     def allreduce(self, x: torch.Tensor, op=C.ReduceOp.AVERAGE,
                   name: Optional[str] = None, prescale_factor: float = 1.0,
@@ -668,6 +698,18 @@ class EagerEngine:
             # format that cannot enter a sum).
             quant = (quantized and linear_float
                      and nbytes >= self.config.quantize_min_bucket_bytes)
+            hier = (self.config.hierarchical_allreduce
+                    and self.hier_mesh is not None
+                    and op in (C.ReduceOp.SUM, C.ReduceOp.AVERAGE))
+            if quantized and linear_float and hier:
+                # Neither of the two configured reductions is what the
+                # caller asked for alone, so neither is taken silently.
+                raise ValueError(
+                    "hierarchical_allreduce and a quantized default "
+                    "compression cannot combine on the eager allreduce "
+                    "path; route the optimizer with route='staged_int8' "
+                    "for int8 on the cross hop, or drop one of the two "
+                    "settings")
             small_bf16 = (quantized and linear_float and not quant
                           and x.element_size() > 2)
             cast = BF16Compressor if small_bf16 else (
@@ -689,6 +731,9 @@ class EagerEngine:
             if quant:
                 issued = self._quantized_reduce(x, op, prescale_factor,
                                                 postscale_factor)
+            elif hier:
+                issued = self._hier_reduce(x, op, prescale_factor,
+                                           postscale_factor, cast)
             else:
                 issued = self._cast_reduce(x, op, prescale_factor,
                                            postscale_factor, cast)
@@ -778,7 +823,11 @@ class EagerEngine:
         hold the same shape (see :meth:`allgatherv` for ragged rows)."""
         def issue(full):
             _count_bytes("allgather", _nbytes(x))
-            return C.allgather_issue(x)
+            if self.config.hierarchical_allgather \
+                    and self.hier_mesh is not None:
+                cross, local = self.hier_mesh
+                return C._done(C.hierarchical_allgather(x, local, cross))
+            return C.allgather_issue(x, self.axis)
         return self._issue("allgather", name,
                            {"op_type": "allgather", "x": x}, issue)
 
@@ -789,14 +838,10 @@ class EagerEngine:
         negotiated; the row counts are exchanged through the controller
         on every call (the reference's tensor-shape negotiation)."""
         def issue(full):
-            rows = int(x.shape[0])
-            if self.controller is not None:
-                counts = [int(json.loads(v)) for v in
-                          self.controller.exchange(full, json.dumps(rows))]
-            else:
-                counts = [rows]
+            counts = [row[0] for row in self._exchange_ints(
+                full, [int(x.shape[0])])]
             _count_bytes("allgather", _nbytes(x))
-            return C.allgatherv_issue(x, counts)
+            return C.allgatherv_issue(x, counts, self.axis)
         return self._issue("allgather", name,
                            {"op_type": "allgatherv", "x": x,
                             "shape": tuple(x.shape[1:])}, issue)
@@ -805,7 +850,7 @@ class EagerEngine:
                   name: Optional[str] = None) -> _Pending:
         def issue(full):
             _count_bytes("broadcast", _nbytes(x))
-            return C.broadcast_issue(x, root_rank)
+            return C.broadcast_issue(x, root_rank, self.axis)
         return self._issue("broadcast", name,
                            {"op_type": "broadcast", "x": x,
                             "root_rank": root_rank}, issue)
@@ -863,18 +908,34 @@ class EagerEngine:
                     (self.size - 1) / self.size * wire_bytes)
             flightrec_lib.recorder().annotate(full, nbytes=wire_bytes,
                                               wire=w)
-            return C.compressed_alltoall_issue(x, w)
+            return C.compressed_alltoall_issue(x, w, self.axis)
         return self._issue("alltoall", name,
                            {"op_type": "alltoall", "x": x, "wire": w},
                            issue)
+
+    def _exchange_ints(self, full: str, mine: List[int]) -> List[List[int]]:
+        """Every rank's ``mine`` in rank order: through the controller's
+        store, or, in a process set's engine (no controller), one
+        all_gather over its axis."""
+        if self.controller is not None:
+            return [json.loads(v) for v in
+                    self.controller.exchange(full, json.dumps(mine))]
+        if self.size == 1:
+            return [list(mine)]
+        t = torch.tensor(mine, dtype=torch.int64, device=self.device)
+        return C.all_gather_stack(t, self.axis).tolist()
 
     def alltoallv(self, x: torch.Tensor, splits, name: Optional[str] = None,
                   chunked: Optional[bool] = None, wire=None) -> _Pending:
         """Uneven all-to-all: ``splits[d]`` consecutive rows of ``x`` go
         to rank ``d``; the receive counts come from the negotiation (every
-        rank's split vector is exchanged through the controller, the
-        reference's AlltoallGetRecvSplits). Returns the rows received,
-        in source-rank order."""
+        rank's split vector is exchanged, the reference's
+        AlltoallGetRecvSplits). Returns the rows received, in source-rank
+        order. ``chunked`` picks the exchange: one ``all_to_all_single``
+        (False), or ``collectives.alltoallv_chunked``'s per-hop padded
+        permutations (True); None takes the chunked one for a wire and
+        the flat one otherwise. ``wire`` (bf16/int8) compresses the chunked
+        hops only; ``"auto"`` raises (its size threshold is rank-local)."""
         if wire == "auto":
             raise ValueError(
                 "alltoallv does not support wire='auto': the size "
@@ -882,11 +943,10 @@ class EagerEngine:
                 "would resolve different wire formats across ranks; "
                 "pass an explicit format")
         w = self._resolve_a2a_wire(wire, _nbytes(x), x.dtype)
-        if chunked or w != "none":
-            raise NotImplementedError(
-                "the chunked alltoallv and its wire formats are not "
-                "ported yet; they come with slice 3b (mesh routing) of "
-                "the port")
+        if w != "none" and chunked is False:
+            raise ValueError(
+                "alltoallv wire compression rides the chunked exchange "
+                "only; pass chunked=True (or drop wire=)")
         my_splits = [int(s) for s in splits]
         if len(my_splits) != self.size:
             raise TensorShapeMismatchError(
@@ -897,18 +957,33 @@ class EagerEngine:
                 f"sum(splits)={sum(my_splits)} != send rows {x.shape[0]}")
 
         def issue(full):
-            if self.controller is not None:
-                matrix = [json.loads(r) for r in self.controller.exchange(
-                    full, json.dumps(my_splits))]
-            else:
-                matrix = [my_splits]
-            recv = [row[self.rank] for row in matrix]
+            matrix = self._exchange_ints(full, my_splits)
+            n, me = self.size, self.rank
+            rest = tuple(x.shape[1:])
+            use_chunked = w != "none" if chunked is None else chunked
             _count_bytes("alltoall", _nbytes(x))
-            return C.alltoallv_issue(x, my_splits, recv)
+            flightrec_lib.recorder().annotate(full, wire=w)
+            if not use_chunked:
+                recv = [row[me] for row in matrix]
+                return C.alltoallv_issue(x, my_splits, recv, self.axis)
+            if _METRICS_ON and w != "none":
+                hop_rows = sum(max(matrix[r][(r + k) % n] for r in range(n))
+                               for k in range(1, n))
+                welems = hop_rows * math.prod(rest)
+                _M_A2A_WIRE.labels(wire=w, axis="flat").inc(
+                    welems * 2 if w == "bf16" else _wire_bytes_int8(welems))
+            max_send = max(sum(row) for row in matrix)
+            send = torch.cat([x, x.new_zeros((max_send - x.shape[0],)
+                                             + rest)])
+            out, _ = C.alltoallv_chunked(send, matrix, self.axis, wire=w)
+            seg = max(max(max(row) for row in matrix), 1)
+            return C._done(torch.cat([out[s * seg:s * seg + matrix[s][me]]
+                                      for s in range(n)]))
         return self._issue("alltoall", name,
                            {"op_type": "alltoallv", "x": x,
                             "shape": tuple(x.shape[1:]),
-                            "reduce_op": {None: 0, False: 1}[chunked],
+                            "reduce_op": {None: 0, False: 1,
+                                          True: 2}[chunked],
                             "wire": w}, issue)
 
     def reducescatter(self, x: torch.Tensor, op=C.ReduceOp.AVERAGE,
@@ -919,7 +994,7 @@ class EagerEngine:
 
         def issue(full):
             _count_bytes("reducescatter", _nbytes(x))
-            return C.reducescatter_issue(x, op)
+            return C.reducescatter_issue(x, op, self.axis)
         return self._issue("reducescatter", name,
                            {"op_type": "reducescatter", "x": x,
                             "reduce_op": int(op)}, issue)
@@ -930,7 +1005,7 @@ class EagerEngine:
             # refuses it once a rank has joined.
             self._join_round(Request(self.rank, "barrier", "barrier",
                                      "int32", (), 0, -1))
-        dist.barrier()
+        dist.barrier(group=None if self.axis is None else self.axis.group)
 
     # -- async handle surface -------------------------------------------
 

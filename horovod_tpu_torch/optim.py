@@ -75,9 +75,32 @@ backward hooks launch no bucket before the k-th microbatch, so the
 collective round, the guard's agreement and the int8_ef step advance
 run once per effective step.
 
+``route`` (``horovod_tpu/optim.py`` ``_resolve_route``; None takes
+``init(route=)`` / ``HVD_TPU_ROUTE``) sends every bucket through the
+mesh router, ``collectives.mesh_allreduce`` with a
+:class:`~.ops.collectives.WirePlan`: an int8_ef bucket reduces ``g +
+residual`` with the plan's wires, its key and ``return_residual`` (the
+residual keeps the flat path's contract); a small float bucket rides the
+same axes in bf16 with no residual, an integer bucket with the wires
+``none``; any other float bucket takes the plan as it is (its int8
+phases round to nearest); MIN, MAX and PRODUCT reduce over each of the
+plan's axes in turn. A routed bucket is fused (and guarded) when its
+last gradient lands and reduced at ``synchronize()``, as an int8 bucket
+is: its hops run to their end when issued. A plan naming an axis the
+world does not have (a flat world) reduces over the flat axis, as the
+JAX optimizer does where the plan's axes are not bound. With ``op=Adasum``
+each parameter's delta goes through ``mesh_allreduce(op=ADASUM)``: the
+Adasum of the fast groups' averages. The guard's agreement runs over
+the world either way.
+
+``process_set=`` (a registered :class:`~.process_set.ProcessSet`)
+reduces over the set's subgroup alone: averages divide by the set's
+size, and a non-member raises ``ValueError``. It does not combine with
+``route``.
+
 Not ported yet (they raise ``NotImplementedError`` naming their slice):
-``route``, ``zero_stage``, process sets, and a non-finite guard or
-``accum_steps`` with ``op=Adasum``.
+``zero_stage``, and a non-finite guard or ``accum_steps`` with
+``op=Adasum``.
 """
 
 from __future__ import annotations
@@ -120,9 +143,15 @@ def _ef_key(step: int, bucket_index: int):
     return (_EF_SEED, int(step), int(bucket_index))
 
 _UNPORTED = {
-    "route": "the mesh-routing slice",
     "zero_stage": "the ZeRO/FSDP slice",
 }
+# How a bucket reduced at synchronize() is reduced there (the first field
+# of its in-flight record, in place of a work handle): an int8_ef bucket
+# through the quantized reduction with its residual, any other bucket of
+# a routed optimizer through the mesh router.
+_DEFERRED_INT8 = "int8"
+_DEFERRED_ROUTED = "routed"
+_LINEAR_OPS = (C.Average, C.Sum)
 # What Queue 1 of ROADMAP.md still owes the Adasum optimizer.
 _ADASUM_LATER = ("a later item of Queue 1 of the port (the Adasum "
                  "optimizer with {what})")
@@ -405,8 +434,12 @@ class _DistributedOptimizerMixin:
     def _dist_init(self, base_cls, named_parameters, op, k, compression,
                    predivide, threshold, quantize_min_bytes,
                    sparse_as_dense, guard_policy=None, scale_cfg=None,
-                   accum_k=1, remat_name="none"):
+                   accum_k=1, remat_name="none", axis=None, route=None):
         self._base_cls = base_cls
+        #: The axis the buckets reduce over (the world or a process
+        #: set's) and the route (a WirePlan, or None for the axis alone).
+        self._axis = C._axis(axis)
+        self._route = route
         self._sparse_as_dense = sparse_as_dense
         self.op = op
         self._compression = compression
@@ -515,8 +548,14 @@ class _DistributedOptimizerMixin:
         if not self._ef:
             return self._compression
         wire = self._dist_plan.wire_dtypes[bi]
-        return BF16Compressor if wire == fusion_lib.WIRE_BF16 \
+        return BF16Compressor if (wire == fusion_lib.WIRE_BF16
+                                  and self.op in _LINEAR_OPS) \
             else NoneCompressor
+
+    def _int8_bucket(self, bi: int) -> bool:
+        """Bucket ``bi`` takes the error-feedback quantized reduction."""
+        return (self._ef and self.op in _LINEAR_OPS
+                and self._dist_plan.wire_dtypes[bi] == fusion_lib.WIRE_INT8)
 
     def _finish_accumulation(self, acc: _Accumulator) -> None:
         """After ``accumulate``'s k-th microbatch: a parameter whose
@@ -569,7 +608,7 @@ class _DistributedOptimizerMixin:
             else basics.device()
         flag = (torch.ones(1, dtype=torch.int32, device=dev)
                 if local is None else local.reshape(1).to(torch.int32))
-        flag = C.allreduce(flag, C.Min)
+        flag = C.allreduce(flag, C.Min, axis=self._axis)
         self.guard_agreements += 1
         if self._guard.policy in integrity_lib.SKIPPING_POLICIES:
             ok = bool(flag.item())
@@ -597,15 +636,31 @@ class _DistributedOptimizerMixin:
         if self._guard is not None and flat.is_floating_point():
             flat = self._guard_bucket(flat)
         self.bucket_allreduces += 1
-        if self._ef and \
-                self._dist_plan.wire_dtypes[bi] == fusion_lib.WIRE_INT8:
-            self._dist_inflight[bi] = (None, flat, None)
+        if self._int8_bucket(bi):
+            self._dist_inflight[bi] = (_DEFERRED_INT8, flat, None)
             return
         wire, ctx = self._wire_compressor(bi).compress(flat)
         if self._predivide != 1.0:
             wire = C._apply_scale(wire, 1.0 / self._predivide)
-        work = C._allreduce_async_inplace(wire, C.Sum)
+        if self._route is not None:
+            self._dist_inflight[bi] = (_DEFERRED_ROUTED, wire, ctx)
+            return
+        work = C._allreduce_async_inplace(
+            wire, C.Sum if self.op in _LINEAR_OPS else self.op, self._axis)
         self._dist_inflight[bi] = (work, wire, ctx)
+
+    def _reduce_routed(self, w: torch.Tensor) -> torch.Tensor:
+        """The route's reduction of a non-int8 bucket: the SUM through
+        the mesh router (integer buckets, and an int8_ef optimizer's
+        small buckets, with the wires ``none``), or MIN/MAX/PRODUCT over
+        each of the plan's axes in turn."""
+        if self.op not in _LINEAR_OPS:
+            for name in self._route.axis_names:
+                w = C.allreduce(w, self.op, axis=name)
+            return w
+        plan = self._route if (w.is_floating_point() and not self._ef) \
+            else self._route.with_wires("none")
+        return C.mesh_allreduce(w, C.Sum, plan)
 
     def _reduce_int8(self, bi: int, flat: torch.Tensor) -> torch.Tensor:
         """The error-feedback quantized reduction of bucket ``bi``: reduce
@@ -618,10 +673,15 @@ class _DistributedOptimizerMixin:
         op, post = self.op, 1.0
         if self._predivide != 1.0:
             corrected = corrected * (1.0 / self._predivide)
-            op, post = C.Sum, self._predivide / basics.size()
-        y, res = C.quantized_allreduce(corrected, op,
-                                       key=_ef_key(self._ef_step, bi),
-                                       return_residual=True)
+            op, post = C.Sum, self._predivide / self._axis.size
+        key = _ef_key(self._ef_step, bi)
+        if self._route is not None:
+            y, res = C.mesh_allreduce(corrected, op, self._route, key=key,
+                                      return_residual=True)
+        else:
+            y, res = C.quantized_allreduce(corrected, op, key=key,
+                                           return_residual=True,
+                                           axis=self._axis)
         if self._predivide != 1.0:
             res = res * self._predivide
         self._ef_residual[bi] = res
@@ -642,7 +702,7 @@ class _DistributedOptimizerMixin:
             # bucket (residual and rounding step unchanged) and leave
             # p.grad as backprop left it; step() skips the update.
             for work, _, _ in self._dist_inflight.values():
-                if work is not None:
+                if not isinstance(work, str):
                     work.wait()
             self._dist_inflight.clear()
             self._reset_counts()
@@ -650,13 +710,16 @@ class _DistributedOptimizerMixin:
             self._guard_skip = True
             return
         self._guard_skip = False
-        n = basics.size()
+        n = self._axis.size
         for bi in sorted(self._dist_inflight):
             work, wire, ctx = self._dist_inflight[bi]
-            if work is None:
+            if work == _DEFERRED_INT8:
                 flat = self._reduce_int8(bi, wire)
             else:
-                work.wait()
+                if work == _DEFERRED_ROUTED:
+                    wire = self._reduce_routed(wire)
+                else:
+                    work.wait()
                 if self.op == C.Average:
                     if self._predivide != 1.0:
                         wire = C._apply_scale(wire, self._predivide / n)
@@ -750,14 +813,27 @@ class _DistributedAdasumMixin:
     """Delta-based Adasum methods grafted onto the user's optimizer class
     (the JAX package's torch surface, ``_DistributedAdasumMixin``)."""
 
-    def _dist_init(self, base_cls, named_parameters, wire):
+    def _dist_init(self, base_cls, named_parameters, wire, axis=None,
+                   route=None):
         self._base_cls = base_cls
         self._adasum_wire = wire
+        self._axis = C._axis(axis)
+        self._route = route
         self._dist_names = {}
         if named_parameters is not None:
             self._dist_names = {id(p): n for n, p in named_parameters}
         #: Per-tensor Adasum reductions run so far.
         self.adasum_reductions = 0
+
+    def _reduce_delta(self, delta: torch.Tensor) -> torch.Tensor:
+        """The Adasum of every rank's ``delta``: over the axis, or through
+        the mesh router (the Adasum of the fast groups' averages)."""
+        if self._route is None:
+            return adasum_lib.adasum_allreduce(delta, wire=self._adasum_wire,
+                                               axis=self._axis)
+        w = delta.to(torch.bfloat16) if self._adasum_wire == "bf16" \
+            else delta
+        return C.mesh_allreduce(w, C.Adasum, self._route).to(delta.dtype)
 
     def step(self, closure=None):
         """The base optimizer's step on the local gradients, then every
@@ -768,9 +844,7 @@ class _DistributedAdasumMixin:
         result = self._base_cls.step(self, closure)
         with torch.no_grad():
             for p, b in zip(params, before):
-                reduced = adasum_lib.adasum_allreduce(
-                    p.detach() - b, wire=self._adasum_wire)
-                p.copy_(b + reduced)
+                p.copy_(b + self._reduce_delta(p.detach() - b))
                 self.adasum_reductions += 1
         return result
 
@@ -799,6 +873,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          nonfinite_policy: Optional[str] = None,
                          accum_steps: Optional[int] = None,
                          remat_policy: Optional[str] = None,
+                         route=None,
                          **unported):
     """Wrap ``optimizer`` so ``step()`` first averages (``op=Average``) or
     sums (``op=Sum``) the gradients across ranks, in fused buckets, or
@@ -825,7 +900,12 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     configured default, 1) and ``remat_policy`` set up
     ``optimizer.accumulate(loss_fn)``. ``accum_steps > 1`` and
     ``backward_passes_per_step > 1`` are two spellings of accumulation
-    and raise together."""
+    and raise together.
+
+    ``op`` may also be Min, Max or Product (elementwise over ranks).
+    ``route`` (None: ``init(route=)`` / ``HVD_TPU_ROUTE``) reduces
+    through the mesh router, ``process_set`` over a registered set's
+    ranks alone (see the module's docstring)."""
     for key in unported:
         if key not in _UNPORTED:
             raise TypeError(f"DistributedOptimizer() got an unexpected "
@@ -834,13 +914,16 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                                   f"ported yet; it comes with "
                                   f"{_UNPORTED[key]} of the port")
     op = C.ReduceOp(op)
-    if op not in (C.Average, C.Sum, C.Adasum):
-        raise ValueError(f"DistributedOptimizer reduces gradients with "
-                         f"Average, Sum or Adasum, got {op.name}")
     if gradient_predivide_factor != 1.0 and op != C.Average:
         raise ValueError("gradient_predivide_factor requires op=Average")
+    axis = None
     if process_set is not None:
-        raise NotImplementedError("process sets are not ported yet")
+        process_set.engine      # registered, and this rank a member
+        axis = process_set.axis
+    plan = _resolve_route(route)
+    if plan is not None and process_set is not None:
+        raise ValueError("route= and process_set= do not combine: a route "
+                         "runs over the world's mesh axes")
     k = int(backward_passes_per_step)
     if k < 1:
         raise ValueError(f"backward_passes_per_step must be >= 1, got {k}")
@@ -879,7 +962,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
             raise ValueError(f"op=Adasum takes compression none, bf16 or "
                              f"int8_ef, got {compressor.__name__}")
         obj = _graft(optimizer, _DistributedAdasumMixin)
-        obj._dist_init(optimizer.__class__, named_parameters, wire)
+        obj._dist_init(optimizer.__class__, named_parameters, wire, axis, plan)
         return obj
     threshold = cfg.fusion_threshold_bytes if fusion_threshold_bytes is None \
         else int(fusion_threshold_bytes)
@@ -889,8 +972,20 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     obj._dist_init(optimizer.__class__, named_parameters, op, k, compressor,
                    float(gradient_predivide_factor), threshold, qmin,
                    bool(sparse_as_dense), guard_policy,
-                   integrity_lib.ScaleConfig.from_env(), accum_k, remat_name)
+                   integrity_lib.ScaleConfig.from_env(), accum_k, remat_name,
+                   axis, plan)
     return obj
+
+
+def _resolve_route(route) -> Optional[C.WirePlan]:
+    """``route`` (None: the configured default) as a plan, or None for
+    the flat axis, which a plan naming an axis this world does not have
+    also falls back to."""
+    ctx = basics.context()
+    plan = C.WirePlan.resolve(ctx.config.route if route is None else route)
+    if plan is None or not all(a in ctx.axes for a in plan.axis_names):
+        return None
+    return plan
 
 
 def observe_ef_residual(optimizer) -> Optional[float]:

@@ -3,7 +3,8 @@ card: the scale kernel (K1), the int8 codec (K2/K4, per leaf, grouped
 and into a cache slot), flash attention (K5/K6/K7), the stochastic
 quantizer (K3) and the Adasum combine (K8/K9), and the paths that run
 them — two of them as two gloo ranks sharing the one card, each a
-process running this file with ``--card-worker``. Every test here needs
+process running this file with ``--card-worker``, and the mesh's
+subgroup paths as four (``--mesh-card-worker``, a 2x2 mesh). Every test here needs
 an NVIDIA GPU and skips with a reason elsewhere. This file imports no
 JAX, so it also runs on a machine without it:
 
@@ -790,5 +791,113 @@ def test_two_gloo_ranks_on_card_reduce_through_the_kernels(tmp_path):
             assert rec["replicas_equal"], (r, mode)
 
 
+def _mesh_card_worker(rank: int, out_path: str) -> None:
+    """One of four gloo ranks on the card on a 2x2 mesh (run as a
+    script): the subgroup paths on CUDA tensors, each with its launches
+    counted from zero."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import collectives as C
+
+    hvd.init(backend="gloo", mesh_shape="2x2", hierarchical_allreduce=True)
+    gen = torch.Generator(device="cuda").manual_seed(rank)
+    x = torch.randn(3 * 4096 + 5, generator=gen, device="cuda")
+    out = {}
+
+    def counted(name, fn):
+        kernels.reset_launch_counts()
+        y = fn()
+        torch.cuda.synchronize()
+        every = C.all_gather_stack(y.reshape(-1))
+        out[name] = {"launches": dict(kernels.LAUNCHES),
+                     "ranks_equal": bool((every == every[0]).all())}
+        return y
+
+    y = counted("mesh_int8_key", lambda: C.mesh_allreduce(
+        x, hvd.Sum, "staged_int8", key=(7,)))
+    exact = C.allreduce(x, hvd.Sum)
+    # Stochastic rounding on the cross hop: under one block scale of each
+    # host's local sum and one of the reduced sum an element.
+    local = C.allreduce(x, hvd.Sum, axis="local").abs().max().reshape(1)
+    s_hosts = C.all_gather_stack(local, "cross").sum().item() / 127
+    out["mesh_int8_key"]["max_err"] = (y - exact).abs().max().item()
+    out["mesh_int8_key"]["bound"] = s_hosts + (
+        exact.abs().max().item() + s_hosts) / 127
+    counted("qhar", lambda: C.quantized_hierarchical_allreduce(
+        x[:3 * 4096], hvd.Sum))
+    counted("hier", lambda: hvd.allreduce(x, op=hvd.Sum, name="h",
+                                          prescale_factor=0.5,
+                                          postscale_factor=3.0))
+    evens = hvd.add_process_set([0, 2])
+    odds = hvd.add_process_set([1, 3])
+    mine = evens if rank % 2 == 0 else odds
+    s = hvd.allreduce(x, op=hvd.Sum, name="ps", process_set=mine)
+    both = hvd.allgather(x[None], name="all")
+    out["process_set_equal"] = torch.equal(
+        s, both[mine.ranks[0]] + both[mine.ranks[1]])
+    xs = x.clone().requires_grad_(True)
+    shift = [(0, 1), (1, 0)]
+    yp = C.wired_ppermute(xs, "local", shift, "int8")
+    kernels.reset_launch_counts()
+    yp.sum().backward()
+    torch.cuda.synchronize()
+    out["ppermute_backward_launches"] = dict(kernels.LAUNCHES)
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+@pytest.mark.cuda
+def test_mesh_subgroups_on_card_run_the_kernels(tmp_path):
+    """Four processes share the card over gloo on a 2x2 mesh: a routed
+    int8 allreduce with a key launches K3 twice (the cross hop) and ends
+    equal on every rank within its bound; the quantized hierarchical
+    allreduce launches K2 and K4 twice each; the hierarchical eager
+    allreduce K1 twice; a process set reduces over its members alone;
+    wired_ppermute's int8 backward launches K2 once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, HVD_TPU_COORDINATOR=f"127.0.0.1:{port}",
+               HVD_TPU_NUM_PROC="4",
+               PYTHONPATH=os.pathsep.join(
+                   [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                  if p]))
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, "--mesh-card-worker", str(r),
+         str(tmp_path / f"rank{r}.json")],
+        env=dict(env, HVD_TPU_PROC_ID=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(4)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, p in enumerate(procs):
+        assert p.returncode == 0, f"rank {r} failed:\n{logs[r]}"
+    none = {"quantize_int8": 0, "dequantize_int8": 0, "flash_fwd": 0,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, **NEW_KERNELS}
+    for r in range(4):
+        with open(tmp_path / f"rank{r}.json") as f:
+            res = json.load(f)
+        assert res["mesh_int8_key"]["launches"] == dict(
+            none, quantize_int8_stochastic=2), r
+        assert res["mesh_int8_key"]["max_err"] <= \
+            res["mesh_int8_key"]["bound"], r
+        assert res["qhar"]["launches"] == dict(none, quantize_int8=2,
+                                               dequantize_int8=2), r
+        assert res["hier"]["launches"] == dict(none, scale_buffer=2), r
+        for name in ("mesh_int8_key", "qhar", "hier"):
+            assert res[name]["ranks_equal"], (r, name)
+        assert res["process_set_equal"], r
+        assert res["ppermute_backward_launches"] == dict(
+            none, quantize_int8=1), r
+
+
 if __name__ == "__main__" and sys.argv[1:2] == ["--card-worker"]:
     _card_worker(int(sys.argv[2]), sys.argv[3])
+if __name__ == "__main__" and sys.argv[1:2] == ["--mesh-card-worker"]:
+    _mesh_card_worker(int(sys.argv[2]), sys.argv[3])

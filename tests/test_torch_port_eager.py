@@ -287,33 +287,46 @@ def test_timeline_is_a_chrome_trace(tmp_path):
 
 
 def test_engine_contract_and_left_out_parts():
-    """Options of later slices raise naming their slice; wrong splits and
-    uneven alltoall wires raise before any exchange."""
-    for kw in ({"hier_mesh": object()}, {"ps_tag": "0,1"},
-               {"autotuner": object()}):
+    """Options of later slices raise naming their slice; the mesh and
+    process-set options (slice 10) are taken; wrong splits, a wire on the
+    flat uneven exchange and an object that is no process set raise
+    before any exchange."""
+    for kw in ({"stall_inspector": object()}, {"autotuner": object()}):
         with pytest.raises(NotImplementedError, match="slice"):
             eager.EagerEngine(Config(), torch.device("cpu"), 0, 1, **kw)
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        hvd.init(device="cpu", hierarchical_allreduce=True)
+    mesh = (object(), object())
+    e = eager.EagerEngine(Config(), torch.device("cpu"), 0, 1,
+                          hier_mesh=mesh, ps_tag="ps:0,1")
+    assert e.hier_mesh is mesh and e.ps_tag == "ps:0,1"
+    hvd.init(device="cpu", hierarchical_allreduce=True)
+    try:
+        # A world of one has no (cross, local) mesh: the flat allreduce.
+        assert basics.context().engine.hier_mesh is None
+        x = torch.arange(8.0)
+        assert torch.equal(hvd.allreduce(x, op=hvd.Sum), x)
+    finally:
+        hvd.shutdown()
     hvd.init(device="cpu")
     try:
         x = torch.arange(8.0)
-        with pytest.raises(NotImplementedError, match="slice 3b"):
-            hvd.alltoall(x, splits=[8], wire="int8")
-        with pytest.raises(NotImplementedError, match="slice 3b"):
-            hvd.alltoall(x, splits=[8], chunked=True)
+        # The chunked exchange's self segment never touches the wire.
+        assert torch.equal(hvd.alltoall(x, splits=[8], wire="int8"), x)
+        assert torch.equal(hvd.alltoall(x, splits=[8], chunked=True), x)
+        with pytest.raises(ValueError, match="chunked"):
+            hvd.alltoall(x, splits=[8], chunked=False, wire="bf16")
         with pytest.raises(ValueError, match="auto"):
             hvd.alltoall(x, splits=[8], wire="auto")
         with pytest.raises(TensorShapeMismatchError):
             hvd.alltoall(x, splits=[7])
-        with pytest.raises(NotImplementedError, match="process-set"):
+        with pytest.raises(TypeError, match="ProcessSet"):
             hvd.allreduce(x, process_set=object())
         assert hvd.join() == 0
         info = basics.context().engine.cache_info()
-        assert info["capacity"] == 1024 and info["entries"] == 0
+        # The two exchanges above negotiated one signature each.
+        assert info["capacity"] == 1024 and info["entries"] == 2
         hvd.allreduce(x, name="a")
         hvd.allreduce(x, name="a")
-        assert basics.context().engine.cache_info()["entries"] == 1
+        assert basics.context().engine.cache_info()["entries"] == 3
     finally:
         hvd.shutdown()
 

@@ -240,7 +240,7 @@ def test_collectives_world_of_one(world1):
     assert isinstance(h, int)
     assert hvd.synchronize(h) is y
     torch.testing.assert_close(y, x)
-    with pytest.raises(NotImplementedError, match="process-set slice"):
+    with pytest.raises(TypeError, match="ProcessSet"):
         hvd.allreduce_async_(y, name="y", process_set=object())
     torch.testing.assert_close(hvd.allreduce(x, op=hvd.ReduceOp.PRODUCT), x)
     # Adasum runs no level in a world of one.
@@ -286,16 +286,22 @@ def test_distributed_optimizer_contract(world1):
         opt.step()
     assert opt.bucket_allreduces == 3       # no second reduction
     opt.zero_grad()
-    for kw in ({"route": "staged"}, {"zero_stage": 1},
+    for kw in ({"zero_stage": 1},
                {"nonfinite_policy": "skip_step", "op": hvd.Adasum},
                {"accum_steps": 2, "op": hvd.Adasum}):
         with pytest.raises(NotImplementedError):
             hvd.DistributedOptimizer(torch.optim.SGD(m.parameters(),
                                                      lr=0.1), **kw)
-    # The guard and accumulation are ported (slice 9): accepted.
-    for kw in ({"nonfinite_policy": "skip_step"}, {"accum_steps": 2}):
-        hvd.DistributedOptimizer(torch.optim.SGD(m.parameters(), lr=0.1),
-                                 **kw)
+    # The guard and accumulation are ported (slice 9), the route (slice
+    # 10): accepted; a world of one has no mesh axes, so the route falls
+    # back to the flat axis.
+    for kw in ({"nonfinite_policy": "skip_step"}, {"accum_steps": 2},
+               {"route": "staged"}):
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(m.parameters(), lr=0.1), **kw)
+        assert opt._route is None
+        for h in opt._dist_hooks:
+            h.remove()
     # The int8 wire format cannot ride a sum (int8_ef is the reduce-safe
     # form); int8_ef and Adasum are tested in test_torch_port_reduce.py.
     with pytest.raises(ValueError, match="int8_ef"):
@@ -314,12 +320,14 @@ def test_distributed_optimizer_contract(world1):
 def test_later_slices_raise_not_implemented(name):
     """The JAX package's API that later slices bring is present by name
     and raises NotImplementedError naming its slice. The models slice
-    (BERT, ResNet, ...) and slice 9 (``accumulate_gradients``,
-    ``observe_guard``, ...) are ported: their names resolve."""
+    (BERT, ResNet, ...), slice 9 (``accumulate_gradients``,
+    ``observe_guard``, ...) and slice 10 (``ProcessSet``,
+    ``add_process_set``, ...) are ported: their names resolve."""
     import horovod_tpu_torch.models as models
 
     mod, attr = (models, name.split(".")[1]) if "." in name else (hvd, name)
-    if mod is models or name in ("accumulate_gradients", "observe_guard"):
+    if mod is models or name in ("accumulate_gradients", "observe_guard",
+                                 "add_process_set", "ProcessSet"):
         assert callable(getattr(mod, attr))
     else:
         with pytest.raises(NotImplementedError, match="slice"):
