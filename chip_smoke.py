@@ -191,7 +191,15 @@ Phases (any failure exits non-zero and prints no result line):
    local groups' average deltas in fp64 to 1e-5 of its largest value,
    and K8 and K9 must launch exactly parameters x log2(2) x 3 times.
    Every loss finite, every rank's parameter digests equal to rank 0's
-   after every step. Then (c) eager calls on CUDA tensors of
+   after every step. Then (a2) ``ZeroOptimizer(zero_stage=3,
+   route="local:none,cross:int8", compression="int8_ef")`` (AdamW, the
+   same geometry, 1 checked and 3 timed steps): at the checked step one
+   bucket's quantized reduce-scatter (K3 on the cross hop only) must lie
+   within ``sum over hosts of s_host / 4`` of the exact fp32 average and
+   the residuals summed over the ranks must equal the exact sum less 4
+   times the result (fp32 roundoff); K3 must launch exactly buckets x 3
+   times in the timed steps and K1, K2, K4 never; every rank's gathered
+   parameters bitwise rank 0's after every step. Then (c) eager calls on CUDA tensors of
    ``tok_emb``'s shape: the hierarchical ``allreduce(op=Sum,
    prescale_factor=1/3, postscale_factor=1.5)`` bitwise equal on every
    rank, within 1e-6 of sum |x| of the fp64 result and with exactly 2
@@ -216,6 +224,28 @@ Phases (any failure exits non-zero and prints no result line):
    (``mesh_wire_cost`` of the padded lengths) beside a flat fp32 ring;
    these are gloo-over-loopback times of 4 processes on one card, not
    NCCL or NVLink.
+7c. ZeRO: the script relaunches itself as 4 gloo rank workers
+   (``--rank-worker n4_zero``, a flat world) sharing the card: GPT-2
+   medium at full width, B = 4, S = 512 per rank (phase 7b's geometry),
+   each rank its own seeded batch after ``broadcast_parameters``,
+   ``AdamW(lr=1e-4, weight_decay=1e-4)``, 1 checked and 3 timed steps of
+   each case in turn, memory released between them: (a) the replicated
+   ``DistributedOptimizer``; (b) ``zero_stage=1``; (c) ``zero_stage=1,
+   compression="int8_ef"``; (d) ``zero_stage=2, accum_steps=2``; (e)
+   ``zero_stage=3, nonfinite_policy="scale_backoff"`` with the +Inf drill
+   (rank 0's first gradient element at the second step: every shard and
+   AdamW tensor bitwise unchanged, the loss scale halved). Each step's
+   loss within 1e-3 relative of (a)'s; every rank's gathered parameters
+   bitwise rank 0's after every step; (c)'s first quantized
+   reduce-scatter within ``sum of s_rank / 4`` of the exact average and
+   its residuals summing to the exact sum less 4 times the result; in
+   the timed steps K3 exactly buckets x 3 in (c), K1 exactly buckets x 3
+   in (e), K5/K6/K7 24 x 3 each (x 2 in (d)) and nothing else. Printed
+   for each case: the median step ms, peak GiB a rank over the timed
+   steps (``max_memory_allocated``), GiB at rest after a step
+   (``memory_allocated``), and the bytes of the two ZeRO metrics'
+   counter by kind/wire/axis; gloo over loopback, 4 processes on one
+   card, not NCCL or NVLink.
 8. Eager engine: the script relaunches itself as 2 gloo rank workers
    (``--rank-worker n2_eager``): GPT-2 medium at full width, B = 8,
    S = 512 per rank, each rank its own seeded batch, ``AdamW`` after
@@ -249,10 +279,12 @@ Phases (any failure exits non-zero and prints no result line):
 9. Result lines: the per-kernel JSON record (K1-K9, each with
    ``launches_by_path``, every path above 0, and ``launches`` their
    sum: K5/K6/K7 for the GPT training, BERT, ViT and the two guarded
-   integrity runs; K1 for the eager loop, the integrity unscale and the
-   mesh phase; K2/K4 for serving and the mesh phase; K3, K8 and K9 for
-   the n = 2 multi-rank run and the mesh phase), the card line, and
-   last ``{"ok": true, "device": {...}}``.
+   integrity runs and the ZeRO phase; K1 for the eager loop, the
+   integrity unscale, the mesh phase and the ZeRO phase's (e); K2/K4 for
+   serving and the mesh phase; K3 for the n = 2 multi-rank run, the mesh
+   phase and the ZeRO phase's (c); K8 and K9 for the n = 2 multi-rank run
+   and the mesh phase), the card line, and last ``{"ok": true,
+   "device": {...}}``.
 
 ``--profile`` also traces the serve run and two extra training steps of
 GPT-2 medium, each integrity run, BERT-large, ViT-B/16 and ResNet-50
@@ -2415,11 +2447,11 @@ MULTI_CONFIGS = {
 ADASUM_REF_RTOL = 1e-5              # reduced delta vs the fp64 reference
 
 
-def _make_model(torch, gpt_mod, name):
-    with torch.device("cuda"):
+def _make_model(torch, gpt_mod, name, dev: str = "cuda"):
+    with torch.device(dev):
         model = gpt_mod.gpt_medium() if name == "gpt_medium" else \
             gpt_mod.gpt_tiny(hidden=128, num_heads=2)
-    model.init_weights(torch.Generator(device="cuda").manual_seed(0))
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
     return model
 
 
@@ -2902,6 +2934,7 @@ MESH_RUN = (4, "gpt_medium", 4, 512, 900)
 MESH_SHAPE = "2x2"                  # cross x local: local {0,1},{2,3}
 MESH_TIMED = 3                      # timed steps after the checked one
 MESH_SETS = ((0, 2), (1, 3))
+MESH_ZERO_ROUTE = "local:none,cross:int8"  # K3 on the cross hop only
 MESH_TOK_EMB_RTOL = 1e-6            # eager hierarchical vs fp64, of sum |x|
 TINY_STEPS = 2
 
@@ -3329,6 +3362,13 @@ def mesh_worker(config: str, rank: int, out_path: str) -> None:
                                                fusion, mode, rank, n)
         print(f"rank {rank} {mode}: step ms {rec['step_ms']}, launches "
               f"{rec['launches']}", flush=True)
+    from horovod_tpu_torch.common import metrics
+
+    out["zero"] = rec = _zero_train(
+        torch, hvd, gpt_mod, C, K, metrics, "mesh_z3", 3,
+        {"compression": "int8_ef"}, rank, n, "cuda", route=MESH_ZERO_ROUTE)
+    print(f"rank {rank} zero stage 3 ({MESH_ZERO_ROUTE}, int8_ef): step ms "
+          f"{rec['step_ms']}, launches {rec['launches']}", flush=True)
     out["eager"] = _mesh_eager(torch, hvd, C, K, rank, n)
     print(f"rank {rank} eager: {out['eager']}", flush=True)
     out["process_sets"] = _mesh_sets(torch, hvd, gpt_mod, C, rank)
@@ -3385,6 +3425,20 @@ def phase_mesh(torch, out_dir: str) -> dict:
               f"peak {m['peak_mem_gib']:.2f} GiB; check "
               f"{json.dumps(m['check'])}; launches "
               f"{json.dumps(m['launches'])}", flush=True)
+    zrecs = [rk["zero"] for rk in ranks]
+    check(all(rc["launches"] == zrecs[0]["launches"] for rc in zrecs),
+          "mesh zero: ranks counted different launches")
+    z = res["zero"] = {k: zrecs[0][k] for k in (
+        "route", "losses", "step_ms", "step_ms_median", "launches",
+        "buckets", "int8_check", "zero_bytes", "rest_mem_gib")}
+    z["peak_mem_gib"] = max(rc["peak_mem_gib"] for rc in zrecs)
+    add(z["launches"])
+    print(f"mesh 2x2 ZeroOptimizer(zero_stage=3, route={MESH_ZERO_ROUTE}, "
+          f"int8_ef) (gloo, 4 processes on one card): step "
+          f"{z['step_ms_median']:.1f} ms, peak {z['peak_mem_gib']:.2f} GiB, "
+          f"at rest {z['rest_mem_gib']:.2f} GiB; check "
+          f"{json.dumps(z['int8_check'])}; launches "
+          f"{json.dumps(z['launches'])}", flush=True)
     res["eager"] = r0["eager"]
     add(r0["eager"]["allreduce_launches"])
     add(r0["eager"]["qhar_launches"])
@@ -3408,6 +3462,341 @@ def phase_mesh(torch, out_dir: str) -> dict:
           f"{ex['ppermute_backward_max_err']:.3g}; mesh path launches "
           f"{json.dumps(launches)}", flush=True)
     with open(os.path.join(out_dir, "chip_smoke_mesh.json"), "w") as f:
+        json.dump(dict(res, ranks=ranks), f, indent=1)
+    return res
+
+
+# -- phase 7c: ZeRO stages 0-3 over 4 gloo ranks on the card ----------------
+
+ZERO_CONFIG = "n4_zero"
+# n, model, per-rank batch, sequence length, worker timeout (s)
+ZERO_RUN = (4, "gpt_medium", 4, 512, 900)
+ZERO_TIMED = 3                      # timed steps after the checked one
+ZERO_LOSS_RTOL = 1e-3               # each step's loss vs (a)'s: bf16 bound
+# label, zero_stage, extra keywords: (a) the replicated baseline, (b)
+# stage 1, (c) stage 1 int8_ef, (d) stage 2 accumulating 2 microbatches,
+# (e) stage 3 with the loss-scaling guard (and the +Inf drill).
+ZERO_CASES = (("a", 0, {}), ("b", 1, {}),
+              ("c", 1, {"compression": "int8_ef"}),
+              ("d", 2, {"accum_steps": 2}),
+              ("e", 3, {"nonfinite_policy": "scale_backoff"}))
+
+
+def _mem(torch, dev: str) -> tuple:
+    """(peak, now) allocated GiB on the card; zeros elsewhere."""
+    if dev != "cuda":
+        return 0.0, 0.0
+    return (torch.cuda.max_memory_allocated() / 2 ** 30,
+            torch.cuda.memory_allocated() / 2 ** 30)
+
+
+def _zero_bytes(metrics, name: str = "hvd_tpu_zero_gather_bytes_total",
+                labels=("kind", "wire", "axis")) -> dict:
+    """A ZeRO metric's samples by their labels joined with ``/``."""
+    fam = metrics.registry().snapshot().get(name, {"samples": []})
+    return {"/".join(s["labels"][k] for k in labels): s["value"]
+            for s in fam["samples"]}
+
+
+def _reduce_probe(st, target: int):
+    """Records bucket ``target``'s local flat, reduced shard and new
+    residual the next time ``st.reduce`` takes it. Returns (record,
+    restore)."""
+    seen = {}
+    orig = st.reduce
+
+    def probe(bi, flat, exact=False):
+        out = orig(bi, flat, exact)
+        if bi == target and not exact and "flat" not in seen:
+            seen["flat"] = flat.float().clone()
+            seen["shard"], seen["residual"] = out[0].clone(), out[1].clone()
+        return out
+
+    st.reduce = probe
+
+    def restore():
+        del st.reduce
+    return seen, restore
+
+
+def _int8_rs_check(torch, C, st, seen, groups) -> dict:
+    """The quantized reduce-scatter of one bucket at the first step (zero
+    residual) against the exact fp32 average of the ranks' flats: within
+    ``sum of s / n`` a block (stochastic rounding, r = 1; ``s`` the block
+    scales of each quantized addend — a rank's flat, or under a route a
+    host's local sum, ``groups`` the ranks a host adds); and the
+    residuals summed over the ranks are the exact sum less ``n`` times
+    the result (the error-feedback invariant), to fp32 roundoff."""
+    n, flat, shard = st.n, seen["flat"], seen["shard"].double()
+    size, chunk = flat.numel(), shard.numel()
+    start = st.index * chunk
+    every = C.all_gather_stack(flat).double()
+    want = torch.nn.functional.pad(every.sum(0), (0, n * chunk - size))[
+        start:start + chunk] / n
+    s = sum(_block_scales(torch, every[g].sum(0), (-size) % 4096)
+            for g in groups)
+    del every
+    bound = torch.nn.functional.pad(s.repeat_interleave(4096) / n,
+                                    (0, n * chunk))[start:start + chunk]
+    err = (shard - want).abs()
+    over = err > bound * (1 + 1e-5) + 1e-7
+    check(not bool(over.any()),
+          f"zero int8_ef: bucket off the exact average by more than the "
+          f"bound at {int(over.sum())} elements")
+    rsum = C.all_gather_stack(seen["residual"]).double().sum(0)
+    closed = (rsum[start:start + chunk] / n - (want - shard)).abs().max()
+    lim = 1e-5 * want.abs().max().item()
+    check(closed.item() <= lim, f"zero int8_ef: residual-sum invariant "
+                                f"off by {closed.item()} > {lim}")
+    return {"elements": size, "shard": chunk, "max_err": err.max().item(),
+            "max_bound": bound.max().item(),
+            "worst_err_over_bound": (err / bound.clamp_min(1e-30)).max()
+            .item(), "residual_invariant_max_err": closed.item()}
+
+
+def _zero_train(torch, hvd, gpt_mod, C, K, metrics, label, stage, kw,
+                rank, n, dev, route=None):
+    """One ZeRO case of GPT-2 medium (``ZERO_RUN``): the checked step,
+    the +Inf drill under ``scale_backoff``, the timed steps with the
+    launch counts zeroed just before them and read just after, the
+    replicas' digests after every gather, peak and at-rest memory, and
+    the ZeRO metrics' bytes of the timed steps."""
+    _, model_name, batch, seq, _ = ZERO_RUN
+    model = _make_model(torch, gpt_mod, model_name, dev)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    params = list(model.parameters())
+    digest = _Digest(torch, params)
+    tokens = torch.randint(0, model.vocab_size, (batch, seq + 1),
+                           generator=torch.Generator().manual_seed(
+                               31 + rank)).to(dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(), zero_stage=stage,
+        route=route, **kw)
+    guard = kw.get("nonfinite_policy") == "scale_backoff"
+    rec = {"case": label, "zero_stage": stage, **{k: str(v) for k, v in
+                                                  kw.items()},
+           "route": route}
+
+    def loss_of(t):
+        return gpt_mod.next_token_loss(model(t[:, :-1]), t[:, 1:])
+
+    fn = opt.accumulate(loss_of) if stage == 2 else None
+
+    def step(poison: bool = False) -> float:
+        if stage == 3:
+            opt.gather_params()
+        if fn is not None:
+            loss = fn(tokens)
+        else:
+            opt.zero_grad()
+            loss = loss_of(tokens)
+            h = poison_first_grad(torch, model, float("inf")) \
+                if poison else None
+            (loss * hvd.current_loss_scale(opt) if guard else loss
+             ).backward()
+            if h is not None:
+                h.remove()
+        opt.step()
+        return loss.item()
+
+    def replicas_equal() -> bool:
+        """Every rank's full parameters, gathered, bitwise rank 0's."""
+        if stage == 3:
+            opt.gather_params()
+        every = C.all_gather_stack(digest(params))
+        if stage == 3:
+            opt.shard_params()
+        return bool((every == every[0]).all())
+
+    seen = None
+    if "compression" in kw or (route is not None and "int8" in route):
+        st = opt.shard_state
+        target = max(range(len(st.plan.buckets)),
+                     key=lambda i: st.plan.buckets[i].total_elems)
+        seen, restore = _reduce_probe(st, target)
+    losses = [step()]
+    if seen is not None:
+        restore()
+        groups = [[r] for r in range(n)] if route is None else \
+            [[0, 1], [2, 3]]
+        rec["int8_check"] = _int8_rs_check(torch, C, opt.shard_state,
+                                           seen, groups)
+        del seen
+    equal = [replicas_equal()]
+    if guard:
+        def snap():
+            """Every shard and every AdamW state tensor, cloned."""
+            return [s.clone() for s in opt.shard_state.shards] + [
+                v.clone() for s in opt.shard_state.inner.state.values()
+                for v in s.values() if torch.is_tensor(v)]
+
+        before, scale = snap(), hvd.current_loss_scale(opt)
+        drill_loss = step(poison=rank == 0)
+        after = snap()
+        check(opt.skipped and all(torch.equal(a, b)
+                                  for a, b in zip(before, after)),
+              f"zero {label}: the +Inf step moved state")
+        check(hvd.current_loss_scale(opt) == scale / 2,
+              f"zero {label}: loss scale {hvd.current_loss_scale(opt)} "
+              f"after {scale}")
+        rec["drill"] = {"loss": drill_loss, "scale_before": scale,
+                        "scale_after": hvd.current_loss_scale(opt),
+                        "state_tensors_unchanged": len(before),
+                        "guard": hvd.observe_guard(opt, name=f"zero_{label}")}
+        del before, after
+    _sync(torch, dev)
+    hvd.barrier()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    times, peak, moved = [], 0.0, {}
+    for _ in range(ZERO_TIMED):
+        bytes0 = _zero_bytes(metrics)
+        t0 = time.perf_counter()
+        losses.append(step())
+        _sync(torch, dev)
+        times.append(time.perf_counter() - t0)
+        for k, v in _zero_bytes(metrics).items():
+            if v != bytes0.get(k, 0.0):
+                moved[k] = moved.get(k, 0.0) + v - bytes0.get(k, 0.0)
+        opt.zero_grad()
+        peak_now, rest = _mem(torch, dev)
+        peak = max(peak, peak_now)
+        equal.append(replicas_equal())
+    launches = dict(K.LAUNCHES)
+    check(all(map(math.isfinite, losses)),
+          f"zero {label}: non-finite loss in {losses}")
+    check(all(equal), f"zero {label}: replicas differ after step(s) "
+                      f"{[i for i, e in enumerate(equal) if not e]}")
+    flash = model.num_layers * ZERO_TIMED * (2 if stage == 2 else 1)
+    want = dict(flash_fwd=flash, flash_bwd_dq=flash, flash_bwd_dkv=flash)
+    buckets = len(opt.shard_state.plan.buckets) if stage else 0
+    if "compression" in kw:
+        want["quantize_int8_stochastic"] = buckets * ZERO_TIMED
+    if route is not None and "compression" in kw:
+        rec["int8_hops_per_bucket"] = 1     # the cross hop's reduce-scatter
+    if guard:
+        want["scale_buffer"] = buckets * ZERO_TIMED
+    _expect(launches, f"zero {label}", **want)
+    if stage:
+        rec["buckets"] = buckets
+        rec["shard_bytes"] = sum(s.numel() * s.element_size()
+                                 for s in opt.shard_state.shards)
+    if "compression" in kw:
+        res = opt.shard_state.ef_state.residual
+        check(all(bool(torch.isfinite(r).all()) for r in res),
+              f"zero {label}: non-finite residual")
+        rec["residual_norm"] = math.sqrt(sum(
+            float(r.double().pow(2).sum()) for r in res))
+        check(rec["residual_norm"] > 0, f"zero {label}: residual is zero")
+    rec.update({"losses": losses, "step_ms": [t * 1e3 for t in times],
+                "step_ms_median": statistics.median(times) * 1e3,
+                "launches": launches, "replicas_equal": equal,
+                "peak_mem_gib": peak, "rest_mem_gib": rest,
+                "zero_bytes": moved,
+                "resident_bytes": _zero_bytes(
+                    metrics, "hvd_tpu_zero_param_bytes_resident",
+                    ("stage",)).get(str(stage))})
+    if stage == 0:
+        release(torch, opt, dev)
+    if stage == 3:
+        opt.gather_params()
+    del opt, model, params, digest
+    import gc
+
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def zero_worker(config: str, rank: int, out_path: str,
+                dev: str = "cuda") -> None:
+    """One rank of phase 7c (``--rank-worker n4_zero``): the ZeRO cases
+    (a)-(e) in turn on a flat world of 4."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import metrics
+    from horovod_tpu_torch.models import gpt as gpt_mod
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n = ZERO_RUN[0]
+    ctx = hvd.init(backend="gloo") if dev == "cuda" \
+        else hvd.init(device="cpu")
+    check(hvd.size() == n and hvd.rank() == rank,
+          f"zero: rank {hvd.rank()} of {hvd.size()}")
+    out = {"config": config, "rank": rank, "backend": ctx.backend,
+           "cases": {}}
+    for label, stage, kw in ZERO_CASES:
+        out["cases"][label] = rec = _zero_train(
+            torch, hvd, gpt_mod, C, K, metrics, label, stage, kw, rank, n,
+            dev)
+        print(f"rank {rank} zero ({label}): step ms {rec['step_ms']}, peak "
+              f"{rec['peak_mem_gib']:.2f} GiB, rest "
+              f"{rec['rest_mem_gib']:.2f} GiB, launches {rec['launches']}",
+              flush=True)
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def phase_zero(torch, out_dir: str) -> dict:
+    """Phase 7c: the four rank workers of the ZeRO cases on the one card.
+    Returns the phase's record with ``launches``, the ZeRO path's counts
+    summed over the cases."""
+    n, model_name, batch, seq, timeout = ZERO_RUN
+    os.makedirs(out_dir, exist_ok=True)
+    ranks, wall = run_workers(ZERO_CONFIG, n, timeout, out_dir)
+    res = {"n": n, "model": model_name, "batch_per_rank": batch,
+           "seq_len": seq, "wall_s": wall,
+           "label": "gloo, 4 processes on one card (not NCCL or NVLink)",
+           "cases": {}}
+    base = ranks[0]["cases"]["a"]["losses"]
+    launches = {}
+    for label, stage, kw in ZERO_CASES:
+        recs = [rk["cases"][label] for rk in ranks]
+        check(all(rc["launches"] == recs[0]["launches"] for rc in recs),
+              f"zero {label}: ranks counted different launches")
+        for k, v in recs[0]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        losses = recs[0]["losses"]
+        drill = recs[0].get("drill")
+        pairs = list(zip(losses, base)) + (
+            [(drill["loss"], base[1])] if drill else [])
+        rel = max(abs(a - b) / abs(b) for a, b in pairs)
+        check(rel <= ZERO_LOSS_RTOL,
+              f"zero {label}: losses {losses} off (a)'s {base} by {rel}")
+        step_ms = statistics.median(
+            statistics.median(rc["step_ms"]) for rc in recs)
+        m = res["cases"][label] = {
+            "zero_stage": stage, **{k: str(v) for k, v in kw.items()},
+            "step_ms_median": step_ms, "step_ms_rank0": recs[0]["step_ms"],
+            "tokens_per_s": n * batch * seq / (step_ms / 1e3),
+            "losses_rank0": losses, "loss_rel_to_a": rel,
+            "launches": recs[0]["launches"],
+            "peak_mem_gib": max(rc["peak_mem_gib"] for rc in recs),
+            "rest_mem_gib": max(rc["rest_mem_gib"] for rc in recs),
+            "zero_bytes_rank0": recs[0]["zero_bytes"],
+            "resident_bytes_rank0": recs[0]["resident_bytes"],
+            "buckets": recs[0].get("buckets"),
+            "check": recs[0].get("int8_check"), "drill": drill}
+        print(f"zero ({label}) stage {stage} {kw or ''} (gloo, 4 processes "
+              f"on one card): gpt_medium B={batch} S={seq} per rank, step "
+              f"{step_ms:.1f} ms = {m['tokens_per_s']:.0f} tok/s; peak "
+              f"{m['peak_mem_gib']:.2f} GiB, at rest "
+              f"{m['rest_mem_gib']:.2f} GiB a rank; loss vs (a) {rel:.2e}; "
+              f"gathered bytes a rank (3 steps) "
+              f"{json.dumps(m['zero_bytes_rank0'])}, resident parameter "
+              f"bytes {m['resident_bytes_rank0']}; check "
+              f"{json.dumps(m['check'])}; drill {json.dumps(m['drill'])}; "
+              f"launches {json.dumps(m['launches'])}", flush=True)
+    res["launches"] = launches
+    with open(os.path.join(out_dir, "chip_smoke_zero.json"), "w") as f:
         json.dump(dict(res, ranks=ranks), f, indent=1)
     return res
 
@@ -3878,7 +4267,8 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--rank-worker"]:
         worker = {"n2_eager": eager_worker, "n2_join": join_worker,
-                  MESH_CONFIG: mesh_worker}.get(argv[1], rank_worker)
+                  MESH_CONFIG: mesh_worker,
+                  ZERO_CONFIG: zero_worker}.get(argv[1], rank_worker)
         worker(argv[1], int(argv[2]), argv[3])
         return 0
     args = ap.parse_args(argv)
@@ -3925,6 +4315,7 @@ def main(argv=None) -> int:
         multi = phase_multirank(torch, args.out)
         eager = phase_eager(torch, args.out)
         mesh = phase_mesh(torch, args.out)
+        zero = phase_zero(torch, args.out)
         n2 = multi["n2_gpt_medium"]["modes"]
         # Every path a kernel runs on, each counted from zero around it;
         # the mesh path (phase 7b) is one of them for K1-K4, K8 and K9.
@@ -3942,7 +4333,8 @@ def main(argv=None) -> int:
                        "integrity_none": integ_runs["none/scale_backoff"][
                            "launches"],
                        "integrity_full": integ_runs["full/scale_backoff"][
-                           "launches"]}
+                           "launches"],
+                       "zero": zero["launches"]}
         # K1 runs on the eager path (pre/postscale) and as the guard's
         # unscale on the integrity path.
         paths["scale_buffer"] = {
@@ -3953,6 +4345,10 @@ def main(argv=None) -> int:
                      "quantize_int8_stochastic", "adasum_dot_norms",
                      "adasum_combine"):
             paths[name]["mesh"] = mesh["launches"]
+        # The ZeRO path (phase 7c): K3 in (c)'s quantized reduce-scatter,
+        # K1 as (e)'s unscale.
+        for name in ("scale_buffer", "quantize_int8_stochastic"):
+            paths[name]["zero"] = zero["launches"]
         for name in FLASH_NAMES:
             paths[name] = flash_paths
         for name, rec in records.items():
@@ -3980,7 +4376,7 @@ def main(argv=None) -> int:
                                  for c, r in multi.items()},
                    "eager": {k: v for k, v in eager.items()
                              if k not in ("ranks", "join")},
-                   "mesh": mesh}, f, indent=1)
+                   "mesh": mesh, "zero": zero}, f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

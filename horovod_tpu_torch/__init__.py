@@ -55,7 +55,16 @@ Ported so far:
   Adasum, ``DistributedOptimizer(route=)``), the two-level eager
   allreduce/allgather (``init(hierarchical_allreduce=True)``), the
   chunked ``alltoall(splits=, chunked=, wire=)`` and
-  ``ops.collectives.wired_ppermute``.
+  ``ops.collectives.wired_ppermute``;
+* slice 11 — ZeRO and FSDP (``zero.py``): ``ShardedOptimizer`` (stage 1),
+  ``ZeroOptimizer`` (stages 1–3) and ``FSDPOptimizer``, their functional
+  core ``sharded_init``/``sharded_update``, ``DistributedOptimizer(
+  zero_stage=)``, ``auto_shard_threshold``/``should_shard_update``,
+  ``integrity.sharded_fingerprint``, ``checkpoint.save_sharded``/
+  ``restore_sharded`` (each rank's pieces, resharded on restore), and
+  Horovod's capability queries (``gloo_built``, ``nccl_built``, ...: the
+  build of torch), ``broadcast_variables``, ``mesh_axes()`` and
+  ``AxisPhase``.
 
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request they raise.
@@ -65,9 +74,12 @@ Names of the JAX package's API that later slices bring raise
 
 import torch
 
-from .common.basics import (cross_rank, cross_size, device, init,
+from .common.basics import (ccl_built, cross_rank, cross_size, cuda_built,
+                            ddl_built, device, gloo_built, gloo_enabled, init,
                             is_homogeneous, is_initialized, local_rank,
-                            local_size, rank, shutdown, size)
+                            local_size, mpi_built, mpi_enabled,
+                            mpi_threads_supported, nccl_built, rank,
+                            rocm_built, shutdown, size, xla_built)
 from .common.device import resolve_device
 from .common import integrity
 from .common.exceptions import (AlltoallvLayoutError,
@@ -81,10 +93,12 @@ from .common.faults import recovery_stats
 from .common.integrity import (DivergenceDetector, current_loss_scale,
                                observe_guard)
 from .common.metrics import metrics
-from .functions import allgather_object, broadcast_object
+from .functions import (allgather_object, broadcast_object,
+                        broadcast_variables)
 from .ops.adasum import adasum_allreduce
-from .ops.collectives import (Adasum, Average, Max, Min, Product, ReduceOp,
-                              Sum, WirePlan, broadcast_, quantized_allreduce)
+from .ops.collectives import (Adasum, Average, AxisPhase, Max, Min, Product,
+                              ReduceOp, Sum, WirePlan, broadcast_,
+                              quantized_allreduce)
 from .ops.compression import Compression
 from .ops import eager as _eager
 from .optim import (DistributedOptimizer, accumulate_gradients,
@@ -93,8 +107,12 @@ from .optim import (DistributedOptimizer, accumulate_gradients,
 from .process_set import (ProcessSet, add_process_set,
                           member_engine as _engine, remove_process_set)
 from .sync_batch_norm import SyncBatchNorm
+from .zero import (FSDPOptimizer, ShardedOptimizer, ZeroOptimizer,
+                   auto_shard_threshold, sharded_init, sharded_update,
+                   should_shard_update)
 from . import callbacks, checkpoint
-from .checkpoint import CheckpointManager, ObjectStore
+from .checkpoint import (CheckpointManager, ObjectStore, restore_sharded,
+                         save_sharded)
 from .data import (BackgroundPrefetcher, DeviceInfeed, ElasticSampler,
                    infeed_pipeline, prefetch_to_device, shard_batch)
 
@@ -105,6 +123,12 @@ __all__ = [
     "DivergenceError", "DuplicateTensorNameError", "ElasticSampler",
     "HorovodInternalError", "HorovodTpuError", "Max", "Min",
     "MismatchError", "NonFiniteError", "NotInitializedError",
+    "AxisPhase", "FSDPOptimizer", "ShardedOptimizer", "ZeroOptimizer",
+    "auto_shard_threshold", "broadcast_variables", "ccl_built",
+    "cuda_built", "ddl_built", "gloo_built", "gloo_enabled", "mesh_axes",
+    "mpi_built", "mpi_enabled", "mpi_threads_supported", "nccl_built",
+    "restore_sharded", "rocm_built", "save_sharded", "sharded_init",
+    "sharded_update", "should_shard_update", "xla_built",
     "ObjectStore", "ProcessSet", "Product", "ReduceOp", "Sum",
     "SyncBatchNorm", "TensorShapeMismatchError", "WirePlan",
     "accumulate_gradients", "add_process_set", "adasum_allreduce",
@@ -375,6 +399,16 @@ def start_timeline(filename: str, mark_cycles: bool = False) -> None:
     _basics.context().timeline.start(filename, mark_cycles)
 
 
+def mesh_axes() -> tuple:
+    """The routing axes of this world, fast axis first
+    (``common.topology.MeshAxis``: name, size, link tier) — the
+    ``init(mesh_shape=)`` / ``HVD_TPU_MESH_SHAPE`` factorization, else
+    cross x local from the launcher, else the flat axis."""
+    from .common import basics as _basics
+
+    return _basics.context().mesh_axes
+
+
 def stop_timeline() -> None:
     from .common import basics as _basics
 
@@ -383,10 +417,6 @@ def stop_timeline() -> None:
 
 # The JAX package's API that later slices of the port bring, by slice.
 _LATER = {
-    "the ZeRO/FSDP slice": (
-        "ShardedOptimizer", "FSDPOptimizer", "ZeroOptimizer",
-        "sharded_init", "sharded_update", "auto_shard_threshold",
-        "should_shard_update", "save_sharded", "restore_sharded"),
     "the elastic and launcher slice": (
         "run", "HostsUpdatedInterrupt", "flight_recorder", "save_state",
         "restore_state", "chaos_poison", "chaos_perturb"),

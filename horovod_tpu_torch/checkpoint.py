@@ -18,16 +18,27 @@ bumps ``hvd_tpu_checkpoint_verify_total{result=}`` (ok / corrupt /
 missing) and a corruption ``RecoveryStats.checkpoint_corruptions``.
 
 In a multi-rank world the state is replicated: rank 0 writes, and every
-rank may restore once rank 0's ``wait()`` has returned. Sharded saves
-(``save_sharded``) come with the ZeRO/FSDP slice of the port, and an
-elastic state's ``save_state``/``restore_state`` with the elastic and
-launcher slice.
+rank may restore once rank 0's ``wait()`` has returned.
+
+Sharded state (ZeRO, ``zero.py``) goes through :func:`save_sharded`: the
+JAX function is single-controller (it fetches every device's piece);
+here each rank writes its own pieces — :class:`Shard` (a box of a
+global tensor) and :class:`Partial` (an addend of a sum over the ranks,
+such as an error-feedback residual) — through its own
+``CheckpointManager`` under ``<dir>/rank<r>``, so the crc32 sidecar and
+the walk-back apply unchanged, and the boxes travel in the payload.
+:func:`restore_sharded` cuts each target piece out of the recorded
+boxes, so a checkpoint of one shard grid restores into another. An
+elastic state's ``save_state``/``restore_state`` come with the elastic
+and launcher slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
+import math
 import os
 import pickle
 import queue as queue_mod
@@ -35,7 +46,7 @@ import shutil
 import threading
 import time
 import zlib
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -93,11 +104,13 @@ class CheckpointManager:
     ``max_to_keep`` removes the oldest committed steps beyond it;
     ``verify`` (None: ``init(checkpoint_verify=)`` /
     ``HVD_TPU_CHECKPOINT_VERIFY``, default on) writes and checks the CRC
-    sidecars."""
+    sidecars. ``writer`` (None: this process is rank 0 or alone) says
+    whether this process writes."""
 
     def __init__(self, directory: str, max_to_keep: int = 5,
                  save_interval_steps: int = 1,
-                 verify: Optional[bool] = None):
+                 verify: Optional[bool] = None,
+                 writer: Optional[bool] = None):
         if verify is None:
             if basics.is_initialized():
                 verify = basics.context().config.checkpoint_verify
@@ -116,8 +129,9 @@ class CheckpointManager:
         self.write_seconds: Dict[int, float] = {}
         self.payload_bytes: Dict[int, int] = {}
         self._last_saved: Optional[int] = None
-        self._writer = basics.rank() == 0 if basics.is_initialized() \
-            else True
+        if writer is None:
+            writer = basics.rank() == 0 if basics.is_initialized() else True
+        self._writer = bool(writer)
         self._error: Optional[BaseException] = None
         self._jobs: "queue_mod.Queue" = queue_mod.Queue()
         self._thread: Optional[threading.Thread] = None
@@ -429,10 +443,189 @@ class ObjectStore:
         return os.path.exists(self._path(name))
 
 
+# -- sharded state: each rank writes its own pieces --------------------------
+
+Box = Tuple[Tuple[int, int], ...]
+
+
+@dataclasses.dataclass
+class Shard:
+    """This rank's piece of a global tensor of ``shape``: ``data`` holds
+    the elements of ``box`` (``(start, stop)`` a dim)."""
+
+    data: torch.Tensor
+    box: Box
+    shape: Tuple[int, ...]
+
+
+@dataclasses.dataclass
+class Partial:
+    """This rank's addend of a tensor whose value is the SUM over the
+    ranks (an error-feedback residual): restored as the sum on rank 0
+    and zeros elsewhere."""
+
+    data: torch.Tensor
+
+
+def _pieces_to_host(tree):
+    """``tree`` with every tensor, Shard and Partial copied to host
+    memory."""
+    if isinstance(tree, Shard):
+        return Shard(tree.data.detach().to("cpu", copy=True),
+                     tuple(tuple(int(v) for v in b) for b in tree.box),
+                     tuple(int(d) for d in tree.shape))
+    if isinstance(tree, Partial):
+        return Partial(tree.data.detach().to("cpu", copy=True))
+    if isinstance(tree, dict):
+        return type(tree)((k, _pieces_to_host(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_pieces_to_host(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+def _world() -> Tuple[int, int]:
+    if basics.is_initialized():
+        return basics.rank(), basics.size()
+    return 0, 1
+
+
+def save_sharded(tree: Any, directory: str, step: int,
+                 max_to_keep: int = 5) -> None:
+    """Persist this rank's pieces of a sharded state (ZeRO,
+    ``ZeroOptimizer.sharded_tree()``) without gathering: every rank
+    calls it with its own tree, whose leaves are :class:`Shard`,
+    :class:`Partial`, or replicated values (any rank's copy; restore
+    takes rank 0's). Rank ``r`` writes ``<dir>/rank<r>/<step>`` through a
+    ``CheckpointManager`` (CRC sidecar, ``max_to_keep``), replacing a
+    stale copy of the same step; returns once every rank's files are
+    committed."""
+    rank, size = _world()
+    mgr = CheckpointManager(os.path.join(directory, f"rank{rank}"),
+                            max_to_keep=max_to_keep, writer=True)
+    try:
+        stale = mgr._step_dir(step)
+        if os.path.isdir(stale):
+            shutil.rmtree(stale, ignore_errors=True)
+        mgr.save(step, {"world": size, "rank": rank,
+                        "tree": _pieces_to_host(tree)}, force=True)
+        mgr.wait()
+    finally:
+        mgr.close()
+    if size > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def _load_sharded(directory: str):
+    """The newest step at which every writing rank's files verify (the
+    walk-back over the set), as ``(step, [payload of rank r])``."""
+    m0 = CheckpointManager(os.path.join(directory, "rank0"), writer=False)
+    steps = sorted(m0.all_steps(), reverse=True)
+    if not steps:
+        raise FileNotFoundError(f"no sharded checkpoints under {directory}")
+    corrupt = []
+    for step in steps:
+        if m0.verify and m0.verify_step(step) == "corrupt":
+            corrupt.append(step)
+            continue
+        first = m0.restore(step, verify=False)
+        mgrs = [CheckpointManager(os.path.join(directory, f"rank{r}"),
+                                  writer=False)
+                for r in range(1, int(first["world"]))]
+        if any(step not in m.all_steps() or (
+                m.verify and m.verify_step(step) == "corrupt")
+                for m in mgrs):
+            corrupt.append(step)
+            continue
+        if corrupt:
+            logger.warning("sharded checkpoint: restored step %d after "
+                           "skipping step(s) %s", step, corrupt)
+        return step, [first] + [m.restore(step, verify=False) for m in mgrs]
+    raise CheckpointCorruptError(
+        f"no sharded checkpoint step under {directory} verifies on every "
+        f"rank (skipped: {corrupt})")
+
+
+def _assemble(target: Shard, sources: List[Shard]) -> torch.Tensor:
+    """The elements of ``target.box`` cut out of the recorded pieces
+    (duplicates dedupe by box); every cell must be covered."""
+    if tuple(target.shape) != tuple(sources[0].shape):
+        raise ValueError(
+            f"checkpoint global shape {tuple(sources[0].shape)} vs template "
+            f"{tuple(target.shape)}: reshard-on-restore remaps shard "
+            "grids, not shapes; a changed shape goes through the gathered "
+            "full state (ZeroOptimizer.gather_state)")
+    by_box = {}
+    for src in sources:
+        by_box.setdefault(tuple(tuple(b) for b in src.box), src.data)
+    tbox = tuple(tuple(b) for b in target.box)
+    if tbox in by_box:
+        return by_box[tbox]
+    val = torch.zeros([hi - lo for lo, hi in tbox],
+                      dtype=sources[0].data.dtype)
+    covered = 0
+    for sbox, data in by_box.items():
+        ov = [(max(tl, sl), min(th, sh)) for (tl, th), (sl, sh)
+              in zip(tbox, sbox)]
+        if any(hi <= lo for lo, hi in ov):
+            continue
+        src = tuple(slice(lo - sl, hi - sl) for (lo, hi), (sl, _)
+                    in zip(ov, sbox))
+        dst = tuple(slice(lo - tl, hi - tl) for (lo, hi), (tl, _)
+                    in zip(ov, tbox))
+        val[dst] = data[src]
+        covered += math.prod(hi - lo for lo, hi in ov)
+    if covered != val.numel():
+        raise ValueError(f"target piece {tbox} covered {covered}/"
+                         f"{val.numel()} cells by the checkpoint's pieces")
+    return val
+
+
+def _rebuild(template, sources: List[Any], rank: int):
+    """The restored value of ``template`` from the source ranks' values
+    at the same place."""
+    if isinstance(template, Shard):
+        val = _assemble(template, sources)
+        return val.to(device=template.data.device,
+                      dtype=template.data.dtype)
+    if isinstance(template, Partial):
+        # Summed in rank order in the addends' dtype, as
+        # ZeroOptimizer.gather_state sums them.
+        total = sources[0].data.clone()
+        for s in sources[1:]:
+            total += s.data
+        val = total if rank == 0 else torch.zeros_like(total)
+        return val.to(device=template.data.device,
+                      dtype=template.data.dtype)
+    if isinstance(template, dict):
+        return type(template)(
+            (k, _rebuild(v, [s[k] for s in sources], rank))
+            for k, v in template.items())
+    if isinstance(template, (list, tuple)):
+        return type(template)(_rebuild(v, [s[i] for s in sources], rank)
+                              for i, v in enumerate(template))
+    return _like(sources[0], template) \
+        if isinstance(template, torch.Tensor) else sources[0]
+
+
+def restore_sharded(template: Any, directory: str):
+    """Inverse of :func:`save_sharded`: ``template`` is this rank's tree
+    of the resumed world (e.g. a fresh optimizer's ``sharded_tree()``),
+    whose :class:`Shard` leaves give the boxes wanted here — the same
+    grid or another one (a resized world), cut out of the recorded
+    pieces. Returns ``(tree, step)`` with tensors in place of the pieces
+    (each on its template's device and dtype) for the newest step that
+    verifies on every writing rank."""
+    rank, _ = _world()
+    step, payloads = _load_sharded(directory)
+    return _rebuild(template, [p["tree"] for p in payloads], rank), step
+
+
 _LATER = {"save_state": "the elastic and launcher slice",
-          "restore_state": "the elastic and launcher slice",
-          "save_sharded": "the ZeRO/FSDP slice",
-          "restore_sharded": "the ZeRO/FSDP slice"}
+          "restore_state": "the elastic and launcher slice"}
 
 
 def __getattr__(name):

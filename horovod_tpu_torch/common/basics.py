@@ -408,3 +408,64 @@ def cross_size() -> int:
 def is_homogeneous() -> bool:
     """Every host runs ``local_size`` processes."""
     return context().topology.is_homogeneous
+
+
+# -- capability queries (horovod_tpu/common/basics.py:513-570) ---------------
+#
+# Reference Horovod answers "what was compiled in" so scripts can pick code
+# paths. The port's data plane is torch.distributed, so the answers are
+# torch's own build: gloo and MPI as torch.distributed has them, NCCL's
+# version from torch.cuda.nccl, CUDA/ROCm from torch.version; DDL, CCL and
+# XLA are not part of it. All callable before init().
+
+def mpi_built() -> bool:
+    return dist.is_mpi_available()
+
+
+def mpi_enabled() -> bool:
+    """The port never reduces over MPI (its backends are NCCL and gloo)."""
+    return False
+
+
+def mpi_threads_supported() -> bool:
+    """Raises, as the reference does when MPI is not enabled."""
+    raise ValueError("MPI is not enabled: the port's collectives run over "
+                     "torch.distributed's NCCL or gloo backend")
+
+
+def gloo_built() -> bool:
+    return dist.is_gloo_available()
+
+
+def gloo_enabled() -> bool:
+    """True when the live world reduces over gloo."""
+    return is_initialized() and context().backend == "gloo"
+
+
+def nccl_built() -> int:
+    """NCCL's version code (major * 10000 + minor * 100 + patch, the
+    reference's ``NCCL_VERSION_CODE``), or 0 without NCCL."""
+    if not (dist.is_nccl_available() and torch.cuda.is_available()):
+        return 0
+    major, minor, patch = torch.cuda.nccl.version()[:3]
+    return major * 10000 + minor * 100 + patch
+
+
+def ddl_built() -> bool:
+    return False
+
+
+def ccl_built() -> bool:
+    return False
+
+
+def cuda_built() -> bool:
+    return torch.version.cuda is not None
+
+
+def rocm_built() -> bool:
+    return getattr(torch.version, "hip", None) is not None
+
+
+def xla_built() -> bool:
+    return False

@@ -52,6 +52,9 @@ RUNTIME_KNOBS = {
     "REMAT_POLICY": "remat policy of the microbatch loss (none/full/dots/"
                     "dots_no_batch)",
     "PREFETCH": "default infeed mode (off/single/double)",
+    # ZeRO (zero.py): the weight-update-sharding heuristic's threshold.
+    "AUTO_SHARD_THRESHOLD": "replicated-parameter bytes from which ZeRO-1 "
+                            "is the default candidate (256 MiB)",
     # Dynamic loss scaling of the scale_backoff policy (ScaleConfig).
     "SCALE_INIT": "initial loss scale (2**15)",
     "SCALE_BACKOFF_FACTOR": "loss-scale factor on a bad step (0.5)",
@@ -171,6 +174,8 @@ class Config:
     mesh_shape: Optional[str] = None
     hierarchical_allreduce: bool = False
     hierarchical_allgather: bool = False
+    # ZeRO (zero.py): the threshold of should_shard_update.
+    auto_shard_threshold_bytes: int = 256 * 1024 * 1024
 
     @classmethod
     def from_env(cls, **overrides) -> "Config":
@@ -202,6 +207,8 @@ class Config:
             runtime_env("HIERARCHICAL_ALLREDUCE") or "0")
         c.hierarchical_allgather = _truthy(
             runtime_env("HIERARCHICAL_ALLGATHER") or "0")
+        c.auto_shard_threshold_bytes = env_int(
+            "AUTO_SHARD_THRESHOLD", c.auto_shard_threshold_bytes)
         for name in ("stall_check_time_seconds",
                      "stall_shutdown_time_seconds"):
             raw = runtime_env(name.upper())

@@ -38,6 +38,8 @@
   ``resync`` (a broadcast of the parameters from rank 0, counted in
   ``RecoveryStats``). The JAX package's in-trace ``divergence_guard`` is
   a host call here with the same contract, made at the top of a step.
+  :func:`sharded_fingerprint` is the digest of a sharded (ZeRO) state,
+  summed over the ranks instead of compared.
 
 The chaos hooks (``chaos_poison``, ``chaos_perturb``) consume the fault
 plan, which comes with the elastic and launcher slice of the port.
@@ -371,6 +373,23 @@ def fingerprint_digest(tree) -> str:
     :class:`DivergenceDetector` exchanges."""
     fp = fingerprint(tree).cpu().numpy().astype(np.float32)
     return f"{zlib.crc32(fp.tobytes()) & 0xFFFFFFFF:08x}"
+
+
+def sharded_fingerprint(shards, axes=None) -> torch.Tensor:
+    """Fingerprint of a SHARDED state (ZeRO shards, ``zero.py``): each
+    rank fingerprints its own shards and the vectors are summed over
+    ``axes`` (an axis name, a tuple of them — a route's — or None for the
+    world), one all-reduce an axis, so every rank holds the same vector.
+    Deterministic in the shard layout and the values: compare it across
+    steps or across a checkpoint round trip of the same grid, and a
+    resized world through the gathered state."""
+    from ..ops import collectives as C
+
+    fp = fingerprint(shards)
+    names = (axes,) if axes is None or isinstance(axes, str) else axes
+    for name in names:
+        fp = C.allreduce(fp, C.Sum, axis=name)
+    return fp
 
 
 def check_divergence(params, tol: float = 0.0) -> Tuple[bool, float]:

@@ -17,6 +17,8 @@ import pickle
 import threading
 from typing import Any, List
 
+import torch
+
 from .common import basics
 from .common.exceptions import HorovodInternalError
 
@@ -68,3 +70,20 @@ def allgather_object(obj: Any, name: str = "obj") -> List[Any]:
     out = [_read(ctl.transport, key, ctl.timeout_s) for key in keys]
     ctl.transport.read_by(f"{base}/read", ctl.size, keys)
     return out
+
+
+def broadcast_variables(tree: Any, root_rank: int = 0) -> Any:
+    """``tree`` (nested dicts, lists and tuples of tensors) with every
+    tensor replaced by a new one of the same shape holding
+    ``root_rank``'s value (reference ``tensorflow/functions.py``
+    ``broadcast_variables``; the in-place form for parameters is
+    ``broadcast_parameters``). Other leaves pass through."""
+    from .common import tree as tree_lib
+    from .ops import collectives as C
+
+    def one(v):
+        if not isinstance(v, torch.Tensor):
+            return v
+        return C.broadcast_(v.detach().clone(), root_rank)
+
+    return tree_lib.map_tree(one, tree)

@@ -98,9 +98,12 @@ reduces over the set's subgroup alone: averages divide by the set's
 size, and a non-member raises ``ValueError``. It does not combine with
 ``route``.
 
+``zero_stage=1|2|3`` returns a :class:`~.zero.ZeroOptimizer` (ZeRO:
+optimizer state, then gradients, then parameters sharded over the ranks;
+``zero.py``, whose surfaces this module also exports).
+
 Not ported yet (they raise ``NotImplementedError`` naming their slice):
-``zero_stage``, and a non-finite guard or ``accum_steps`` with
-``op=Adasum``.
+a non-finite guard or ``accum_steps`` with ``op=Adasum``.
 """
 
 from __future__ import annotations
@@ -142,9 +145,6 @@ def _ef_key(step: int, bucket_index: int):
     """The stochastic-rounding key of one bucket at one step."""
     return (_EF_SEED, int(step), int(bucket_index))
 
-_UNPORTED = {
-    "zero_stage": "the ZeRO/FSDP slice",
-}
 # How a bucket reduced at synchronize() is reduced there (the first field
 # of its in-flight record, in place of a work handle): an int8_ef bucket
 # through the quantized reduction with its residual, any other bucket of
@@ -874,7 +874,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          accum_steps: Optional[int] = None,
                          remat_policy: Optional[str] = None,
                          route=None,
-                         **unported):
+                         zero_stage: int = 0):
     """Wrap ``optimizer`` so ``step()`` first averages (``op=Average``) or
     sums (``op=Sum``) the gradients across ranks, in fused buckets, or
     (``op=Adasum``) reduces the optimizer's per-parameter deltas by
@@ -905,15 +905,37 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     ``op`` may also be Min, Max or Product (elementwise over ranks).
     ``route`` (None: ``init(route=)`` / ``HVD_TPU_ROUTE``) reduces
     through the mesh router, ``process_set`` over a registered set's
-    ranks alone (see the module's docstring)."""
-    for key in unported:
-        if key not in _UNPORTED:
-            raise TypeError(f"DistributedOptimizer() got an unexpected "
-                            f"keyword argument {key!r}")
-        raise NotImplementedError(f"DistributedOptimizer({key}=...) is not "
-                                  f"ported yet; it comes with "
-                                  f"{_UNPORTED[key]} of the port")
+    ranks alone (see the module's docstring).
+
+    ``zero_stage`` 1, 2 or 3 returns ``zero.ZeroOptimizer(optimizer,
+    zero_stage, ...)`` with this call's op, threshold, compression,
+    guard, route and accumulation. It refuses
+    ``backward_passes_per_step != 1`` and a predivide factor other than
+    1, as the JAX package refuses them, and ``process_set``."""
     op = C.ReduceOp(op)
+    if zero_stage:
+        if int(zero_stage) not in (1, 2, 3):
+            raise ValueError(f"zero_stage must be 0 (off), 1, 2 or 3 — got "
+                             f"{zero_stage!r}")
+        if int(backward_passes_per_step) != 1:
+            raise ValueError(
+                "zero_stage composes with accum_steps / route / "
+                "compression / nonfinite_policy, not with the "
+                "backward_passes_per_step aggregation")
+        if gradient_predivide_factor != 1.0:
+            raise ValueError("gradient_predivide_factor is not supported "
+                             "on the ZeRO sharded surfaces — fold the "
+                             "scale into your loss")
+        if process_set is not None:
+            raise ValueError("zero_stage shards over the world's axes, not "
+                             "a process set")
+        from .zero import ZeroOptimizer
+
+        return ZeroOptimizer(
+            optimizer, zero_stage=int(zero_stage), grad_op=op,
+            fusion_threshold_bytes=fusion_threshold_bytes,
+            compression=compression, nonfinite_policy=nonfinite_policy,
+            route=route, accum_steps=accum_steps, remat_policy=remat_policy)
     if gradient_predivide_factor != 1.0 and op != C.Average:
         raise ValueError("gradient_predivide_factor requires op=Average")
     axis = None
@@ -1064,3 +1086,17 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
         C.broadcast_(t, root_rank)
     if state is not None:
         optimizer.load_state_dict(state)
+
+
+# The ZeRO surfaces live in zero.py (which imports this module).
+_ZERO_NAMES = ("ShardedOptimizer", "FSDPOptimizer", "ZeroOptimizer",
+               "sharded_init", "sharded_update", "auto_shard_threshold",
+               "should_shard_update")
+
+
+def __getattr__(name):
+    if name in _ZERO_NAMES:
+        from . import zero
+
+        return getattr(zero, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

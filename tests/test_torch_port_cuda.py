@@ -680,6 +680,53 @@ def test_skipped_step_leaves_gpt_and_adamw_unchanged_on_card():
         hvd.shutdown()
 
 
+@pytest.mark.cuda
+def test_zero_stage3_frees_the_weights_at_rest_on_card():
+    """ZeRO stage 3 at world size 1 on the card (a tiny GPT, AdamW):
+    building the optimizer frees every parameter's storage, so
+    ``memory_allocated()`` drops by the weights' bytes less the shard's
+    (which at n = 1 holds the whole bucket: the drop is 0 plus the
+    padding, and the shard is the only copy); ``gather_params`` brings
+    the weights back bitwise; after a step the storage is free again and
+    the step changed the shards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import gpt
+
+    hvd.init()
+    try:
+        with torch.device("cuda"):
+            m = gpt.gpt_tiny(hidden=128, num_heads=2, num_layers=2)
+        m.init_weights(torch.Generator(device="cuda").manual_seed(0))
+        params = list(m.parameters())
+
+        def held_bytes(ts):     # the caching allocator's 512-byte blocks
+            return sum(-(-t.numel() * t.element_size() // 512) * 512
+                       for t in ts)
+
+        before = [p.detach().clone() for p in params]
+        params_like = before
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        opt = hvd.ZeroOptimizer(torch.optim.AdamW(params, lr=1e-3),
+                                zero_stage=3)
+        torch.cuda.synchronize()
+        assert all(p.untyped_storage().nbytes() == 0 for p in params)
+        assert held - torch.cuda.memory_allocated() == \
+            held_bytes(params_like) - held_bytes(opt.shard_state.shards)
+        opt.gather_params()
+        assert all(torch.equal(a, b) for a, b in zip(params, before))
+        toks = torch.randint(0, 128, (2, 65), device="cuda")
+        gpt.next_token_loss(m(toks[:, :-1]), toks[:, 1:]).backward()
+        opt.step()
+        assert all(p.untyped_storage().nbytes() == 0 for p in params)
+        opt.gather_params()
+        assert not torch.equal(params[0], before[0])
+    finally:
+        hvd.shutdown()
+
+
 def _card_worker(rank: int, out_path: str) -> None:
     """One of two gloo ranks on the card (run as a script): one step of
     each reduction mode on a small GPT, with its launches and a digest of

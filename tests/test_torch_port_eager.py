@@ -39,13 +39,9 @@ this file and must not pay for it.
 """
 
 import json
-import os
-import socket
-import subprocess
 import sys
 import threading
 import types
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -61,8 +57,8 @@ from horovod_tpu_torch.common.exceptions import (HorovodInternalError,
                                                  MismatchError,
                                                  TensorShapeMismatchError)
 from horovod_tpu_torch.ops import eager
+from test_torch_port_worlds import run_ranks
 
-REPO = Path(__file__).resolve().parents[1]
 OPS = {"sum": hvd.Sum, "average": hvd.Average, "min": hvd.Min,
        "max": hvd.Max, "product": hvd.Product}
 SUMS = ("sum", "average", "product")   # order-dependent at 4 ranks
@@ -454,28 +450,7 @@ def _join_worker(scenario: str, rank: int, n: int, out_path: str) -> None:
 
 
 def _run_world(args, n, out):
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    env = dict(os.environ, HVD_TPU_COORDINATOR=f"127.0.0.1:{port}",
-               HVD_TPU_NUM_PROC=str(n), OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join(
-                   [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")]
-                                  if p]))
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, *args, str(r), str(n),
-         str(out / f"rank{r}.npz")],
-        env=dict(env, HVD_TPU_PROC_ID=str(r)), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(n)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=180)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r} of {n} failed:\n{logs[r]}"
+    run_ranks(__file__, lambda r: (*args, r, n, out / f"rank{r}.npz"), n)
     return [dict(np.load(out / f"rank{r}.npz")) for r in range(n)]
 
 

@@ -29,13 +29,9 @@ import this file and must not pay for it.
 """
 
 import itertools
-import os
-import socket
-import subprocess
 import sys
 import threading
 import types
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -46,8 +42,8 @@ from horovod_tpu_torch.common import controller as port_controller
 from horovod_tpu_torch.common import integrity
 from horovod_tpu_torch.common import metrics as metrics_lib
 from horovod_tpu_torch.ops import kernels
+from test_torch_port_worlds import run_ranks
 
-REPO = Path(__file__).resolve().parents[1]
 PARAM_TOL = 1e-6        # parameters after a guarded run, vs JAX
 FP_RTOL = 1e-6          # fingerprints vs JAX, relative to each entry
 SHAPE = (4, 3)
@@ -504,28 +500,8 @@ def _guard_worker(rank: int, n: int, out_path: str) -> None:
 
 
 def _run_world(n, out):
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    env = dict(os.environ, HVD_TPU_COORDINATOR=f"127.0.0.1:{port}",
-               HVD_TPU_NUM_PROC=str(n), OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join(
-                   [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")]
-                                  if p]))
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, "--guard-worker", str(r), str(n),
-         str(out / f"rank{r}.npz")],
-        env=dict(env, HVD_TPU_PROC_ID=str(r)), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(n)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=180)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r} of {n} failed:\n{logs[r]}"
+    run_ranks(__file__, lambda r: ("--guard-worker", r, n,
+                                   out / f"rank{r}.npz"), n)
     return [dict(np.load(out / f"rank{r}.npz")) for r in range(n)]
 
 

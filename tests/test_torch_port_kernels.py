@@ -37,9 +37,6 @@ functions of the module reach the libraries.
 """
 
 import ast
-import os
-import socket
-import subprocess
 import sys
 import types
 from pathlib import Path
@@ -51,6 +48,7 @@ import torch
 
 from horovod_tpu.ops import pallas_kernels as pk
 from horovod_tpu_torch.ops import collectives, kernels
+from test_torch_port_worlds import run_ranks
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -151,26 +149,8 @@ def test_two_rank_scaled_bf16_allreduce_matches_jax(tmp_path):
 
     from horovod_tpu.ops import collectives as jC
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    env = dict(os.environ, HVD_TPU_COORDINATOR=f"127.0.0.1:{port}",
-               HVD_TPU_NUM_PROC="2", OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join(
-                   [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")]
-                                  if p]))
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, "--scale-worker", str(r),
-         str(tmp_path / f"rank{r}.npy")], env=dict(env, HVD_TPU_PROC_ID=str(r)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
-    try:
-        logs = [p.communicate(timeout=120)[0] for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r} failed:\n{logs[r]}"
+    run_ranks(__file__, lambda r: ("--scale-worker", r,
+                                   tmp_path / f"rank{r}.npy"), 2, timeout=120)
 
     mesh = Mesh(np.array(jax.devices()[:2]), ("hvd",))
     f = jax.jit(jax.shard_map(

@@ -27,9 +27,6 @@ JAX is imported only inside fixtures.
 """
 
 import ast
-import os
-import socket
-import subprocess
 import sys
 import threading
 from pathlib import Path
@@ -42,6 +39,7 @@ import horovod_tpu_torch as hvd
 from horovod_tpu_torch.common import basics, topology
 from horovod_tpu_torch.common.controller import Controller, InMemoryTransport
 from horovod_tpu_torch.common.exceptions import HorovodInternalError
+from test_torch_port_worlds import run_ranks
 
 REPO = Path(__file__).resolve().parents[1]
 SETS = ([0, 2], [1, 3])
@@ -301,33 +299,10 @@ def _save(out_path, out):
                           else v for k, v in out.items()})
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _launch(flag: str, out: Path):
     """Four processes running this file with ``flag``, as a launcher
     starts them; their saved results."""
-    env = dict(os.environ, HVD_TPU_COORDINATOR=f"127.0.0.1:{_free_port()}",
-               HVD_TPU_NUM_PROC="4", OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join(
-                   [str(REPO)] + [p for p in
-                                  [os.environ.get("PYTHONPATH")] if p]))
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, flag, str(r), str(out / f"rank{r}.npz")],
-        env=dict(env, HVD_TPU_PROC_ID=str(r)), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(4)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=180)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r} failed:\n{logs[r]}"
+    run_ranks(__file__, lambda r: (flag, r, out / f"rank{r}.npz"), 4)
     return [dict(np.load(out / f"rank{r}.npz")) for r in range(4)]
 
 

@@ -43,12 +43,8 @@ JAX is imported only inside the ``J`` fixture: the worker processes
 import this file and must not pay for it.
 """
 
-import os
-import socket
-import subprocess
 import sys
 import types
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -57,8 +53,8 @@ import torch
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.common import basics, fusion
 from horovod_tpu_torch.ops import adasum, collectives as C, kernels
+from test_torch_port_worlds import run_ranks
 
-REPO = Path(__file__).resolve().parents[1]
 KERNEL_TOL = 1e-6       # K8 vs fp64, K9 vs JAX (see the module docstring)
 JAX_SUM_TOL = 5e-6      # K8 vs JAX: its interpret-mode bf16 sums are
                         # themselves up to 2.2e-6 off the exact value
@@ -506,28 +502,8 @@ def _reduce_worker(rank: int, n: int, out_path: str) -> None:
 
 
 def _run_world(n, out):
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    env = dict(os.environ, HVD_TPU_COORDINATOR=f"127.0.0.1:{port}",
-               HVD_TPU_NUM_PROC=str(n), OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join(
-                   [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")]
-                                  if p]))
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, "--reduce-worker", str(r), str(n),
-         str(out / f"rank{r}.npz")],
-        env=dict(env, HVD_TPU_PROC_ID=str(r)), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(n)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=180)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r} of {n} failed:\n{logs[r]}"
+    run_ranks(__file__, lambda r: ("--reduce-worker", r, n,
+                                   out / f"rank{r}.npz"), n)
     return [dict(np.load(out / f"rank{r}.npz")) for r in range(n)]
 
 

@@ -20,19 +20,15 @@ for ``SyncBatchNorm``, call ``allreduce_``, ``grouped_allreduce_``,
 * ``sparse_as_dense=False`` raises the shim's error on a sparse gradient.
 """
 
-import os
-import socket
-import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 import horovod_tpu_torch as hvd
+from test_torch_port_worlds import run_procs, rank_env
 
-REPO = Path(__file__).resolve().parents[1]
 PRE, POST = 1 / 3, 0.7
 ORACLE_TOL = 1e-6       # XLA-reduced shim results (SyncBatchNorm, SGD)
 SBN_TOL = 1e-5          # SyncBatchNorm vs BatchNorm of the whole batch
@@ -182,45 +178,26 @@ def _shim_oracle(n: int, out_path: str) -> None:
     np.savez(out_path, **out)
 
 
-def _env(**kw):
-    return dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
-        [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
-        **kw)
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both gloo worlds (n = 1, 2) and both shim oracles, run side by
     side."""
     tmp = tmp_path_factory.mktemp("surface")
-    procs = {}
+    cmds = {}
     for n in (1, 2):
-        with socket.socket() as s:
-            s.bind(("127.0.0.1", 0))
-            port = s.getsockname()[1]
+        env = rank_env(n)
         for r in range(n):
-            procs[f"port{n}.{r}"] = subprocess.Popen(
+            cmds[f"port{n}.{r}"] = (
                 [sys.executable, __file__, "--surface-worker", str(r),
                  str(n), str(tmp / f"port{n}.{r}.npz")],
-                env=_env(HVD_TPU_COORDINATOR=f"127.0.0.1:{port}",
-                         HVD_TPU_NUM_PROC=str(n), HVD_TPU_PROC_ID=str(r)),
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        procs[f"shim{n}"] = subprocess.Popen(
+                dict(env, HVD_TPU_PROC_ID=str(r)))
+        cmds[f"shim{n}"] = (
             [sys.executable, __file__, "--shim-oracle", str(n),
              str(tmp / f"shim{n}.npz")],
-            env=_env(JAX_PLATFORMS="cpu", HVD_TPU_FORCE_CPU_DEVICES=str(n),
-                     XLA_FLAGS=f"--xla_force_host_platform_device_count={n}"),
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    logs = {}
-    try:
-        for key, p in procs.items():
-            logs[key] = p.communicate(timeout=240)[0]
-    finally:
-        for p in procs.values():
-            p.kill()
-    for key, p in procs.items():
-        assert p.returncode == 0, f"{key} failed:\n{logs[key]}"
-    return {key: dict(np.load(tmp / f"{key}.npz")) for key in procs}
+            rank_env(JAX_PLATFORMS="cpu", HVD_TPU_FORCE_CPU_DEVICES=str(n),
+                     XLA_FLAGS=f"--xla_force_host_platform_device_count={n}"))
+    run_procs(cmds, timeout=240)
+    return {key: dict(np.load(tmp / f"{key}.npz")) for key in cmds}
 
 
 def _close(got, want, tol, what):

@@ -20,12 +20,8 @@ JAX is imported lazily (the ``J`` fixture): the worker processes import
 this file and must not pay for it.
 """
 
-import os
-import socket
-import subprocess
 import sys
 import types
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -34,8 +30,8 @@ import torch
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.common import fusion
 from horovod_tpu_torch.models import convert, gpt
+from test_torch_port_worlds import run_ranks
 
-REPO = Path(__file__).resolve().parents[1]
 GPT_TOL = 1e-4          # logits, loss and gradients, fp32
 DP_TOL = 1e-5           # updated parameters, 2-rank DP vs JAX
 DP_STEPS = 3
@@ -286,8 +282,7 @@ def test_distributed_optimizer_contract(world1):
         opt.step()
     assert opt.bucket_allreduces == 3       # no second reduction
     opt.zero_grad()
-    for kw in ({"zero_stage": 1},
-               {"nonfinite_policy": "skip_step", "op": hvd.Adasum},
+    for kw in ({"nonfinite_policy": "skip_step", "op": hvd.Adasum},
                {"accum_steps": 2, "op": hvd.Adasum}):
         with pytest.raises(NotImplementedError):
             hvd.DistributedOptimizer(torch.optim.SGD(m.parameters(),
@@ -302,6 +297,10 @@ def test_distributed_optimizer_contract(world1):
         assert opt._route is None
         for h in opt._dist_hooks:
             h.remove()
+    # ZeRO (slice 11): zero_stage returns the sharded optimizer.
+    assert isinstance(hvd.DistributedOptimizer(
+        torch.optim.SGD(m.parameters(), lr=0.1), zero_stage=1),
+        hvd.ZeroOptimizer)
     # The int8 wire format cannot ride a sum (int8_ef is the reduce-safe
     # form); int8_ef and Adasum are tested in test_torch_port_reduce.py.
     with pytest.raises(ValueError, match="int8_ef"):
@@ -321,13 +320,15 @@ def test_later_slices_raise_not_implemented(name):
     """The JAX package's API that later slices bring is present by name
     and raises NotImplementedError naming its slice. The models slice
     (BERT, ResNet, ...), slice 9 (``accumulate_gradients``,
-    ``observe_guard``, ...) and slice 10 (``ProcessSet``,
-    ``add_process_set``, ...) are ported: their names resolve."""
+    ``observe_guard``, ...), slice 10 (``ProcessSet``,
+    ``add_process_set``, ...) and slice 11 (``ZeroOptimizer``,
+    ``save_sharded``, ...) are ported: their names resolve."""
     import horovod_tpu_torch.models as models
 
     mod, attr = (models, name.split(".")[1]) if "." in name else (hvd, name)
     if mod is models or name in ("accumulate_gradients", "observe_guard",
-                                 "add_process_set", "ProcessSet"):
+                                 "add_process_set", "ProcessSet",
+                                 "ZeroOptimizer", "save_sharded"):
         assert callable(getattr(mod, attr))
     else:
         with pytest.raises(NotImplementedError, match="slice"):
@@ -410,30 +411,8 @@ def _dp_worker(rank: int, out_path: str) -> None:
 def dp_ranks(tmp_path_factory):
     """Run the two ranks once for every case; returns their results."""
     out = tmp_path_factory.mktemp("dp")
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    # One thread per worker: the ranks are tiny and share the host with
-    # the rest of the suite.
-    env = dict(os.environ, HVD_TPU_COORDINATOR=f"127.0.0.1:{port}",
-               HVD_TPU_NUM_PROC="2", OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join(
-                   [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")]
-                                  if p]))
-    procs = [subprocess.Popen(
-        [sys.executable, __file__, "--dp-worker", str(r),
-         str(out / f"rank{r}.npz")],
-        env=dict(env, HVD_TPU_PROC_ID=str(r)), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(2)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=120)[0])
-    finally:
-        for p in procs:
-            p.kill()
-    for r, p in enumerate(procs):
-        assert p.returncode == 0, f"rank {r} failed:\n{logs[r]}"
+    run_ranks(__file__, lambda r: ("--dp-worker", r, out / f"rank{r}.npz"), 2,
+              timeout=120)
     return [dict(np.load(out / f"rank{r}.npz")) for r in range(2)]
 
 
