@@ -246,7 +246,7 @@ Phases (any failure exits non-zero and prints no result line):
    (``memory_allocated``), and the bytes of the two ZeRO metrics'
    counter by kind/wire/axis; gloo over loopback, 4 processes on one
    card, not NCCL or NVLink.
-8. Eager engine: the script relaunches itself as 2 gloo rank workers
+7e. Eager engine: the script relaunches itself as 2 gloo rank workers
    (``--rank-worker n2_eager``): GPT-2 medium at full width, B = 8,
    S = 512 per rank, each rank its own seeded batch, ``AdamW`` after
    ``broadcast_parameters``, trained in Horovod's PyTorch loop — after
@@ -276,6 +276,55 @@ Phases (any failure exits non-zero and prints no result line):
    joins, rank 0 trains 3 and joins; rank 0's third-step gradients must
    be bitwise ``plain(plain(g0, 1/3) + 0, 1.5)`` and ``join()`` must
    return 0 on both. Step times are gloo with 2 processes on one card.
+7d. Overlap (D2) and the Adasum optimizer's guard and accumulation:
+   the script relaunches itself as 2 gloo rank workers (``--rank-worker
+   n2_overlap``; GPT-2 medium at full width, B = 8, S = 512 a rank) and
+   as 4 on a 2x2 mesh (``n4_overlap``; B = 4, S = 512, phase 7b's and
+   7c's geometry). Each pair of arms runs ``overlap=False`` then
+   ``overlap=True`` in the same processes from the same seeded weights,
+   1 checked and 3 timed steps of AdamW: the parameters' digests (ZeRO:
+   the shards') must be bitwise equal after every step and the launches
+   of the timed steps equal and exact in both arms: (a) n = 2 int8_ef,
+   K3 2 x 25 x 3; (b) the routed ``local:none,cross:int8`` int8_ef, K3
+   2 x 25 x 3; (c) ``ZeroOptimizer(zero_stage=3)`` through
+   ``accumulate`` with the stage-3 prefetch on and off (peak and at-rest
+   GiB of each). K5/K6/K7 24 x 3
+   a timed arm. At n = 2 also (d) ``DistributedOptimizer(op=Adasum,
+   nonfinite_policy="scale_backoff")`` for 3 steps with a +Inf in rank
+   0's first gradient element at step 2: every weight and AdamW tensor
+   bitwise unchanged across it, the loss scale 2^15 -> 2^14, K1 one a
+   parameter a step, K8 and K9 one a parameter a good step; and (e)
+   Adasum over SGD with ``accum_steps=2`` (2 x 4 rows) against one
+   batch of 8 rows, with the model's bf16 compute and again in fp32:
+   loss within 1e-3, every local delta and all reduced deltas together
+   within 2e-2 relative Frobenius error, and in fp32 every single
+   reduced delta within 2e-2 (under bf16 the worst one is reported with
+   its weights' fp32 spacing). Printed for each arm: the median step ms, forward +
+   backward, ``step()`` and the collectives' host ms (``overlap=True``:
+   the worker thread's busy time), peak and at-rest GiB; gloo, n
+   processes on one card.
+8. Elastic training through the port's launcher: ``python -m
+   horovod_tpu_torch.runner.launch --elastic -np 2 --min-np 2 --max-np 2
+   -H hostA:1,hostB:1`` with ``HVD_TPU_ELASTIC_FORCE_LOCAL=1`` (both
+   named hosts on this machine, one world of 2 gloo processes on the
+   card) and a 3 s blacklist TTL runs this script as
+   ``--elastic-worker``: GPT-2 medium at full width, B = 4, S = 512 a
+   rank, int8_ef AdamW, ``hvd.elastic.TorchState(model, optimizer,
+   step)`` under ``hvd.elastic.run``, each step's batch seeded from
+   (step, rank), a commit every step and ``checkpoint.save_state`` (each
+   rank its own directory and int8_ef residual) every 3 steps and at a
+   preemption, 9 steps. Two uninterrupted runs one after the other
+   (they persist nothing: persistence changes no value), then one
+   under the plan (global steps): a rendezvous 5xx on hostA's second
+   poll, a collective fault on hostB at step 4, a hard crash of hostB's
+   worker at step 6, a SIGTERM preemption of rank 0 at step 8. Checks:
+   exit 0, step 9, those four sites injected, every restore bitwise the
+   commit it was persisted from (digests), the persisted state the last
+   commit, and the final parameters and AdamW state bitwise those of the
+   uninterrupted runs (if those two differ from each other, the final
+   loss within 1e-3 instead). Printed per fault: seconds from the
+   injection to the first step completed after it; commit ms, persist s
+   and bytes, restore s.
 9. Result lines: the per-kernel JSON record (K1-K9, each with
    ``launches_by_path``, every path above 0, and ``launches`` their
    sum: K5/K6/K7 for the GPT training, BERT, ViT and the two guarded
@@ -283,7 +332,8 @@ Phases (any failure exits non-zero and prints no result line):
    integrity unscale, the mesh phase and the ZeRO phase's (e); K2/K4 for
    serving and the mesh phase; K3 for the n = 2 multi-rank run, the mesh
    phase and the ZeRO phase's (c); K8 and K9 for the n = 2 multi-rank run
-   and the mesh phase), the card line, and last ``{"ok": true,
+   and the mesh phase; phase 7d for K1, K3, K5-K9; phase 8's clean run
+   for K3 and K5-K7), the card line, and last ``{"ok": true,
    "device": {...}}``.
 
 ``--profile`` also traces the serve run and two extra training steps of
@@ -2447,10 +2497,10 @@ MULTI_CONFIGS = {
 ADASUM_REF_RTOL = 1e-5              # reduced delta vs the fp64 reference
 
 
-def _make_model(torch, gpt_mod, name, dev: str = "cuda"):
+def _make_model(torch, gpt_mod, name, dev: str = "cuda", **kw):
     with torch.device(dev):
-        model = gpt_mod.gpt_medium() if name == "gpt_medium" else \
-            gpt_mod.gpt_tiny(hidden=128, num_heads=2)
+        model = gpt_mod.gpt_medium(**kw) if name == "gpt_medium" else \
+            gpt_mod.gpt_tiny(hidden=128, num_heads=2, **kw)
     model.init_weights(torch.Generator(device=dev).manual_seed(0))
     return model
 
@@ -4254,6 +4304,910 @@ def phase_eager(torch, out_dir: str) -> dict:
     return res
 
 
+# -- phase 7d: overlap (D2) and the Adasum optimizer's guard and accumulation -
+
+OVERLAP_N2 = "n2_overlap"
+OVERLAP_N4 = "n4_overlap"
+# n, model, per-rank batch, sequence length, worker timeout (s)
+OVERLAP_RUNS = {OVERLAP_N2: (2, "gpt_medium", 8, 512, 600),
+                OVERLAP_N4: (4, "gpt_medium", 4, 512, 600)}
+OVERLAP_TIMED = 3                   # timed steps after the checked one
+ADASUM_ACCUM = 2                    # microbatches of the accumulated arm
+ACCUM_LOSS_RTOL = 1e-3              # accumulated vs fused: the bf16 bounds
+ACCUM_DELTA_RTOL = 2e-2
+
+
+def _overlap_arm(torch, hvd, gpt_mod, C, K, rank, batch, seq, on, kw,
+                 zero: bool = False) -> dict:
+    """One arm of phase 7d: GPT-2 medium from the seeded weights, AdamW,
+    1 checked and ``OVERLAP_TIMED`` timed steps with ``overlap=on``;
+    the parameters' (or, under ZeRO stage 3, the shards') digest after
+    every step, each timed step's forward + backward, ``step()`` and
+    collective split, the launches of the timed steps, and memory."""
+    model = _make_model(torch, gpt_mod, "gpt_medium")
+    params = list(model.parameters())
+    digest = _Digest(torch, params)
+    tokens = torch.randint(0, model.vocab_size, (batch, seq + 1),
+                           generator=torch.Generator().manual_seed(
+                               41 + rank)).to("cuda")
+    inner = torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4)
+    if zero:
+        opt = hvd.ZeroOptimizer(inner, zero_stage=3, overlap=on)
+    else:
+        opt = hvd.DistributedOptimizer(
+            inner, named_parameters=model.named_parameters(), overlap=on,
+            **kw)
+
+    def state_digest():
+        if zero:
+            return torch.cat([s.reshape(-1) for s in opt.shard_state.shards]
+                             ).view(torch.int32).to(torch.int64).sum().item()
+        return digest(params).cpu().tolist()
+
+    def loss_of(t):
+        return gpt_mod.next_token_loss(model(t[:, :-1]), t[:, 1:])
+
+    # Stage 3 steps through accumulate (one microbatch), which gathers
+    # under the forward when overlap is on.
+    fn = opt.accumulate(loss_of) if zero else None
+
+    def forward_backward():
+        if zero:
+            return fn(tokens)
+        loss = loss_of(tokens)
+        opt.zero_grad()
+        loss.backward()
+        return loss
+
+    losses = [forward_backward().item()]
+    opt.step()
+    digests = [state_digest()]
+    torch.cuda.synchronize()
+    hvd.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    worker0 = opt._worker.busy_s if on and opt._worker else 0.0
+    K.reset_launch_counts()
+    split = []
+    for _ in range(OVERLAP_TIMED):
+        busy0 = opt._worker.busy_s if on and opt._worker else 0.0
+        t0 = time.perf_counter()
+        loss = forward_backward()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        wire_s = [0.0]
+        clock = contextlib.nullcontext() if on else \
+            wire_clock(torch, C, wire_s)
+        with clock:
+            opt.step()
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if on and opt._worker is not None:
+            # The chains' host time over the whole step: under the
+            # backward (or the forward's gathers) and in step().
+            wire_s[0] = opt._worker.busy_s - busy0
+        split.append((t2 - t0, t1 - t0, t2 - t1, wire_s[0]))
+        losses.append(loss.item())
+        digests.append(state_digest())
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rest = torch.cuda.memory_allocated() / 2 ** 30
+    check(all(map(math.isfinite, losses)), f"overlap arm {kw}: non-finite "
+                                           f"loss in {losses}")
+    rec = {"overlap": on, "losses": losses, "digests": digests,
+           "launches": launches, "peak_mem_gib": peak, "rest_mem_gib": rest,
+           "step_ms": [t[0] * 1e3 for t in split],
+           "step_ms_median": statistics.median(t[0] for t in split) * 1e3,
+           "fwd_bwd_ms_median": statistics.median(t[1] for t in split)
+           * 1e3,
+           "step_call_ms_median": statistics.median(t[2] for t in split)
+           * 1e3,
+           "wire_ms_median": statistics.median(t[3] for t in split) * 1e3,
+           "worker_chains": opt._worker.chains if on and opt._worker
+           else 0, "worker_busy_s_checked_step": worker0}
+    if not zero and getattr(opt, "_ef", False):
+        rec["int8_buckets"] = opt._dist_plan.wire_dtypes.count("int8")
+        rec["buckets"] = len(opt._dist_plan.buckets)
+    if zero:
+        rec["buckets"] = len(opt.shard_state.plan.buckets)
+    else:
+        release(torch, opt, "cuda")
+    del opt, model, params, digest, inner
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _pair(torch, hvd, gpt_mod, C, K, rank, batch, seq, kw, what,
+          zero=False, **want) -> dict:
+    """Both arms, ``overlap=False`` then ``True``: bitwise after every
+    step, the same launches, each as ``want``."""
+    off = _overlap_arm(torch, hvd, gpt_mod, C, K, rank, batch, seq, False,
+                       kw, zero)
+    on = _overlap_arm(torch, hvd, gpt_mod, C, K, rank, batch, seq, True,
+                      kw, zero)
+    check(off["digests"] == on["digests"],
+          f"{what}: overlap=True differs from overlap=False after step(s) "
+          f"{[i for i, (a, b) in enumerate(zip(off['digests'], on['digests'])) if a != b]}")
+    check(off["losses"] == on["losses"], f"{what}: losses differ")
+    for arm in (off, on):
+        _expect(arm["launches"], f"{what} overlap={arm['overlap']}", **want)
+    return {"off": off, "on": on, "bitwise_steps": len(off["digests"])}
+
+
+def _adasum_guard_drill(torch, hvd, gpt_mod, K, rank, batch, seq) -> dict:
+    """Adasum + ``scale_backoff``: steps 1 and 3 apply, step 2 carries a
+    +Inf in rank 0's first gradient element: every weight and AdamW
+    tensor bitwise unchanged across it, the loss scale 2^15 -> 2^14.
+    Launches over the three steps: K1 one a parameter a step (the
+    unscale), K8 and K9 one a parameter a good step."""
+    model = _make_model(torch, gpt_mod, "gpt_medium")
+    params = list(model.parameters())
+    tokens = torch.randint(0, model.vocab_size, (batch, seq + 1),
+                           generator=torch.Generator().manual_seed(
+                               51 + rank)).to("cuda")
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4),
+        op=hvd.Adasum, nonfinite_policy="scale_backoff")
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    scales, losses, times = [], [], []
+    for s in range(3):
+        t0 = time.perf_counter()
+        scale = hvd.current_loss_scale(opt)
+        scales.append(scale)
+        opt.zero_grad()
+        loss = gpt_mod.next_token_loss(model(tokens[:, :-1]), tokens[:, 1:])
+        h = poison_first_grad(torch, model, float("inf")) \
+            if s == 1 and rank == 0 else None
+        (loss * scale).backward()
+        if h is not None:
+            h.remove()
+        if s == 1:
+            before = [p.detach().clone() for p in params] + [
+                v.clone() for st in opt.state.values() for v in st.values()
+                if torch.is_tensor(v)]
+        opt.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        if s == 1:
+            after = [p.detach() for p in params] + [
+                v for st in opt.state.values() for v in st.values()
+                if torch.is_tensor(v)]
+            check(len(after) == len(before) and all(
+                torch.equal(a, b) for a, b in zip(before, after)),
+                "adasum drill: the +Inf step moved a weight or an AdamW "
+                "tensor")
+            unchanged = len(before)
+            del before, after
+    scales.append(hvd.current_loss_scale(opt))
+    launches = dict(K.LAUNCHES)
+    check(scales[1] == 2.0 ** 15 and scales[2] == 2.0 ** 14,
+          f"adasum drill: loss scales {scales}")
+    n_p = len(params)
+    flash = model.num_layers * 3
+    _expect(launches, "adasum drill", scale_buffer=3 * n_p,
+            adasum_dot_norms=2 * n_p, adasum_combine=2 * n_p,
+            flash_fwd=flash, flash_bwd_dq=flash, flash_bwd_dkv=flash)
+    rec = {"losses": losses, "scales": scales, "launches": launches,
+           "state_tensors_unchanged": unchanged,
+           "guard": hvd.observe_guard(opt, name="adasum_drill"),
+           "step_ms": [t * 1e3 for t in times],
+           "guard_agreements": opt.guard_agreements}
+    del opt, model, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _adasum_accum_arms(torch, hvd, gpt_mod, K, tokens, compute) -> dict:
+    """The accumulated and the fused arm of :func:`_adasum_accum` with the
+    model computing in ``compute`` (``"bf16"``, the model's default, or
+    ``"fp32"``); their readings side by side."""
+    kw = {} if compute == "bf16" else {"dtype": torch.float32}
+    out, deltas, local = {}, {}, {}
+    for arm, k in (("accum", ADASUM_ACCUM), ("fused", 1)):
+        model = _make_model(torch, gpt_mod, "gpt_medium", **kw)
+        params = list(model.parameters())
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(params, lr=1e-2),
+                                       op=hvd.Adasum, accum_steps=k)
+        before = [p.detach().clone() for p in params]
+        names = [n_ for n_, _ in model.named_parameters()]
+        # The fp32 spacing of each weight (both arms start from the same
+        # seeded weights): a delta is a difference of two fp32 weights.
+        ulp = [float((torch.nextafter(b, torch.full_like(b, math.inf))
+                      - b).norm()) for b in before]
+
+        def loss_of(t):
+            return gpt_mod.next_token_loss(model(t[:, :-1]), t[:, 1:])
+
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        if k > 1:
+            loss = opt.accumulate(loss_of)(tokens)
+        else:
+            loss = loss_of(tokens)
+            loss.backward()
+        local[arm] = [-1e-2 * p.grad.detach().float() for p in params]
+        opt.step()
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        n_p = len(params)
+        flash = model.num_layers * k
+        _expect(launches, f"adasum {compute} {arm}", adasum_dot_norms=n_p,
+                adasum_combine=n_p, flash_fwd=flash, flash_bwd_dq=flash,
+                flash_bwd_dkv=flash)
+        deltas[arm] = [p.detach() - b for p, b in zip(params, before)]
+        out[arm] = {"loss": loss.item(), "launches": launches,
+                    "step_ms": (time.perf_counter() - t0) * 1e3,
+                    "reductions": opt.adasum_reductions}
+        del opt, model, params, before
+        torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+    local_rel = [rel(a, b) for a, b in zip(local["accum"], local["fused"])]
+    reduced_rel = [rel(a, b) for a, b in zip(deltas["accum"],
+                                             deltas["fused"])]
+    worst = max(range(len(names)), key=reduced_rel.__getitem__)
+    out.update(
+        loss_rel=abs(out["accum"]["loss"] - out["fused"]["loss"])
+        / abs(out["fused"]["loss"]),
+        local_delta_rel_max=max(local_rel),
+        reduced_delta_rel=rel(
+            torch.cat([d.reshape(-1) for d in deltas["accum"]]),
+            torch.cat([d.reshape(-1) for d in deltas["fused"]])),
+        reduced_delta_rel_worst_param=[names[worst], reduced_rel[worst]],
+        # The worst parameter: its local delta's error, and the norm of
+        # its weights' fp32 spacing over its reduced delta's norm — the
+        # rounding that taking a delta as a difference of weights (and
+        # adding the reduced one back) puts on it.
+        worst_param_local_rel=local_rel[worst],
+        worst_param_ulp_over_delta=ulp[worst] / float(
+            deltas["fused"][worst].norm().clamp_min(1e-30)))
+    del deltas, local
+    torch.cuda.empty_cache()
+    return out
+
+
+def _adasum_accum(torch, hvd, gpt_mod, K, rank, batch, seq) -> dict:
+    """Adasum with ``accum_steps=2`` (2 x batch/2 rows) against one fused
+    batch, over SGD (so a delta is ``-lr`` times a gradient; AdamW's
+    first update is about ``lr * sign(g)``, which a gradient's bf16
+    noise flips wherever it is near 0), once with the model's bf16
+    compute and once in fp32. In both: the loss within 1e-3, every
+    parameter's local delta (what accumulation computes: ``-lr`` times
+    the mean gradient) within 2e-2 relative Frobenius error, and the
+    reduced deltas of all parameters together within 2e-2 (the bf16
+    bounds of a gradient). In fp32 also every single parameter's reduced
+    delta within 2e-2. Under bf16 the worst single reduced delta is
+    reported beside its weights' fp32 spacing over its delta
+    (``worst_param_ulp_over_delta``): a delta is the difference of two
+    fp32 weights, and where the weights are near 1 (a LayerNorm gain)
+    and the step small, their rounding is a large part of it. One K8/K9
+    launch a parameter in each arm."""
+    tokens = torch.randint(0, TOK_EMB[0], (batch, seq + 1),
+                           generator=torch.Generator().manual_seed(
+                               61 + rank)).to("cuda")
+    out = {}
+    for compute in ("bf16", "fp32"):
+        r = out[compute] = _adasum_accum_arms(torch, hvd, gpt_mod, K,
+                                              tokens, compute)
+        check(r["loss_rel"] <= ACCUM_LOSS_RTOL,
+              f"adasum accum {compute}: loss {r['accum']['loss']} vs "
+              f"fused {r['fused']['loss']} ({r['loss_rel']})")
+        check(r["local_delta_rel_max"] <= ACCUM_DELTA_RTOL,
+              f"adasum accum {compute}: a local delta off the fused one "
+              f"by {r['local_delta_rel_max']}")
+        check(r["reduced_delta_rel"] <= ACCUM_DELTA_RTOL,
+              f"adasum accum {compute}: the reduced deltas off the fused "
+              f"ones by {r['reduced_delta_rel']}")
+    worst = out["fp32"]["reduced_delta_rel_worst_param"]
+    check(worst[1] <= ACCUM_DELTA_RTOL,
+          f"adasum accum fp32: the reduced delta of {worst[0]} off the "
+          f"fused one by {worst[1]}")
+    return out
+
+
+def overlap_worker(config: str, rank: int, out_path: str) -> None:
+    """One rank of phase 7d (``--rank-worker n2_overlap|n4_overlap``)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import gpt as gpt_mod
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n, _, batch, seq, _ = OVERLAP_RUNS[config]
+    if n == 4:
+        hvd.init(backend="gloo", mesh_shape=MESH_SHAPE)
+    else:
+        hvd.init(backend="gloo")
+    check(hvd.size() == n and hvd.rank() == rank,
+          f"overlap: rank {hvd.rank()} of {hvd.size()}")
+    flash = 24 * OVERLAP_TIMED
+    out = {"config": config, "rank": rank}
+    def done(name):
+        print(f"rank {rank} {config} {name}: "
+              f"{json.dumps(out[name], default=str)[:600]}", flush=True)
+
+    if n == 2:
+        out["int8_ef"] = _pair(
+            torch, hvd, gpt_mod, C, K, rank, batch, seq,
+            {"compression": "int8_ef"}, "int8_ef n=2", flash_fwd=flash,
+            flash_bwd_dq=flash, flash_bwd_dkv=flash,
+            quantize_int8_stochastic=2 * 25 * OVERLAP_TIMED)
+        done("int8_ef")
+        out["adasum_drill"] = _adasum_guard_drill(torch, hvd, gpt_mod, K,
+                                                  rank, batch, seq)
+        done("adasum_drill")
+        out["adasum_accum"] = _adasum_accum(torch, hvd, gpt_mod, K, rank,
+                                            batch, seq)
+        done("adasum_accum")
+    else:
+        out["routed"] = _pair(
+            torch, hvd, gpt_mod, C, K, rank, batch, seq,
+            {"compression": "int8_ef", "route": MESH_ZERO_ROUTE},
+            f"routed int8_ef {MESH_ZERO_ROUTE}", flash_fwd=flash,
+            flash_bwd_dq=flash, flash_bwd_dkv=flash,
+            quantize_int8_stochastic=2 * 25 * OVERLAP_TIMED)
+        done("routed")
+        out["zero3"] = _pair(torch, hvd, gpt_mod, C, K, rank, batch, seq,
+                             {}, "ZeRO stage 3", zero=True,
+                             flash_fwd=flash, flash_bwd_dq=flash,
+                             flash_bwd_dkv=flash)
+        done("zero3")
+    hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def _free_parent(torch) -> dict:
+    """Give this process's cached card memory back before its workers
+    start; returns what it still holds (GiB)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = {"allocated": torch.cuda.memory_allocated() / 2 ** 30,
+            "reserved": torch.cuda.memory_reserved() / 2 ** 30}
+    print(f"parent holds {held['allocated']:.2f} GiB allocated, "
+          f"{held['reserved']:.2f} GiB reserved on the card", flush=True)
+    return held
+
+
+def phase_overlap(torch, out_dir: str) -> dict:
+    """Phase 7d: the rank workers of both configurations on the one card.
+    Returns the phase's record with ``launches``, every section's counts
+    summed (rank 0's)."""
+    res = {"label": "gloo, n processes on one card (not NCCL or NVLink)",
+           "parent_gib": _free_parent(torch)}
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for config in (OVERLAP_N2, OVERLAP_N4):
+        n, model_name, batch, seq, timeout = OVERLAP_RUNS[config]
+        # Four ranks of GPT-2 medium with int8 buffers share the card with
+        # this process: let their allocators grow segments in place
+        # rather than hold reserved fragments (no value changes).
+        ranks, wall = run_workers(
+            config, n, timeout, out_dir,
+            {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+        res[config] = {"n": n, "model": model_name, "batch_per_rank": batch,
+                       "seq_len": seq, "wall_s": wall}
+        r0 = ranks[0]
+        for name in ("int8_ef", "routed", "zero3"):
+            if name not in r0:
+                continue
+            arms = {}
+            for arm in ("off", "on"):
+                recs = [rk[name][arm] for rk in ranks]
+                check(all(rc["launches"] == recs[0]["launches"]
+                          for rc in recs),
+                      f"overlap {name}: ranks counted different launches")
+                add(recs[0]["launches"])
+                arms[arm] = m = {
+                    k: recs[0][k] for k in (
+                        "step_ms_median", "fwd_bwd_ms_median",
+                        "step_call_ms_median", "wire_ms_median",
+                        "launches", "worker_chains", "losses")}
+                m["step_ms_median"] = statistics.median(
+                    rc["step_ms_median"] for rc in recs)
+                m["tokens_per_s"] = n * batch * seq / (
+                    m["step_ms_median"] / 1e3)
+                m["peak_mem_gib"] = max(rc["peak_mem_gib"] for rc in recs)
+                m["rest_mem_gib"] = max(rc["rest_mem_gib"] for rc in recs)
+                print(f"overlap {config} {name} overlap={arm == 'on'} "
+                      f"(gloo, {n} processes on one card): step "
+                      f"{m['step_ms_median']:.1f} ms = "
+                      f"{m['tokens_per_s']:.0f} tok/s (rank 0: forward + "
+                      f"backward {m['fwd_bwd_ms_median']:.1f} ms, step() "
+                      f"{m['step_call_ms_median']:.1f} ms, collectives "
+                      f"{m['wire_ms_median']:.1f} ms); peak "
+                      f"{m['peak_mem_gib']:.2f} GiB, at rest "
+                      f"{m['rest_mem_gib']:.2f} GiB; launches "
+                      f"{json.dumps(m['launches'])}", flush=True)
+            res[config][name] = dict(
+                arms, bitwise_steps=r0[name]["bitwise_steps"])
+            print(f"overlap {config} {name}: overlap=True bitwise "
+                  f"overlap=False after all {r0[name]['bitwise_steps']} "
+                  f"steps on every rank", flush=True)
+        if "adasum_drill" in r0:
+            drill = r0["adasum_drill"]
+            add(drill["launches"])
+            acc = r0["adasum_accum"]
+            for compute in ("bf16", "fp32"):
+                for arm in ("accum", "fused"):
+                    add(acc[compute][arm]["launches"])
+            res[config]["adasum_drill"] = {
+                k: drill[k] for k in ("losses", "scales", "launches",
+                                      "state_tensors_unchanged", "step_ms",
+                                      "guard_agreements")}
+            res[config]["adasum_accum"] = acc
+            print(f"overlap {config} Adasum + scale_backoff drill (+Inf on "
+                  f"rank 0 at step 2; gloo, 2 processes on one card): "
+                  f"scales {drill['scales']}, {drill['state_tensors_unchanged']}"
+                  f" tensors bitwise unchanged, step ms {drill['step_ms']}, "
+                  f"launches {json.dumps(drill['launches'])}", flush=True)
+            for compute in ("bf16", "fp32"):
+                a = acc[compute]
+                print(f"overlap {config} Adasum accum_steps={ADASUM_ACCUM} "
+                      f"vs one batch, {compute} compute: loss rel "
+                      f"{a['loss_rel']:.2e}, local deltas rel <= "
+                      f"{a['local_delta_rel_max']:.2e}, reduced deltas rel "
+                      f"{a['reduced_delta_rel']:.2e} (worst parameter "
+                      f"{a['reduced_delta_rel_worst_param']}, its local "
+                      f"rel {a['worst_param_local_rel']:.2e}, weight "
+                      f"spacing / delta {a['worst_param_ulp_over_delta']:.3e});"
+                      f" step ms accum {a['accum']['step_ms']:.1f}, fused "
+                      f"{a['fused']['step_ms']:.1f}", flush=True)
+    res["launches"] = launches
+    with open(os.path.join(out_dir, "chip_smoke_overlap.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    return res
+
+
+# -- phase 8: elastic training through the port's launcher --------------------
+
+ELASTIC_HOSTS = "hostA:1,hostB:1"
+# model, per-rank batch, sequence length, steps, persist every, int8_ef's
+# smallest quantized bucket (None: the default)
+ELASTIC_RUN = ("gpt_medium", 4, 512, 9, 3, None)
+# The fault plan in GLOBAL training steps: a rendezvous 5xx on hostA's
+# second poll, a collective fault on hostB at step 4, a hard crash of
+# hostB's worker at step 6 (a real gloo peer death) and a SIGTERM
+# preemption of rank 0 at step 8.
+ELASTIC_PLAN = {"seed": 7, "faults": [
+    {"site": "rendezvous", "step": 2, "mode": "5xx", "host": "hostA"},
+    {"site": "collective", "step": 4, "host": "hostB"},
+    {"site": "crash", "step": 6, "host": "hostB"},
+    {"site": "preempt", "step": 8, "rank": 0}]}
+ELASTIC_SITES = ("collective", "crash", "preempt", "rendezvous")
+ELASTIC_TIMEOUT = 600               # seconds a launcher run may take
+ELASTIC_ENV = {"HVD_TPU_ELASTIC_FORCE_LOCAL": "1",
+               "HVD_TPU_BLACKLIST_TTL_S": "3",
+               "HVD_TPU_ELASTIC_GRACE_SECS": "20",
+               "HVD_TPU_ELASTIC_RESET_BACKOFF_MAX_S": "0.5"}
+ELASTIC_LOSS_RTOL = 1e-3            # the fallback if two clean runs differ
+_NEVER = 1 << 40                    # a spec step no run reaches
+ELASTIC_KEEP = 2                    # persisted steps kept (the walk-back)
+
+
+def _state_digest(torch, model, opt) -> str:
+    """sha256 of the parameters and the whole optimizer state dict (AdamW
+    moments and steps, this rank's int8_ef residuals and rounding step),
+    each float tensor's bits summed plain and weighted on its device."""
+    import hashlib
+
+    sd = opt.state_dict()
+    tensors = [p.detach() for p in model.parameters()]
+    for i in sorted(sd["state"]):
+        for k in sorted(sd["state"][i]):
+            v = sd["state"][i][k]
+            tensors.append(torch.as_tensor(v))
+    ef = sd.get("ef_state")
+    if ef is not None:
+        tensors += [ef["residual"][b] for b in sorted(ef["residual"])]
+    h = hashlib.sha256(json.dumps(ef["step"] if ef else None).encode())
+    for t in tensors:
+        flat = t.reshape(-1)
+        if flat.dtype == torch.float32:
+            bits = flat.view(torch.int32).to(torch.int64)
+        else:
+            bits = flat.to(torch.float64).view(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device,
+                         dtype=torch.int64) % 1000003 + 1
+        h.update(torch.stack([bits.sum(), (bits * w).sum()]).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def _shifted_plan(faults, raw: str, log_path: str, start: int):
+    """This worker's part of a plan whose ``step`` s are GLOBAL training
+    steps: the specs that fired in an earlier worker (the fault log)
+    are dropped, the rest shifted by the step this worker resumes at
+    (collective, crash and preempt are hit once a step)."""
+    plan = faults.FaultPlan.from_json(raw)
+    fired = set()
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            fired = {json.loads(line)["spec"] for line in f if line.strip()}
+    for i, spec in enumerate(plan.faults):
+        # Spec indices stay those of the plan (the log names them): a
+        # spec that fired, or whose step is behind, never fires again.
+        done = i in fired or spec.step is None or spec.step <= start
+        spec.step = _NEVER if done else spec.step - start
+    return plan
+
+
+def elastic_worker(cfg_path: str) -> None:
+    """One worker of phase 8 (``--elastic-worker CFG``), started by the
+    port's launcher: restore the persisted state, train ``steps`` steps
+    of int8_ef AdamW under ``hvd.elastic.run`` (commit every step,
+    persist every ``persist_every`` and at a preemption), log every
+    event with its time, and at the end check the persisted state
+    against the last commit."""
+    import time as time_mod
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint as ckpt
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.common import faults
+    from horovod_tpu_torch.models import gpt as gpt_mod
+
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    dev = cfg["device"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hvd.init(device="cpu") if dev == "cpu" else hvd.init(backend="gloo")
+    rank, n = hvd.rank(), hvd.size()
+    host = os.environ.get("HVD_TPU_HOSTNAME", "")
+    work = cfg["workdir"]
+    events_path = os.path.join(work, f"events.rank{rank}.jsonl")
+
+    def log(event, **kw):
+        with open(events_path, "a") as f:
+            f.write(json.dumps({"event": event, "t": time_mod.time(),
+                                "pid": os.getpid(), "host": host, **kw})
+                    + "\n")
+
+    def build():
+        model = _make_model(torch, gpt_mod, cfg["model"], dev)
+        kw = {} if cfg["qmin"] is None else \
+            {"quantize_min_bucket_bytes": cfg["qmin"]}
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=1e-4,
+                              weight_decay=1e-4),
+            named_parameters=model.named_parameters(),
+            compression="int8_ef", **kw)
+        return model, opt, elastic.TorchState(model, opt, step=0)
+
+    model, opt, state = build()
+    ckdir = os.path.join(work, "ckpt")
+    digests_path = os.path.join(work, f"digests.rank{rank}.json")
+    t0 = time_mod.perf_counter()
+    try:
+        start = ckpt.restore_state(state, ckdir)
+    except FileNotFoundError:
+        start = 0
+    if start:
+        with open(digests_path) as f:
+            want = json.load(f)[str(start)]
+        got = _state_digest(torch, model, opt)
+        log("restore", step=start, seconds=time_mod.perf_counter() - t0,
+            digest_ok=got == want)
+    else:
+        log("start", step=0)
+    raw = os.environ.get("HVD_TPU_FAULT_PLAN")
+    if raw:
+        faults.install(_shifted_plan(faults, raw,
+                                     os.environ["HVD_TPU_FAULT_LOG"], start))
+
+    def persist(st):
+        t = time_mod.perf_counter()
+        ckpt.save_state(st, ckdir, st.step, max_to_keep=ELASTIC_KEEP)
+        secs = time_mod.perf_counter() - t
+        step_dir = os.path.join(ckdir, f"rank{rank}" if n > 1 else "",
+                                str(st.step))
+        nbytes = sum(os.path.getsize(os.path.join(d, name))
+                     for d, _, names in os.walk(step_dir) for name in names)
+        digests = {}
+        if os.path.exists(digests_path):
+            with open(digests_path) as f:
+                digests = json.load(f)
+        # The committed snapshot is what save_state wrote.
+        live = _state_digest(torch, model, opt)
+        digests[str(st.step)] = live
+        with open(digests_path + ".tmp", "w") as f:
+            json.dump(digests, f)
+        os.replace(digests_path + ".tmp", digests_path)
+        log("persist", step=st.step, seconds=secs, bytes=nbytes)
+
+    elastic.on_preemption(persist)
+    batch, seq = cfg["batch"], cfg["seq"]
+
+    @elastic.run
+    def train(st):
+        while st.step < cfg["steps"]:
+            s = st.step
+            tokens = torch.randint(
+                0, model.vocab_size, (batch, seq + 1),
+                generator=torch.Generator().manual_seed(1000 * s + rank)
+            ).to(dev)
+            loss = gpt_mod.next_token_loss(model(tokens[:, :-1]),
+                                           tokens[:, 1:])
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            st.step = s + 1
+            t = time_mod.perf_counter()
+            st.commit()
+            log("step", step=st.step, loss=loss.item(),
+                commit_ms=(time_mod.perf_counter() - t) * 1e3)
+            if cfg["persist_every"] and st.step % cfg["persist_every"] == 0:
+                persist(st)
+
+    try:
+        train(state)
+    except BaseException as e:
+        import traceback
+
+        log("error", step=int(state.step), error=f"{type(e).__name__}: "
+            f"{e}", traceback=traceback.format_exc()[-3000:])
+        raise
+    final = _state_digest(torch, model, opt)
+    from horovod_tpu_torch.ops import kernels as K
+
+    if not cfg["final_check"]:
+        log("final", step=int(state.step), digest=final,
+            launches=dict(K.LAUNCHES))
+        hvd.shutdown()
+        return
+    # The persisted state against the last commit: restored into a fresh
+    # model and optimizer.
+    state.restore()
+    committed = _state_digest(torch, model, opt)
+    model2, opt2, state2 = build()
+    step2 = ckpt.restore_state(state2, ckdir)
+    persisted = _state_digest(torch, model2, opt2)
+    log("final", step=int(state.step), digest=final,
+        persisted_step=step2, persisted_equal=persisted == committed,
+        committed_equal=committed == final, launches=dict(K.LAUNCHES))
+    hvd.shutdown()
+
+
+def run_elastic_job(work: str, cfg: dict, plan, env_extra=None,
+                    timeout: float = ELASTIC_TIMEOUT, output=None):
+    """One launcher run of phase 8's workers: ``hvdtpurun-torch --elastic
+    -np 2 --min-np 2 --max-np 2 -H hostA:1,hostB:1`` with this script as
+    the command, its output streamed to ``output`` (default
+    ``<work>/launcher.log``). Returns (exit code, wall s, the events by
+    rank, the fault log's records, the launcher's output)."""
+    os.makedirs(work, exist_ok=True)
+    cfg = dict(cfg, workdir=os.path.abspath(work))
+    cfg_path = os.path.join(work, "cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    log_path = os.path.join(work, "faults.jsonl")
+    env = {**os.environ, **ELASTIC_ENV, **(env_extra or {}),
+           "HVD_TPU_FAULT_LOG": log_path}
+    env.pop("HVD_TPU_FAULT_PLAN", None)
+    argv = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
+            "--elastic", "-np", "2", "--min-np", "2", "--max-np", "2",
+            "-H", ELASTIC_HOSTS]
+    if plan is not None:
+        argv += ["--fault-plan", json.dumps(plan)]
+    argv += ["--", sys.executable, os.path.abspath(__file__),
+             "--elastic-worker", cfg_path]
+    t0 = time.perf_counter()
+    log_file = output or os.path.join(work, "launcher.log")
+    with open(log_file, "w") as out:
+        try:
+            rc = subprocess.run(
+                argv, env=env, stdout=out, stderr=subprocess.STDOUT,
+                timeout=timeout,
+                cwd=os.path.dirname(os.path.abspath(__file__))).returncode
+        except subprocess.TimeoutExpired:
+            rc = None
+    wall = time.perf_counter() - t0
+    with open(log_file) as f:
+        text = f.read()
+    if rc is None:
+        raise SmokeError(f"elastic run in {work} passed its {timeout} s "
+                         f"limit:\n{text[-3000:]}")
+    events = {}
+    for r in (0, 1):
+        path = os.path.join(work, f"events.rank{r}.jsonl")
+        if os.path.exists(path):
+            with open(path) as f:
+                events[r] = [json.loads(line) for line in f if line.strip()]
+    injections = []
+    if os.path.exists(log_path):
+        with open(log_path) as f:
+            injections = [json.loads(line) for line in f if line.strip()]
+    return rc, wall, events, injections, text
+
+
+def elastic_report(events: dict, injections: list) -> dict:
+    """Per fault: seconds from its injection to the first step completed
+    after it — by the injected process itself when the fault was
+    absorbed (it goes on stepping), else by the first process started
+    after the injection; commit ms, persist s and bytes, restore s and
+    the restore digest checks."""
+    every = [e for evs in events.values() for e in evs]
+    first_t = {}
+    for e in sorted(every, key=lambda e: e["t"]):
+        first_t.setdefault(e["pid"], e["t"])
+    faults_out = []
+    for inj in injections:
+        before = [e for e in every if e["host"] == inj["host"]
+                  and e["t"] <= inj["t"]]
+        pid = max(before, key=lambda e: e["t"])["pid"] if before else None
+        steps = sorted((e["t"], e["step"]) for e in every
+                       if e["event"] == "step" and e["t"] > inj["t"])
+        own = [x for x in steps if any(
+            e["pid"] == pid and e["t"] == x[0] for e in every)]
+        after = own or [(t, st) for t, st in steps if any(
+            e["t"] == t and first_t[e["pid"]] > inj["t"] for e in every)]
+        faults_out.append({
+            "site": inj["site"], "host": inj["host"], "rank": inj["rank"],
+            "absorbed": bool(own),
+            "recover_s": (after[0][0] - inj["t"]) if after else None,
+            "next_step": after[0][1] if after else None})
+    commits = [e["commit_ms"] for e in every if e["event"] == "step"]
+    persists = [e for e in every if e["event"] == "persist"]
+    restores = [e for e in every if e["event"] == "restore"]
+    return {
+        "faults": faults_out,
+        "commit_ms_median": statistics.median(commits) if commits else None,
+        "persist_s_median": statistics.median(
+            [e["seconds"] for e in persists]) if persists else None,
+        "persist_bytes": max((e["bytes"] for e in persists), default=0),
+        "restore_s": [e["seconds"] for e in restores],
+        "restores": [(e["step"], e["digest_ok"]) for e in restores],
+        "finals": {r: next((e for e in evs if e["event"] == "final"), None)
+                   for r, evs in events.items()},
+        "losses_rank0": [(e["step"], e["loss"]) for e in events.get(0, [])
+                         if e["event"] == "step"],
+    }
+
+
+def phase_elastic(torch, out_dir: str) -> dict:
+    """Phase 8: two uninterrupted launcher runs of ``ELASTIC_RUN`` (they
+    must end bitwise equal), then the run under
+    ``ELASTIC_PLAN``: exit 0, the final step, the four sites, every
+    restore bitwise its commit, the persisted state the last commit, and
+    the final state bitwise the clean runs' (or, if those differ from
+    each other, the final losses within 1e-3). Returns the phase's record
+    with ``launches``, the clean run's rank 0 counts."""
+    import shutil
+    import tempfile
+
+    model_name, batch, seq, steps, every, qmin = ELASTIC_RUN
+    cfg = {"model": model_name, "device": "cuda", "batch": batch,
+           "seq": seq, "steps": steps, "persist_every": every, "qmin": qmin}
+    _free_parent(torch)
+
+    # The checkpoints (about 5.7 GB a rank a step) stay out of the
+    # output directory; the logs are copied there.
+    root = tempfile.mkdtemp(prefix="hvd_elastic_")
+    try:
+        return _phase_elastic(torch, out_dir, root, cfg, steps,
+                              model_name, batch, seq, every)
+    finally:
+        for name in ("clean1", "clean2", "chaos"):
+            src = os.path.join(root, name)
+            dst = os.path.join(out_dir, f"elastic_{name}")
+            os.makedirs(dst, exist_ok=True)
+            for f in ("faults.jsonl", "events.rank0.jsonl",
+                      "events.rank1.jsonl"):
+                if os.path.exists(os.path.join(src, f)):
+                    with open(os.path.join(src, f), "rb") as fi, \
+                            open(os.path.join(dst, f), "wb") as fo:
+                        data = fi.read()
+                        fo.write(data[-400_000:])
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _phase_elastic(torch, out_dir, root, cfg, steps, model_name, batch,
+                   seq, every) -> dict:
+
+    # The clean runs persist nothing (persistence changes no value) and
+    # run one after the other: four such ranks at once, each with its
+    # commit snapshot on the card, would crowd its 80 GB.
+    clean_cfg = dict(cfg, persist_every=0, final_check=False)
+    clean = [run_elastic_job(
+        os.path.join(root, f"clean{i}"), clean_cfg, None,
+        output=os.path.join(out_dir, f"elastic_clean{i}.log"))
+        for i in (1, 2)]
+    for i, (rc, wall, events, inj, log) in enumerate(clean):
+        check(rc == 0, f"elastic clean run {i + 1}: exit {rc}:\n"
+                       f"{log[-3000:]}")
+        check(not inj, f"elastic clean run {i + 1}: injections {inj}")
+    reps = [elastic_report(c[2], c[3]) for c in clean]
+    same_clean = all(reps[0]["finals"][r]["digest"] ==
+                     reps[1]["finals"][r]["digest"] for r in (0, 1))
+    rc, wall, events, inj, log = run_elastic_job(
+        os.path.join(root, "chaos"), dict(cfg, final_check=True),
+        ELASTIC_PLAN, output=os.path.join(out_dir, "elastic_chaos.log"))
+    check(rc == 0, f"elastic chaos run: exit {rc}:\n{log[-3000:]}")
+    rep = elastic_report(events, inj)
+    sites = sorted({i["site"] for i in inj})
+    check(sites == sorted(ELASTIC_SITES), f"elastic: injected sites {sites}")
+    check(rep["restores"] and all(ok for _, ok in rep["restores"]),
+          f"elastic: a restore differs from its commit: {rep['restores']}")
+    for r in (0, 1):
+        fin = rep["finals"].get(r)
+        check(fin is not None and fin["step"] == steps
+              and fin["persisted_step"] == steps and fin["persisted_equal"]
+              and fin["committed_equal"],
+              f"elastic: rank {r} final {fin}")
+    check(all(f["recover_s"] is not None for f in rep["faults"]),
+          f"elastic: a fault was not recovered from: {rep['faults']}")
+    if same_clean:
+        for r in (0, 1):
+            check(rep["finals"][r]["digest"] ==
+                  reps[0]["finals"][r]["digest"],
+                  f"elastic: rank {r}'s final state differs from the "
+                  "uninterrupted run's")
+        compared = "bitwise"
+    else:
+        last = reps[0]["losses_rank0"][-1][1]
+        got = rep["losses_rank0"][-1][1]
+        check(abs(got - last) <= ELASTIC_LOSS_RTOL * abs(last),
+              f"elastic: final loss {got} vs the clean run's {last}")
+        compared = f"final loss within {ELASTIC_LOSS_RTOL} (the two clean " \
+                   "runs differ)"
+    launches = reps[0]["finals"][0].get("launches", {})
+    res = {"label": "gloo, 2 processes on one card (not NCCL or NVLink)",
+           "model": model_name, "batch_per_rank": batch, "seq_len": seq,
+           "steps": steps, "persist_every": every,
+           "clean_wall_s": [c[1] for c in clean], "chaos_wall_s": wall,
+           "clean_runs_bitwise_equal": same_clean,
+           "final_vs_uninterrupted": compared, "sites": sites,
+           "faults": rep["faults"], "commit_ms_median":
+           rep["commit_ms_median"], "persist_s_median":
+           rep["persist_s_median"], "persist_bytes": rep["persist_bytes"],
+           "restore_s": rep["restore_s"], "restores": rep["restores"],
+           "clean_step_s": _step_seconds(clean[0][2]),
+           "launches": launches}
+    for f in rep["faults"]:
+        print(f"elastic (gloo, 2 processes on one card): {f['site']} on "
+              f"{f['host']} -> recovered in {f['recover_s']:.2f} s (next "
+              f"step {f['next_step']}{', absorbed' if f['absorbed'] else ''})",
+              flush=True)
+    print(f"elastic: commit {rep['commit_ms_median']:.2f} ms (median), "
+          f"persist {rep['persist_s_median']:.2f} s and "
+          f"{rep['persist_bytes'] / 1e9:.3f} GB a rank, restore "
+          f"{json.dumps([round(x, 2) for x in rep['restore_s']])} s; wall: "
+          f"clean {[round(c[1], 1) for c in clean]} s, chaos {wall:.1f} s; "
+          f"final state vs uninterrupted: {compared}; launches of a clean "
+          f"rank 0 {json.dumps(launches)}", flush=True)
+    with open(os.path.join(out_dir, "chip_smoke_elastic.json"), "w") as f:
+        json.dump(dict(res, losses_chaos=rep["losses_rank0"],
+                       losses_clean=reps[0]["losses_rank0"]), f, indent=1)
+    return res
+
+
+def _step_seconds(events: dict) -> list:
+    """Rank 0's seconds between consecutive completed steps of one
+    process (a clean run's step time, commits included)."""
+    t = [e["t"] for e in events.get(0, []) if e["event"] == "step"]
+    return [b - a for a, b in zip(t, t[1:])]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out",
@@ -4265,10 +5219,14 @@ def main(argv=None) -> int:
                          "run's wall numbers are then not the unprofiled "
                          "ones)")
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--elastic-worker"]:
+        elastic_worker(argv[1])
+        return 0
     if argv[:1] == ["--rank-worker"]:
         worker = {"n2_eager": eager_worker, "n2_join": join_worker,
-                  MESH_CONFIG: mesh_worker,
-                  ZERO_CONFIG: zero_worker}.get(argv[1], rank_worker)
+                  MESH_CONFIG: mesh_worker, ZERO_CONFIG: zero_worker,
+                  OVERLAP_N2: overlap_worker,
+                  OVERLAP_N4: overlap_worker}.get(argv[1], rank_worker)
         worker(argv[1], int(argv[2]), argv[3])
         return 0
     args = ap.parse_args(argv)
@@ -4316,6 +5274,8 @@ def main(argv=None) -> int:
         eager = phase_eager(torch, args.out)
         mesh = phase_mesh(torch, args.out)
         zero = phase_zero(torch, args.out)
+        overlap = phase_overlap(torch, args.out)
+        elastic = phase_elastic(torch, args.out)
         n2 = multi["n2_gpt_medium"]["modes"]
         # Every path a kernel runs on, each counted from zero around it;
         # the mesh path (phase 7b) is one of them for K1-K4, K8 and K9.
@@ -4334,7 +5294,9 @@ def main(argv=None) -> int:
                            "launches"],
                        "integrity_full": integ_runs["full/scale_backoff"][
                            "launches"],
-                       "zero": zero["launches"]}
+                       "zero": zero["launches"],
+                       "overlap": overlap["launches"],
+                       "elastic": elastic["launches"]}
         # K1 runs on the eager path (pre/postscale) and as the guard's
         # unscale on the integrity path.
         paths["scale_buffer"] = {
@@ -4349,6 +5311,12 @@ def main(argv=None) -> int:
         # K1 as (e)'s unscale.
         for name in ("scale_buffer", "quantize_int8_stochastic"):
             paths[name]["zero"] = zero["launches"]
+        # Phase 7d: K1 (the Adasum guard's unscale), K3, K8, K9; phase 8:
+        # K3 (the flash kernels take both through flash_paths).
+        for name in ("scale_buffer", "quantize_int8_stochastic",
+                     "adasum_dot_norms", "adasum_combine"):
+            paths[name]["overlap"] = overlap["launches"]
+        paths["quantize_int8_stochastic"]["elastic"] = elastic["launches"]
         for name in FLASH_NAMES:
             paths[name] = flash_paths
         for name, rec in records.items():
@@ -4376,7 +5344,8 @@ def main(argv=None) -> int:
                                  for c, r in multi.items()},
                    "eager": {k: v for k, v in eager.items()
                              if k not in ("ranks", "join")},
-                   "mesh": mesh, "zero": zero}, f, indent=1)
+                   "mesh": mesh, "zero": zero, "overlap": overlap,
+                   "elastic": elastic}, f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

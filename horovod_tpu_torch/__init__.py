@@ -64,7 +64,16 @@ Ported so far:
   ``restore_sharded`` (each rank's pieces, resharded on restore), and
   Horovod's capability queries (``gloo_built``, ``nccl_built``, ...: the
   build of torch), ``broadcast_variables``, ``mesh_axes()`` and
-  ``AxisPhase``.
+  ``AxisPhase``;
+* slice 12 — Adasum under the guard and with ``accum_steps``, the D2
+  overlap (``DistributedOptimizer(overlap=True)`` for int8_ef and routed
+  buckets, the stage-3 prefetch of ``ZeroOptimizer(overlap=True)``;
+  ``common/overlap.py``), and elastic training with its launcher: the
+  fault plan (``common/faults.py``), ``elastic`` (``run``,
+  ``TorchState``, ``ElasticSampler``, preemption), ``checkpoint.
+  save_state``/``restore_state``, ``integrity.chaos_poison``/
+  ``chaos_perturb``, and ``runner`` (``hvdtpurun-torch``, the elastic
+  driver, the rendezvous KV, :func:`run`).
 
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request they raise.
@@ -73,6 +82,8 @@ Names of the JAX package's API that later slices bring raise
 """
 
 import torch
+
+__version__ = "0.1.0"
 
 from .common.basics import (ccl_built, cross_rank, cross_size, cuda_built,
                             ddl_built, device, gloo_built, gloo_enabled, init,
@@ -86,11 +97,13 @@ from .common.exceptions import (AlltoallvLayoutError,
                                 CheckpointCorruptError, DivergenceError,
                                 DuplicateTensorNameError,
                                 HorovodInternalError, HorovodTpuError,
+                                HostsUpdatedInterrupt,
                                 MismatchError, NonFiniteError,
                                 NotInitializedError,
                                 TensorShapeMismatchError)
 from .common.faults import recovery_stats
-from .common.integrity import (DivergenceDetector, current_loss_scale,
+from .common.integrity import (DivergenceDetector, chaos_perturb,
+                               chaos_poison, current_loss_scale,
                                observe_guard)
 from .common.metrics import metrics
 from .functions import (allgather_object, broadcast_object,
@@ -110,9 +123,10 @@ from .sync_batch_norm import SyncBatchNorm
 from .zero import (FSDPOptimizer, ShardedOptimizer, ZeroOptimizer,
                    auto_shard_threshold, sharded_init, sharded_update,
                    should_shard_update)
-from . import callbacks, checkpoint
+from . import callbacks, checkpoint, elastic
 from .checkpoint import (CheckpointManager, ObjectStore, restore_sharded,
-                         save_sharded)
+                         restore_state, save_sharded, save_state)
+from .runner import run
 from .data import (BackgroundPrefetcher, DeviceInfeed, ElasticSampler,
                    infeed_pipeline, prefetch_to_device, shard_batch)
 
@@ -121,7 +135,8 @@ __all__ = [
     "CheckpointCorruptError", "CheckpointManager", "Compression",
     "DeviceInfeed", "DistributedOptimizer", "DivergenceDetector",
     "DivergenceError", "DuplicateTensorNameError", "ElasticSampler",
-    "HorovodInternalError", "HorovodTpuError", "Max", "Min",
+    "HorovodInternalError", "HorovodTpuError", "HostsUpdatedInterrupt",
+    "Max", "Min",
     "MismatchError", "NonFiniteError", "NotInitializedError",
     "AxisPhase", "FSDPOptimizer", "ShardedOptimizer", "ZeroOptimizer",
     "auto_shard_threshold", "broadcast_variables", "ccl_built",
@@ -137,8 +152,8 @@ __all__ = [
     "alltoall", "alltoall_async", "barrier", "broadcast", "broadcast_",
     "broadcast_async", "broadcast_async_", "broadcast_object",
     "broadcast_optimizer_state", "broadcast_parameters", "callbacks",
-    "checkpoint", "cross_rank", "cross_size", "current_loss_scale",
-    "device", "grouped_allgather",
+    "chaos_perturb", "chaos_poison", "checkpoint", "cross_rank", "cross_size", "current_loss_scale",
+    "device", "elastic", "grouped_allgather",
     "grouped_allreduce", "grouped_allreduce_", "grouped_reducescatter",
     "infeed_pipeline", "init", "integrity", "is_homogeneous",
     "is_initialized", "join",
@@ -146,7 +161,8 @@ __all__ = [
     "observe_guard", "poll", "prefetch_to_device", "quantized_allreduce",
     "rank", "recovery_stats", "reducescatter", "remove_process_set",
     "resolve_device",
-    "resolve_remat_policy", "shard_batch", "shutdown", "size",
+    "resolve_remat_policy", "restore_state", "run", "save_state",
+    "shard_batch", "shutdown", "size",
     "sparse_allreduce_async", "start_timeline", "stop_timeline",
     "synchronize",
 ]
@@ -417,9 +433,7 @@ def stop_timeline() -> None:
 
 # The JAX package's API that later slices of the port bring, by slice.
 _LATER = {
-    "the elastic and launcher slice": (
-        "run", "HostsUpdatedInterrupt", "flight_recorder", "save_state",
-        "restore_state", "chaos_poison", "chaos_perturb"),
+    "the telemetry and control slice": ("flight_recorder",),
     "the parallel-roles slice": (
         "ParallelSpec", "parallel_spec", "parallel_mesh",
         "pipeline_accumulate_gradients", "pipeline_apply",

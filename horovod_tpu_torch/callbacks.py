@@ -10,8 +10,8 @@ Callbacks drive a host-side *trainer*, duck-typed:
                         writes every parameter group's ``"lr"``
 
 The elastic callbacks take a state with ``commit()``, ``batch`` and
-``epoch`` (the elastic state itself comes with a later slice of the
-port).
+``epoch``: an ``elastic.TorchState`` (or ``ObjectState``) holding those
+attributes.
 """
 
 from __future__ import annotations

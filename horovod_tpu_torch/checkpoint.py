@@ -42,6 +42,7 @@ import math
 import os
 import pickle
 import queue as queue_mod
+import re
 import shutil
 import threading
 import time
@@ -53,6 +54,7 @@ import torch
 from .common import basics
 from .common import faults as faults_lib
 from .common import metrics as metrics_lib
+from .common import overlap as overlap_lib
 from .common import tree as tree_lib
 from .common.exceptions import CheckpointCorruptError
 
@@ -187,6 +189,10 @@ class CheckpointManager:
         os.replace(tmp, final)
         if self.verify:
             self._write_sidecar(step)
+        if faults_lib.active():
+            spec = faults_lib.maybe_checkpoint_corrupt()
+            if spec is not None:
+                self._corrupt_step(step, spec.mode or "bitflip")
         self.write_seconds[step] = time.perf_counter() - t0
         self.payload_bytes[step] = os.path.getsize(
             os.path.join(final, PAYLOAD_NAME))
@@ -516,6 +522,7 @@ def save_sharded(tree: Any, directory: str, step: int,
     if size > 1:
         import torch.distributed as dist
 
+        overlap_lib.drain_before_collective()
         dist.barrier()
 
 
@@ -624,14 +631,129 @@ def restore_sharded(template: Any, directory: str):
     return _rebuild(template, [p["tree"] for p in payloads], rank), step
 
 
-_LATER = {"save_state": "the elastic and launcher slice",
-          "restore_state": "the elastic and launcher slice"}
+# -- an elastic state's persistence ------------------------------------------
+
+# The step a state_objects record belongs to (beside the state's own
+# attributes, one of which may well be called "step").
+_SAVED_STEP = "saved_step"
 
 
-def __getattr__(name):
-    where = _LATER.get(name)
-    if where is None:
-        raise AttributeError(f"module {__name__!r} has no attribute "
-                             f"{name!r}")
-    raise NotImplementedError(f"checkpoint.{name} is not ported yet; it "
-                              f"comes with {where} of the port")
+def _holds_tensor(v) -> bool:
+    return any(isinstance(x, torch.Tensor) for x in tree_lib.leaves(v))
+
+
+def _state_dir(directory: str, rank: int, size: int) -> str:
+    """A world of one writes ``directory`` itself (the JAX layout); in a
+    multi-rank world rank r writes ``<dir>/rank<r>``: each rank persists
+    its own state (an int8_ef residual, ZeRO shards)."""
+    return directory if size == 1 else os.path.join(directory,
+                                                    f"rank{rank}")
+
+
+def save_state(state, directory: str, step: int,
+               max_to_keep: int = 5) -> None:
+    """Persist an elastic state's last COMMITTED snapshot (``TorchState``
+    or ``ObjectState``: ``state.committed_items()``) at ``step``, so a
+    job resumes across full restarts: tensor-bearing values (state
+    dicts) through a :class:`CheckpointManager` (CRC sidecar, walk-back,
+    ``max_to_keep``), the other values through an :class:`ObjectStore`
+    as ``state_objects_<step>`` (pruned with the manager's steps). Every
+    rank of a multi-rank world calls it and writes its own directory
+    (see :func:`_state_dir`); no collective runs, so a preemption
+    callback on one rank may call it alone. A stale copy of the same
+    step is replaced."""
+    rank, size = _world()
+    root = _state_dir(directory, rank, size)
+    arrays, objects = {}, {}
+    for k, v in state.committed_items():
+        (arrays if _holds_tensor(v) else objects)[k] = v
+    mgr = CheckpointManager(root, max_to_keep=max_to_keep, writer=True)
+    try:
+        stale = mgr._step_dir(int(step))
+        if os.path.isdir(stale):
+            shutil.rmtree(stale, ignore_errors=True)
+        mgr.save(step, {"world": size, "rank": rank, "arrays": arrays},
+                 force=True)
+        mgr.wait()
+        kept_steps = mgr.all_steps()
+    finally:
+        mgr.close()
+    store = ObjectStore(root)
+    record = {_SAVED_STEP: int(step), "objects": objects}
+    store.put(f"state_objects_{step}", record)
+    store.put("state_objects", record)
+    live = {int(s) for s in kept_steps}
+    for name in os.listdir(store.directory):
+        m = re.fullmatch(r"state_objects_(\d+)\.pkl", name)
+        if m and int(m.group(1)) not in live:
+            try:
+                os.remove(os.path.join(store.directory, name))
+            except OSError:
+                pass
+
+
+def _latest_state_step(directory: str, rank: int, size: int
+                       ) -> Optional[int]:
+    """The newest step whose files verify on every rank of a world of
+    ``size`` (the walk-back over the set). Each rank verifies its own
+    directory; in a multi-rank world the ranks agree through
+    ``allgather_object``, so every rank calls this together."""
+    mgr = CheckpointManager(_state_dir(directory, rank, size), writer=False)
+    steps = set(mgr.all_steps())
+    if size > 1:
+        from .functions import allgather_object
+
+        steps = set.intersection(*(set(s) for s in allgather_object(
+            sorted(steps), name="restore_state.steps")))
+    skipped = []
+    for step in sorted(steps, reverse=True):
+        ok = not mgr.verify or mgr.verify_step(step) != "corrupt"
+        if size > 1:
+            from .functions import allgather_object
+
+            ok = all(allgather_object(ok, name="restore_state.ok"))
+        if ok:
+            if skipped:
+                logger.warning("state checkpoint: restored step %d after "
+                               "skipping step(s) %s", step, skipped)
+            return step
+        skipped.append(step)
+    if skipped:
+        raise CheckpointCorruptError(
+            f"no state checkpoint step under {directory} verifies on "
+            f"every rank (skipped: {skipped})")
+    return None
+
+
+def restore_state(state, directory: str) -> int:
+    """Inverse of :func:`save_state` (every rank of a multi-rank world
+    calls it together): load the newest step that verifies (on every
+    rank: the walk-back) into ``state``
+    (a ``TorchState`` loads each state dict into its model, optimizer or
+    sampler; other values become attributes), with the host objects of
+    the SAME step, make it the committed snapshot and return the step.
+    Raises ``FileNotFoundError`` when nothing was saved."""
+    rank, size = _world()
+    root = _state_dir(directory, rank, size)
+    step = _latest_state_step(directory, rank, size)
+    if step is None:
+        raise FileNotFoundError(f"no state checkpoints under {directory}")
+    mgr = CheckpointManager(root, writer=False)
+    try:
+        restored = mgr.restore(step, verify=False)
+    finally:
+        mgr.close()
+    load = getattr(state, "load_committed", None)
+    for k, v in restored["arrays"].items():
+        if load is not None:
+            load(k, v)
+        else:
+            setattr(state, k, v)
+    store = ObjectStore(root)
+    record = store.get(f"state_objects_{step}")
+    if record is None:
+        record = store.get("state_objects", {"objects": {}})
+    for k, v in record["objects"].items():
+        setattr(state, k, v)
+    state.save()        # the committed snapshot = what was restored
+    return int(step)

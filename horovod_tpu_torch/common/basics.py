@@ -97,6 +97,9 @@ class Context:
     #: ever registered (the key of each registration's agreement round).
     process_sets: List[Any] = dataclasses.field(default_factory=list)
     process_set_seq: int = 0
+    #: Under an elastic launch: a callable returning True once the
+    #: driver's topology version moved (``State.check_host_updates``).
+    host_update_notifier: Any = None
 
     @property
     def world_axis(self) -> topo_lib.Axis:
@@ -131,6 +134,11 @@ _comm_stores: Dict[str, Any] = {}
 _comm_joins: Dict[tuple, int] = {}
 _comm_live: Optional[Any] = None
 _COMM_LIVE_KEY = "hvd_tpu/comm/live"
+# The plain worlds' rendezvous: one TCPStore a coordinator for the life
+# of the process and how many worlds this process joined on it, so a
+# re-init (the elastic reset) meets under a fresh prefix.
+_world_stores: Dict[str, Any] = {}
+_world_joins: Dict[str, int] = {}
 
 
 def _world():
@@ -201,6 +209,9 @@ def init(comm=None, process_sets=None,
                     "with different settings")
             return _context
         cfg = config_lib.Config.from_env(**config_overrides)
+        from . import faults as faults_lib
+
+        faults_lib.refresh_from_env()
         dev = resolve_device(device)
         launch_rank, size, coord = _world()
         members = None if comm is None else _members(comm, launch_rank,
@@ -228,8 +239,11 @@ def init(comm=None, process_sets=None,
                 _leave_comm_world()
                 raise
         else:
-            dist.init_process_group(backend, init_method=f"tcp://{coord}",
-                                    rank=rank, world_size=size)
+            dist.init_process_group(backend,
+                                    store=_world_store(coord, rank, size,
+                                                       cfg),
+                                    rank=rank, world_size=size,
+                                    **_pg_timeout(cfg))
         from ..ops.eager import EagerEngine
         from .controller import Controller, StoreTransport
         from .timeline import Timeline
@@ -260,6 +274,9 @@ def init(comm=None, process_sets=None,
             dist.destroy_process_group()
             _leave_comm_world()
             raise
+        if cfg.elastic and config_lib.runtime_env("RENDEZVOUS"):
+            ctx.host_update_notifier = _host_update_notifier(
+                config_lib.runtime_env("RENDEZVOUS"))
         _context = ctx
     if process_sets:
         from ..process_set import add_process_set
@@ -267,6 +284,79 @@ def init(comm=None, process_sets=None,
         for ps in process_sets:
             add_process_set(ps)
     return _context
+
+
+def _pg_timeout(cfg) -> dict:
+    """Under an elastic launch the process group's timeout is the
+    controller's (``stall_check_time_seconds``, the JAX package's knob
+    ``HVD_TPU_STALL_CHECK_TIME_SECONDS``): a survivor whose peer died
+    mid-collective raises instead of waiting out torch's 30 minutes."""
+    if not cfg.elastic:
+        return {}
+    import datetime
+
+    return {"timeout": datetime.timedelta(
+        seconds=cfg.stall_check_time_seconds)}
+
+
+def _world_store(coord: str, rank: int, size: int, cfg):
+    """The plain world's rendezvous: the coordinator's TCPStore (rank 0
+    hosts it, made once a process) under a prefix of this process's
+    join count there, so a re-``init()`` after ``shutdown()`` (the
+    elastic reset) meets under fresh keys."""
+    store = _world_stores.get(coord)
+    if store is None:
+        import datetime
+
+        host, port = coord.rsplit(":", 1)
+        timeout = datetime.timedelta(
+            seconds=cfg.stall_check_time_seconds if cfg.elastic else 300)
+        store = dist.TCPStore(host, int(port), size, is_master=rank == 0,
+                              timeout=timeout, wait_for_workers=False)
+        _world_stores[coord] = store
+    joins = _world_joins.get(coord, 0)
+    _world_joins[coord] = joins + 1
+    return dist.PrefixStore(f"hvd_tpu/world/{joins}", store)
+
+
+def _host_update_notifier(rdv_addr: str):
+    """The elastic host-update channel: True once the driver's
+    ``elastic/topology_version`` moved since the first read (the JAX
+    package's ``_make_host_update_notifier``)."""
+    from ..runner.rendezvous import RendezvousClient
+
+    host, port = rdv_addr.rsplit(":", 1)
+    client = RendezvousClient(host, int(port), timeout_s=5.0)
+    last_seen = {"v": None}
+    warned = {"auth": False}
+
+    def notifier() -> bool:
+        import urllib.error
+
+        try:
+            raw = client.get("elastic", "topology_version")
+        except urllib.error.HTTPError as e:
+            if e.code == 403 and not warned["auth"]:
+                warned["auth"] = True
+                logger.warning(
+                    "elastic host-update polling rejected (403): "
+                    "HVD_TPU_RENDEZVOUS_SECRET missing or mismatched — "
+                    "topology changes will NOT be observed")
+            return False
+        except OSError:
+            return False
+        if raw is None:
+            return False
+        v = raw.decode()
+        if last_seen["v"] is None:
+            last_seen["v"] = v
+            return False
+        if v != last_seen["v"]:
+            last_seen["v"] = v
+            return True
+        return False
+
+    return notifier
 
 
 def _members(comm: Sequence[int], rank: int, size: int) -> List[int]:

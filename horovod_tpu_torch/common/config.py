@@ -22,6 +22,22 @@ RUNTIME_KNOBS = {
     "PROC_ID": "this process's rank",
     "LOCAL_RANK": "rank within the host (default: the rank)",
     "LOCAL_SIZE": "processes on this host (default: the world size)",
+    "HOSTNAME": "host label of this process (fault plans' host=)",
+    # Rendezvous, elastic and launcher wiring (runner/, common/elastic.py).
+    "ELASTIC": "elastic mode: poll the driver's KV at commit() and bound "
+               "the process group's timeout (0/1)",
+    "RENDEZVOUS": "the elastic driver's KV address host:port",
+    "RENDEZVOUS_SECRET": "shared secret (HMAC) of the KV server",
+    "RENDEZVOUS_RETRIES": "client retry budget for 5xx/connection errors",
+    "RENDEZVOUS_WAIT_MAX_POLL_S": "wait() poll backoff cap",
+    "ELASTIC_FORCE_LOCAL": "run an elastic job's named hosts on localhost",
+    "ELASTIC_GRACE_SECS": "graceful-exit window before terminate",
+    "ELASTIC_RESET_LIMIT": "max elastic resets before giving up",
+    "DISCOVERY_DEBOUNCE": "identical scrapes before a host-set change",
+    "BLACKLIST_TTL_S": "host blacklist TTL (strike-doubled)",
+    # Fault injection (common/faults.py).
+    "FAULT_PLAN": "seeded fault-injection plan (JSON)",
+    "FAULT_LOG": "JSON-lines injection log path",
     # Training plane.
     "FUSION_THRESHOLD": "gradient fusion bucket size in bytes (64 MiB)",
     "COMPRESSION": "default gradient wire compression "
@@ -176,6 +192,10 @@ class Config:
     hierarchical_allgather: bool = False
     # ZeRO (zero.py): the threshold of should_shard_update.
     auto_shard_threshold_bytes: int = 256 * 1024 * 1024
+    # Elastic (common/elastic.py): poll the driver's topology version at
+    # commit() and bound the process group's timeout by
+    # stall_check_time_seconds, so a survivor of a dead peer raises.
+    elastic: bool = False
 
     @classmethod
     def from_env(cls, **overrides) -> "Config":
@@ -209,6 +229,7 @@ class Config:
             runtime_env("HIERARCHICAL_ALLGATHER") or "0")
         c.auto_shard_threshold_bytes = env_int(
             "AUTO_SHARD_THRESHOLD", c.auto_shard_threshold_bytes)
+        c.elastic = _truthy(runtime_env("ELASTIC") or "0")
         for name in ("stall_check_time_seconds",
                      "stall_shutdown_time_seconds"):
             raw = runtime_env(name.upper())

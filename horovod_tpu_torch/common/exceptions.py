@@ -13,6 +13,16 @@ class HorovodInternalError(HorovodTpuError):
     """A collective failed (peer died, runtime wedged)."""
 
 
+class HostsUpdatedInterrupt(HorovodTpuError):
+    """The host set changed (hosts added or removed): the elastic loop
+    re-initializes (``State.check_host_updates`` raises it at a
+    ``commit()``)."""
+
+    def __init__(self, skip_sync: bool = False):
+        super().__init__()
+        self.skip_sync = skip_sync
+
+
 class NotInitializedError(HorovodTpuError):
     """API called before ``init()``."""
 

@@ -3,9 +3,11 @@
 The port's copy of the event ring of ``horovod_tpu/common/flightrec.py``
 as the serve engine uses it: every decode round is bracketed with
 ``record_submit`` / ``annotate`` / ``record_complete`` (op ``serve``),
-so the ring names the decode batch a hung replica never completed. The
-black-box dump, its triggers and the rendezvous push are not part of
-this copy.
+so the ring names the decode batch a hung replica never completed; the
+eager engine records every collective's submit. The black-box dump, its
+triggers (the elastic loop's peer-failure dump, the driver's SIGUSR2
+fan-out) and the rendezvous push come with the telemetry and control
+slice of the port, as does ``hvd.flight_recorder``.
 
 Knobs: ``HVD_TPU_FLIGHTREC`` (default on), ``HVD_TPU_FLIGHTREC_SIZE``.
 """

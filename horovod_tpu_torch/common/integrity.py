@@ -41,8 +41,9 @@
   :func:`sharded_fingerprint` is the digest of a sharded (ZeRO) state,
   summed over the ranks instead of compared.
 
-The chaos hooks (``chaos_poison``, ``chaos_perturb``) consume the fault
-plan, which comes with the elastic and launcher slice of the port.
+The chaos hooks :func:`chaos_poison` (the ``nonfinite`` site, wired into
+the eager allreduce's input) and :func:`chaos_perturb` (the ``diverge``
+site) consume the fault plan of ``common/faults.py``.
 
 Metrics: ``hvd_tpu_nonfinite_steps_total{policy=}`` (published by
 ``observe_guard``), ``hvd_tpu_divergence_checks_total{result=}``.
@@ -534,17 +535,65 @@ class DivergenceDetector:
                 "majority": majority, "needs_resync": needs_resync}
 
 
-_FAULT_SLICE = "the elastic and launcher slice"
-
-
 def chaos_poison(tree):
-    """The ``nonfinite`` fault-injection site: comes with the fault plan."""
-    raise NotImplementedError(f"integrity.chaos_poison is not ported yet; "
-                              f"it comes with {_FAULT_SLICE} of the port")
+    """The ``nonfinite`` fault site: when the installed plan fires,
+    return ``tree`` with the first float leaf (in ``tree.leaves`` order,
+    dict keys sorted as JAX orders them) replaced by a copy whose first
+    element is NaN (``mode="inf"``: +Inf) — one bad lane on one rank,
+    which the guard's agreement must still catch. The input is not
+    modified. Without a plan: ``tree`` itself, after one global load."""
+    spec = faults_lib.maybe_nonfinite()
+    if spec is None:
+        return tree
+    bad = float("inf") if (spec.mode or "nan") == "inf" else float("nan")
+    target = next((x for x in tree_lib.leaves(tree)
+                   if isinstance(x, torch.Tensor) and x.is_floating_point()
+                   and x.numel()), None)
+    if target is None:
+        return tree
+
+    def one(x):
+        if x is not target:
+            return x
+        y = x.detach().clone()
+        y.view(-1)[0] = bad
+        return y
+
+    logger.warning("chaos: poisoned a gradient/batch leaf with %s",
+                   "inf" if bad == float("inf") else "nan")
+    return tree_lib.map_tree(one, tree)
 
 
 def chaos_perturb(stacked_tree):
-    """The ``diverge`` fault-injection site: comes with the fault plan."""
-    raise NotImplementedError(f"integrity.chaos_perturb is not ported "
-                              f"yet; it comes with {_FAULT_SLICE} of the "
-                              f"port")
+    """The ``diverge`` fault site on a RANK-STACKED tree (leading dim =
+    world size): when the plan fires, add ``spec.scale`` (default 1.0)
+    times standard normal noise to the slice of rank ``spec.target``
+    (default the last) of every float leaf — one silently diverged
+    replica. The noise is numpy's ``default_rng(plan seed)``, drawn
+    anew for each leaf, as in the JAX package; the input is not
+    modified."""
+    spec = faults_lib.maybe_diverge()
+    if spec is None:
+        return stacked_tree
+    scale = spec.scale if spec.scale else 1.0
+    inj = faults_lib.injector()
+    seed = inj.plan.seed if inj is not None else 0
+
+    def one(leaf):
+        if not isinstance(leaf, torch.Tensor) or leaf.dim() < 1 \
+                or not leaf.is_floating_point():
+            return leaf
+        exact = leaf.dtype in (torch.float16, torch.float32, torch.float64)
+        arr = leaf.detach().to("cpu", leaf.dtype if exact
+                               else torch.float32).numpy().copy()
+        r = int(spec.target) if spec.target not in (None, "") \
+            else arr.shape[0] - 1
+        rng = np.random.default_rng(seed)
+        arr[r] = arr[r] + scale * rng.standard_normal(
+            arr[r].shape).astype(arr.dtype)
+        return torch.from_numpy(arr).to(device=leaf.device,
+                                        dtype=leaf.dtype)
+
+    logger.warning("chaos: perturbed one replica's parameters "
+                   "(scale=%s)", scale)
+    return tree_lib.map_tree(one, stacked_tree)

@@ -67,6 +67,7 @@ import torch.distributed as dist
 
 from ..common import basics
 from ..common import metrics as metrics_lib
+from ..common import overlap as overlap_lib
 from ..common.topology import Axis
 from . import kernels
 
@@ -99,7 +100,10 @@ _SCALED_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 def _axis(axis=None) -> Axis:
     """The :class:`Axis` a collective runs over: ``axis`` itself, the
-    mesh axis of that name, or the world for None."""
+    mesh axis of that name, or the world for None. Every collective of
+    this module resolves its axis here, after the overlap workers'
+    submitted chains have run (``overlap.drain_before_collective``)."""
+    overlap_lib.drain_before_collective()
     if isinstance(axis, Axis):
         return axis
     ctx = basics.context()

@@ -72,9 +72,11 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..common import faults as faults_lib
 from ..common import flightrec as flightrec_lib
 from ..common import fusion as fusion_lib
 from ..common import metrics as metrics_lib
+from ..common import overlap as overlap_lib
 from ..common.config import runtime_env
 from ..common.controller import Request
 from ..common.exceptions import (DuplicateTensorNameError,
@@ -346,6 +348,9 @@ class EagerEngine:
     # -- named-tensor tracking -------------------------------------------
 
     def _begin(self, name: Optional[str], kind: str) -> str:
+        # The "collective" fault site: the comm failure a dead peer
+        # raises, through the caller into the elastic loop.
+        faults_lib.maybe_collective_fault()
         if name is None:
             with self._names_lock:
                 self._noname_seq += 1
@@ -368,6 +373,7 @@ class EagerEngine:
         flightrec_lib.recorder().record_submit(full, kind)
         if _METRICS_ON:
             self._submit_ts[full] = time.perf_counter()
+        faults_lib.maybe_collective_stall()
         if self.timeline is not None:
             if idle:
                 self.timeline.mark_cycle()
@@ -681,6 +687,11 @@ class EagerEngine:
         op = C.ReduceOp(op)
         if compression is None:
             compression = self._default_compression
+        if faults_lib.active():
+            # The "nonfinite" fault site: one poisoned lane of the input.
+            from ..common import integrity as integrity_lib
+
+            x = integrity_lib.chaos_poison(x)
         if self.join_active():
             return self._allreduce_join_mode(x, op, name, prescale_factor,
                                              postscale_factor, compression)
@@ -1005,6 +1016,7 @@ class EagerEngine:
             # refuses it once a rank has joined.
             self._join_round(Request(self.rank, "barrier", "barrier",
                                      "int32", (), 0, -1))
+        overlap_lib.drain_before_collective()
         dist.barrier(group=None if self.axis is None else self.axis.group)
 
     # -- async handle surface -------------------------------------------

@@ -33,9 +33,11 @@ bucket rides bf16 with no residual; an integer bucket rides as it is.
 An int8 bucket's reduction takes several hops (quantize, all_to_all,
 dequantize and sum, requantize, all_gather), so it is fused when its
 last gradient lands but reduced when ``synchronize()`` reaches it, not
-overlapped with backprop as the other buckets are. The residual is one
-fp32 flat buffer per int8 bucket, and the step counter advances once per
-reduction round, i.e. once per ``step()``. Both are this rank's state,
+overlapped with backprop as the other buckets are — unless
+``overlap=True`` (below). The residual is one fp32 flat buffer per int8
+bucket, and the step counter advances once per reduction round, i.e.
+once per ``step()``; the new residuals replace the old ones only after
+the guard's agreement. Both are this rank's state,
 as in the JAX optimizer's ``_EFState``: ``state_dict()`` carries them
 under ``"ef_state"`` and ``load_state_dict()`` restores them, so a run
 restored from a checkpoint continues as the uninterrupted run would;
@@ -49,7 +51,16 @@ locally, takes each parameter's delta, rolls the weights back and
 applies the Adasum of the deltas (``ops/adasum.py``), one tensor at a
 time, so one tensor's coefficients never mix with another's. Adasum is
 not linear, so with ``int8_ef`` the deltas ride uncompressed; with
-``bf16`` they ride the bf16 wire.
+``bf16`` they ride the bf16 wire. Under a non-finite guard ``step()``
+first unscales each local gradient (K1, ``scale_backoff``), ANDs its
+all-finite flag and agrees it with the one MIN all-reduce, as the JAX
+optimizer runs its whole Adasum core under its agreed ``lax.cond``
+(``horovod_tpu/optim.py`` ``u_update``); only a good step runs the base
+optimizer and reduces the deltas, and a skipped step leaves every
+weight, every optimizer tensor and ``p.grad`` as they were. With
+``accum_steps=k`` ``accumulate(loss_fn)`` leaves the mean gradient of
+the k microbatches in ``p.grad`` and ``step()`` takes one delta step:
+one Adasum a parameter per effective step.
 
 ``nonfinite_policy`` (``common/integrity.py``) arms the non-finite
 guard, in the JAX optimizer's order: when a bucket closes, its fused
@@ -102,8 +113,29 @@ size, and a non-member raises ``ValueError``. It does not combine with
 optimizer state, then gradients, then parameters sharded over the ranks;
 ``zero.py``, whose surfaces this module also exports).
 
-Not ported yet (they raise ``NotImplementedError`` naming their slice):
-a non-finite guard or ``accum_steps`` with ``op=Adasum``.
+``overlap=True`` (D2, the JAX keyword; ``common/overlap.py``) moves every
+bucket's reduction onto the optimizer's :class:`~.common.overlap.
+IssueWorker`: when a bucket closes, its whole hop chain — for an int8_ef
+bucket quantize (K3), all_to_all, dequantize and sum, requantize,
+all_gather; for a routed bucket ``mesh_allreduce``'s phases; for any
+other the all-reduce — is submitted, in plan order on every rank (a
+bucket that closes early waits for the ones before it), and runs on the
+worker's thread and stream while backprop goes on. ``synchronize()``
+only waits, agrees the guard's flag and writes the results (and commits
+the new residuals on a good step). The values are those of
+``overlap=False``, bitwise; a failed hop raises at ``synchronize()``.
+A collective of the caller's own (a SyncBatchNorm all-reduce, a metric's
+``hvd.allreduce``) waits until the chains submitted before it have run
+(``overlap.drain_before_collective``). ``op=Adasum`` accepts the keyword
+and runs as without it: its deltas exist only after the base step, when
+nothing is left to overlap them with. ``overlap=False`` (the default)
+is the synchronous path above.
+
+The ``collective`` fault site (``common/faults.py``) is consulted once a
+reduction round, at ``synchronize()``. After a failure the elastic
+restore calls ``abort_step()``, which drops the step in progress (its
+issued buckets, counters, guard round and worker); after an in-process
+reset ``rebind()`` takes the new world's axis handles.
 """
 
 from __future__ import annotations
@@ -118,9 +150,11 @@ import torch.distributed as dist
 
 from .common import basics
 from .common import config as config_lib
+from .common import faults as faults_lib
 from .common import fusion as fusion_lib
 from .common import integrity as integrity_lib
 from .common import metrics as metrics_lib
+from .common import overlap as overlap_lib
 from .common import tree as tree_lib
 from .ops import adasum as adasum_lib
 from .ops import collectives as C
@@ -145,16 +179,16 @@ def _ef_key(step: int, bucket_index: int):
     """The stochastic-rounding key of one bucket at one step."""
     return (_EF_SEED, int(step), int(bucket_index))
 
-# How a bucket reduced at synchronize() is reduced there (the first field
-# of its in-flight record, in place of a work handle): an int8_ef bucket
-# through the quantized reduction with its residual, any other bucket of
-# a routed optimizer through the mesh router.
+# How a bucket is reduced (the first field of its record before it is
+# issued; an issued synchronous bucket holds its work handle there): an
+# int8_ef bucket through the quantized reduction with its residual, any
+# other bucket of a routed optimizer through the mesh router, the rest by
+# one all-reduce.
 _DEFERRED_INT8 = "int8"
 _DEFERRED_ROUTED = "routed"
+# A bucket whose all-reduce issues at once (under D2: on the worker).
+_ISSUED = "issued"
 _LINEAR_OPS = (C.Average, C.Sum)
-# What Queue 1 of ROADMAP.md still owes the Adasum optimizer.
-_ADASUM_LATER = ("a later item of Queue 1 of the port (the Adasum "
-                 "optimizer with {what})")
 
 
 # -- accumulation with remat (horovod_tpu/optim.py:598-755) -----------------
@@ -434,7 +468,8 @@ class _DistributedOptimizerMixin:
     def _dist_init(self, base_cls, named_parameters, op, k, compression,
                    predivide, threshold, quantize_min_bytes,
                    sparse_as_dense, guard_policy=None, scale_cfg=None,
-                   accum_k=1, remat_name="none", axis=None, route=None):
+                   accum_k=1, remat_name="none", axis=None, route=None,
+                   overlap=False):
         self._base_cls = base_cls
         #: The axis the buckets reduce over (the world or a process
         #: set's) and the route (a WirePlan, or None for the axis alone).
@@ -492,6 +527,11 @@ class _DistributedOptimizerMixin:
         self.accum_steps = accum_k
         self.remat_policy = remat_name
         self._accum: Optional[_Accumulator] = None
+        #: D2: the worker every bucket's chain runs on (made at first
+        #: use), the next bucket to submit and the closed buckets waiting
+        #: for the ones before them.
+        self.overlap = bool(overlap)
+        self._worker: Optional[overlap_lib.IssueWorker] = None
         self._reset_counts()
         self._dist_hooks = [
             p.register_post_accumulate_grad_hook(self._hook)
@@ -502,6 +542,32 @@ class _DistributedOptimizerMixin:
                             for p in self._dist_params}
         self._dist_pending = [len(b.leaf_indices)
                               for b in self._dist_plan.buckets]
+        self._ov_next = 0
+        self._ov_ready: Dict[int, tuple] = {}
+
+    def rebind(self) -> None:
+        """Take the current world's handle of this optimizer's axis
+        (after an in-process elastic reset destroyed the old groups)."""
+        self._axis = _rebound_axis(self._axis)
+
+    def abort_step(self) -> None:
+        """Give up the step in progress after a failure (the elastic
+        restore calls this before it loads the committed state): the
+        buckets issued or waiting, the delay counters, the guard's round
+        and the D2 worker (which a failed hop latched) are dropped, and
+        so are the abandoned step's gradients (``p.grad`` None). The
+        next backward starts a fresh step."""
+        if self._worker is not None:
+            self._worker.abandon()
+            self._worker = None
+        self._dist_inflight.clear()
+        self._reset_counts()
+        self._dist_dirty = False
+        self._guard_ok = None
+        self._guard_skip = False
+        self._accum = None
+        for p in self._dist_params:
+            p.grad = None
 
     def _check_sparse_grad(self, p: torch.Tensor) -> None:
         if (p.grad is not None and p.grad.is_sparse
@@ -637,17 +703,63 @@ class _DistributedOptimizerMixin:
             flat = self._guard_bucket(flat)
         self.bucket_allreduces += 1
         if self._int8_bucket(bi):
-            self._dist_inflight[bi] = (_DEFERRED_INT8, flat, None)
+            rec = (_DEFERRED_INT8, flat, None)
+        else:
+            wire, ctx = self._wire_compressor(bi).compress(flat)
+            if self._predivide != 1.0:
+                wire = C._apply_scale(wire, 1.0 / self._predivide)
+            rec = (_DEFERRED_ROUTED if self._route is not None
+                   else _ISSUED, wire, ctx)
+        if self.overlap:
+            self._submit_in_order(bi, rec)
             return
-        wire, ctx = self._wire_compressor(bi).compress(flat)
-        if self._predivide != 1.0:
-            wire = C._apply_scale(wire, 1.0 / self._predivide)
-        if self._route is not None:
-            self._dist_inflight[bi] = (_DEFERRED_ROUTED, wire, ctx)
-            return
-        work = C._allreduce_async_inplace(
-            wire, C.Sum if self.op in _LINEAR_OPS else self.op, self._axis)
-        self._dist_inflight[bi] = (work, wire, ctx)
+        if rec[0] == _ISSUED:
+            rec = (C._allreduce_async_inplace(rec[1], self._sum_op(),
+                                              self._axis),) + rec[1:]
+        self._dist_inflight[bi] = rec
+
+    def _sum_op(self):
+        return C.Sum if self.op in _LINEAR_OPS else self.op
+
+    def _submit_in_order(self, bi: int, rec: tuple) -> None:
+        """D2: submit every closed bucket whose predecessors in the plan
+        are submitted, so every rank issues the chains in plan order."""
+        self._ov_ready[bi] = rec
+        if self._worker is None:
+            self._worker = overlap_lib.IssueWorker(rec[1].device)
+            self._worker.close_with(self)
+        while self._ov_next in self._ov_ready:
+            nb = self._ov_next
+            kind, wire, ctx = self._ov_ready.pop(nb)
+            self._dist_inflight[nb] = (self._worker.submit(
+                self._chain, nb, kind, wire, ctx), wire, ctx)
+            self._ov_next += 1
+
+    def _chain(self, bi: int, kind, wire: torch.Tensor, ctx):
+        """Bucket ``bi``'s whole reduction (on the worker under D2, at
+        ``synchronize()`` otherwise): ``(reduced gradients, new residual
+        or None)``. Reads the residual and step; commits nothing."""
+        if kind == _DEFERRED_INT8:
+            return self._reduce_int8(bi, wire)
+        if kind == _DEFERRED_ROUTED:
+            wire = self._reduce_routed(wire)
+        elif kind == _ISSUED:
+            C._allreduce_async_inplace(wire, self._sum_op(),
+                                       self._axis).wait()
+        else:
+            kind.wait()         # the work handle issued in _launch
+        return self._finish_bucket(bi, wire, ctx), None
+
+    def _finish_bucket(self, bi: int, wire: torch.Tensor, ctx):
+        """A reduced SUM wire -> the bucket's gradients: the average's
+        division (or predivide's postscale), then decompression."""
+        if self.op == C.Average:
+            if self._predivide != 1.0:
+                wire = C._apply_scale(wire, self._predivide
+                                      / self._axis.size)
+            else:
+                wire = C._divide_by_size(wire, self._axis.size)
+        return self._wire_compressor(bi).decompress(wire, ctx)
 
     def _reduce_routed(self, w: torch.Tensor) -> torch.Tensor:
         """The route's reduction of a non-int8 bucket: the SUM through
@@ -662,10 +774,11 @@ class _DistributedOptimizerMixin:
             else self._route.with_wires("none")
         return C.mesh_allreduce(w, C.Sum, plan)
 
-    def _reduce_int8(self, bi: int, flat: torch.Tensor) -> torch.Tensor:
+    def _reduce_int8(self, bi: int, flat: torch.Tensor):
         """The error-feedback quantized reduction of bucket ``bi``: reduce
-        ``g + residual`` through ``quantized_allreduce`` and keep its local
-        error as the next residual (in unscaled gradient units)."""
+        ``g + residual`` through ``quantized_allreduce``; returns the
+        reduced gradients and the local error, the next residual (in
+        unscaled gradient units), which ``synchronize()`` commits."""
         res = self._ef_residual.get(bi)
         corrected = flat.to(torch.float32)
         if res is not None:
@@ -684,51 +797,50 @@ class _DistributedOptimizerMixin:
                                            axis=self._axis)
         if self._predivide != 1.0:
             res = res * self._predivide
-        self._ef_residual[bi] = res
-        return C._apply_scale(y, post).to(flat.dtype)
+        return C._apply_scale(y, post).to(flat.dtype), res
 
     def synchronize(self) -> None:
         """Reduce every bucket not yet issued (a parameter mid-aggregation
         or without a gradient included), wait for all of them and write
-        the reduced gradients into ``p.grad``."""
+        the reduced gradients into ``p.grad``; under ``int8_ef`` commit
+        the new residuals and advance the rounding step (a step the guard
+        skips commits nothing)."""
         if not self._dist_dirty and not self._dist_inflight:
             return
+        faults_lib.maybe_collective_fault()
         for bi in range(len(self._dist_plan.buckets)):
-            if bi not in self._dist_inflight:
+            if bi not in self._dist_inflight and bi not in self._ov_ready:
                 self._launch(bi)
+        done = {}
+        if self.overlap:
+            # Every chain, in plan order; a failed hop raises here.
+            for bi in sorted(self._dist_inflight):
+                done[bi] = self._dist_inflight[bi][0].wait()
         if self._guard is not None and self._agree() is False:
             # A globally agreed bad step: finish the bucket collectives
             # every rank issued, discard their results, reduce no int8
             # bucket (residual and rounding step unchanged) and leave
             # p.grad as backprop left it; step() skips the update.
-            for work, _, _ in self._dist_inflight.values():
-                if not isinstance(work, str):
-                    work.wait()
+            if not self.overlap:
+                for work, _, _ in self._dist_inflight.values():
+                    if not isinstance(work, str):
+                        work.wait()
             self._dist_inflight.clear()
             self._reset_counts()
             self._dist_dirty = False
             self._guard_skip = True
             return
         self._guard_skip = False
-        n = self._axis.size
-        for bi in sorted(self._dist_inflight):
-            work, wire, ctx = self._dist_inflight[bi]
-            if work == _DEFERRED_INT8:
-                flat = self._reduce_int8(bi, wire)
-            else:
-                if work == _DEFERRED_ROUTED:
-                    wire = self._reduce_routed(wire)
-                else:
-                    work.wait()
-                if self.op == C.Average:
-                    if self._predivide != 1.0:
-                        wire = C._apply_scale(wire, self._predivide / n)
-                    else:
-                        wire = C._divide_by_size(wire, n)
-                flat = self._wire_compressor(bi).decompress(wire, ctx)
+        if not self.overlap:
+            for bi in sorted(self._dist_inflight):
+                done[bi] = self._chain(bi, *self._dist_inflight[bi])
+        for bi in sorted(done):
+            flat, res = done[bi]
             for i, view in fusion_lib.unfuse_bucket(
                     flat, self._dist_plan.buckets[bi]):
                 self._dist_params[i].grad.copy_(view)
+            if res is not None:
+                self._ef_residual[bi] = res
         self._dist_inflight.clear()
         self._reset_counts()
         self._dist_dirty = False
@@ -811,10 +923,18 @@ class _DistributedOptimizerMixin:
 
 class _DistributedAdasumMixin:
     """Delta-based Adasum methods grafted onto the user's optimizer class
-    (the JAX package's torch surface, ``_DistributedAdasumMixin``)."""
+    (the JAX package's torch surface, ``_DistributedAdasumMixin``), with
+    the non-finite guard and accumulation of the JAX optimizer's Adasum
+    core (see the module docstring)."""
+
+    # The guard's pass over one gradient and its agreement are
+    # DistributedOptimizer's.
+    _guard_bucket = _DistributedOptimizerMixin._guard_bucket
+    _agree = _DistributedOptimizerMixin._agree
 
     def _dist_init(self, base_cls, named_parameters, wire, axis=None,
-                   route=None):
+                   route=None, guard_policy=None, scale_cfg=None,
+                   accum_k=1, remat_name="none", overlap=False):
         self._base_cls = base_cls
         self._adasum_wire = wire
         self._axis = C._axis(axis)
@@ -824,6 +944,63 @@ class _DistributedAdasumMixin:
             self._dist_names = {id(p): n for n, p in named_parameters}
         #: Per-tensor Adasum reductions run so far.
         self.adasum_reductions = 0
+        self._guard = None
+        if guard_policy is not None:
+            params = self._all_params()
+            dev = params[0].device if params else basics.device()
+            self._guard = integrity_lib.init_guard_state(guard_policy,
+                                                         scale_cfg, dev)
+        self._scale_cfg = scale_cfg
+        self._guard_ok: Optional[torch.Tensor] = None
+        self._guard_skip = False
+        #: Guard agreements run so far (one a step).
+        self.guard_agreements = 0
+        self.accum_steps = accum_k
+        self.remat_policy = remat_name
+        #: Accepted and changes nothing: every delta exists only after
+        #: the base step, so there is nothing left to overlap them with.
+        self.overlap = bool(overlap)
+
+    def _all_params(self) -> List[torch.Tensor]:
+        return [p for group in self.param_groups for p in group["params"]]
+
+    def rebind(self) -> None:
+        """Take the current world's handle of this optimizer's axis."""
+        self._axis = _rebound_axis(self._axis)
+
+    def abort_step(self) -> None:
+        """Give up the step in progress after a failure: the guard's
+        round and the abandoned step's gradients (``p.grad`` None)."""
+        self._guard_ok = None
+        self._guard_skip = False
+        for p in self._all_params():
+            p.grad = None
+
+    def accumulate(self, loss_fn: Callable, has_aux: bool = False
+                   ) -> Callable:
+        """:func:`accumulate_gradients` with this optimizer's
+        ``accum_steps`` and ``remat_policy``: ``fn(*batch)`` leaves the
+        mean gradient of the microbatches in ``p.grad``; then ``step()``
+        takes one delta step."""
+        return accumulate_gradients(loss_fn, self.accum_steps,
+                                    self.remat_policy, has_aux)
+
+    def _guarded(self, params) -> bool:
+        """The guard on the local gradients, in the JAX core's order:
+        unscale each (K1 under ``scale_backoff``), AND its finite flag,
+        sanitize under ``zero``; agree the flag with one MIN all-reduce.
+        Returns False for a step the agreement skips, leaving every
+        ``p.grad`` as it was; else sets the guarded gradients."""
+        grads = [p for p in params
+                 if p.grad is not None and p.grad.is_floating_point()]
+        guarded = [self._guard_bucket(p.grad) for p in grads]
+        ok = self._agree()
+        self._guard_skip = ok is False
+        if self._guard_skip:
+            return False
+        for p, g in zip(grads, guarded):
+            p.grad = g
+        return True
 
     def _reduce_delta(self, delta: torch.Tensor) -> torch.Tensor:
         """The Adasum of every rank's ``delta``: over the axis, or through
@@ -836,9 +1013,14 @@ class _DistributedAdasumMixin:
         return C.mesh_allreduce(w, C.Adasum, self._route).to(delta.dtype)
 
     def step(self, closure=None):
-        """The base optimizer's step on the local gradients, then every
-        parameter's delta replaced by the Adasum of all ranks' deltas."""
-        params = [p for group in self.param_groups for p in group["params"]]
+        """The guard (when armed), then the base optimizer's step on the
+        local gradients, then every parameter's delta replaced by the
+        Adasum of all ranks' deltas. A step the guard skips returns None
+        and changes nothing."""
+        params = self._all_params()
+        faults_lib.maybe_collective_fault()
+        if self._guard is not None and not self._guarded(params):
+            return None
         with torch.no_grad():
             before = [p.detach().clone() for p in params]
         result = self._base_cls.step(self, closure)
@@ -847,6 +1029,19 @@ class _DistributedAdasumMixin:
                 p.copy_(b + self._reduce_delta(p.detach() - b))
                 self.adasum_reductions += 1
         return result
+
+
+def _rebound_axis(axis):
+    """``axis``'s handle in the current world (the world, or the mesh
+    axis of its name); a process set's axis must be registered anew."""
+    ctx = basics.context()
+    if axis.name == ctx.world_axis.name:
+        return ctx.world_axis
+    if axis.name in ctx.axes:
+        return ctx.axes[axis.name]
+    raise ValueError(f"rebind: axis {axis.name!r} is not part of the new "
+                     "world; register the process set again and build a "
+                     "new optimizer")
 
 
 def _graft(optimizer: torch.optim.Optimizer, mixin) -> Any:
@@ -874,7 +1069,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          accum_steps: Optional[int] = None,
                          remat_policy: Optional[str] = None,
                          route=None,
-                         zero_stage: int = 0):
+                         zero_stage: int = 0,
+                         overlap: bool = False):
     """Wrap ``optimizer`` so ``step()`` first averages (``op=Average``) or
     sums (``op=Sum``) the gradients across ranks, in fused buckets, or
     (``op=Adasum``) reduces the optimizer's per-parameter deltas by
@@ -907,9 +1103,12 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     through the mesh router, ``process_set`` over a registered set's
     ranks alone (see the module's docstring).
 
+    ``overlap=True`` runs the reduction on a background worker in plan
+    order (D2; values unchanged, see the module docstring).
+
     ``zero_stage`` 1, 2 or 3 returns ``zero.ZeroOptimizer(optimizer,
     zero_stage, ...)`` with this call's op, threshold, compression,
-    guard, route and accumulation. It refuses
+    guard, route, accumulation and overlap. It refuses
     ``backward_passes_per_step != 1`` and a predivide factor other than
     1, as the JAX package refuses them, and ``process_set``."""
     op = C.ReduceOp(op)
@@ -935,7 +1134,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
             optimizer, zero_stage=int(zero_stage), grad_op=op,
             fusion_threshold_bytes=fusion_threshold_bytes,
             compression=compression, nonfinite_policy=nonfinite_policy,
-            route=route, accum_steps=accum_steps, remat_policy=remat_policy)
+            route=route, accum_steps=accum_steps, remat_policy=remat_policy,
+            overlap=overlap)
     if gradient_predivide_factor != 1.0 and op != C.Average:
         raise ValueError("gradient_predivide_factor requires op=Average")
     axis = None
@@ -963,13 +1163,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
             "microbatched accumulate(); backward_passes_per_step the "
             "call-per-microbatch aggregation)")
     guard_policy = integrity_lib.resolve_nonfinite_policy(nonfinite_policy)
+    scale_cfg = integrity_lib.ScaleConfig.from_env()
     if op == C.Adasum:
-        for what, on in (("a non-finite guard", guard_policy is not None),
-                         ("accum_steps > 1", accum_k > 1)):
-            if on:
-                raise NotImplementedError(
-                    f"op=Adasum with {what} is not ported yet; it comes "
-                    f"with " + _ADASUM_LATER.format(what=what))
         if k != 1:
             raise NotImplementedError(
                 "backward_passes_per_step > 1 is not supported with "
@@ -984,7 +1179,9 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
             raise ValueError(f"op=Adasum takes compression none, bf16 or "
                              f"int8_ef, got {compressor.__name__}")
         obj = _graft(optimizer, _DistributedAdasumMixin)
-        obj._dist_init(optimizer.__class__, named_parameters, wire, axis, plan)
+        obj._dist_init(optimizer.__class__, named_parameters, wire, axis,
+                       plan, guard_policy, scale_cfg, accum_k, remat_name,
+                       overlap)
         return obj
     threshold = cfg.fusion_threshold_bytes if fusion_threshold_bytes is None \
         else int(fusion_threshold_bytes)
@@ -993,9 +1190,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     obj = _graft(optimizer, _DistributedOptimizerMixin)
     obj._dist_init(optimizer.__class__, named_parameters, op, k, compressor,
                    float(gradient_predivide_factor), threshold, qmin,
-                   bool(sparse_as_dense), guard_policy,
-                   integrity_lib.ScaleConfig.from_env(), accum_k, remat_name,
-                   axis, plan)
+                   bool(sparse_as_dense), guard_policy, scale_cfg, accum_k,
+                   remat_name, axis, plan, overlap)
     return obj
 
 
@@ -1080,6 +1276,7 @@ def broadcast_optimizer_state(optimizer: torch.optim.Optimizer,
         sd = optimizer.state_dict()
         sd.pop(_EF_STATE, None)
         box = [_map_tensors(sd, take)]
+    overlap_lib.drain_before_collective()
     dist.broadcast_object_list(box, src=root_rank)
     state = None if root else _map_tensors(box[0], alloc)
     for t in tensors:

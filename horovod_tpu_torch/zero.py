@@ -72,12 +72,33 @@ updates from the shards with no second reduction, and the EF residual
 advances only on a full-gradient step (the JAX package's contract).
 Stage 3 frees each parameter's storage at rest (``untyped_storage().
 resize_(0)``), so a rank keeps 1/n of the weights between steps;
-``gather_params()`` materializes them (one all-gather a bucket, in bucket
-order, synchronously: the JAX package chains bucket k+1's gather under
-bucket k's compute, which changes the schedule and not a value — left
-for the overlap item, D2) and ``step()`` reduce-scatters, updates the
-shards and frees the storage again. ``accumulate`` gathers once per
-effective step.
+``gather_params()`` materializes them (one all-gather a bucket) and
+``step()`` reduce-scatters, updates the shards and frees the storage
+again. ``accumulate`` gathers once per effective step. With
+``overlap=True`` (the default, as in the JAX ``ZeroOptimizer``; D2)
+the bucket gathers run on the optimizer's
+:class:`~.common.overlap.IssueWorker`, in the forward's bucket order (the
+order of each bucket's first parameter: the plan is JAX's flatten order
+unless ``bucket_order`` pins another; under a reverse plan the forward
+walks the buckets from the last to the first). ``accumulate``'s step
+allocates the parameters, submits the first bucket's gather and runs
+its first microbatch's forward under a ``TorchFunctionMode``: before
+any torch function that takes a parameter of a bucket not yet in (a
+module's forward, a functional ``F.linear``, a tied head's
+``weight.to``) it submits that bucket's and the next bucket's gathers
+and waits on that bucket alone — so bucket k+1's all-gather runs under
+bucket k's forward, whichever way the model reads its weights. Every
+gather still outstanding is finished before this thread issues a
+collective of its own (the reduce after the backward, ``step()``,
+``gather_state``...). A direct ``gather_params()`` runs the gathers on
+the worker too and waits on all of them before it returns. A collective
+that the model's forward issues itself (``SyncBatchNorm``, a metric's
+``hvd.allreduce``) first waits until the gathers submitted before it
+have run (``overlap.drain_before_collective``), so every rank issues it
+after the same gathers. The values are ``overlap=False``'s, bitwise;
+only the schedule moves. After a failure the elastic restore calls
+``abort_step()``: the prefetch, the worker, the kept shard gradients
+and (stage 3) the gathered parameters are dropped.
 
 Telemetry: ``hvd_tpu_zero_gather_bytes_total{kind,wire,axis}`` counts,
 per call on the host (the JAX metric counts per device at trace time),
@@ -95,6 +116,7 @@ its parameters from construction.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import math
@@ -104,9 +126,11 @@ import torch
 
 from . import optim as optim_lib
 from .common import basics
+from .common import faults as faults_lib
 from .common import fusion as fusion_lib
 from .common import integrity as integrity_lib
 from .common import metrics as metrics_lib
+from .common import overlap as overlap_lib
 from .checkpoint import Partial, Shard
 from .common.config import Config, env_int
 from .ops import collectives as C
@@ -592,6 +616,52 @@ def _write_gathered(state: ShardState, params, kind: str) -> None:
 
 # -- the optimizer surfaces -----------------------------------------------------
 
+@dataclasses.dataclass
+class _Prefetch:
+    """A stage-3 prefetch in flight: the forward's bucket order, which
+    bucket holds each parameter, the gathers submitted and not waited
+    on, the buckets in, and how far the submissions got."""
+
+    order: List[int]
+    bucket_of: dict
+    pending: dict = dataclasses.field(default_factory=dict)
+    landed: set = dataclasses.field(default_factory=set)
+    next: int = 0
+
+    def __post_init__(self):
+        self.position = {bi: k for k, bi in enumerate(self.order)}
+
+
+def _tensor_ids(args, kwargs):
+    """The ids of the tensors among a call's arguments (one level into
+    lists, tuples and dicts)."""
+    out = []
+    for a in list(args) + list(kwargs.values()):
+        if isinstance(a, torch.Tensor):
+            out.append(id(a))
+        elif isinstance(a, (list, tuple)):
+            out.extend(id(x) for x in a if isinstance(x, torch.Tensor))
+        elif isinstance(a, dict):
+            out.extend(id(x) for x in a.values()
+                       if isinstance(x, torch.Tensor))
+    return out
+
+
+class _PrefetchMode(torch.overrides.TorchFunctionMode):
+    """Waits on a parameter's bucket before the first torch function
+    that takes the parameter (see the module docstring)."""
+
+    def __init__(self, opt: "ZeroOptimizer"):
+        super().__init__()
+        self.opt = opt
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if self.opt._prefetch is not None:
+            self.opt._await_params(_tensor_ids(args, kwargs))
+        return func(*args, **kwargs)
+
+
 def _resident(stage: int, tensors) -> None:
     if _METRICS_ON:
         _M_ZERO_RESIDENT.labels(stage=str(stage)).set(
@@ -617,7 +687,9 @@ class ZeroOptimizer(torch.optim.Optimizer):
       storage is freed and the shards are the master values;
       ``gather_params()`` materializes the parameters, ``accumulate``
       gathers them once per effective step, and ``step()`` reduces,
-      updates the shards and frees the parameters again.
+      updates the shards and frees the parameters again. ``overlap``
+      (default True) runs the gathers on a background worker under the
+      forward, a bucket ahead.
 
     ``compression="int8_ef"``, ``route=`` and ``nonfinite_policy=`` as in
     the module docstring; ``bucket_order`` pins the stage-3 plan's leaf
@@ -631,7 +703,8 @@ class ZeroOptimizer(torch.optim.Optimizer):
                  fusion_threshold_bytes: Optional[int] = None,
                  compression=None, nonfinite_policy: Optional[str] = None,
                  route=None, accum_steps: Optional[int] = None,
-                 remat_policy: Optional[str] = None, bucket_order=None):
+                 remat_policy: Optional[str] = None, bucket_order=None,
+                 overlap: bool = True):
         # Not Optimizer.__init__: the groups are the wrapped optimizer's
         # and the state is the shards'.
         stage = int(zero_stage)
@@ -656,6 +729,11 @@ class ZeroOptimizer(torch.optim.Optimizer):
         self.param_groups = optimizer.param_groups
         self._shard_grads: Optional[List[torch.Tensor]] = None
         self._materialized = True
+        #: D2 (stage 3): the worker the parameter gathers run on, and the
+        #: prefetch in flight (None when every bucket is in).
+        self.overlap = bool(overlap)
+        self._worker: Optional[overlap_lib.IssueWorker] = None
+        self._prefetch: Optional[_Prefetch] = None
         if stage == 3:
             self._free_params()
         else:
@@ -694,9 +772,11 @@ class ZeroOptimizer(torch.optim.Optimizer):
         size (:meth:`ShardState.gather_state`): checkpoint it across an
         elastic resize and :meth:`reshard_state` it in the new world,
         which must use the same fusion threshold (the bucket plan)."""
+        self._finish_prefetch()
         return self.shard_state.gather_state()
 
     def reshard_state(self, full: dict) -> None:
+        self._finish_prefetch()
         self.shard_state.reshard_state(full)
 
     def state_dict(self) -> dict:
@@ -812,7 +892,41 @@ class ZeroOptimizer(torch.optim.Optimizer):
                              f"stay replicated under zero_stage="
                              f"{self.zero_stage})")
 
+    def rebind(self) -> None:
+        """Take the current world's axis handles (after an in-process
+        elastic reset destroyed the old groups); the shard grid must not
+        change (a resized world goes through :meth:`gather_state` and
+        :meth:`reshard_state`)."""
+        st = self.shard_state
+        if st.route is None:
+            st._axis = optim_lib._rebound_axis(st._axis)
+        if _grid(st._axis if st.route is None else None, st.route) != \
+                (st.n, st.index):
+            raise ValueError("rebind: the new world has another shard grid;"
+                             " gather_state() before the reset and "
+                             "reshard_state() after it")
+
+    def abort_step(self) -> None:
+        """Give up the step in progress after a failure (the elastic
+        restore calls this before it loads the committed state): the
+        prefetch and its worker (which a failed gather latched), the
+        kept shard gradients, the gradients, and under stage 3 the
+        gathered parameters, freed without waiting on the gathers."""
+        if self._worker is not None:
+            self._worker.abandon()
+            self._worker = None
+        self._prefetch = None
+        self._shard_grads = None
+        for p in self.params:
+            p.grad = None
+            if self.zero_stage == 3:
+                p.untyped_storage().resize_(0)
+        if self.zero_stage == 3:
+            self._materialized = False
+            _resident(3, self.shard_state.shards)
+
     def _free_params(self) -> None:
+        self._finish_prefetch()
         for p in self.params:
             p.grad = None
             p.untyped_storage().resize_(0)
@@ -824,6 +938,7 @@ class ZeroOptimizer(torch.optim.Optimizer):
         parameters (after the caller changed them, e.g. loaded a model
         state dict) and free the parameters. Returns the shards."""
         self._require_stage3("shard_params")
+        self._finish_prefetch()
         if not self._materialized:
             raise ValueError("shard_params needs materialized parameters "
                              "(call gather_params first)")
@@ -833,14 +948,81 @@ class ZeroOptimizer(torch.optim.Optimizer):
 
     def gather_params(self) -> None:
         """Stage 3: materialize every parameter from the shards (one exact
-        all-gather a bucket)."""
+        all-gather a bucket; under ``overlap`` on the worker, waited on
+        before this returns — ``accumulate`` gathers under its forward
+        instead, see the module docstring)."""
         self._require_stage3("gather_params")
+        self._start_gather()
+        self._finish_prefetch()
+
+    def _start_gather(self) -> None:
+        """Allocate the parameters and gather them: at once, or under
+        ``overlap`` submit the forward's first bucket to the worker."""
         if self._materialized:
             return
         for p in self.params:
             p.untyped_storage().resize_(p.numel() * p.element_size())
-        _write_gathered(self.shard_state, self.params, "param")
         self._materialized = True
+        if not self.overlap:
+            _write_gathered(self.shard_state, self.params, "param")
+            return
+        if self._worker is None:
+            self._worker = overlap_lib.IssueWorker(
+                self.shard_state.shards[0].device
+                if self.shard_state.shards else None)
+            self._worker.close_with(self)
+        buckets = self.shard_state.plan.buckets
+        self._prefetch = _Prefetch(
+            sorted(range(len(buckets)),
+                   key=lambda bi: min(buckets[bi].leaf_indices)),
+            {id(self.params[i]): bi for bi, b in enumerate(buckets)
+             for i in b.leaf_indices})
+        self._issue_upto(0)
+
+    def _gather_bucket(self, bi: int) -> None:
+        """One bucket's parameters from the shards (on the worker)."""
+        st = self.shard_state
+        b = st.plan.buckets[bi]
+        full = st.gather(st.shards[bi], b.total_elems, "param")
+        with torch.no_grad():
+            for i, view in fusion_lib.unfuse_bucket(full, b):
+                self.params[i].copy_(view)
+
+    def _issue_upto(self, pos: int) -> None:
+        """Submit the gathers of the forward's buckets up to position
+        ``pos``, in forward order."""
+        pf = self._prefetch
+        while pf.next <= min(pos, len(pf.order) - 1):
+            bi = pf.order[pf.next]
+            pf.pending[bi] = self._worker.submit(self._gather_bucket, bi)
+            pf.next += 1
+
+    def _await_params(self, ids) -> None:
+        """Before a use of the parameters ``ids``: each of their buckets
+        not yet in, in forward order, with the next bucket's gather
+        submitted first."""
+        pf = self._prefetch
+        need = {pf.bucket_of[i] for i in ids if i in pf.bucket_of} \
+            - pf.landed
+        for bi in sorted(need, key=pf.position.__getitem__):
+            self._issue_upto(pf.position[bi] + 1)
+            pf.pending.pop(bi).wait()
+            pf.landed.add(bi)
+        if len(pf.landed) == len(pf.order):
+            self._prefetch = None
+
+    def _finish_prefetch(self) -> None:
+        """Every outstanding gather submitted and waited on (before this
+        thread issues a collective of its own)."""
+        pf = self._prefetch
+        if pf is None:
+            return
+        self._issue_upto(len(pf.order))
+        for bi in pf.order:
+            if bi not in pf.landed:
+                pf.pending.pop(bi).wait()
+                pf.landed.add(bi)
+        self._prefetch = None
 
     # -- steps ----------------------------------------------------------------
 
@@ -852,6 +1034,8 @@ class ZeroOptimizer(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        self._finish_prefetch()
+        faults_lib.maybe_collective_fault()
         shard_grads, self._shard_grads = self._shard_grads, None
         _step(self.shard_state, self.params, [p.grad for p in self.params],
               shard_grads, stage3=self.zero_stage == 3)
@@ -875,16 +1059,21 @@ class ZeroOptimizer(torch.optim.Optimizer):
 
         def fn(*batch):
             if self.zero_stage == 3:
-                self.gather_params()
+                self._start_gather()
             st = self.shard_state
             mbs = [batch] if k == 1 else \
                 optim_lib._split_microbatches(batch, k)
             acc = v_sum = aux_sum = value = aux = None
             for mb in mbs:
-                out = inner(*mb)
+                # The stage-3 prefetch: the first forward waits on each
+                # bucket as it first reads it.
+                with _PrefetchMode(self) if self._prefetch is not None \
+                        else contextlib.nullcontext():
+                    out = inner(*mb)
                 value, aux = out if has_aux else (out, None)
                 self.zero_grad()
                 value.backward()
+                self._finish_prefetch()
                 grads = [p.grad for p in self.params]
                 shards = [st.reduce(bi, _grad_flat(self.params, grads, b),
                                     exact=True)[0]

@@ -282,11 +282,13 @@ def test_distributed_optimizer_contract(world1):
         opt.step()
     assert opt.bucket_allreduces == 3       # no second reduction
     opt.zero_grad()
+    # The Adasum optimizer takes the guard and accumulation (slice 12).
     for kw in ({"nonfinite_policy": "skip_step", "op": hvd.Adasum},
                {"accum_steps": 2, "op": hvd.Adasum}):
-        with pytest.raises(NotImplementedError):
-            hvd.DistributedOptimizer(torch.optim.SGD(m.parameters(),
-                                                     lr=0.1), **kw)
+        opt = hvd.DistributedOptimizer(torch.optim.SGD(m.parameters(),
+                                                       lr=0.1), **kw)
+        assert (opt._guard is not None) == ("nonfinite_policy" in kw)
+        assert opt.accum_steps == kw.get("accum_steps", 1)
     # The guard and accumulation are ported (slice 9), the route (slice
     # 10): accepted; a world of one has no mesh axes, so the route falls
     # back to the flat axis.
@@ -315,20 +317,23 @@ def test_distributed_optimizer_contract(world1):
                                   "ZeroOptimizer", "accumulate_gradients",
                                   "observe_guard", "models.bert_large",
                                   "models.ResNet50", "save_sharded",
-                                  "chaos_poison"])
+                                  "chaos_poison", "flight_recorder"])
 def test_later_slices_raise_not_implemented(name):
     """The JAX package's API that later slices bring is present by name
     and raises NotImplementedError naming its slice. The models slice
     (BERT, ResNet, ...), slice 9 (``accumulate_gradients``,
     ``observe_guard``, ...), slice 10 (``ProcessSet``,
-    ``add_process_set``, ...) and slice 11 (``ZeroOptimizer``,
-    ``save_sharded``, ...) are ported: their names resolve."""
+    ``add_process_set``, ...), slice 11 (``ZeroOptimizer``,
+    ``save_sharded``, ...) and slice 12 (``chaos_poison``, ``run``,
+    ``save_state``, ...) are ported: their names resolve.
+    ``flight_recorder`` waits for the telemetry slice."""
     import horovod_tpu_torch.models as models
 
     mod, attr = (models, name.split(".")[1]) if "." in name else (hvd, name)
     if mod is models or name in ("accumulate_gradients", "observe_guard",
                                  "add_process_set", "ProcessSet",
-                                 "ZeroOptimizer", "save_sharded"):
+                                 "ZeroOptimizer", "save_sharded",
+                                 "chaos_poison"):
         assert callable(getattr(mod, attr))
     else:
         with pytest.raises(NotImplementedError, match="slice"):
