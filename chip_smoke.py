@@ -308,7 +308,8 @@ Phases (any failure exits non-zero and prints no result line):
    -H hostA:1,hostB:1`` with ``HVD_TPU_ELASTIC_FORCE_LOCAL=1`` (both
    named hosts on this machine, one world of 2 gloo processes on the
    card) and a 3 s blacklist TTL runs this script as
-   ``--elastic-worker``: GPT-2 medium at full width, B = 4, S = 512 a
+   ``--elastic-worker``: GPT-2 medium's widths at 2 of its 24 layers
+   (the depth cut that makes room for phase 9), B = 4, S = 512 a
    rank, int8_ef AdamW, ``hvd.elastic.TorchState(model, optimizer,
    step)`` under ``hvd.elastic.run``, each step's batch seeded from
    (step, rank), a commit every step and ``checkpoint.save_state`` (each
@@ -325,7 +326,41 @@ Phases (any failure exits non-zero and prints no result line):
    loss within 1e-3 instead). Printed per fault: seconds from the
    injection to the first step completed after it; commit ms, persist s
    and bytes, restore s.
-9. Result lines: the per-kernel JSON record (K1-K9, each with
+9. Telemetry and control. (a) What telemetry costs a step: this script
+   as ``--telemetry-worker``, the train phase's geometry (GPT-2 medium,
+   B = 8 x 512, n = 1, 2 + 5 AdamW steps under ``hvd.StepTimer``
+   phases) in two processes, telemetry off (``HVD_TPU_METRICS=0``, no
+   flight recorder, no stall check) then on (``/metrics`` on an
+   ephemeral port scraped once a second by this process, the JSON-lines
+   dump, the stall watchdog, the flight recorder): losses bitwise equal;
+   each arm's step ms. (b) The control run: ``python -m
+   horovod_tpu_torch.runner.launch --elastic -np 3 --min-np 2 --max-np 3
+   -H hostA:1,hostB:1,hostC:1 --metrics-port 0 --pod-metrics-port 0
+   --autoscale-policy JSON --autoscale-log FILE --host-discovery-script
+   SCRIPT`` with ``HVD_TPU_ELASTIC_FORCE_LOCAL=1`` (one world of 3 gloo
+   processes on the card) over ``--elastic-worker``: GPT-2 medium at full
+   width
+   (24 layers), B = 4 x 512 a rank, 14 steps, int8_ef AdamW, a commit
+   a step, the per-step eager loss allreduce, the committed state
+   persisted at each driver-managed exit; the hosts from a discovery
+   script whose list this process edits (hostC leaves it at its
+   eviction and returns after a step at n = 2; a 10 s exile); a
+   straggler on hostC (1.2 s a commit, its first process only) and a 9 s
+   ``collective_stall`` on hostB's third loss allreduce (between the
+   6 s stall check time and the 120 s fatal bound). Once
+   the world is back at 3, this process sends SIGUSR2 to each worker.
+   Checks: exit 0 and the final step; the first decision evicts hostC
+   for ``straggler`` and a grow follows; the world goes 3 -> 2 -> 3;
+   every restore bitwise its commit; ``/pod/metrics.json`` (scraped
+   every 0.5 s) names hostC's rank slowest of 3 with a positive skew
+   before the eviction and sees 2 ranks after it; hostB's ``/metrics``
+   counts a stall warning; every worker's samples carry ``rank``,
+   ``size`` and ``host``; each signaled worker writes a ``sigusr2``
+   black box and steps on, and ``tools/flight_diff.py --json`` (a
+   subprocess) accepts the three boxes. Printed: seconds from the
+   eviction decision to the first step at n = 2 and from the grow to
+   the first at n = 3, commit ms, peak GiB a rank, scrape ms.
+10. Result lines: the per-kernel JSON record (K1-K9, each with
    ``launches_by_path``, every path above 0, and ``launches`` their
    sum: K5/K6/K7 for the GPT training, BERT, ViT and the two guarded
    integrity runs and the ZeRO phase; K1 for the eager loop, the
@@ -333,8 +368,8 @@ Phases (any failure exits non-zero and prints no result line):
    serving and the mesh phase; K3 for the n = 2 multi-rank run, the mesh
    phase and the ZeRO phase's (c); K8 and K9 for the n = 2 multi-rank run
    and the mesh phase; phase 7d for K1, K3, K5-K9; phase 8's clean run
-   for K3 and K5-K7), the card line, and last ``{"ok": true,
-   "device": {...}}``.
+   and phase 9 (b)'s rank 0 first process for K3 and K5-K7), the card
+   line, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` also traces the serve run and two extra training steps of
 GPT-2 medium, each integrity run, BERT-large, ViT-B/16 and ResNet-50
@@ -4782,6 +4817,10 @@ ELASTIC_HOSTS = "hostA:1,hostB:1"
 # model, per-rank batch, sequence length, steps, persist every, int8_ef's
 # smallest quantized bucket (None: the default)
 ELASTIC_RUN = ("gpt_medium", 4, 512, 9, 3, None)
+# GPT-2 medium's widths at 2 of its 24 layers: the depth cut that keeps
+# the smoke inside its time with phase 9 after it (a persist of the
+# full depth, 5.66 GB a rank, took 18.6-20.0 s of each recovery).
+ELASTIC_LAYERS = 2
 # The fault plan in GLOBAL training steps: a rendezvous 5xx on hostA's
 # second poll, a collective fault on hostB at step 4, a hard crash of
 # hostB's worker at step 6 (a real gloo peer death) and a SIGTERM
@@ -4864,6 +4903,7 @@ def elastic_worker(cfg_path: str) -> None:
     from horovod_tpu_torch import checkpoint as ckpt
     from horovod_tpu_torch import elastic
     from horovod_tpu_torch.common import faults
+    from horovod_tpu_torch.common.exceptions import HostsUpdatedInterrupt
     from horovod_tpu_torch.models import gpt as gpt_mod
 
     with open(cfg_path) as f:
@@ -4871,7 +4911,8 @@ def elastic_worker(cfg_path: str) -> None:
     dev = cfg["device"]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    hvd.init(device="cpu") if dev == "cpu" else hvd.init(backend="gloo")
+    ctx = hvd.init(device="cpu") if dev == "cpu" else \
+        hvd.init(backend="gloo")
     rank, n = hvd.rank(), hvd.size()
     host = os.environ.get("HVD_TPU_HOSTNAME", "")
     work = cfg["workdir"]
@@ -4880,11 +4921,14 @@ def elastic_worker(cfg_path: str) -> None:
     def log(event, **kw):
         with open(events_path, "a") as f:
             f.write(json.dumps({"event": event, "t": time_mod.time(),
-                                "pid": os.getpid(), "host": host, **kw})
+                                "pid": os.getpid(), "host": host, "n": n,
+                                "metrics_port": ctx.metrics_port, **kw})
                     + "\n")
 
     def build():
-        model = _make_model(torch, gpt_mod, cfg["model"], dev)
+        model = (integrity_model(torch, gpt_mod, dev, layers=cfg["layers"])
+                 if cfg.get("layers") else
+                 _make_model(torch, gpt_mod, cfg["model"], dev))
         kw = {} if cfg["qmin"] is None else \
             {"quantize_min_bucket_bytes": cfg["qmin"]}
         opt = hvd.DistributedOptimizer(
@@ -4911,7 +4955,7 @@ def elastic_worker(cfg_path: str) -> None:
     else:
         log("start", step=0)
     raw = os.environ.get("HVD_TPU_FAULT_PLAN")
-    if raw:
+    if raw and cfg.get("shift_plan", True):
         faults.install(_shifted_plan(faults, raw,
                                      os.environ["HVD_TPU_FAULT_LOG"], start))
 
@@ -4938,6 +4982,10 @@ def elastic_worker(cfg_path: str) -> None:
     elastic.on_preemption(persist)
     batch, seq = cfg["batch"], cfg["seq"]
 
+    def peak_gib():
+        return (torch.cuda.max_memory_allocated() / 2 ** 30
+                if dev == "cuda" else 0.0)
+
     @elastic.run
     def train(st):
         while st.step < cfg["steps"]:
@@ -4951,16 +4999,45 @@ def elastic_worker(cfg_path: str) -> None:
             opt.zero_grad()
             loss.backward()
             opt.step()
+            mean_loss = None
+            if cfg.get("loss_allreduce"):
+                # The metric average users run each step: one eager
+                # allreduce (phase 9's collective_stall site).
+                mean_loss = hvd.allreduce(loss.detach(),
+                                          name="loss").item()
             st.step = s + 1
             t = time_mod.perf_counter()
-            st.commit()
-            log("step", step=st.step, loss=loss.item(),
-                commit_ms=(time_mod.perf_counter() - t) * 1e3)
+            try:
+                st.commit()
+            except HostsUpdatedInterrupt:
+                # The commit saved the step before it saw the new host
+                # set: the step is done, in this world.
+                log("step", step=st.step, loss=loss.item(),
+                    mean_loss=mean_loss, interrupted=True,
+                    commit_ms=(time_mod.perf_counter() - t) * 1e3,
+                    peak_gib=peak_gib())
+                raise
+            log("step", step=st.step, loss=loss.item(), mean_loss=mean_loss,
+                commit_ms=(time_mod.perf_counter() - t) * 1e3,
+                peak_gib=peak_gib())
             if cfg["persist_every"] and st.step % cfg["persist_every"] == 0:
                 persist(st)
 
     try:
         train(state)
+    except SystemExit as e:
+        # A driver-managed exit (79: a peer failed, 80: the host set
+        # changed) leaves the live state at its last commit:
+        # persist_at_exit makes that the step the next epoch resumes.
+        if cfg.get("persist_at_exit") and e.code in (
+                elastic.PEER_FAILURE_EXIT_CODE,
+                elastic.HOSTS_UPDATED_EXIT_CODE):
+            persist(state)
+        from horovod_tpu_torch.ops import kernels as K
+
+        log("exit", step=int(state.step), code=e.code,
+            launches=dict(K.LAUNCHES), peak_gib=peak_gib())
+        raise
     except BaseException as e:
         import traceback
 
@@ -4972,7 +5049,7 @@ def elastic_worker(cfg_path: str) -> None:
 
     if not cfg["final_check"]:
         log("final", step=int(state.step), digest=final,
-            launches=dict(K.LAUNCHES))
+            launches=dict(K.LAUNCHES), peak_gib=peak_gib())
         hvd.shutdown()
         return
     # The persisted state against the last commit: restored into a fresh
@@ -4989,12 +5066,20 @@ def elastic_worker(cfg_path: str) -> None:
 
 
 def run_elastic_job(work: str, cfg: dict, plan, env_extra=None,
-                    timeout: float = ELASTIC_TIMEOUT, output=None):
-    """One launcher run of phase 8's workers: ``hvdtpurun-torch --elastic
-    -np 2 --min-np 2 --max-np 2 -H hostA:1,hostB:1`` with this script as
-    the command, its output streamed to ``output`` (default
-    ``<work>/launcher.log``). Returns (exit code, wall s, the events by
-    rank, the fault log's records, the launcher's output)."""
+                    timeout: float = ELASTIC_TIMEOUT, output=None,
+                    hosts: str = ELASTIC_HOSTS, nps=(2, 2, 2),
+                    launcher_args=(), watch=None):
+    """One launcher run of this script's elastic workers:
+    ``hvdtpurun-torch --elastic -np NP --min-np MIN --max-np MAX -H
+    HOSTS`` (``nps``; phase 8: 2, 2, 2 over hostA:1,hostB:1) plus
+    ``launcher_args``, its output streamed to ``output`` (default
+    ``<work>/launcher.log``). ``watch(stop)``, when given, runs on a
+    thread beside the launcher until it exits and ``stop`` (an Event) is
+    set. Returns (exit code, wall s, the events by rank, the fault log's
+    records, the launcher's output)."""
+    import glob
+    import threading
+
     os.makedirs(work, exist_ok=True)
     cfg = dict(cfg, workdir=os.path.abspath(work))
     cfg_path = os.path.join(work, "cfg.json")
@@ -5005,22 +5090,34 @@ def run_elastic_job(work: str, cfg: dict, plan, env_extra=None,
            "HVD_TPU_FAULT_LOG": log_path}
     env.pop("HVD_TPU_FAULT_PLAN", None)
     argv = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
-            "--elastic", "-np", "2", "--min-np", "2", "--max-np", "2",
-            "-H", ELASTIC_HOSTS]
+            "--elastic", "-np", str(nps[0]), "--min-np", str(nps[1]),
+            "--max-np", str(nps[2]), "-H", hosts, *launcher_args]
     if plan is not None:
         argv += ["--fault-plan", json.dumps(plan)]
     argv += ["--", sys.executable, os.path.abspath(__file__),
              "--elastic-worker", cfg_path]
     t0 = time.perf_counter()
     log_file = output or os.path.join(work, "launcher.log")
+    stop = threading.Event()
+    watcher = None
     with open(log_file, "w") as out:
+        proc = subprocess.Popen(
+            argv, env=env, stdout=out, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        if watch is not None:
+            watcher = threading.Thread(target=watch, args=(stop,),
+                                       daemon=True)
+            watcher.start()
         try:
-            rc = subprocess.run(
-                argv, env=env, stdout=out, stderr=subprocess.STDOUT,
-                timeout=timeout,
-                cwd=os.path.dirname(os.path.abspath(__file__))).returncode
+            rc = proc.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
             rc = None
+        finally:
+            stop.set()
+            if watcher is not None:
+                watcher.join(timeout=30)
     wall = time.perf_counter() - t0
     with open(log_file) as f:
         text = f.read()
@@ -5028,11 +5125,10 @@ def run_elastic_job(work: str, cfg: dict, plan, env_extra=None,
         raise SmokeError(f"elastic run in {work} passed its {timeout} s "
                          f"limit:\n{text[-3000:]}")
     events = {}
-    for r in (0, 1):
-        path = os.path.join(work, f"events.rank{r}.jsonl")
-        if os.path.exists(path):
-            with open(path) as f:
-                events[r] = [json.loads(line) for line in f if line.strip()]
+    for path in sorted(glob.glob(os.path.join(work, "events.rank*.jsonl"))):
+        r = int(os.path.basename(path)[len("events.rank"):-len(".jsonl")])
+        with open(path) as f:
+            events[r] = [json.loads(line) for line in f if line.strip()]
     injections = []
     if os.path.exists(log_path):
         with open(log_path) as f:
@@ -5097,11 +5193,12 @@ def phase_elastic(torch, out_dir: str) -> dict:
 
     model_name, batch, seq, steps, every, qmin = ELASTIC_RUN
     cfg = {"model": model_name, "device": "cuda", "batch": batch,
-           "seq": seq, "steps": steps, "persist_every": every, "qmin": qmin}
+           "seq": seq, "steps": steps, "persist_every": every, "qmin": qmin,
+           "layers": ELASTIC_LAYERS}
     _free_parent(torch)
 
-    # The checkpoints (about 5.7 GB a rank a step) stay out of the
-    # output directory; the logs are copied there.
+    # The checkpoints stay out of the output directory; the logs are
+    # copied there.
     root = tempfile.mkdtemp(prefix="hvd_elastic_")
     try:
         return _phase_elastic(torch, out_dir, root, cfg, steps,
@@ -5172,7 +5269,8 @@ def _phase_elastic(torch, out_dir, root, cfg, steps, model_name, batch,
                    "runs differ)"
     launches = reps[0]["finals"][0].get("launches", {})
     res = {"label": "gloo, 2 processes on one card (not NCCL or NVLink)",
-           "model": model_name, "batch_per_rank": batch, "seq_len": seq,
+           "model": model_name, "layers": ELASTIC_LAYERS,
+           "batch_per_rank": batch, "seq_len": seq,
            "steps": steps, "persist_every": every,
            "clean_wall_s": [c[1] for c in clean], "chaos_wall_s": wall,
            "clean_runs_bitwise_equal": same_clean,
@@ -5201,6 +5299,578 @@ def _phase_elastic(torch, out_dir, root, cfg, steps, model_name, batch,
     return res
 
 
+# -- phase 9: telemetry and control --------------------------------------------
+
+TELEMETRY_HOSTS = "hostA:1,hostB:1,hostC:1"
+# model, per-rank batch, sequence length, steps
+TELEMETRY_RUN = ("gpt_medium", 4, 512, 14)
+# hostC's extra seconds a commit (about one clean step of the world of
+# 3: 1.0-1.1 s on the H100), for its first process's first commits
+# only: a regrown hostC never fires it again (the worker drops specs
+# the fault log shows fired).
+TELEMETRY_STRAGGLE = {"site": "straggler", "step": 1, "times": 12,
+                      "host": "hostC", "delay_s": 1.2}
+# hostB's third per-step loss allreduce held past the stall check time
+# and well inside the fatal bound: a warning, nothing worse.
+TELEMETRY_STALL = {"site": "collective_stall", "step": 3, "host": "hostB",
+                   "delay_s": 9.0}
+TELEMETRY_PLAN = {"seed": 13, "faults": [TELEMETRY_STRAGGLE,
+                                         TELEMETRY_STALL]}
+# The policy. A tick must span a step period of the world (every rank
+# then reports in each tick: the ranks commit in lockstep, hostC's
+# publish a delay later). hostC's exile is short; what brings it back
+# is discovery: the hosts come from a discovery script whose list this
+# process edits — hostC leaves it at the eviction and returns once the
+# world has stepped at n = 2 — so the return cannot race the eviction's
+# epoch change (notice at a commit, the exit persist of 3 x 5.66 GB), as
+# a TTL alone does: expiring before the next assignment gives 3 -> 3,
+# after the run's end no grow at all.
+TELEMETRY_POLICY = {"tick_interval_s": 3.0, "publish_interval_s": 0.0,
+                    "window": 8, "straggler_ratio": 1.5,
+                    "straggler_patience": 2, "min_ranks": 3,
+                    "evict_ttl_s": 10.0, "evict_cooldown_s": 0.0,
+                    "grow_cooldown_s": 0.0, "grow_min_comm_fraction": 0.0}
+TELEMETRY_ENV = {"HVD_TPU_STALL_CHECK_TIME_SECONDS": "6",
+                 "HVD_TPU_STALL_SHUTDOWN_TIME_SECONDS": "120",
+                 "HVD_TPU_POD_METRICS_INTERVAL_S": "1",
+                 "HVD_TPU_ELASTIC_GRACE_SECS": "90"}
+TELEMETRY_TIMEOUT = 420             # seconds the control run may take
+# (a): the train phase's geometry, one process, telemetry off then on.
+OVERHEAD_ENV = {"off": {"HVD_TPU_METRICS": "0", "HVD_TPU_FLIGHTREC": "0",
+                        "HVD_TPU_STALL_CHECK_DISABLE": "1"},
+                "on": {"HVD_TPU_METRICS_PORT": "0",
+                       "HVD_TPU_METRICS_INTERVAL_S": "1"}}
+
+
+def telemetry_worker(cfg_path: str) -> None:
+    """One process of phase 9 (a) (``--telemetry-worker CFG``): GPT-2
+    medium trained as the train phase does (n = 1, AdamW), each step's
+    gradient and apply under ``hvd.StepTimer`` phases; writes its
+    ``/metrics`` port as soon as it has one, then the losses (as hex, to
+    compare bitwise), the step times and the peak GiB."""
+    import time as time_mod
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import gpt as gpt_mod
+
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    dev = cfg["device"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = hvd.init(device="cpu") if dev == "cpu" else hvd.init()
+    with open(cfg["port_file"] + ".tmp", "w") as f:
+        json.dump({"metrics_port": ctx.metrics_port, "pid": os.getpid()}, f)
+    os.replace(cfg["port_file"] + ".tmp", cfg["port_file"])
+    model = _make_model(torch, gpt_mod, cfg["model"], dev)
+    tokens = torch.randint(0, model.vocab_size,
+                           (cfg["batch"], cfg["seq"] + 1),
+                           generator=torch.Generator().manual_seed(11)
+                           ).to(dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+    st = hvd.StepTimer()
+
+    def grad():
+        loss = gpt_mod.next_token_loss(model(tokens[:, :-1]), tokens[:, 1:])
+        opt.zero_grad()
+        loss.backward()
+        return loss
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    losses, times = [], []
+    for i in range(cfg["warmup"] + cfg["steps"]):
+        if i == cfg["warmup"] and dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time_mod.perf_counter()
+        loss = st.timed("grad", grad)
+        with st.phase("apply"):
+            opt.step()
+            sync()
+        times.append((time_mod.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev == "cuda" \
+        else 0.0
+    phases = {s["labels"]["phase"]: s["value"]["count"]
+              for s in hvd.metrics().get("hvd_tpu_step_phase_seconds",
+                                         {}).get("samples", ())}
+    with open(cfg["out"], "w") as f:
+        json.dump({"losses_hex": [float(x).hex() for x in losses],
+                   "losses": losses, "step_ms": times[cfg["warmup"]:],
+                   "peak_gib": peak, "phase_counts": phases,
+                   "metrics_port": ctx.metrics_port}, f)
+    hvd.shutdown()
+
+
+def _http_get(url: str, timeout: float = 2.0):
+    """``(body, seconds)`` of one GET, or ``(None, seconds)``."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            body = resp.read().decode()
+    except OSError:
+        body = None
+    return body, time.perf_counter() - t0
+
+
+def _labeled(text: str, family: str):
+    """``(value, labels)`` of each sample of ``family`` in Prometheus
+    text."""
+    import re
+
+    out = []
+    for line in text.splitlines():
+        m = re.match(rf"^{family}(\{{[^}}]*\}})? (\S+)$", line)
+        if m:
+            labels = dict(re.findall(r'(\w+)="([^"]*)"', m.group(1) or ""))
+            out.append((float(m.group(2)), labels))
+    return out
+
+
+def _overhead_arm(work: str, arm: str, cfg: dict, out_dir: str) -> dict:
+    """One (a) process: telemetry ``arm`` off or on; while the on arm
+    runs, this process scrapes its ``/metrics`` once a second."""
+    import threading
+
+    os.makedirs(work, exist_ok=True)
+    cfg = dict(cfg, port_file=os.path.join(work, "port.json"),
+               out=os.path.join(work, "out.json"))
+    cfg_path = os.path.join(work, "cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    env = {**os.environ, **OVERHEAD_ENV[arm]}
+    if arm == "on":
+        env["HVD_TPU_METRICS_FILE"] = os.path.join(work, "metrics.jsonl")
+    scrapes, stop = [], threading.Event()
+
+    def scrape():
+        port = None
+        while not stop.wait(1.0):
+            if port is None and os.path.exists(cfg["port_file"]):
+                with open(cfg["port_file"]) as f:
+                    port = json.load(f)["metrics_port"]
+            if port is not None:
+                body, secs = _http_get(f"http://127.0.0.1:{port}/metrics")
+                if body is not None:
+                    scrapes.append(secs)
+
+    log = os.path.join(out_dir, f"telemetry_overhead_{arm}.log")
+    t = threading.Thread(target=scrape, daemon=True)
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__),
+             "--telemetry-worker", cfg_path], env=env, stdout=out,
+            stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        if arm == "on":
+            t.start()
+        try:
+            rc = proc.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = None
+        finally:
+            stop.set()
+            if arm == "on":
+                t.join(timeout=10)
+    with open(log) as f:
+        text = f.read()
+    check(rc == 0, f"telemetry overhead ({arm}): exit {rc}:\n{text[-3000:]}")
+    with open(cfg["out"]) as f:
+        res = json.load(f)
+    res["scrapes"] = len(scrapes)
+    res["scrape_ms"] = [x * 1e3 for x in scrapes]
+    if arm == "on":
+        path = env["HVD_TPU_METRICS_FILE"]
+        res["dump_lines"] = sum(1 for _ in open(path)) \
+            if os.path.exists(path) else 0
+    return res
+
+
+def telemetry_overhead(root: str, out_dir: str, dev: str = "cuda",
+                       model: str = "gpt_medium") -> dict:
+    """Phase 9 (a): the train phase's geometry (B = 8 x 512, n = 1, 2 + 5
+    steps) with telemetry off (``HVD_TPU_METRICS=0``, no flight
+    recorder, no stall check) and on (``/metrics`` on an ephemeral port
+    scraped once a second, the file dump, the stall watchdog, the flight
+    recorder): losses bitwise equal; each arm's step ms."""
+    cfg = {"model": model, "device": dev, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "warmup": TRAIN_WARMUP, "steps": TRAIN_STEPS}
+    arms = {arm: _overhead_arm(os.path.join(root, f"overhead_{arm}"), arm,
+                               cfg, out_dir) for arm in ("off", "on")}
+    off, on = arms["off"], arms["on"]
+    check(off["losses_hex"] == on["losses_hex"],
+          f"telemetry: losses differ with telemetry on: {off['losses']} "
+          f"vs {on['losses']}")
+    check(on["scrapes"] > 0 and on["metrics_port"] is not None,
+          f"telemetry: /metrics never scraped ({on['scrapes']} scrapes)")
+    check(on.get("dump_lines", 0) > 0, "telemetry: no metrics file lines")
+    check(on["phase_counts"].get("comm", 0) >= TRAIN_STEPS
+          and on["phase_counts"].get("grad", 0) >= TRAIN_STEPS,
+          f"telemetry: StepTimer phases {on['phase_counts']}")
+    check(not off["phase_counts"] and off["metrics_port"] is None,
+          f"telemetry off: registry live ({off['phase_counts']})")
+    return {"step_ms_off": off["step_ms"], "step_ms_on": on["step_ms"],
+            "step_ms_median_off": statistics.median(off["step_ms"]),
+            "step_ms_median_on": statistics.median(on["step_ms"]),
+            "peak_gib_off": off["peak_gib"], "peak_gib_on": on["peak_gib"],
+            "losses": off["losses"], "losses_bitwise_equal": True,
+            "scrapes": on["scrapes"],
+            "scrape_ms_median": statistics.median(on["scrape_ms"]),
+            "dump_lines": on["dump_lines"],
+            "phase_counts": on["phase_counts"]}
+
+
+class ControlWatch:
+    """What phase 9 (b)'s parent sees while the launcher runs, polled
+    every ``poll_s``: the pod monitor's ``/pod/metrics.json`` (its port
+    from the launcher's output), the decision log's lines with the time
+    each was first seen, every live worker's ``/metrics`` (its port and
+    pid from the events), and, once the world has grown back to 3 and
+    each of its workers completed a step, one SIGUSR2 to each, whose
+    black boxes are copied to ``box_copy`` a few seconds later. It keeps
+    the discovery script's host list (``hosts_file``): the first evicted
+    host leaves it at the eviction and returns after a step at n = 2."""
+
+    def __init__(self, work: str, launcher_log: str, decision_log: str,
+                 box_dir: str, box_copy: str, hosts_file: str,
+                 poll_s: float = 0.5):
+        self.work, self.launcher_log = work, launcher_log
+        self.decision_log, self.box_dir = decision_log, box_dir
+        self.box_copy, self.poll_s = box_copy, poll_s
+        self.hosts_file = hosts_file
+        self.hidden = None         # (t hidden, t listed again)
+        self.pod_port = None
+        self.pod = []              # (t, merged view, GET seconds)
+        self.decisions = []        # (t first seen, line)
+        self.workers = {}          # pid -> what its events say
+        self.worker_scrapes = {}   # pid -> {"warnings": max, "labels": ok}
+        self.signaled = None       # {"t": ..., "pids": {pid: step}}
+        self.boxes = []            # the copied boxes' (path, trigger, pid)
+
+    def _events(self):
+        import glob
+
+        for path in glob.glob(os.path.join(self.work, "events.rank*.jsonl")):
+            with open(path) as f:
+                for line in f:
+                    try:
+                        e = json.loads(line)
+                    except ValueError:
+                        continue      # a line being written
+                    w = self.workers.setdefault(e["pid"], {
+                        "host": e["host"], "n": e.get("n"), "steps": 0,
+                        "t0": e["t"], "last_step": None, "done": False,
+                        "metrics_port": e.get("metrics_port"),
+                        "rank": int(os.path.basename(path)[11:-6])})
+                    w["t0"] = min(w["t0"], e["t"])
+                    if e["event"] == "step":
+                        w["last_step"] = max(w["last_step"] or 0, e["step"])
+                        w["last_step_t"] = e["t"]
+                    if e["event"] in ("exit", "final", "error"):
+                        w["done"] = True
+        for w in self.workers.values():
+            w["steps"] = w["last_step"] or 0
+
+    def _poll(self):
+        import re
+        import shutil
+        import signal as signal_mod
+
+        # The decision log and the host list first: no scrape may delay
+        # hiding the evicted host past its (short) exile.
+        if os.path.exists(self.decision_log):
+            with open(self.decision_log) as f:
+                lines = [x.strip() for x in f if x.strip()]
+            for line in lines[len(self.decisions):]:
+                self.decisions.append((time.time(), line))
+        self.workers.clear()
+        self._events()
+        if self.decisions:
+            evicted = json.loads(self.decisions[0][1])["target"]
+            if self.hidden is None:
+                self._list_hosts(exclude=evicted)
+                self.hidden = (time.time(), None)
+            elif self.hidden[1] is None and any(
+                    w["n"] == 2 and w["steps"] for w in
+                    self.workers.values()):
+                self._list_hosts()
+                self.hidden = (self.hidden[0], time.time())
+        if self.pod_port is None and os.path.exists(self.launcher_log):
+            with open(self.launcher_log) as f:
+                m = re.search(r"/pod/metrics on port (\d+)", f.read())
+            if m:
+                self.pod_port = int(m.group(1))
+        if self.pod_port is not None:
+            body, secs = _http_get(
+                f"http://127.0.0.1:{self.pod_port}/pod/metrics.json")
+            if body is not None:
+                self.pod.append((time.time(), json.loads(body), secs))
+        for pid, w in self.workers.items():
+            if w["done"] or not w["metrics_port"]:
+                continue
+            body, _ = _http_get(f"http://127.0.0.1:{w['metrics_port']}"
+                                "/metrics")
+            if body is None:
+                continue
+            rec = self.worker_scrapes.setdefault(
+                pid, {"host": w["host"], "warnings": 0.0, "labels": False})
+            for v, labels in _labeled(body, "hvd_tpu_stall_warnings_total"):
+                rec["warnings"] = max(rec["warnings"], v)
+                rec["labels"] = rec["labels"] or (
+                    {"rank", "size", "host"} <= set(labels)
+                    and labels["host"] == w["host"])
+        grows = [t for t, line in self.decisions
+                 if json.loads(line)["action"] == "grow"]
+        if self.signaled is None and grows:
+            live = [pid for pid, w in self.workers.items()
+                    if not w["done"] and w["n"] == 3 and w["t0"] > grows[0]
+                    and w["steps"] and w.get("last_step_t", 0) > w["t0"]]
+            if len(live) == 3:
+                self.signaled = {"t": time.time(), "pids": {
+                    pid: self.workers[pid]["last_step"] for pid in live}}
+                for pid in live:
+                    os.kill(pid, signal_mod.SIGUSR2)
+        if self.signaled is not None and not self.boxes \
+                and time.time() > self.signaled["t"] + 5:
+            os.makedirs(self.box_copy, exist_ok=True)
+            for name in sorted(os.listdir(self.box_dir)):
+                if name.startswith("blackbox.rank") and \
+                        name.endswith(".json"):
+                    dst = os.path.join(self.box_copy, name)
+                    shutil.copy(os.path.join(self.box_dir, name), dst)
+                    with open(dst) as f:
+                        box = json.load(f)
+                    self.boxes.append((dst, box["trigger"], box["pid"]))
+
+    def _list_hosts(self, exclude=None) -> None:
+        hosts = [h for h in TELEMETRY_HOSTS.split(",")
+                 if h.split(":")[0] != exclude]
+        with open(self.hosts_file + ".tmp", "w") as f:
+            f.write("\n".join(hosts) + "\n")
+        os.replace(self.hosts_file + ".tmp", self.hosts_file)
+
+    def run(self, stop) -> None:
+        while not stop.wait(self.poll_s):
+            try:
+                self._poll()
+            except (OSError, ValueError, KeyError) as e:
+                print(f"telemetry watch: {type(e).__name__}: {e}",
+                      flush=True)
+        self.workers.clear()
+        self._events()
+
+
+def _first_step_after(events: dict, t: float, n: int):
+    """Time of the first step event after ``t`` by a world of ``n``."""
+    ts = [e["t"] for evs in events.values() for e in evs
+          if e["event"] == "step" and e["n"] == n and e["t"] > t]
+    return min(ts) if ts else None
+
+
+def _world_sequence(events: dict) -> list:
+    """The world sizes of the run's steps in time order, repeats
+    collapsed (one entry an epoch)."""
+    steps = sorted((e["t"], e["n"]) for evs in events.values() for e in evs
+                   if e["event"] == "step")
+    out = []
+    for _, n in steps:
+        if not out or out[-1] != n:
+            out.append(n)
+    return out
+
+
+def telemetry_control(root: str, out_dir: str, dev: str = "cuda",
+                      run=TELEMETRY_RUN, plan=None, policy=None,
+                      env_extra=None, timeout: float = TELEMETRY_TIMEOUT
+                      ) -> dict:
+    """Phase 9 (b): ``hvdtpurun-torch --elastic -np 3 --min-np 2
+    --max-np 3 -H hostA:1,hostB:1,hostC:1 --metrics-port 0
+    --pod-metrics-port 0 --autoscale-policy JSON --autoscale-log FILE``
+    over ``--elastic-worker`` (int8_ef AdamW, a commit a step, the
+    per-step eager loss allreduce, the committed state persisted at
+    each driver-managed exit) under ``TELEMETRY_PLAN``, watched by a
+    :class:`ControlWatch`. Checks and returns the record."""
+    model_name, batch, seq, steps = run
+    plan = TELEMETRY_PLAN if plan is None else plan
+    policy = TELEMETRY_POLICY if policy is None else policy
+    work = os.path.join(root, "control")
+    os.makedirs(work, exist_ok=True)
+    decision_log = os.path.join(work, "decisions.jsonl")
+    box_dir = os.path.join(work, "flightrec")
+    launcher_log = os.path.join(out_dir, "telemetry_control.log")
+    hosts_file = os.path.join(work, "hosts.txt")
+    discover = os.path.join(work, "discover.sh")
+    with open(discover, "w") as f:
+        f.write(f"#!/bin/sh\ncat {hosts_file}\n")
+    os.chmod(discover, 0o755)
+    watch = ControlWatch(work, launcher_log, decision_log, box_dir,
+                         os.path.join(out_dir, "telemetry_sigusr2_boxes"),
+                         hosts_file)
+    watch._list_hosts()
+    cfg = {"model": model_name, "device": dev, "batch": batch, "seq": seq,
+           "steps": steps, "persist_every": 0, "qmin": None,
+           "final_check": False, "loss_allreduce": True,
+           "persist_at_exit": True}
+    t_run = time.time()
+    rc, wall, events, inj, log = run_elastic_job(
+        work, cfg, plan,
+        env_extra={**TELEMETRY_ENV, "HVD_TPU_FLIGHTREC_DIR": box_dir,
+                   **(env_extra or {})},
+        timeout=timeout, output=launcher_log, hosts=TELEMETRY_HOSTS,
+        nps=(3, 2, 3),
+        launcher_args=["--metrics-port", "0", "--pod-metrics-port", "0",
+                       "--autoscale-policy", json.dumps(policy),
+                       "--autoscale-log", decision_log,
+                       "--host-discovery-script", discover],
+        watch=watch.run)
+    check(rc == 0, f"telemetry control run: exit {rc}:\n{log[-3000:]}")
+    decisions = [json.loads(line) for _, line in watch.decisions]
+    check(decisions and decisions[0]["action"] == "evict"
+          and decisions[0]["target"] == "hostC"
+          and decisions[0]["reason"] == "straggler",
+          f"telemetry: first decision {decisions}")
+    check(any(d["action"] == "grow" for d in decisions[1:]),
+          f"telemetry: no grow after the eviction: {decisions}")
+    finals = [e for evs in events.values() for e in evs
+              if e["event"] == "final"]
+    check(len(finals) == 3 and all(e["step"] == steps for e in finals),
+          f"telemetry: final events {finals}")
+    worlds = _world_sequence(events)
+    check(worlds == [3, 2, 3], f"telemetry: world sizes {worlds}")
+    restores = [(e["step"], e["digest_ok"]) for evs in events.values()
+                for e in evs if e["event"] == "restore"]
+    check(restores and all(ok for _, ok in restores),
+          f"telemetry: a restore differs from its commit: {restores}")
+    t_evict = watch.decisions[0][0]
+    t_grow = next(t for t, line in watch.decisions
+                  if json.loads(line)["action"] == "grow")
+    host_rank = {w["host"]: w["rank"] for w in watch.workers.values()
+                 if w["n"] == 3}
+    before = [v for t, v, _ in watch.pod if t < t_evict]
+    check(any(v["ranks"] == [0, 1, 2] and v["slowest_rank"] ==
+              host_rank["hostC"] and v["step_skew_seconds"] > 0
+              for v in before),
+          f"telemetry: the pod view never named hostC (rank "
+          f"{host_rank.get('hostC')}) slowest of 3 before the eviction: "
+          f"{[(v['ranks'], v['slowest_rank']) for v in before][-5:]}")
+    check(any(len(v["ranks"]) == 2 for t, v, _ in watch.pod
+              if t_evict < t < t_grow),
+          "telemetry: the pod view never saw 2 ranks after the eviction")
+    b_warn = max((r["warnings"] for r in watch.worker_scrapes.values()
+                  if r["host"] == "hostB"), default=0)
+    check(b_warn >= 1, f"telemetry: hostB's stall warnings {b_warn}")
+    check(watch.worker_scrapes and all(
+        r["labels"] for r in watch.worker_scrapes.values()),
+          f"telemetry: unlabeled /metrics: {watch.worker_scrapes}")
+    # Every SIGUSR2 box: written by the signaled process, which went on
+    # stepping, and accepted by flight_diff's validator.
+    check(watch.signaled is not None and len(watch.boxes) == 3,
+          f"telemetry: SIGUSR2 boxes {watch.boxes} (signaled "
+          f"{watch.signaled})")
+    sig_pids = set(watch.signaled["pids"])
+    check(all(trig == "sigusr2" and pid in sig_pids
+              for _, trig, pid in watch.boxes),
+          f"telemetry: SIGUSR2 boxes {watch.boxes}")
+    after = {e["pid"] for evs in events.values() for e in evs
+             if e["event"] == "step" and e["t"] > watch.signaled["t"]}
+    check(sig_pids <= after,
+          f"telemetry: a signaled worker stopped stepping: {sig_pids - after}")
+    fd = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools", "flight_diff.py"),
+         "--json", watch.box_copy], capture_output=True, text=True,
+        timeout=60)
+    check(fd.returncode == 0 and "skipping" not in fd.stderr,
+          f"telemetry: flight_diff rc {fd.returncode}: {fd.stderr[-2000:]}")
+    report = json.loads(fd.stdout)
+    check(report["ranks"] == [0, 1, 2], f"flight_diff ranks {report}")
+    commits = [e["commit_ms"] for evs in events.values() for e in evs
+               if e["event"] == "step"]
+    evict_n2 = _first_step_after(events, t_evict, 2)
+    grow_n3 = _first_step_after(events, t_grow, 3)
+    launches = next((e["launches"] for e in sorted(
+        events.get(0, []), key=lambda e: e["t"])
+        if e["event"] in ("exit", "final")), {})
+    pod_before = [v for v in before if v["ranks"] == [0, 1, 2]]
+    return {
+        "label": "gloo, 3 processes on one card (not NCCL or NVLink)",
+        "model": model_name, "batch_per_rank": batch, "seq_len": seq,
+        "steps": steps, "wall_s": wall, "decisions": decisions,
+        "decision_seen_s": [t - t_run for t, _ in watch.decisions],
+        "worlds": worlds, "restores": restores,
+        "evict_to_first_n2_step_s": evict_n2 - t_evict,
+        "grow_to_first_n3_step_s": grow_n3 - t_grow,
+        "commit_ms_median": statistics.median(commits),
+        "peak_gib_max": max(e.get("peak_gib", 0) for evs in events.values()
+                            for e in evs),
+        "scrape_ms_median": statistics.median(
+            [secs * 1e3 for _, _, secs in watch.pod]),
+        "scrape_ms_max": max(secs * 1e3 for _, _, secs in watch.pod),
+        "pod_scrapes": len(watch.pod),
+        "pod_slowest_rank_before_evict": pod_before[-1]["slowest_rank"],
+        "pod_skew_s_before_evict": pod_before[-1]["step_skew_seconds"],
+        "pod_step_time_s_before_evict":
+            pod_before[-1]["step_time_seconds"],
+        "hostB_stall_warnings": b_warn,
+        "sigusr2_boxes": [(os.path.basename(p), t, pid)
+                          for p, t, pid in watch.boxes],
+        "flight_diff_ranks": report["ranks"],
+        "injections": inj, "launches": launches}
+
+
+def phase_telemetry(torch, out_dir: str) -> dict:
+    """Phase 9: (a) what telemetry costs a training step, (b) the control
+    run. Returns the record with ``launches``: (b)'s rank 0 first
+    process's counts."""
+    import shutil
+    import tempfile
+
+    parent = _free_parent(torch)
+    root = tempfile.mkdtemp(prefix="hvd_telemetry_")
+    t0 = time.perf_counter()
+    try:
+        over = telemetry_overhead(root, out_dir)
+        t1 = time.perf_counter()
+        ctl = telemetry_control(root, out_dir)
+    finally:
+        for name in ("faults.jsonl", "decisions.jsonl", "events.rank0.jsonl",
+                     "events.rank1.jsonl", "events.rank2.jsonl"):
+            src = os.path.join(root, "control", name)
+            if os.path.exists(src):
+                shutil.copy(src, os.path.join(out_dir, f"telemetry_{name}"))
+        shutil.rmtree(root, ignore_errors=True)
+    res = {"label": ctl["label"], "parent_gib": parent, "overhead": over,
+           "control": ctl, "launches": ctl["launches"],
+           "overhead_s": t1 - t0, "control_s": time.perf_counter() - t1}
+    with open(os.path.join(out_dir, "chip_smoke_telemetry.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    print(f"telemetry (a) (1 process): step {over['step_ms_median_off']:.1f}"
+          f" ms off, {over['step_ms_median_on']:.1f} ms on (median of "
+          f"{TRAIN_STEPS}); losses bitwise equal; {over['scrapes']} "
+          f"scrapes, {over['scrape_ms_median']:.2f} ms median", flush=True)
+    print(f"telemetry (b) (gloo, 3 processes on one card): decisions "
+          f"{[(d['action'], d['target'], d['reason']) for d in ctl['decisions']]}"
+          f", worlds {ctl['worlds']}; eviction -> first n=2 step "
+          f"{ctl['evict_to_first_n2_step_s']:.1f} s, grow -> first n=3 step "
+          f"{ctl['grow_to_first_n3_step_s']:.1f} s; commit "
+          f"{ctl['commit_ms_median']:.2f} ms; peak "
+          f"{ctl['peak_gib_max']:.2f} GiB a rank; /pod/metrics.json "
+          f"{ctl['scrape_ms_median']:.2f} ms median; hostB stall warnings "
+          f"{ctl['hostB_stall_warnings']:.0f}; wall {ctl['wall_s']:.1f} s",
+          flush=True)
+    return res
+
+
 def _step_seconds(events: dict) -> list:
     """Rank 0's seconds between consecutive completed steps of one
     process (a clean run's step time, commits included)."""
@@ -5221,6 +5891,9 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--elastic-worker"]:
         elastic_worker(argv[1])
+        return 0
+    if argv[:1] == ["--telemetry-worker"]:
+        telemetry_worker(argv[1])
         return 0
     if argv[:1] == ["--rank-worker"]:
         worker = {"n2_eager": eager_worker, "n2_join": join_worker,
@@ -5259,23 +5932,39 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         from horovod_tpu_torch.ops import collectives as C
 
+        marks = [time.perf_counter()]
+
+        def mark(name: str) -> None:
+            # Each phase's seconds: the smoke runs against a time limit.
+            marks.append(time.perf_counter())
+            print(f"phase {name}: {marks[-1] - marks[-2]:.1f} s", flush=True)
+
         records = phase_scale_kernel(torch, K, C)
         records.update(phase_kernels(torch, K))
         records.update(phase_flash(torch, K))
         records.update(phase_reduce_kernels(torch, K))
+        mark("kernels")
         serve = phase_serve(torch, K, args.out, args.profile)
         train = phase_train(torch, K, args.out, args.profile)
         integ = phase_integrity(torch, K, args.out, args.profile)
+        mark("serve, train, integrity")
         bert = phase_bert(torch, K, args.out, args.profile)
         vit = phase_vit(torch, K, args.out, args.profile)
         resnet = phase_resnet(torch, K, args.out, args.profile)
         zoo = phase_zoo(torch)
+        mark("zoo")
         multi = phase_multirank(torch, args.out)
         eager = phase_eager(torch, args.out)
+        mark("multi-rank, eager")
         mesh = phase_mesh(torch, args.out)
         zero = phase_zero(torch, args.out)
+        mark("mesh, zero")
         overlap = phase_overlap(torch, args.out)
+        mark("overlap")
         elastic = phase_elastic(torch, args.out)
+        mark("elastic")
+        telemetry = phase_telemetry(torch, args.out)
+        mark("telemetry")
         n2 = multi["n2_gpt_medium"]["modes"]
         # Every path a kernel runs on, each counted from zero around it;
         # the mesh path (phase 7b) is one of them for K1-K4, K8 and K9.
@@ -5296,7 +5985,8 @@ def main(argv=None) -> int:
                            "launches"],
                        "zero": zero["launches"],
                        "overlap": overlap["launches"],
-                       "elastic": elastic["launches"]}
+                       "elastic": elastic["launches"],
+                       "telemetry": telemetry["launches"]}
         # K1 runs on the eager path (pre/postscale) and as the guard's
         # unscale on the integrity path.
         paths["scale_buffer"] = {
@@ -5317,6 +6007,9 @@ def main(argv=None) -> int:
                      "adasum_dot_norms", "adasum_combine"):
             paths[name]["overlap"] = overlap["launches"]
         paths["quantize_int8_stochastic"]["elastic"] = elastic["launches"]
+        # Phase 9 (b): K3 and the flash kernels, rank 0's first epoch.
+        paths["quantize_int8_stochastic"]["telemetry"] = \
+            telemetry["launches"]
         for name in FLASH_NAMES:
             paths[name] = flash_paths
         for name, rec in records.items():
@@ -5345,7 +6038,7 @@ def main(argv=None) -> int:
                    "eager": {k: v for k, v in eager.items()
                              if k not in ("ranks", "join")},
                    "mesh": mesh, "zero": zero, "overlap": overlap,
-                   "elastic": elastic}, f, indent=1)
+                   "elastic": elastic, "telemetry": telemetry}, f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -99,12 +99,14 @@ from .common.exceptions import (AlltoallvLayoutError,
                                 HorovodInternalError, HorovodTpuError,
                                 HostsUpdatedInterrupt,
                                 MismatchError, NonFiniteError,
-                                NotInitializedError,
+                                NotInitializedError, StallError,
+                                StallTimeoutError,
                                 TensorShapeMismatchError)
 from .common.faults import recovery_stats
 from .common.integrity import (DivergenceDetector, chaos_perturb,
                                chaos_poison, current_loss_scale,
                                observe_guard)
+from .common import metrics as _metrics_lib
 from .common.metrics import metrics
 from .functions import (allgather_object, broadcast_object,
                         broadcast_variables)
@@ -116,7 +118,7 @@ from .ops.compression import Compression
 from .ops import eager as _eager
 from .optim import (DistributedOptimizer, accumulate_gradients,
                     broadcast_optimizer_state, broadcast_parameters,
-                    observe_ef_residual, resolve_remat_policy)
+                    observe_ef_residual, resolve_remat_policy, StepTimer)
 from .process_set import (ProcessSet, add_process_set,
                           member_engine as _engine, remove_process_set)
 from .sync_batch_norm import SyncBatchNorm
@@ -138,6 +140,8 @@ __all__ = [
     "HorovodInternalError", "HorovodTpuError", "HostsUpdatedInterrupt",
     "Max", "Min",
     "MismatchError", "NonFiniteError", "NotInitializedError",
+    "StallError", "StallTimeoutError", "StepTimer", "flight_recorder",
+    "start_metrics_server", "stop_metrics_server",
     "AxisPhase", "FSDPOptimizer", "ShardedOptimizer", "ZeroOptimizer",
     "auto_shard_threshold", "broadcast_variables", "ccl_built",
     "cuda_built", "ddl_built", "gloo_built", "gloo_enabled", "mesh_axes",
@@ -431,9 +435,34 @@ def stop_timeline() -> None:
     _basics.context().timeline.stop()
 
 
+def start_metrics_server(port: int = 0) -> int:
+    """Start (or return) the Prometheus ``/metrics`` endpoint on a
+    background HTTP thread; returns the bound port (``port=0`` binds an
+    ephemeral one). ``/metrics.json`` serves the ``metrics()`` snapshot.
+    Samples carry ``rank``/``size``/``host`` labels once ``init()`` has
+    run, so a pod scrape aggregates by rank."""
+    return _metrics_lib.serve(port)
+
+
+def stop_metrics_server() -> None:
+    _metrics_lib.stop_serving()
+
+
+def flight_recorder():
+    """The process-wide flight recorder: the ring of the last N
+    collective events and the black-box dump.
+    ``flight_recorder().events()`` is the live ring;
+    ``flight_recorder().dump("manual")`` writes a black box on demand
+    (the payload SIGUSR2 or a fatal stall produces). Usable before
+    ``init()``: the env-configured recorder is made on first use."""
+    from .common import flightrec as _flightrec_lib
+
+    return _flightrec_lib.recorder()
+
+
 # The JAX package's API that later slices of the port bring, by slice.
 _LATER = {
-    "the telemetry and control slice": ("flight_recorder",),
+    "the autotune slice": ("AutotunedStepper",),
     "the parallel-roles slice": (
         "ParallelSpec", "parallel_spec", "parallel_mesh",
         "pipeline_accumulate_gradients", "pipeline_apply",

@@ -32,6 +32,17 @@ store, its keys namespaced per ``init()`` generation. ``shutdown()``
 synchronizes the engine's outstanding handles and stops the timeline
 before it destroys the process group.
 
+Telemetry: ``init()`` pins the process to its core
+(``HVD_TPU_THREAD_AFFINITY``), starts the stall inspector's watchdog
+(``common/stall.py``), installs the flight recorder and its SIGUSR2
+handler (``common/flightrec.py``), stamps ``rank``/``size``/``host`` onto
+every metric sample, and starts the metrics dump and the ``/metrics``
+endpoint when asked (``metrics_file``, ``metrics_port``), advertising the
+port over the rendezvous KV for the elastic driver's pod monitor.
+``shutdown()`` stops what ``init()`` started; at interpreter exit the
+shutdown sequence (``common/shutdown.py``) runs it after the flight
+recorder's final box.
+
 Topology (``common/topology.py``): ``init()`` resolves the routing
 mesh (``init(mesh_shape=)`` / ``HVD_TPU_MESH_SHAPE``, else cross x local
 from the launcher, else flat) and makes one ``torch.distributed``
@@ -57,7 +68,6 @@ once, as :func:`add_process_set` does afterwards.
 
 from __future__ import annotations
 
-import atexit
 import dataclasses
 import json
 import logging
@@ -69,6 +79,7 @@ import torch
 import torch.distributed as dist
 
 from . import config as config_lib
+from . import shutdown as shutdown_lib
 from . import topology as topo_lib
 from .device import resolve_device
 from .exceptions import NotInitializedError
@@ -100,6 +111,16 @@ class Context:
     #: Under an elastic launch: a callable returning True once the
     #: driver's topology version moved (``State.check_host_updates``).
     host_update_notifier: Any = None
+    #: Telemetry: the stall inspector (``common/stall.py``), the flight
+    #: recorder installed as the process's (``common/flightrec.py``), the
+    #: bound ``/metrics`` port (None: not serving) and which export
+    #: surfaces this context started (a dump or server the user started
+    #: outlives the context).
+    stall: Any = None
+    flightrec: Any = None
+    metrics_port: Optional[int] = None
+    owns_metrics_server: bool = False
+    owns_metrics_dump: bool = False
 
     @property
     def world_axis(self) -> topo_lib.Axis:
@@ -220,6 +241,11 @@ def init(comm=None, process_sets=None,
             (members.index(launch_rank), len(members))
         local_rank = int(config_lib.runtime_env("LOCAL_RANK", str(rank)))
         local_size = int(config_lib.runtime_env("LOCAL_SIZE", str(size)))
+        # Host-core pinning before this process starts its threads (the
+        # gloo workers, the stall watchdog, the D2 worker inherit it).
+        from .affinity import parse_and_set_affinity
+
+        parse_and_set_affinity(cfg.thread_affinity, local_size, local_rank)
         backend = _resolve_backend(dev, backend, local_size)
         if dev.type == "cuda":
             if dev.index is None:
@@ -259,25 +285,35 @@ def init(comm=None, process_sets=None,
                 # and its members may have joined other worlds before.
                 incarnation=_init_count if members is None else 0)
         timeline = Timeline()
+        stall = None
         try:
             topo = topo_lib.Topology(rank, size, local_rank, local_size)
             maxes = _mesh_axes(topo, cfg, controller)
             axes = topo_lib.build_axes(maxes, rank, size, dist.new_group)
             ctx = Context(rank, size, local_rank, local_size, dev, backend,
                           cfg, controller, None, timeline, topo, maxes, axes)
+            stall = _start_stall_and_flightrec(ctx)
             ctx.engine = EagerEngine(cfg, dev, rank, size,
                                      controller=controller,
                                      timeline=timeline,
                                      hier_mesh=ctx.hier_axes(),
+                                     stall_inspector=stall,
                                      axis=ctx.world_axis)
         except Exception:
+            if stall is not None:
+                stall.stop_watchdog()
             dist.destroy_process_group()
             _leave_comm_world()
             raise
         if cfg.elastic and config_lib.runtime_env("RENDEZVOUS"):
             ctx.host_update_notifier = _host_update_notifier(
                 config_lib.runtime_env("RENDEZVOUS"))
+        _start_metrics(ctx)
         _context = ctx
+        # One ordered teardown at exit (common/shutdown.py): after the
+        # flight recorder's final box, before the recovery-stats dump.
+        shutdown_lib.register("context", _shutdown_at_exit,
+                              shutdown_lib.CONTEXT_PRIORITY)
     if process_sets:
         from ..process_set import add_process_set
 
@@ -286,17 +322,92 @@ def init(comm=None, process_sets=None,
     return _context
 
 
+def _start_stall_and_flightrec(ctx: Context):
+    """The stall inspector and its watchdog, and the flight recorder
+    installed as the process's, wired to each other; SIGUSR2 arms the
+    on-demand black box (main thread only, best-effort). Returns the
+    inspector."""
+    from . import flightrec as flightrec_lib
+    from .stall import StallInspector
+
+    cfg = ctx.config
+    stall = StallInspector(cfg.stall_check_time_seconds,
+                           cfg.stall_shutdown_time_seconds,
+                           cfg.stall_check_disable,
+                           fatal_mode=cfg.stall_fatal)
+    stall.start_watchdog()
+    ctx.stall = stall
+    # rank= is the fallback; HVD_TPU_PROC_ID wins inside the
+    # constructor, as for the metrics labels below.
+    ctx.flightrec = flightrec_lib.install(flightrec_lib.FlightRecorder(
+        size=cfg.flightrec_size, directory=cfg.flightrec_dir,
+        enabled=cfg.flightrec, rank=ctx.rank))
+    ctx.flightrec._stall_inspector = stall
+    flightrec_lib.install_signal_handler()
+    return stall
+
+
+def _start_metrics(ctx: Context) -> None:
+    """Stamp the rank identity onto every exported sample (``rank``,
+    ``size`` and, under a launcher, ``host``), then start the export
+    surfaces the config asks for: the JSON-lines dump and the
+    ``/metrics`` endpoint, whose port is advertised over the rendezvous
+    KV for the pod monitor. A taken fixed port falls back to an
+    ephemeral one: telemetry never fails ``init()``."""
+    from . import metrics as metrics_lib
+
+    if not metrics_lib.enabled():
+        return
+    cfg = ctx.config
+    labels = {"rank": str(ctx.rank), "size": str(ctx.size)}
+    host_label = config_lib.runtime_env("HOSTNAME")
+    if host_label:
+        labels["host"] = host_label
+    metrics_lib.set_global_labels(**labels)
+    if cfg.metrics_trace_bridge:
+        metrics_lib.enable_trace_bridge(True)
+    if cfg.metrics_file:
+        ctx.owns_metrics_dump = metrics_lib.dumping_path() is None
+        metrics_lib.start_file_dump(cfg.metrics_file,
+                                    cfg.metrics_interval_s)
+    if cfg.metrics_port < 0:
+        return
+    already = metrics_lib.serving_port()
+    try:
+        ctx.metrics_port = metrics_lib.serve(cfg.metrics_port)
+    except OSError as e:
+        logger.warning(
+            "metrics: port %d unavailable (%s); binding an ephemeral "
+            "port instead — pass --metrics-port 0 with several workers "
+            "a host", cfg.metrics_port, e)
+        try:
+            ctx.metrics_port = metrics_lib.serve(0)
+        except OSError as e2:
+            logger.warning("metrics: /metrics endpoint disabled (%s)", e2)
+            return
+    ctx.owns_metrics_server = already is None
+    logger.info("metrics: Prometheus /metrics endpoint on port %d",
+                ctx.metrics_port)
+    from . import podmon as podmon_lib
+
+    podmon_lib.register_endpoint(ctx.metrics_port, rank=ctx.rank)
+
+
 def _pg_timeout(cfg) -> dict:
-    """Under an elastic launch the process group's timeout is the
-    controller's (``stall_check_time_seconds``, the JAX package's knob
-    ``HVD_TPU_STALL_CHECK_TIME_SECONDS``): a survivor whose peer died
-    mid-collective raises instead of waiting out torch's 30 minutes."""
+    """Under an elastic launch the process group's timeout is the stall
+    inspector's fatal bound (``stall_shutdown_time_seconds``), or its
+    warning age (``stall_check_time_seconds``) when no fatal bound is
+    set: a survivor whose peer died mid-collective raises instead of
+    waiting out torch's 30 minutes, and a peer that is only slow past
+    the warning age is not taken for dead."""
     if not cfg.elastic:
         return {}
     import datetime
 
-    return {"timeout": datetime.timedelta(
-        seconds=cfg.stall_check_time_seconds)}
+    seconds = (cfg.stall_shutdown_time_seconds
+               if cfg.stall_shutdown_time_seconds > 0
+               else cfg.stall_check_time_seconds)
+    return {"timeout": datetime.timedelta(seconds=seconds)}
 
 
 def _world_store(coord: str, rank: int, size: int, cfg):
@@ -321,13 +432,16 @@ def _world_store(coord: str, rank: int, size: int, cfg):
 
 def _host_update_notifier(rdv_addr: str):
     """The elastic host-update channel: True once the driver's
-    ``elastic/topology_version`` moved since the first read (the JAX
-    package's ``_make_host_update_notifier``)."""
+    ``elastic/topology_version`` moved (the JAX package's
+    ``_make_host_update_notifier``) — since the version the driver
+    started this worker under (``HVD_TPU_TOPOLOGY_VERSION``), so a
+    change during the worker's start-up is not missed; without it,
+    since the first read."""
     from ..runner.rendezvous import RendezvousClient
 
     host, port = rdv_addr.rsplit(":", 1)
     client = RendezvousClient(host, int(port), timeout_s=5.0)
-    last_seen = {"v": None}
+    last_seen = {"v": config_lib.runtime_env("TOPOLOGY_VERSION")}
     warned = {"auth": False}
 
     def notifier() -> bool:
@@ -387,8 +501,13 @@ def _comm_store(coord: str, launch_rank: int, members: List[int], cfg):
                               wait_for_workers=False)
         _comm_stores[coord] = store
         if master:
-            atexit.register(_await_comm_worlds, store,
-                            cfg.stall_check_time_seconds)
+            # In the shutdown sequence after this process's own context
+            # shutdown, which leaves its comm world.
+            timeout_s = cfg.stall_check_time_seconds
+            shutdown_lib.register(
+                f"comm_worlds:{coord}",
+                lambda: _await_comm_worlds(store, timeout_s),
+                shutdown_lib.CONTEXT_PRIORITY + 5)
     key = (coord, tuple(members))
     joins = _comm_joins.get(key, 0)
     _comm_joins[key] = joins + 1
@@ -431,20 +550,46 @@ def _mesh_axes(topo: topo_lib.Topology, cfg, controller) -> tuple:
 
 def shutdown() -> None:
     """Synchronize the eager engine's outstanding handles, stop the
-    timeline and tear the process group down; a later ``init()`` starts
-    afresh."""
+    timeline, the stall watchdog and the export surfaces this context
+    started (a stopped dump writes its final line), and tear the
+    process group down; a later ``init()`` starts afresh."""
+    _shutdown(drain=True)
+
+
+def _shutdown_at_exit() -> None:
+    # At interpreter exit nothing waits on the engine's handles: a
+    # handle left by a failed step would wait out the process group's
+    # timeout.
+    _shutdown(drain=False)
+
+
+def _shutdown(drain: bool) -> None:
     global _context
     with _context_lock:
-        if _context is not None:
-            try:
-                for ps in _context.process_sets:
-                    ps._engine, ps.axis = None, None
-                _context.engine.drain()
-                _context.timeline.stop()
-            finally:
-                dist.destroy_process_group()
-                _context = None
-                _leave_comm_world()
+        ctx = _context
+        if ctx is None:
+            return
+        try:
+            for ps in ctx.process_sets:
+                ps._engine, ps.axis = None, None
+            if drain:
+                ctx.engine.drain()
+            ctx.timeline.stop()
+        finally:
+            ctx.stall.stop_watchdog()
+            _stop_metrics(ctx)
+            dist.destroy_process_group()
+            _context = None
+            _leave_comm_world()
+
+
+def _stop_metrics(ctx: Context) -> None:
+    from . import metrics as metrics_lib
+
+    if ctx.owns_metrics_dump:
+        metrics_lib.stop_file_dump()
+    if ctx.owns_metrics_server:
+        metrics_lib.stop_serving()
 
 
 def _leave_comm_world() -> None:

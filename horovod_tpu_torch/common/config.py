@@ -27,6 +27,8 @@ RUNTIME_KNOBS = {
     "ELASTIC": "elastic mode: poll the driver's KV at commit() and bound "
                "the process group's timeout (0/1)",
     "RENDEZVOUS": "the elastic driver's KV address host:port",
+    "TOPOLOGY_VERSION": "the elastic driver's topology version when it "
+                        "started this worker",
     "RENDEZVOUS_SECRET": "shared secret (HMAC) of the KV server",
     "RENDEZVOUS_RETRIES": "client retry budget for 5xx/connection errors",
     "RENDEZVOUS_WAIT_MAX_POLL_S": "wait() poll backoff cap",
@@ -83,15 +85,41 @@ RUNTIME_KNOBS = {
     "CACHE_CAPACITY": "eager signature-cache capacity (1024)",
     "JOIN_MODE": "every eager collective runs a coordination round so "
                  "hvd.join() works (0/1)",
-    "STALL_CHECK_TIME_SECONDS": "controller round timeout in seconds (60)",
-    "STALL_SHUTDOWN_TIME_SECONDS": "how long a joined process waits for "
-                                   "its peers before it raises (600; 0 = "
-                                   "forever)",
+    "STALL_CHECK_TIME_SECONDS": "stall warning age and controller round "
+                                "timeout in seconds (60)",
+    "STALL_SHUTDOWN_TIME_SECONDS": "a collective in flight this long is "
+                                   "fatal (0 = never)",
     "MAX_RETAINED_HANDLES": "eager-engine completed-handle cap",
-    # Telemetry switches read lazily by their subsystems.
+    # Telemetry (common/metrics.py, stall.py, flightrec.py, podmon.py,
+    # lockdep.py, affinity.py). Some are also Config fields: init()
+    # resolves those once; the subsystems read the rest lazily.
     "METRICS": "registry enable (0 = shared NOOP singletons)",
+    "METRICS_FILE": "per-rank JSON-lines metrics dump path (Config field)",
+    "METRICS_INTERVAL_S": "metrics dump interval in seconds (Config field)",
+    "METRICS_PORT": "/metrics endpoint port: -1 off, 0 ephemeral (Config "
+                    "field)",
+    "METRICS_TRACE": "metrics<->torch.profiler record_function bridge",
+    "METRICS_DEBUG": "/debug/stacks + /debug/profile endpoints",
+    "METRICS_ADVERTISE": "endpoint address advertised to the pod monitor",
+    "POD_METRICS_ENDPOINTS": "static scrape endpoints for the pod monitor",
+    "POD_METRICS_INTERVAL_S": "the pod monitor's scrape interval",
+    "STALL_CHECK_DISABLE": "stall inspector off (0/1; Config field)",
+    "STALL_FATAL": "'raise': a fatal stall raises StallTimeoutError "
+                   "(Config field)",
+    "THREAD_AFFINITY": "one core id per local rank (Config field)",
     "FLIGHTREC": "flight-recorder enable",
     "FLIGHTREC_SIZE": "ring capacity (events)",
+    "FLIGHTREC_DIR": "black-box dump directory",
+    "FLIGHTREC_PUSH": "push black boxes to the rendezvous KV",
+    "FLIGHTREC_SIGNAL_GRACE_S": "elastic driver's wait after its SIGUSR2 "
+                                "fan-out",
+    "LOCKDEP": "runtime lock-order watchdog (1 records, raise raises)",
+    # Autoscale (common/autoscale.py): read by the elastic driver and
+    # the workers' step publisher.
+    "AUTOSCALE": "autoscale control loop enable",
+    "AUTOSCALE_POLICY": "autoscale policy file or inline JSON",
+    "AUTOSCALE_LOG": "autoscale decision log (JSON lines)",
+    "PARALLEL": "hybrid dp/pp/tp spec (raises: the parallel-roles slice)",
     # Serve plane.
     "SERVE_LOG": "serve-controller decision log",
     "SERVE_TRACE": "request-span tracer enable (0 = shared no-op)",
@@ -158,12 +186,8 @@ class Config:
     compression: Optional[str] = None
     quantize_min_bucket_bytes: int = DEFAULT_QUANTIZE_MIN_BYTES
     adasum_scalar_dtype: str = "float32"
-    # Eager engine: the signature cache's capacity, join mode (every
-    # collective a coordination round), the controller's round timeout
-    # (the JAX package's stall-check time) and how long a joined process
-    # waits for its peers. The JAX package's default for the last is 0,
-    # a wait its stall inspector watches; the port has no stall
-    # inspector, so a joined wait is bounded instead.
+    # Eager engine: the signature cache's capacity and join mode (every
+    # collective a coordination round).
     cache_capacity: int = 1024
     join_mode: bool = False
     # Training integrity (common/integrity.py): the non-finite gradient
@@ -179,8 +203,37 @@ class Config:
     accum_steps: int = 1
     remat_policy: Optional[str] = None
     prefetch: Optional[str] = None
+    # Stall inspector (common/stall.py): a collective in flight longer
+    # than the check time warns (the check time is also the
+    # controller's round timeout); one in flight longer than the
+    # shutdown time (0 = never) is fatal, a StallTimeoutError under
+    # stall_fatal="raise". The inspector also watches a joined process's
+    # wait for its peers, which is otherwise unbounded (the JAX
+    # package's contract and defaults).
     stall_check_time_seconds: float = 60.0
-    stall_shutdown_time_seconds: float = 600.0
+    stall_shutdown_time_seconds: float = 0.0
+    stall_check_disable: bool = False
+    stall_fatal: Optional[str] = None
+    # Telemetry export surfaces wired at init() (the registry's enable is
+    # HVD_TPU_METRICS, read at import): the JSON-lines dump path and
+    # interval, the /metrics port (-1 off, 0 ephemeral) and the
+    # record_function bridge.
+    metrics_file: Optional[str] = None
+    metrics_interval_s: float = 10.0
+    metrics_port: int = -1
+    metrics_trace_bridge: bool = False
+    # Flight recorder (common/flightrec.py): the ring's enable, capacity
+    # and the black-box directory (None: results/flightrec).
+    flightrec: bool = True
+    flightrec_size: int = 256
+    flightrec_dir: Optional[str] = None
+    # Host-core pinning: one core id per local rank, comma-separated.
+    thread_affinity: Optional[str] = None
+    # Autoscale (common/autoscale.py): arm the control loop, its policy
+    # (a file path or inline JSON) and the decision log.
+    autoscale: bool = False
+    autoscale_policy: Optional[str] = None
+    autoscale_log: Optional[str] = None
     # Routing (common/topology.py): the optimizer's default route (None =
     # the flat axis unless a call passes route=), the mesh factorization
     # (slow axis first, e.g. "2x2"; None = cross x local from the
@@ -235,6 +288,22 @@ class Config:
             raw = runtime_env(name.upper())
             if raw:
                 setattr(c, name, float(raw))
+        c.stall_check_disable = _truthy(runtime_env("STALL_CHECK_DISABLE")
+                                        or "0")
+        c.stall_fatal = runtime_env("STALL_FATAL") or None
+        c.metrics_file = runtime_env("METRICS_FILE") or None
+        c.metrics_interval_s = env_float("METRICS_INTERVAL_S",
+                                         c.metrics_interval_s)
+        c.metrics_port = env_int("METRICS_PORT", c.metrics_port)
+        c.metrics_trace_bridge = _truthy(runtime_env("METRICS_TRACE")
+                                         or "0")
+        c.flightrec = _truthy(runtime_env("FLIGHTREC") or "1")
+        c.flightrec_size = env_int("FLIGHTREC_SIZE", c.flightrec_size)
+        c.flightrec_dir = runtime_env("FLIGHTREC_DIR") or None
+        c.thread_affinity = runtime_env("THREAD_AFFINITY") or None
+        c.autoscale = _truthy(runtime_env("AUTOSCALE") or "0")
+        c.autoscale_policy = runtime_env("AUTOSCALE_POLICY") or None
+        c.autoscale_log = runtime_env("AUTOSCALE_LOG") or None
         fields = {f.name for f in dataclasses.fields(cls)}
         for key, value in overrides.items():
             if key in _LATER_SETTINGS:

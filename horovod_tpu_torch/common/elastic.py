@@ -122,8 +122,16 @@ class State:
         """Snapshot, honor a latched preemption, check for host updates.
         The chaos worker faults fire first: a crash here loses the
         uncommitted progress, and an injected preemption latches in time
-        for this commit."""
+        for this commit. One commit is one training step to the
+        telemetry: the autoscale publisher measures it (a None check
+        unless the elastic driver runs autoscaling) and the flight
+        recorder stamps the step onto its next events."""
         faults_lib.maybe_worker_fault()
+        from . import autoscale as autoscale_lib
+        from . import flightrec as flightrec_lib
+
+        autoscale_lib.note_step()
+        flightrec_lib.note_commit()
         self.save()
         self._handle_preemption()
         self.check_host_updates()
@@ -305,9 +313,12 @@ def run(func: Callable) -> Callable:
                 if driver_managed:
                     sys.exit(HOSTS_UPDATED_EXIT_CODE)
             except Exception as e:  # noqa: BLE001 — classified below
-                # The flight recorder's black box (the JAX package's
-                # flightrec.maybe_dump_for) comes with the telemetry
-                # slice of the port.
+                # The black box of a fatal StallTimeoutError,
+                # MismatchError or NonFiniteError, whatever path it took
+                # here, before the retry loop tears the evidence down.
+                from . import flightrec as flightrec_lib
+
+                flightrec_lib.maybe_dump_for(e)
                 if not _is_comm_failure(e):
                     raise
                 logger.warning("elastic: collective failure (%s); rolling "
@@ -317,9 +328,15 @@ def run(func: Callable) -> Callable:
                 faults_lib.stats.bump("restores")
                 skip_sync = False
                 if driver_managed:
-                    # The JAX package dumps this rank's flight recorder
-                    # here (recorder().dump("peer_failure")); that comes
-                    # with the telemetry slice of the port.
+                    # The epoch is dying: this rank's ring is the healthy
+                    # half of the post-mortem. Dumping here is
+                    # deterministic (the driver's SIGUSR2 reaches only
+                    # workers still alive when it fires); fallback=True
+                    # keeps a specific stall/mismatch box of this process.
+                    flightrec_lib.recorder().dump(
+                        "peer_failure",
+                        reason=f"{type(e).__name__}: {e}",
+                        fallback=True)
                     logger.warning(
                         "elastic: exiting for driver-managed restart "
                         "(peer failure, exit code %d)",

@@ -52,6 +52,20 @@ class DuplicateTensorNameError(HorovodTpuError):
     never completed."""
 
 
+class StallError(HorovodTpuError):
+    """A collective stalled past the shutdown threshold
+    (``stall_shutdown_time_seconds``; reference Horovod's
+    ``HOROVOD_STALL_SHUTDOWN_TIME_SECONDS``)."""
+
+
+class StallTimeoutError(StallError, HorovodInternalError):
+    """A collective stalled past the shutdown threshold with
+    ``HVD_TPU_STALL_FATAL=raise``: typed, and — as a
+    :class:`HorovodInternalError` too — classified as a comm failure by
+    the elastic retry loop, so a hung collective aborts into an elastic
+    reset instead of wedging the run."""
+
+
 class AlltoallvLayoutError(HorovodTpuError, NotImplementedError):
     """The controller-negotiated ``alltoallv`` was called in a layout it
     does not support; the eager engine assumes one rank per process."""

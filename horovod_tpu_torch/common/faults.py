@@ -24,7 +24,9 @@ site                    where it fires / what it does
                         DistBackendError``, the type gloo and NCCL raise
                         for a dead peer, which ``elastic._is_comm_failure``
                         classifies
-``collective_stall``    the eager engine's submit: sleeps ``delay_s``
+``collective_stall``    the eager engine, between a collective's issue and
+                        its completion: sleeps ``delay_s`` (a rank hung
+                        inside its collective)
 ``rendezvous``          ``RendezvousClient`` request: mode ``5xx``
                         (default, HTTP ``code``), ``drop`` (connection
                         error) or ``delay`` — one hit an HTTP attempt,
@@ -43,11 +45,15 @@ site                    where it fires / what it does
 ``checkpoint_corrupt``  ``CheckpointManager`` after a step's files are
                         committed: corrupt them (``bitflip`` default,
                         ``truncate``, ``sidecar``)
+``straggler``           ``autoscale.StepPublisher.note`` (one hit a
+                        ``State.commit()``): sleeps ``delay_s`` (a real
+                        slow worker); ``scale`` inflates only the
+                        reported step time
 ======================  =================================================
 
-``straggler``, ``moe_skew`` and ``replica_kill`` are known names (a plan
-that carries them parses as in the JAX package) whose sites come with
-the slices that hold them: autoscale, MoE and the serve chaos family.
+``moe_skew`` and ``replica_kill`` are known names (a plan that carries
+them parses as in the JAX package) whose sites come with the slices
+that hold them: MoE and the serve chaos family.
 
 Plan JSON: ``{"seed": 42, "faults": [{"site": ..., "step": N |
 "probability": p, "times": k, ...}]}`` (a bare list is accepted, seed 0).
@@ -61,7 +67,6 @@ Without a plan every site is one global load and a None check.
 
 from __future__ import annotations
 
-import atexit
 import dataclasses
 import json
 import logging
@@ -273,7 +278,8 @@ def maybe_collective_fault() -> None:
 
 
 def maybe_collective_stall() -> None:
-    """The eager engine's submit: hold the collective ``delay_s``."""
+    """The eager engine, after a collective's issue: hold it
+    ``delay_s``."""
     inj = _injector
     if inj is None:
         return
@@ -346,6 +352,15 @@ def maybe_diverge() -> Optional[FaultSpec]:
     """``integrity.chaos_perturb``'s site."""
     inj = _injector
     return None if inj is None else inj.check("diverge")
+
+
+def maybe_straggler() -> Optional[FaultSpec]:
+    """``autoscale.StepPublisher.note``'s site, one hit a
+    ``State.commit()``: ``delay_s`` sleeps the worker for real (an honest
+    slow worker the autoscale engine must find and evict); ``scale``
+    only inflates the reported step time."""
+    inj = _injector
+    return None if inj is None else inj.check("straggler")
 
 
 def maybe_checkpoint_corrupt() -> Optional[FaultSpec]:
@@ -503,9 +518,16 @@ class RecoveryStats:
             pass
 
     def _register_exit_hook(self) -> None:
-        if not self._exit_hook_registered:
-            self._exit_hook_registered = True
-            atexit.register(self._dump_at_exit)
+        if self._exit_hook_registered:
+            return
+        self._exit_hook_registered = True
+        # The process's one ordered teardown (common/shutdown.py): the
+        # counter dump runs last, after the flight recorder finalized
+        # and the metrics dump drained.
+        from . import shutdown as shutdown_lib
+
+        shutdown_lib.register("recovery_stats", self._dump_at_exit,
+                              shutdown_lib.RECOVERY_STATS_PRIORITY)
 
     def _dump_at_exit(self) -> None:
         snap = self.snapshot()

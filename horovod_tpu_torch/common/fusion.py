@@ -37,6 +37,16 @@ _M_FILL = metrics_lib.gauge(
     "hvd_tpu_fusion_fill_efficiency",
     "mean bucket fill fraction (bucket bytes / threshold) of the most "
     "recent plan")
+_METRICS_ON = metrics_lib.enabled()
+_M_WIRE_BUCKETS = metrics_lib.counter(
+    "hvd_tpu_fusion_bucket_wire_total",
+    "fusion buckets by the wire format assign_wire_dtypes stamped",
+    labels=("wire",))
+_M_WIRE_BYTES = metrics_lib.counter(
+    "hvd_tpu_fusion_wire_bytes_total",
+    "bytes planned onto each wire format (per plan, raw-dtype bytes of "
+    "the buckets routed there)",
+    labels=("wire",))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +172,11 @@ def assign_wire_dtypes(plan: FusionPlan, quantize_min_bytes: int,
             wires.append(small_wire)
         else:
             wires.append(WIRE_NONE)
+    if _METRICS_ON:
+        for b, w in zip(plan.buckets, wires):
+            _M_WIRE_BUCKETS.labels(wire=w).inc()
+            _M_WIRE_BYTES.labels(wire=w).inc(
+                b.total_elems * torch.empty((), dtype=b.dtype).element_size())
     return dataclasses.replace(plan, wire_dtypes=tuple(wires))
 
 

@@ -332,10 +332,16 @@ def check_abort(snapshot: dict) -> None:
     non-finite steps (takes an :func:`observe_guard` snapshot)."""
     if snapshot.get("policy") == "abort" and \
             snapshot.get("nonfinite_steps", 0) > 0:
-        raise NonFiniteError(
+        exc = NonFiniteError(
             f"non-finite gradients on {snapshot['nonfinite_steps']} "
             "step(s) under HVD_TPU_NONFINITE_POLICY=abort (the steps "
             "were skipped; optimizer state is intact)")
+        # A fatal abort is a black-box event: capture the ring before
+        # the raise unwinds the training loop.
+        from . import flightrec as flightrec_lib
+
+        flightrec_lib.maybe_dump_for(exc)
+        raise exc
 
 
 # -- divergence detection ----------------------------------------------------

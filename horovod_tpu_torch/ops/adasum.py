@@ -40,10 +40,18 @@ import numpy as np
 import torch
 
 from ..common import basics
+from ..common import metrics as metrics_lib
 from . import collectives as C
 from . import kernels
 
 WIRES = ("none", "bf16", "int8")
+
+_METRICS_ON = metrics_lib.enabled()
+_M_COMBINES = metrics_lib.counter(
+    "hvd_tpu_adasum_combines_total",
+    "Adasum pairwise-combine stages run, by exchange wire format (one a "
+    "recursion level a reduced tensor)",
+    labels=("wire",))
 
 
 def _dot_norms(a: torch.Tensor, b: torch.Tensor,
@@ -136,6 +144,8 @@ def adasum_allreduce(x: torch.Tensor,
         kl = None if key is None else C.fold_in(key, lvl)
         a, b = _exchange(x, ax.index ^ (1 << lvl), wire, kl, ax)
         x = _pairwise_combine(a, b, scalar_dtype, scalar_axes=scalar_axes)
+        if _METRICS_ON:
+            _M_COMBINES.labels(wire=wire).inc()
     return x
 
 

@@ -53,8 +53,17 @@ auto-route of skewed tables to the chunked form does not apply here:
 its flat form pads every segment to the largest, the port's does not,
 so the chunked form would only add hops and padding.
 
-Left out, each raising ``NotImplementedError`` naming its slice: the
-autotuner, the stall inspector and fault injection.
+Telemetry: the stall inspector (``common/stall.py``) records each
+collective's submit and completion and watches a joined process's wait
+for its peers; the flight ring records the same events, and a
+``StallTimeoutError`` or ``MismatchError`` on a collective's path dumps
+its black box. The ``collective_stall`` fault site holds a collective
+between its issue and its completion. The time a call spends waiting on
+its collective (negotiation, that site, ``synchronize``) runs on
+``autoscale.comm_clock``, which the autoscale step publisher subtracts.
+
+Left out, raising ``NotImplementedError`` naming its slice: the
+autotuner.
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..common import autoscale as autoscale_lib
 from ..common import faults as faults_lib
 from ..common import flightrec as flightrec_lib
 from ..common import fusion as fusion_lib
@@ -173,7 +183,9 @@ class _Pending:
     def wait(self):
         if not self._done:
             try:
-                self._result = C.wait_issued((self._works, self._finish))
+                with autoscale_lib.comm_clock.waiting():
+                    self._result = C.wait_issued((self._works,
+                                                  self._finish))
             except Exception as e:
                 self._done = True
                 self._engine._fail(self._full, e)
@@ -307,15 +319,15 @@ class EagerEngine:
                  axis=None):
         """``axis`` is the axis the collectives run over (None: the
         world); ``hier_mesh`` the mesh's ``(cross, local)`` axes or None;
-        ``ps_tag`` names a process set's engine."""
-        for value, what, where in (
-                (stall_inspector, "stall_inspector", "the telemetry slice"),
-                (autotuner, "autotuner", "the autotune slice")):
-            if value:
-                raise NotImplementedError(
-                    f"EagerEngine({what}=...) is not ported yet; it comes "
-                    f"with {where} of the port")
+        ``ps_tag`` names a process set's engine; ``stall_inspector``
+        (``common/stall.py``) records every collective's submit and
+        completion and watches a joined process's wait."""
+        if autotuner:
+            raise NotImplementedError(
+                "EagerEngine(autotuner=...) is not ported yet; it comes "
+                "with the autotune slice of the port")
         self.config = config
+        self.stall = stall_inspector
         self.device = device
         self.rank = rank
         self.size = size
@@ -370,10 +382,11 @@ class EagerEngine:
                     f"tensor {full} re-submitted while a previous "
                     "submission was never synchronized")
             time.sleep(0.001)
+        if self.stall is not None:
+            self.stall.record_submit(full)
         flightrec_lib.recorder().record_submit(full, kind)
         if _METRICS_ON:
             self._submit_ts[full] = time.perf_counter()
-        faults_lib.maybe_collective_stall()
         if self.timeline is not None:
             if idle:
                 self.timeline.mark_cycle()
@@ -390,16 +403,20 @@ class EagerEngine:
             if t0 is not None:
                 _M_COMPLETE.labels(op=full.split(".", 1)[0]).observe(
                     time.perf_counter() - t0)
+        if self.stall is not None:
+            self.stall.record_complete(full)
         flightrec_lib.recorder().record_complete(full)
         if self.timeline is not None:
             self.timeline.end(full)
 
     def _fail(self, full: Optional[str], exc: BaseException) -> None:
         """A collective's error: stamp the outcome into the flight ring,
-        then close the name."""
+        dump a black box for the fatal classes (StallTimeoutError,
+        MismatchError), then close the name."""
         if full is not None:
             flightrec_lib.recorder().record_complete(
                 full, outcome=f"error:{type(exc).__name__}")
+        flightrec_lib.maybe_dump_for(exc)
         self._end(full)
 
     def _pending(self, full: Optional[str], issued) -> _Pending:
@@ -408,6 +425,12 @@ class EagerEngine:
             if t0 is not None:
                 _M_DISPATCH.labels(op=full.split(".", 1)[0]).observe(
                     time.perf_counter() - t0)
+        # The "collective_stall" site: this process hangs inside its
+        # collective — issued (the peers' side of the exchange can
+        # finish) and not completed, so its stall inspector sees it age
+        # and its flight ring keeps it pending.
+        with autoscale_lib.comm_clock.waiting():
+            faults_lib.maybe_collective_stall()
         return _Pending(self, full, *issued)
 
     # -- negotiation -----------------------------------------------------
@@ -448,7 +471,8 @@ class EagerEngine:
         if hit:
             return
         if self.controller is not None:
-            self.controller.negotiate(req)
+            with autoscale_lib.comm_clock.waiting():
+                self.controller.negotiate(req)
         self._lru.put(sig)
 
     def _wire_contract(self, compression) -> str:
@@ -482,13 +506,19 @@ class EagerEngine:
     def _join_wait(self, key: str, patient: bool, what: str
                    ) -> Optional[str]:
         """Read ``key``: within the controller timeout for an active
-        process (None past it); a joined process waits for its peers,
-        who may compute for long between collectives, up to
-        ``config.stall_shutdown_time_seconds`` (0 = forever), then raises
-        naming what it waited for."""
+        process (None past it). A joined process waits for its peers,
+        who may compute for long between collectives. Under the stall
+        inspector (every ``init()``'d engine) it waits as the JAX
+        engine does: without a bound of its own, but watched — the
+        inspector warns past its check time and raises
+        :class:`StallError` past its shutdown time. A bare engine
+        waits up to ``config.stall_shutdown_time_seconds`` (0 =
+        forever), then raises naming what it waited for."""
         c = self.controller
         if not patient:
             return c.transport.get(key, c.timeout_s)
+        if self.stall is not None:
+            return self._watched_wait(key, what)
         limit = self.config.stall_shutdown_time_seconds
         start = time.monotonic()
         while True:
@@ -502,6 +532,25 @@ class EagerEngine:
                 raise HorovodInternalError(
                     f"joined rank {c.rank} waited {limit}s for {what} "
                     "(a dead or hung peer?)")
+
+    def _watched_wait(self, key: str, what: str) -> str:
+        """A joined process's wait under the stall inspector, recorded
+        as an in-flight ``join:<what>`` entry while it lasts."""
+        c = self.controller
+        wait_name = f"join:{what}"
+        waiting = False
+        try:
+            while True:
+                raw = c.transport.get(key, c.timeout_s)
+                if raw is not None:
+                    return raw
+                if not waiting:
+                    self.stall.record_submit(wait_name)
+                    waiting = True
+                self.stall.check()
+        finally:
+            if waiting:
+                self.stall.record_complete(wait_name)
 
     def _join_round(self, req: Optional[Request]) -> dict:
         """Run one coordination round; ``req=None`` submits JOIN."""

@@ -156,14 +156,22 @@ def _nvcc() -> str:
     return found
 
 
+def library_path(source: str) -> Path:
+    """Where :func:`build_library` puts ``source``'s library (named by a
+    hash of the source and the flags); ``is_file()`` says whether the
+    current source is built."""
+    src = _CSRC / source
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}.{digest}.so"
+
+
 def build_library(source: str = "int8_codec.cu") -> Path:
     """Compile one ``csrc`` source into a shared library (once per
     source/flags hash) and return its path. Safe under concurrent
     callers: each compiles to a private name and renames into place."""
     src = _CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{src.stem}.{digest}.so"
+    out = library_path(source)
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -148,6 +148,7 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 import torch.distributed as dist
 
+from .common import autoscale as autoscale_lib
 from .common import basics
 from .common import config as config_lib
 from .common import faults as faults_lib
@@ -165,6 +166,85 @@ _M_EF_NORM = metrics_lib.gauge(
     "hvd_tpu_ef_residual_norm",
     "global L2 norm of the error-feedback quantization residual "
     "(observe_ef_residual)")
+_M_PHASE = metrics_lib.histogram(
+    "hvd_tpu_step_phase_seconds",
+    "per-phase step wall time from StepTimer (grad/comm/apply/...)",
+    labels=("phase",))
+
+
+class StepTimer:
+    """Host-side step-phase breakdown — the grad/comm/apply split of the
+    ``hvd_tpu_step_phase_seconds`` histogram (the JAX package's
+    ``StepTimer``). With the profiler bridge on
+    (``HVD_TPU_METRICS_TRACE=1``) each phase is also a
+    ``torch.profiler.record_function`` range named ``<name>/<phase>``.
+    A ``"comm"`` phase also runs on ``autoscale.comm_clock``: the
+    autoscale publisher leaves it out of the rank's step time.
+
+    CUDA work is asynchronous, so a phase measures real work only if its
+    outputs are ready when the block exits: :meth:`timed` synchronizes
+    the device of every tensor in the result (no host read of a
+    value)::
+
+        st = hvd.StepTimer()
+        logits = st.timed("forward", model, x)
+        with st.phase("grad"):
+            loss_fn(logits, y).backward()
+            torch.cuda.synchronize()
+        opt.step()      # synchronize() times its wait as "comm"
+
+    ``DistributedOptimizer.synchronize()`` times its own wait as
+    ``"comm"`` unless the caller already times one. Zero-cost when
+    metrics are disabled (every call lands on the no-op singleton; the
+    comm clock still runs)."""
+
+    def __init__(self, name: str = "hvd_step"):
+        self.name = name
+
+    @contextlib.contextmanager
+    def phase(self, phase: str):
+        """Context manager timing one named phase."""
+        timer = _M_PHASE.labels(phase=phase).time(
+            annotation=f"{self.name}/{phase}"
+            if metrics_lib.registry().trace_bridge else None)
+        with contextlib.ExitStack() as stack:
+            if phase == "comm":
+                stack.enter_context(autoscale_lib.comm_clock.waiting())
+            stack.enter_context(timer)
+            yield
+
+    def timed(self, phase: str, fn, *args, **kwargs):
+        """Run ``fn`` and wait until its outputs are ready on their
+        devices, recording the elapsed wall time under ``phase``."""
+        with self.phase(phase):
+            out = fn(*args, **kwargs)
+            _synchronize_devices(out)
+        return out
+
+
+def _synchronize_devices(out) -> None:
+    """``torch.cuda.synchronize`` on every CUDA device a tensor of
+    ``out`` (any nesting of lists, tuples and dicts) lives on."""
+    devices = {t.device for t in tree_lib.leaves(out)
+               if isinstance(t, torch.Tensor) and t.is_cuda}
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def _comm_phase(device: torch.device):
+    """The optimizer's wait on its own collectives: StepTimer's
+    ``"comm"`` phase, unless the caller already times one. While the
+    autoscale publisher measures this rank's busy time, the rank's own
+    device work is finished first: waiting for it is busy time, not a
+    wait for peers."""
+    if autoscale_lib.comm_clock.active():
+        yield
+        return
+    if device.type == "cuda" and autoscale_lib.publishing():
+        torch.cuda.synchronize(device)
+    with StepTimer().phase("comm"):
+        yield
 
 # Base seed of the stochastic rounding: bucket i at step t rounds with the
 # key (_EF_SEED, t, i), the same on every rank and on every rerun.
@@ -807,6 +887,10 @@ class _DistributedOptimizerMixin:
         skips commits nothing)."""
         if not self._dist_dirty and not self._dist_inflight:
             return
+        with _comm_phase(self._dist_params[0].device):
+            self._synchronize()
+
+    def _synchronize(self) -> None:
         faults_lib.maybe_collective_fault()
         for bi in range(len(self._dist_plan.buckets)):
             if bi not in self._dist_inflight and bi not in self._ov_ready:
@@ -1024,7 +1108,8 @@ class _DistributedAdasumMixin:
         with torch.no_grad():
             before = [p.detach().clone() for p in params]
         result = self._base_cls.step(self, closure)
-        with torch.no_grad():
+        with torch.no_grad(), _comm_phase(
+                params[0].device if params else torch.device("cpu")):
             for p, b in zip(params, before):
                 p.copy_(b + self._reduce_delta(p.detach() - b))
                 self.adasum_reductions += 1

@@ -125,7 +125,8 @@ def add_process_set(process_set) -> ProcessSet:
     if me >= 0:
         process_set._engine = EagerEngine(
             ctx.config, ctx.device, me, len(ranks), controller=None,
-            timeline=ctx.timeline, axis=process_set.axis,
+            timeline=ctx.timeline, stall_inspector=ctx.stall,
+            axis=process_set.axis,
             ps_tag=process_set.axis.name)
     ctx.process_sets.append(process_set)
     return process_set

@@ -21,12 +21,28 @@ each host's workers are local processes of ONE real multi-process world
 CPU backend has no multi-process collectives; gloo has them), so a
 ``crash`` of one host's worker is a real peer death for the others.
 
+Telemetry and control, in this process so their memory spans epochs:
+
+* the autoscale engine (``common/autoscale.py``, armed by
+  ``--autoscale-policy`` / ``HVD_TPU_AUTOSCALE``): every
+  ``tick_interval_s`` it reads the workers' step reports off the KV
+  (and the pod monitor's scrapes) and its evict/shrink decisions
+  blacklist the host for the policy's TTL and end the epoch through
+  the same host-update channel a discovery change uses; before each
+  epoch ``pre_epoch`` adopts returned or new capacity (a ``grow``) or
+  holds it back (``np_cap``);
+* the pod monitor (``common/podmon.py``, ``--pod-metrics-port``):
+  scrapes every worker's ``/metrics.json`` (advertised over the KV) and
+  serves the merged ``/pod/metrics``; workers default to an ephemeral
+  ``/metrics`` port when it runs;
+* the flight recorder's fan-out: the first failure exit of an epoch
+  sends SIGUSR2 to every live worker, so each writes its black box
+  (``HVD_TPU_FLIGHTREC_SIGNAL_GRACE_S`` is the wait before a kill).
+
 Not ported yet: workers on other machines (ssh; ``NotImplementedError``
-naming the ssh/LSF launch slice), the autoscale engine and the pod
-metrics monitor (the telemetry and control slice), a caller's spawner or
-rendezvous server (the Spark and Ray launches have no counterpart), and
-the flight recorder's SIGUSR2 fan-out to the workers of a dying epoch
-(the telemetry and control slice).
+naming the ssh/LSF launch slice) and a hybrid ParallelSpec's respec (the
+parallel-roles slice). A caller's spawner or rendezvous server (the
+Spark and Ray launches) has no counterpart.
 """
 
 from __future__ import annotations
@@ -34,6 +50,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import signal
 import socket
 import subprocess
 import sys
@@ -370,8 +387,8 @@ class ElasticDriver:
                            np_exact: Optional[int] = None
                            ) -> List[hosts_lib.SlotInfo]:
         """Re-assign ranks, keeping existing hosts' ranks stable.
-        ``np_cap`` (autoscale hold: the policy refused new capacity —
-        docs/autoscale.md) additionally caps the world below max_np
+        ``np_cap`` (autoscale hold: the policy refused new capacity)
+        additionally caps the world below max_np
         but never below min_np. ``np_exact`` (elastic respec: the
         re-solved mesh must factor the world EXACTLY —
         docs/elastic.md "hybrid worlds") pins np even below min_np."""
@@ -468,15 +485,19 @@ def _spawn_epoch(slots: List[hosts_lib.SlotInfo], command: List[str],
 def _run_epoch(driver: ElasticDriver, slots: List[hosts_lib.SlotInfo],
                command: List[str], env_extra: Dict[str, str],
                poll_interval: float = 0.1, on_hosts_updated=None,
-               grace_secs: Optional[float] = None):
+               grace_secs: Optional[float] = None, on_tick=None,
+               tick_interval_s: Optional[float] = None):
     """Run one epoch and track each worker's exit. Returns ``(rc,
     failed_hosts, interrupted)``: ``failed_hosts`` exited non-zero on
     their own (blacklist candidates); ``interrupted`` means a discovery
-    change ended the epoch (never blacklisted). On a change
-    ``on_hosts_updated`` runs first (the topology version moves), then
-    the workers get ``HVD_TPU_ELASTIC_GRACE_SECS`` to exit at a
-    ``commit()`` before they are terminated; a peer-failure exit ends
-    the epoch the same way."""
+    change or an autoscale decision ended the epoch (never
+    blacklisted). On a change ``on_hosts_updated`` runs first (the
+    topology version moves), then the workers get
+    ``HVD_TPU_ELASTIC_GRACE_SECS`` to exit at a ``commit()`` before they
+    are terminated; a peer-failure exit ends the epoch the same way.
+    ``on_tick`` (the autoscale tick) runs every ``tick_interval_s``; it
+    returns True when it reshaped the world. The first failure exit
+    sends SIGUSR2 to every live worker (its black box)."""
     from ..common.elastic import (HOSTS_UPDATED_EXIT_CODE,
                                   PEER_FAILURE_EXIT_CODE)
 
@@ -487,13 +508,42 @@ def _run_epoch(driver: ElasticDriver, slots: List[hosts_lib.SlotInfo],
     grace_deadline = None
     grace = (grace_secs if grace_secs is not None else
              float(runtime_env("ELASTIC_GRACE_SECS", "30")))
+    dumps_requested = False
 
-    def terminate_all():
+    def request_dumps() -> bool:
+        # The epoch is dying on a FAILURE: ask every live worker for
+        # its black box (SIGUSR2 -> common/flightrec.py), while the
+        # survivors are still alive — a peer-failure exit is on its way.
+        nonlocal dumps_requested
+        signaled = False
+        for _, p in procs:
+            if p.poll() is not None:
+                continue
+            try:
+                p.send_signal(signal.SIGUSR2)
+                signaled = True
+            except (ProcessLookupError, OSError):
+                pass
+        dumps_requested = dumps_requested or signaled
+        return signaled
+
+    def terminate_all(dump_first: bool = False):
+        if dump_first and not dumps_requested:
+            try:
+                dump_grace = float(runtime_env(
+                    "FLIGHTREC_SIGNAL_GRACE_S", "1.0"))
+            except ValueError:
+                dump_grace = 1.0
+            if request_dumps() and dump_grace > 0:
+                time.sleep(dump_grace)
         for _, p in procs:
             try:
                 p.terminate()
             except (ProcessLookupError, OSError):
                 pass
+
+    next_tick = (time.monotonic() + tick_interval_s
+                 if on_tick is not None and tick_interval_s else None)
 
     try:
         while True:
@@ -506,14 +556,40 @@ def _run_epoch(driver: ElasticDriver, slots: List[hosts_lib.SlotInfo],
                     rc = rc or code
                     if code == HOSTS_UPDATED_EXIT_CODE:
                         interrupted = epoch_ending = True
-                    elif code == PEER_FAILURE_EXIT_CODE:
-                        # "My peer failed": restart, do not blacklist.
+                    elif code == PEER_FAILURE_EXIT_CODE or (
+                            dumps_requested and code == -signal.SIGUSR2):
+                        # "My peer failed": restart, do not blacklist
+                        # (nor a worker the dump request caught exiting).
                         epoch_ending = True
                     else:
+                        if hostname not in failed:
+                            logger.warning("elastic: the worker on %s "
+                                           "exited %d", hostname, code)
                         failed.add(hostname)
+            if (epoch_ending and not interrupted and not terminated
+                    and not dumps_requested):
+                # A peer-failure exit is ending the epoch: collect the
+                # survivors' rings now, while they are alive.
+                request_dumps()
             if failed and not terminated:
-                terminate_all()
+                terminate_all(dump_first=True)
                 terminated = True
+            if next_tick is not None and not terminated \
+                    and not interrupted and time.monotonic() >= next_tick:
+                # Autoscale tick: its evict/shrink decisions blacklist
+                # their hosts and reshape through the host-update channel.
+                next_tick = time.monotonic() + tick_interval_s
+                try:
+                    reshape = bool(on_tick())
+                except Exception:  # noqa: BLE001 — the control loop must
+                    logger.exception(   # never kill a healthy epoch
+                        "autoscale: tick evaluation failed")
+                    reshape = False
+                if reshape:
+                    interrupted = True
+                    if on_hosts_updated is not None:
+                        on_hosts_updated()
+                    grace_deadline = time.monotonic() + grace
             if not terminated and not interrupted and \
                     driver.hosts_updated():
                 interrupted = True
@@ -524,7 +600,9 @@ def _run_epoch(driver: ElasticDriver, slots: List[hosts_lib.SlotInfo],
                 grace_deadline = time.monotonic() + grace
             if (grace_deadline is not None and not terminated
                     and time.monotonic() > grace_deadline):
-                terminate_all()
+                # Black boxes only on a FAILURE ending: a reshape is
+                # routine.
+                terminate_all(dump_first=(rc != 0 and not interrupted))
                 terminated = True
             if not running:
                 break
@@ -533,8 +611,6 @@ def _run_epoch(driver: ElasticDriver, slots: List[hosts_lib.SlotInfo],
             t.join(timeout=2)
         return rc, failed, interrupted
     except KeyboardInterrupt:
-        import signal
-
         for _, p in procs:
             if p.poll() is None:
                 p.send_signal(signal.SIGINT)
@@ -565,6 +641,26 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
             discovery = FixedHostDiscovery(
                 {h.hostname: h.slots for h in host_infos})
     faults_lib.refresh_from_env()
+    from ..common import autoscale as autoscale_lib
+    from ..common import podmon as podmon_lib
+
+    if {**os.environ, **env_extra}.get("HVD_TPU_PARALLEL"):
+        raise NotImplementedError(
+            "an elastic world with a hybrid ParallelSpec (HVD_TPU_PARALLEL: "
+            "role-grouped autoscaling, respec) is not ported yet; it comes "
+            "with the parallel-roles slice of the port")
+    # The autoscale policy: the launcher's knobs (env_extra, validated)
+    # over the caller's environment. A bad policy fails the launch.
+    autoscale_env = {**os.environ, **{
+        k: v for k, v in env_extra.items()
+        if k.startswith("HVD_TPU_AUTOSCALE")}}
+    autoscale_policy = None
+    if autoscale_lib.autoscale_enabled(autoscale_env):
+        policy = autoscale_lib.AutoscalePolicy.from_env(autoscale_env)
+        if policy.enabled:
+            autoscale_policy = policy
+            logger.warning("autoscale: enabled (policy: %s)",
+                           policy.to_json())
     driver = ElasticDriver(discovery, min_np, max_np)
     driver.start_discovery()
     # A fresh secret a job, kept out of this process's environment.
@@ -581,6 +677,54 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
         if chaos_var in os.environ:
             env_extra.setdefault(chaos_var, os.environ[chaos_var])
 
+    # The pod monitor: every worker's /metrics.json (advertised over this
+    # job's KV, plus HVD_TPU_POD_METRICS_ENDPOINTS) merged on
+    # /pod/metrics. Workers default to an ephemeral /metrics port.
+    pod_monitor = None
+    pod_port = podmon_lib.monitor_port_from_env({**os.environ, **env_extra})
+    if pod_port is not None:
+        pod_monitor = podmon_lib.PodMonitor(podmon_lib.combined_endpoints(
+            podmon_lib.kv_endpoints(rdv), podmon_lib.static_endpoints()))
+        print(f"hvdtpurun-torch: /pod/metrics on port "
+              f"{pod_monitor.start(pod_port)}", flush=True)
+        if "HVD_TPU_METRICS_PORT" not in env_extra \
+                and runtime_env("METRICS_PORT") is None:
+            env_extra["HVD_TPU_METRICS_PORT"] = "0"
+
+    engine = None
+    on_tick = None
+    if autoscale_policy is not None:
+        # The engine reads the reports off the in-process KV (the pod
+        # monitor's scrapes fill in ranks the KV never heard from);
+        # workers get the resolved policy, so the publisher's window and
+        # the engine's agree.
+        fetch = autoscale_lib.kv_report_fetcher(rdv)
+        if pod_monitor is not None:
+            fetch = podmon_lib.merged_report_fetcher(fetch, pod_monitor)
+        engine = autoscale_lib.AutoscaleEngine(
+            autoscale_policy, min_np, max_np, fetch,
+            log_path=autoscale_env.get(autoscale_lib.ENV_LOG, ""))
+        env_extra[autoscale_lib.ENV_ENABLE] = "1"
+        env_extra[autoscale_lib.ENV_POLICY] = autoscale_policy.to_json()
+
+        def autoscale_tick() -> bool:
+            # Against the RUNNING world (assigned and usable): a usable
+            # but unassigned host has no worker whose silence could mean
+            # a stall.
+            usable = driver.host_manager.current_hosts()
+            assigned = {h: n for h, n in driver.assigned_hosts().items()
+                        if h in usable}
+            acted = False
+            for d in engine.tick(assigned,
+                                 driver.host_manager.blacklist_snapshot()):
+                if d.action in ("evict", "shrink") and d.target:
+                    driver.host_manager.blacklist(
+                        d.target, ttl_s=d.ttl_s, permanent=d.permanent)
+                    acted = True
+            return acted
+
+        on_tick = autoscale_tick
+
     def bump_version():
         nonlocal topo_version
         topo_version += 1
@@ -590,6 +734,7 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
              else int(runtime_env("ELASTIC_RESET_LIMIT", "100")))
     try:
         attempts = 0
+        prev_np: Optional[int] = None
         epoch_down_since: Optional[float] = None
         while True:
             try:
@@ -612,13 +757,27 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
             # Changes before this clear are folded into the assignment.
             driver.clear_host_updates()
             driver.host_manager.update_available_hosts()
-            slots = driver.update_assignments()
+            np_cap = None
+            if engine is not None:
+                # The grow gate: capacity beyond the previous world is
+                # adopted (a grow decision) or held (np capped).
+                np_cap = engine.pre_epoch(
+                    prev_np, driver.host_manager.current_hosts())
+            slots = driver.update_assignments(np_cap=np_cap)
+            if engine is not None:
+                engine.observe_assignment({s.hostname for s in slots})
+            prev_np = len(slots)
             logger.info("elastic launch attempt %d with np=%d over hosts "
                         "%s", attempts, len(slots),
                         sorted({s.hostname for s in slots}))
+            env_extra["HVD_TPU_TOPOLOGY_VERSION"] = str(topo_version)
             rc, failed_hosts, interrupted = _run_epoch(
                 driver, slots, command, env_extra,
-                on_hosts_updated=bump_version, grace_secs=grace_secs)
+                on_hosts_updated=bump_version, grace_secs=grace_secs,
+                on_tick=on_tick,
+                tick_interval_s=(autoscale_policy.tick_interval_s
+                                 if autoscale_policy is not None
+                                 else None))
             if rc == 0 and not failed_hosts and not interrupted:
                 return 0
             epoch_down_since = time.monotonic()
@@ -638,5 +797,7 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
                     driver.host_manager.blacklist_snapshot() or "{}")
                 return rc or 1
     finally:
+        if pod_monitor is not None:
+            pod_monitor.stop()
         rdv.stop()
         driver.stop()

@@ -13,11 +13,20 @@ Each worker is a fresh process (``safe_shell_exec.spawn``) with
 ``HVD_TPU_*`` variables as the JAX launcher's. ``--elastic`` hands the
 job to ``elastic_driver.run_elastic``.
 
+Telemetry and control: ``--metrics-port N`` gives every worker a
+``/metrics`` endpoint (0: an ephemeral port each, advertised over the
+rendezvous KV); ``--pod-metrics-port N`` serves the merged
+``/pod/metrics`` of all workers from this process (the elastic driver's,
+or a pod monitor of its own for a static launch); ``--autoscale-policy
+JSON|@file|file`` (validated here: a bad field exits naming it; implies
+``--elastic``) arms the elastic driver's autoscale engine, whose
+decisions ``--autoscale-log`` appends as JSON lines; ``--check-build``
+prints what this installation of the port can do.
+
 Not ported yet (each raises ``NotImplementedError`` naming its slice):
-hosts other than this machine (the ssh fan-out, LSF and NIC discovery),
-``--autotune``, ``--metrics-port``, ``--pod-metrics-port``,
-``--autoscale-policy`` and ``--check-build``. The JAX launcher's TPU-pod
-discovery has no counterpart.
+hosts other than this machine (the ssh fan-out, LSF and NIC discovery)
+and ``--autotune``. The JAX launcher's TPU-pod discovery has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -35,7 +44,6 @@ from . import hosts as hosts_lib
 
 _SSH_SLICE = "the ssh/LSF launch slice"
 _AUTOTUNE_SLICE = "the autotune slice"
-_TELEMETRY_SLICE = "the telemetry and control slice"
 _LOCAL_NAMES = ("localhost", "127.0.0.1")
 
 
@@ -229,15 +237,41 @@ def apply_config_file(args: argparse.Namespace,
     return args
 
 
+def check_build() -> str:
+    """The port's capability matrix (``hvdtpurun-torch --check-build``,
+    the counterpart of the JAX launcher's ``check_build``): what
+    torch.distributed offers here and whether each CUDA kernel library
+    is built for the current sources."""
+    from .. import __version__
+    from ..common import basics
+    from ..ops import kernels
+
+    def mark(v):
+        return "X" if v else " "
+
+    lines = [f"horovod_tpu_torch v{__version__}:", "",
+             "Available Frameworks:",
+             "    [X] PyTorch (native)", "",
+             "Available Controllers:",
+             "    [X] torch.distributed + rendezvous KV (multi-process)",
+             f"    [{mark(basics.mpi_built())}] MPI",
+             f"    [{mark(basics.gloo_built())}] Gloo", "",
+             "Available Tensor Operations:",
+             f"    [{mark(basics.nccl_built())}] NCCL (torch.distributed)",
+             f"    [{mark(basics.gloo_built())}] Gloo (torch.distributed)",
+             f"    [{mark(basics.mpi_built())}] MPI",
+             f"    [{mark(basics.cuda_built())}] CUDA", "",
+             "CUDA kernels (sm_90a, built from csrc/ at first use):"]
+    for source in kernels.SOURCES:
+        lines.append(f"    [{mark(kernels.library_path(source).is_file())}]"
+                     f" {source}")
+    return "\n".join(lines)
+
+
 def _refuse_later_flags(args: argparse.Namespace) -> None:
     """The flags of later slices of the port raise, naming the slice."""
-    later = (("check_build", "--check-build", _TELEMETRY_SLICE),
-             ("autotune", "--autotune", _AUTOTUNE_SLICE),
-             ("autotune_log_file", "--autotune-log-file", _AUTOTUNE_SLICE),
-             ("metrics_port", "--metrics-port", _TELEMETRY_SLICE),
-             ("pod_metrics_port", "--pod-metrics-port", _TELEMETRY_SLICE),
-             ("autoscale_policy", "--autoscale-policy", _TELEMETRY_SLICE),
-             ("autoscale_log", "--autoscale-log", _TELEMETRY_SLICE))
+    later = (("autotune", "--autotune", _AUTOTUNE_SLICE),
+             ("autotune_log_file", "--autotune-log-file", _AUTOTUNE_SLICE))
     for dest, flag, where in later:
         value = getattr(args, dest, None)
         if value is not None and value is not False:
@@ -297,9 +331,46 @@ def knob_env(args: argparse.Namespace) -> Dict[str, str]:
 
         FaultPlan.from_json(plan)
         env["HVD_TPU_FAULT_PLAN"] = plan
+    if getattr(args, "autoscale_policy", None):
+        # Parsed here: a typo'd threshold fails THIS launch naming the
+        # field. The validated JSON is what the workers get.
+        from ..common.autoscale import AutoscalePolicy
+
+        policy = AutoscalePolicy.load(args.autoscale_policy)
+        env["HVD_TPU_AUTOSCALE"] = "1"
+        env["HVD_TPU_AUTOSCALE_POLICY"] = policy.to_json()
     if getattr(args, "autoscale_log", None):
         env["HVD_TPU_AUTOSCALE_LOG"] = args.autoscale_log
     return env
+
+
+def _start_pod_monitor(env_extra: Dict[str, str]):
+    """The pod monitor of a static launch, when
+    ``HVD_TPU_POD_METRICS_PORT`` asks for one: without a rendezvous KV
+    in play, one is started here for the workers' endpoint
+    advertisement alone. Returns ``(monitor, owned_rdv)``; the caller
+    stops both."""
+    from ..common import podmon as podmon_lib
+
+    merged_env = {**os.environ, **env_extra}
+    port = podmon_lib.monitor_port_from_env(merged_env)
+    if port is None:
+        return None, None
+    from .rendezvous import RendezvousServer
+
+    owned_rdv = None
+    sources = [podmon_lib.static_endpoints(
+        merged_env.get(podmon_lib.ENV_ENDPOINTS))]
+    if "HVD_TPU_RENDEZVOUS" not in merged_env:
+        owned_rdv = RendezvousServer("127.0.0.1")
+        kv_port = owned_rdv.start()
+        env_extra["HVD_TPU_RENDEZVOUS"] = f"127.0.0.1:{kv_port}"
+        sources.append(podmon_lib.kv_endpoints(owned_rdv))
+    monitor = podmon_lib.PodMonitor(
+        podmon_lib.combined_endpoints(*sources))
+    print(f"hvdtpurun-torch: /pod/metrics on port {monitor.start(port)}",
+          flush=True)
+    return monitor, owned_rdv
 
 
 def _is_local(host_infos) -> bool:
@@ -317,6 +388,9 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
         return 0
     args = apply_config_file(args, argv)
     _refuse_later_flags(args)
+    if args.check_build:
+        print(check_build())
+        return 0
     if args.num_proc is None:
         args.num_proc = 1
     command = args.command
@@ -325,7 +399,14 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
     if not command:
         print("hvdtpurun-torch: no command given", file=sys.stderr)
         return 2
-    env_extra = knob_env(args)
+    try:
+        env_extra = knob_env(args)
+    except ValueError as e:
+        print(f"hvdtpurun-torch: {e}", file=sys.stderr)
+        return 2
+    if args.autoscale_policy:
+        # Autoscaling is the elastic driver's: the flag implies the mode.
+        args.elastic = True
     if args.elastic:
         from .elastic_driver import run_elastic
 
@@ -344,7 +425,14 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
             "hvdtpurun-torch on hosts other than this machine (the ssh "
             f"fan-out) is not ported yet; it comes with {_SSH_SLICE} of "
             "the port")
-    return run_local(args.num_proc, command, env_extra, args.verbose)
+    monitor, owned_rdv = _start_pod_monitor(env_extra)
+    try:
+        return run_local(args.num_proc, command, env_extra, args.verbose)
+    finally:
+        if monitor is not None:
+            monitor.stop()
+        if owned_rdv is not None:
+            owned_rdv.stop()
 
 
 def main() -> None:

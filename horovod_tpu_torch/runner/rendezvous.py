@@ -28,11 +28,12 @@ import hmac
 import json
 import logging
 import threading
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Dict, Optional
 from urllib.parse import parse_qs, urlparse
 
 from ..common.config import runtime_env
+from ..common.httpd import BackgroundHTTPServer
 
 logger = logging.getLogger("horovod_tpu_torch")
 
@@ -136,45 +137,6 @@ class _Handler(BaseHTTPRequestHandler):
             existed = self._store().pop(path, None) is not None
         self.send_response(200 if existed else 404)
         self.end_headers()
-
-
-class BackgroundHTTPServer:
-    """A ``ThreadingHTTPServer`` on a daemon thread; ``start(port,
-    **attrs)`` sets ``attrs`` on the server before the first request
-    (the handler reads the KV store, its lock and the secret there)."""
-
-    def __init__(self, handler_cls, host: str = "0.0.0.0"):
-        self._handler_cls = handler_cls
-        self._host = host
-        self._server: Optional[ThreadingHTTPServer] = None
-        self._thread: Optional[threading.Thread] = None
-
-    def start(self, port: int = 0, **attrs) -> int:
-        self._server = ThreadingHTTPServer((self._host, port),
-                                           self._handler_cls)
-        for k, v in attrs.items():
-            setattr(self._server, k, v)
-        self._thread = threading.Thread(target=self._server.serve_forever,
-                                        daemon=True)
-        self._thread.start()
-        return self._server.server_address[1]
-
-    @property
-    def server(self) -> ThreadingHTTPServer:
-        assert self._server is not None
-        return self._server
-
-    @property
-    def port(self) -> int:
-        assert self._server is not None
-        return self._server.server_address[1]
-
-    def stop(self) -> None:
-        if self._server:
-            self._server.shutdown()
-            self._server.server_close()
-            self._server = None
-            self._thread = None
 
 
 class RendezvousServer:

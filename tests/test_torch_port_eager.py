@@ -283,13 +283,16 @@ def test_timeline_is_a_chrome_trace(tmp_path):
 
 
 def test_engine_contract_and_left_out_parts():
-    """Options of later slices raise naming their slice; the mesh and
-    process-set options (slice 10) are taken; wrong splits, a wire on the
-    flat uneven exchange and an object that is no process set raise
-    before any exchange."""
-    for kw in ({"stall_inspector": object()}, {"autotuner": object()}):
-        with pytest.raises(NotImplementedError, match="slice"):
-            eager.EagerEngine(Config(), torch.device("cpu"), 0, 1, **kw)
+    """The autotuner (a later slice) raises naming its slice; the stall
+    inspector (slice 13), the mesh and process-set options (slice 10) are
+    taken; wrong splits, a wire on the flat uneven exchange and an object
+    that is no process set raise before any exchange."""
+    with pytest.raises(NotImplementedError, match="the autotune slice"):
+        eager.EagerEngine(Config(), torch.device("cpu"), 0, 1,
+                          autotuner=object())
+    insp = object()
+    assert eager.EagerEngine(Config(), torch.device("cpu"), 0, 1,
+                             stall_inspector=insp).stall is insp
     mesh = (object(), object())
     e = eager.EagerEngine(Config(), torch.device("cpu"), 0, 1,
                           hier_mesh=mesh, ps_tag="ps:0,1")

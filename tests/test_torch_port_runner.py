@@ -105,9 +105,20 @@ def test_slot_env_and_knobs_match_jax(J, tmp_path):
                                   ["--pod-metrics-port", "0"],
                                   ["--autoscale-policy", "{}"],
                                   ["--check-build"]])
-def test_later_flags_raise_naming_their_slice(flag):
-    with pytest.raises(NotImplementedError, match="slice"):
-        launch.run_commandline(flag + ["python", "-c", "pass"])
+def test_later_flags_raise_naming_their_slice(flag, capsys):
+    """``--autotune`` (a later slice) raises naming its slice; the
+    telemetry and control flags (slice 13) are taken: a launch with each
+    runs its worker to exit 0, and ``--check-build`` prints the port's
+    matrix."""
+    argv = flag + [sys.executable, "-c", "pass"]
+    if flag == ["--autotune"]:
+        with pytest.raises(NotImplementedError, match="the autotune slice"):
+            launch.run_commandline(argv)
+        return
+    assert launch.run_commandline(argv) == 0
+    if flag == ["--check-build"]:
+        out = capsys.readouterr().out
+        assert "horovod_tpu_torch" in out and "PyTorch (native)" in out
 
 
 def test_remote_hosts_raise_naming_the_ssh_slice():

@@ -317,7 +317,9 @@ def test_distributed_optimizer_contract(world1):
                                   "ZeroOptimizer", "accumulate_gradients",
                                   "observe_guard", "models.bert_large",
                                   "models.ResNet50", "save_sharded",
-                                  "chaos_poison", "flight_recorder"])
+                                  "chaos_poison", "flight_recorder",
+                                  "start_metrics_server", "StepTimer",
+                                  "AutotunedStepper"])
 def test_later_slices_raise_not_implemented(name):
     """The JAX package's API that later slices bring is present by name
     and raises NotImplementedError naming its slice. The models slice
@@ -325,18 +327,21 @@ def test_later_slices_raise_not_implemented(name):
     ``observe_guard``, ...), slice 10 (``ProcessSet``,
     ``add_process_set``, ...), slice 11 (``ZeroOptimizer``,
     ``save_sharded``, ...) and slice 12 (``chaos_poison``, ``run``,
-    ``save_state``, ...) are ported: their names resolve.
-    ``flight_recorder`` waits for the telemetry slice."""
+    ``save_state``, ...) and slice 13 (``flight_recorder``, the metrics
+    server, ``StepTimer``) are ported: their names resolve. The
+    autotune slice (``AutotunedStepper``) and the parallel roles still
+    raise naming their slice."""
     import horovod_tpu_torch.models as models
 
     mod, attr = (models, name.split(".")[1]) if "." in name else (hvd, name)
     if mod is models or name in ("accumulate_gradients", "observe_guard",
                                  "add_process_set", "ProcessSet",
                                  "ZeroOptimizer", "save_sharded",
-                                 "chaos_poison"):
+                                 "chaos_poison", "flight_recorder",
+                                 "start_metrics_server", "StepTimer"):
         assert callable(getattr(mod, attr))
     else:
-        with pytest.raises(NotImplementedError, match="slice"):
+        with pytest.raises(NotImplementedError, match="the autotune slice"):
             getattr(mod, attr)
     with pytest.raises(AttributeError):
         getattr(mod, "no_such_name")
