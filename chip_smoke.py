@@ -360,16 +360,38 @@ Phases (any failure exits non-zero and prints no result line):
    subprocess) accepts the three boxes. Printed: seconds from the
    eviction decision to the first step at n = 2 and from the grow to
    the first at n = 3, commit ms, peak GiB a rank, scrape ms.
-10. Result lines: the per-kernel JSON record (K1-K9, each with
+10. Autotune over ssh: ``python -m horovod_tpu_torch.runner.launch -np
+   2 --autotune --autotune-log-file FILE --metrics-port 0`` over
+   ``--autotune-worker`` with no ``-H``: the hosts come from an LSF
+   allocation (``LSB_JOBID``, ``LSB_MCPU_HOSTS="127.0.0.2 1 127.0.0.3
+   1"``, two names of this machine), the workers start through an
+   ``ssh`` this script writes into its output directory (it logs its
+   argv and runs the command here; on ``PATH`` for the launcher alone),
+   and ``HVD_TPU_NIC_DISCOVERY=1`` starts a task server on each host
+   first. Each worker (a gloo rank on the card) trains GPT-2 medium at
+   full width and depth, B = 4 x 512 a rank, int8_ef AdamW, under
+   ``hvd.AutotunedStepper`` over the context's tuner (the nine default
+   thresholds, 1-256 MiB; one warmup and two scored steps a sample):
+   ``build(threshold)`` re-plans the live optimizer. 30 calls, or until
+   ``:done``. Checks: exit 0; the ssh log shows two task servers and two
+   workers on LSF's hosts; both ranks made the same build calls; every
+   threshold has a CSV row; ``rebuilds`` is the number of moves; rank
+   0's leaf-wise int8_ef residual bitwise the same across every
+   re-plan; finite losses; each worker's ``/metrics`` shows the adopted
+   threshold and ``hvd_tpu_autotune_rebuilds_total`` = ``rebuilds``.
+   Printed: step ms and buckets at each threshold, the chosen threshold
+   and whether the tuner converged, ms a re-plan, the coordinator and
+   whether discovery picked it, peak GiB a rank.
+11. Result lines: the per-kernel JSON record (K1-K9, each with
    ``launches_by_path``, every path above 0, and ``launches`` their
    sum: K5/K6/K7 for the GPT training, BERT, ViT and the two guarded
    integrity runs and the ZeRO phase; K1 for the eager loop, the
    integrity unscale, the mesh phase and the ZeRO phase's (e); K2/K4 for
    serving and the mesh phase; K3 for the n = 2 multi-rank run, the mesh
    phase and the ZeRO phase's (c); K8 and K9 for the n = 2 multi-rank run
-   and the mesh phase; phase 7d for K1, K3, K5-K9; phase 8's clean run
-   and phase 9 (b)'s rank 0 first process for K3 and K5-K7), the card
-   line, and last ``{"ok": true, "device": {...}}``.
+   and the mesh phase; phase 7d for K1, K3, K5-K9; phase 8's clean run,
+   phase 9 (b)'s rank 0 first process and phase 10's rank 0 for K3 and
+   K5-K7), the card line, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` also traces the serve run and two extra training steps of
 GPT-2 medium, each integrity run, BERT-large, ViT-B/16 and ResNet-50
@@ -5871,6 +5893,280 @@ def phase_telemetry(torch, out_dir: str) -> dict:
     return res
 
 
+# -- phase 10: autotune over ssh ------------------------------------------------
+
+# An LSF allocation of two hosts that are this machine (Linux routes all
+# of 127/8 to loopback; neither name is one the launcher takes for this
+# machine, so it fans out over ssh).
+AUTOTUNE_LSF = "127.0.0.2 1 127.0.0.3 1"
+# model, per-rank batch, sequence length, stepper calls (at most)
+AUTOTUNE_RUN = ("gpt_medium", 4, 512, 30)
+AUTOTUNE_ENV = {"LSB_JOBID": "smoke", "LSB_MCPU_HOSTS": AUTOTUNE_LSF,
+                "HVD_TPU_NIC_DISCOVERY": "1",
+                "HVD_TPU_AUTOTUNE_WARMUP_SAMPLES": "1",
+                "HVD_TPU_AUTOTUNE_STEPS_PER_SAMPLE": "2"}
+AUTOTUNE_TIMEOUT = 420              # seconds the launcher run may take
+# The ssh of phase 10: logs its argv, drops the options, runs the
+# remote command on this machine (exec: signals reach the worker).
+FAKE_SSH = """#!/bin/bash
+printf '%s\\n' "$*" >> {log}
+args=()
+while [[ $# -gt 0 ]]; do
+  case $1 in
+    -o|-p) shift 2;;
+    *) args+=("$1"); shift;;
+  esac
+done
+exec bash -c "${{args[*]:1}}"
+"""
+
+
+def autotune_worker(cfg_path: str) -> None:
+    """One rank of phase 10 (``--autotune-worker CFG``), started over ssh
+    by the launcher: int8_ef AdamW under ``hvd.AutotunedStepper`` over
+    the context's tuner, each move a ``replan`` of the live optimizer
+    (the leaf-wise residual compared across it); writes the build calls,
+    each call's threshold, buckets, ms and loss, the re-plan ms, its
+    ``/metrics`` readings, the peak GiB and the kernel launches."""
+    import time as time_mod
+    import urllib.request
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import gpt as gpt_mod
+    from horovod_tpu_torch.ops import kernels as K
+
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    dev = cfg["device"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = hvd.init(device="cpu") if dev == "cpu" else \
+        hvd.init(backend="gloo")
+    rank = hvd.rank()
+    model = _make_model(torch, gpt_mod, cfg["model"], dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(), compression="int8_ef")
+    first_threshold = opt.fusion_threshold
+    rec = {"builds": [], "replan_ms": [], "leaf_checks": 0,
+           "leaf_equal": True, "calls": []}
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def step(tokens):
+        loss = gpt_mod.next_token_loss(model(tokens[:, :-1]),
+                                       tokens[:, 1:])
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    def build(threshold):
+        rec["builds"].append(threshold)
+        if len(rec["builds"]) > 1:
+            before = opt._ef_by_leaf()      # views of the old buffers
+            sync()
+            t = time_mod.perf_counter()
+            opt.replan(threshold)
+            sync()
+            rec["replan_ms"].append((time_mod.perf_counter() - t) * 1e3)
+            after = opt._ef_by_leaf()
+            rec["leaf_checks"] += len(before)
+            rec["leaf_equal"] &= all(torch.equal(after[i], r)
+                                     for i, r in before.items())
+        return step
+
+    stepper = hvd.AutotunedStepper(
+        build, grad_bytes=sum(p.numel() * 4 for p in model.parameters()))
+    for i in range(cfg["calls"]):
+        tokens = torch.randint(
+            0, model.vocab_size, (cfg["batch"], cfg["seq"] + 1),
+            generator=torch.Generator().manual_seed(1000 * i + rank)).to(dev)
+        threshold = stepper.fusion_threshold
+        buckets = len(opt._dist_plan.buckets)
+        replans = len(rec["replan_ms"])
+        t0 = time_mod.perf_counter()
+        loss = stepper(tokens)
+        ms = (time_mod.perf_counter() - t0) * 1e3 - sum(
+            rec["replan_ms"][replans:])
+        rec["calls"].append({"threshold": threshold, "buckets": buckets,
+                             "ms": ms, "loss": loss.item()})
+        if stepper._tuner_done:
+            break
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev == "cuda" \
+        else 0.0
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{ctx.metrics_port}/metrics", timeout=10) as r:
+        text = r.read().decode()
+    metrics = {fam: [v for v, _ in _labeled(text, fam)] for fam in (
+        "hvd_tpu_autotune_threshold_bytes",
+        "hvd_tpu_autotune_rebuilds_total",
+        "hvd_tpu_autotune_converged")}
+    rec.update(rank=rank, first_threshold=first_threshold,
+               threshold=stepper.fusion_threshold,
+               rebuilds=stepper.rebuilds, done=stepper._tuner_done,
+               peak_gib=peak, metrics=metrics, launches=dict(K.LAUNCHES),
+               coordinator=os.environ.get("HVD_TPU_COORDINATOR"),
+               host=os.environ.get("HVD_TPU_HOSTNAME"))
+    with open(os.path.join(cfg["workdir"], f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    hvd.shutdown()
+
+
+def autotune_run(out_dir: str, dev: str = "cuda", run=AUTOTUNE_RUN,
+                 env_extra=None) -> dict:
+    """Phase 10's launcher run and its checks (see the docstring); the
+    record with ``launches``, rank 0's kernel launches."""
+    import glob
+    import re
+
+    model, batch, seq, calls = run
+    work = os.path.abspath(os.path.join(out_dir, "autotune"))
+    os.makedirs(work, exist_ok=True)
+    for old in glob.glob(os.path.join(work, "*")):
+        os.remove(old)
+    ssh_log = os.path.join(work, "ssh.log")
+    with open(os.path.join(work, "ssh"), "w") as f:
+        f.write(FAKE_SSH.format(log=ssh_log))
+    os.chmod(os.path.join(work, "ssh"), 0o755)
+    csv_path = os.path.join(work, "autotune.csv")
+    cfg_path = os.path.join(work, "cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"device": dev, "model": model, "batch": batch,
+                   "seq": seq, "calls": calls, "workdir": work}, f)
+    env = {**os.environ, **AUTOTUNE_ENV, **(env_extra or {}),
+           "PATH": f"{work}:{os.environ['PATH']}"}
+    for var in ("LSB_DJOB_HOSTFILE", "LSB_HOSTS", "HVD_TPU_FAULT_PLAN"):
+        env.pop(var, None)
+    argv = [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
+            "2", "--autotune", "--autotune-log-file", csv_path,
+            "--metrics-port", "0", "--", sys.executable,
+            os.path.abspath(__file__), "--autotune-worker", cfg_path]
+    log_path = os.path.join(work, "launcher.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(argv, env=env, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                cwd=os.path.dirname(os.path.abspath(
+                                    __file__)))
+        try:
+            rc = proc.wait(timeout=AUTOTUNE_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = None
+    wall = time.perf_counter() - t0
+    with open(log_path) as f:
+        text = f.read()
+    check(rc == 0, f"autotune run: exit {rc}:\n{text[-3000:]}")
+    ranks = []
+    for r in (0, 1):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    # The launch: LSF's hosts, a task server and a worker on each.
+    with open(ssh_log) as f:
+        lines = f.read().splitlines()
+    servers = [ln for ln in lines if "driver_service --serve" in ln]
+    workers = [ln for ln in lines if "--autotune-worker" in ln]
+    check(len(servers) == 2 and len(workers) == 2,
+          f"autotune: ssh log {len(servers)} task servers, {len(workers)} "
+          f"workers:\n" + "\n".join(lines)[-2000:])
+    check(all(any(ln.split()[2] == h for ln in workers)
+              for h in ("127.0.0.2", "127.0.0.3")),
+          "autotune: the workers did not start on LSF's hosts")
+    check([r["host"] for r in ranks] == ["127.0.0.2", "127.0.0.3"],
+          f"autotune: ranks on {[r['host'] for r in ranks]}")
+    m = re.search(r"coordinator (\S+) \((NIC discovery|first host)\)",
+                  text)
+    check(m is not None, "autotune: the launcher named no coordinator")
+    coordinator, discovered = m.group(1), m.group(2) == "NIC discovery"
+    check(all(r["coordinator"] == coordinator for r in ranks),
+          "autotune: a worker met another coordinator")
+    # The search and its adoption.
+    r0, r1 = ranks
+    check(r0["builds"] == r1["builds"],
+          f"autotune: build calls differ: {r0['builds']} / {r1['builds']}")
+    moves = sum(a != b for a, b in zip(r0["builds"], r0["builds"][1:]))
+    check(r0["rebuilds"] == r1["rebuilds"] == moves == len(r0["builds"]) - 1,
+          f"autotune: rebuilds {r0['rebuilds']}, {r1['rebuilds']} for "
+          f"{moves} moves")
+    with open(csv_path) as f:
+        rows = f.read().splitlines()
+    from horovod_tpu_torch.common.autotune import DEFAULT_CANDIDATES
+
+    tried = {int(row.split(",")[1]) for row in rows[1:]}
+    check(rows[0] == "unix_time,threshold_bytes,score_bytes_per_sec,steps"
+          and tried == set(DEFAULT_CANDIDATES),
+          f"autotune: CSV rows for {sorted(tried)}")
+    check(r0["leaf_equal"] and r0["leaf_checks"] > 0,
+          f"autotune: leaf-wise residual moved ({r0['leaf_checks']} "
+          "leaves checked)")
+    losses = [c["loss"] for r in ranks for c in r["calls"]]
+    check(all(math.isfinite(x) for x in losses), "autotune: a loss is "
+          "not finite")
+    for r in ranks:
+        mt = r["metrics"]
+        check(mt["hvd_tpu_autotune_threshold_bytes"] == [r["threshold"]]
+              and mt["hvd_tpu_autotune_rebuilds_total"] == [r["rebuilds"]],
+              f"autotune: rank {r['rank']} /metrics {mt} for threshold "
+              f"{r['threshold']}, {r['rebuilds']} rebuilds")
+    if dev == "cuda":
+        on_path = ("quantize_int8_stochastic",) + FLASH_NAMES
+        check(all((n > 0) == (k in on_path)
+                  for k, n in r0["launches"].items()),
+              f"autotune rank 0: launches {r0['launches']}, expected K3 "
+              "and K5-K7 only")
+    # Step ms at each threshold: the sample's scored calls (after its
+    # warmup call); buckets.
+    period = 1 + 2
+    per = {}
+    for i, c in enumerate(r0["calls"]):
+        entry = per.setdefault(c["threshold"], {"buckets": c["buckets"],
+                                                "ms": []})
+        if i % period:
+            entry["ms"].append(c["ms"])
+    res = {"label": "gloo, 2 processes on one card (ssh fan-out)",
+           "model": model, "batch": batch, "seq": seq,
+           "calls": len(r0["calls"]), "builds": r0["builds"],
+           "thresholds": {str(t): v for t, v in sorted(per.items())},
+           "chosen": r0["threshold"], "converged": r0["done"],
+           "replan_ms": r0["replan_ms"],
+           "replan_ms_median": statistics.median(r0["replan_ms"])
+           if r0["replan_ms"] else None,
+           "leaf_checks": r0["leaf_checks"], "coordinator": coordinator,
+           "discovered": discovered, "csv_rows": len(rows) - 1,
+           "peak_gib": [r["peak_gib"] for r in ranks],
+           "launches": r0["launches"], "wall_s": wall}
+    return res
+
+
+def phase_autotune(torch, out_dir: str) -> dict:
+    """Phase 10 (see the docstring)."""
+    parent = _free_parent(torch)
+    t0 = time.perf_counter()
+    res = autotune_run(out_dir)
+    res["parent_gib"] = parent
+    res["phase_s"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "chip_smoke_autotune.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    steps = ", ".join(
+        f"{int(t) >> 20} MiB {statistics.median(v['ms']):.1f} ms "
+        f"({v['buckets']} buckets)" for t, v in res["thresholds"].items()
+        if v["ms"])
+    print(f"autotune ({res['label']}): {steps}; chosen "
+          f"{res['chosen'] >> 20} MiB, converged {res['converged']}; "
+          f"re-plan {res['replan_ms_median']:.1f} ms median; coordinator "
+          f"{res['coordinator']} "
+          f"({'discovery' if res['discovered'] else 'first host'}); peak "
+          f"{max(res['peak_gib']):.2f} GiB a rank; {res['phase_s']:.1f} s",
+          flush=True)
+    return res
+
+
 def _step_seconds(events: dict) -> list:
     """Rank 0's seconds between consecutive completed steps of one
     process (a clean run's step time, commits included)."""
@@ -5894,6 +6190,9 @@ def main(argv=None) -> int:
         return 0
     if argv[:1] == ["--telemetry-worker"]:
         telemetry_worker(argv[1])
+        return 0
+    if argv[:1] == ["--autotune-worker"]:
+        autotune_worker(argv[1])
         return 0
     if argv[:1] == ["--rank-worker"]:
         worker = {"n2_eager": eager_worker, "n2_join": join_worker,
@@ -5965,6 +6264,8 @@ def main(argv=None) -> int:
         mark("elastic")
         telemetry = phase_telemetry(torch, args.out)
         mark("telemetry")
+        autotune = phase_autotune(torch, args.out)
+        mark("autotune")
         n2 = multi["n2_gpt_medium"]["modes"]
         # Every path a kernel runs on, each counted from zero around it;
         # the mesh path (phase 7b) is one of them for K1-K4, K8 and K9.
@@ -5986,7 +6287,8 @@ def main(argv=None) -> int:
                        "zero": zero["launches"],
                        "overlap": overlap["launches"],
                        "elastic": elastic["launches"],
-                       "telemetry": telemetry["launches"]}
+                       "telemetry": telemetry["launches"],
+                       "autotune": autotune["launches"]}
         # K1 runs on the eager path (pre/postscale) and as the guard's
         # unscale on the integrity path.
         paths["scale_buffer"] = {
@@ -6010,6 +6312,8 @@ def main(argv=None) -> int:
         # Phase 9 (b): K3 and the flash kernels, rank 0's first epoch.
         paths["quantize_int8_stochastic"]["telemetry"] = \
             telemetry["launches"]
+        # Phase 10: K3 and the flash kernels, rank 0 over the whole run.
+        paths["quantize_int8_stochastic"]["autotune"] = autotune["launches"]
         for name in FLASH_NAMES:
             paths[name] = flash_paths
         for name, rec in records.items():
@@ -6038,7 +6342,8 @@ def main(argv=None) -> int:
                    "eager": {k: v for k, v in eager.items()
                              if k not in ("ranks", "join")},
                    "mesh": mesh, "zero": zero, "overlap": overlap,
-                   "elastic": elastic, "telemetry": telemetry}, f, indent=1)
+                   "elastic": elastic, "telemetry": telemetry,
+                   "autotune": autotune}, f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

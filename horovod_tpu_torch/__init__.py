@@ -73,7 +73,18 @@ Ported so far:
   ``TorchState``, ``ElasticSampler``, preemption), ``checkpoint.
   save_state``/``restore_state``, ``integrity.chaos_poison``/
   ``chaos_perturb``, and ``runner`` (``hvdtpurun-torch``, the elastic
-  driver, the rendezvous KV, :func:`run`).
+  driver, the rendezvous KV, :func:`run`);
+* slice 13 — telemetry and control: the metrics plane, the stall
+  inspector, the flight recorder's black box, pod metrics and the
+  autoscale engine;
+* slice 14 — the autotuner (``common/autotune.py``) and
+  ``AutotunedStepper``, which re-plans a live ``DistributedOptimizer``
+  (``replan``) or ``ZeroOptimizer`` between two steps; launches beyond
+  this machine: the ssh fan-out (one process a slot), LSF hosts, NIC
+  discovery (``runner/driver_service.py``), elastic ssh epochs, GPU host
+  discovery (``runner/gpu_hosts.py``), ``run(use_ssh=True)``; and
+  ``store.py`` (``Store``, ``LocalStore``, ``FsspecStore``,
+  ``GCSStore``).
 
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request they raise.
@@ -116,7 +127,8 @@ from .ops.collectives import (Adasum, Average, AxisPhase, Max, Min, Product,
                               quantized_allreduce)
 from .ops.compression import Compression
 from .ops import eager as _eager
-from .optim import (DistributedOptimizer, accumulate_gradients,
+from .optim import (AutotunedStepper, DistributedOptimizer,
+                    accumulate_gradients,
                     broadcast_optimizer_state, broadcast_parameters,
                     observe_ef_residual, resolve_remat_policy, StepTimer)
 from .process_set import (ProcessSet, add_process_set,
@@ -133,7 +145,8 @@ from .data import (BackgroundPrefetcher, DeviceInfeed, ElasticSampler,
                    infeed_pipeline, prefetch_to_device, shard_batch)
 
 __all__ = [
-    "Adasum", "AlltoallvLayoutError", "Average", "BackgroundPrefetcher",
+    "Adasum", "AlltoallvLayoutError", "AutotunedStepper", "Average",
+    "BackgroundPrefetcher",
     "CheckpointCorruptError", "CheckpointManager", "Compression",
     "DeviceInfeed", "DistributedOptimizer", "DivergenceDetector",
     "DivergenceError", "DuplicateTensorNameError", "ElasticSampler",
@@ -462,7 +475,6 @@ def flight_recorder():
 
 # The JAX package's API that later slices of the port bring, by slice.
 _LATER = {
-    "the autotune slice": ("AutotunedStepper",),
     "the parallel-roles slice": (
         "ParallelSpec", "parallel_spec", "parallel_mesh",
         "pipeline_accumulate_gradients", "pipeline_apply",

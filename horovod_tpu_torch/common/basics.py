@@ -121,6 +121,16 @@ class Context:
     metrics_port: Optional[int] = None
     owns_metrics_server: bool = False
     owns_metrics_dump: bool = False
+    #: The runtime autotuner (``common/autotune.py``) when
+    #: ``init(autotune=True)`` / ``HVD_TPU_AUTOTUNE=1``, else None.
+    autotuner: Any = None
+
+    def fusion_threshold(self) -> int:
+        """The live fusion threshold: the autotuner's current one while
+        a tuner runs, else the configured one (the engine's resolver). A
+        ``DistributedOptimizer`` or a grouped allreduce made without an
+        explicit threshold takes this value."""
+        return self.engine.fusion_threshold()
 
     @property
     def world_axis(self) -> topo_lib.Axis:
@@ -293,11 +303,21 @@ def init(comm=None, process_sets=None,
             ctx = Context(rank, size, local_rank, local_size, dev, backend,
                           cfg, controller, None, timeline, topo, maxes, axes)
             stall = _start_stall_and_flightrec(ctx)
+            if cfg.autotune:
+                # The JAX context's tuner: the eager engine feeds it in a
+                # world of one, AutotunedStepper drives it otherwise.
+                from .autotune import Autotuner
+
+                ctx.autotuner = Autotuner(
+                    warmup_samples=cfg.autotune_warmup_samples,
+                    steps_per_sample=cfg.autotune_steps_per_sample,
+                    log_file=cfg.autotune_log)
             ctx.engine = EagerEngine(cfg, dev, rank, size,
                                      controller=controller,
                                      timeline=timeline,
                                      hier_mesh=ctx.hier_axes(),
                                      stall_inspector=stall,
+                                     autotuner=ctx.autotuner,
                                      axis=ctx.world_axis)
         except Exception:
             if stall is not None:

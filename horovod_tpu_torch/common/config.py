@@ -120,6 +120,14 @@ RUNTIME_KNOBS = {
     "AUTOSCALE_POLICY": "autoscale policy file or inline JSON",
     "AUTOSCALE_LOG": "autoscale decision log (JSON lines)",
     "PARALLEL": "hybrid dp/pp/tp spec (raises: the parallel-roles slice)",
+    # Autotune (common/autotune.py) and the launches beyond this machine
+    # (runner/launch.py).
+    "AUTOTUNE": "build the context's autotuner (0/1; Config field)",
+    "AUTOTUNE_LOG": "the autotuner's CSV sample log (Config field)",
+    "AUTOTUNE_WARMUP_SAMPLES": "samples discarded after each move (3)",
+    "AUTOTUNE_STEPS_PER_SAMPLE": "steps scored a sample (10)",
+    "NIC_DISCOVERY": "the ssh launch picks the coordinator's address by "
+                     "routable-interface discovery (0/1)",
     # Serve plane.
     "SERVE_LOG": "serve-controller decision log",
     "SERVE_TRACE": "request-span tracer enable (0 = shared no-op)",
@@ -146,13 +154,6 @@ def runtime_env(name: str, default: Optional[str] = None, *,
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024
 DEFAULT_QUANTIZE_MIN_BYTES = 64 * 1024
-
-# Settings of the JAX package's Config that later slices of the port
-# bring: passing one to init() raises, naming the slice.
-_LATER_SETTINGS = {
-    "autotune": "the autotune slice",
-}
-
 
 def _truthy(raw: str) -> bool:
     return raw.strip().lower() in ("1", "true", "yes", "on")
@@ -243,6 +244,12 @@ class Config:
     mesh_shape: Optional[str] = None
     hierarchical_allreduce: bool = False
     hierarchical_allgather: bool = False
+    # Autotune (common/autotune.py): build the context's tuner, its CSV
+    # log, the discarded samples after each move and the steps a sample.
+    autotune: bool = False
+    autotune_log: Optional[str] = None
+    autotune_warmup_samples: int = 3
+    autotune_steps_per_sample: int = 10
     # ZeRO (zero.py): the threshold of should_shard_update.
     auto_shard_threshold_bytes: int = 256 * 1024 * 1024
     # Elastic (common/elastic.py): poll the driver's topology version at
@@ -304,12 +311,14 @@ class Config:
         c.autoscale = _truthy(runtime_env("AUTOSCALE") or "0")
         c.autoscale_policy = runtime_env("AUTOSCALE_POLICY") or None
         c.autoscale_log = runtime_env("AUTOSCALE_LOG") or None
+        c.autotune = _truthy(runtime_env("AUTOTUNE") or "0")
+        c.autotune_log = runtime_env("AUTOTUNE_LOG") or None
+        c.autotune_warmup_samples = env_int("AUTOTUNE_WARMUP_SAMPLES",
+                                            c.autotune_warmup_samples)
+        c.autotune_steps_per_sample = env_int("AUTOTUNE_STEPS_PER_SAMPLE",
+                                              c.autotune_steps_per_sample)
         fields = {f.name for f in dataclasses.fields(cls)}
         for key, value in overrides.items():
-            if key in _LATER_SETTINGS:
-                raise NotImplementedError(
-                    f"init({key}=...) is not ported yet; it comes with "
-                    f"{_LATER_SETTINGS[key]} of the port")
             if key not in fields:
                 raise TypeError(f"init(): unknown setting {key!r}; "
                                 f"known: {sorted(fields)}")

@@ -62,8 +62,10 @@ between its issue and its completion. The time a call spends waiting on
 its collective (negotiation, that site, ``synchronize``) runs on
 ``autoscale.comm_clock``, which the autoscale step publisher subtracts.
 
-Left out, raising ``NotImplementedError`` naming its slice: the
-autotuner.
+The autotuner (``common/autotune.py``): a grouped allreduce plans its
+buckets at the tuner's live threshold and, in a world of one process,
+feeds it ``(bytes, seconds)`` once its result is ready on the device
+(at n > 1 ``AutotunedStepper``'s exchange decides for every rank).
 """
 
 from __future__ import annotations
@@ -322,11 +324,11 @@ class EagerEngine:
         ``ps_tag`` names a process set's engine; ``stall_inspector``
         (``common/stall.py``) records every collective's submit and
         completion and watches a joined process's wait."""
-        if autotuner:
-            raise NotImplementedError(
-                "EagerEngine(autotuner=...) is not ported yet; it comes "
-                "with the autotune slice of the port")
         self.config = config
+        #: The runtime autotuner (``common/autotune.py``) or None: a
+        #: grouped allreduce plans at its live threshold and, in a world
+        #: of one process, feeds it.
+        self.autotuner = autotuner
         self.stall = stall_inspector
         self.device = device
         self.rank = rank
@@ -807,7 +809,7 @@ class EagerEngine:
                        compression=None, prescale_factor: float = 1.0,
                        postscale_factor: float = 1.0) -> _Pending:
         """Fused allreduce of a list of tensors: one collective per
-        fusion bucket of at most ``config.fusion_threshold_bytes``
+        fusion bucket of at most :meth:`fusion_threshold` bytes
         (``common/fusion.py``); pre/postscale per bucket. The result is
         the list of reduced tensors."""
         op = C.ReduceOp(op)
@@ -837,8 +839,7 @@ class EagerEngine:
                             wire=self._wire_contract(compression))
             quantized = getattr(compression, "quantized_reduce", False)
             quant = quantized and op in (C.ReduceOp.SUM, C.ReduceOp.AVERAGE)
-            plan = fusion_lib.plan_fusion(leaves,
-                                          self.config.fusion_threshold_bytes)
+            plan = fusion_lib.plan_fusion(leaves, self.fusion_threshold())
             if quant:
                 plan = fusion_lib.assign_wire_dtypes(
                     plan, self.config.quantize_min_bucket_bytes)
@@ -860,8 +861,40 @@ class EagerEngine:
         except Exception as e:
             self._fail(full, e)
             raise
-        return self._pending(full, (works, lambda: fusion_lib.unfuse(
-            [finish() for _, finish in issued], plan)))
+
+        def finish():
+            return fusion_lib.unfuse([f() for _, f in issued], plan)
+
+        if (self.autotuner is not None and not self.autotuner.done
+                and self.controller is None and self.size == 1):
+            # A world of one process only: at n > 1 each process would
+            # move its own threshold and the bucket plans would diverge
+            # (AutotunedStepper's exchange decides there). The sample
+            # ends when the result is ready on its device.
+            finish = self._fed(finish, sum(_nbytes(leaf) for leaf in leaves))
+        return self._pending(full, (works, finish))
+
+    def fusion_threshold(self) -> int:
+        """The live fusion threshold: the autotuner's current one while a
+        tuner runs, else the configured one."""
+        if self.autotuner is not None:
+            return self.autotuner.current
+        return self.config.fusion_threshold_bytes
+
+    def _fed(self, finish, nbytes: int):
+        """``finish`` that feeds the tuner ``(nbytes, seconds from now
+        until the result is ready)``: a CUDA result's device is
+        synchronized first, so the sample covers the device work."""
+        t0 = time.perf_counter()
+
+        def run():
+            out = finish()
+            for dev in {t.device for t in out if t.is_cuda}:
+                torch.cuda.synchronize(dev)
+            self.autotuner.feed(nbytes, time.perf_counter() - t0)
+            return out
+
+        return run
 
     # -- gathers, broadcast, exchanges ----------------------------------
 

@@ -131,6 +131,18 @@ and runs as without it: its deltas exist only after the base step, when
 nothing is left to overlap them with. ``overlap=False`` (the default)
 is the synchronous path above.
 
+``replan(fusion_threshold_bytes, compression=, overlap=, route=)``
+re-plans a live optimizer between two steps (the ``build`` of
+:class:`AutotunedStepper`; the JAX stepper rebuilds a jitted step over
+an explicit state, the port moves the state): the old plan's hooks go
+and the new plan's are registered, the D2 worker is drained and closed,
+the int8_ef residual moves leaf by leaf to its offset in the new buckets
+(a leaf outside every int8 bucket keeps its residual for a later plan,
+as the JAX per-leaf residual of a bf16 bucket stays), and the rounding
+step, the guard and the inner optimizer's state stay; the rounding keys
+then use the new bucket indices. A re-plan with a step in progress
+raises.
+
 The ``collective`` fault site (``common/faults.py``) is consulted once a
 reduction round, at ``synchronize()``. After a failure the elastic
 restore calls ``abort_step()``, which drops the step in progress (its
@@ -170,6 +182,13 @@ _M_PHASE = metrics_lib.histogram(
     "hvd_tpu_step_phase_seconds",
     "per-phase step wall time from StepTimer (grad/comm/apply/...)",
     labels=("phase",))
+_METRICS_ON = metrics_lib.enabled()
+_M_STEP = metrics_lib.histogram(
+    "hvd_tpu_step_seconds",
+    "end-to-end training step wall time (AutotunedStepper, blocked)")
+_M_REBUILDS = metrics_lib.counter(
+    "hvd_tpu_autotune_rebuilds_total",
+    "step-function rebuilds triggered by autotuner point moves")
 
 
 class StepTimer:
@@ -568,21 +587,17 @@ class _DistributedOptimizerMixin:
         self._dist_names = {}
         if named_parameters is not None:
             self._dist_names = {id(p): n for n, p in named_parameters}
-        self._dist_plan = fusion_lib.plan_fusion(
-            self._dist_params, threshold, order=fusion_lib.ORDER_REVERSE)
+        self._qmin = quantize_min_bytes
         #: Error feedback (``int8_ef``): per-bucket wires, the residual of
-        #: every int8 bucket (one fp32 flat buffer, made at first use) and
-        #: the step counter of the stochastic-rounding keys.
+        #: every int8 bucket (one fp32 flat buffer, made at first use), the
+        #: residual of a leaf whose bucket is not int8 under the current
+        #: plan (kept for a later one: a re-plan moves residuals leaf by
+        #: leaf) and the step counter of the stochastic-rounding keys.
         self._ef = getattr(compression, "error_feedback", False)
-        if self._ef:
-            self._dist_plan = fusion_lib.assign_wire_dtypes(
-                self._dist_plan, quantize_min_bytes)
         self._ef_residual: Dict[int, torch.Tensor] = {}
+        self._ef_parked: Dict[int, torch.Tensor] = {}
         self._ef_step = 0
-        self._bucket_of = {}
-        for bi, bucket in enumerate(self._dist_plan.buckets):
-            for i in bucket.leaf_indices:
-                self._bucket_of[id(self._dist_params[i])] = bi
+        self._set_plan(threshold)
         self._dist_delay: Dict[int, int] = {}
         self._dist_pending: List[int] = []
         self._dist_inflight: Dict[int, Any] = {}
@@ -616,6 +631,99 @@ class _DistributedOptimizerMixin:
         self._dist_hooks = [
             p.register_post_accumulate_grad_hook(self._hook)
             for p in self._dist_params]
+
+    def _set_plan(self, threshold: int) -> None:
+        """Plan the buckets at ``threshold`` (reverse parameter order; the
+        int8_ef wires stamped) and index each parameter's bucket."""
+        self.fusion_threshold = int(threshold)
+        self._dist_plan = fusion_lib.plan_fusion(
+            self._dist_params, self.fusion_threshold,
+            order=fusion_lib.ORDER_REVERSE)
+        if self._ef:
+            self._dist_plan = fusion_lib.assign_wire_dtypes(
+                self._dist_plan, self._qmin)
+        self._bucket_of = {}
+        for bi, bucket in enumerate(self._dist_plan.buckets):
+            for i in bucket.leaf_indices:
+                self._bucket_of[id(self._dist_params[i])] = bi
+
+    def replan(self, fusion_threshold_bytes: Optional[int] = None,
+               compression=None, overlap: Optional[bool] = None,
+               route=None) -> None:
+        """Re-plan the buckets of this live optimizer between two steps
+        (``AutotunedStepper``'s ``build``): at ``fusion_threshold_bytes``
+        (None: the context's live threshold), and with ``compression``,
+        ``overlap`` and ``route`` when given (None keeps each). The hooks
+        of the old plan are removed and the new plan's registered, so no
+        gradient is reduced twice; the D2 worker is drained and closed;
+        the int8_ef residual moves leaf by leaf (each parameter's slice
+        lands at its offset in its new bucket, bitwise), and the rounding
+        step, the guard's state and loss scale and the inner optimizer's
+        state stay. The stochastic-rounding keys then take the new
+        plan's bucket indices. Raises with buckets in flight, a
+        ``backward_passes_per_step`` round half done or an
+        ``accumulate`` step running."""
+        if self._dist_dirty or self._dist_inflight or self._ov_ready \
+                or self._accum is not None:
+            raise RuntimeError(
+                "replan() between two steps only: this optimizer has a "
+                "step in progress (gradients counted or buckets in flight "
+                "since the last step()/synchronize())")
+        if fusion_threshold_bytes is None:
+            fusion_threshold_bytes = basics.context().fusion_threshold()
+        leaves = self._ef_by_leaf()
+        if compression is not None:
+            compressor = _resolve_compression(compression)
+            _check_reduce_safe(compressor)
+            self._compression = compressor
+            self._ef = getattr(compressor, "error_feedback", False)
+        if route is not None:
+            self._route = _resolve_route(route)
+        if self._worker is not None:
+            self._worker.drain()
+            self._worker.close()
+            self._worker = None
+        if overlap is not None:
+            self.overlap = bool(overlap)
+        for h in self._dist_hooks:
+            h.remove()
+        self._set_plan(fusion_threshold_bytes)
+        self._ef_residual, self._ef_parked = self._place_residuals(leaves)
+        self._reset_counts()
+        self._dist_hooks = [
+            p.register_post_accumulate_grad_hook(self._hook)
+            for p in self._dist_params]
+
+    def _ef_by_leaf(self) -> Dict[int, torch.Tensor]:
+        """This rank's error-feedback residual by parameter index (flat
+        fp32): each leaf's slice of its int8 bucket's residual, or its
+        kept one."""
+        out = dict(self._ef_parked)
+        for bi, r in self._ef_residual.items():
+            for i, view in fusion_lib.unfuse_bucket(
+                    r, self._dist_plan.buckets[bi]):
+                out[i] = view.reshape(-1)
+        return out
+
+    def _place_residuals(self, leaves: Dict[int, torch.Tensor]):
+        """Leaf residuals -> ``(residual by int8 bucket, kept leaves)``
+        under the current plan: a bucket none of whose leaves has one
+        keeps none (made at first use, as before); a leaf without one
+        in a bucket that has one gets zeros."""
+        residual, placed = {}, set()
+        for bi, bucket in enumerate(self._dist_plan.buckets):
+            if not self._int8_bucket(bi) or not any(
+                    i in leaves for i in bucket.leaf_indices):
+                continue
+            parts = [leaves[i] if i in leaves else torch.zeros(
+                         self._dist_params[i].numel(), dtype=torch.float32,
+                         device=self._dist_params[i].device)
+                     for i in bucket.leaf_indices]
+            residual[bi] = parts[0].clone() if len(parts) == 1 \
+                else torch.cat(parts)
+            placed.update(bucket.leaf_indices)
+        return residual, {i: r.clone() for i, r in leaves.items()
+                          if i not in placed}
 
     def _reset_counts(self) -> None:
         self._dist_delay = {id(p): self.backward_passes_per_step
@@ -934,13 +1042,20 @@ class _DistributedOptimizerMixin:
     def state_dict(self):
         """The base optimizer's state dict and, under ``int8_ef``, this
         rank's error-feedback state: ``"ef_state": {"step": int,
-        "residual": {bucket index: fp32 flat residual}}``; with a
-        non-finite guard its counters and loss scale under
-        ``"guard_state"``."""
+        "residual": {bucket index: fp32 flat residual},
+        "fusion_threshold": the plan's threshold}`` (plus ``"parked"``,
+        the residuals of leaves outside the plan's int8 buckets, by
+        parameter index, when there are any); with a non-finite guard
+        its counters and loss scale under ``"guard_state"``. A dict saved
+        before a :meth:`replan` loads after it: its residuals move leaf
+        by leaf from the plan of its threshold."""
         sd = self._base_cls.state_dict(self)
-        if self._ef:
+        if self._ef or self._ef_parked:
             sd[_EF_STATE] = {"step": self._ef_step,
-                             "residual": dict(self._ef_residual)}
+                             "residual": dict(self._ef_residual),
+                             "fusion_threshold": self.fusion_threshold}
+            if self._ef_parked:
+                sd[_EF_STATE]["parked"] = dict(self._ef_parked)
         if self._guard is not None:
             sd[_GUARD_STATE] = self._guard.snapshot()
         return sd
@@ -957,19 +1072,33 @@ class _DistributedOptimizerMixin:
             self._guard.load(guard)
         if ef is None or not self._ef:
             return
-        buckets = self._dist_plan.buckets
-        residual = {}
+        # The residual was saved under the plan of its fusion threshold
+        # (a dict without one: this optimizer's): its buckets' leaves
+        # land at their offsets in this plan's buckets.
+        saved = self._dist_plan
+        threshold = ef.get("fusion_threshold", self.fusion_threshold)
+        if int(threshold) != self.fusion_threshold:
+            saved = fusion_lib.assign_wire_dtypes(fusion_lib.plan_fusion(
+                self._dist_params, int(threshold),
+                order=fusion_lib.ORDER_REVERSE), self._qmin)
+        buckets = saved.buckets
+        leaves = {int(i): r.to(device=self._dist_params[int(i)].device,
+                               dtype=torch.float32).reshape(-1)
+                  for i, r in ef.get("parked", {}).items()}
         for bi, r in ef["residual"].items():
             bi = int(bi)
             if not 0 <= bi < len(buckets) \
                     or r.numel() != buckets[bi].total_elems:
                 raise ValueError(
                     f"load_state_dict: error-feedback residual of bucket "
-                    f"{bi} ({r.numel()} elements) does not fit this "
-                    f"optimizer's {len(buckets)} buckets")
+                    f"{bi} ({r.numel()} elements) does not fit the "
+                    f"{len(buckets)} buckets of the plan at fusion "
+                    f"threshold {threshold}")
             dev = self._dist_params[buckets[bi].leaf_indices[0]].device
-            residual[bi] = r.to(device=dev, dtype=torch.float32).clone()
-        self._ef_residual = residual
+            r = r.to(device=dev, dtype=torch.float32)
+            for i, view in fusion_lib.unfuse_bucket(r, buckets[bi]):
+                leaves[i] = view.reshape(-1)
+        self._ef_residual, self._ef_parked = self._place_residuals(leaves)
         self._ef_step = int(ef["step"])
 
     def skip_synchronize(self):
@@ -1047,6 +1176,20 @@ class _DistributedAdasumMixin:
 
     def _all_params(self) -> List[torch.Tensor]:
         return [p for group in self.param_groups for p in group["params"]]
+
+    def replan(self, fusion_threshold_bytes: Optional[int] = None,
+               compression=None, overlap: Optional[bool] = None,
+               route=None) -> None:
+        """Adasum reduces one tensor at a time: a fusion threshold has no
+        plan to move. ``overlap`` is recorded (and changes nothing, as at
+        construction); ``route`` takes the new plan."""
+        if compression is not None:
+            raise ValueError("replan(compression=) on an Adasum optimizer: "
+                             "its wire is fixed when it is built")
+        if overlap is not None:
+            self.overlap = bool(overlap)
+        if route is not None:
+            self._route = _resolve_route(route)
 
     def rebind(self) -> None:
         """Take the current world's handle of this optimizer's axis."""
@@ -1268,8 +1411,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                        plan, guard_policy, scale_cfg, accum_k, remat_name,
                        overlap)
         return obj
-    threshold = cfg.fusion_threshold_bytes if fusion_threshold_bytes is None \
-        else int(fusion_threshold_bytes)
+    threshold = basics.context().fusion_threshold() \
+        if fusion_threshold_bytes is None else int(fusion_threshold_bytes)
     qmin = cfg.quantize_min_bucket_bytes if quantize_min_bucket_bytes is None \
         else int(quantize_min_bucket_bytes)
     obj = _graft(optimizer, _DistributedOptimizerMixin)
@@ -1278,6 +1421,204 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                    bool(sparse_as_dense), guard_policy, scale_cfg, accum_k,
                    remat_name, axis, plan, overlap)
     return obj
+
+
+class AutotunedStepper:
+    """Drives the runtime autotuner from real step timings and rebuilds
+    the step whenever the tuned point moves (the JAX package's
+    ``AutotunedStepper``; Horovod's ParameterManager scores each cycle in
+    bytes a second and may move the fusion threshold, after which the
+    cycles fuse differently). In the port a rebuild re-plans the live
+    optimizer (:meth:`_DistributedOptimizerMixin.replan`): its state
+    stays, so ``build`` re-plans and returns the step::
+
+        opt = hvd.DistributedOptimizer(torch.optim.AdamW(...))
+
+        def build(threshold):
+            opt.replan(threshold)
+            return step                      # closes over opt
+
+        stepper = hvd.AutotunedStepper(build, grad_bytes=nbytes)
+        while training:
+            loss = stepper(batch)
+
+    ``build`` is called with the threshold; with a tuner that tunes the
+    hierarchical, overlap, compression or route axes with ``(threshold,
+    hierarchical)``, ``(..., overlap)``, ``(..., compression)`` or
+    ``(..., route)``; with any of the accumulation, remat, shard, MoE- or
+    pipeline-wire axes with one :class:`~.common.autotune.TunedPoint`.
+    ``grad_bytes`` is the bytes reduced a step (the score's numerator).
+    ``tuner`` defaults to the context's (``init(autotune=True)`` /
+    ``HVD_TPU_AUTOTUNE=1``). ``block=True`` times a step to the end of
+    its device work: every CUDA device of the step's output tensors (or,
+    with none, the context's GPU) is synchronized.
+
+    In a world of more than one process only rank 0 records; at every
+    period boundary (warmup + steps a sample calls) every rank exchanges
+    the pipe-joined point through the controller (the JAX format, byte
+    for byte), rank 0's value wins (the other ranks' tuners mirror it),
+    and a ``:done`` suffix stops the rounds. Every rank therefore
+    re-plans at the same call, which a ZeRO re-plan (collective)
+    needs."""
+
+    # The exchanged axes, their tuner switches and how each travels.
+    _AXES = ("threshold", "hierarchical", "overlap", "compression", "route",
+             "accum", "remat", "shard", "moe_wire", "pp_wire")
+    _PARSE = (int, lambda v: bool(int(v)), lambda v: bool(int(v)), str,
+              str, int, str, int, str, str)
+    _MFU_AXES = ("accum", "remat", "shard", "moe_wire", "pp_wire")
+
+    def __init__(self, build_step: Callable, grad_bytes: int, tuner=None,
+                 block: bool = True, controller=None):
+        from .common.autotune import TunedPoint
+
+        if tuner is None:
+            tuner = basics.context().autotuner \
+                if basics.is_initialized() else None
+            if tuner is None:
+                raise ValueError(
+                    "runtime autotuner not enabled — init(autotune=True) "
+                    "or set HVD_TPU_AUTOTUNE=1, or pass tuner= explicitly")
+        if controller is None and basics.is_initialized():
+            controller = basics.context().controller
+        self.tuner = tuner
+        self.grad_bytes = int(grad_bytes)
+        self.block = block
+        self._build = build_step
+        self._controller = controller
+        self._period = tuner.warmup + tuner.steps_per_sample
+        self._calls = 0
+        self._tuner_done = False  # set when rank 0 sends :done
+        #: Which axes the tuner tunes; an untuned one stays at its
+        #: default (the threshold is always tuned).
+        self._tuned = (True,) + tuple(
+            bool(getattr(tuner, f"tune_{axis}", False))
+            for axis in self._AXES[1:])
+        self._pt = self._masked(tuner.current_full,
+                                TunedPoint(tuner.current, False, False,
+                                           "none", "flat", 1, "none", 0))
+        self._step = self._rebuild()
+        self.rebuilds = 0
+        self._step_count = 0  # the profiler bridge's step numbering
+
+    def _masked(self, pt, cur):
+        """``pt`` on the tuned axes, ``cur`` on the others."""
+        return type(cur)(*(v if on else c for v, on, c in
+                           zip(pt[:len(self._AXES)], self._tuned, cur)),
+                         *cur[len(self._AXES):])
+
+    def _rebuild(self):
+        on = dict(zip(self._AXES, self._tuned))
+        if any(on[a] for a in self._MFU_AXES):
+            return self._build(self._pt)
+        # The positional cascade: as wide as the last tuned axis of
+        # (hierarchical, overlap, compression, route).
+        width = max((i + 1 for i, a in enumerate(self._AXES[:5]) if on[a]),
+                    default=1)
+        return self._build(*self._pt[:width])
+
+    @property
+    def fusion_threshold(self) -> int:
+        return self._pt.threshold
+
+    @property
+    def hierarchical(self) -> bool:
+        return self._pt.hierarchical
+
+    @property
+    def overlap(self) -> bool:
+        return self._pt.overlap
+
+    @property
+    def compression(self) -> str:
+        return self._pt.compression
+
+    @property
+    def route(self) -> str:
+        return self._pt.route
+
+    @property
+    def accum(self) -> int:
+        return self._pt.accum
+
+    @property
+    def remat(self) -> str:
+        return self._pt.remat
+
+    @property
+    def shard(self) -> int:
+        """The tuned ZeRO stage (0 = replicated)."""
+        return self._pt.shard
+
+    @property
+    def moe_wire(self) -> str:
+        return self._pt.moe_wire
+
+    @property
+    def pp_wire(self) -> str:
+        return self._pt.pp_wire
+
+    def _block(self, out) -> None:
+        devices = {t.device for t in tree_lib.leaves(out)
+                   if isinstance(t, torch.Tensor) and t.is_cuda}
+        if not devices and basics.is_initialized() \
+                and basics.context().device.type == "cuda":
+            devices = {basics.context().device}
+        for dev in devices:
+            torch.cuda.synchronize(dev)
+
+    def _exchanged(self, c):
+        """One period boundary at n > 1: rank 0's point (suggested first
+        when a sample is complete), adopted by every rank."""
+        if c.rank == 0 and self.tuner.ready():
+            self.tuner.suggest()
+        # An untuned axis travels as its default, as this point holds it.
+        cur = self._masked(self.tuner.current_full, self._pt)
+        mine = "|".join(str(int(v)) if isinstance(v, bool) else str(v)
+                        for v in cur[:len(self._AXES)])
+        if c.rank == 0 and self.tuner.done:
+            mine += ":done"
+        v0 = c.exchange("autotune_threshold", mine)[0]
+        if v0.endswith(":done"):
+            self._tuner_done = True
+            v0 = v0[:-5]
+        pt = type(self._pt)(*(parse(v) for parse, v in
+                              zip(self._PARSE, v0.split("|"))))
+        if c.rank != 0:
+            # This rank's tuner mirrors the adopted point (its gauges).
+            self.tuner.adopt(pt, self._tuner_done)
+        return self._masked(pt, self._pt)
+
+    def __call__(self, *args, **kwargs):
+        import time
+
+        self._step_count += 1
+        t0 = time.perf_counter()
+        with metrics_lib.step_annotation(self._step_count):
+            out = self._step(*args, **kwargs)
+            if self.block:
+                self._block(out)
+        dt = time.perf_counter() - t0
+        if _METRICS_ON:
+            _M_STEP.observe(dt)
+        c = self._controller
+        if c is None or c.size == 1:
+            new = self._masked(self.tuner.feed_full(self.grad_bytes, dt),
+                               self._pt)
+        else:
+            if c.rank == 0:
+                self.tuner.record(self.grad_bytes, dt)
+            self._calls += 1
+            new = self._pt
+            if self._calls % self._period == 0 and not self._tuner_done:
+                # A sample boundary, at the same call on every rank.
+                new = self._exchanged(c)
+        if new != self._pt:
+            self._pt = new
+            self._step = self._rebuild()
+            self.rebuilds += 1
+            _M_REBUILDS.inc()
+        return out
 
 
 def _resolve_route(route) -> Optional[C.WirePlan]:
@@ -1298,7 +1639,8 @@ def observe_ef_residual(optimizer) -> Optional[float]:
     if not getattr(optimizer, "_ef", False):
         return None
     total = sum(float(r.double().pow(2).sum())
-                for r in optimizer._ef_residual.values())
+                for r in list(optimizer._ef_residual.values())
+                + list(getattr(optimizer, "_ef_parked", {}).values()))
     norm = math.sqrt(total)
     _M_EF_NORM.set(norm)
     return norm

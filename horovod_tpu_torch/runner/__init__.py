@@ -1,7 +1,9 @@
-"""The port's launcher: ``hvdtpurun-torch`` (``launch.py``), the
-rendezvous KV (``rendezvous.py``), host assignment (``hosts.py``), the
-elastic driver (``elastic_driver.py``) and the programmatic
-:func:`run` — the counterpart of ``horovod_tpu/runner/``.
+"""The port's launcher: ``hvdtpurun-torch`` (``launch.py``: the local
+launch and the ssh fan-out, one process a slot), the rendezvous KV
+(``rendezvous.py``), host assignment (``hosts.py``), LSF hosts
+(``lsf.py``), NIC discovery (``driver_service.py``), this machine's GPUs
+(``gpu_hosts.py``), the elastic driver (``elastic_driver.py``) and the
+programmatic :func:`run` — the counterpart of ``horovod_tpu/runner/``.
 """
 
 from __future__ import annotations
@@ -21,40 +23,45 @@ def run(func: Callable,
         env: Optional[Dict[str, str]] = None,
         use_ssh: bool = False,
         verbose: bool = False) -> List[Any]:
-    """Run ``func(*args, **kwargs)`` on ``np`` workers on this machine,
-    wired as the launcher wires them (inside, ``hvd.init()`` joins the
-    world), and return their results ordered by rank. A worker's
-    exception raises here as ``RuntimeError`` carrying its traceback.
-    ``func`` travels by cloudpickle where it is installed, else by
-    pickle (then it must be importable by the workers).
+    """Run ``func(*args, **kwargs)`` on ``np`` workers, wired as the
+    launcher wires them (inside, ``hvd.init()`` joins the world), and
+    return their results ordered by rank. A worker's exception raises
+    here as ``RuntimeError`` carrying its traceback. ``func`` travels by
+    cloudpickle where it is installed, else by pickle (then it must be
+    importable by the workers).
 
-    ``use_ssh=True`` (workers on ``hosts`` over ssh) is not ported yet:
-    it raises ``NotImplementedError`` naming the ssh/LSF launch slice;
-    ``hosts`` naming only this machine is accepted."""
+    The workers run on this machine, or with ``use_ssh=True`` (or
+    ``hosts`` naming another machine) over ssh on ``hosts``
+    (``"h1:2,h2:2"``), one process a slot, through
+    ``launch.run_ssh``. Payload and results then travel through a
+    directory under the current one, which every host must be able to
+    read and write (a shared filesystem), as in the JAX ``run()``."""
     from . import hosts as hosts_lib
     from . import launch as launch_lib
     from .task_fn import _pickler
 
-    if use_ssh:
-        raise NotImplementedError(
-            "run(use_ssh=True) is not ported yet; it comes with "
-            f"{launch_lib._SSH_SLICE} of the port")
+    infos = None
     if hosts:
         infos = hosts_lib.parse_hosts(hosts)
         hosts_lib.get_host_assignments(infos, np)
-        if not launch_lib._is_local(infos):
-            raise NotImplementedError(
-                "run(hosts=) beyond this machine is not ported yet; it "
-                f"comes with {launch_lib._SSH_SLICE} of the port")
+    if use_ssh and infos is None:
+        raise ValueError("use_ssh=True requires hosts=")
+    remote = use_ssh or not launch_lib._is_local(infos)
     kwargs = kwargs or {}
-    with tempfile.TemporaryDirectory(prefix=".hvd_tpu_torch_run_") as tmp:
+    with tempfile.TemporaryDirectory(
+            prefix=".hvd_tpu_torch_run_",
+            dir=os.getcwd() if remote else None) as tmp:
         payload = os.path.join(tmp, "payload.pkl")
         with open(payload, "wb") as f:
             _pickler().dump((func, args, kwargs), f)
         command = [sys.executable, "-m", "horovod_tpu_torch.runner.task_fn",
                    payload, tmp]
-        rc = launch_lib.run_local(np, command, dict(env or {}),
-                                  verbose=verbose)
+        if remote:
+            rc = launch_lib.run_ssh(infos, command, dict(env or {}), np,
+                                    verbose=verbose)
+        else:
+            rc = launch_lib.run_local(np, command, dict(env or {}),
+                                      verbose=verbose)
         results: List[Any] = []
         errors: List[str] = []
         for pid in range(np):

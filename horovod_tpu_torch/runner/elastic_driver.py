@@ -39,10 +39,20 @@ Telemetry and control, in this process so their memory spans epochs:
   sends SIGUSR2 to every live worker, so each writes its black box
   (``HVD_TPU_FLIGHTREC_SIGNAL_GRACE_S`` is the wait before a kill).
 
-Not ported yet: workers on other machines (ssh; ``NotImplementedError``
-naming the ssh/LSF launch slice) and a hybrid ParallelSpec's respec (the
-parallel-roles slice). A caller's spawner or rendezvous server (the
-Spark and Ray launches) has no counterpart.
+An epoch on hosts other than this machine spawns its slots over ssh,
+one process a slot under ``launch.run_ssh``'s rules (host order, the
+coordinator the first host's or NIC discovery's, ``*_SECRET`` variables
+on stdin). The rendezvous KV listens on every interface (on
+``127.0.0.1`` alone under ``HVD_TPU_ELASTIC_FORCE_LOCAL``); an ssh
+epoch's workers reach it at this machine's name (at ``127.0.0.1`` when
+every host is a loopback address). Ending an ssh client does not signal its
+remote worker, as in the JAX driver: a remote survivor leaves through
+its own failed collective (the process group's timeout is the stall
+bound under elastic).
+
+Not ported yet: a hybrid ParallelSpec's respec (the parallel-roles
+slice). A caller's spawner or rendezvous server (the Spark and Ray
+launches) has no counterpart.
 """
 
 from __future__ import annotations
@@ -61,7 +71,8 @@ from typing import Dict, List, Optional, Set
 from ..common import faults as faults_lib
 from ..common.config import runtime_env
 from . import hosts as hosts_lib
-from .launch import _SSH_SLICE, build_env_for_slot
+from . import launch as launch_lib
+from .launch import build_env_for_slot
 from .rendezvous import RendezvousServer
 
 logger = logging.getLogger("horovod_tpu_torch")
@@ -455,19 +466,38 @@ def _stream(proc: subprocess.Popen, tag: str) -> threading.Thread:
 
 
 def _spawn_epoch(slots: List[hosts_lib.SlotInfo], command: List[str],
-                 env_extra: Dict[str, str]):
-    """One worker a slot on this machine, one world over all of them on
-    a fresh coordinator port. Returns ``[(hostname, Popen)]`` and the
-    output pumps."""
+                 env_extra: Dict[str, str], ssh_port: Optional[int] = None):
+    """One worker a slot, one world over all of them on a fresh
+    coordinator port: local processes, or over ssh for hosts beyond this
+    machine. Returns ``[(hostname, Popen)]`` and the output pumps."""
     from .launch import _free_port, _slot_local_env
 
-    if not _is_local_epoch(slots):
-        raise NotImplementedError(
-            "elastic workers on hosts other than this machine (ssh) are "
-            f"not ported yet; they come with {_SSH_SLICE} of the port "
-            "(HVD_TPU_ELASTIC_FORCE_LOCAL=1 runs named hosts here)")
-    coordinator = f"127.0.0.1:{_free_port()}"
     procs, threads = [], []
+    if not _is_local_epoch(slots):
+        hosts = list(dict.fromkeys(s.hostname for s in slots))
+        host, _ = launch_lib.coordinator_host(hosts, ssh_port)
+        coordinator = f"{host}:{_free_port()}"
+        env_extra = dict(env_extra)
+        rdv = env_extra.get("HVD_TPU_RENDEZVOUS")
+        if rdv:
+            env_extra["HVD_TPU_RENDEZVOUS"] = (
+                f"{launch_lib.driver_address(hosts)}:"
+                f"{rdv.rsplit(':', 1)[1]}")
+        for s in slots:
+            argv, stdin = launch_lib.ssh_argv(
+                s.hostname,
+                launch_lib.slot_env(coordinator, s, len(slots), env_extra),
+                command, ssh_port)
+            p = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT,
+                                 stdin=subprocess.PIPE if stdin else None)
+            if stdin:
+                p.stdin.write(stdin)
+                p.stdin.close()
+            procs.append((s.hostname, p))
+            threads.append(_stream(p, f"{s.hostname}[{s.rank}]"))
+        return procs, threads
+    coordinator = f"127.0.0.1:{_free_port()}"
     for s in slots:
         # Every slot is on this machine: the local rank is the rank, so
         # a machine with several GPUs gives each worker its own.
@@ -486,7 +516,8 @@ def _run_epoch(driver: ElasticDriver, slots: List[hosts_lib.SlotInfo],
                command: List[str], env_extra: Dict[str, str],
                poll_interval: float = 0.1, on_hosts_updated=None,
                grace_secs: Optional[float] = None, on_tick=None,
-               tick_interval_s: Optional[float] = None):
+               tick_interval_s: Optional[float] = None,
+               ssh_port: Optional[int] = None):
     """Run one epoch and track each worker's exit. Returns ``(rc,
     failed_hosts, interrupted)``: ``failed_hosts`` exited non-zero on
     their own (blacklist candidates); ``interrupted`` means a discovery
@@ -501,7 +532,7 @@ def _run_epoch(driver: ElasticDriver, slots: List[hosts_lib.SlotInfo],
     from ..common.elastic import (HOSTS_UPDATED_EXIT_CODE,
                                   PEER_FAILURE_EXIT_CODE)
 
-    procs, threads = _spawn_epoch(slots, command, env_extra)
+    procs, threads = _spawn_epoch(slots, command, env_extra, ssh_port)
     rc = 0
     failed: Set[str] = set()
     interrupted = terminated = epoch_ending = False
@@ -665,7 +696,12 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
     driver.start_discovery()
     # A fresh secret a job, kept out of this process's environment.
     job_secret = secrets_lib.token_hex(16)
-    rdv = RendezvousServer("127.0.0.1", secret=job_secret.encode())
+    # Workers on other hosts reach the KV at this machine's name: it
+    # listens on every interface (the job's secret signs every request)
+    # unless the job runs on this machine by construction.
+    rdv = RendezvousServer(
+        "127.0.0.1" if runtime_env("ELASTIC_FORCE_LOCAL") else "0.0.0.0",
+        secret=job_secret.encode())
     rdv_port = rdv.start()
     topo_version = 0
     rdv.put("elastic", "topology_version", str(topo_version).encode())
@@ -777,7 +813,8 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
                 on_tick=on_tick,
                 tick_interval_s=(autoscale_policy.tick_interval_s
                                  if autoscale_policy is not None
-                                 else None))
+                                 else None),
+                ssh_port=getattr(args, "ssh_port", None))
             if rc == 0 and not failed_hosts and not interrupted:
                 return 0
             epoch_down_since = time.monotonic()

@@ -1,49 +1,71 @@
-"""``hvdtpurun-torch``, the port's launcher — its copy of the local and
-elastic paths of ``horovod_tpu/runner/launch.py``::
+"""``hvdtpurun-torch``, the port's launcher — its copy of
+``horovod_tpu/runner/launch.py``::
 
     hvdtpurun-torch -np 2 python train.py
+    hvdtpurun-torch -np 4 -H host1:2,host2:2 python train.py
     hvdtpurun-torch -np 2 --elastic --min-np 2 --max-np 2 \\
         -H hostA:1,hostB:1 python train.py
 
-Each worker is a fresh process (``safe_shell_exec.spawn``) with
-``HVD_TPU_COORDINATOR`` (``127.0.0.1:<a free port>``), ``HVD_TPU_NUM_PROC``,
-``HVD_TPU_PROC_ID`` and ``HVD_TPU_LOCAL_RANK``/``LOCAL_SIZE``, which
-``hvd.init()`` reads; the first worker to exit non-zero ends the job
-(the rest are terminated). The knob flags export the same
-``HVD_TPU_*`` variables as the JAX launcher's. ``--elastic`` hands the
-job to ``elastic_driver.run_elastic``.
+Each worker is a fresh process with ``HVD_TPU_COORDINATOR``,
+``HVD_TPU_NUM_PROC``, ``HVD_TPU_PROC_ID``, ``HVD_TPU_LOCAL_RANK``/
+``LOCAL_SIZE`` and ``HVD_TPU_HOSTNAME``, which ``hvd.init()`` reads; the
+first worker to exit non-zero ends the job (the rest are terminated).
+The knob flags export the same ``HVD_TPU_*`` variables as the JAX
+launcher's (``--autotune`` -> ``HVD_TPU_AUTOTUNE=1``,
+``--autotune-log-file`` -> ``HVD_TPU_AUTOTUNE_LOG``). ``--elastic``
+hands the job to ``elastic_driver.run_elastic``.
+
+Where the workers run:
+
+* hosts that are this machine (or none given): local processes on a
+  coordinator at ``127.0.0.1``. With ``-np`` unset and no hosts, one
+  worker per GPU of this machine (``gpu_hosts.local_gpu_count``:
+  ``CUDA_VISIBLE_DEVICES``, else ``nvidia-smi -L``; CUDA is never
+  initialized here), the counterpart of the JAX launcher's TPU-pod
+  sizing; no GPU found leaves ``-np 1``.
+* other hosts (``-H``, ``--hostfile``, or inside an LSF allocation the
+  scheduler's hosts, ``lsf.py``): the ssh fan-out, ``run_ssh``. **One
+  process per slot**, the torch convention of one process per GPU —
+  the JAX launcher starts one process per host, which drives all of
+  that host's chips. Ranks go in host order; the coordinator is the
+  first host's, or with ``HVD_TPU_NIC_DISCOVERY=1`` the address that
+  routable-interface discovery picked (``driver_service.py``; nothing
+  found keeps the first host's name). ``*_SECRET`` variables travel
+  over ssh's stdin, never in the remote argv; the launcher's own
+  ``HVD_TPU_*`` environment is forwarded. Ending the ssh client does not
+  signal the remote process (the JAX launcher's limitation too): a
+  remote worker whose peer failed exits through its own collective's
+  failure.
 
 Telemetry and control: ``--metrics-port N`` gives every worker a
 ``/metrics`` endpoint (0: an ephemeral port each, advertised over the
 rendezvous KV); ``--pod-metrics-port N`` serves the merged
 ``/pod/metrics`` of all workers from this process (the elastic driver's,
-or a pod monitor of its own for a static launch); ``--autoscale-policy
+or a pod monitor of its own for a static launch, advertised as
+``socket.gethostname()`` to remote workers); ``--autoscale-policy
 JSON|@file|file`` (validated here: a bad field exits naming it; implies
 ``--elastic``) arms the elastic driver's autoscale engine, whose
 decisions ``--autoscale-log`` appends as JSON lines; ``--check-build``
 prints what this installation of the port can do.
-
-Not ported yet (each raises ``NotImplementedError`` naming its slice):
-hosts other than this machine (the ssh fan-out, LSF and NIC discovery)
-and ``--autotune``. The JAX launcher's TPU-pod discovery has no
-counterpart.
 """
 
 from __future__ import annotations
 
 import argparse
+import ipaddress
 import os
+import shlex
 import signal
 import socket
+import subprocess
 import sys
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
+from ..common.config import runtime_env
 from . import hosts as hosts_lib
 
-_SSH_SLICE = "the ssh/LSF launch slice"
-_AUTOTUNE_SLICE = "the autotune slice"
 _LOCAL_NAMES = ("localhost", "127.0.0.1")
 
 
@@ -124,6 +146,165 @@ def run_local(np: int, command: List[str], env_extra: Dict[str, str],
                                  {**env_extra, **_slot_local_env(i, np)})
         handles.append(sse.spawn(command, env=env, prefix=str(i)))
     return _wait_fail_fast(handles, [h.thread for h in handles])
+
+
+def used_hosts(host_infos: List[hosts_lib.HostInfo], np: int) -> List[str]:
+    """The hosts covering ``np`` slots, in rank order."""
+    return list(dict.fromkeys(
+        s.hostname for s in hosts_lib.get_host_assignments(host_infos, np)))
+
+
+def _loopback(hostname: str) -> bool:
+    if hostname == "localhost":
+        return True
+    try:
+        return ipaddress.ip_address(hostname).is_loopback
+    except ValueError:
+        return False
+
+
+def driver_address(hostnames) -> str:
+    """The address workers on ``hostnames`` reach this process at (its
+    rendezvous KV, its pod monitor): ``127.0.0.1`` when every host is a
+    loopback name, else this machine's hostname."""
+    if all(_loopback(h) for h in hostnames):
+        return "127.0.0.1"
+    return socket.gethostname()
+
+
+def ssh_argv(hostname: str, env: Dict[str, str], command: List[str],
+             ssh_port: Optional[int] = None) -> Tuple[List[str],
+                                                     Optional[bytes]]:
+    """``(ssh argv, stdin bytes or None)`` that runs ``command`` on
+    ``hostname`` in this directory under ``env``. ``*_SECRET`` variables
+    are not in the argv (any user of the remote host can read it): they
+    travel as one export line on stdin, which the remote shell reads
+    and evaluates before the command."""
+    secrets = {k: v for k, v in env.items() if k.endswith("_SECRET")}
+    plain = " ".join(f"{k}={shlex.quote(v)}" for k, v in env.items()
+                     if k not in secrets)
+    remote = (f"cd {shlex.quote(os.getcwd())} && {plain} "
+              + " ".join(shlex.quote(c) for c in command))
+    stdin = None
+    if secrets:
+        remote = ('IFS= read -r __HVD_SECRET_ENV__ && '
+                  'eval "export $__HVD_SECRET_ENV__"; ' + remote)
+        stdin = (" ".join(f"{k}={shlex.quote(v)}"
+                          for k, v in secrets.items()) + "\n").encode()
+    argv = ["ssh", "-o", "StrictHostKeyChecking=no"]
+    if ssh_port:
+        argv += ["-p", str(ssh_port)]
+    return argv + [hostname, remote], stdin
+
+
+def slot_env(coordinator: str, slot: hosts_lib.SlotInfo, num_proc: int,
+             env_extra: Dict[str, str]) -> Dict[str, str]:
+    """One remote slot's environment: this process's ``HVD_TPU_*``
+    knobs, the world's wiring, the slot's local rank on its host and its
+    host name, and ``env_extra`` on top."""
+    base = {k: v for k, v in os.environ.items() if k.startswith("HVD_TPU_")}
+    return build_env_for_slot(
+        base, coordinator, num_proc, slot.rank,
+        {**env_extra, **_slot_local_env(slot.local_rank, slot.local_size),
+         "HVD_TPU_HOSTNAME": slot.hostname})
+
+
+def coordinator_host(hosts: List[str],
+                     ssh_port: Optional[int] = None) -> Tuple[str, bool]:
+    """``(host, discovered)``: the first host, or with
+    ``HVD_TPU_NIC_DISCOVERY=1`` and several hosts the address NIC
+    discovery picked (True), falling back to the first host."""
+    if runtime_env("NIC_DISCOVERY") == "1" and len(hosts) > 1:
+        picked = _nic_discovery_coordinator(hosts, ssh_port)
+        if picked:
+            return picked, True
+    return hosts[0], False
+
+
+def run_ssh(host_infos: List[hosts_lib.HostInfo], command: List[str],
+            env_extra: Dict[str, str], np: int, verbose: bool = False,
+            ssh_port: Optional[int] = None) -> int:
+    """The ssh fan-out: one process a slot of the ``np`` slots the hosts
+    give, in host order (see the module docstring), each started with
+    ``ssh <host>``; fails fast. Returns the first non-zero exit code, or
+    0."""
+    from . import safe_shell_exec as sse
+
+    slots = hosts_lib.get_host_assignments(host_infos, np)
+    hosts = used_hosts(host_infos, np)
+    host, discovered = coordinator_host(hosts, ssh_port)
+    coordinator = f"{host}:{_free_port()}"
+    print(f"hvdtpurun-torch: {np} workers over ssh on {','.join(hosts)}; "
+          f"coordinator {coordinator} "
+          f"({'NIC discovery' if discovered else 'first host'})",
+          flush=True)
+    handles = []
+    for s in slots:
+        argv, stdin = ssh_argv(s.hostname,
+                               slot_env(coordinator, s, np, env_extra),
+                               command, ssh_port)
+        handles.append(sse.spawn(argv, prefix=f"{s.hostname}[{s.rank}]",
+                                 input_data=stdin))
+    return _wait_fail_fast(handles, [h.thread for h in handles])
+
+
+def _nic_discovery_coordinator(hosts: List[str],
+                               ssh_port: Optional[int]) -> Optional[str]:
+    """Routable-NIC discovery before the fan-out: start a task server on
+    every host over ssh (``driver_service --serve --ttl 120``, which
+    prints ``TASKSERVER <port>``), intersect the hosts' interface sets
+    (loopback dropped) and return the first host's address on the first
+    common interface that answers a probe from here. None (keep the
+    host name) on any failure: discovery never fails a launch."""
+    import select
+
+    from . import driver_service as ds
+
+    servers: List[subprocess.Popen] = []
+    try:
+        task_addrs = {}
+        for hostname in hosts:
+            argv = ["ssh", "-o", "StrictHostKeyChecking=no",
+                    "-o", "BatchMode=yes"]
+            if ssh_port:
+                argv += ["-p", str(ssh_port)]
+            argv += [hostname, f"cd {shlex.quote(os.getcwd())} && "
+                     f"{shlex.quote(sys.executable)} -m "
+                     "horovod_tpu_torch.runner.driver_service --serve "
+                     "--ttl 120"]
+            p = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                                 stderr=subprocess.DEVNULL, text=True)
+            servers.append(p)
+            # A bounded wait: a hung host degrades discovery, it does not
+            # hang the launch.
+            ready, _, _ = select.select([p.stdout], [], [], 20.0)
+            line = (p.stdout.readline() or "").strip() if ready else ""
+            if not line.startswith("TASKSERVER "):
+                return None
+            task_addrs[hostname] = (hostname, int(line.split()[1]))
+        common = ds.discover_routable_interfaces(task_addrs)
+        ifaces = ds.query_interfaces(task_addrs[hosts[0]])
+        port0 = task_addrs[hosts[0]][1]
+        for iface in common:
+            ip = ifaces.get(iface)
+            # A host-local bridge exists everywhere but answers with the
+            # wrong machine's stack: only an address that reaches the
+            # first host's server from here is taken.
+            if ip and ds.probe_reachable((ip, port0)):
+                return ip
+        return None
+    except (OSError, RuntimeError, ValueError):
+        return None
+    finally:
+        for p in servers:
+            if p.poll() is None:
+                p.terminate()
+        for p in servers:
+            try:
+                p.wait(timeout=5)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -268,18 +449,6 @@ def check_build() -> str:
     return "\n".join(lines)
 
 
-def _refuse_later_flags(args: argparse.Namespace) -> None:
-    """The flags of later slices of the port raise, naming the slice."""
-    later = (("autotune", "--autotune", _AUTOTUNE_SLICE),
-             ("autotune_log_file", "--autotune-log-file", _AUTOTUNE_SLICE))
-    for dest, flag, where in later:
-        value = getattr(args, dest, None)
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"hvdtpurun-torch {flag} is not ported yet; it comes with "
-                f"{where} of the port")
-
-
 def knob_env(args: argparse.Namespace) -> Dict[str, str]:
     """The ``HVD_TPU_*`` environment the knob flags stand for (the JAX
     launcher's ``knob_env``; a malformed fault plan fails here)."""
@@ -344,12 +513,14 @@ def knob_env(args: argparse.Namespace) -> Dict[str, str]:
     return env
 
 
-def _start_pod_monitor(env_extra: Dict[str, str]):
+def _start_pod_monitor(env_extra: Dict[str, str],
+                       advertise_host: str = "127.0.0.1"):
     """The pod monitor of a static launch, when
     ``HVD_TPU_POD_METRICS_PORT`` asks for one: without a rendezvous KV
     in play, one is started here for the workers' endpoint
-    advertisement alone. Returns ``(monitor, owned_rdv)``; the caller
-    stops both."""
+    advertisement alone, at ``advertise_host`` (this machine's name for
+    remote workers). Returns ``(monitor, owned_rdv)``; the caller stops
+    both."""
     from ..common import podmon as podmon_lib
 
     merged_env = {**os.environ, **env_extra}
@@ -362,9 +533,10 @@ def _start_pod_monitor(env_extra: Dict[str, str]):
     sources = [podmon_lib.static_endpoints(
         merged_env.get(podmon_lib.ENV_ENDPOINTS))]
     if "HVD_TPU_RENDEZVOUS" not in merged_env:
-        owned_rdv = RendezvousServer("127.0.0.1")
+        owned_rdv = RendezvousServer(
+            "127.0.0.1" if advertise_host == "127.0.0.1" else "0.0.0.0")
         kv_port = owned_rdv.start()
-        env_extra["HVD_TPU_RENDEZVOUS"] = f"127.0.0.1:{kv_port}"
+        env_extra["HVD_TPU_RENDEZVOUS"] = f"{advertise_host}:{kv_port}"
         sources.append(podmon_lib.kv_endpoints(owned_rdv))
     monitor = podmon_lib.PodMonitor(
         podmon_lib.combined_endpoints(*sources))
@@ -379,6 +551,22 @@ def _is_local(host_infos) -> bool:
         for h in host_infos)
 
 
+def _lsf_hosts():
+    """The LSF allocation's hosts inside one, else None; a stale
+    ``LSB_JOBID`` without host variables logs a line and launches
+    locally."""
+    from . import lsf as lsf_lib
+
+    if not lsf_lib.in_lsf():
+        return None
+    try:
+        return lsf_lib.lsf_hosts()
+    except RuntimeError as e:
+        print(f"hvdtpurun-torch: ignoring LSF environment ({e}); "
+              "launching locally", file=sys.stderr)
+        return None
+
+
 def run_commandline(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
     if args.version:
@@ -387,11 +575,12 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
         print(__version__)
         return 0
     args = apply_config_file(args, argv)
-    _refuse_later_flags(args)
     if args.check_build:
         print(check_build())
         return 0
-    if args.num_proc is None:
+    # Only an UNSET -np may grow to this machine's GPU count below.
+    np_unset = args.num_proc is None
+    if np_unset:
         args.num_proc = 1
     command = args.command
     if command and command[0] == "--":
@@ -416,18 +605,28 @@ def run_commandline(argv: Optional[List[str]] = None) -> int:
     elif args.hosts:
         host_infos = hosts_lib.parse_hosts(args.hosts)
     else:
-        host_infos = None
+        host_infos = _lsf_hosts()
+        if host_infos is None and np_unset:
+            from . import gpu_hosts
+
+            gpus = gpu_hosts.local_gpu_count()
+            if gpus is not None and gpus > 1:
+                print(f"hvdtpurun-torch: {gpus} GPUs on this machine; "
+                      f"running -np {gpus}", file=sys.stderr)
+                args.num_proc = gpus
     if host_infos is not None:
         # -np beyond the hosts' slots raises rather than oversubscribes.
         hosts_lib.get_host_assignments(host_infos, args.num_proc)
-    if not _is_local(host_infos):
-        raise NotImplementedError(
-            "hvdtpurun-torch on hosts other than this machine (the ssh "
-            f"fan-out) is not ported yet; it comes with {_SSH_SLICE} of "
-            "the port")
-    monitor, owned_rdv = _start_pod_monitor(env_extra)
+    local = _is_local(host_infos)
+    monitor, owned_rdv = _start_pod_monitor(
+        env_extra, "127.0.0.1" if local else driver_address(
+            used_hosts(host_infos, args.num_proc)))
     try:
-        return run_local(args.num_proc, command, env_extra, args.verbose)
+        if local:
+            return run_local(args.num_proc, command, env_extra,
+                             args.verbose)
+        return run_ssh(host_infos, command, env_extra, args.num_proc,
+                       args.verbose, args.ssh_port)
     finally:
         if monitor is not None:
             monitor.stop()

@@ -120,7 +120,7 @@ import contextlib
 import dataclasses
 import inspect
 import math
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -552,11 +552,44 @@ def sharded_init(optimizer: torch.optim.Optimizer, params=None, axis=None,
     params = _all_params(optimizer) if params is None else list(params)
     compression = optim_lib._resolve_compression(compression)
     _check_reduce_safe(compression)
-    threshold = basics.context().config.fusion_threshold_bytes \
+    threshold = basics.context().fusion_threshold() \
         if fusion_threshold_bytes is None else int(fusion_threshold_bytes)
     return ShardState(optimizer, params, axis, threshold, compression,
                       integrity_lib.resolve_nonfinite_policy(nonfinite_policy),
                       route, order, grad_op)
+
+
+def _moved_state(full: dict, old_plan, new_plan) -> dict:
+    """A :meth:`ShardState.gather_state` result (vector state cut to each
+    bucket's length) moved leaf by leaf from ``old_plan``'s buckets into
+    ``new_plan``'s: a new bucket's vector state is its leaves' slices in
+    its order, its scalars those of the old bucket of its first leaf
+    (every bucket steps together)."""
+    vectors: Dict[int, dict] = {}
+    scalars: Dict[int, dict] = {}
+    for bi, entry in full["state"].items():
+        b = old_plan.buckets[int(bi)]
+        for k, v in entry.items():
+            if torch.is_tensor(v) and v.dim():
+                for i, view in fusion_lib.unfuse_bucket(v, b):
+                    vectors.setdefault(i, {})[k] = view.reshape(-1)
+            else:
+                for i in b.leaf_indices:
+                    scalars.setdefault(i, {})[k] = v
+    state = {}
+    for nb, b in enumerate(new_plan.buckets):
+        first = b.leaf_indices[0]
+        if first not in vectors and first not in scalars:
+            continue
+        # A tensor scalar (AdamW's step) is stepped in place: one each.
+        entry = {k: v.clone() if torch.is_tensor(v) else v
+                 for k, v in scalars.get(first, {}).items()}
+        for k in vectors.get(first, {}):
+            entry[k] = torch.cat([vectors[i][k] for i in b.leaf_indices])
+        state[nb] = entry
+    groups = [dict(g, params=list(range(len(new_plan.buckets))))
+              for g in full["param_groups"]]
+    return {"state": state, "param_groups": groups}
 
 
 def _grad_flat(params, grads, bucket) -> torch.Tensor:
@@ -715,6 +748,11 @@ class ZeroOptimizer(torch.optim.Optimizer):
         if C.ReduceOp(grad_op) not in _LINEAR:
             raise ValueError("ZeroOptimizer supports SUM/AVERAGE")
         self.zero_stage = stage
+        #: What a re-plan rebuilds the sharded state from.
+        self._wrapped = optimizer
+        self._axis_arg = axis
+        self._order = bucket_order if bucket_order is not None \
+            else fusion_lib.ORDER_FLATTEN
         self.params = _all_params(optimizer)
         if stage == 3:
             _check_own_storage(self.params)
@@ -722,9 +760,7 @@ class ZeroOptimizer(torch.optim.Optimizer):
         self.remat_policy = optim_lib.resolve_remat_policy(remat_policy)[0]
         self.shard_state = sharded_init(
             optimizer, self.params, axis, fusion_threshold_bytes,
-            compression, nonfinite_policy, route, grad_op,
-            bucket_order if bucket_order is not None
-            else fusion_lib.ORDER_FLATTEN)
+            compression, nonfinite_policy, route, grad_op, self._order)
         self.defaults = optimizer.defaults
         self.param_groups = optimizer.param_groups
         self._shard_grads: Optional[List[torch.Tensor]] = None
@@ -778,6 +814,72 @@ class ZeroOptimizer(torch.optim.Optimizer):
     def reshard_state(self, full: dict) -> None:
         self._finish_prefetch()
         self.shard_state.reshard_state(full)
+
+    def replan(self, fusion_threshold_bytes: Optional[int] = None,
+               compression=None, overlap: Optional[bool] = None,
+               route=None) -> None:
+        """Re-plan the buckets between two steps (``AutotunedStepper``'s
+        ``build``), collectively: every rank calls it at the same step.
+        The inner state goes through :meth:`gather_state`, moves leaf by
+        leaf into the new plan's buckets (at ``fusion_threshold_bytes``,
+        None: the context's live threshold; ``compression`` and
+        ``route``, when given, re-shape the grid) and
+        :meth:`reshard_state`; this rank's int8_ef residual moves leaf by
+        leaf, bitwise, and the rounding step and the guard stay. Stage 3
+        materializes the parameters for the re-slice and frees them
+        after. The D2 worker is drained and closed. Raises between
+        ``accumulate`` and ``step()``."""
+        if self._shard_grads is not None:
+            raise RuntimeError(
+                "replan() between two steps only: accumulate() left shard "
+                "gradients that step() has not applied")
+        self._finish_prefetch()
+        if self.zero_stage == 3:
+            self._start_gather()
+            self._finish_prefetch()
+        if self._worker is not None:
+            self._worker.drain()
+            self._worker.close()
+            self._worker = None
+        if overlap is not None:
+            self.overlap = bool(overlap)
+        if fusion_threshold_bytes is None:
+            fusion_threshold_bytes = basics.context().fusion_threshold()
+        old = self.shard_state
+        full = old.gather_state()
+        full.pop("ef_state", None)
+        full.pop("guard_state", None)
+        new = ShardState(
+            self._wrapped, self.params, self._axis_arg,
+            int(fusion_threshold_bytes),
+            old.compression if compression is None
+            else optim_lib._resolve_compression(compression),
+            None, old.route if route is None else route, self._order,
+            old.grad_op)
+        new.reshard_state(_moved_state(full, old.plan, new.plan))
+        new._guard, new._scale_cfg = old._guard, old._scale_cfg
+        new.guard_agreements = old.guard_agreements
+        if new.ef:
+            leaves = {}
+            if old.ef:
+                for r, b in zip(old.ef_state.residual, old.plan.buckets):
+                    for i, view in fusion_lib.unfuse_bucket(
+                            r[:b.total_elems], b):
+                        leaves[i] = view.reshape(-1)
+            for r, b in zip(new.ef_state.residual, new.plan.buckets):
+                off = 0
+                for i in b.leaf_indices:
+                    n = self.params[i].numel()
+                    if i in leaves:
+                        r[off:off + n] = leaves[i]
+                    off += n
+            if old.ef:
+                new.ef_state.step = old.ef_state.step
+        self.shard_state = new
+        if self.zero_stage == 3:
+            self._free_params()
+        else:
+            _resident(self.zero_stage, self.params)
 
     def state_dict(self) -> dict:
         """The inner optimizer's state dict over this rank's shards and,

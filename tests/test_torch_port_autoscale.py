@@ -315,6 +315,10 @@ def test_straggler_scale_inflates_the_report_only(J, monkeypatch):
         for name, mod, flt in (("jax", J.autoscale, jfaults),
                                ("port", P, faults)):
             flt.refresh_from_env()
+            # The report carries the process's recovery counters: start
+            # both packages' from zero (an earlier test in this process
+            # may have counted a resync in one of them).
+            flt.stats.reset()
             sink, clock = _Sink(), [0.0]
             pub = mod.StepPublisher(sink, rank=0, host="h", window=4,
                                     publish_interval_s=0.0,

@@ -283,13 +283,13 @@ def test_timeline_is_a_chrome_trace(tmp_path):
 
 
 def test_engine_contract_and_left_out_parts():
-    """The autotuner (a later slice) raises naming its slice; the stall
-    inspector (slice 13), the mesh and process-set options (slice 10) are
-    taken; wrong splits, a wire on the flat uneven exchange and an object
-    that is no process set raise before any exchange."""
-    with pytest.raises(NotImplementedError, match="the autotune slice"):
-        eager.EagerEngine(Config(), torch.device("cpu"), 0, 1,
-                          autotuner=object())
+    """The autotuner (slice 14), the stall inspector (slice 13), the mesh
+    and process-set options (slice 10) are taken; wrong splits, a wire on
+    the flat uneven exchange and an object that is no process set raise
+    before any exchange."""
+    tuner = object()
+    assert eager.EagerEngine(Config(), torch.device("cpu"), 0, 1,
+                             autotuner=tuner).autotuner is tuner
     insp = object()
     assert eager.EagerEngine(Config(), torch.device("cpu"), 0, 1,
                              stall_inspector=insp).stall is insp

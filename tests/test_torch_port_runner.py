@@ -5,8 +5,8 @@ package's (``horovod_tpu/runner/``), after the reference tests of
 
 * ``parse_hosts``, ``parse_host_files``, ``get_host_assignments``,
   ``build_env_for_slot`` and ``knob_env`` give the JAX launcher's
-  results for the same inputs; the flags of later slices raise naming
-  their slice.
+  results for the same inputs; the flags of the later slices are taken
+  and hosts beyond this machine go through the ssh fan-out.
 * The rendezvous digest is the JAX package's; a server/client round trip
   with a secret works (403 without it, 409 on a lost put-if-absent, an
   injected 5xx retried); each package's client talks to the other's
@@ -106,29 +106,39 @@ def test_slot_env_and_knobs_match_jax(J, tmp_path):
                                   ["--autoscale-policy", "{}"],
                                   ["--check-build"]])
 def test_later_flags_raise_naming_their_slice(flag, capsys):
-    """``--autotune`` (a later slice) raises naming its slice; the
-    telemetry and control flags (slice 13) are taken: a launch with each
-    runs its worker to exit 0, and ``--check-build`` prints the port's
+    """The flags of the later slices are taken: ``--autotune`` (slice 14)
+    and the telemetry and control flags (slice 13) — a launch with each
+    runs its worker to exit 0 — and ``--check-build`` prints the port's
     matrix."""
     argv = flag + [sys.executable, "-c", "pass"]
-    if flag == ["--autotune"]:
-        with pytest.raises(NotImplementedError, match="the autotune slice"):
-            launch.run_commandline(argv)
-        return
     assert launch.run_commandline(argv) == 0
     if flag == ["--check-build"]:
         out = capsys.readouterr().out
         assert "horovod_tpu_torch" in out and "PyTorch (native)" in out
 
 
-def test_remote_hosts_raise_naming_the_ssh_slice():
-    with pytest.raises(NotImplementedError, match="ssh"):
-        launch.run_commandline(["-np", "2", "-H", "far1:1,far2:1",
-                                "python", "-c", "pass"])
-    from horovod_tpu_torch.runner import run
-
-    with pytest.raises(NotImplementedError, match="ssh"):
-        run(print, np=1, use_ssh=True, hosts="far:1")
+def test_remote_hosts_raise_naming_the_ssh_slice(tmp_path, monkeypatch):
+    """Hosts beyond this machine are ported (slice 14): they go through
+    the ssh fan-out — here an ``ssh`` on ``PATH`` that logs its host and
+    runs the command on this machine — one process a slot."""
+    fake = tmp_path / "ssh"
+    log = tmp_path / "ssh.log"
+    fake.write_text(
+        "#!/bin/bash\n"
+        "args=()\n"
+        "while [[ $# -gt 0 ]]; do\n"
+        "  case $1 in\n"
+        "    -o|-p) shift 2;;\n"
+        "    *) args+=(\"$1\"); shift;;\n"
+        "  esac\n"
+        "done\n"
+        f"echo \"${{args[0]}}\" >> {log}\n"
+        "exec bash -c \"${args[*]:1}\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{tmp_path}:{os.environ['PATH']}")
+    assert launch.run_commandline(["-np", "2", "-H", "far1:1,far2:1",
+                                   sys.executable, "-c", "pass"]) == 0
+    assert sorted(log.read_text().split()) == ["far1", "far2"]
 
 
 # -- rendezvous ---------------------------------------------------------------

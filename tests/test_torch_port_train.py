@@ -327,22 +327,16 @@ def test_later_slices_raise_not_implemented(name):
     ``observe_guard``, ...), slice 10 (``ProcessSet``,
     ``add_process_set``, ...), slice 11 (``ZeroOptimizer``,
     ``save_sharded``, ...) and slice 12 (``chaos_poison``, ``run``,
-    ``save_state``, ...) and slice 13 (``flight_recorder``, the metrics
-    server, ``StepTimer``) are ported: their names resolve. The
-    autotune slice (``AutotunedStepper``) and the parallel roles still
-    raise naming their slice."""
+    ``save_state``, ...), slice 13 (``flight_recorder``, the metrics
+    server, ``StepTimer``) and slice 14 (``AutotunedStepper``) are
+    ported: their names resolve. The parallel roles still raise naming
+    their slice."""
     import horovod_tpu_torch.models as models
 
     mod, attr = (models, name.split(".")[1]) if "." in name else (hvd, name)
-    if mod is models or name in ("accumulate_gradients", "observe_guard",
-                                 "add_process_set", "ProcessSet",
-                                 "ZeroOptimizer", "save_sharded",
-                                 "chaos_poison", "flight_recorder",
-                                 "start_metrics_server", "StepTimer"):
-        assert callable(getattr(mod, attr))
-    else:
-        with pytest.raises(NotImplementedError, match="the autotune slice"):
-            getattr(mod, attr)
+    assert callable(getattr(mod, attr))
+    with pytest.raises(NotImplementedError, match="the parallel-roles slice"):
+        hvd.ParallelSpec
     with pytest.raises(AttributeError):
         getattr(mod, "no_such_name")
 
