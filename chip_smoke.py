@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. Card: print the card's name and power limit (nvidia-smi) and build
    the CUDA kernels from ``horovod_tpu_torch/csrc`` with nvcc, one
-   compiler per source, side by side.
+   compiler per source, side by side, and beside them the native host
+   library from ``horovod_tpu_torch/native/*.cc`` with g++ (into
+   ``build/horovod_tpu_torch/native/``), printing its seconds.
 1b. K1 (the pre/postscale kernel) against its plain version on the card,
    bitwise: fp32->fp32, bf16->bf16, fp16->fp16 and fp32->bf16, at GPT-2
    medium's ``tok_emb`` gradient (51,463,168 elements), a 1,024-element
@@ -44,7 +46,10 @@ Phases (any failure exits non-zero and prints no result line):
    training shape with q, k, v as ``split`` views of one fused QKV
    tensor, D = 128 causal, BERT-large's (8, 512, 16, 64) non-causal
    under a padded batch's key mask and ViT-B/16's (64, 197, 12, 64)
-   non-causal (a ragged last tile), both fused; bounds fp32 2e-4
+   non-causal (a ragged last tile), both fused, and the striped ring's
+   strict block at (2, 512, 16, 64): K/V rolled one position, key 0
+   masked, causal — query row 0 fully masked — with a nonzero lse
+   cotangent; bounds fp32 2e-4
    (forward) and 5e-3 (gradients), bf16 2e-2. K6 and K7 are held there
    both as two calls and as the training paths' one backward call
    (``flash_bwd``). Each record names its route by dtype. Times at each
@@ -214,10 +219,11 @@ Phases (any failure exits non-zero and prints no result line):
    a set and apart between sets. (e) The chunked ``alltoall(splits=,
    chunked=True)`` of (rows, 1024) bf16 tokens on a skewed table on the
    none/bf16/int8 wires (none and bf16 bitwise; int8 within half a block
-   scale, with n - 1 = 3 K2 launches and no K4), and
-   ``wired_ppermute(wire="int8")`` over the local axis on (4096, 1024)
-   fp32 activations, forward and backward (the cotangent on the inverse
-   shift), each within half a block scale, with 2 K2 launches. Every
+   scale, with n - 1 = 3 K2 and 3 K4 launches: K4 dequantizes each
+   hop), and ``wired_ppermute(wire="int8")`` over the local
+   axis on (4096, 1024) fp32 activations, forward and backward (the
+   cotangent on the inverse shift), each within half a block scale,
+   with 2 K2 and 2 K4 launches. Every
    section's launch counts are zeroed just before it and read just
    after; their sum is the mesh path's count. Printed: the median step
    ms of each mode and the bytes each rank puts on each axis
@@ -260,7 +266,11 @@ Phases (any failure exits non-zero and prints no result line):
    just before step 1, read after step 4), the controller must make 291
    negotiation rounds at step 1 and none after, replicas must be bitwise
    equal after every step, and a timeline around step 3 must hold one
-   begin/end pair per gradient. Then MoE-shaped exchanges of (4096, 1024)
+   begin/end pair per gradient. The negotiation runs on the native
+   runtime: rank 0's table and each engine's LRU are the C++ ones, the
+   loop's requests and responses ride the native codec (frames counted
+   by form: native above 0, JSON none), and the timeline is written by
+   the native writer with no event dropped. Then MoE-shaped exchanges of (4096, 1024)
    tokens per rank (``alltoall`` on the none/bf16/int8 wires — int8 must
    launch K2 and K4 — with uneven splits, an Average ``reducescatter``,
    a ragged ``allgatherv``), held against plain results from every rank's
@@ -378,11 +388,38 @@ Phases (any failure exits non-zero and prints no result line):
    threshold has a CSV row; ``rebuilds`` is the number of moves; rank
    0's leaf-wise int8_ef residual bitwise the same across every
    re-plan; finite losses; each worker's ``/metrics`` shows the adopted
-   threshold and ``hvd_tpu_autotune_rebuilds_total`` = ``rebuilds``.
+   threshold and ``hvd_tpu_autotune_rebuilds_total`` = ``rebuilds``;
+   rank 0's last search scored EI with the C++ GP core
+   (``native/gp_core.cc``), within rtol 1e-5, atol 1e-7 of the numpy EI
+   of the same fit.
    Printed: step ms and buckets at each threshold, the chosen threshold
    and whether the tuner converged, ms a re-plan, the coordinator and
    whether discovery picked it, peak GiB a rank.
-11. Result lines: the per-kernel JSON record (K1-K9, each with
+11. Parallel roles: the script relaunches itself as 4 gloo rank
+   workers (``--rank-worker n4_parallel``) sharing the card. GPT-2
+   medium at full width and depth (seeded fp32 weights, bf16 compute,
+   the same on every arm), one seeded global batch of 4 x 1024 tokens,
+   ``DistributedOptimizer(AdamW(lr=1e-4, weight_decay=1e-4),
+   parallel=spec)``, 1 checked and 2 timed steps an arm, each arm in a
+   world made with its spec (``init(parallel=)``): ``dense``
+   (``dp=4``, the oracle), ``tp`` (``dp=2,tp=2``: 8 heads and 2,048 MLP
+   columns a rank), ``ring`` (``dp=2,sp=2``, the striped ring, 512
+   tokens a rank), ``ulysses`` and ``ring_int8`` (the ring's K/V hops on
+   the int8 wire). Checks: each arm's global loss at the first step and
+   after the last within a bf16 bound of dense's (2e-3; ring_int8 2e-2);
+   every rank's parameters bitwise rank 0's after every step; the
+   launches of the three steps exactly K5 = K6 = K7 = 24 a step (48 on
+   the rings: two blocks a layer) and, on ring_int8, K2 = K4 = 96 a step
+   (one hop of K and of V a layer, forward and backward); and, in the
+   ring's world, the striped ring with the kernels against the same
+   ring with plain blocks (``use_flash=False``) at (2, 512, 16, 64)
+   bf16 over the sp axis, output and gradients within 2e-2. Printed for
+   each arm: the median step ms, tokens/s, the launches a step, the
+   bytes a rank a step (the sequence exchange, the tp allreduces, the
+   slice-gradient combine and the dp reduction), peak GiB a rank and
+   each rank's role label; gloo, 4 processes on one card, not NCCL or
+   NVLink.
+12. Result lines: the per-kernel JSON record (K1-K9, each with
    ``launches_by_path``, every path above 0, and ``launches`` their
    sum: K5/K6/K7 for the GPT training, BERT, ViT and the two guarded
    integrity runs and the ZeRO phase; K1 for the eager loop, the
@@ -391,7 +428,8 @@ Phases (any failure exits non-zero and prints no result line):
    phase and the ZeRO phase's (c); K8 and K9 for the n = 2 multi-rank run
    and the mesh phase; phase 7d for K1, K3, K5-K9; phase 8's clean run,
    phase 9 (b)'s rank 0 first process and phase 10's rank 0 for K3 and
-   K5-K7), the card line, and last ``{"ok": true, "device": {...}}``.
+   K5-K7; phase 11 for K5-K7 and, on ring_int8, K2 and K4), the card
+   line, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` also traces the serve run and two extra training steps of
 GPT-2 medium, each integrity run, BERT-large, ViT-B/16 and ResNet-50
@@ -722,6 +760,7 @@ def phase_kernels(torch, K) -> dict:
 FLASH_PATH = (8, 512, 16, 64)       # the GPT training path's shape
 BERT_PATH = (8, 512, 16, 64)        # BERT-large, non-causal, key mask
 VIT_PATH = (64, 197, 12, 64)        # ViT-B/16 at 224: 196 patches + CLS
+SP_BLOCK = (2, 512, 16, 64)         # a striped-ring block of phase 11
 FLASH_CASES = (
     (FLASH_PATH, "bfloat16", True, None, False, False),
     (FLASH_PATH, "float32", True, None, False, False),
@@ -734,6 +773,10 @@ FLASH_CASES = (
     ((2, 256, 4, 128), "bfloat16", True, None, False, False),
     (BERT_PATH, "bfloat16", False, "lengths", False, True),
     (VIT_PATH, "bfloat16", False, None, False, True),
+    # The striped ring's strict block: K/V rolled one position, key 0
+    # masked, causal: query row 0 fully masked (lse -1e30), and a live
+    # lse cotangent.
+    (SP_BLOCK, "bfloat16", True, "strict", True, False),
 )
 FLASH_TOL = {"float32": (2e-4, 5e-3), "bfloat16": (2e-2, 2e-2)}
 FLASH_TIMING_SETS = 8               # distinct inputs per graph replay
@@ -783,6 +826,10 @@ def flash_inputs(torch, shape, dtype, mask_kind, dlse_on, gen,
         mask[:, 0] = 1.0
     elif mask_kind == "lengths":
         mask = length_mask(torch, b, s, gen)
+    elif mask_kind == "strict":
+        k, v = torch.roll(k, 1, dims=1), torch.roll(v, 1, dims=1)
+        mask = torch.ones((b, s), device="cuda")
+        mask[:, 0] = 0.0
     dlse = torch.randn((b, h, s), generator=gen, device="cuda") \
         if dlse_on else None
     return q, k, v, do, mask, dlse
@@ -3390,7 +3437,8 @@ def _mesh_exchanges(torch, hvd, C, K, rank, n) -> dict:
             xs[rank], name=f"mesh.a2a.{wire}", splits=splits[rank],
             chunked=True, wire=None if wire == "none" else wire))
         if wire == "int8":
-            _expect(launches, "chunked alltoall int8", quantize_int8=n - 1)
+            _expect(launches, "chunked alltoall int8", quantize_int8=n - 1,
+                    dequantize_int8=n - 1)
             rec["int8_launches"] = launches
             # Half a block scale of each hop's chunk, then the bf16
             # rounding of the output.
@@ -3424,7 +3472,8 @@ def _mesh_exchanges(torch, hvd, C, K, rank, n) -> dict:
         return y.detach()
 
     y, launches = _counted(torch, K, run)
-    _expect(launches, "wired_ppermute int8", quantize_int8=2)
+    _expect(launches, "wired_ppermute int8", quantize_int8=2,
+            dequantize_int8=2)
     rec["ppermute_launches"] = launches
     want_y = act(local.ranks[src_pos], 1000)
     want_g = act(local.ranks[dst_pos], 1100)
@@ -4122,6 +4171,7 @@ def eager_worker(config: str, rank: int, out_path: str) -> None:
     import torch
 
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import controller as ctl_mod
     from horovod_tpu_torch.models import gpt as gpt_mod
     from horovod_tpu_torch.ops import collectives as C
     from horovod_tpu_torch.ops import kernels as K
@@ -4132,6 +4182,12 @@ def eager_worker(config: str, rank: int, out_path: str) -> None:
     ctx, model, opt, named, fwd_bwd = _eager_setup(torch, hvd, gpt_mod,
                                                    config, rank)
     ctl = ctx.controller
+    # The native runtime: the controller's table (rank 0) and the
+    # engine's LRU are the C++ ones, and its frames are counted.
+    check((ctl._table is None or ctl._table._h is not None)
+          and ctx.engine._lru._h is not None,
+          "eager: the native negotiation table / LRU is not in use")
+    frames0 = dict(ctl_mod.FRAMES)
     params = [p for _, p in named]
     digest = _Digest(torch, params)
     target = max(range(len(params)),
@@ -4157,6 +4213,8 @@ def eager_worker(config: str, rank: int, out_path: str) -> None:
             g = params[target].grad.clone()
         if step == 2:
             hvd.start_timeline(timeline)
+            check(ctx.timeline.native,
+                  "eager: the timeline is not on the native writer")
         r0 = ctl.negotiation_rounds
         eager_reduce(hvd, named)
         torch.cuda.synchronize()
@@ -4186,7 +4244,15 @@ def eager_worker(config: str, rank: int, out_path: str) -> None:
         times.append((t2 - t0) + (t4 - t3))
         split.append((t1 - t0, t2 - t1, t4 - t3))
     launches = dict(K.LAUNCHES)
+    frames = {k: ctl_mod.FRAMES[k] - frames0[k] for k in frames0}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(frames["native"] > 0 and frames["json"] == 0,
+          f"eager: controller frames {frames}: every request and response "
+          "of the loop must ride the native codec (JSON only for "
+          "wire_dtype/process_set)")
+    dropped = ctx.timeline.dropped()
+    check(dropped == 0, f"eager: the native timeline dropped {dropped} "
+                        "events")
     check(all(math.isfinite(v) for v in losses),
           f"eager: non-finite loss in {losses}")
     check(all(equal), f"eager: replicas differ after step(s) "
@@ -4248,7 +4314,8 @@ def eager_worker(config: str, rank: int, out_path: str) -> None:
         "replicas_equal": equal, "peak_mem_gib": peak,
         "wire_bytes_per_step": 2 * (n - 1) / n * 4 * numel,
         "raw_bytes_per_step": 4 * numel,
-        "timeline_tensors": len(phases), "hyperparameters": repr(hp)})
+        "timeline_tensors": len(phases), "timeline_dropped": dropped,
+        "controller_frames": frames, "hyperparameters": repr(hp)})
     hvd.shutdown()
     with open(out_path, "w") as f:
         json.dump(out, f)
@@ -4329,7 +4396,9 @@ def phase_eager(torch, out_dir: str) -> dict:
            "peak_mem_gib_rank0": r0["peak_mem_gib"],
            "losses_rank0": r0["losses"], "moe": r0["moe"],
            "surface": r0["surface"],
-           "mismatch": r0["mismatch"], "ranks": ranks}
+           "mismatch": r0["mismatch"],
+           "controller_frames": [rk["controller_frames"] for rk in ranks],
+           "ranks": ranks}
     print(f"eager (gloo, 2 processes on one card): gpt_medium B={batch} "
           f"S={seq} per rank, step {step_ms:.1f} ms = "
           f"{res['tokens_per_s']:.0f} tok/s (rank 0: forward + backward "
@@ -4342,6 +4411,9 @@ def phase_eager(torch, out_dir: str) -> dict:
           f"{res['wire_bytes_per_step_per_rank'] / 1e9:.3f} GB/step per "
           f"rank (ring); peak {res['peak_mem_gib_rank0']:.2f} GiB; "
           f"negotiation rounds per step {res['negotiation_rounds']}; "
+          f"controller frames (native codec) "
+          f"{json.dumps(res['controller_frames'])}, timeline on the native "
+          f"writer, 0 dropped; "
           f"check {json.dumps(res['check'])}; mismatch "
           f"{json.dumps(res['mismatch'])}; moe exchanges "
           f"{res['moe']['seconds']:.2f} s; in-place and sparse calls "
@@ -5931,6 +6003,7 @@ def autotune_worker(cfg_path: str) -> None:
     import time as time_mod
     import urllib.request
 
+    import numpy as np
     import torch
 
     import horovod_tpu_torch as hvd
@@ -5999,6 +6072,23 @@ def autotune_worker(cfg_path: str) -> None:
             break
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev == "cuda" \
         else 0.0
+    # The deciding rank's last search scored EI with the C++ GP core
+    # (native/gp_core.cc): hold it against the numpy EI of the same fit.
+    search = ctx.autotuner.last_search
+    check(rank != 0 or search is not None,
+          "autotune: rank 0's tuner made no search")
+    if search is not None:
+        from horovod_tpu_torch.common.autotune import numpy_ei
+
+        xs, ys, grid, ei, used_native = search
+        ref = numpy_ei(xs, ys, grid)
+        check(used_native, "autotune: the EI did not come from gp_core")
+        check(bool(np.allclose(ei, ref, rtol=1e-5, atol=1e-7)),
+              f"autotune: gp_core EI off the numpy EI by "
+              f"{float(np.abs(np.asarray(ei) - ref).max())}")
+        rec["gp_core_ei"] = {"candidates": len(ref), "samples": len(ys),
+                             "max_abs_diff": float(np.abs(
+                                 np.asarray(ei) - ref).max())}
     with urllib.request.urlopen(
             f"http://127.0.0.1:{ctx.metrics_port}/metrics", timeout=10) as r:
         text = r.read().decode()
@@ -6134,6 +6224,7 @@ def autotune_run(out_dir: str, dev: str = "cuda", run=AUTOTUNE_RUN,
            "calls": len(r0["calls"]), "builds": r0["builds"],
            "thresholds": {str(t): v for t, v in sorted(per.items())},
            "chosen": r0["threshold"], "converged": r0["done"],
+           "gp_core_ei": r0.get("gp_core_ei"),
            "replan_ms": r0["replan_ms"],
            "replan_ms_median": statistics.median(r0["replan_ms"])
            if r0["replan_ms"] else None,
@@ -6159,11 +6250,285 @@ def phase_autotune(torch, out_dir: str) -> dict:
         if v["ms"])
     print(f"autotune ({res['label']}): {steps}; chosen "
           f"{res['chosen'] >> 20} MiB, converged {res['converged']}; "
+          f"EI from gp_core {json.dumps(res['gp_core_ei'])}; "
           f"re-plan {res['replan_ms_median']:.1f} ms median; coordinator "
           f"{res['coordinator']} "
           f"({'discovery' if res['discovered'] else 'first host'}); peak "
           f"{max(res['peak_gib']):.2f} GiB a rank; {res['phase_s']:.1f} s",
           flush=True)
+    return res
+
+
+# -- phase 11: parallel roles (tensor and sequence parallelism) -------------
+
+PARALLEL_CONFIG = "n4_parallel"
+# n, model, global batch (rows), sequence length, worker time limit (s)
+PARALLEL_RUN = (4, "gpt_medium", 4, 1024, 900)
+# label, ParallelSpec, GPT options: the same seeded weights and global
+# batch on every arm; "dense" is the oracle.
+PARALLEL_ARMS = (
+    ("dense", "dp=4", {}),
+    ("tp", "dp=2,tp=2", {"tp_axis": "tp"}),
+    ("ring", "dp=2,sp=2", {"seq_parallel": "sp", "seq_impl": "ring",
+                           "seq_wire": "none"}),
+    ("ulysses", "dp=2,sp=2", {"seq_parallel": "sp",
+                              "seq_impl": "ulysses", "seq_wire": "none"}),
+    ("ring_int8", "dp=2,sp=2", {"seq_parallel": "sp", "seq_impl": "ring",
+                                "seq_wire": "int8"}),
+)
+PARALLEL_STEPS = 3                  # 1 checked + 2 timed AdamW steps
+# Each arm's global loss against dense's, relative: bf16 compute whose
+# matmuls and attention split differently (the ZeRO phase's 1e-3, doubled
+# for the changed reduction shapes); the int8 K/V wire re-quantizes every
+# hop (the JAX tests hold its attention output within 0.15 of the exact
+# one), so its bound is ten times wider.
+PARALLEL_LOSS_RTOL = {"tp": 2e-3, "ring": 2e-3, "ulysses": 2e-3,
+                      "ring_int8": 2e-2}
+RING_CHECK_SHAPE = SP_BLOCK         # (2, 512, 16, 64): one striped block
+
+
+def _parallel_tokens(torch, rows: int, seq: int, vocab: int, dev: str):
+    """The one seeded global batch every arm trains on (rows, seq + 1)."""
+    return torch.randint(0, vocab, (rows, seq + 1), generator=torch
+                         .Generator().manual_seed(1515)).to(dev)
+
+
+def _parallel_shard(ring, spec, rank: int, tokens, kw):
+    """This rank's inputs and targets (``parallel.mesh.local_batch``):
+    rows by the dp coordinate, the sequence by the sp coordinate, in
+    stripe order for the ring."""
+    from horovod_tpu_torch.parallel.mesh import local_batch
+
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    if kw.get("seq_impl") == "ring":
+        n = spec.size_of("sp")
+        x, y = ring.stripe_layout(x, n), ring.stripe_layout(y, n)
+    return (local_batch(x, spec, rank).contiguous(),
+            local_batch(y, spec, rank).contiguous())
+
+
+def _parallel_arm(torch, hvd, gpt_mod, C, K, ring, label, spec_str, kw,
+                  rank, dev) -> dict:
+    """One arm: 1 checked and 2 timed AdamW steps of GPT-2 medium under
+    ``DistributedOptimizer(parallel=)``; the launch counts zeroed just
+    before the steps and read just after; every rank's parameters
+    bitwise rank 0's after every step; the global loss each step and
+    after the last."""
+    _, model_name, rows, seq, _ = PARALLEL_RUN
+    spec = hvd.parallel_spec()
+    model = _make_model(torch, gpt_mod, model_name, dev, **kw)
+    params = list(model.parameters())
+    digest = _Digest(torch, params)
+    tokens = _parallel_tokens(torch, rows, seq, model.vocab_size, dev)
+    x, y = _parallel_shard(ring, spec, rank, tokens, kw)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(), parallel=spec_str)
+
+    def global_loss(loss) -> float:
+        return C.allreduce(loss.detach().reshape(1).float(),
+                           hvd.Average).item()
+
+    def replicas_equal() -> bool:
+        every = C.all_gather_stack(digest(params))
+        return bool((every == every[0]).all())
+
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _sync(torch, dev)
+    hvd.barrier()
+    K.reset_launch_counts()
+    b0 = dict(C.PARALLEL_BYTES)
+    losses, times, equal = [], [], []
+    for _ in range(PARALLEL_STEPS):
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = gpt_mod.next_token_loss(model(x), y)
+        loss.backward()
+        opt.step()
+        _sync(torch, dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(global_loss(loss))
+        equal.append(replicas_equal())
+    launches = dict(K.LAUNCHES)
+    moved = {k: (C.PARALLEL_BYTES[k] - b0[k]) / PARALLEL_STEPS
+             for k in b0}
+    with torch.no_grad():
+        final = global_loss(gpt_mod.next_token_loss(model(x), y))
+    peak, _ = _mem(torch, dev)
+    check(all(map(math.isfinite, losses + [final])),
+          f"parallel {label}: non-finite loss in {losses + [final]}")
+    check(all(equal), f"parallel {label}: the replicated masters differ "
+                      f"across ranks after step(s) "
+                      f"{[i for i, e in enumerate(equal) if not e]}")
+    blocks = spec.size_of("sp") if kw.get("seq_impl") == "ring" else 1
+    flash = model.num_layers * blocks * PARALLEL_STEPS
+    want = dict(flash_fwd=flash, flash_bwd_dq=flash, flash_bwd_dkv=flash)
+    if kw.get("seq_wire") == "int8":
+        # n - 1 = 1 hop each of K and V a layer, forward and backward.
+        hops = 2 * 2 * (spec.size_of("sp") - 1) * model.num_layers
+        want.update(quantize_int8=hops * PARALLEL_STEPS,
+                    dequantize_int8=hops * PARALLEL_STEPS)
+    _expect(launches, f"parallel {label}", **want)
+    grads = sum(p.numel() * 4 for p in params)
+    combine = sum(2 * (spec.size_of(r) - 1) / spec.size_of(r) * grads
+                  for r in ("tp", "sp") if spec.size_of(r) > 1)
+    ndp = spec.size_of("dp")
+    rec = {"arm": label, "spec": spec_str,
+           **{k: str(v) for k, v in kw.items()},
+           "rows_per_rank": x.shape[0], "seq_per_rank": x.shape[1],
+           "losses": losses, "final_loss": final,
+           "step_ms": [t * 1e3 for t in times],
+           "step_ms_median": statistics.median(times[1:]) * 1e3,
+           "launches": launches,
+           "launches_per_step": {k: v / PARALLEL_STEPS
+                                 for k, v in launches.items() if v},
+           "seq_bytes_per_step": moved["seq"],
+           "tp_bytes_per_step": moved["tp"],
+           "combine_bytes_per_step": combine,
+           "dp_bytes_per_step": 2 * (ndp - 1) / ndp * grads,
+           "replicas_equal": equal, "peak_mem_gib": peak}
+    release(torch, opt, dev)
+    del model, opt, params, digest
+    return rec
+
+
+def _ring_check(torch, hvd, C, ring, rank, dev) -> dict:
+    """The striped ring over the sp axis with the kernels against the
+    same ring with plain blocks (``use_flash=False``) on the same bf16
+    inputs at one striped block's shape: output and q/k/v gradients
+    within the bf16 flash bound. Launches here compare; they are not
+    counted on the path."""
+    gen = torch.Generator(device=dev).manual_seed(700 + rank)
+    shape = RING_CHECK_SHAPE
+    base = [torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(4)]
+    outs = {}
+    for flash in (True, False):
+        q, k, v = (t.clone().requires_grad_(True) for t in base[:3])
+        o = ring.striped_attention(q, k, v, "sp", use_flash=flash,
+                                   wire="none")
+        (o.float() * base[3].float()).sum().backward()
+        outs[flash] = [o.detach(), q.grad, k.grad, v.grad]
+    tol = FLASH_TOL["bfloat16"][1]
+    errs = {}
+    for name, got, want in zip(("o", "dq", "dk", "dv"), outs[True],
+                               outs[False]):
+        errs[name] = close_err(torch, got, want, tol,
+                               f"parallel ring kernels vs plain {name}")
+    return {"shape": list(shape), "max_abs_err": errs, "tol": tol}
+
+
+def parallel_worker(config: str, rank: int, out_path: str,
+                    dev: str = "cuda") -> None:
+    """One rank of phase 11 (``--rank-worker n4_parallel``): every arm in
+    turn, each in a world made with its spec (``init(parallel=)``), the
+    memory released between them."""
+    import importlib
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import gpt as gpt_mod
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import kernels as K
+
+    ring = importlib.import_module(
+        "horovod_tpu_torch.parallel.ring_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n = PARALLEL_RUN[0]
+    out = {"config": config, "rank": rank, "arms": {}}
+    for label, spec, kw in PARALLEL_ARMS:
+        ctx = hvd.init(backend="gloo", parallel=spec) if dev == "cuda" \
+            else hvd.init(device="cpu", parallel=spec)
+        check(hvd.size() == n and hvd.rank() == rank
+              and hvd.parallel_spec().describe() == spec,
+              f"parallel {label}: rank {hvd.rank()} of {hvd.size()}, "
+              f"spec {hvd.parallel_spec()}")
+        rec = _parallel_arm(torch, hvd, gpt_mod, C, K, ring, label, spec,
+                            kw, rank, dev)
+        rec["backend"] = ctx.backend
+        rec["role"] = ctx.flightrec.role if ctx.flightrec else ""
+        if label == "ring":
+            rec["kernels_vs_plain"] = _ring_check(torch, hvd, C, ring, rank,
+                                                  dev)
+        out["arms"][label] = rec
+        print(f"rank {rank} parallel {label} ({spec}): losses "
+              f"{rec['losses']} final {rec['final_loss']}, step ms "
+              f"{rec['step_ms']}, launches {rec['launches']}", flush=True)
+        hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def phase_parallel(torch, out_dir: str) -> dict:
+    """Phase 11: the four rank workers of the parallel-roles arms on the
+    one card. Returns the phase's record with ``launches``, the path's
+    counts summed over the arms."""
+    n, model_name, rows, seq, timeout = PARALLEL_RUN
+    os.makedirs(out_dir, exist_ok=True)
+    parent = _free_parent(torch)
+    ranks, wall = run_workers(PARALLEL_CONFIG, n, timeout, out_dir)
+    res = {"n": n, "model": model_name, "global_batch": [rows, seq],
+           "wall_s": wall, "parent_gib": parent,
+           "label": "gloo, 4 processes on one card (not NCCL or NVLink)",
+           "arms": {}}
+    dense = ranks[0]["arms"]["dense"]
+    launches = {}
+    for label, spec, kw in PARALLEL_ARMS:
+        recs = [rk["arms"][label] for rk in ranks]
+        check(all(rc["launches"] == recs[0]["launches"] for rc in recs),
+              f"parallel {label}: ranks counted different launches")
+        check(all(rc["losses"] == recs[0]["losses"] for rc in recs),
+              f"parallel {label}: ranks saw different global losses")
+        for k, v in recs[0]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        first = abs(recs[0]["losses"][0] - dense["losses"][0]) \
+            / abs(dense["losses"][0])
+        last = abs(recs[0]["final_loss"] - dense["final_loss"]) \
+            / abs(dense["final_loss"])
+        if label != "dense":
+            bound = PARALLEL_LOSS_RTOL[label]
+            check(first <= bound and last <= bound,
+                  f"parallel {label}: loss off dense's by {first:.2e} "
+                  f"(first step) and {last:.2e} (after the last) > {bound}")
+        step_ms = statistics.median(rc["step_ms_median"] for rc in recs)
+        m = res["arms"][label] = {
+            "spec": spec, **{k: str(v) for k, v in kw.items()},
+            "step_ms_median": step_ms, "step_ms_rank0": recs[0]["step_ms"],
+            "tokens_per_s": rows * seq / (step_ms / 1e3),
+            "losses": recs[0]["losses"], "final_loss": recs[0]["final_loss"],
+            "first_loss_rel_to_dense": first,
+            "final_loss_rel_to_dense": last,
+            "launches": recs[0]["launches"],
+            "launches_per_step": recs[0]["launches_per_step"],
+            "seq_bytes_per_step": recs[0]["seq_bytes_per_step"],
+            "tp_bytes_per_step": recs[0]["tp_bytes_per_step"],
+            "combine_bytes_per_step": recs[0]["combine_bytes_per_step"],
+            "dp_bytes_per_step": recs[0]["dp_bytes_per_step"],
+            "peak_mem_gib": max(rc["peak_mem_gib"] for rc in recs),
+            "roles": [rc["role"] for rc in recs],
+            "kernels_vs_plain": recs[0].get("kernels_vs_plain")}
+        print(f"parallel {label} ({spec}; gloo, 4 processes on one card): "
+              f"gpt_medium {rows} x {seq} global, {recs[0]['rows_per_rank']}"
+              f" x {recs[0]['seq_per_rank']} a rank; step {step_ms:.1f} ms "
+              f"= {m['tokens_per_s']:.0f} tok/s; loss {m['losses']} final "
+              f"{m['final_loss']:.6f} (vs dense {first:.2e}, {last:.2e}); "
+              f"launches a step {json.dumps(m['launches_per_step'])}; bytes "
+              f"a step: seq {m['seq_bytes_per_step']:.0f}, tp "
+              f"{m['tp_bytes_per_step']:.0f}, combine "
+              f"{m['combine_bytes_per_step']:.0f}, dp "
+              f"{m['dp_bytes_per_step']:.0f}; peak {m['peak_mem_gib']:.2f} "
+              f"GiB a rank; roles {m['roles']}", flush=True)
+        if m["kernels_vs_plain"]:
+            print(f"parallel ring kernels vs plain at "
+                  f"{tuple(RING_CHECK_SHAPE)} bf16 over sp: max abs err "
+                  f"{json.dumps(m['kernels_vs_plain']['max_abs_err'])}",
+                  flush=True)
+    res["launches"] = launches
+    with open(os.path.join(out_dir, "chip_smoke_parallel.json"), "w") as f:
+        json.dump(dict(res, ranks=ranks), f, indent=1)
     return res
 
 
@@ -6198,7 +6563,9 @@ def main(argv=None) -> int:
         worker = {"n2_eager": eager_worker, "n2_join": join_worker,
                   MESH_CONFIG: mesh_worker, ZERO_CONFIG: zero_worker,
                   OVERLAP_N2: overlap_worker,
-                  OVERLAP_N4: overlap_worker}.get(argv[1], rank_worker)
+                  OVERLAP_N4: overlap_worker,
+                  PARALLEL_CONFIG: parallel_worker}.get(argv[1],
+                                                        rank_worker)
         worker(argv[1], int(argv[2]), argv[3])
         return 0
     args = ap.parse_args(argv)
@@ -6226,9 +6593,21 @@ def main(argv=None) -> int:
         print(f"card: {card}; torch {torch.__version__}, CUDA "
               f"{torch.version.cuda}", flush=True)
         t0 = time.perf_counter()
-        libs = K.build_all()
+        from concurrent.futures import ThreadPoolExecutor
+
+        from horovod_tpu_torch import native
+
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            # The native host library (g++) beside the kernels (nvcc).
+            host = pool.submit(lambda: (native.build(),
+                                        time.perf_counter() - t0))
+            libs = K.build_all()
+            built = time.perf_counter() - t0
+            host_lib, host_s = host.result()
         print(f"build: {', '.join(lib.name for lib in libs)} in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+              f"{built:.1f} s; native {host_lib.name} in {host_s:.1f} s",
+              flush=True)
+        check(native.available(), "the native library does not load")
         from horovod_tpu_torch.ops import collectives as C
 
         marks = [time.perf_counter()]
@@ -6266,6 +6645,8 @@ def main(argv=None) -> int:
         mark("telemetry")
         autotune = phase_autotune(torch, args.out)
         mark("autotune")
+        parallel = phase_parallel(torch, args.out)
+        mark("parallel")
         n2 = multi["n2_gpt_medium"]["modes"]
         # Every path a kernel runs on, each counted from zero around it;
         # the mesh path (phase 7b) is one of them for K1-K4, K8 and K9.
@@ -6288,7 +6669,8 @@ def main(argv=None) -> int:
                        "overlap": overlap["launches"],
                        "elastic": elastic["launches"],
                        "telemetry": telemetry["launches"],
-                       "autotune": autotune["launches"]}
+                       "autotune": autotune["launches"],
+                       "parallel": parallel["launches"]}
         # K1 runs on the eager path (pre/postscale) and as the guard's
         # unscale on the integrity path.
         paths["scale_buffer"] = {
@@ -6314,6 +6696,10 @@ def main(argv=None) -> int:
             telemetry["launches"]
         # Phase 10: K3 and the flash kernels, rank 0 over the whole run.
         paths["quantize_int8_stochastic"]["autotune"] = autotune["launches"]
+        # Phase 11: the flash kernels on every arm (through flash_paths),
+        # K2 and K4 on the ring_int8 arm's K/V hops.
+        for name in ("quantize_int8", "dequantize_int8"):
+            paths[name]["parallel"] = parallel["launches"]
         for name in FLASH_NAMES:
             paths[name] = flash_paths
         for name, rec in records.items():
@@ -6343,7 +6729,7 @@ def main(argv=None) -> int:
                              if k not in ("ranks", "join")},
                    "mesh": mesh, "zero": zero, "overlap": overlap,
                    "elastic": elastic, "telemetry": telemetry,
-                   "autotune": autotune}, f, indent=1)
+                   "autotune": autotune, "parallel": parallel}, f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -84,7 +84,17 @@ Ported so far:
   discovery (``runner/driver_service.py``), elastic ssh epochs, GPU host
   discovery (``runner/gpu_hosts.py``), ``run(use_ssh=True)``; and
   ``store.py`` (``Store``, ``LocalStore``, ``FsspecStore``,
-  ``GCSStore``).
+  ``GCSStore``);
+* slice 15 — the native host runtime (``native/*.cc``: the controller's
+  wire codec, negotiation table and LRU, the fusion planner, the
+  timeline writer, the autotuner's GP/EI core) and the first half of the
+  parallel roles (``parallel/``): ``ParallelSpec`` with
+  ``init(parallel=)``, ``parallel_spec()`` and ``parallel_mesh()``,
+  tensor parallelism (``column_parallel``, ``row_parallel``, ``tp_mlp``,
+  ``shard_*``, ``combine_slice_grads``, ``tp_attention_qkv``), sequence
+  parallelism (ring, striped ring and Ulysses attention on K5–K7,
+  ``ops.collectives.mesh_alltoall``), ``GPT(tp_axis=, seq_parallel=)``
+  and ``DistributedOptimizer(parallel=)``.
 
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request they raise.
@@ -143,6 +153,12 @@ from .checkpoint import (CheckpointManager, ObjectStore, restore_sharded,
 from .runner import run
 from .data import (BackgroundPrefetcher, DeviceInfeed, ElasticSampler,
                    infeed_pipeline, prefetch_to_device, shard_batch)
+from .parallel.spec import ParallelSpec
+from .parallel.tensor_parallel import (column_parallel,
+                                       combine_slice_grads, row_parallel,
+                                       shard_column, shard_head_rows,
+                                       shard_heads, shard_row,
+                                       tp_attention_qkv, tp_mlp)
 
 __all__ = [
     "Adasum", "AlltoallvLayoutError", "AutotunedStepper", "Average",
@@ -182,6 +198,10 @@ __all__ = [
     "shard_batch", "shutdown", "size",
     "sparse_allreduce_async", "start_timeline", "stop_timeline",
     "synchronize",
+    "ParallelSpec", "parallel_spec", "parallel_mesh",
+    "column_parallel", "row_parallel", "tp_mlp", "tp_attention_qkv",
+    "shard_column", "shard_row", "shard_heads", "shard_head_rows",
+    "combine_slice_grads",
 ]
 
 
@@ -424,12 +444,15 @@ def synchronize(handle: int):
     return _engine().synchronize(handle)
 
 
-def start_timeline(filename: str, mark_cycles: bool = False) -> None:
+def start_timeline(filename: str, mark_cycles: bool = False,
+                   xprof_dir=None) -> None:
     """Write a Chrome trace of the eager collectives to ``filename``: a
-    begin event at each submit and an end event at its synchronize."""
+    begin event at each submit and an end event at its synchronize.
+    ``xprof_dir`` also runs a ``torch.profiler`` trace, written there as
+    a chrome trace when the timeline stops."""
     from .common import basics as _basics
 
-    _basics.context().timeline.start(filename, mark_cycles)
+    _basics.context().timeline.start(filename, mark_cycles, xprof_dir)
 
 
 def mesh_axes() -> tuple:
@@ -446,6 +469,26 @@ def stop_timeline() -> None:
     from .common import basics as _basics
 
     _basics.context().timeline.stop()
+
+
+def parallel_spec():
+    """The hybrid :class:`ParallelSpec` of ``init(parallel=)`` /
+    ``HVD_TPU_PARALLEL``, else None; pass it explicitly to
+    ``DistributedOptimizer(parallel=...)``."""
+    from .common import basics as _basics
+
+    return _basics.context().parallel_spec
+
+
+def parallel_mesh():
+    """The role-named axes of :func:`parallel_spec` — a dict from role to
+    ``common.topology.Axis`` (its subgroup, size, this rank's index and
+    the global ranks of its line), slow axis first; else None."""
+    from .common import basics as _basics
+
+    ctx = _basics.context()
+    return dict(ctx.parallel_axes) if ctx.parallel_spec is not None \
+        else None
 
 
 def start_metrics_server(port: int = 0) -> int:
@@ -473,12 +516,12 @@ def flight_recorder():
     return _flightrec_lib.recorder()
 
 
-# The JAX package's API that later slices of the port bring, by slice.
+# The JAX package's API that a later slice of the port brings, by slice.
 _LATER = {
-    "the parallel-roles slice": (
-        "ParallelSpec", "parallel_spec", "parallel_mesh",
+    "the pipeline and MoE slice": (
         "pipeline_accumulate_gradients", "pipeline_apply",
-        "pipeline_train_step_1f1b", "tp_mlp", "tp_attention_qkv"),
+        "pipeline_train_step_1f1b", "select_last_stage", "solve_respec",
+        "RespecDecision", "min_world"),
 }
 _LATER_BY_NAME = {n: where for where, names in _LATER.items()
                   for n in names}

@@ -10,9 +10,10 @@ route, accumulation, remat, ZeRO stage and the MoE, pipeline and
 sequence wires), the same candidate grids, the one-shot pruning of the
 accumulation axis by the ``hvd_tpu_step_phase_seconds`` evidence, the
 same CSV columns and rows and the same ``hvd_tpu_autotune_*`` metric
-families. The search is plain numpy: the JAX package may take its C++
-GP core (``native/gp_core.cc``), whose numpy fallback here computes the
-same quantities; the port's C++ copy is later work.
+families. The search scores expected improvement with the port's C++
+GP core (``native/gp_core.cc``, the JAX package's, copied); numpy
+(:func:`numpy_ei`) computes the same quantities under
+``HVD_TPU_DISABLE_NATIVE=1`` or when the C++ Cholesky fails.
 
 Who drives it: :class:`~..optim.AutotunedStepper` (a training loop's
 step times; at n > 1 rank 0 decides and every rank adopts the point at
@@ -177,6 +178,16 @@ class GaussianProcess:
         return mu, np.maximum(var, 1e-12)
 
 
+def numpy_ei(xs: np.ndarray, ys: np.ndarray, grid: np.ndarray,
+             length_scale: float = 1.0) -> np.ndarray:
+    """EI of every ``grid`` point under a GP fitted on ``(xs, ys)`` —
+    the numpy mirror of ``native.gp_ei_native``."""
+    gp = GaussianProcess(length_scale=length_scale)
+    gp.fit(xs, ys)
+    mu, var = gp.predict(grid)
+    return expected_improvement(mu, var, ys.max())
+
+
 def expected_improvement(mu: np.ndarray, var: np.ndarray,
                          best: float, xi: float = 0.01) -> np.ndarray:
     """EI acquisition (reference bayesian_optimization.cc)."""
@@ -338,6 +349,7 @@ class Autotuner:
         self._bytes = 0.0
         self._secs = 0.0
         self._samples: Dict[Tuple[int, ...], List[float]] = {}
+        self.last_search = None
         self._cur = self._space[len(self._space) // 2]
         self._done = False
         # Samples arrive from finalizer-pool threads (eager engine) and
@@ -690,11 +702,18 @@ class Autotuner:
         ys_n = (ys - y_mean) / y_std
         grid = np.array([self._features(p) for p in self._space])
 
-        # The numpy GP+EI (the JAX package's fallback of its C++ core).
-        gp = GaussianProcess(length_scale=1.0)
-        gp.fit(xs, ys_n)
-        mu, var = gp.predict(grid)
-        ei = expected_improvement(mu, var, ys_n.max())
+        # The C++ GP+EI core (native/gp_core.cc); numpy computes the same
+        # quantities when the library is disabled or its Cholesky failed.
+        from .. import native
+
+        native_out = native.gp_ei_native(xs, ys_n, grid, length_scale=1.0)
+        if native_out is not None:
+            ei = np.asarray(native_out[1])
+        else:
+            ei = numpy_ei(xs, ys_n, grid)
+        #: The last search's inputs and EI, and whether the C++ core made
+        #: it (the smoke holds it against :func:`numpy_ei`).
+        self.last_search = (xs, ys_n, grid, ei, native_out is not None)
 
         untried = [i for i, p in enumerate(self._space)
                    if p not in self._samples]

@@ -124,6 +124,12 @@ class Context:
     #: The runtime autotuner (``common/autotune.py``) when
     #: ``init(autotune=True)`` / ``HVD_TPU_AUTOTUNE=1``, else None.
     autotuner: Any = None
+    #: The hybrid ParallelSpec of ``init(parallel=)`` /
+    #: ``HVD_TPU_PARALLEL`` (None: role-blind) and its role-named axes
+    #: (``parallel/mesh.py``), also entered in :attr:`axes`.
+    parallel_spec: Any = None
+    parallel_axes: Dict[str, topo_lib.Axis] = dataclasses.field(
+        default_factory=dict)
 
     def fusion_threshold(self) -> int:
         """The live fusion threshold: the autotuner's current one while
@@ -302,7 +308,10 @@ def init(comm=None, process_sets=None,
             axes = topo_lib.build_axes(maxes, rank, size, dist.new_group)
             ctx = Context(rank, size, local_rank, local_size, dev, backend,
                           cfg, controller, None, timeline, topo, maxes, axes)
+            _build_parallel(ctx, controller)
             stall = _start_stall_and_flightrec(ctx)
+            if ctx.parallel_spec is not None and ctx.flightrec is not None:
+                ctx.flightrec.role = ctx.parallel_spec.role_label(rank)
             if cfg.autotune:
                 # The JAX context's tuner: the eager engine feeds it in a
                 # world of one, AutotunedStepper drives it otherwise.
@@ -543,6 +552,37 @@ def _await_comm_worlds(store, timeout_s: float) -> None:
     deadline = time.monotonic() + timeout_s
     while store.add(_COMM_LIVE_KEY, 0) > 0 and time.monotonic() < deadline:
         time.sleep(0.05)
+
+
+def _build_parallel(ctx: Context, controller) -> None:
+    """``init(parallel=)`` / ``HVD_TPU_PARALLEL``: resolve the spec,
+    compare it across ranks and build its role axes (one subgroup per
+    axis line, every rank in the same order). A spec that does not
+    factor the world disables hybrid parallelism with a warning, as in
+    the JAX package."""
+    raw = ctx.config.parallel
+    if not raw:
+        return
+    from ..parallel.mesh import build_mesh
+    from ..parallel.spec import ParallelSpec
+
+    spec = ParallelSpec.resolve(raw)
+    if spec.total != ctx.size:
+        logger.warning(
+            "parallel spec %r covers %d ranks but the world has %d; "
+            "hybrid parallelism disabled", spec.describe(), spec.total,
+            ctx.size)
+        return
+    if controller is not None:
+        bad = controller.agree("parallel_spec", spec.describe())
+        if bad:
+            raise ValueError(
+                f"init(): ranks {bad} resolved another parallel spec than "
+                f"rank {ctx.rank} ({spec.describe()}); pass the same "
+                "parallel= / HVD_TPU_PARALLEL on every rank")
+    ctx.parallel_axes = build_mesh(spec, ctx.rank, ctx.size, dist.new_group)
+    ctx.axes.update(ctx.parallel_axes)
+    ctx.parallel_spec = spec
 
 
 def _mesh_axes(topo: topo_lib.Topology, cfg, controller) -> tuple:

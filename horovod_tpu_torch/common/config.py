@@ -119,7 +119,8 @@ RUNTIME_KNOBS = {
     "AUTOSCALE": "autoscale control loop enable",
     "AUTOSCALE_POLICY": "autoscale policy file or inline JSON",
     "AUTOSCALE_LOG": "autoscale decision log (JSON lines)",
-    "PARALLEL": "hybrid dp/pp/tp spec (raises: the parallel-roles slice)",
+    "PARALLEL": "hybrid dp/pp/tp/ep/sp spec, slow axis first "
+                "(e.g. dp=2,tp=2; also a Config field)",
     # Autotune (common/autotune.py) and the launches beyond this machine
     # (runner/launch.py).
     "AUTOTUNE": "build the context's autotuner (0/1; Config field)",
@@ -128,6 +129,11 @@ RUNTIME_KNOBS = {
     "AUTOTUNE_STEPS_PER_SAMPLE": "steps scored a sample (10)",
     "NIC_DISCOVERY": "the ssh launch picks the coordinator's address by "
                      "routable-interface discovery (0/1)",
+    # Native host runtime (native/) and the controller codec.
+    "WIRE_FORMAT": "controller codec override (json = skip native)",
+    "DISABLE_NATIVE": "skip the native acceleration library",
+    # Sequence parallelism (parallel/ring_attention.py, ulysses.py).
+    "SEQ_WIRE": "sequence K/V exchange wire (also a Config field)",
     # Serve plane.
     "SERVE_LOG": "serve-controller decision log",
     "SERVE_TRACE": "request-span tracer enable (0 = shared no-op)",
@@ -252,6 +258,13 @@ class Config:
     autotune_steps_per_sample: int = 10
     # ZeRO (zero.py): the threshold of should_shard_update.
     auto_shard_threshold_bytes: int = 256 * 1024 * 1024
+    # Hybrid parallelism (parallel/spec.py): the ParallelSpec form
+    # ("dp=2,tp=2", slow axis first) init() resolves into
+    # parallel_spec()/parallel_mesh(); the optimizer takes the spec
+    # explicitly (parallel=). ``seq_wire``: the sequence-parallel K/V
+    # exchange format ("none" | "bf16" | "int8").
+    parallel: Optional[str] = None
+    seq_wire: Optional[str] = None
     # Elastic (common/elastic.py): poll the driver's topology version at
     # commit() and bound the process group's timeout by
     # stall_check_time_seconds, so a survivor of a dead peer raises.
@@ -290,6 +303,8 @@ class Config:
         c.auto_shard_threshold_bytes = env_int(
             "AUTO_SHARD_THRESHOLD", c.auto_shard_threshold_bytes)
         c.elastic = _truthy(runtime_env("ELASTIC") or "0")
+        c.parallel = runtime_env("PARALLEL") or None
+        c.seq_wire = runtime_env("SEQ_WIRE") or None
         for name in ("stall_check_time_seconds",
                      "stall_shutdown_time_seconds"):
             raw = runtime_env(name.upper())

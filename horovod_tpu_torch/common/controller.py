@@ -17,12 +17,21 @@ The store is pluggable: :class:`StoreTransport` runs over the c10d store
 of ``init()``'s process group, :class:`InMemoryTransport` over a dict for
 tests with ranks on threads. Keys are namespaced per ``init()``
 generation and deleted once every rank that reads them has read them.
-Requests and responses travel as JSON; the JAX package's optional native
-codec is not ported.
+
+Requests and responses travel in the native wire codec (``"w:"`` and the
+base64 of ``native/wire.cc``'s packed bytes, the JAX package's format)
+when the library is in use and the fields fit it, else as JSON (``"j:"``):
+a request carrying ``wire_dtype`` or ``process_set``, and a failed
+response carrying ``kind``/``ranks``, always ride JSON, and
+``HVD_TPU_WIRE_FORMAT=json`` forces JSON everywhere. Decoding dispatches
+on the prefix, so ranks with and without the library interoperate; a
+``"w:"`` frame on a rank without it raises. :data:`FRAMES` counts the
+frames this process encoded by form.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
 import datetime
 import hashlib
@@ -31,9 +40,25 @@ import threading
 import time
 from typing import Dict, Iterable, List, Optional, Tuple
 
+from .. import native
 from ..native import NegotiationTable
+from .config import runtime_env
 from .exceptions import (HorovodInternalError, MismatchError,
                          TensorShapeMismatchError)
+
+#: Frames encoded by this process: ``native`` (``"w:"``), ``json`` (a
+#: request or response that could have ridden the native codec but the
+#: library is off or the format is forced) and ``json_ext`` (one whose
+#: extension fields only JSON carries).
+FRAMES = {"native": 0, "json": 0, "json_ext": 0}
+_NATIVE_LOST = ("peer encoded its {what} with the native wire codec but "
+                "this rank runs without the native library "
+                "(HVD_TPU_DISABLE_NATIVE=1) — set HVD_TPU_WIRE_FORMAT=json "
+                "on ALL ranks")
+
+
+def _native_wire() -> bool:
+    return runtime_env("WIRE_FORMAT") != "json" and native.available()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,16 +85,37 @@ class Request:
                            self.process_set])
 
     def encode(self) -> str:
-        """The JSON wire form (``"j:"`` prefix, the JAX package's)."""
+        """The native frame (``"w:"``) when the library is in use and the
+        op, dtype and shape fit its tables, else JSON (``"j:"``)."""
+        if self.wire_dtype or self.process_set:
+            FRAMES["json_ext"] += 1
+        elif _native_wire():
+            data = native.encode_request(
+                self.rank, self.op_type, self.reduce_op, self.root_rank,
+                self.dtype, self.tensor_name, self.shape)
+            if data is not None:
+                FRAMES["native"] += 1
+                return "w:" + base64.b64encode(data).decode()
+            FRAMES["json"] += 1
+        else:
+            FRAMES["json"] += 1
         return "j:" + json.dumps(dataclasses.asdict(self))
 
     @classmethod
     def decode(cls, raw: str) -> "Request":
+        if raw.startswith("w:"):
+            if not native.available():
+                raise HorovodInternalError(_NATIVE_LOST.format(
+                    what="request"))
+            tup = native.decode_request(base64.b64decode(raw[2:]))
+            if tup is None:
+                raise HorovodInternalError(
+                    f"undecodable wire request: {raw[:80]!r}")
+            rank, op_type, reduce_op, root_rank, dtype, name, shape = tup
+            return cls(rank, op_type, name, dtype, tuple(shape), reduce_op,
+                       root_rank)
         if not raw.startswith("j:"):
-            raise HorovodInternalError(
-                f"undecodable request {raw[:80]!r}: only the JSON wire "
-                "form is ported (set HVD_TPU_WIRE_FORMAT=json on JAX "
-                "peers)")
+            raise HorovodInternalError(f"undecodable request {raw[:80]!r}")
         d = json.loads(raw[2:])
         d["shape"] = tuple(d["shape"])
         return cls(**d)
@@ -88,12 +134,35 @@ class Response:
     ranks: Tuple[int, ...] = ()
 
     def encode(self) -> str:
+        """The native frame (``ok``, name, error) unless ``kind`` or
+        ``ranks`` are set (JSON carries them), the library is off or JSON
+        is forced."""
+        if self.kind or self.ranks:
+            FRAMES["json_ext"] += 1
+        elif _native_wire():
+            data = native.encode_response(self.ok, self.tensor_name,
+                                          self.error)
+            if data is not None:
+                FRAMES["native"] += 1
+                return "w:" + base64.b64encode(data).decode()
+            FRAMES["json"] += 1
+        else:
+            FRAMES["json"] += 1
         d = dataclasses.asdict(self)
         d["ranks"] = list(self.ranks)
         return "j:" + json.dumps(d)
 
     @classmethod
     def decode(cls, raw: str) -> "Response":
+        if raw.startswith("w:"):
+            if not native.available():
+                raise HorovodInternalError(_NATIVE_LOST.format(
+                    what="response"))
+            tup = native.decode_response(base64.b64decode(raw[2:]))
+            if tup is None:
+                raise HorovodInternalError(
+                    f"undecodable wire response: {raw[:80]!r}")
+            return cls(*tup)
         d = json.loads(raw[2:])
         return cls(d["ok"], d["tensor_name"], d.get("error", ""),
                    d.get("kind", ""), tuple(d.get("ranks", ())))

@@ -33,7 +33,8 @@ touches no CUDA state. Knobs: ``HVD_TPU_FLIGHTREC`` (default on),
 ``HVD_TPU_FLIGHTREC_SIZE``, ``HVD_TPU_FLIGHTREC_DIR`` (default
 ``results/flightrec/``), ``HVD_TPU_FLIGHTREC_PUSH`` (the KV push,
 default on when ``HVD_TPU_RENDEZVOUS`` is set). The black box's
-``role`` is always "" here: the port has no hybrid ParallelSpec yet.
+``role`` is the rank's label under a hybrid ParallelSpec
+(``HVD_TPU_PARALLEL`` or ``init(parallel=)``), "" without one.
 """
 
 from __future__ import annotations
@@ -151,7 +152,18 @@ class FlightRecorder:
         self.rank = int(rank) if rank is not None else 0
         self.host = (host if host is not None
                      else runtime_env("HOSTNAME", ""))
+        # The rank's role label under a hybrid ParallelSpec (schema v2:
+        # "dp0/tp1"), so a post-mortem names the role, not just a number;
+        # "" when role-blind. init(parallel=) stamps it too.
         self.role = ""
+        try:
+            from ..parallel.spec import spec_from_env
+
+            spec = spec_from_env()
+            if spec is not None and 0 <= self.rank < spec.total:
+                self.role = spec.role_label(self.rank)
+        except ValueError:
+            self.role = ""
         self._push = push
         self._lock = lockdep.lock("flightrec.ring")
         self._ring: List[Optional[_Event]] = [None] * self.size

@@ -7,8 +7,10 @@ the same plan without negotiation. Leaves are a sequence of tensors (the
 JAX package flattens a pytree; the port takes its leaves in the order
 the caller gives, e.g. ``model.parameters()``).
 
-``plan_fusion`` is the JAX package's Python planner, byte for byte:
-greedy same-dtype buckets up to the threshold, in ``order`` (``"flatten"``,
+``plan_fusion`` is the JAX package's planner: the native one
+(``native/fusion_planner.cc``, with :func:`_plan_python` as its mirror
+under ``HVD_TPU_DISABLE_NATIVE=1``), greedy same-dtype buckets up to the
+threshold, in ``order`` (``"flatten"``,
 ``"reverse"`` or an explicit permutation). Under a readiness order
 (``"reverse"``/explicit) buckets come out in CLOSING order — sorted by
 the visit position of their last leaf — so issuing collectives in bucket
@@ -92,19 +94,10 @@ def _resolve_order(num_leaves: int,
     return perm
 
 
-def plan_fusion(leaves: Sequence[torch.Tensor], threshold_bytes: int,
-                order: Union[str, Sequence[int], None] = ORDER_FLATTEN
-                ) -> FusionPlan:
-    """Greedy same-dtype bucketing of ``leaves`` in ``order``: a bucket
-    takes leaves of its dtype until the next would push it past
-    ``threshold_bytes`` (a leaf larger than the threshold gets a bucket
-    of its own)."""
-    shapes = [tuple(int(d) for d in t.shape) for t in leaves]
-    elem_counts = [_numel(s) for s in shapes]
-    itemsizes = [t.element_size() for t in leaves]
-    dtypes = [t.dtype for t in leaves]
-    visit = _resolve_order(len(leaves), order)
-
+def _plan_python(visit, elem_counts, itemsizes, dtypes,
+                 threshold_bytes: int) -> List[int]:
+    """The planner in Python (``HVD_TPU_DISABLE_NATIVE=1``), the mirror
+    of ``native/fusion_planner.cc``: bucket ids in visit order."""
     open_buckets = {}  # dtype -> [bucket_id, bytes_used]
     next_bucket = 0
     bucket_ids = []
@@ -122,6 +115,34 @@ def plan_fusion(leaves: Sequence[torch.Tensor], threshold_bytes: int,
             o[1] = 0
         o[1] += nbytes
         bucket_ids.append(o[0])
+    return bucket_ids
+
+
+def plan_fusion(leaves: Sequence[torch.Tensor], threshold_bytes: int,
+                order: Union[str, Sequence[int], None] = ORDER_FLATTEN
+                ) -> FusionPlan:
+    """Greedy same-dtype bucketing of ``leaves`` in ``order``: a bucket
+    takes leaves of its dtype until the next would push it past
+    ``threshold_bytes`` (a leaf larger than the threshold gets a bucket
+    of its own)."""
+    shapes = [tuple(int(d) for d in t.shape) for t in leaves]
+    elem_counts = [_numel(s) for s in shapes]
+    itemsizes = [t.element_size() for t in leaves]
+    dtypes = [t.dtype for t in leaves]
+    visit = _resolve_order(len(leaves), order)
+    codes = {}
+    for i in visit:
+        codes.setdefault(dtypes[i], len(codes))
+
+    from ..native import plan_fusion_native
+
+    bucket_ids = plan_fusion_native([elem_counts[i] for i in visit],
+                                    [codes[dtypes[i]] for i in visit],
+                                    [itemsizes[i] for i in visit],
+                                    threshold_bytes)
+    if bucket_ids is None:
+        bucket_ids = _plan_python(visit, elem_counts, itemsizes, dtypes,
+                                  threshold_bytes)
 
     by_bucket = {}
     close_pos = {}

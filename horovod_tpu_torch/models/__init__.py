@@ -3,7 +3,7 @@ the same name, with its flax-tree converter pair in ``convert``: GPT
 (full-sequence training and incremental serving paths), BERT, ViT,
 ResNet, VGG, Inception V3, MLP and ConvNet. Image models take NCHW
 tensors. The GPT pipeline helpers (``pipeline_fns``,
-``stack_stage_params``, ``param_bytes``) come with the parallel-roles
+``stack_stage_params``, ``param_bytes``) come with the pipeline and MoE
 slice of the port."""
 
 from .bert import Bert, bert_base, bert_large, bert_tiny, mlm_loss

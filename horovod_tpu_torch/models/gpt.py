@@ -17,8 +17,19 @@ Same function as the flax model, layout and numerics included:
 flash-attention kernels (K5 forward, K6/K7 backward) — differentiable
 end to end; :func:`next_token_loss` is the training loss.
 ``GPT.forward(tokens, cache)`` is the incremental path (no autograd).
-Tensor and sequence parallelism, MoE and remat belong to later slices of
-the port and raise ``NotImplementedError``.
+
+``GPT(tp_axis=)`` shards heads and MLP width over a tensor-parallel axis
+(column-parallel fused QKV sliced by head, row-parallel output
+projection, the column/row MLP pair: two allreduces a layer), and
+``GPT(seq_parallel=, seq_impl=, seq_wire=)`` shards the sequence over a
+sequence-parallel axis (``"ring"``: the striped causal ring, tokens in
+``stripe_layout`` order; ``"ulysses"``: the head scatter, contiguous
+shards, ``num_heads % n == 0``), RoPE taking this rank's GLOBAL
+positions. Either way the parameters stay the dense model's replicated
+tree, sliced in the forward, so one checkpoint (and the JAX converter)
+serves the dense model and its tp/sp twins, and
+``DistributedOptimizer(parallel=)`` combines the slice gradients. MoE
+and per-layer remat come with the pipeline and MoE slice and raise.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..common.device import resolve_device
+from ..ops import collectives as C
 from ..ops.flash_attention import flash_attention
 from ._layers import LN_EPS
 from ._layers import dense as _dense
@@ -67,6 +79,43 @@ def _causal_attend(q, k, v, mask=None):
     return flash_attention(q, k, v, mask=mask, causal=True)
 
 
+# Sequence-parallel implementations: "ring" = the striped causal ring
+# (tokens in stripe_layout order), "ulysses" = the head/sequence
+# all-to-all (contiguous shards; num_heads % n == 0).
+SEQ_IMPLS = ("ring", "ulysses")
+
+
+def seq_attend_fn(seq_axis, seq_impl: str = "ring",
+                  seq_wire: Optional[str] = None) -> AttendFn:
+    """The causal ``attend_fn`` of a sequence-parallel GPT: striped ring
+    attention or Ulysses head scatter over ``seq_axis``, K/V exchanges in
+    ``seq_wire`` (None: the configured sequence wire)."""
+    if seq_impl == "ring":
+        from ..parallel.ring_attention import striped_attend_fn
+
+        return striped_attend_fn(seq_axis, wire=seq_wire)
+    if seq_impl == "ulysses":
+        from ..parallel.ulysses import ulysses_attend_fn
+
+        return ulysses_attend_fn(seq_axis, inner=_causal_attend,
+                                 wire=seq_wire)
+    raise ValueError(
+        f"unknown seq_impl {seq_impl!r}; choose from {SEQ_IMPLS}")
+
+
+def seq_positions(seq_axis, seq_impl: str, s_local: int,
+                  device=None) -> torch.Tensor:
+    """(1, S_local) GLOBAL positions of this rank's sequence shard —
+    stripe positions for the ring, block offsets for Ulysses."""
+    if seq_impl == "ring":
+        from ..parallel.ring_attention import striped_positions
+
+        return striped_positions(s_local, seq_axis, device)[None, :]
+    ax = C._axis(seq_axis)
+    return (ax.index * s_local
+            + torch.arange(s_local, device=device))[None, :]
+
+
 def _cache_attend(q: torch.Tensor, k_all: torch.Tensor,
                   v_all: torch.Tensor, q_pos: torch.Tensor,
                   k_pos: torch.Tensor) -> torch.Tensor:
@@ -93,15 +142,60 @@ class CausalSelfAttention(nn.Module):
     over the serve KV cache."""
 
     def __init__(self, hidden: int, num_heads: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, tp_axis=None,
+                 seq_axis=None, seq_impl: str = "ring",
+                 seq_wire: Optional[str] = None):
         super().__init__()
         if hidden % num_heads:
             raise ValueError(f"hidden {hidden} is not a multiple of "
                              f"num_heads {num_heads}")
         self.num_heads = num_heads
         self.dtype = dtype
+        self.tp_axis = tp_axis
+        self.seq_axis = seq_axis
+        self.seq_impl = seq_impl
+        self.seq_wire = seq_wire
         self.qkv = nn.Linear(hidden, 3 * hidden)
         self.out = nn.Linear(hidden, hidden)
+
+    def _resolve_attend(self) -> AttendFn:
+        if self.seq_axis:
+            return seq_attend_fn(self.seq_axis, self.seq_impl,
+                                 self.seq_wire)
+        return _causal_attend
+
+    def _forward_tp(self, x, positions, attend_fn):
+        """Sharded-head attention over the tp axis: the master fused QKV
+        kernel ``(h, 3h)`` (the transpose of the ``nn.Linear`` weight)
+        sliced by head for q, k and v, attention on this rank's heads,
+        the output projection's head rows row-parallel (one allreduce)."""
+        from ..parallel import tensor_parallel as tp_lib
+
+        b, s, h = x.shape
+        ax = C._axis(self.tp_axis)
+        heads_l = self.num_heads // ax.size
+        head_dim = h // self.num_heads
+        w3 = tp_lib.shard_heads(self.qkv.weight.t(), self.num_heads, ax,
+                                fused=3)             # (h, 3, hl, hd)
+        b3 = tp_lib.shard_heads(self.qkv.bias, self.num_heads, ax,
+                                fused=3)             # (3, hl, hd)
+        xd = x.to(self.dtype)
+
+        def proj(i):
+            w = w3[:, i].reshape(h, heads_l * head_dim)
+            y = F.linear(xd, w.t().to(self.dtype),
+                         b3[i].reshape(heads_l * head_dim).to(self.dtype))
+            return y.reshape(b, s, heads_l, head_dim)
+
+        q = rope(proj(0), positions)
+        k = rope(proj(1), positions)
+        v = proj(2)
+        o = (attend_fn or self._resolve_attend())(q, k, v)
+        w_loc = tp_lib.shard_head_rows(self.out.weight.t(), self.num_heads,
+                                       ax)           # (hl*hd, h)
+        return tp_lib.row_parallel(
+            o.reshape(b, s, heads_l * head_dim), w_loc.to(self.dtype), ax,
+            self.out.bias.to(self.dtype))
 
     def forward(self, x: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -117,13 +211,24 @@ class CausalSelfAttention(nn.Module):
         place."""
         b, s, h = x.shape
         head_dim = h // self.num_heads
+        positions = None
+        if cache is None and self.seq_axis:
+            positions = seq_positions(self.seq_axis, self.seq_impl, s,
+                                      x.device)
+        if self.tp_axis:
+            if cache is not None:
+                raise NotImplementedError(
+                    "GPT(tp_axis=) with a KV cache (tensor-parallel "
+                    "decode) is not ported yet; it comes with a later "
+                    "serve slice of the port")
+            return self._forward_tp(x, positions, attend_fn)
         q, k, v = _dense(self.qkv, x, self.dtype).split(h, dim=-1)
         if cache is None:
-            q = rope(q.reshape(b, s, self.num_heads, head_dim))
-            k = rope(k.reshape(b, s, self.num_heads, head_dim))
+            q = rope(q.reshape(b, s, self.num_heads, head_dim), positions)
+            k = rope(k.reshape(b, s, self.num_heads, head_dim), positions)
             v = v.reshape(b, s, self.num_heads, head_dim)
-            o = (attend_fn or _causal_attend)(q, k, v).reshape(b, s, h)
-            return _dense(self.out, o, self.dtype)
+            o = (attend_fn or self._resolve_attend())(q, k, v)
+            return _dense(self.out, o.reshape(b, s, h), self.dtype)
         from ..serve import kvcache as kv_lib
 
         idx, q_pos, k_pos = cache_ctx
@@ -140,11 +245,15 @@ class DecoderLayer(nn.Module):
     """Pre-LN block: attention, then the dense tanh-GELU MLP."""
 
     def __init__(self, hidden: int, num_heads: int, mlp_dim: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, tp_axis=None,
+                 seq_axis=None, seq_impl: str = "ring",
+                 seq_wire: Optional[str] = None):
         super().__init__()
         self.dtype = dtype
+        self.tp_axis = tp_axis
         self.ln1 = nn.LayerNorm(hidden, eps=LN_EPS)
-        self.attn = CausalSelfAttention(hidden, num_heads, dtype)
+        self.attn = CausalSelfAttention(hidden, num_heads, dtype, tp_axis,
+                                        seq_axis, seq_impl, seq_wire)
         self.ln2 = nn.LayerNorm(hidden, eps=LN_EPS)
         self.mlp_in = nn.Linear(hidden, mlp_dim)
         self.mlp_out = nn.Linear(mlp_dim, hidden)
@@ -159,6 +268,21 @@ class DecoderLayer(nn.Module):
             a, cache = self.attn(y, cache, cache_ctx)
             x = x + a
         y = _layer_norm(self.ln2, x, self.dtype)
+        if self.tp_axis:
+            # The column/row-parallel pair over the master kernels (their
+            # (in, out) views): one allreduce for the whole MLP.
+            from ..parallel import tensor_parallel as tp_lib
+
+            ax = C._axis(self.tp_axis)
+            out = x + tp_lib.tp_mlp(
+                y.to(self.dtype),
+                tp_lib.shard_column(self.mlp_in.weight.t(),
+                                    ax).to(self.dtype),
+                tp_lib.shard_column(self.mlp_in.bias, ax).to(self.dtype),
+                tp_lib.shard_row(self.mlp_out.weight.t(),
+                                 ax).to(self.dtype),
+                self.mlp_out.bias.to(self.dtype), ax)
+            return out
         y = F.gelu(_dense(self.mlp_in, y, self.dtype), approximate="tanh")
         out = x + _dense(self.mlp_out, y, self.dtype)
         return out if cache is None else (out, cache)
@@ -169,7 +293,11 @@ class GPT(nn.Module):
 
     ``forward(tokens)`` runs the full sequence with autograd and returns
     logits fp32 (B, S, vocab); attention goes through ``attend_fn``
-    (``None``: causal flash attention, the K5/K6/K7 kernels on the card).
+    (``None``: causal flash attention, the K5/K6/K7 kernels on the card;
+    with ``seq_parallel``, the striped ring or Ulysses over it, whose
+    blocks run those kernels). Under ``seq_parallel`` ``tokens`` is this
+    rank's shard ``(B, S_local)`` (stripe order for ``seq_impl="ring"``)
+    and the logits are the shard's.
 
     ``forward(tokens, cache)`` is the incremental mode: the ``s_in`` new
     tokens of every slot extend that slot's sequence at global positions
@@ -183,19 +311,26 @@ class GPT(nn.Module):
                  hidden: int = 768, num_heads: int = 12,
                  mlp_dim: int = 3072, dtype: torch.dtype = torch.bfloat16,
                  attend_fn: Optional[AttendFn] = None,
-                 tp_axis: Optional[str] = None,
-                 seq_parallel: Optional[str] = None,
+                 tp_axis=None, seq_parallel=None, seq_impl: str = "ring",
+                 seq_wire: Optional[str] = None,
                  moe_experts: int = 0, remat: bool = False):
         super().__init__()
-        for name, value in (("tp_axis", tp_axis),
-                            ("seq_parallel", seq_parallel),
-                            ("moe_experts", moe_experts),
+        for name, value in (("moe_experts", moe_experts),
                             ("remat", remat)):
             if value:
                 raise NotImplementedError(
                     f"GPT({name}=...) is not ported yet; it comes with "
-                    "a later slice of the port (tensor/sequence "
-                    "parallelism, MoE and remat)")
+                    "the pipeline and MoE slice of the port")
+        if seq_impl not in SEQ_IMPLS:
+            raise ValueError(f"unknown seq_impl {seq_impl!r}; choose from "
+                             f"{SEQ_IMPLS}")
+        #: The tensor-parallel axis (an ``Axis`` or a mesh axis name:
+        #: heads and MLP width shard over it) and the sequence-parallel
+        #: axis with its implementation and K/V wire.
+        self.tp_axis = tp_axis
+        self.seq_parallel = seq_parallel
+        self.seq_impl = seq_impl
+        self.seq_wire = seq_wire
         self.vocab_size = vocab_size
         self.num_layers = num_layers
         self.hidden = hidden
@@ -205,7 +340,8 @@ class GPT(nn.Module):
         self.attend_fn = attend_fn
         self.tok_emb = nn.Embedding(vocab_size, hidden)
         self.layers = nn.ModuleList(
-            DecoderLayer(hidden, num_heads, mlp_dim, dtype)
+            DecoderLayer(hidden, num_heads, mlp_dim, dtype, tp_axis,
+                         seq_parallel, seq_impl, seq_wire)
             for _ in range(num_layers))
         self.final_ln = nn.LayerNorm(hidden, eps=LN_EPS)
 

@@ -28,8 +28,9 @@ and K4 on the cross hop); and the topology-aware router
 ``mesh_allreduce`` with a wire per axis, SUM/AVERAGE/ADASUM, keys and
 error-feedback residuals, ``mesh_wire_cost``), the wired exchanges
 (``ppermute``, ``wired_ppermute`` with its straight-through backward,
-``alltoallv_chunked``). ``mesh_alltoall`` and the sequence-parallel byte
-counters come with the parallel-roles slice.
+``alltoallv_chunked``), and for the parallel roles the differentiable
+``mesh_alltoall``, the row-parallel ``tp_allreduce`` and the
+sequence/tensor-parallel byte counters (``count_seq_kv_bytes``).
 
 A collective the eager engine runs asynchronously comes as an
 ``*_issue`` function returning :data:`Issued` — the works in flight and
@@ -1109,13 +1110,23 @@ def mesh_allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
 
 # -- wired exchanges ----------------------------------------------------------
 
+def _deq_to(q: torch.Tensor, s: torch.Tensor, n: int, shape,
+            dtype: torch.dtype) -> torch.Tensor:
+    """The first ``n`` values of received ``(rows, 128)`` codes and their
+    scales, shaped ``shape`` in ``dtype``: K4 (the JAX package's
+    dequantize, the same ``q * s`` in fp32 that its plain ``_deq``
+    computes, then one rounding to the output dtype)."""
+    out = dtype if dtype in (torch.float32, torch.bfloat16) \
+        else torch.float32
+    return kernels.dequantize_int8(q, s, n, shape, out).to(dtype)
+
+
 def _ppermute_wire(x: torch.Tensor, axis, perm, wire: str, key
                    ) -> torch.Tensor:
     """One permutation hop in a wire format: ``none`` native, ``bf16``
     cast around it, ``int8`` block-scaled codes (K2, or K3 with a key)
-    and their scales, dequantized on arrival (plain ``_deq``, as the JAX
-    package's is plain jnp). Zero rows stay exact zeros in every
-    format."""
+    and their scales, dequantized on arrival by K4. Zero rows stay exact
+    zeros in every format."""
     if wire == "bf16":
         return ppermute(x.to(torch.bfloat16), perm, axis).to(x.dtype)
     if wire == "int8":
@@ -1123,8 +1134,8 @@ def _ppermute_wire(x: torch.Tensor, axis, perm, wire: str, key
         flat = x.to(torch.float32).reshape(-1)
         q, s = _int8_chunks(torch.nn.functional.pad(
             flat, (0, -size % _Q_BLOCK)), 1, key)
-        got = _deq(ppermute(q[0], perm, axis), ppermute(s[0], perm, axis))
-        return got[:size].reshape(x.shape).to(x.dtype)
+        return _deq_to(ppermute(q[0], perm, axis),
+                       ppermute(s[0], perm, axis), size, x.shape, x.dtype)
     return ppermute(x, perm, axis)
 
 
@@ -1231,3 +1242,198 @@ def alltoallv_chunked(x: torch.Tensor, splits_matrix, axis=None,
     counts = torch.tensor([splits_matrix[s][me] for s in range(n)],
                           dtype=torch.int32)
     return torch.cat(pieces), counts
+
+
+# -- sequence/tensor-parallel exchanges ---------------------------------------
+#
+# The JAX package stamps these byte counters at trace time (bytes per
+# compiled program); the port counts every call, so a training step's
+# bytes are the counter's delta over the step. :data:`PARALLEL_BYTES` keeps
+# the same totals whether or not the metrics registry is on.
+
+_M_A2A_BYTES = metrics_lib.counter(
+    "hvd_tpu_alltoall_bytes_total",
+    "alltoall bytes on the wire by wire format and mesh axis "
+    "(axis=flat: eager per-call accounting; the self-chunk never "
+    "crosses the wire and is excluded; int8 includes the per-4096-block "
+    "fp32 scales)",
+    labels=("wire", "axis"))
+_M_SEQ_KV_BYTES = metrics_lib.counter(
+    "hvd_tpu_seq_kv_bytes_total",
+    "sequence-parallel K/V exchange bytes on the wire by wire format and "
+    "sp mesh axis (ring: a full K/V rotation of n hops; Ulysses: "
+    "head/sequence alltoalls with the self-chunk excluded; int8 includes "
+    "the per-4096-block fp32 scales)",
+    labels=("wire", "axis"))
+_M_TP_BYTES = metrics_lib.counter(
+    "hvd_tpu_tp_allreduce_bytes_total",
+    "tensor-parallel activation/cotangent allreduce bytes a rank sends, "
+    "counted as a ring moves them (2 (n-1)/n of the buffer)",
+    labels=("axis",))
+
+#: Bytes this process put on the wire for sequence parallelism (``seq``)
+#: and tensor parallelism (``tp``), by the counting rules of the metric
+#: families above.
+PARALLEL_BYTES = {"seq": 0.0, "tp": 0.0}
+
+
+def count_seq_kv_bytes(axis: str, wire: str, nelems: int, n: int,
+                       itemsize: int, hops: int) -> None:
+    """Byte accounting of a sequence-parallel K/V exchange: ``hops``
+    transfers of ``nelems`` elements each in ``wire`` (ring hops move
+    the full local block; all-to-all callers pass ``hops = n - 1`` and
+    the per-chunk size, excluding the self chunk)."""
+    if n <= 1 or hops <= 0:
+        return
+    b = float(hops) * nelems * _wire_elem_bytes(wire, itemsize)
+    PARALLEL_BYTES["seq"] += b
+    if _METRICS_ON:
+        _M_SEQ_KV_BYTES.labels(wire=wire, axis=axis).inc(b)
+
+
+def _count_a2a_bytes(axis: str, wire: str, nelems: int, n: int,
+                     itemsize: int) -> None:
+    """An exchange over ``n`` ranks keeps ``(n-1)/n`` of the buffer on
+    the wire (the self-chunk stays local)."""
+    if not _METRICS_ON or n <= 1:
+        return
+    _M_A2A_BYTES.labels(wire=wire, axis=axis).inc(
+        (n - 1) / n * nelems * _wire_elem_bytes(wire, itemsize))
+
+
+def _count_tp_bytes(axis: Axis, x: torch.Tensor) -> None:
+    n = axis.size
+    if n <= 1:
+        return
+    b = 2.0 * (n - 1) / n * x.numel() * x.element_size()
+    PARALLEL_BYTES["tp"] += b
+    if _METRICS_ON:
+        _M_TP_BYTES.labels(axis=axis.name).inc(b)
+
+
+def _exchange_chunks(chunks: torch.Tensor, ax: Axis, wire: str, key
+                     ) -> torch.Tensor:
+    """``(n, C)`` per-destination chunks -> ``(n, C)`` source-major over
+    one axis, the payload in ``wire``: ``none`` native, ``bf16`` cast
+    around the exchange, ``int8`` block-scaled codes (K2, or K3 with a
+    key) and fp32 scales on a parallel exchange, dequantized on arrival
+    by K4 (the JAX package's ``_a2a_exchange``)."""
+    if wire == "bf16":
+        return all_to_all(chunks.to(torch.bfloat16), ax).to(chunks.dtype)
+    if wire == "int8":
+        n, c = chunks.shape
+        pad = -c % _Q_BLOCK
+        flat = torch.nn.functional.pad(chunks.to(torch.float32),
+                                       (0, pad)).reshape(-1)
+        q, s = _int8_chunks(flat, n, key)
+        qx, sx = all_to_all(q, ax), all_to_all(s, ax)
+        got = _deq_to(qx.reshape(-1, 128), sx.reshape(-1), flat.numel(),
+                      (n, c + pad), chunks.dtype)
+        return got[:, :c]
+    return all_to_all(chunks, ax)
+
+
+class _A2AExchange(torch.autograd.Function):
+    """:func:`_exchange_chunks` with its vjp: the split-0/concat-0
+    exchange is self-adjoint, so the cotangent rides the same exchange
+    in the same wire — straight through the int8 rounding (key folded by
+    0x5713, the JAX package's ``_int8_a2a``)."""
+
+    @staticmethod
+    def forward(ctx, chunks, ax, wire, key):
+        ctx.ax, ctx.wire, ctx.key = ax, wire, key
+        return _exchange_chunks(chunks, ax, wire, key)
+
+    @staticmethod
+    def backward(ctx, g):
+        kb = None if ctx.key is None else fold_in(ctx.key, 0x5713)
+        return (_exchange_chunks(g.contiguous(), ctx.ax, ctx.wire, kb),
+                None, None, None)
+
+
+def _a2a_exchange(chunks: torch.Tensor, axis, wire: str = "none",
+                  key=None) -> torch.Tensor:
+    """Differentiable per-axis exchange of ``(n, C)`` chunks (see
+    :func:`_exchange_chunks`)."""
+    ax = _axis(axis)
+    if wire != "none" and not chunks.is_floating_point():
+        wire = "none"
+    if torch.is_grad_enabled() and chunks.requires_grad:
+        return _A2AExchange.apply(chunks, ax, wire, key)
+    return _exchange_chunks(chunks, ax, wire, key)
+
+
+def mesh_alltoall(x: torch.Tensor, plan, key=None) -> torch.Tensor:
+    """Mesh-routed all-to-all (``horovod_tpu/ops/collectives.py``
+    ``mesh_alltoall``): the exchange over ``N = prod(axis sizes)`` ranks
+    in one phase per :class:`WirePlan` axis (fast axis first), each hop
+    in its axis's wire. Semantics of an all-to-all over the combined
+    axes with the global order SLOW-axis-major: dim 0 splits into ``N``
+    destination chunks, and the result concatenates the source chunks in
+    the same order. Differentiable (each phase's backward is the same
+    exchange); ``key`` folds per phase."""
+    plan = WirePlan.resolve(plan)
+    if plan is None:
+        raise ValueError("mesh_alltoall requires a WirePlan (route)")
+    phases = plan.phases
+    axes = [_axis(p.axis) for p in phases]
+    ns = [a.size for a in axes]
+    total = 1
+    for n in ns:
+        total *= n
+    if x.dim() == 0 or x.shape[0] % total:
+        raise ValueError(
+            f"dim 0 ({tuple(x.shape)[:1]}) must divide into {total} chunks "
+            f"(mesh {'x'.join(str(n) for n in reversed(ns))})")
+    floating = x.is_floating_point()
+    m = x.shape[0] // total
+    rest = tuple(x.shape[1:])
+    for p, a in zip(phases, axes):
+        _count_a2a_bytes(p.axis, p.wire if floating else "none", x.numel(),
+                         a.size, x.element_size())
+    k = len(ns)
+    buf = x.reshape(tuple(reversed(ns)) + (m,) + rest)
+    for i, (p, a) in enumerate(zip(phases, axes)):
+        pos = k - 1 - i          # phase i's coordinate dim (fast last)
+        moved = torch.movedim(buf, pos, 0)
+        shape = moved.shape
+        ki = None if key is None else fold_in(key, i)
+        got = _a2a_exchange(moved.reshape(shape[0], -1), a,
+                            p.wire if floating else "none", ki)
+        buf = torch.movedim(got.reshape(shape), 0, pos)
+    return buf.reshape((total * m,) + rest).to(x.dtype)
+
+
+class _TPAllReduce(torch.autograd.Function):
+    """SUM all-reduce over the tp axis whose backward is the SUM
+    all-reduce of the cotangent — ``lax.psum``'s transpose under the JAX
+    package's per-rank semantics, where every tp rank computes the whole
+    loss: each slice gradient then arrives multiplied by the tp size,
+    which the optimizer's pmean combine cancels."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return _tp_sum(x, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _tp_sum(g, ctx.ax), None
+
+
+def _tp_sum(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+    y = x.contiguous().clone()
+    if ax.size > 1:
+        _count_tp_bytes(ax, y)
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=ax.group)
+    return y
+
+
+def tp_allreduce(x: torch.Tensor, axis) -> torch.Tensor:
+    """The row-parallel psum over ``axis`` (an :class:`Axis` or a mesh
+    axis name), differentiable with the JAX package's per-rank
+    transpose (the backward is the same SUM)."""
+    ax = _axis(axis)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _TPAllReduce.apply(x, ax)
+    return _tp_sum(x, ax)

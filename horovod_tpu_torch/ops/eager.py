@@ -475,7 +475,7 @@ class EagerEngine:
         if self.controller is not None:
             with autoscale_lib.comm_clock.waiting():
                 self.controller.negotiate(req)
-        self._lru.put(sig)
+        self._lru.put(sig, want_evicted=False)
 
     def _wire_contract(self, compression) -> str:
         """The wire tag of the cross-rank contract: the compressor's name

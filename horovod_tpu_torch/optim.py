@@ -568,8 +568,11 @@ class _DistributedOptimizerMixin:
                    predivide, threshold, quantize_min_bytes,
                    sparse_as_dense, guard_policy=None, scale_cfg=None,
                    accum_k=1, remat_name="none", axis=None, route=None,
-                   overlap=False):
+                   overlap=False, combine_axes=()):
         self._base_cls = base_cls
+        #: ``parallel=``: the tp then sp axes every bucket is
+        #: pmean-combined over before the guard and the dp reduction.
+        self._combine_axes = tuple(combine_axes)
         #: The axis the buckets reduce over (the world or a process
         #: set's) and the route (a WirePlan, or None for the axis alone).
         self._axis = C._axis(axis)
@@ -887,6 +890,12 @@ class _DistributedOptimizerMixin:
                 p.grad = p.grad.to_dense()
             grads[i] = p.grad
         flat = fusion_lib.fuse_bucket(grads, bucket)
+        if flat.is_floating_point():
+            # parallel=: slice gradients reassemble (pmean over tp, then
+            # sp) before everything downstream — the guard, the
+            # compression and the dp reduction all see exact gradients.
+            for ax in self._combine_axes:
+                flat = C.allreduce(flat, C.Average, axis=ax)
         if self._guard is not None and flat.is_floating_point():
             flat = self._guard_bucket(flat)
         self.bucket_allreduces += 1
@@ -1298,7 +1307,8 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          remat_policy: Optional[str] = None,
                          route=None,
                          zero_stage: int = 0,
-                         overlap: bool = False):
+                         overlap: bool = False,
+                         parallel=None):
     """Wrap ``optimizer`` so ``step()`` first averages (``op=Average``) or
     sums (``op=Sum``) the gradients across ranks, in fused buckets, or
     (``op=Adasum``) reduces the optimizer's per-parameter deltas by
@@ -1338,8 +1348,18 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     zero_stage, ...)`` with this call's op, threshold, compression,
     guard, route, accumulation and overlap. It refuses
     ``backward_passes_per_step != 1`` and a predivide factor other than
-    1, as the JAX package refuses them, and ``process_set``."""
+    1, as the JAX package refuses them, and ``process_set``.
+
+    ``parallel`` (a ParallelSpec, a role dict or a spec string; explicit
+    only, as in the JAX package) reduces over the spec's ``dp`` axis
+    alone, after every bucket is pmean-combined over ``tp`` and then
+    ``sp`` (``parallel.tensor_parallel.combine_slice_grads``). The world
+    must have been made with the same spec (``init(parallel=)``); the
+    spec needs a dp axis, and ``route=``, if given, must run over exactly
+    the dp axes."""
     op = C.ReduceOp(op)
+    pspec, combine_axes = _resolve_parallel(parallel, route, process_set,
+                                            zero_stage, op)
     if zero_stage:
         if int(zero_stage) not in (1, 2, 3):
             raise ValueError(f"zero_stage must be 0 (off), 1, 2 or 3 — got "
@@ -1370,7 +1390,10 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     if process_set is not None:
         process_set.engine      # registered, and this rank a member
         axis = process_set.axis
-    plan = _resolve_route(route)
+    if pspec is not None:
+        axis = basics.context().axis(pspec.dp_axes[0])
+    plan = _resolve_route(route) if pspec is None or route is not None \
+        else None
     if plan is not None and process_set is not None:
         raise ValueError("route= and process_set= do not combine: a route "
                          "runs over the world's mesh axes")
@@ -1419,8 +1442,53 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     obj._dist_init(optimizer.__class__, named_parameters, op, k, compressor,
                    float(gradient_predivide_factor), threshold, qmin,
                    bool(sparse_as_dense), guard_policy, scale_cfg, accum_k,
-                   remat_name, axis, plan, overlap)
+                   remat_name, axis, plan, overlap, combine_axes)
     return obj
+
+
+def _resolve_parallel(parallel, route, process_set, zero_stage, op):
+    """``(spec, combine axes)`` of a ``parallel=`` value, with the JAX
+    package's checks; ``(None, ())`` without one."""
+    if parallel is None:
+        return None, ()
+    from .parallel.spec import ParallelSpec
+
+    pspec = ParallelSpec.resolve(parallel)
+    later = [r for r in ("pp", "ep") if pspec.size_of(r) > 1]
+    if later or zero_stage:
+        what = (f"a spec with {'/'.join(later)}" if later
+                else "zero_stage with a parallel spec")
+        raise NotImplementedError(
+            f"DistributedOptimizer(parallel=...): {what} is not ported "
+            "yet; it comes with the pipeline and MoE slice of the port")
+    if not pspec.dp_axes:
+        raise ValueError(
+            f"parallel spec {pspec.describe()!r} has no dp axis — with "
+            "nothing to reduce over, wrap the optimizer directly")
+    if process_set is not None:
+        raise ValueError("parallel= and process_set= do not combine: the "
+                         "spec's dp axis is the reduction's scope")
+    if C.ReduceOp(op) == C.Adasum:
+        raise NotImplementedError(
+            "DistributedOptimizer(op=Adasum, parallel=...) is not ported")
+    if route is not None:
+        rt = C.WirePlan.resolve(route)
+        if rt is not None and set(rt.axis_names) != set(pspec.dp_axes):
+            raise ValueError(
+                f"route axes {rt.axis_names} must be exactly the parallel "
+                f"spec's dp axes {pspec.dp_axes} — gradients reduce over "
+                "dp only (tp and sp combine via pmean)")
+    ctx = basics.context()
+    if ctx.parallel_spec is None or \
+            ctx.parallel_spec.describe() != pspec.describe():
+        raise ValueError(
+            f"DistributedOptimizer(parallel={pspec.describe()!r}) needs "
+            "the world made with the same spec: init(parallel=...) or "
+            f"HVD_TPU_PARALLEL (this world's: "
+            f"{ctx.parallel_spec.describe() if ctx.parallel_spec else None})")
+    combine = tuple(ctx.axis(a) for a in (pspec.tp_axis, pspec.sp_axis)
+                    if a is not None)
+    return pspec, combine
 
 
 class AutotunedStepper:

@@ -50,7 +50,7 @@ remote worker, as in the JAX driver: a remote survivor leaves through
 its own failed collective (the process group's timeout is the stall
 bound under elastic).
 
-Not ported yet: a hybrid ParallelSpec's respec (the parallel-roles
+Not ported yet: a hybrid ParallelSpec's respec (the pipeline and MoE
 slice). A caller's spawner or rendezvous server (the Spark and Ray
 launches) has no counterpart.
 """
@@ -679,7 +679,7 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
         raise NotImplementedError(
             "an elastic world with a hybrid ParallelSpec (HVD_TPU_PARALLEL: "
             "role-grouped autoscaling, respec) is not ported yet; it comes "
-            "with the parallel-roles slice of the port")
+            "with the pipeline and MoE slice of the port")
     # The autoscale policy: the launcher's knobs (env_extra, validated)
     # over the caller's environment. A bad policy fails the launch.
     autoscale_env = {**os.environ, **{

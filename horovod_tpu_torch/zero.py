@@ -737,7 +737,12 @@ class ZeroOptimizer(torch.optim.Optimizer):
                  compression=None, nonfinite_policy: Optional[str] = None,
                  route=None, accum_steps: Optional[int] = None,
                  remat_policy: Optional[str] = None, bucket_order=None,
-                 overlap: bool = True):
+                 overlap: bool = True, parallel=None):
+        if parallel is not None:
+            raise NotImplementedError(
+                "ZeroOptimizer(parallel=...) (shards per pipeline stage, sp "
+                "under ZeRO-3) is not ported yet; it comes with the "
+                "pipeline and MoE slice of the port")
         # Not Optimizer.__init__: the groups are the wrapped optimizer's
         # and the state is the shards'.
         stage = int(zero_stage)

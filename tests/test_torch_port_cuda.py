@@ -300,6 +300,41 @@ def test_flash_backward_one_call_matches_plain_on_card(case):
 
 
 @pytest.mark.cuda
+def test_striped_strict_block_matches_plain_on_card():
+    """The striped ring's strict block at the sequence-parallel block
+    shape (2, 512, 16, 64) bf16: causal with key 0 masked, so query row 0
+    sees only a masked key (lse -1e30), and a nonzero lse cotangent —
+    K5, K6 and K7 against their plain versions, one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    shape = (2, 512, 16, 64)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, s, h, d = shape
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    k, v = torch.roll(k, 1, dims=1), torch.roll(v, 1, dims=1)
+    mask = torch.ones((b, s), device="cuda")
+    mask[:, 0] = 0.0
+    dlse = torch.randn((b, h, s), generator=gen, device="cuda")
+    kernels.reset_launch_counts()
+    o, lse = kernels.flash_fwd(q, k, v, mask, True)
+    o0, lse0 = kernels._flash_fwd_plain(q, k, v, mask, True)
+    got = kernels.flash_bwd(q, k, v, mask, True, o0, lse0, do, dlse)
+    want = kernels._flash_bwd_plain(q, k, v, mask, True, o0, lse0, do, dlse)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {
+        "quantize_int8": 0, "dequantize_int8": 0, "flash_fwd": 1,
+        "flash_bwd_dq": 1, "flash_bwd_dkv": 1, **NEW_KERNELS}
+    assert (lse0[:, :, 0] <= -1e29).all()
+    tol, gtol = FLASH_FWD_TOL[torch.bfloat16], FLASH_GRAD_TOL[torch.bfloat16]
+    torch.testing.assert_close(o.float(), o0.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, lse0, rtol=tol, atol=tol)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=gtol,
+                                   atol=gtol)
+
+
+@pytest.mark.cuda
 def test_every_kernel_launches_inside_an_explicit_device_guard():
     """Inside ``torch.cuda.device(0)`` each of K1-K9 launches once on
     device 0's tensors and agrees with its plain version (the wrappers'

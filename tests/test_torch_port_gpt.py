@@ -124,16 +124,20 @@ def test_converter_covers_every_parameter(tiny_pair):
 
 
 def test_unported_paths_raise(tiny_pair):
-    """The parallel/MoE model options belong to later slices: they
-    raise, so no plain stand-in sits on any path. The full-sequence
-    forward is ported (the training slice) and gives logits."""
+    """MoE and per-layer remat belong to the pipeline and MoE slice: they
+    raise naming it, so no plain stand-in sits on any path. The
+    full-sequence forward is ported (the training slice) and gives
+    logits; tensor and sequence parallelism construct (their parity runs
+    in ``test_torch_port_parallel.py``)."""
     _, _, tm = tiny_pair
     logits = tm(torch.zeros((1, 4), dtype=torch.long))
     assert logits.shape == (1, 4, 128) and logits.dtype == torch.float32
-    for kw in ({"tp_axis": "tp"}, {"seq_parallel": "sp"},
-               {"moe_experts": 4}, {"remat": True}):
-        with pytest.raises(NotImplementedError):
+    for kw in ({"moe_experts": 4}, {"remat": True}):
+        with pytest.raises(NotImplementedError,
+                           match="the pipeline and MoE slice"):
             gpt.gpt_tiny(**kw)
+    for kw in ({"tp_axis": "tp"}, {"seq_parallel": "sp"}):
+        assert isinstance(gpt.gpt_tiny(**kw), gpt.GPT)
 
 
 def test_init_kv_cache_device_rule(tiny_pair):

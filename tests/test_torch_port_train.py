@@ -328,15 +328,17 @@ def test_later_slices_raise_not_implemented(name):
     ``add_process_set``, ...), slice 11 (``ZeroOptimizer``,
     ``save_sharded``, ...) and slice 12 (``chaos_poison``, ``run``,
     ``save_state``, ...), slice 13 (``flight_recorder``, the metrics
-    server, ``StepTimer``) and slice 14 (``AutotunedStepper``) are
-    ported: their names resolve. The parallel roles still raise naming
-    their slice."""
+    server, ``StepTimer``), slice 14 (``AutotunedStepper``) and slice 15
+    (``ParallelSpec``, the tp primitives) are ported: their names
+    resolve. The pipeline still raises naming its slice."""
     import horovod_tpu_torch.models as models
 
     mod, attr = (models, name.split(".")[1]) if "." in name else (hvd, name)
     assert callable(getattr(mod, attr))
-    with pytest.raises(NotImplementedError, match="the parallel-roles slice"):
-        hvd.ParallelSpec
+    assert callable(hvd.ParallelSpec)
+    with pytest.raises(NotImplementedError,
+                       match="the pipeline and MoE slice"):
+        hvd.pipeline_apply
     with pytest.raises(AttributeError):
         getattr(mod, "no_such_name")
 
