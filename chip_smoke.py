@@ -182,9 +182,10 @@ Phases (any failure exits non-zero and prints no result line):
    card, each with ``HVD_TPU_MESH_SHAPE=2x2`` (local axis {0, 1} and
    {2, 3}, cross axis {0, 2} and {1, 3}) and
    ``init(hierarchical_allreduce=True, hierarchical_allgather=True)``.
-   GPT-2 medium at full width, B = 4, S = 512 per rank, each rank its
-   own seeded batch after ``broadcast_parameters``, 1 checked and 3
-   timed steps in each of two modes: (a) ``compression="int8_ef",
+   GPT-2 medium's widths at 8 of its 24 layers (the cut that, with 7c's
+   and 9 (b)'s, makes room for phase 12), B = 4, S = 512 per rank, each
+   rank its own seeded batch after ``broadcast_parameters``, 1 checked
+   and 3 timed steps in each of two modes: (a) ``compression="int8_ef",
    route="staged_int8"`` (local:none, cross:int8): at the checked step
    one int8 bucket's reduced gradient must lie within ``(sum over hosts
    of s_host + s_reduced) / 4`` of the exact fp32 average (s the block
@@ -232,7 +233,8 @@ Phases (any failure exits non-zero and prints no result line):
    NCCL or NVLink.
 7c. ZeRO: the script relaunches itself as 4 gloo rank workers
    (``--rank-worker n4_zero``, a flat world) sharing the card: GPT-2
-   medium at full width, B = 4, S = 512 per rank (phase 7b's geometry),
+   medium's widths at 4 of its 24 layers (the cut that, with 9 (b)'s,
+   makes room for phase 12), B = 4, S = 512 per rank (phase 7b's batch),
    each rank its own seeded batch after ``broadcast_parameters``,
    ``AdamW(lr=1e-4, weight_decay=1e-4)``, 1 checked and 3 timed steps of
    each case in turn, memory released between them: (a) the replicated
@@ -246,7 +248,7 @@ Phases (any failure exits non-zero and prints no result line):
    reduce-scatter within ``sum of s_rank / 4`` of the exact average and
    its residuals summing to the exact sum less 4 times the result; in
    the timed steps K3 exactly buckets x 3 in (c), K1 exactly buckets x 3
-   in (e), K5/K6/K7 24 x 3 each (x 2 in (d)) and nothing else. Printed
+   in (e), K5/K6/K7 4 x 3 each (x 2 in (d)) and nothing else. Printed
    for each case: the median step ms, peak GiB a rank over the timed
    steps (``max_memory_allocated``), GiB at rest after a step
    (``memory_allocated``), and the bytes of the two ZeRO metrics'
@@ -288,18 +290,18 @@ Phases (any failure exits non-zero and prints no result line):
    return 0 on both. Step times are gloo with 2 processes on one card.
 7d. Overlap (D2) and the Adasum optimizer's guard and accumulation:
    the script relaunches itself as 2 gloo rank workers (``--rank-worker
-   n2_overlap``; GPT-2 medium at full width, B = 8, S = 512 a rank) and
-   as 4 on a 2x2 mesh (``n4_overlap``; B = 4, S = 512, phase 7b's and
-   7c's geometry). Each pair of arms runs ``overlap=False`` then
+   n2_overlap``; GPT-2 medium's widths at 8 of its 24 layers — the cut
+   that, with 7b's, 7c's and 9 (b)'s, makes room for phase 12 — B = 8,
+   S = 512 a rank) and as 4 on a 2x2 mesh (``n4_overlap``; B = 4,
+   S = 512, phase 7b's geometry). Each pair of arms runs ``overlap=False`` then
    ``overlap=True`` in the same processes from the same seeded weights,
    1 checked and 3 timed steps of AdamW: the parameters' digests (ZeRO:
    the shards') must be bitwise equal after every step and the launches
    of the timed steps equal and exact in both arms: (a) n = 2 int8_ef,
-   K3 2 x 25 x 3; (b) the routed ``local:none,cross:int8`` int8_ef, K3
-   2 x 25 x 3; (c) ``ZeroOptimizer(zero_stage=3)`` through
+   K3 2 x int8 buckets x 3; (b) the routed ``local:none,cross:int8``
+   int8_ef, K3 2 x int8 buckets x 3; (c) ``ZeroOptimizer(zero_stage=3)`` through
    ``accumulate`` with the stage-3 prefetch on and off (peak and at-rest
-   GiB of each). K5/K6/K7 24 x 3
-   a timed arm. At n = 2 also (d) ``DistributedOptimizer(op=Adasum,
+   GiB of each). K5/K6/K7 ``OVERLAP_LAYERS`` (8) x 3 a timed arm. At n = 2 also (d) ``DistributedOptimizer(op=Adasum,
    nonfinite_policy="scale_backoff")`` for 3 steps with a +Inf in rank
    0's first gradient element at step 2: every weight and AdamW tensor
    bitwise unchanged across it, the loss scale 2^15 -> 2^14, K1 one a
@@ -348,9 +350,9 @@ Phases (any failure exits non-zero and prints no result line):
    -H hostA:1,hostB:1,hostC:1 --metrics-port 0 --pod-metrics-port 0
    --autoscale-policy JSON --autoscale-log FILE --host-discovery-script
    SCRIPT`` with ``HVD_TPU_ELASTIC_FORCE_LOCAL=1`` (one world of 3 gloo
-   processes on the card) over ``--elastic-worker``: GPT-2 medium at full
-   width
-   (24 layers), B = 4 x 512 a rank, 14 steps, int8_ef AdamW, a commit
+   processes on the card) over ``--elastic-worker``: GPT-2 medium's
+   widths at 4 of its 24 layers (the cut that makes room for phase 12),
+   B = 4 x 512 a rank, 50 steps, int8_ef AdamW, a commit
    a step, the per-step eager loss allreduce, the committed state
    persisted at each driver-managed exit; the hosts from a discovery
    script whose list this process edits (hostC leaves it at its
@@ -419,7 +421,42 @@ Phases (any failure exits non-zero and prints no result line):
    slice-gradient combine and the dp reduction), peak GiB a rank and
    each rank's role label; gloo, 4 processes on one card, not NCCL or
    NVLink.
-12. Result lines: the per-kernel JSON record (K1-K9, each with
+12. Pipeline and MoE: the script relaunches itself as 4 gloo rank
+   workers (``--rank-worker n4_pipeline``), then as 2 (``n2_moe_ref``),
+   sharing the card. bf16 compute over seeded fp32 weights (one seed: the
+   whole model is made, split with ``stack_stage_params`` and each rank
+   keeps its stage), AdamW(lr=1e-4, weight_decay=1e-4), 1 warm-up and 2
+   timed steps an arm, each arm in a world made with its spec. GPT-2
+   medium at 24 layers, one global batch of 8 x 1024: ``dense``
+   (``dp=4``, ``opt.accumulate`` over 2 microbatches of 1 x 1024, the
+   oracle), ``pp`` (``dp=2,pp=2``, 12 layers a stage, the 1F1B
+   ``pipeline_accumulate_gradients`` over 4 microbatches of 1 x 1024
+   under ``DistributedOptimizer(parallel=)``), ``pp_int8``
+   (``init(pp_wire="int8")``: every stage-boundary send on K2/K4) and
+   ``pp_zero3`` (``ZeroOptimizer(zero_stage=3, parallel=)``: each stage
+   sharded over its dp pair). GPT-2 medium-MoE (8 experts, capacity
+   factor 1.25, top-2, no router noise; 12 of 24 layers: the replicated
+   expert bank), 4 x 1024 global, dp = 1, 4 microbatches: ``moe_ref``
+   (``dp=1,pp=2``, 2 ranks, the experts local: the oracle), ``moe_ep``
+   (``dp=1,pp=2,ep=2``) and ``moe_ep_int8`` (``moe_wire="int8"``).
+   Checks: the global loss at the first step and after the last (a
+   GPipe ``pipeline_apply`` forward) within ``PIPE_LOSS_RTOL`` of the
+   oracle's (pp 1e-4, pp_int8 5e-4, moe_ep 2e-3, moe_ep_int8 1e-2;
+   pp_zero3 1e-3 of pp's); the masters bitwise on the ranks that
+   hold the same parameters after every step (dp pairs; the ep pairs'
+   non-expert parameters; ZeRO-3 gathered after the run); the launches
+   of the three steps exactly (K5 twice and K6/K7 once a layer a
+   microbatch on a pp stage: the backward recomputes; K2/K4 once a
+   stage-boundary send or receive, and on each MoE exchange of the
+   forward slot, the recompute and the backward); the stage boundary's
+   bytes exactly its sends, the counter's likewise, the ep exchanges'
+   and the dp reduction's counters exactly the shapes' (ZeRO-3: its
+   reduce-scatter's), no gradient-reduction byte off dp. Printed for
+   each arm: the median step ms, tokens/s, launches a step, bytes a
+   rank a step by kind, peak GiB a rank, the MoE drop fraction and
+   load; and each ep owner's expert-bank gradient over moe_ref's at the
+   first step (the JAX ep combine: every ep rank routes the same rows).
+13. Result lines: the per-kernel JSON record (K1-K9, each with
    ``launches_by_path``, every path above 0, and ``launches`` their
    sum: K5/K6/K7 for the GPT training, BERT, ViT and the two guarded
    integrity runs and the ZeRO phase; K1 for the eager loop, the
@@ -428,8 +465,9 @@ Phases (any failure exits non-zero and prints no result line):
    phase and the ZeRO phase's (c); K8 and K9 for the n = 2 multi-rank run
    and the mesh phase; phase 7d for K1, K3, K5-K9; phase 8's clean run,
    phase 9 (b)'s rank 0 first process and phase 10's rank 0 for K3 and
-   K5-K7; phase 11 for K5-K7 and, on ring_int8, K2 and K4), the card
-   line, and last ``{"ok": true, "device": {...}}``.
+   K5-K7; phase 11 for K5-K7 and, on ring_int8, K2 and K4; phase 12's
+   ``pipeline`` and ``moe`` paths for K5-K7 and, on its int8 arms, K2
+   and K4), the card line, and last ``{"ok": true, "device": {...}}``.
 
 ``--profile`` also traces the serve run and two extra training steps of
 GPT-2 medium, each integrity run, BERT-large, ViT-B/16 and ResNet-50
@@ -3085,6 +3123,12 @@ def phase_multirank(torch, out_dir: str) -> dict:
 MESH_CONFIG = "n4_mesh"
 # n, model, per-rank batch, sequence length, worker timeout (s)
 MESH_RUN = (4, "gpt_medium", 4, 512, 900)
+# The routed training runs' depth: GPT-2 medium's widths at 8 of its 24
+# layers (with 7c's and 9 (b)'s, the cut that makes room for phase 12
+# under the smoke's time limit: 24 layers here and in 7d add about 86 s,
+# 9 (b) and 7c at 2 layers give back 20; PERF.md §7). The eager,
+# process-set and exchange sections keep their shapes.
+MESH_LAYERS = 8
 MESH_SHAPE = "2x2"                  # cross x local: local {0,1},{2,3}
 MESH_TIMED = 3                      # timed steps after the checked one
 MESH_SETS = ((0, 2), (1, 3))
@@ -3159,7 +3203,9 @@ def _mesh_train(torch, hvd, gpt_mod, C, K, fusion, mode, rank, n):
     plan = C.WirePlan.resolve("staged_int8" if mode == "int8_ef"
                               else "staged")
     ns = [C._axis(p.axis).size for p in plan.phases]
-    model = _make_model(torch, gpt_mod, model_name)
+    model = integrity_model(torch, gpt_mod, "cuda", layers=MESH_LAYERS) \
+        if model_name == "gpt_medium" else \
+        _make_model(torch, gpt_mod, model_name)
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     params = list(model.parameters())
     digest = _Digest(torch, params)
@@ -3522,7 +3568,8 @@ def mesh_worker(config: str, rank: int, out_path: str) -> None:
 
     out["zero"] = rec = _zero_train(
         torch, hvd, gpt_mod, C, K, metrics, "mesh_z3", 3,
-        {"compression": "int8_ef"}, rank, n, "cuda", route=MESH_ZERO_ROUTE)
+        {"compression": "int8_ef"}, rank, n, "cuda", route=MESH_ZERO_ROUTE,
+        layers=MESH_LAYERS if MESH_RUN[1] == "gpt_medium" else None)
     print(f"rank {rank} zero stage 3 ({MESH_ZERO_ROUTE}, int8_ef): step ms "
           f"{rec['step_ms']}, launches {rec['launches']}", flush=True)
     out["eager"] = _mesh_eager(torch, hvd, C, K, rank, n)
@@ -3627,6 +3674,10 @@ def phase_mesh(torch, out_dir: str) -> dict:
 ZERO_CONFIG = "n4_zero"
 # n, model, per-rank batch, sequence length, worker timeout (s)
 ZERO_RUN = (4, "gpt_medium", 4, 512, 900)
+# Phase 7c's depth: GPT-2 medium's widths at 4 of its 24 layers (with
+# phase 9 (b)'s, the cut that makes room for phase 12). Every check
+# counts from the model and its bucket plan.
+ZERO_LAYERS = 4
 ZERO_TIMED = 3                      # timed steps after the checked one
 ZERO_LOSS_RTOL = 1e-3               # each step's loss vs (a)'s: bf16 bound
 # label, zero_stage, extra keywords: (a) the replicated baseline, (b)
@@ -3711,14 +3762,15 @@ def _int8_rs_check(torch, C, st, seen, groups) -> dict:
 
 
 def _zero_train(torch, hvd, gpt_mod, C, K, metrics, label, stage, kw,
-                rank, n, dev, route=None):
+                rank, n, dev, route=None, layers=None):
     """One ZeRO case of GPT-2 medium (``ZERO_RUN``): the checked step,
     the +Inf drill under ``scale_backoff``, the timed steps with the
     launch counts zeroed just before them and read just after, the
     replicas' digests after every gather, peak and at-rest memory, and
     the ZeRO metrics' bytes of the timed steps."""
     _, model_name, batch, seq, _ = ZERO_RUN
-    model = _make_model(torch, gpt_mod, model_name, dev)
+    model = (integrity_model(torch, gpt_mod, dev, layers=layers) if layers
+             else _make_model(torch, gpt_mod, model_name, dev))
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
     params = list(model.parameters())
     digest = _Digest(torch, params)
@@ -3891,7 +3943,8 @@ def zero_worker(config: str, rank: int, out_path: str,
     for label, stage, kw in ZERO_CASES:
         out["cases"][label] = rec = _zero_train(
             torch, hvd, gpt_mod, C, K, metrics, label, stage, kw, rank, n,
-            dev)
+            dev, layers=ZERO_LAYERS if ZERO_RUN[1] == "gpt_medium"
+            else None)
         print(f"rank {rank} zero ({label}): step ms {rec['step_ms']}, peak "
               f"{rec['peak_mem_gib']:.2f} GiB, rest "
               f"{rec['rest_mem_gib']:.2f} GiB, launches {rec['launches']}",
@@ -4442,6 +4495,10 @@ OVERLAP_RUNS = {OVERLAP_N2: (2, "gpt_medium", 8, 512, 600),
                 OVERLAP_N4: (4, "gpt_medium", 4, 512, 600)}
 OVERLAP_TIMED = 3                   # timed steps after the checked one
 ADASUM_ACCUM = 2                    # microbatches of the accumulated arm
+# Phase 7d's depth: GPT-2 medium's widths at 8 of its 24 layers (with
+# 7b's, 7c's and 9 (b)'s, the cut that makes room for phase 12; see
+# MESH_LAYERS); the launch counts follow the model and its plan.
+OVERLAP_LAYERS = 8
 ACCUM_LOSS_RTOL = 1e-3              # accumulated vs fused: the bf16 bounds
 ACCUM_DELTA_RTOL = 2e-2
 
@@ -4453,7 +4510,7 @@ def _overlap_arm(torch, hvd, gpt_mod, C, K, rank, batch, seq, on, kw,
     the parameters' (or, under ZeRO stage 3, the shards') digest after
     every step, each timed step's forward + backward, ``step()`` and
     collective split, the launches of the timed steps, and memory."""
-    model = _make_model(torch, gpt_mod, "gpt_medium")
+    model = integrity_model(torch, gpt_mod, "cuda", layers=OVERLAP_LAYERS)
     params = list(model.parameters())
     digest = _Digest(torch, params)
     tokens = torch.randint(0, model.vocab_size, (batch, seq + 1),
@@ -4561,7 +4618,13 @@ def _pair(torch, hvd, gpt_mod, C, K, rank, batch, seq, kw, what,
           f"{[i for i, (a, b) in enumerate(zip(off['digests'], on['digests'])) if a != b]}")
     check(off["losses"] == on["losses"], f"{what}: losses differ")
     for arm in (off, on):
-        _expect(arm["launches"], f"{what} overlap={arm['overlap']}", **want)
+        w = dict(want)
+        if w.get("quantize_int8_stochastic") == "int8_buckets":
+            # Two K3 hops (the reduce-scatter and the all-gather) an int8
+            # bucket a timed step.
+            w["quantize_int8_stochastic"] = \
+                2 * arm["int8_buckets"] * OVERLAP_TIMED
+        _expect(arm["launches"], f"{what} overlap={arm['overlap']}", **w)
     return {"off": off, "on": on, "bitwise_steps": len(off["digests"])}
 
 
@@ -4571,7 +4634,7 @@ def _adasum_guard_drill(torch, hvd, gpt_mod, K, rank, batch, seq) -> dict:
     tensor bitwise unchanged across it, the loss scale 2^15 -> 2^14.
     Launches over the three steps: K1 one a parameter a step (the
     unscale), K8 and K9 one a parameter a good step."""
-    model = _make_model(torch, gpt_mod, "gpt_medium")
+    model = integrity_model(torch, gpt_mod, "cuda", layers=OVERLAP_LAYERS)
     params = list(model.parameters())
     tokens = torch.randint(0, model.vocab_size, (batch, seq + 1),
                            generator=torch.Generator().manual_seed(
@@ -4637,7 +4700,8 @@ def _adasum_accum_arms(torch, hvd, gpt_mod, K, tokens, compute) -> dict:
     kw = {} if compute == "bf16" else {"dtype": torch.float32}
     out, deltas, local = {}, {}, {}
     for arm, k in (("accum", ADASUM_ACCUM), ("fused", 1)):
-        model = _make_model(torch, gpt_mod, "gpt_medium", **kw)
+        model = integrity_model(torch, gpt_mod, "cuda",
+                                layers=OVERLAP_LAYERS, **kw)
         params = list(model.parameters())
         opt = hvd.DistributedOptimizer(torch.optim.SGD(params, lr=1e-2),
                                        op=hvd.Adasum, accum_steps=k)
@@ -4760,7 +4824,7 @@ def overlap_worker(config: str, rank: int, out_path: str) -> None:
         hvd.init(backend="gloo")
     check(hvd.size() == n and hvd.rank() == rank,
           f"overlap: rank {hvd.rank()} of {hvd.size()}")
-    flash = 24 * OVERLAP_TIMED
+    flash = OVERLAP_LAYERS * OVERLAP_TIMED
     out = {"config": config, "rank": rank}
     def done(name):
         print(f"rank {rank} {config} {name}: "
@@ -4771,7 +4835,7 @@ def overlap_worker(config: str, rank: int, out_path: str) -> None:
             torch, hvd, gpt_mod, C, K, rank, batch, seq,
             {"compression": "int8_ef"}, "int8_ef n=2", flash_fwd=flash,
             flash_bwd_dq=flash, flash_bwd_dkv=flash,
-            quantize_int8_stochastic=2 * 25 * OVERLAP_TIMED)
+            quantize_int8_stochastic="int8_buckets")
         done("int8_ef")
         out["adasum_drill"] = _adasum_guard_drill(torch, hvd, gpt_mod, K,
                                                   rank, batch, seq)
@@ -4785,7 +4849,7 @@ def overlap_worker(config: str, rank: int, out_path: str) -> None:
             {"compression": "int8_ef", "route": MESH_ZERO_ROUTE},
             f"routed int8_ef {MESH_ZERO_ROUTE}", flash_fwd=flash,
             flash_bwd_dq=flash, flash_bwd_dkv=flash,
-            quantize_int8_stochastic=2 * 25 * OVERLAP_TIMED)
+            quantize_int8_stochastic="int8_buckets")
         done("routed")
         out["zero3"] = _pair(torch, hvd, gpt_mod, C, K, rank, batch, seq,
                              {}, "ZeRO stage 3", zero=True,
@@ -5397,12 +5461,17 @@ def _phase_elastic(torch, out_dir, root, cfg, steps, model_name, batch,
 
 TELEMETRY_HOSTS = "hostA:1,hostB:1,hostC:1"
 # model, per-rank batch, sequence length, steps
-TELEMETRY_RUN = ("gpt_medium", 4, 512, 14)
-# hostC's extra seconds a commit (about one clean step of the world of
-# 3: 1.0-1.1 s on the H100), for its first process's first commits
-# only: a regrown hostC never fires it again (the worker drops specs
-# the fault log shows fired).
-TELEMETRY_STRAGGLE = {"site": "straggler", "step": 1, "times": 12,
+TELEMETRY_RUN = ("gpt_medium", 4, 512, 50)
+# The control run's depth: GPT-2 medium's widths at 4 of its 24 layers
+# (the cut that makes room for phase 12, as phase 8's made room for
+# phase 9). A step is then shorter, so the run takes more of them: the
+# world at 2 must not reach the last step before hostC is back.
+TELEMETRY_LAYERS = 4
+# hostC's extra seconds a commit (at full depth about one clean step of
+# the world of 3, 1.0-1.1 s on the H100; several at 4 layers), for its
+# first process's first commits only: a regrown hostC never fires it
+# again (the worker drops specs the fault log shows fired).
+TELEMETRY_STRAGGLE = {"site": "straggler", "step": 1, "times": 30,
                       "host": "hostC", "delay_s": 1.2}
 # hostB's third per-step loss allreduce held past the stall check time
 # and well inside the fatal bound: a warning, nothing worse.
@@ -5815,6 +5884,8 @@ def telemetry_control(root: str, out_dir: str, dev: str = "cuda",
            "steps": steps, "persist_every": 0, "qmin": None,
            "final_check": False, "loss_allreduce": True,
            "persist_at_exit": True}
+    if model_name == "gpt_medium":
+        cfg["layers"] = TELEMETRY_LAYERS
     t_run = time.time()
     rc, wall, events, inj, log = run_elastic_job(
         work, cfg, plan,
@@ -5898,7 +5969,8 @@ def telemetry_control(root: str, out_dir: str, dev: str = "cuda",
     pod_before = [v for v in before if v["ranks"] == [0, 1, 2]]
     return {
         "label": "gloo, 3 processes on one card (not NCCL or NVLink)",
-        "model": model_name, "batch_per_rank": batch, "seq_len": seq,
+        "model": model_name, "layers": cfg.get("layers"),
+        "batch_per_rank": batch, "seq_len": seq,
         "steps": steps, "wall_s": wall, "decisions": decisions,
         "decision_seen_s": [t - t_run for t, _ in watch.decisions],
         "worlds": worlds, "restores": restores,
@@ -6532,6 +6604,498 @@ def phase_parallel(torch, out_dir: str) -> dict:
     return res
 
 
+# -- phase 12: pipeline and MoE ------------------------------------------------
+
+PIPE_CONFIG = "n4_pipeline"
+MOE_REF_CONFIG = "n2_moe_ref"
+PIPE_TIMEOUT = 900                  # seconds a worker launch may take
+# GPT-2 medium's widths; each family's depth, global batch (rows x seq),
+# microbatches a dp replica and token seed. MoE: 8 experts at capacity
+# factor 1.25, top-2, router noise 0 (the repo's documented --moe
+# 8,1.25), 12 of 24 layers: the expert bank is replicated on every rank,
+# so a pp=2 stage at full depth would hold ~908 M parameters a rank.
+PIPE_WIDTHS = dict(hidden=1024, num_heads=16, mlp_dim=4096, vocab_size=50257)
+PIPE_FAMILIES = {
+    "pipe": {"layers": 24, "rows": 8, "seq": 1024, "accum": 4,
+             "seed": 1616, "moe": {}},
+    "moe": {"layers": 12, "rows": 4, "seq": 1024, "accum": 4,
+            "seed": 1717, "moe": {"moe_experts": 8,
+                                  "moe_capacity_factor": 1.25}},
+}
+# label, family, ParallelSpec, init() settings, GPT options, optimizer.
+PIPE_ARMS = (
+    ("dense", "pipe", "dp=4", {}, {}, "dist"),
+    ("pp", "pipe", "dp=2,pp=2", {}, {}, "dist"),
+    ("pp_int8", "pipe", "dp=2,pp=2", {"pp_wire": "int8"}, {}, "dist"),
+    ("pp_zero3", "pipe", "dp=2,pp=2", {}, {}, "zero3"),
+    ("moe_ep", "moe", "dp=1,pp=2,ep=2", {}, {"moe_axis": "ep"}, "dist"),
+    ("moe_ep_int8", "moe", "dp=1,pp=2,ep=2", {},
+     {"moe_axis": "ep", "moe_wire": "int8"}, "dist"),
+)
+MOE_REF_ARMS = (("moe_ref", "moe", "dp=1,pp=2", {}, {}, "dist"),)
+PIPE_STEPS = 3                      # 1 warm-up + 2 timed AdamW steps
+# Each arm's global loss (first step, after the last) against its
+# oracle's, relative. The H100 readings (the same in every run so far):
+# pp 0 / 2.78e-6, pp_int8 1.82e-5 / 1.20e-5, pp_zero3 0 / 0, moe_ep
+# 0 / 6.43e-4, moe_ep_int8 2.01e-4 / 2.09e-3. The bounds keep about 5x
+# to 40x headroom over them: pp 1e-4 (bf16 compute split by stage),
+# pp_int8 5e-4 (int8 on every stage-boundary send), ZeRO-3 against the
+# replicated pp arm (the ZeRO phase's 1e-3), moe_ep 2e-3 and moe_ep_int8
+# 1e-2 (the experts' bf16 FFN on other ranks, int8 dispatch).
+PIPE_LOSS_RTOL = {"pp": ("dense", 1e-4), "pp_int8": ("dense", 5e-4),
+                  "pp_zero3": ("pp", 1e-3), "moe_ep": ("moe_ref", 2e-3),
+                  "moe_ep_int8": ("moe_ref", 1e-2)}
+
+
+def _pipe_launches(fam: dict, spec, kw: dict, init_kw: dict) -> dict:
+    """The launches a rank a step: each layer of this rank's stage runs
+    K5 once in the forward slot and once in the backward's recompute, K6
+    and K7 once, for each microbatch (dense: K5-K7 once a layer a
+    microbatch); an int8 stage boundary quantizes each of the rank's
+    ``accum`` sends with K2 and dequantizes each of its ``accum``
+    receives with K4; an int8 ep exchange runs K2 and K4 on each of the
+    two exchanges (dispatch, combine) of a MoE layer's three passes
+    (forward slot, recompute, backward)."""
+    npp = spec.size_of("pp")
+    lps = fam["layers"] // npp
+    micro = fam["rows"] // spec.size_of("dp")
+    passes = micro * lps
+    if npp == 1:
+        want = dict(flash_fwd=passes, flash_bwd_dq=passes,
+                    flash_bwd_dkv=passes)
+    else:
+        want = dict(flash_fwd=2 * passes, flash_bwd_dq=passes,
+                    flash_bwd_dkv=passes)
+    codec = 0
+    if init_kw.get("pp_wire") == "int8":
+        codec += micro
+    if kw.get("moe_wire") == "int8":
+        codec += 3 * 2 * passes
+    if codec:
+        want.update(quantize_int8=codec, dequantize_int8=codec)
+    return want
+
+
+def _metric_by_axis(metrics, name: str, **match) -> dict:
+    """A counter family's values by its ``axis`` label (the samples whose
+    other labels match)."""
+    fam = metrics.registry().snapshot().get(name, {"samples": []})
+    out = {}
+    for smp in fam["samples"]:
+        lab = smp["labels"]
+        if all(lab.get(k) == v for k, v in match.items()):
+            out[lab["axis"]] = out.get(lab["axis"], 0.0) + smp["value"]
+    return out
+
+
+def _delta_by_axis(before: dict, after: dict) -> dict:
+    return {a: v - before.get(a, 0.0) for a, v in after.items()
+            if v - before.get(a, 0.0) != 0.0}
+
+
+def _pipe_bytes_predicted(C, fam, spec, kw, init_kw, model, opt,
+                          optim_kind) -> dict:
+    """The bytes a rank a step by kind, from the shapes: the stage
+    boundary's sends (``accum`` payloads of 1 x seq x hidden a rank, in
+    bf16 or int8 with its fp32 block scales), the ep exchanges the
+    counter sees (the two forward exchanges of each MoE layer call, its
+    forward slot and recompute: (n-1)/n of E x C x hidden), the same
+    exchanges in the backward (on the wire, not counted), the pp sum of
+    the shared gradients (fp32, ring-accounted), and the dp reduction
+    (each bucket padded to the mesh and ring-accounted, as
+    ``hvd_tpu_allreduce_bytes_total`` counts it)."""
+    npp, ndp = spec.size_of("pp"), spec.size_of("dp")
+    micro = fam["rows"] // ndp
+    hidden = PIPE_WIDTHS["hidden"]
+    pay = fam["seq"] * hidden
+    wire = init_kw.get("pp_wire") or "none"
+    out = {"pp_sends": micro * pay * C._wire_elem_bytes(wire, 2)
+           if npp > 1 else 0.0}
+    nep = spec.size_of("ep")
+    ep_counted = 0.0
+    if nep > 1 and fam["moe"]:
+        e = fam["moe"]["moe_experts"]
+        cap = int(fam["moe"]["moe_capacity_factor"] * fam["seq"] * 2 / e) or 1
+        elem = C._wire_elem_bytes(kw.get("moe_wire") or "none", 2)
+        per = (nep - 1) / nep * e * cap * hidden * elem
+        ep_counted = per * 2 * 2 * micro * (fam["layers"] // npp)
+    out["ep_alltoall_counted"] = ep_counted
+    out["ep_alltoall_backward"] = ep_counted / 2
+    shared = sum(p.numel() for n, p in model.named_parameters()
+                 if not n.startswith("layers."))
+    out["pp_combine"] = 2 * (npp - 1) / npp * shared * 4 if npp > 1 else 0.0
+    dp = 0.0
+    if optim_kind == "dist":
+        for b in opt._dist_plan.buckets:
+            padded = -(-b.total_elems // ndp) * ndp
+            dp += 2 * (ndp - 1) / ndp * padded * 4
+    else:
+        # ZeRO's reduce-scatter, counted on each bucket's own length.
+        for b in opt.shard_state.plan.buckets:
+            dp += (ndp - 1) / ndp * b.total_elems * 4
+    out["dp_reduce"] = dp
+    return out
+
+
+def _pipe_tokens(torch, fam: dict, dev: str):
+    return torch.randint(0, PIPE_WIDTHS["vocab_size"],
+                         (fam["rows"], fam["seq"] + 1),
+                         generator=torch.Generator().manual_seed(
+                             fam["seed"])).to(dev)
+
+
+def _pipe_model(torch, gpt_mod, fam: dict, spec, rank: int, kw: dict,
+                dev: str):
+    """This rank's stage of the family's seeded model: the whole model is
+    made from one seed (the same weights on every arm), split with
+    ``stack_stage_params`` and dropped; the stage model holds only its
+    layers and the shared embedding and final LayerNorm."""
+    npp = spec.size_of("pp")
+    s = spec.coords(rank).get("pp", 0)
+    with torch.device(dev):
+        full = gpt_mod.GPT(num_layers=fam["layers"], **PIPE_WIDTHS,
+                           **fam["moe"], **(kw if npp == 1 else {}))
+    full.init_weights(torch.Generator(device=dev).manual_seed(0))
+    if npp == 1:
+        return full, 0
+    stages, shared = gpt_mod.stack_stage_params(full.state_dict(), npp)
+    state = {**stages[s], **shared}
+    del full, stages, shared
+    with torch.device(dev):
+        model = gpt_mod.GPT(num_layers=fam["layers"] // npp, **PIPE_WIDTHS,
+                            **fam["moe"], **kw)
+    model.load_state_dict(state)
+    del state
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return model, s
+
+
+def _pipe_arm(torch, hvd, gpt_mod, C, K, pl, moe_mod, metrics, label,
+              fam_name, spec_str, init_kw, kw, optim_kind, rank,
+              dev) -> dict:
+    """One arm: 1 warm-up and 2 timed AdamW steps; the launch counts and
+    byte counters zeroed (or read) just before the steps and read just
+    after; replicas' masters compared bitwise after every step; the
+    global loss each step and after the last (a GPipe ``pipeline_apply``
+    forward under no_grad on pp arms)."""
+    from horovod_tpu_torch.parallel.mesh import local_batch
+
+    fam = PIPE_FAMILIES[fam_name]
+    spec = hvd.parallel_spec()
+    npp, ndp = spec.size_of("pp"), spec.size_of("dp")
+    micro = fam["rows"] // ndp
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model, stage = _pipe_model(torch, gpt_mod, fam, spec, rank, kw, dev)
+    params = list(model.parameters())
+    tokens = _pipe_tokens(torch, fam, dev)
+    x = local_batch(tokens[:, :-1], spec, rank).contiguous()
+    y = local_batch(tokens[:, 1:], spec, rank).contiguous()
+    base = torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4)
+    if optim_kind == "zero3":
+        opt = hvd.ZeroOptimizer(base, zero_stage=3, parallel=spec_str)
+    else:
+        opt = hvd.DistributedOptimizer(
+            base, named_parameters=model.named_parameters(),
+            parallel=spec_str, accum_steps=micro if npp == 1 else None)
+    sf, pf, lf = gpt_mod.pipeline_fns(model)
+    tree = {"stages": gpt_mod.stage_params(model),
+            "shared": gpt_mod.shared_params(model)}
+    vg = pl.pipeline_accumulate_gradients(sf, lf, accum_steps=micro,
+                                          axis_name="pp", pre_fn=pf)
+    # The replicas: every dp rank of a stage holds all its parameters
+    # (under ZeRO-3 only as shards: compared once gathered, after the
+    # run); the ep ranks of a stage hold the same non-expert parameters
+    # (each keeps the whole expert bank but updates only its own experts).
+    if ndp > 1:
+        rep_axis, rep = "dp", params
+    elif spec.size_of("ep") > 1:
+        rep_axis = "ep"
+        rep = [p for n, p in model.named_parameters() if ".moe." not in n
+               or n.endswith(".moe.gate")]
+    else:
+        rep_axis, rep = None, []
+    digest = _Digest(torch, rep) if rep else None
+
+    def replicas_equal(gathered=False):
+        if digest is None or (optim_kind == "zero3" and not gathered):
+            return None
+        every = C.all_gather_stack(digest(rep), axis=rep_axis)
+        return bool((every == every[0]).all())
+
+    def global_loss(loss) -> float:
+        return C.allreduce(loss.detach().reshape(1).float(), hvd.Average,
+                           axis="dp").item()
+
+    def dense_loss(*mb):
+        return gpt_mod.next_token_loss(model(mb[0]), mb[1])
+
+    predicted = _pipe_bytes_predicted(C, fam, spec, kw, init_kw, model, opt,
+                                      optim_kind)
+    _sync(torch, dev)
+    hvd.barrier()
+    K.reset_launch_counts()
+    act0 = pl.ACTIVATION_BYTES.get("pp", 0.0)
+    m_act0 = _metric_by_axis(metrics,
+                             "hvd_tpu_pipeline_activation_bytes_total")
+    m_a2a0 = _metric_by_axis(metrics, "hvd_tpu_alltoall_bytes_total")
+    m_red0 = _metric_by_axis(metrics, "hvd_tpu_allreduce_bytes_total")
+    m_zero0 = _metric_by_axis(metrics, "hvd_tpu_zero_gather_bytes_total",
+                              kind="grad")
+    losses, times, equal, expert_norms = [], [], [], None
+    for i in range(PIPE_STEPS):
+        t0 = time.perf_counter()
+        if optim_kind == "zero3":
+            opt.gather_params()
+        else:
+            opt.zero_grad()
+        if npp == 1:
+            loss = opt.accumulate(dense_loss)(x, y)
+        else:
+            loss, _ = vg(tree, x, y)
+        if i == 0 and fam["moe"] and stage == 0:
+            # One step's expert-bank gradient (the first layer, before the
+            # reduction: dp = 1): each expert's norm, for the ep ratio.
+            g = model.layers[0].moe.w_in.grad
+            expert_norms = g.float().norm(dim=(1, 2)).tolist()
+        opt.step()
+        _sync(torch, dev)
+        times.append(time.perf_counter() - t0)
+        losses.append(global_loss(loss))
+        equal.append(replicas_equal())
+    launches = dict(K.LAUNCHES)
+    measured = {
+        "pp_sends": (pl.ACTIVATION_BYTES.get("pp", 0.0) - act0) / PIPE_STEPS,
+        "pp_sends_counter": _delta_by_axis(m_act0, _metric_by_axis(
+            metrics, "hvd_tpu_pipeline_activation_bytes_total")).get(
+                "pp", 0.0) / PIPE_STEPS,
+        "ep_alltoall_counted": _delta_by_axis(m_a2a0, _metric_by_axis(
+            metrics, "hvd_tpu_alltoall_bytes_total")).get("ep", 0.0)
+        / PIPE_STEPS}
+    red = _delta_by_axis(m_red0, _metric_by_axis(
+        metrics, "hvd_tpu_allreduce_bytes_total"))
+    zero = _delta_by_axis(m_zero0, _metric_by_axis(
+        metrics, "hvd_tpu_zero_gather_bytes_total", kind="grad"))
+    measured["reduce_axes"] = sorted(red)
+    measured["dp_reduce"] = (red.get("dp", 0.0) if optim_kind == "dist"
+                             else zero.get("dp", 0.0)) / PIPE_STEPS
+    stats = None
+    if fam["moe"]:
+        per_layer = [moe_mod.record_moe_stats(st)
+                     for st in model.moe_stats()]
+        stats = {"layer0": per_layer[0],
+                 "dropped_frac_mean": statistics.mean(
+                     st["dropped_frac"] for st in per_layer)}
+    with torch.no_grad():
+        if optim_kind == "zero3":
+            opt.gather_params()
+            equal.append(replicas_equal(gathered=True))
+        if npp == 1:
+            final = global_loss(dense_loss(x, y))
+        else:
+            xm = x.reshape((micro, -1) + tuple(x.shape[1:]))
+            ym = y.reshape((micro, -1) + tuple(y.shape[1:]))
+            outs = pl.pipeline_apply(sf, tree["stages"],
+                                     pf(tree["shared"], xm.flatten(0, 1))
+                                     .reshape(micro, xm.shape[1],
+                                              xm.shape[2], -1), "pp")
+            per = torch.stack([lf(tree["shared"], outs[j], ym[j])
+                               for j in range(micro)]).mean()
+            final = global_loss(pl.select_last_stage(per, "pp"))
+    peak, _ = _mem(torch, dev)
+    check(all(map(math.isfinite, losses + [final])),
+          f"pipeline {label}: non-finite loss in {losses + [final]}")
+    check(all(e is not False for e in equal),
+          f"pipeline {label}: the replicas' masters differ after step(s) "
+          f"{[i for i, e in enumerate(equal) if e is False]}")
+    want = {k: v * PIPE_STEPS for k, v in _pipe_launches(
+        fam, spec, kw, init_kw).items()}
+    _expect(launches, f"pipeline {label}", **want)
+    check(measured["pp_sends"] == predicted["pp_sends"],
+          f"pipeline {label}: pp_sends {measured['pp_sends']} B a step, "
+          f"predicted {predicted['pp_sends']}")
+    if metrics.enabled():
+        for kind in ("ep_alltoall_counted", "dp_reduce"):
+            check(measured[kind] == predicted[kind],
+                  f"pipeline {label}: {kind} {measured[kind]} B a step, "
+                  f"predicted {predicted[kind]}")
+        check(measured["pp_sends_counter"] == measured["pp_sends"],
+              f"pipeline {label}: activation counter "
+              f"{measured['pp_sends_counter']} != sends "
+              f"{measured['pp_sends']}")
+        check(set(measured["reduce_axes"]) <= {"dp"},
+              f"pipeline {label}: gradient-reduction bytes off dp: "
+              f"{measured['reduce_axes']}")
+    rec = {"arm": label, "family": fam_name, "spec": spec_str,
+           "init": init_kw, **{k: str(v) for k, v in kw.items()},
+           "optimizer": optim_kind, "stage": stage,
+           "layers_per_rank": model.num_layers,
+           "params_per_rank": sum(p.numel() for p in params),
+           "rows_per_replica": fam["rows"] // ndp, "microbatches": micro,
+           "losses": losses, "final_loss": final,
+           "step_ms": [t * 1e3 for t in times],
+           "step_ms_median": statistics.median(times[1:]) * 1e3,
+           "launches": launches,
+           "launches_per_step": {k: v / PIPE_STEPS
+                                 for k, v in launches.items() if v},
+           "bytes_per_step": measured, "bytes_predicted": predicted,
+           "replicas_equal": equal, "replica_axis": rep_axis,
+           "peak_mem_gib": peak, "moe_stats": stats,
+           "expert_grad_norms": expert_norms}
+    if optim_kind == "dist":
+        release(torch, opt, dev)
+    del model, opt, params, digest, tree, vg, sf, pf, lf
+    if dev == "cuda":
+        import gc
+
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec
+
+
+def pipeline_worker(config: str, rank: int, out_path: str,
+                    dev: str = "cuda") -> None:
+    """One rank of phase 12 (``--rank-worker n4_pipeline`` or
+    ``n2_moe_ref``): every arm in turn, each in a world made with its
+    spec (``init(parallel=)``)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import metrics
+    from horovod_tpu_torch.models import gpt as gpt_mod
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.parallel import moe as moe_mod
+    from horovod_tpu_torch.parallel import pipeline as pl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    arms = PIPE_ARMS if config == PIPE_CONFIG else MOE_REF_ARMS
+    out = {"config": config, "rank": rank, "arms": {}}
+    for label, fam, spec, init_kw, kw, optim_kind in arms:
+        t0 = time.perf_counter()
+        ctx = hvd.init(backend="gloo", parallel=spec, **init_kw) \
+            if dev == "cuda" else hvd.init(device="cpu", parallel=spec,
+                                           **init_kw)
+        check(hvd.parallel_spec().describe() == spec,
+              f"pipeline {label}: spec {hvd.parallel_spec()}")
+        rec = _pipe_arm(torch, hvd, gpt_mod, C, K, pl, moe_mod, metrics,
+                        label, fam, spec, init_kw, kw, optim_kind, rank,
+                        dev)
+        rec["role"] = ctx.flightrec.role if ctx.flightrec else ""
+        rec["arm_s"] = time.perf_counter() - t0
+        out["arms"][label] = rec
+        print(f"rank {rank} pipeline {label} ({spec}): losses "
+              f"{rec['losses']} final {rec['final_loss']}, step ms "
+              f"{rec['step_ms']}, launches {rec['launches']}, "
+              f"{rec['arm_s']:.1f} s", flush=True)
+        hvd.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def phase_pipeline(torch, out_dir: str) -> dict:
+    """Phase 12: the 4 rank workers of the pipeline and MoE arms, then
+    the 2 of the MoE oracle, on the one card. Returns the phase's record
+    with ``launches`` by path (``pipeline``, ``moe``), summed over each
+    family's arms."""
+    os.makedirs(out_dir, exist_ok=True)
+    parent = _free_parent(torch)
+    ranks, wall = run_workers(PIPE_CONFIG, 4, PIPE_TIMEOUT, out_dir)
+    ref_ranks, ref_wall = run_workers(MOE_REF_CONFIG, 2, PIPE_TIMEOUT,
+                                      out_dir)
+    res = {"wall_s": wall + ref_wall, "wall_n4_s": wall,
+           "wall_n2_s": ref_wall, "parent_gib": parent,
+           "label": "gloo, 4 processes on one card (the MoE oracle: 2); "
+                    "not NCCL or NVLink",
+           "families": {k: {kk: vv for kk, vv in v.items()}
+                        for k, v in PIPE_FAMILIES.items()},
+           "arms": {}}
+    by_arm = {label: [rk["arms"][label] for rk in ranks]
+              for label, *_ in PIPE_ARMS}
+    by_arm["moe_ref"] = [rk["arms"]["moe_ref"] for rk in ref_ranks]
+    launches = {"pipeline": {}, "moe": {}}
+    for label, fam, spec, init_kw, kw, optim_kind in PIPE_ARMS + \
+            MOE_REF_ARMS:
+        recs = by_arm[label]
+        check(all(rc["launches"] == recs[0]["launches"] for rc in recs),
+              f"pipeline {label}: ranks counted different launches")
+        check(all(rc["losses"] == recs[0]["losses"] for rc in recs),
+              f"pipeline {label}: ranks saw different global losses")
+        path = launches["pipeline" if fam == "pipe" else "moe"]
+        for k, v in recs[0]["launches"].items():
+            path[k] = path.get(k, 0) + v
+        first = last = None
+        if label in PIPE_LOSS_RTOL:
+            oracle, bound = PIPE_LOSS_RTOL[label]
+            ref = by_arm[oracle][0]
+            first = abs(recs[0]["losses"][0] - ref["losses"][0]) \
+                / abs(ref["losses"][0])
+            last = abs(recs[0]["final_loss"] - ref["final_loss"]) \
+                / abs(ref["final_loss"])
+            check(first <= bound and last <= bound,
+                  f"pipeline {label}: loss off {oracle}'s by {first:.2e} "
+                  f"(first step) and {last:.2e} (after the last) > {bound}")
+        step_ms = statistics.median(rc["step_ms_median"] for rc in recs)
+        rows, seq = PIPE_FAMILIES[fam]["rows"], PIPE_FAMILIES[fam]["seq"]
+        bytes_by_stage = {rc["stage"]: rc["bytes_per_step"] for rc in recs}
+        m = res["arms"][label] = {
+            "spec": spec, "family": fam, "init": init_kw,
+            **{k: str(v) for k, v in kw.items()}, "optimizer": optim_kind,
+            "step_ms_median": step_ms, "step_ms_rank0": recs[0]["step_ms"],
+            "tokens_per_s": rows * seq / (step_ms / 1e3),
+            "losses": recs[0]["losses"], "final_loss": recs[0]["final_loss"],
+            "first_loss_rel_to_oracle": first,
+            "final_loss_rel_to_oracle": last,
+            "launches_per_step": recs[0]["launches_per_step"],
+            "bytes_per_step_by_stage": bytes_by_stage,
+            "bytes_predicted_rank0": recs[0]["bytes_predicted"],
+            "peak_mem_gib": max(rc["peak_mem_gib"] for rc in recs),
+            "params_per_rank": [rc["params_per_rank"] for rc in recs],
+            "roles": [rc["role"] for rc in recs],
+            "arm_s_max": max(rc["arm_s"] for rc in recs),
+            "moe_stats": recs[0]["moe_stats"]}
+        print(f"pipeline {label} ({spec}; {res['label']}): GPT-2 medium"
+              f"{'-MoE' if fam == 'moe' else ''} at "
+              f"{PIPE_FAMILIES[fam]['layers']} layers, {rows} x {seq} "
+              f"global; step {step_ms:.1f} ms = {m['tokens_per_s']:.0f} "
+              f"tok/s; losses {m['losses']} final {m['final_loss']:.6f}"
+              + (f" (vs {PIPE_LOSS_RTOL[label][0]} {first:.2e}, "
+                 f"{last:.2e})" if first is not None else "")
+              + f"; launches a step {json.dumps(m['launches_per_step'])}; "
+              f"bytes a rank a step {json.dumps(bytes_by_stage)}; peak "
+              f"{m['peak_mem_gib']:.2f} GiB a rank; arm "
+              f"{m['arm_s_max']:.1f} s", flush=True)
+        if m["moe_stats"]:
+            print(f"pipeline {label} MoE stats (rank 0's layer 0): drop "
+                  f"{m['moe_stats']['layer0']['dropped_frac']:.4f}, load "
+                  f"{m['moe_stats']['layer0']['expert_load']}; mean drop "
+                  f"over its layers "
+                  f"{m['moe_stats']['dropped_frac_mean']:.4f}", flush=True)
+    # How the ep world combines expert gradients: the owner of each
+    # expert against the ep=1 oracle's gradient of the same step.
+    ref0 = next(rc for rc in by_arm["moe_ref"] if rc["stage"] == 0)
+    ratios = {}
+    for rc in by_arm["moe_ep"]:
+        if rc["stage"] != 0:
+            continue
+        for e, g in enumerate(rc["expert_grad_norms"]):
+            if g > 0:
+                ratios[e] = g / ref0["expert_grad_norms"][e]
+    check(len(ratios) == PIPE_FAMILIES["moe"]["moe"]["moe_experts"],
+          f"pipeline moe_ep: expert gradients owned {sorted(ratios)}")
+    res["expert_grad_ratio_ep_over_ref"] = ratios
+    print(f"pipeline moe_ep expert-bank gradient / moe_ref's, by expert "
+          f"(layer 0, first step): "
+          f"{json.dumps({e: round(r, 6) for e, r in ratios.items()})}",
+          flush=True)
+    res["launches"] = launches
+    with open(os.path.join(out_dir, "chip_smoke_pipeline.json"), "w") as f:
+        json.dump(dict(res, ranks=ranks, ref_ranks=ref_ranks), f, indent=1)
+    return res
+
+
 def _step_seconds(events: dict) -> list:
     """Rank 0's seconds between consecutive completed steps of one
     process (a clean run's step time, commits included)."""
@@ -6564,7 +7128,9 @@ def main(argv=None) -> int:
                   MESH_CONFIG: mesh_worker, ZERO_CONFIG: zero_worker,
                   OVERLAP_N2: overlap_worker,
                   OVERLAP_N4: overlap_worker,
-                  PARALLEL_CONFIG: parallel_worker}.get(argv[1],
+                  PARALLEL_CONFIG: parallel_worker,
+                  PIPE_CONFIG: pipeline_worker,
+                  MOE_REF_CONFIG: pipeline_worker}.get(argv[1],
                                                         rank_worker)
         worker(argv[1], int(argv[2]), argv[3])
         return 0
@@ -6647,6 +7213,8 @@ def main(argv=None) -> int:
         mark("autotune")
         parallel = phase_parallel(torch, args.out)
         mark("parallel")
+        pipe = phase_pipeline(torch, args.out)
+        mark("pipeline")
         n2 = multi["n2_gpt_medium"]["modes"]
         # Every path a kernel runs on, each counted from zero around it;
         # the mesh path (phase 7b) is one of them for K1-K4, K8 and K9.
@@ -6670,7 +7238,9 @@ def main(argv=None) -> int:
                        "elastic": elastic["launches"],
                        "telemetry": telemetry["launches"],
                        "autotune": autotune["launches"],
-                       "parallel": parallel["launches"]}
+                       "parallel": parallel["launches"],
+                       "pipeline": pipe["launches"]["pipeline"],
+                       "moe": pipe["launches"]["moe"]}
         # K1 runs on the eager path (pre/postscale) and as the guard's
         # unscale on the integrity path.
         paths["scale_buffer"] = {
@@ -6700,6 +7270,10 @@ def main(argv=None) -> int:
         # K2 and K4 on the ring_int8 arm's K/V hops.
         for name in ("quantize_int8", "dequantize_int8"):
             paths[name]["parallel"] = parallel["launches"]
+            # Phase 12: the pp_int8 arm's stage boundary and the
+            # moe_ep_int8 arm's ep exchanges.
+            paths[name]["pipeline"] = pipe["launches"]["pipeline"]
+            paths[name]["moe"] = pipe["launches"]["moe"]
         for name in FLASH_NAMES:
             paths[name] = flash_paths
         for name, rec in records.items():
@@ -6729,7 +7303,8 @@ def main(argv=None) -> int:
                              if k not in ("ranks", "join")},
                    "mesh": mesh, "zero": zero, "overlap": overlap,
                    "elastic": elastic, "telemetry": telemetry,
-                   "autotune": autotune, "parallel": parallel}, f, indent=1)
+                   "autotune": autotune, "parallel": parallel,
+                   "pipeline": pipe}, f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

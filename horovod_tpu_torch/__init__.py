@@ -94,7 +94,14 @@ Ported so far:
   ``shard_*``, ``combine_slice_grads``, ``tp_attention_qkv``), sequence
   parallelism (ring, striped ring and Ulysses attention on K5–K7,
   ``ops.collectives.mesh_alltoall``), ``GPT(tp_axis=, seq_parallel=)``
-  and ``DistributedOptimizer(parallel=)``.
+  and ``DistributedOptimizer(parallel=)``;
+* slice 16 — the rest of the parallel roles: the GPipe and 1F1B
+  pipeline (``pipeline_apply``, ``pipeline_train_step_1f1b``,
+  ``pipeline_accumulate_gradients``, ``select_last_stage``), GShard MoE
+  (``parallel.moe``, ``GPT(moe_experts=)``), per-layer remat
+  (``GPT(remat=True)``), ``DistributedOptimizer``/``ZeroOptimizer(
+  parallel=)`` over pp and ep specs, and the respec solver
+  (``solve_respec``, ``RespecDecision``, ``min_world``).
 
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request they raise.
@@ -153,6 +160,10 @@ from .checkpoint import (CheckpointManager, ObjectStore, restore_sharded,
 from .runner import run
 from .data import (BackgroundPrefetcher, DeviceInfeed, ElasticSampler,
                    infeed_pipeline, prefetch_to_device, shard_batch)
+from .parallel.pipeline import (pipeline_accumulate_gradients,
+                                pipeline_apply, pipeline_train_step_1f1b,
+                                select_last_stage)
+from .parallel.respec import RespecDecision, min_world, solve_respec
 from .parallel.spec import ParallelSpec
 from .parallel.tensor_parallel import (column_parallel,
                                        combine_slice_grads, row_parallel,
@@ -199,6 +210,8 @@ __all__ = [
     "sparse_allreduce_async", "start_timeline", "stop_timeline",
     "synchronize",
     "ParallelSpec", "parallel_spec", "parallel_mesh",
+    "pipeline_accumulate_gradients", "pipeline_apply",
+    "pipeline_train_step_1f1b", "select_last_stage",
     "column_parallel", "row_parallel", "tp_mlp", "tp_attention_qkv",
     "shard_column", "shard_row", "shard_heads", "shard_head_rows",
     "combine_slice_grads",
@@ -514,23 +527,3 @@ def flight_recorder():
     from .common import flightrec as _flightrec_lib
 
     return _flightrec_lib.recorder()
-
-
-# The JAX package's API that a later slice of the port brings, by slice.
-_LATER = {
-    "the pipeline and MoE slice": (
-        "pipeline_accumulate_gradients", "pipeline_apply",
-        "pipeline_train_step_1f1b", "select_last_stage", "solve_respec",
-        "RespecDecision", "min_world"),
-}
-_LATER_BY_NAME = {n: where for where, names in _LATER.items()
-                  for n in names}
-
-
-def __getattr__(name):
-    where = _LATER_BY_NAME.get(name)
-    if where is None:
-        raise AttributeError(f"module {__name__!r} has no attribute "
-                             f"{name!r}")
-    raise NotImplementedError(f"horovod_tpu_torch.{name} is not ported "
-                              f"yet; it comes with {where} of the port")

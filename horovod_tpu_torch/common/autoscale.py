@@ -42,9 +42,8 @@ interval.
 
 The role-aware parts of the JAX engine (replica-grouped scoring, a
 whole-replica floor, the ``respec`` action) need a hybrid ParallelSpec,
-which comes with the pipeline and MoE slice of the port (the
-role-aware elastic path): asking for one
-raises ``NotImplementedError`` naming it.
+which comes with the role-aware elastic slice of the port: asking for
+one raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -71,7 +70,7 @@ ENV_LOG = "HVD_TPU_AUTOSCALE_LOG"       # driver-side decision log (JSONL)
 KV_SCOPE = "autoscale"                  # rendezvous KV scope for reports
 
 ACTIONS = ("keep", "grow", "shrink", "evict", "respec")
-_ROLES_SLICE = "the pipeline and MoE slice"
+_ROLES_SLICE = "the role-aware elastic slice"
 
 # Pre-seeding every action at 0 makes "no decision yet" distinguishable
 # from "metrics broken" on the very first scrape.

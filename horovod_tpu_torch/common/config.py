@@ -134,6 +134,14 @@ RUNTIME_KNOBS = {
     "DISABLE_NATIVE": "skip the native acceleration library",
     # Sequence parallelism (parallel/ring_attention.py, ulysses.py).
     "SEQ_WIRE": "sequence K/V exchange wire (also a Config field)",
+    # Pipeline and expert parallelism (parallel/pipeline.py, moe.py).
+    "PP_WIRE": "pipeline stage-boundary wire (also a Config field)",
+    "MOE_WIRE": "MoE dispatch/combine wire default (also a Config "
+                "field)",
+    "MOE_OVERLAP_CHUNKS": "MoE capacity-chunk depth default (also a "
+                          "Config field)",
+    "MOE_CAPACITY_FACTOR": "MoE expert capacity factor default (also a "
+                           "Config field)",
     # Serve plane.
     "SERVE_LOG": "serve-controller decision log",
     "SERVE_TRACE": "request-span tracer enable (0 = shared no-op)",
@@ -265,6 +273,15 @@ class Config:
     # exchange format ("none" | "bf16" | "int8").
     parallel: Optional[str] = None
     seq_wire: Optional[str] = None
+    # The defaults a call takes when it passes None: the pipeline's
+    # stage-boundary wire ("none" | "bf16" | "int8"; parallel/pipeline.py)
+    # and the MoE dispatch's payload wire ("none" | "bf16" | "int8" |
+    # "auto"), capacity-chunk depth and capacity factor (parallel/moe.py,
+    # models/gpt.py MoeMlp).
+    pp_wire: Optional[str] = None
+    moe_wire: Optional[str] = None
+    moe_overlap_chunks: int = 1
+    moe_capacity_factor: float = 1.25
     # Elastic (common/elastic.py): poll the driver's topology version at
     # commit() and bound the process group's timeout by
     # stall_check_time_seconds, so a survivor of a dead peer raises.
@@ -305,6 +322,12 @@ class Config:
         c.elastic = _truthy(runtime_env("ELASTIC") or "0")
         c.parallel = runtime_env("PARALLEL") or None
         c.seq_wire = runtime_env("SEQ_WIRE") or None
+        c.pp_wire = runtime_env("PP_WIRE") or None
+        c.moe_wire = runtime_env("MOE_WIRE") or None
+        c.moe_overlap_chunks = env_int("MOE_OVERLAP_CHUNKS",
+                                       c.moe_overlap_chunks)
+        c.moe_capacity_factor = env_float("MOE_CAPACITY_FACTOR",
+                                          c.moe_capacity_factor)
         for name in ("stall_check_time_seconds",
                      "stall_shutdown_time_seconds"):
             raw = runtime_env(name.upper())

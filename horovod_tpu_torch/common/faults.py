@@ -49,11 +49,13 @@ site                    where it fires / what it does
                         ``State.commit()``): sleeps ``delay_s`` (a real
                         slow worker); ``scale`` inflates only the
                         reported step time
+``moe_skew``            ``parallel.moe.chaos_skew_gate`` (one hit a
+                        consulted step): bias the router toward expert
+                        ``target`` by ``scale`` (default 0 and 10)
 ======================  =================================================
 
-``moe_skew`` and ``replica_kill`` are known names (a plan that carries
-them parses as in the JAX package) whose sites come with the slices
-that hold them: MoE and the serve chaos family.
+``replica_kill`` is a known name (a plan that carries it parses as in
+the JAX package) whose site comes with the serve chaos family.
 
 Plan JSON: ``{"seed": 42, "faults": [{"site": ..., "step": N |
 "probability": p, "times": k, ...}]}`` (a bare list is accepted, seed 0).
@@ -361,6 +363,14 @@ def maybe_straggler() -> Optional[FaultSpec]:
     only inflates the reported step time."""
     inj = _injector
     return None if inj is None else inj.check("straggler")
+
+
+def maybe_moe_skew() -> Optional[FaultSpec]:
+    """``parallel.moe.chaos_skew_gate``'s site, one hit a consulted step:
+    the caller biases the router toward expert ``target`` by ``scale``,
+    a hot expert driven through the real gating and capacity path."""
+    inj = _injector
+    return None if inj is None else inj.check("moe_skew")
 
 
 def maybe_checkpoint_corrupt() -> Optional[FaultSpec]:

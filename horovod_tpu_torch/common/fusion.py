@@ -201,7 +201,13 @@ def assign_wire_dtypes(plan: FusionPlan, quantize_min_bytes: int,
     return dataclasses.replace(plan, wire_dtypes=tuple(wires))
 
 
-def assign_alltoall_wire(nbytes: int, quantize_min_bytes: int,
+#: The alltoall wire threshold outside an initialized world (the
+#: configured ``quantize_min_bucket_bytes`` default).
+A2A_QUANTIZE_MIN_BYTES = 64 * 1024
+
+
+def assign_alltoall_wire(nbytes: int,
+                         quantize_min_bytes: int = A2A_QUANTIZE_MIN_BYTES,
                          small_wire: str = WIRE_BF16) -> str:
     """Wire format of one alltoall payload of ``nbytes`` raw bytes (the
     eager ``alltoall(wire="auto")``): int8 at or above the threshold, the

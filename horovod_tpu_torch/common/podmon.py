@@ -26,7 +26,8 @@ background scraper in the DRIVER process that:
 Enable with ``hvdtpurun-torch --pod-metrics-port N``
 (``HVD_TPU_POD_METRICS_PORT``; 0 = ephemeral). Role-grouped views need a
 hybrid ParallelSpec's role-aware elastic path, which comes with the
-pipeline and MoE slice of the port: asking for one raises. Stdlib-only at import.
+role-aware elastic slice of the port: asking for one raises. Stdlib-only
+at import.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ ENV_PORT = "HVD_TPU_POD_METRICS_PORT"
 ENV_INTERVAL = "HVD_TPU_POD_METRICS_INTERVAL_S"
 ENV_ENDPOINTS = "HVD_TPU_POD_METRICS_ENDPOINTS"
 ENV_ADVERTISE = "HVD_TPU_METRICS_ADVERTISE"
-_ROLES_SLICE = "the pipeline and MoE slice"
+_ROLES_SLICE = "the role-aware elastic slice"
 
 KV_SCOPE = "podmon"                 # rendezvous KV scope for endpoints
 

@@ -7,8 +7,10 @@ without the top-level ``"params"`` key) and returns a ``state_dict``
 for :class:`~.gpt.GPT`, so the two packages compute the same function.
 ``gpt_params_to_jax`` is its inverse: a ``state_dict`` (parameters or
 their gradients) as the flax ``{"params": ...}`` tree of numpy arrays,
-so gradients and updated parameters compare leaf by leaf. This module
-imports no JAX: numpy arrays cross the boundary.
+so gradients and updated parameters compare leaf by leaf. Both carry a
+GPT-MoE layer's ``moe`` leaves; ``gpt_stage_params_from_jax`` takes the
+JAX pipeline's stacked stage layout into one stage's ``state_dict``.
+This module imports no JAX: numpy arrays cross the boundary.
 
 Layout differences handled here: flax ``nn.Dense`` kernels are
 ``(in, out)`` where ``nn.Linear`` weights are ``(out, in)``; flax
@@ -185,15 +187,50 @@ def _pair(family: str, rules: Rules, embeddings: Sequence[str] = ()
 _gpt_from_jax, gpt_params_to_jax = _pair("gpt", _GPT, ("tok_emb",))
 
 
+# MoeMlp's parameters keep their flax names and layouts: gate (h, E),
+# w_in (E, h, mlp), b_in (E, mlp), w_out (E, mlp, h), b_out (E, h).
+_MOE_LEAVES = ("gate", "w_in", "b_in", "w_out", "b_out")
+
+
 def gpt_params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax GPT params (numpy leaves) -> the port's GPT ``state_dict``."""
-    for key, node in tree.get("params", tree).items():
-        if key.startswith("layer") and ("attn" not in node
-                                        or "mlp_in" not in node):
-            raise ValueError(
-                f"{key}: not a dense GPT decoder layer (MoE layers are "
-                "not ported yet)")
-    return _gpt_from_jax(tree)
+    """flax GPT params (numpy leaves) -> the port's GPT ``state_dict``;
+    an MoE layer's ``moe`` leaves are carried as they are."""
+    params = dict(tree.get("params", tree))
+    moe = {}
+    for key, node in list(params.items()):
+        if not key.startswith("layer"):
+            continue
+        if "attn" not in node or not ("mlp_in" in node or "moe" in node):
+            raise ValueError(f"{key}: not a GPT decoder layer")
+        if "moe" in node:
+            node = dict(node)
+            for leaf, a in node.pop("moe").items():
+                if leaf not in _MOE_LEAVES:
+                    raise ValueError(f"{key}/moe: unknown leaf {leaf!r}")
+                moe[f"{_to_port_path([key], _GPT)}.moe.{leaf}"] = _tensor(a)
+            params[key] = node
+    out = _gpt_from_jax(params)
+    out.update(moe)
+    return out
+
+
+def gpt_stage_params_from_jax(stages: Mapping[str, Any],
+                              shared: Mapping[str, Any], stage: int
+                              ) -> Dict[str, torch.Tensor]:
+    """The JAX pipeline layout (``models.gpt.stack_stage_params``:
+    ``stages`` with leaves ``(num_stages, layers_per_stage, ...)``,
+    ``shared`` the ``tok_emb``/``final_ln`` tree; numpy leaves) -> the
+    ``state_dict`` of pipeline stage ``stage``: a port GPT built with
+    ``layers_per_stage`` layers, its layers ``layers.0..`` the stage's."""
+    def pick(node, j):
+        return {k: pick(v, j) if isinstance(v, Mapping)
+                else np.asarray(v)[stage, j] for k, v in node.items()}
+
+    first = next(iter(_leaves(stages)))[1]
+    lps = np.asarray(first).shape[1]
+    tree = {f"layer{j}": pick(stages, j) for j in range(lps)}
+    tree.update(shared)
+    return gpt_params_from_jax(tree)
 
 
 bert_params_from_jax, bert_params_to_jax = _pair("bert", _BERT, ("tok_emb",))

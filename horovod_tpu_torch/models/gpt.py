@@ -28,8 +28,21 @@ shards, ``num_heads % n == 0``), RoPE taking this rank's GLOBAL
 positions. Either way the parameters stay the dense model's replicated
 tree, sliced in the forward, so one checkpoint (and the JAX converter)
 serves the dense model and its tp/sp twins, and
-``DistributedOptimizer(parallel=)`` combines the slice gradients. MoE
-and per-layer remat come with the pipeline and MoE slice and raise.
+``DistributedOptimizer(parallel=)`` combines the slice gradients.
+
+``GPT(moe_experts=E, moe_axis=, moe_route=, moe_wire=, ...)`` swaps each
+layer's dense MLP for :class:`MoeMlp` (GShard top-2 over an expert-
+parallel world, ``parallel/moe.py``); ``GPT(remat=True)`` runs each
+decoder layer under ``torch.utils.checkpoint`` (non-reentrant): its
+activations are recomputed in the backward, the values unchanged.
+
+The pipeline helpers: :func:`stack_stage_params` splits a GPT state dict
+into per-stage layer dicts and the shared ``tok_emb``/``final_ln``;
+:func:`pipeline_fns` gives the ``(stage_fn, pre_fn, loss_fn)`` closures
+``parallel.pipeline.pipeline_accumulate_gradients`` takes, for a stage
+model (a GPT built with the stage's layer count: each pipeline rank
+holds only its own layers); :func:`param_bytes` and
+:func:`activation_bytes` are the JAX package's memory accounting.
 """
 
 from __future__ import annotations
@@ -241,13 +254,91 @@ class CausalSelfAttention(nn.Module):
         return _dense(self.out, o, self.dtype), cache
 
 
+class MoeMlp(nn.Module):
+    """The expert-parallel FFN that replaces a layer's dense MLP under
+    ``GPT(moe_experts=E)`` (the JAX package's ``MoeMlp``): GShard top-2
+    gating and the all-to-all dispatch over the ``axis_name``/``route``
+    ep world (``parallel/moe.py``), each expert a tanh-GELU MLP in the
+    compute dtype. Parameters, in the flax layout: ``gate`` (h, E),
+    ``w_in`` (E, h, mlp), ``b_in`` (E, mlp), ``w_out`` (E, mlp, h),
+    ``b_out`` (E, h). The expert bank is REPLICATED: every rank stores
+    all E experts and uses its own ``E / n``; backprop through the
+    exchange brings every rank's cotangents to each expert's owner.
+
+    After each forward, ``aux`` holds the load-balancing loss and
+    ``local_stats`` this rank's drop/load counts, which
+    ``GPT.moe_stats()`` sums over the ep world when asked (the JAX model
+    sows them into ``intermediates``, dead unless asked for; the forward
+    runs no collective for them). ``capacity_factor``, ``wire`` and
+    ``overlap_chunks`` left None take ``parallel.moe.moe_defaults`` at
+    each forward. ``generator`` (a ``torch.Generator`` on the
+    parameters' device, None by default) feeds the router noise when
+    ``router_noise > 0``."""
+
+    def __init__(self, hidden: int, num_experts: int, mlp_dim: int,
+                 capacity_factor: Optional[float] = None,
+                 dtype: torch.dtype = torch.bfloat16, axis_name=None,
+                 route=None, wire: Optional[str] = None,
+                 overlap_chunks: Optional[int] = None,
+                 router_noise: float = 0.0):
+        super().__init__()
+        e = num_experts
+        self.num_experts = e
+        self.capacity_factor = capacity_factor
+        self.dtype = dtype
+        self.axis_name = axis_name
+        self.route = route
+        self.wire = wire
+        self.overlap_chunks = overlap_chunks
+        self.router_noise = router_noise
+        self.generator: Optional[torch.Generator] = None
+        self.gate = nn.Parameter(torch.zeros(hidden, e))
+        self.w_in = nn.Parameter(torch.zeros(e, hidden, mlp_dim))
+        self.b_in = nn.Parameter(torch.zeros(e, mlp_dim))
+        self.w_out = nn.Parameter(torch.zeros(e, mlp_dim, hidden))
+        self.b_out = nn.Parameter(torch.zeros(e, hidden))
+        self.aux: Optional[torch.Tensor] = None
+        self.local_stats = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from ..parallel import moe as moe_lib
+
+        b, s, h = x.shape
+        n = moe_lib.ep_size(self.axis_name, self.route)
+        e_local = self.num_experts // n
+        base = moe_lib.ep_index(self.axis_name, self.route) * e_local
+        dt = self.dtype
+
+        def expert_fn(local_idx: int, tokens: torch.Tensor):
+            ge = base + local_idx                    # the global expert id
+            y = F.gelu(tokens @ self.w_in[ge].to(dt) + self.b_in[ge].to(dt),
+                       approximate="tanh")
+            return (y @ self.w_out[ge].to(dt)
+                    + self.b_out[ge].to(dt)).to(tokens.dtype)
+
+        noisy = self.router_noise > 0 and self.generator is not None
+        y, self.aux, self.local_stats = moe_lib._moe_layer(
+            x.reshape(b * s, h), self.gate, expert_fn, self.num_experts,
+            self.capacity_factor, self.axis_name, self.route, self.wire,
+            self.overlap_chunks, None,
+            self.router_noise if noisy else 0.0, None, self.generator,
+            True)
+        return y.reshape(b, s, h).to(x.dtype)
+
+
 class DecoderLayer(nn.Module):
-    """Pre-LN block: attention, then the dense tanh-GELU MLP."""
+    """Pre-LN block: attention, then the dense tanh-GELU MLP (or, with
+    ``moe_experts``, the :class:`MoeMlp`)."""
 
     def __init__(self, hidden: int, num_heads: int, mlp_dim: int,
                  dtype: torch.dtype = torch.bfloat16, tp_axis=None,
                  seq_axis=None, seq_impl: str = "ring",
-                 seq_wire: Optional[str] = None):
+                 seq_wire: Optional[str] = None, moe_experts: int = 0,
+                 moe_capacity_factor: Optional[float] = None,
+                 moe_axis=None, moe_route=None,
+                 moe_wire: Optional[str] = None,
+                 moe_overlap_chunks: Optional[int] = None,
+                 moe_router_noise: float = 0.0):
         super().__init__()
         self.dtype = dtype
         self.tp_axis = tp_axis
@@ -255,8 +346,15 @@ class DecoderLayer(nn.Module):
         self.attn = CausalSelfAttention(hidden, num_heads, dtype, tp_axis,
                                         seq_axis, seq_impl, seq_wire)
         self.ln2 = nn.LayerNorm(hidden, eps=LN_EPS)
-        self.mlp_in = nn.Linear(hidden, mlp_dim)
-        self.mlp_out = nn.Linear(mlp_dim, hidden)
+        self.moe = None
+        if moe_experts:
+            self.moe = MoeMlp(hidden, moe_experts, mlp_dim,
+                              moe_capacity_factor, dtype, moe_axis,
+                              moe_route, moe_wire, moe_overlap_chunks,
+                              moe_router_noise)
+        else:
+            self.mlp_in = nn.Linear(hidden, mlp_dim)
+            self.mlp_out = nn.Linear(mlp_dim, hidden)
 
     def forward(self, x, cache=None, cache_ctx=None, attend_fn=None):
         """``x`` -> ``x`` (full sequence), or ``(x, cache)`` with a
@@ -268,6 +366,9 @@ class DecoderLayer(nn.Module):
             a, cache = self.attn(y, cache, cache_ctx)
             x = x + a
         y = _layer_norm(self.ln2, x, self.dtype)
+        if self.moe is not None:
+            out = x + self.moe(y)
+            return out if cache is None else (out, cache)
         if self.tp_axis:
             # The column/row-parallel pair over the master kernels (their
             # (in, out) views): one allreduce for the whole MLP.
@@ -313,14 +414,13 @@ class GPT(nn.Module):
                  attend_fn: Optional[AttendFn] = None,
                  tp_axis=None, seq_parallel=None, seq_impl: str = "ring",
                  seq_wire: Optional[str] = None,
-                 moe_experts: int = 0, remat: bool = False):
+                 moe_experts: int = 0, remat: bool = False,
+                 moe_capacity_factor: Optional[float] = None,
+                 moe_axis=None, moe_route=None,
+                 moe_wire: Optional[str] = None,
+                 moe_overlap_chunks: Optional[int] = None,
+                 moe_router_noise: float = 0.0):
         super().__init__()
-        for name, value in (("moe_experts", moe_experts),
-                            ("remat", remat)):
-            if value:
-                raise NotImplementedError(
-                    f"GPT({name}=...) is not ported yet; it comes with "
-                    "the pipeline and MoE slice of the port")
         if seq_impl not in SEQ_IMPLS:
             raise ValueError(f"unknown seq_impl {seq_impl!r}; choose from "
                              f"{SEQ_IMPLS}")
@@ -338,10 +438,22 @@ class GPT(nn.Module):
         self.mlp_dim = mlp_dim
         self.dtype = dtype
         self.attend_fn = attend_fn
+        #: Per-layer remat, and the MoE fields (``moe_experts`` 0: the
+        #: dense MLP) every layer's :class:`MoeMlp` takes.
+        self.remat = bool(remat)
+        self.moe_experts = moe_experts
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_axis = moe_axis
+        self.moe_route = moe_route
+        self.moe_wire = moe_wire
+        self.moe_overlap_chunks = moe_overlap_chunks
+        self.moe_router_noise = moe_router_noise
         self.tok_emb = nn.Embedding(vocab_size, hidden)
         self.layers = nn.ModuleList(
             DecoderLayer(hidden, num_heads, mlp_dim, dtype, tp_axis,
-                         seq_parallel, seq_impl, seq_wire)
+                         seq_parallel, seq_impl, seq_wire, moe_experts,
+                         moe_capacity_factor, moe_axis, moe_route,
+                         moe_wire, moe_overlap_chunks, moe_router_noise)
             for _ in range(num_layers))
         self.final_ln = nn.LayerNorm(hidden, eps=LN_EPS)
 
@@ -359,6 +471,11 @@ class GPT(nn.Module):
             elif isinstance(module, nn.LayerNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
+            elif isinstance(module, MoeMlp):
+                for w in (module.gate, module.w_in, module.w_out):
+                    w.normal_(0.0, 0.02, generator=generator)
+                module.b_in.zero_()
+                module.b_out.zero_()
         self.tok_emb.weight.normal_(0.0, self.hidden ** -0.5,
                                     generator=generator)
         return self
@@ -377,9 +494,40 @@ class GPT(nn.Module):
             with torch.no_grad():
                 return self._forward_cached(tokens, cache)
         x = self.tok_emb(tokens.long()).to(self.dtype)
+        return self._head(self.run_layers(x))
+
+    def run_layers(self, x: torch.Tensor) -> torch.Tensor:
+        """The decoder layers on activations ``x`` (B, S, hidden), each
+        under ``torch.utils.checkpoint`` with ``remat`` while autograd
+        records."""
         for layer in self.layers:
-            x = layer(x, attend_fn=self.attend_fn)
-        return self._head(x)
+            if self.remat and torch.is_grad_enabled():
+                from torch.utils.checkpoint import checkpoint
+
+                x = checkpoint(layer, x, attend_fn=self.attend_fn,
+                               use_reentrant=False)
+            else:
+                x = layer(x, attend_fn=self.attend_fn)
+        return x
+
+    def moe_aux(self) -> Optional[torch.Tensor]:
+        """The sum of the last forward's MoE load-balancing losses over
+        the layers (the JAX model's sown ``moe_aux``); None for a dense
+        model."""
+        aux = [l.moe.aux for l in self.layers
+               if l.moe is not None and l.moe.aux is not None]
+        return sum(aux) if aux else None
+
+    def moe_stats(self) -> list:
+        """Each MoE layer's drop/load statistics of the last forward (the
+        sown ``moe_stats``; ``parallel.moe.record_moe_stats`` publishes
+        one), summed over the ep world here: one allreduce a layer, so
+        every rank of that world calls this together."""
+        from ..parallel import moe as moe_lib
+
+        return [moe_lib.reduce_moe_stats(l.moe.local_stats)
+                for l in self.layers
+                if l.moe is not None and l.moe.local_stats is not None]
 
     def _forward_cached(self, tokens: torch.Tensor, cache: Dict[str, Any]):
         b, s_in = tokens.shape
@@ -447,3 +595,133 @@ def init_kv_cache(model: GPT, slots: int, max_len: int,
                              model.hidden // model.num_heads,
                              kind=kind, dtype=model.dtype,
                              device=resolve_device(device))
+
+
+# -- the pipeline helpers -----------------------------------------------------
+
+def activation_bytes(model: GPT, batch: int, seq_len: int,
+                     dtype_bytes: int = 4) -> int:
+    """Analytic per-rank activation accounting of one training step (the
+    JAX package's): per decoder layer and token ``10 * hidden + 2 *
+    mlp_dim`` values, plus ``hidden + vocab`` for the embedding and the
+    logits; linear in ``seq_len``, so sequence parallelism over n ranks
+    divides it by n."""
+    per_tok_layer = 10 * model.hidden + 2 * model.mlp_dim
+    per_tok = (model.num_layers * per_tok_layer + model.hidden
+               + model.vocab_size)
+    return int(batch) * int(seq_len) * per_tok * int(dtype_bytes)
+
+
+def param_bytes(params) -> int:
+    """Total bytes of a parameter tree: a module, a state dict, or any
+    nest of tensors."""
+    from ..common import tree as tree_lib
+
+    return sum(t.numel() * t.element_size()
+               for t in tree_lib.tensors(params))
+
+
+#: The state-dict entries every pipeline stage holds besides its layers.
+SHARED_KEYS = ("tok_emb.weight", "final_ln.weight", "final_ln.bias")
+
+
+def stack_stage_params(params, num_stages: int):
+    """Split a GPT state dict (or a GPT) into the pipeline layout:
+    ``(stages, shared)`` where ``stages[s]`` holds stage ``s``'s decoder
+    layers renumbered from 0 (``layers.{j}...``), so it loads into a
+    ``GPT`` built with ``num_layers // num_stages`` layers, and
+    ``shared`` holds ``tok_emb`` and ``final_ln``, which both pipeline
+    ends use. The JAX package stacks the stages on a leading axis for
+    ``shard_map``; here each pipeline rank holds only its own stage.
+    Raises when the layers do not divide into the stages."""
+    if isinstance(params, nn.Module):
+        params = params.state_dict()
+    layer_ids = sorted({int(k.split(".")[1]) for k in params
+                        if k.startswith("layers.")})
+    n_layers = len(layer_ids)
+    if num_stages < 1 or n_layers % num_stages:
+        raise ValueError(f"{n_layers} decoder layers do not divide into "
+                         f"{num_stages} pipeline stages")
+    lps = n_layers // num_stages
+    stages = []
+    for s in range(num_stages):
+        stage = {}
+        for k, v in params.items():
+            parts = k.split(".")
+            if parts[0] != "layers":
+                continue
+            i = int(parts[1])
+            if s * lps <= i < (s + 1) * lps:
+                stage[".".join(["layers", str(i - s * lps)] + parts[2:])] = v
+        stages.append(stage)
+    shared = {k: v for k, v in params.items() if not k.startswith("layers.")}
+    return stages, shared
+
+
+class _Stage(nn.Module):
+    """A stage's decoder layers as one module (the parameter names are
+    the GPT's ``layers.{j}...``), for ``torch.func.functional_call``."""
+
+    def __init__(self, model: GPT):
+        super().__init__()
+        self.layers = model.layers
+        self.model = [model]           # not a submodule: no extra names
+
+    def forward(self, x):
+        return self.model[0].run_layers(x)
+
+
+def stage_params(model: GPT) -> Dict[str, torch.Tensor]:
+    """The stage tree of a stage model: its decoder layers' parameters by
+    name (the ``stage_params`` ``pipeline_fns``'s ``stage_fn`` takes)."""
+    return {n: p for n, p in model.named_parameters()
+            if n.startswith("layers.")}
+
+
+def shared_params(model: GPT) -> Dict[str, torch.Tensor]:
+    """The shared tree of a stage model: ``tok_emb`` and ``final_ln``."""
+    return {n: p for n, p in model.named_parameters()
+            if not n.startswith("layers.")}
+
+
+def pipeline_fns(model: GPT):
+    """The ``(stage_fn, pre_fn, loss_fn)`` closures that plug a GPT into
+    ``parallel.pipeline.pipeline_accumulate_gradients``; ``model`` is
+    this rank's stage (a GPT with the stage's layer count):
+
+    - ``stage_fn(stage_params, x)`` runs the decoder layers on ``x`` with
+      the parameters of the ``stage_params`` dict (:func:`stage_params`'s
+      names; the model's own tensors take the direct path, others go
+      through ``torch.func.functional_call``), carrying the model's
+      tp/sp/MoE fields and per-layer remat;
+    - ``pre_fn(shared, tokens)``: the embedding lookup in the compute
+      dtype (stage 0's input);
+    - ``loss_fn(shared, out, targets)``: the final LayerNorm, the tied
+      head (bf16-rounded operands, fp32 accumulation, as the model's own
+      head) and the mean next-token cross-entropy (the last stage's).
+
+    The closures are deterministic, as the 1F1B schedule's recompute
+    from stored inputs needs (no dropout in this decoder)."""
+    stage = _Stage(model)
+    own = stage_params(model)
+
+    def stage_fn(params: Dict[str, torch.Tensor], x: torch.Tensor):
+        if params.keys() == own.keys() and all(
+                params[k] is own[k] for k in own):
+            return stage(x)
+        return torch.func.functional_call(stage, params, (x,))
+
+    def pre_fn(shared: Dict[str, torch.Tensor], tokens: torch.Tensor):
+        return F.embedding(tokens.long(),
+                           shared["tok_emb.weight"]).to(model.dtype)
+
+    def loss_fn(shared: Dict[str, torch.Tensor], out: torch.Tensor,
+                targets: torch.Tensor):
+        x = F.layer_norm(out.to(torch.float32), (model.hidden,),
+                         shared["final_ln.weight"], shared["final_ln.bias"],
+                         LN_EPS).to(model.dtype)
+        emb = shared["tok_emb.weight"].to(model.dtype).to(torch.float32)
+        return next_token_loss(torch.matmul(x.to(torch.float32), emb.t()),
+                               targets)
+
+    return stage_fn, pre_fn, loss_fn

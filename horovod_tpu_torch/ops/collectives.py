@@ -362,10 +362,13 @@ def ppermute(x: torch.Tensor, perm, axis=None) -> torch.Tensor:
         send[dst[0]] = flat.numel()
     if src:
         recv[src[0]] = flat.numel()
-    out = torch.empty_like(flat) if src else torch.zeros_like(flat)
-    dist.all_to_all_single(out, flat, output_split_sizes=recv,
-                           input_split_sizes=send, group=ax.group)
-    return out.reshape(x.shape)
+    # A rank that sends nothing passes an empty input, one that receives
+    # nothing an empty output (the split sizes must add up to each).
+    out = torch.empty_like(flat) if src else flat.new_empty(0)
+    dist.all_to_all_single(out, flat if dst else flat[:0],
+                           output_split_sizes=recv, input_split_sizes=send,
+                           group=ax.group)
+    return out.reshape(x.shape) if src else torch.zeros_like(x)
 
 
 def pair_exchange(x: torch.Tensor, partner: int, axis=None) -> torch.Tensor:
@@ -1049,6 +1052,12 @@ def mesh_allreduce(x: torch.Tensor, op: ReduceOp = ReduceOp.AVERAGE,
     work_dtype = torch.float32 if (any_int8 or return_residual) else x.dtype
     grid = total * (_Q_BLOCK if any_int8 else 1)
     L = -(-size // grid) * grid
+    if total == 1 and not any_int8 and not return_residual \
+            and op != ReduceOp.ADASUM:
+        # One rank on every axis (a spec's dp=1): nothing to reduce and
+        # nothing on the wire; the sum and the average are x itself.
+        _count_mesh_bytes(plan, size, ns, op)
+        return x.clone()
     buf = torch.nn.functional.pad(x.reshape(-1).to(work_dtype),
                                   (0, L - size))
     _count_mesh_bytes(plan, L, ns, op)
@@ -1126,16 +1135,29 @@ def _ppermute_wire(x: torch.Tensor, axis, perm, wire: str, key
     """One permutation hop in a wire format: ``none`` native, ``bf16``
     cast around it, ``int8`` block-scaled codes (K2, or K3 with a key)
     and their scales, dequantized on arrival by K4. Zero rows stay exact
-    zeros in every format."""
+    zeros in every format. Under int8 a rank that is no source of
+    ``perm`` quantizes nothing (it sends no codes) and one that is no
+    destination dequantizes nothing (it gets zeros)."""
     if wire == "bf16":
         return ppermute(x.to(torch.bfloat16), perm, axis).to(x.dtype)
     if wire == "int8":
+        me = _axis(axis).index
         size = x.numel()
-        flat = x.to(torch.float32).reshape(-1)
-        q, s = _int8_chunks(torch.nn.functional.pad(
-            flat, (0, -size % _Q_BLOCK)), 1, key)
-        return _deq_to(ppermute(q[0], perm, axis),
-                       ppermute(s[0], perm, axis), size, x.shape, x.dtype)
+        padded = size + (-size % _Q_BLOCK)
+        if any(s == me for s, _ in perm):
+            flat = x.to(torch.float32).reshape(-1)
+            q, s = _int8_chunks(torch.nn.functional.pad(
+                flat, (0, padded - size)), 1, key)
+            q, s = q[0], s[0]
+        else:
+            q = torch.zeros((padded // 128, 128), dtype=torch.int8,
+                            device=x.device)
+            s = torch.zeros(padded // _Q_BLOCK, dtype=torch.float32,
+                            device=x.device)
+        q, s = ppermute(q, perm, axis), ppermute(s, perm, axis)
+        if not any(d == me for _, d in perm):
+            return torch.zeros_like(x)
+        return _deq_to(q, s, size, x.shape, x.dtype)
     return ppermute(x, perm, axis)
 
 

@@ -1352,11 +1352,17 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
 
     ``parallel`` (a ParallelSpec, a role dict or a spec string; explicit
     only, as in the JAX package) reduces over the spec's ``dp`` axis
-    alone, after every bucket is pmean-combined over ``tp`` and then
-    ``sp`` (``parallel.tensor_parallel.combine_slice_grads``). The world
-    must have been made with the same spec (``init(parallel=)``); the
-    spec needs a dp axis, and ``route=``, if given, must run over exactly
-    the dp axes."""
+    alone, through the mesh router (``spec.grad_route()`` unless
+    ``route=`` is given), after every bucket is pmean-combined over
+    ``tp`` and then ``sp`` (``parallel.tensor_parallel.
+    combine_slice_grads``); ``pp`` and ``ep`` gradients are this rank's
+    own, as in the JAX package (a pipeline stage's shared gradients are
+    already summed over ``pp`` by ``pipeline_accumulate_gradients``). A
+    ``dp=1`` spec binds a one-rank dp axis whose reduction is a no-op.
+    With ``zero_stage`` the spec goes to ``ZeroOptimizer(parallel=)``.
+    The world must have been made with the same spec
+    (``init(parallel=)``); the spec needs a dp axis, and ``route=``, if
+    given, must run over exactly the dp axes."""
     op = C.ReduceOp(op)
     pspec, combine_axes = _resolve_parallel(parallel, route, process_set,
                                             zero_stage, op)
@@ -1383,17 +1389,21 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
             fusion_threshold_bytes=fusion_threshold_bytes,
             compression=compression, nonfinite_policy=nonfinite_policy,
             route=route, accum_steps=accum_steps, remat_policy=remat_policy,
-            overlap=overlap)
+            overlap=overlap, parallel=pspec)
     if gradient_predivide_factor != 1.0 and op != C.Average:
         raise ValueError("gradient_predivide_factor requires op=Average")
     axis = None
     if process_set is not None:
         process_set.engine      # registered, and this rank a member
         axis = process_set.axis
-    if pspec is not None:
-        axis = basics.context().axis(pspec.dp_axes[0])
     plan = _resolve_route(route) if pspec is None or route is not None \
-        else None
+        else pspec.grad_route()
+    if pspec is not None:
+        # Without a route= the reduction runs through the mesh router over
+        # the dp axis, not the flat allreduce: the router stamps the
+        # per-axis byte counter (hvd_tpu_allreduce_bytes_total{axis="dp"})
+        # and pins the plan, so the HVD_TPU_ROUTE default cannot apply.
+        axis = basics.context().axis(pspec.dp_axes[0])
     if plan is not None and process_set is not None:
         raise ValueError("route= and process_set= do not combine: a route "
                          "runs over the world's mesh axes")
@@ -1454,13 +1464,6 @@ def _resolve_parallel(parallel, route, process_set, zero_stage, op):
     from .parallel.spec import ParallelSpec
 
     pspec = ParallelSpec.resolve(parallel)
-    later = [r for r in ("pp", "ep") if pspec.size_of(r) > 1]
-    if later or zero_stage:
-        what = (f"a spec with {'/'.join(later)}" if later
-                else "zero_stage with a parallel spec")
-        raise NotImplementedError(
-            f"DistributedOptimizer(parallel=...): {what} is not ported "
-            "yet; it comes with the pipeline and MoE slice of the port")
     if not pspec.dp_axes:
         raise ValueError(
             f"parallel spec {pspec.describe()!r} has no dp axis — with "

@@ -1,0 +1,401 @@
+"""Pipeline parallelism — GPipe and 1F1B microbatching over a ``pp`` axis;
+the port of ``horovod_tpu/parallel/pipeline.py``.
+
+Each pp rank is one process that holds only its own stage's parameters,
+which is the memory pipeline parallelism is bought for. Activations move
+one stage a tick through ``collectives.wired_ppermute`` (the stage
+boundary's wire: ``"none"``, ``"bf16"`` or ``"int8"`` — block-scaled
+codes by K2, K3 with a key, dequantized by K4 — from ``wire=`` /
+``init(pp_wire=)`` / ``HVD_TPU_PP_WIRE``). Three surfaces:
+
+- :func:`pipeline_apply` — GPipe fill-drain forward, differentiated by
+  autograd. It keeps the JAX lockstep form: every rank computes and
+  sends on every tick, so every rank's graph holds the same hops and the
+  backward's inverse sends pair up across ranks.
+- :func:`pipeline_train_step_1f1b` — the 1F1B (PipeDream-flush)
+  schedule: stage ``s`` runs the forward of microbatch ``f`` at tick
+  ``2f + s`` and the backward of microbatch ``b`` at tick ``2b + 2n - 1
+  - s``, so at most ``n`` stored inputs live on a rank. The forward runs
+  without autograd; the backward recomputes the stage from its stored
+  input and takes its vector-Jacobian product.
+- :func:`pipeline_accumulate_gradients` — the 1F1B schedule as an
+  accumulation step: fp32 accumulators, MEAN gradients over the
+  microbatches, the shared (embedding and head) gradients summed over pp.
+
+The JAX module runs the 1F1B ticks as one SPMD program, so every device
+evaluates a gated dummy forward and backward (and sends a dummy payload)
+in the slots the schedule leaves idle. Here each rank runs only its live
+slots, and each tick's exchange is a ``ppermute`` whose permutation
+holds only the pairs with a live payload (every rank derives it from the
+static schedule; a tick with none skips the exchange). The values are
+the JAX schedule's; the dummy work and its sends are gone.
+
+``hvd_tpu_pipeline_activation_bytes_total{wire,axis}`` counts the bytes
+this rank put on the wire at the stage boundary (int8 with its fp32
+block scales): the 1F1B schedule's actual sends, and for
+:func:`pipeline_apply` the JAX planned count (its forward ticks times
+the payload). The shared gradients' sum over pp is a combine, not a
+gradient reduction: it stamps no ``hvd_tpu_allreduce_bytes_total``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, List, Optional
+
+import torch
+from torch.utils import _pytree as pytree
+
+from ..common import metrics as metrics_lib
+from ..ops import collectives as C
+
+_METRICS_ON = metrics_lib.enabled()
+_M_ACT_BYTES = metrics_lib.counter(
+    "hvd_tpu_pipeline_activation_bytes_total",
+    "pipeline stage-boundary bytes on the wire (forward activations + "
+    "backward cotangents) by wire format and mesh axis — per-device "
+    "planned bytes per compiled schedule (ticks x payload; int8 "
+    "includes the per-4096-block fp32 scales)",
+    labels=("wire", "axis"))
+
+#: Stage-boundary bytes this process sent, by axis name (the counter's
+#: totals, kept whether or not the metrics registry is on).
+ACTIVATION_BYTES = {}
+
+
+def _resolve_pp_wire(explicit: Optional[str]) -> str:
+    """None -> the configured default (``init(pp_wire=)`` /
+    ``HVD_TPU_PP_WIRE``, else ``"none"``); an explicit value wins."""
+    if explicit is not None:
+        return explicit
+    from ..common import basics
+
+    if basics.is_initialized():
+        return basics.context().config.pp_wire or "none"
+    from ..common.config import runtime_env
+
+    return runtime_env("PP_WIRE") or "none"
+
+
+def _count_send_bytes(axis_name: str, wire: str, nelems: int,
+                      itemsize: int, sends: int) -> None:
+    if sends <= 0 or nelems <= 0:
+        return
+    b = float(sends) * float(nelems) * C._wire_elem_bytes(wire, itemsize)
+    ACTIVATION_BYTES[axis_name] = ACTIVATION_BYTES.get(axis_name, 0.0) + b
+    if _METRICS_ON:
+        _M_ACT_BYTES.labels(wire=wire, axis=axis_name).inc(b)
+
+
+def _send(x: torch.Tensor, ax, perm, wire: str, key, salt: int):
+    """One stage-boundary hop in the schedule's wire (``key`` folded by
+    ``salt``, the tick, so every tick rounds independently)."""
+    kk = None if key is None else C.fold_in(key, salt)
+    return C.wired_ppermute(x, ax, perm, wire=wire, key=kk)
+
+
+def select_last_stage(outs: torch.Tensor, axis_name="pp") -> torch.Tensor:
+    """The last stage's ``outs`` on every pp rank: the sum over the axis
+    of the value masked to the last stage (``collectives.tp_allreduce``:
+    differentiable, its backward the same sum). The mask is a tensor, so
+    every rank's graph holds the same exchange."""
+    ax = C._axis(axis_name)
+    keep = torch.tensor(ax.index == ax.size - 1, device=outs.device)
+    masked = torch.where(keep, outs, torch.zeros_like(outs))
+    return C.tp_allreduce(masked, ax)
+
+
+def pipeline_apply(stage_fn: Callable, stage_params, x_micro: torch.Tensor,
+                   axis_name="pp", wire: Optional[str] = None, key=None):
+    """Run microbatches through the stage pipeline (GPipe fill-drain).
+
+    ``stage_fn(params, activation) -> activation`` is the same function
+    on every rank; ``stage_params`` this rank's stage; ``x_micro``
+    ``(n_micro, B, ...)`` (only stage 0's is read). Returns ``(n_micro,
+    B, ...)``: the last stage's outputs there, other ranks' values
+    meaningless (select with :func:`select_last_stage`). Differentiable:
+    ``wire="int8"`` sends carry the straight-through gradient. Every rank
+    computes and sends on every tick (the lockstep form, see the module
+    docstring); the forward sends' bytes are stamped."""
+    wire = _resolve_pp_wire(wire)
+    ax = C._axis(axis_name)
+    n, idx = ax.size, ax.index
+    n_micro = x_micro.shape[0]
+    total = n_micro + n - 1
+    float_wire = x_micro.is_floating_point()
+    _count_send_bytes(ax.name, wire if float_wire else "none",
+                      math.prod(x_micro.shape[1:]), x_micro.element_size(),
+                      total if n > 1 else 0)
+    perm = [(j, (j + 1) % n) for j in range(n)]
+    first = torch.tensor(idx == 0, device=x_micro.device)
+    carry = torch.zeros_like(x_micro[0])
+    outs: List[torch.Tensor] = []
+    for t in range(total):
+        inp = torch.where(first, x_micro[min(t, n_micro - 1)], carry)
+        out = stage_fn(stage_params, inp)
+        if t >= n - 1:
+            outs.append(out)
+        # Every tick sends, the last one too (its payload goes unused on
+        # every rank, so no rank runs that hop's backward).
+        carry = _send(out, ax, perm, wire, key, t) if n > 1 else out
+    return torch.stack(outs)
+
+
+def _fwd_live(s: int, t: int, m: int) -> bool:
+    tf = t - s
+    return tf >= 0 and tf % 2 == 0 and tf // 2 < m
+
+
+def _bwd_live(s: int, t: int, m: int, n: int) -> bool:
+    tb = t - (2 * n - 1 - s)
+    return tb >= 0 and tb % 2 == 0 and tb // 2 < m
+
+
+def _acc(acc, new, fp32: bool):
+    """``acc + new`` leaf by leaf (a missing gradient counts as zeros;
+    floats accumulate in fp32 with ``fp32``)."""
+    out = []
+    for a, g in zip(acc, new):
+        if g is None:
+            out.append(a)
+            continue
+        g = g.detach()
+        if fp32 and g.is_floating_point():
+            g = g.to(torch.float32)
+        out.append(g if a is None else a + g)
+    return out
+
+
+def _run_1f1b(stage_fn, loss_fn, stage_params, x_micro, y_micro, ax, wire,
+              key, pre_fn, shared, fp32_accum):
+    """The 1F1B ticks of this rank (``2 * (m + n - 1)`` of them; only the
+    live slots run). Returns ``(stage gradient sums, shared gradient sums
+    or None, loss sum, the stage leaves' spec)``: leaf lists in the
+    flattening of ``stage_params``/``shared``. With ``pre_fn`` (the GPT
+    form) stage 0's input is ``pre_fn(shared, x)`` and the last stage's
+    loss ``loss_fn(shared, out, y)``; the shared gradients accrue at both
+    ends (the head on the last stage, the embedding on stage 0 through a
+    ``pre_fn`` recompute)."""
+    n, idx = ax.size, ax.index
+    m = len(x_micro)
+    total = 2 * (m + n - 1)
+    p_leaves, p_spec = pytree.tree_flatten(stage_params)
+    s_leaves = pytree.tree_flatten(shared)[0] if pre_fn is not None else []
+    dev = x_micro[0].device
+    if pre_fn is not None:
+        with torch.no_grad():
+            probe = pre_fn(shared, x_micro[0])
+        state_shape, act_dtype = probe.shape, probe.dtype
+    else:
+        state_shape, act_dtype = x_micro[0].shape, x_micro[0].dtype
+    nelems = math.prod(state_shape)
+    itemsize = torch.empty((), dtype=act_dtype).element_size()
+    wire_used = wire if act_dtype.is_floating_point else "none"
+    acts: List[Optional[torch.Tensor]] = [None] * n
+    g_stage: List[Optional[torch.Tensor]] = [None] * len(p_leaves)
+    g_shared: List[Optional[torch.Tensor]] = [None] * len(s_leaves)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    carry_f = carry_b = None
+    fwd_pairs_at = [[(s, s + 1) for s in range(n - 1)
+                     if _fwd_live(s, t, m)] for t in range(total)]
+    bwd_pairs_at = [[(s, s - 1) for s in range(1, n)
+                     if _bwd_live(s, t, m, n)] for t in range(total)]
+
+    for t in range(total):
+        out_f = None
+        if _fwd_live(idx, t, m):
+            f = (t - idx) // 2
+            if idx == 0:
+                with torch.no_grad():
+                    inp = pre_fn(shared, x_micro[f]) if pre_fn is not None \
+                        else x_micro[f]
+            else:
+                inp = carry_f
+            acts[f % n] = inp.detach()
+            with torch.no_grad():
+                out_f = stage_fn(stage_params, inp)
+        dx = None
+        if _bwd_live(idx, t, m, n):
+            b = (t - (2 * n - 1 - idx)) // 2
+            inp_b = acts[b % n]
+            acts[b % n] = None
+            diff_in = inp_b.is_floating_point()
+            if diff_in:
+                inp_b = inp_b.detach().requires_grad_(True)
+            with torch.enable_grad():
+                out_b = stage_fn(stage_params, inp_b)
+                wrt = list(p_leaves) + ([inp_b] if diff_in else [])
+                if idx == n - 1:
+                    if pre_fn is not None:
+                        loss_b = loss_fn(shared, out_b, y_micro[b])
+                        wrt += s_leaves
+                    else:
+                        loss_b = loss_fn(out_b, y_micro[b])
+                    grads = torch.autograd.grad(loss_b, wrt,
+                                                allow_unused=True)
+                    loss_sum = loss_sum + loss_b.detach().to(torch.float32)
+                else:
+                    grads = torch.autograd.grad(
+                        out_b, wrt, grad_outputs=carry_b.to(out_b.dtype),
+                        allow_unused=True)
+            g_stage = _acc(g_stage, grads[:len(p_leaves)], fp32_accum)
+            if diff_in:
+                dx = grads[len(p_leaves)]
+                if dx is None:
+                    dx = torch.zeros_like(inp_b)
+            if pre_fn is not None and idx == n - 1:
+                g_shared = _acc(g_shared, grads[len(wrt) - len(s_leaves):],
+                                fp32_accum)
+            if pre_fn is not None and idx == 0 and dx is not None:
+                with torch.enable_grad():
+                    a = pre_fn(shared, x_micro[b])
+                    g_pre = torch.autograd.grad(
+                        a, s_leaves, grad_outputs=dx.to(act_dtype),
+                        allow_unused=True)
+                g_shared = _acc(g_shared, g_pre, fp32_accum)
+        # Advance the two wavefronts: only the pairs with a payload (a
+        # rank in a pair without one sends zeros of the payload's shape).
+        for back, pairs, value in ((False, fwd_pairs_at[t], out_f),
+                                   (True, bwd_pairs_at[t], dx)):
+            if not pairs:
+                continue
+            payload = torch.zeros(state_shape, dtype=act_dtype, device=dev) \
+                if value is None else value.to(act_dtype)
+            if any(s == idx for s, _ in pairs):
+                _count_send_bytes(ax.name, wire_used, nelems, itemsize, 1)
+            got = _send(payload, ax, pairs, wire, key, 2 * t + back)
+            if back:
+                carry_b = got
+            else:
+                carry_f = got
+
+    def filled(acc, leaves):
+        return [torch.zeros_like(p, dtype=torch.float32 if fp32_accum
+                                 and p.is_floating_point() else p.dtype)
+                if g is None else g for g, p in zip(acc, leaves)]
+
+    return (filled(g_stage, p_leaves),
+            filled(g_shared, s_leaves) if pre_fn is not None else None,
+            loss_sum, p_spec)
+
+
+def pipeline_train_step_1f1b(stage_fn: Callable, loss_fn: Callable,
+                             stage_params, x_micro, y_micro,
+                             axis_name="pp", wire: Optional[str] = None,
+                             key=None):
+    """One training step under the 1F1B schedule (module docstring).
+
+    ``stage_fn(params, activation) -> activation`` on every rank;
+    ``loss_fn(last_out, y) -> scalar`` one microbatch's loss;
+    ``stage_params`` this rank's stage tree; ``x_micro``/``y_micro``
+    ``(n_micro, B, ...)`` (inputs read on stage 0, targets on the last).
+    Returns ``(grads, loss_sum)``: the gradient of the SUM of the
+    microbatch losses with respect to this rank's stage (a tree like
+    ``stage_params``, in its dtypes), and the summed loss (the last
+    stage's; zero elsewhere)."""
+    ax = C._axis(axis_name)
+    g, _, loss_sum, spec = _run_1f1b(
+        stage_fn, loss_fn, stage_params, list(x_micro), list(y_micro), ax,
+        _resolve_pp_wire(wire), key, None, None, fp32_accum=False)
+    return pytree.tree_unflatten(g, spec), loss_sum
+
+
+def _mean_like(acc, leaves, k: int):
+    """fp32 sums -> the mean over k microbatches in each leaf's dtype (a
+    division by a device tensor, as ``optim``'s accumulator divides)."""
+    out = []
+    for a, p in zip(acc, leaves):
+        if a.is_floating_point():
+            div = torch.full((), float(k), dtype=torch.float32,
+                             device=a.device)
+            a = (a / div).to(p.dtype)
+        out.append(a)
+    return out
+
+
+def _deposit(leaves, grads) -> None:
+    """The mean gradients into the leaves' ``.grad`` through one backward
+    pass (so a ``DistributedOptimizer``'s hooks take them as after
+    ``loss.backward()``, and a ``ZeroOptimizer`` finds them)."""
+    pairs = [(p, g) for p, g in zip(leaves, grads)
+             if isinstance(p, torch.Tensor) and p.requires_grad
+             and p.is_leaf]
+    if pairs:
+        torch.autograd.backward([p for p, _ in pairs],
+                                grad_tensors=[g for _, g in pairs])
+
+
+def pipeline_accumulate_gradients(stage_fn: Callable, loss_fn: Callable,
+                                  accum_steps: Optional[int] = None,
+                                  axis_name="pp",
+                                  pre_fn: Optional[Callable] = None,
+                                  wire: Optional[str] = None, key=None,
+                                  remat_policy: Optional[str] = None):
+    """The 1F1B schedule as an accumulation step: returns ``fn(params, x,
+    y) -> (loss, grads)``. ``x`` and ``y`` carry ``accum_steps *
+    microbatch`` rows (split along dim 0); the loss is the MEAN
+    microbatch loss on every pp rank (the pp sum of the last stage's
+    fp32 sum, over k); the gradients the MEAN over the microbatches (fp32
+    sums divided by k, in each parameter's dtype). The mean gradients
+    are also accumulated into each parameter leaf's ``.grad`` by one
+    backward pass, so the optimizer's ``step()`` takes them
+    (``DistributedOptimizer(parallel=)`` reduces over dp only; a
+    ``ZeroOptimizer`` shards them over dp).
+
+    Without ``pre_fn`` (the homogeneous chain): ``params`` is this rank's
+    stage tree and ``loss_fn(out, y_mb)``. With ``pre_fn`` (the GPT form,
+    ``models.gpt.pipeline_fns``): ``params`` is ``{"stages": <this
+    rank's stage tree>, "shared": <embedding and head tree>}``, stage 0's
+    input ``pre_fn(shared, x_mb)``, the last stage's loss
+    ``loss_fn(shared, out, y_mb)``; the shared gradients are summed over
+    pp (one fp32 all-reduce, a combine that stamps no gradient-reduction
+    bytes) before the mean, so ``grads["shared"]`` is the same on every
+    stage. ``remat_policy`` (``optim.resolve_remat_policy``) wraps
+    ``stage_fn`` in ``torch.utils.checkpoint``; ``wire``/``key`` the
+    stage boundary's format and rounding key."""
+    from .. import optim as optim_lib
+
+    k = optim_lib._resolve_accum_steps(accum_steps)
+    wire = _resolve_pp_wire(wire)
+    _, wrap, saved = optim_lib.resolve_remat_policy(remat_policy)
+    sfn = optim_lib._remat(stage_fn, wrap, saved)
+
+    def accum_fn(params, x, y):
+        ax = C._axis(axis_name)
+        mbs = optim_lib._split_microbatches((x, y), k)
+        x_micro = [mb[0] for mb in mbs]
+        y_micro = [mb[1] for mb in mbs]
+        if pre_fn is not None:
+            stage_p, shared = params["stages"], params["shared"]
+        else:
+            stage_p, shared = params, None
+        g_st, g_sh, loss_sum, spec = _run_1f1b(
+            sfn, loss_fn, stage_p, x_micro, y_micro, ax, wire, key, pre_fn,
+            shared, fp32_accum=True)
+        # The loss lives on the last stage: the pp sum replicates it.
+        loss = optim_lib._mean_value(
+            C.allreduce(loss_sum.reshape(1), C.Sum, axis=ax)[0], k,
+            loss_sum)
+        p_leaves = pytree.tree_flatten(stage_p)[0]
+        g_st = _mean_like(g_st, p_leaves, k)
+        if pre_fn is None:
+            _deposit(p_leaves, g_st)
+            return loss, pytree.tree_unflatten(g_st, spec)
+        s_leaves, s_spec = pytree.tree_flatten(shared)
+        if ax.size > 1:
+            # Stage 0 holds the embedding half, the last stage the head
+            # half, middle stages zeros: one sum over pp assembles them.
+            flat = torch.cat([g.reshape(-1) for g in g_sh])
+            flat = C.allreduce(flat, C.Sum, axis=ax)
+            g_sh = [v.reshape(g.shape) for v, g in zip(
+                torch.split(flat, [g.numel() for g in g_sh]), g_sh)]
+        g_sh = _mean_like(g_sh, s_leaves, k)
+        _deposit(list(p_leaves) + list(s_leaves), g_st + g_sh)
+        return loss, {"stages": pytree.tree_unflatten(g_st, spec),
+                      "shared": pytree.tree_unflatten(g_sh, s_spec)}
+
+    return accum_fn
+
+
+__all__ = ["pipeline_apply", "pipeline_train_step_1f1b",
+           "pipeline_accumulate_gradients", "select_last_stage"]

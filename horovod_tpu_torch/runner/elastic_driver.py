@@ -50,8 +50,8 @@ remote worker, as in the JAX driver: a remote survivor leaves through
 its own failed collective (the process group's timeout is the stall
 bound under elastic).
 
-Not ported yet: a hybrid ParallelSpec's respec (the pipeline and MoE
-slice). A caller's spawner or rendezvous server (the Spark and Ray
+Not ported yet: a hybrid ParallelSpec's respec epochs (the role-aware
+elastic slice; the solver, ``parallel.respec``, is ported). A caller's spawner or rendezvous server (the Spark and Ray
 launches) has no counterpart.
 """
 
@@ -679,7 +679,7 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
         raise NotImplementedError(
             "an elastic world with a hybrid ParallelSpec (HVD_TPU_PARALLEL: "
             "role-grouped autoscaling, respec) is not ported yet; it comes "
-            "with the pipeline and MoE slice of the port")
+            "with the role-aware elastic slice of the port")
     # The autoscale policy: the launcher's knobs (env_extra, validated)
     # over the caller's environment. A bad policy fails the launch.
     autoscale_env = {**os.environ, **{

@@ -333,13 +333,17 @@ class ShardState:
     _agree = optim_lib._DistributedOptimizerMixin._agree
 
     def __init__(self, optimizer, params, axis, threshold, compression,
-                 policy, route, order, grad_op):
+                 policy, route, order, grad_op, combine_axes=()):
         self.grad_op = C.ReduceOp(grad_op)
         if self.grad_op not in _LINEAR:
             raise ValueError("the sharded optimizers support SUM/AVERAGE")
         self.route = _sharded_route(route)
-        self._axis = _require_axis(None if self.route is not None else axis,
-                                   "sharded_init")
+        self.combine_axes = tuple(combine_axes)
+        # The guard agrees over ``axis`` (a parallel spec's dp axis) or,
+        # on a route without one, over the world.
+        self._axis = _require_axis(
+            None if self.route is not None and axis is None else axis,
+            "sharded_init")
         self.compression = compression
         self.ef = getattr(compression, "error_feedback", False)
         self.plan = fusion_lib.plan_fusion(params, threshold, order=order)
@@ -402,6 +406,11 @@ class ShardState:
         ``exact``: native wires, no guard, no error feedback, the shard as
         fp32 (a microbatch into the stage-2/3 shard accumulator, whose
         sum the step guards)."""
+        if flat.is_floating_point():
+            # parallel=: slice gradients reassemble (pmean over tp, then
+            # sp) before the guard and every reduce-scatter.
+            for ax in self.combine_axes:
+                flat = C.allreduce(flat, C.Average, axis=ax)
         if self._guard is not None and not exact and \
                 flat.is_floating_point():
             flat = self._guard_bucket(flat)
@@ -542,7 +551,8 @@ def sharded_init(optimizer: torch.optim.Optimizer, params=None, axis=None,
                  fusion_threshold_bytes: Optional[int] = None,
                  compression=None, nonfinite_policy: Optional[str] = None,
                  route=None, grad_op=C.Average,
-                 order=fusion_lib.ORDER_FLATTEN) -> ShardState:
+                 order=fusion_lib.ORDER_FLATTEN,
+                 combine_axes=()) -> ShardState:
     """The sharded state of ``optimizer`` (its class and hyperparameters
     rebuilt over this rank's bucket shards of ``params``, default the
     optimizer's own): see the module docstring. ``compression``,
@@ -556,7 +566,7 @@ def sharded_init(optimizer: torch.optim.Optimizer, params=None, axis=None,
         if fusion_threshold_bytes is None else int(fusion_threshold_bytes)
     return ShardState(optimizer, params, axis, threshold, compression,
                       integrity_lib.resolve_nonfinite_policy(nonfinite_policy),
-                      route, order, grad_op)
+                      route, order, grad_op, combine_axes)
 
 
 def _moved_state(full: dict, old_plan, new_plan) -> dict:
@@ -725,8 +735,12 @@ class ZeroOptimizer(torch.optim.Optimizer):
       forward, a bucket ahead.
 
     ``compression="int8_ef"``, ``route=`` and ``nonfinite_policy=`` as in
-    the module docstring; ``bucket_order`` pins the stage-3 plan's leaf
-    order. Elementwise inner optimizers only, one parameter group.
+    the module docstring; ``parallel=`` (a ParallelSpec, role dict or
+    spec string, the world made with it) spans the shard grid, the
+    reduction and the guard over the spec's dp axis alone, through the
+    router, after each bucket is pmean-combined over tp then sp: each
+    pipeline stage shards over its own dp replicas; ``bucket_order``
+    pins the stage-3 plan's leaf order. Elementwise inner optimizers only, one parameter group.
     ``param_groups`` are the wrapped optimizer's own (a scheduler on
     either sets the next step's rate); ``state`` is the inner optimizer's
     over the shards, and ``shard_state`` the whole :class:`ShardState`."""
@@ -738,11 +752,20 @@ class ZeroOptimizer(torch.optim.Optimizer):
                  route=None, accum_steps: Optional[int] = None,
                  remat_policy: Optional[str] = None, bucket_order=None,
                  overlap: bool = True, parallel=None):
+        #: ``parallel=``: the tp then sp axes every bucket of local
+        #: gradients is pmean-combined over before its reduce-scatter.
+        combine = ()
         if parallel is not None:
-            raise NotImplementedError(
-                "ZeroOptimizer(parallel=...) (shards per pipeline stage, sp "
-                "under ZeRO-3) is not ported yet; it comes with the "
-                "pipeline and MoE slice of the port")
+            # The shard grid and the reduction span the spec's dp axis
+            # only (through the router: spec.grad_route() unless route=
+            # is given), so each pipeline stage and tp/sp coordinate
+            # shards over its own dp replicas, and the guard agrees over
+            # dp.
+            pspec, combine = optim_lib._resolve_parallel(
+                parallel, route, None, 0, grad_op)
+            if route is None:
+                route = pspec.grad_route()
+            axis = basics.context().axis(pspec.dp_axes[0])
         # Not Optimizer.__init__: the groups are the wrapped optimizer's
         # and the state is the shards'.
         stage = int(zero_stage)
@@ -765,7 +788,8 @@ class ZeroOptimizer(torch.optim.Optimizer):
         self.remat_policy = optim_lib.resolve_remat_policy(remat_policy)[0]
         self.shard_state = sharded_init(
             optimizer, self.params, axis, fusion_threshold_bytes,
-            compression, nonfinite_policy, route, grad_op, self._order)
+            compression, nonfinite_policy, route, grad_op, self._order,
+            combine)
         self.defaults = optimizer.defaults
         self.param_groups = optimizer.param_groups
         self._shard_grads: Optional[List[torch.Tensor]] = None
@@ -860,7 +884,7 @@ class ZeroOptimizer(torch.optim.Optimizer):
             old.compression if compression is None
             else optim_lib._resolve_compression(compression),
             None, old.route if route is None else route, self._order,
-            old.grad_op)
+            old.grad_op, old.combine_axes)
         new.reshard_state(_moved_state(full, old.plan, new.plan))
         new._guard, new._scale_cfg = old._guard, old._scale_cfg
         new.guard_agreements = old.guard_agreements

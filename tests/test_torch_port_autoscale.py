@@ -288,7 +288,7 @@ def test_decision_log_is_byte_identical_to_jax(J, name, tmp_path):
 
 def test_engine_refuses_a_parallel_spec():
     with pytest.raises(NotImplementedError,
-                       match="the pipeline and MoE slice"):
+                       match="the role-aware elastic slice"):
         P.AutoscaleEngine(P.AutoscalePolicy(), 1, 3, dict,
                           parallel=object())
 

@@ -124,20 +124,30 @@ def test_converter_covers_every_parameter(tiny_pair):
 
 
 def test_unported_paths_raise(tiny_pair):
-    """MoE and per-layer remat belong to the pipeline and MoE slice: they
-    raise naming it, so no plain stand-in sits on any path. The
-    full-sequence forward is ported (the training slice) and gives
+    """MoE and per-layer remat are ported (slice 16): they construct and
+    a remat model's forward gives the plain model's logits (their parity
+    runs in ``test_torch_port_moe.py`` and ``test_torch_port_pipeline.py``).
+    The full-sequence forward is ported (the training slice) and gives
     logits; tensor and sequence parallelism construct (their parity runs
-    in ``test_torch_port_parallel.py``)."""
+    in ``test_torch_port_parallel.py``). The role-aware elastic path
+    still raises naming its slice."""
+    from horovod_tpu_torch.common import podmon
+
     _, _, tm = tiny_pair
-    logits = tm(torch.zeros((1, 4), dtype=torch.long))
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    logits = tm(toks)
     assert logits.shape == (1, 4, 128) and logits.dtype == torch.float32
-    for kw in ({"moe_experts": 4}, {"remat": True}):
-        with pytest.raises(NotImplementedError,
-                           match="the pipeline and MoE slice"):
-            gpt.gpt_tiny(**kw)
+    moe = gpt.gpt_tiny(moe_experts=4)
+    assert isinstance(moe.layers[0].moe, gpt.MoeMlp)
+    assert moe.layers[0].moe.w_in.shape == (4, 64, 128)
+    remat = gpt.gpt_tiny(remat=True)
+    remat.load_state_dict(tm.state_dict())
+    assert torch.equal(remat(toks), logits)
     for kw in ({"tp_axis": "tp"}, {"seq_parallel": "sp"}):
         assert isinstance(gpt.gpt_tiny(**kw), gpt.GPT)
+    with pytest.raises(NotImplementedError,
+                       match="the role-aware elastic slice"):
+        podmon.PodMonitor(lambda: [], parallel=object())
 
 
 def test_init_kv_cache_device_rule(tiny_pair):

@@ -427,26 +427,36 @@ def test_stripe_layout_round_trip_matches_jax(J, n):
 
 
 def test_later_roles_raise_naming_their_slice():
+    """The pipeline, MoE and respec names are ported (slice 16) and the
+    optimizers take pp and ep specs and zero_stage with a spec: outside a
+    world made with the spec they ask for it (here: no world at all). The
+    role-aware elastic driver path still raises naming its slice."""
     import horovod_tpu_torch.parallel as P
+    from horovod_tpu_torch.runner import elastic_driver
 
-    for name in ("pipeline_apply", "moe_layer", "solve_respec"):
-        with pytest.raises(NotImplementedError,
-                           match="the pipeline and MoE slice"):
-            getattr(P, name)
+    for name in ("pipeline_apply", "pipeline_train_step_1f1b",
+                 "pipeline_accumulate_gradients", "select_last_stage",
+                 "moe_layer", "top2_gating", "solve_respec",
+                 "RespecDecision", "min_world"):
+        assert callable(getattr(P, name)), name
     m = torch.nn.Linear(2, 2)
     for spec in ("dp=2,pp=2", "dp=2,ep=2"):
-        with pytest.raises(NotImplementedError,
-                           match="the pipeline and MoE slice"):
+        with pytest.raises(hvd.NotInitializedError):
             hvd.DistributedOptimizer(torch.optim.SGD(m.parameters(), lr=1),
                                      parallel=spec)
-    with pytest.raises(NotImplementedError,
-                       match="the pipeline and MoE slice"):
+    with pytest.raises(hvd.NotInitializedError):
         hvd.ZeroOptimizer(torch.optim.SGD(m.parameters(), lr=1),
                           parallel="dp=2")
-    with pytest.raises(NotImplementedError,
-                       match="the pipeline and MoE slice"):
+    with pytest.raises(hvd.NotInitializedError):
         hvd.DistributedOptimizer(torch.optim.SGD(m.parameters(), lr=1),
                                  zero_stage=1, parallel="dp=2,tp=2")
+    args = types.SimpleNamespace(min_np=2, max_np=2, num_proc=2,
+                                 host_discovery_script=None, hosts=None)
+    with pytest.raises(NotImplementedError,
+                       match="the role-aware elastic slice"):
+        elastic_driver.run_elastic(
+            args, ["true"], {"HVD_TPU_PARALLEL": "dp=2,pp=2"},
+            discovery=elastic_driver.FixedHostDiscovery({"localhost": 2}))
     with pytest.raises(NotImplementedError, match="later serve slice"):
         mm = gpt.gpt_tiny(tp_axis="tp")
         mm(torch.zeros((1, 2), dtype=torch.long),

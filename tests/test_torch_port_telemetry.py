@@ -699,11 +699,11 @@ def test_pod_monitor_scrapes_live_endpoints_and_serves_pod_metrics():
 
 def test_role_views_raise_naming_their_slice(monkeypatch):
     with pytest.raises(NotImplementedError,
-                       match="the pipeline and MoE slice"):
+                       match="the role-aware elastic slice"):
         P_podmon.PodMonitor(lambda: [], parallel=object())
     monkeypatch.setenv("HVD_TPU_PARALLEL", "dp=2,pp=2")
     with pytest.raises(NotImplementedError,
-                       match="the pipeline and MoE slice"):
+                       match="the role-aware elastic slice"):
         P_podmon.PodMonitor(lambda: [])
 
 

@@ -328,17 +328,24 @@ def test_later_slices_raise_not_implemented(name):
     ``add_process_set``, ...), slice 11 (``ZeroOptimizer``,
     ``save_sharded``, ...) and slice 12 (``chaos_poison``, ``run``,
     ``save_state``, ...), slice 13 (``flight_recorder``, the metrics
-    server, ``StepTimer``), slice 14 (``AutotunedStepper``) and slice 15
-    (``ParallelSpec``, the tp primitives) are ported: their names
-    resolve. The pipeline still raises naming its slice."""
+    server, ``StepTimer``), slice 14 (``AutotunedStepper``), slice 15
+    (``ParallelSpec``, the tp primitives) and slice 16 (the pipeline and
+    the respec solver) are ported: their names resolve. The role-aware
+    elastic path still raises naming its slice."""
     import horovod_tpu_torch.models as models
+    from horovod_tpu_torch.common import autoscale
 
     mod, attr = (models, name.split(".")[1]) if "." in name else (hvd, name)
     assert callable(getattr(mod, attr))
     assert callable(hvd.ParallelSpec)
+    for later in ("pipeline_apply", "pipeline_train_step_1f1b",
+                  "pipeline_accumulate_gradients", "select_last_stage",
+                  "solve_respec", "RespecDecision", "min_world"):
+        assert callable(getattr(hvd, later)), later
     with pytest.raises(NotImplementedError,
-                       match="the pipeline and MoE slice"):
-        hvd.pipeline_apply
+                       match="the role-aware elastic slice"):
+        autoscale.AutoscaleEngine(autoscale.AutoscalePolicy(), 1, 3, dict,
+                                  parallel=object())
     with pytest.raises(AttributeError):
         getattr(mod, "no_such_name")
 

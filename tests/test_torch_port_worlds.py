@@ -91,6 +91,55 @@ def run_ranks(script, args_of, n: int, timeout: float = 180, **env_extra):
     return list(logs.values())
 
 
+def session_world(tmp_path_factory, name: str, run) -> Path:
+    """The directory ``run(directory)`` filled, once per test session
+    however many xdist workers ask: the first caller runs it under an
+    exclusive lock in the session's shared temporary directory (the
+    workers' base directories' parent), the others wait on the lock and
+    read what it wrote. A run that raised leaves no mark, so the next
+    caller runs it again."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    out = root / f"world_{name}"
+    with open(root / f"world_{name}.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            if not (out / "done").exists():
+                out.mkdir(exist_ok=True)
+                run(out)
+                (out / "done").write_text("done\n")
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+    return out
+
+
+def test_session_world_runs_once(tmp_path_factory):
+    """A second caller in the session reads the first one's directory; a
+    run that raised is run again by the next caller."""
+    calls = []
+
+    def run(out):
+        calls.append(out)
+        (out / "value").write_text(str(len(calls)))
+
+    name = f"probe{os.getpid()}"
+    a = session_world(tmp_path_factory, name, run)
+    b = session_world(tmp_path_factory, name, run)
+    assert a == b and len(calls) == 1 and (b / "value").read_text() == "1"
+
+    def broken(out):
+        calls.append(out)
+        raise RuntimeError("no world")
+
+    try:
+        session_world(tmp_path_factory, name + "x", broken)
+    except RuntimeError:
+        pass
+    session_world(tmp_path_factory, name + "x", run)
+    assert len(calls) == 3
+
+
 def test_world_slot_is_exclusive_across_open_files(tmp_path):
     """A second holder (another open file, as another xdist worker has)
     cannot take the slot while the first holds it, and can after (on a
