@@ -168,8 +168,12 @@ Phases (any failure exits non-zero and prints no result line):
    card, not of NCCL or NVLink. At n = 2 each rank also runs
    ``SyncBatchNorm`` over its own (32, 64, 28, 28) batch on the card:
    its output, input gradient and running statistics must match a
-   ``BatchNorm2d`` over the gathered batch to 1e-5 of the largest value.
-   At n = 4 each rank also runs two drills: ``compression="int8_ef",
+   ``BatchNorm2d`` over the gathered batch to 1e-5 of the largest value,
+   and one step's gradient tree through ``DistributedGradFn(
+   compression="int8_ef")``: its reduced gradients bitwise those of a
+   fresh ``DistributedOptimizer(compression="int8_ef")`` given the same
+   gradients (the same bucket plan and rounding keys), K3's launches
+   equal. At n = 4 each rank also runs two drills: ``compression="int8_ef",
    nonfinite_policy="skip_step"`` for 3 steps with a NaN in rank 1's
    first gradient element at step 2 (one guard agreement a step, every
    rank skips, weights, int8_ef residuals and rounding step bitwise
@@ -182,8 +186,9 @@ Phases (any failure exits non-zero and prints no result line):
    card, each with ``HVD_TPU_MESH_SHAPE=2x2`` (local axis {0, 1} and
    {2, 3}, cross axis {0, 2} and {1, 3}) and
    ``init(hierarchical_allreduce=True, hierarchical_allgather=True)``.
-   GPT-2 medium's widths at 8 of its 24 layers (the cut that, with 7c's
-   and 9 (b)'s, makes room for phase 12), B = 4, S = 512 per rank, each
+   GPT-2 medium's widths at 8 of its 24 layers (the role-aware elastic
+   slice's named cut: with 7c's and 9 (b)'s it keeps phases 12 and 13
+   inside the time limit), B = 4, S = 512 per rank, each
    rank its own seeded batch after ``broadcast_parameters``, 1 checked
    and 3 timed steps in each of two modes: (a) ``compression="int8_ef",
    route="staged_int8"`` (local:none, cross:int8): at the checked step
@@ -233,8 +238,9 @@ Phases (any failure exits non-zero and prints no result line):
    NCCL or NVLink.
 7c. ZeRO: the script relaunches itself as 4 gloo rank workers
    (``--rank-worker n4_zero``, a flat world) sharing the card: GPT-2
-   medium's widths at 4 of its 24 layers (the cut that, with 9 (b)'s,
-   makes room for phase 12), B = 4, S = 512 per rank (phase 7b's batch),
+   medium's widths at 2 of its 24 layers (the cut that, with 9 (b)'s,
+   makes room for phases 12 and 13), B = 4, S = 512 per rank (phase
+   7b's batch),
    each rank its own seeded batch after ``broadcast_parameters``,
    ``AdamW(lr=1e-4, weight_decay=1e-4)``, 1 checked and 3 timed steps of
    each case in turn, memory released between them: (a) the replicated
@@ -248,7 +254,7 @@ Phases (any failure exits non-zero and prints no result line):
    reduce-scatter within ``sum of s_rank / 4`` of the exact average and
    its residuals summing to the exact sum less 4 times the result; in
    the timed steps K3 exactly buckets x 3 in (c), K1 exactly buckets x 3
-   in (e), K5/K6/K7 4 x 3 each (x 2 in (d)) and nothing else. Printed
+   in (e), K5/K6/K7 2 x 3 each (x 2 in (d)) and nothing else. Printed
    for each case: the median step ms, peak GiB a rank over the timed
    steps (``max_memory_allocated``), GiB at rest after a step
    (``memory_allocated``), and the bytes of the two ZeRO metrics'
@@ -290,8 +296,8 @@ Phases (any failure exits non-zero and prints no result line):
    return 0 on both. Step times are gloo with 2 processes on one card.
 7d. Overlap (D2) and the Adasum optimizer's guard and accumulation:
    the script relaunches itself as 2 gloo rank workers (``--rank-worker
-   n2_overlap``; GPT-2 medium's widths at 8 of its 24 layers — the cut
-   that, with 7b's, 7c's and 9 (b)'s, makes room for phase 12 — B = 8,
+   n2_overlap``; GPT-2 medium's widths at 8 of its 24 layers — the
+   role-aware elastic slice's named cut, with 7b's — B = 8,
    S = 512 a rank) and as 4 on a 2x2 mesh (``n4_overlap``; B = 4,
    S = 512, phase 7b's geometry). Each pair of arms runs ``overlap=False`` then
    ``overlap=True`` in the same processes from the same seeded weights,
@@ -326,16 +332,15 @@ Phases (any failure exits non-zero and prints no result line):
    step)`` under ``hvd.elastic.run``, each step's batch seeded from
    (step, rank), a commit every step and ``checkpoint.save_state`` (each
    rank its own directory and int8_ef residual) every 3 steps and at a
-   preemption, 9 steps. Two uninterrupted runs one after the other
-   (they persist nothing: persistence changes no value), then one
-   under the plan (global steps): a rendezvous 5xx on hostA's second
+   preemption, 9 steps. One uninterrupted run (it persists nothing:
+   persistence changes no value), then one under the plan (global steps): a rendezvous 5xx on hostA's second
    poll, a collective fault on hostB at step 4, a hard crash of hostB's
    worker at step 6, a SIGTERM preemption of rank 0 at step 8. Checks:
    exit 0, step 9, those four sites injected, every restore bitwise the
    commit it was persisted from (digests), the persisted state the last
    commit, and the final parameters and AdamW state bitwise those of the
-   uninterrupted runs (if those two differ from each other, the final
-   loss within 1e-3 instead). Printed per fault: seconds from the
+   uninterrupted run (one such run: two of them have always ended
+   bitwise equal). Printed per fault: seconds from the
    injection to the first step completed after it; commit ms, persist s
    and bytes, restore s.
 9. Telemetry and control. (a) What telemetry costs a step: this script
@@ -351,7 +356,8 @@ Phases (any failure exits non-zero and prints no result line):
    --autoscale-policy JSON --autoscale-log FILE --host-discovery-script
    SCRIPT`` with ``HVD_TPU_ELASTIC_FORCE_LOCAL=1`` (one world of 3 gloo
    processes on the card) over ``--elastic-worker``: GPT-2 medium's
-   widths at 4 of its 24 layers (the cut that makes room for phase 12),
+   widths at 2 of its 24 layers (the cut that makes room for phases 12
+   and 13),
    B = 4 x 512 a rank, 50 steps, int8_ef AdamW, a commit
    a step, the per-step eager loss allreduce, the committed state
    persisted at each driver-managed exit; the hosts from a discovery
@@ -456,7 +462,49 @@ Phases (any failure exits non-zero and prints no result line):
    rank a step by kind, peak GiB a rank, the MoE drop fraction and
    load; and each ep owner's expert-bank gradient over moe_ref's at the
    first step (the JAX ep combine: every ep rank routes the same rows).
-13. Result lines: the per-kernel JSON record (K1-K9, each with
+13. The elastic hybrid world: ``python -m
+   horovod_tpu_torch.runner.launch --elastic -np 4 --min-np 2 --max-np 4
+   -H hostA:1,hostB:1,hostC:1,hostD:1 --pod-metrics-port 0
+   --autoscale-policy JSON --autoscale-log FILE --host-discovery-script
+   SCRIPT`` with ``HVD_TPU_ELASTIC_FORCE_LOCAL=1`` and
+   ``HVD_TPU_PARALLEL=dp=2,pp=2`` (4 gloo processes on the card) over
+   ``--hybrid-elastic-worker``: GPT-2 medium's widths at 2 of its 24
+   layers, one a stage (the role-aware elastic slice's named cut), a
+   global batch of 4 x 512 (1F1B ``pipeline_accumulate_gradients`` over
+   k = 4 / dp microbatches of one row, so the global batch stays when dp
+   halves), ``ZeroOptimizer(zero_stage=1, compression="int8_ef",
+   route="dp:int8", parallel=)`` AdamW(lr=1e-4), 8 steps,
+   ``save_sharded`` of the stage state under its global leaf names
+   before each commit and ``restore_sharded`` at start; a straggler on
+   hostC (role dp1/pp0, 6 s a commit, its first process only; a 12 s
+   tick, patience 1). The first world first runs an uninterrupted
+   dp=2,pp=2 reference of the same steps and data in its own model and
+   optimizer (no commit, no save); beside the run, a ``--min-np 3``
+   launch must fail before any worker starts, naming the roles.
+   Checks: exit 0; the decision log exactly ``evict
+   hostC`` (role dp1/pp0, straggler) then ``respec dp=1,pp=2``
+   (shed_dp), nothing naming hostD; before the eviction ``/pod/metrics``
+   shows ``hvd_tpu_pod_replica_stalled{replica="1"} 1`` and
+   ``{replica="0"} 0`` and every per-rank step-time series carries its
+   dp/pp labels; the driver's ``/pod/driver`` shows
+   ``hvd_tpu_respec_total{from="dp=2,pp=2",to="dp=1,pp=2"} 1``; the
+   worlds 4 then 2, the second seeing dp=1,pp=2 and taking at least 3
+   steps; each restore at the newest step every rank saved, piecewise,
+   its restored stage state (AdamW moments, the int8_ef residual sum)
+   bitwise the saved pieces assembled whole (by digest); the final loss
+   within ``0.02 |ref| + 1e-3`` of the uninterrupted run's; the launches
+   of every step of every rank (the reference's too) exactly K5 = 2k,
+   K6 = K7 = k and K3 once
+   an int8 bucket (in both worlds: the quantized reduce-scatter of the
+   int8 dp hop quantizes on an axis of one too, as the JAX one does),
+   nothing else. Printed: step ms in each world and the reference's,
+   save s, seconds from the eviction decision to the first step at
+   n = 2, restore s and bytes, peak GiB a rank in each world, the
+   phase's seconds; gloo, 4 then 2 processes on one card.
+   Phase 11's tp world also takes one checked step of
+   ``DistributedOptimizer(op=Adasum, parallel="dp=2,tp=2")``: K8 and K9
+   once a parameter, the masters bitwise equal on all four ranks.
+14. Result lines: the per-kernel JSON record (K1-K9, each with
    ``launches_by_path``, every path above 0, and ``launches`` their
    sum: K5/K6/K7 for the GPT training, BERT, ViT and the two guarded
    integrity runs and the ZeRO phase; K1 for the eager loop, the
@@ -467,7 +515,9 @@ Phases (any failure exits non-zero and prints no result line):
    phase 9 (b)'s rank 0 first process and phase 10's rank 0 for K3 and
    K5-K7; phase 11 for K5-K7 and, on ring_int8, K2 and K4; phase 12's
    ``pipeline`` and ``moe`` paths for K5-K7 and, on its int8 arms, K2
-   and K4), the card line, and last ``{"ok": true, "device": {...}}``.
+   and K4; phase 13's ``elastic_hybrid`` path, its dp0/pp0 rank in both
+   worlds, for K3 and K5-K7), the card line, and last ``{"ok": true,
+   "device": {...}}``.
 
 ``--profile`` also traces the serve run and two extra training steps of
 GPT-2 medium, each integrity run, BERT-large, ViT-B/16 and ResNet-50
@@ -508,6 +558,33 @@ class SmokeError(RuntimeError):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeError(what)
+
+
+#: What the bytecode warm-up imports: each worker process imports these.
+PYCACHE_WARM = ("torch", "torch._dynamo", "torch.distributed",
+                "horovod_tpu_torch", "horovod_tpu_torch.models.gpt",
+                "horovod_tpu_torch.optim", "horovod_tpu_torch.zero",
+                "horovod_tpu_torch.elastic", "horovod_tpu_torch.checkpoint",
+                "horovod_tpu_torch.runner.launch",
+                "horovod_tpu_torch.runner.elastic_driver")
+
+
+def bytecode_cache() -> subprocess.Popen:
+    """Give every process this script starts a bytecode cache in the
+    checkout's ``build/pycache`` and start filling it. A machine that sets
+    ``PYTHONDONTWRITEBYTECODE`` and keeps no ``.pyc`` beside torch's
+    sources makes each new process compile torch from source: 17.5-18.7 s
+    for ``import torch, torch._dynamo`` on the H100's host (the first
+    ``torch.optim`` call imports ``torch._dynamo``), in each of the ≈ 80
+    processes the multi-rank phases start. Returns the warm-up process,
+    which imports ``PYCACHE_WARM`` once."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.environ["PYTHONPYCACHEPREFIX"] = os.path.join(root, "build", "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    return subprocess.Popen(
+        [sys.executable, "-c", "import " + ", ".join(PYCACHE_WARM)],
+        cwd=root, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True)
 
 
 def card_line() -> str:
@@ -2925,6 +3002,9 @@ def rank_worker(config: str, rank: int, out_path: str) -> None:
             "tokens_per_s": n * batch * seq / step_s,
             "launches": launches, "replicas_equal": equal,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        if mode == "int8_ef":
+            rec["gradfn"] = _gradfn_check(torch, hvd, gpt_mod, K, model,
+                                          opt, tokens)
         out["modes"][mode] = rec
         del opt, model, params, digest
         torch.cuda.empty_cache()
@@ -2970,6 +3050,47 @@ SBN_SHAPE = (32, 64, 28, 28)        # one rank's batch (N, C, H, W)
 SBN_RTOL = 1e-5                     # of the largest |value| of BatchNorm's
 
 
+def _gradfn_check(torch, hvd, gpt_mod, K, model, opt, tokens) -> dict:
+    """One step's gradient tree through ``DistributedGradFn`` with int8_ef
+    against a fresh ``DistributedOptimizer(compression="int8_ef")`` on the
+    same gradients (one backward, no hooks live) and the same bucket plan:
+    the reduced gradients bitwise equal and K3's launches equal."""
+    for h in opt._dist_hooks:
+        h.remove()
+    params = list(model.parameters())
+    model.zero_grad()
+    gpt_mod.next_token_loss(model(tokens[:, :-1]), tokens[:, 1:]).backward()
+    grads = [p.grad.clone() for p in params]
+    ref = hvd.DistributedOptimizer(
+        torch.optim.SGD(params, lr=0.0),
+        named_parameters=model.named_parameters(), compression="int8_ef")
+    for h in ref._dist_hooks:
+        h.remove()
+    _sync(torch, tokens.device.type)
+    K.reset_launch_counts()
+    for p, g in zip(params, grads):
+        p.grad = g.clone()
+    ref._dist_dirty = True
+    ref.synchronize()
+    _sync(torch, tokens.device.type)
+    k3_opt = K.LAUNCHES["quantize_int8_stochastic"]
+    reduced_opt = [p.grad for p in params]
+    K.reset_launch_counts()
+    gfn = hvd.DistributedGradFn(lambda: grads, compression="int8_ef")
+    reduced, ef = gfn()
+    _sync(torch, tokens.device.type)
+    k3_fn = K.LAUNCHES["quantize_int8_stochastic"]
+    equal = all(bits_equal(torch, a, b)
+                for a, b in zip(reduced, reduced_opt))
+    check(equal and k3_fn == k3_opt > 0 and ef.step == 1,
+          f"DistributedGradFn: reduced bitwise {equal}, K3 {k3_fn} vs the "
+          f"optimizer's {k3_opt}, EF step {ef.step}")
+    model.zero_grad()
+    del grads, reduced, reduced_opt, ref, gfn
+    return {"bitwise_equal": equal, "quantize_int8_stochastic": k3_fn,
+            "int8_buckets": len(ef.residual)}
+
+
 def sync_bn_check(torch, hvd, rank: int) -> dict:
     """``SyncBatchNorm`` over the ranks' own batches on the card against
     a ``BatchNorm2d`` over the concatenated batch (gathered): this rank's
@@ -3001,12 +3122,150 @@ def sync_bn_check(torch, hvd, rank: int) -> dict:
             "limit": SBN_RTOL}
 
 
+#: What a zygote imports before it forks: torch and ``torch._dynamo``
+#: (the first ``torch.optim`` call imports it), ≈ 12 s of every rank
+#: worker's start on the H100's host even from the bytecode cache. No
+#: module of the port: those read their environment at import, and each
+#: world sets its own.
+ZYGOTE_PRELOAD = ("torch", "torch._dynamo")
+
+
+def zygote_main(run) -> None:
+    """``--zygote``: import ``ZYGOTE_PRELOAD``, print ``ready``, then
+    fork one child per JSON request line on stdin (``argv``, ``env``,
+    ``cwd``, ``log``) and print its pid. The child takes the request's
+    environment and directory, sends stdout and stderr to ``log``, runs
+    ``run(argv)`` and writes its exit code to ``log + ".rc"``. Children
+    are reaped by the kernel (SIGCHLD ignored); the zygote never touches
+    the card, so each child makes its own CUDA context."""
+    import importlib
+    import random
+    import signal
+
+    for name in ZYGOTE_PRELOAD:
+        importlib.import_module(name)
+    torch = sys.modules["torch"]
+    check(not torch.cuda.is_initialized(), "zygote: CUDA initialized")
+    signal.signal(signal.SIGCHLD, signal.SIG_IGN)
+    print("ready", flush=True)
+    for line in sys.stdin:
+        req = json.loads(line)
+        sys.stdout.flush()
+        sys.stderr.flush()
+        pid = os.fork()
+        if pid:
+            print(json.dumps({"pid": pid}), flush=True)
+            continue
+        rc = 1
+        try:
+            signal.signal(signal.SIGCHLD, signal.SIG_DFL)
+            random.seed()
+            os.chdir(req["cwd"])
+            os.environ.clear()
+            os.environ.update(req["env"])
+            null = os.open(os.devnull, os.O_RDONLY)
+            os.dup2(null, 0)
+            out = os.open(req["log"], os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+            os.dup2(out, 1)
+            os.dup2(out, 2)
+            try:
+                rc = run(req["argv"]) or 0
+            except SystemExit as e:
+                rc = e.code if isinstance(e.code, int) else 1
+            except BaseException:
+                import traceback
+
+                traceback.print_exc()
+            import atexit
+
+            atexit._run_exitfuncs()
+        finally:
+            # Whatever happens, the child never returns into the loop.
+            try:
+                sys.stdout.flush()
+                sys.stderr.flush()
+                with open(req["log"] + ".rc.tmp", "w") as f:
+                    f.write(str(rc))
+                os.replace(req["log"] + ".rc.tmp", req["log"] + ".rc")
+            finally:
+                os._exit(rc)
+
+
+class Zygote:
+    """A ``--zygote`` process of this script: ``spawn`` forks a child
+    that runs this script's ``main(argv)`` with torch already imported,
+    so a rank worker starts without re-importing it."""
+
+    def __init__(self):
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--zygote"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.ready = False
+
+    def wait_ready(self) -> None:
+        """Block until the zygote has imported ``ZYGOTE_PRELOAD``."""
+        if not self.ready:
+            line = self.proc.stdout.readline().strip()
+            if line != "ready":
+                self.close()
+                raise SmokeError(f"zygote did not start (said {line!r})")
+            self.ready = True
+
+    def spawn(self, argv, env: dict, log: str) -> int:
+        """Fork a child running ``main(argv)`` under ``env`` with its
+        output in ``log``; returns its pid (its exit code lands in
+        ``log + ".rc"``)."""
+        self.wait_ready()
+        for path in (log, log + ".rc"):
+            if os.path.exists(path):
+                os.remove(path)
+        self.proc.stdin.write(json.dumps(
+            {"argv": list(argv), "env": env, "cwd": os.getcwd(),
+             "log": os.path.abspath(log)}) + "\n")
+        self.proc.stdin.flush()
+        return json.loads(self.proc.stdout.readline())["pid"]
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.stdin.close()
+            try:
+                self.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+
+_ZYGOTE = []
+
+
+def zygote() -> Zygote:
+    """This process's zygote, started at the first call."""
+    if not _ZYGOTE or _ZYGOTE[0].proc.poll() is not None:
+        _ZYGOTE[:] = [Zygote()]
+    return _ZYGOTE[0]
+
+
+def close_zygote() -> None:
+    while _ZYGOTE:
+        _ZYGOTE.pop().close()
+
+
+def _alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
 def run_workers(config: str, n: int, timeout: float, out_dir: str,
                 env_extra=None):
-    """Relaunch this script as the n rank workers of ``config`` on the
-    one card, each with HVD_TPU_COORDINATOR/NUM_PROC/PROC_ID (and
-    ``env_extra``); any worker's failure or overrun fails the phase.
-    Returns each rank's JSON record and the wall seconds; the logs go to
+    """Run this script's ``--rank-worker`` ``config`` as n rank processes
+    on the one card, forked by the zygote, each with
+    HVD_TPU_COORDINATOR/NUM_PROC/PROC_ID (and ``env_extra``); any
+    worker's failure or overrun fails the phase. Returns each rank's JSON
+    record and the wall seconds; the logs go to
     ``multirank_<config>.log``."""
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -3018,31 +3277,46 @@ def run_workers(config: str, n: int, timeout: float, out_dir: str,
     for path in paths:
         if os.path.exists(path):
             os.remove(path)
+    rank_logs = [os.path.join(out_dir, f"multirank_{config}_rank{r}.out")
+                 for r in range(n)]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--rank-worker",
-         config, str(r), paths[r]],
-        env=dict(env, HVD_TPU_PROC_ID=str(r)), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for r in range(n)]
-    logs = [""] * n
+    zy = zygote()
+    pids = [zy.spawn(["--rank-worker", config, str(r), paths[r]],
+                     dict(env, HVD_TPU_PROC_ID=str(r)), rank_logs[r])
+            for r in range(n)]
     try:
-        for r, p in enumerate(procs):
-            logs[r] = p.communicate(
-                timeout=max(1.0, timeout - (time.perf_counter() - t0)))[0]
-    except subprocess.TimeoutExpired:
-        raise SmokeError(f"multi-rank {config}: a worker passed its "
-                         f"{timeout} s limit")
+        # A rank is done once its exit code is written or it is gone.
+        while any(_alive(pid) and not os.path.exists(log + ".rc")
+                  for pid, log in zip(pids, rank_logs)):
+            if time.perf_counter() - t0 > timeout:
+                raise SmokeError(f"multi-rank {config}: a worker passed "
+                                 f"its {timeout} s limit")
+            time.sleep(0.1)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        for pid in pids:
+            if _alive(pid):
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(pid, 9)
+        while any(_alive(pid) for pid in pids):
+            time.sleep(0.05)
+    logs, rcs = [], []
+    for log in rank_logs:
+        with open(log, errors="replace") as f:
+            logs.append(f.read())
+        rc = None
+        if os.path.exists(log + ".rc"):
+            with open(log + ".rc") as f:
+                rc = int(f.read())
+            os.remove(log + ".rc")
+        os.remove(log)
+        rcs.append(rc)
     with open(os.path.join(out_dir, f"multirank_{config}.log"), "w") as f:
         f.write("\n".join(f"--- rank {r}\n{log}"
                           for r, log in enumerate(logs)))
-    for r, p in enumerate(procs):
-        check(p.returncode == 0,
-              f"multi-rank {config}: rank {r} exited {p.returncode}:\n"
+    for r, rc in enumerate(rcs):
+        check(rc == 0,
+              f"multi-rank {config}: rank {r} exited "
+              f"{'without an exit code' if rc is None else rc}:\n"
               f"{logs[r][-3000:]}")
     ranks = []
     for path in paths:
@@ -3124,10 +3398,12 @@ MESH_CONFIG = "n4_mesh"
 # n, model, per-rank batch, sequence length, worker timeout (s)
 MESH_RUN = (4, "gpt_medium", 4, 512, 900)
 # The routed training runs' depth: GPT-2 medium's widths at 8 of its 24
-# layers (with 7c's and 9 (b)'s, the cut that makes room for phase 12
-# under the smoke's time limit: 24 layers here and in 7d add about 86 s,
-# 9 (b) and 7c at 2 layers give back 20; PERF.md §7). The eager,
-# process-set and exchange sections keep their shapes.
+# layers (with 7c's and 9 (b)'s, the cut that keeps phases 12 and 13
+# under the smoke's time limit: 24 layers here and in 7d would add about
+# 86 s; the role-aware elastic slice names this cut and keeps it, since
+# K8/K9 run at 24 layers in phase 7a and K5-K7 in phases 11 and 12;
+# PERF.md §4). The eager, process-set and exchange sections keep their
+# shapes.
 MESH_LAYERS = 8
 MESH_SHAPE = "2x2"                  # cross x local: local {0,1},{2,3}
 MESH_TIMED = 3                      # timed steps after the checked one
@@ -3674,10 +3950,11 @@ def phase_mesh(torch, out_dir: str) -> dict:
 ZERO_CONFIG = "n4_zero"
 # n, model, per-rank batch, sequence length, worker timeout (s)
 ZERO_RUN = (4, "gpt_medium", 4, 512, 900)
-# Phase 7c's depth: GPT-2 medium's widths at 4 of its 24 layers (with
-# phase 9 (b)'s, the cut that makes room for phase 12). Every check
-# counts from the model and its bucket plan.
-ZERO_LAYERS = 4
+# Phase 7c's depth: GPT-2 medium's widths at 2 of its 24 layers (with
+# phase 9 (b)'s: 4 made room for phase 12, 2 for phase 13, the role-aware
+# elastic slice's named cut). Every check counts from the model and its
+# bucket plan.
+ZERO_LAYERS = 2
 ZERO_TIMED = 3                      # timed steps after the checked one
 ZERO_LOSS_RTOL = 1e-3               # each step's loss vs (a)'s: bf16 bound
 # label, zero_stage, extra keywords: (a) the replicated baseline, (b)
@@ -4495,9 +4772,9 @@ OVERLAP_RUNS = {OVERLAP_N2: (2, "gpt_medium", 8, 512, 600),
                 OVERLAP_N4: (4, "gpt_medium", 4, 512, 600)}
 OVERLAP_TIMED = 3                   # timed steps after the checked one
 ADASUM_ACCUM = 2                    # microbatches of the accumulated arm
-# Phase 7d's depth: GPT-2 medium's widths at 8 of its 24 layers (with
-# 7b's, 7c's and 9 (b)'s, the cut that makes room for phase 12; see
-# MESH_LAYERS); the launch counts follow the model and its plan.
+# Phase 7d's depth: GPT-2 medium's widths at 8 of its 24 layers (the
+# role-aware elastic slice's named cut, with 7b's; see MESH_LAYERS); the
+# launch counts follow the model and its plan.
 OVERLAP_LAYERS = 8
 ACCUM_LOSS_RTOL = 1e-3              # accumulated vs fused: the bf16 bounds
 ACCUM_DELTA_RTOL = 2e-2
@@ -4994,7 +5271,6 @@ ELASTIC_ENV = {"HVD_TPU_ELASTIC_FORCE_LOCAL": "1",
                "HVD_TPU_BLACKLIST_TTL_S": "3",
                "HVD_TPU_ELASTIC_GRACE_SECS": "20",
                "HVD_TPU_ELASTIC_RESET_BACKOFF_MAX_S": "0.5"}
-ELASTIC_LOSS_RTOL = 1e-3            # the fallback if two clean runs differ
 _NEVER = 1 << 40                    # a spec step no run reaches
 ELASTIC_KEEP = 2                    # persisted steps kept (the walk-back)
 
@@ -5226,8 +5502,10 @@ def elastic_worker(cfg_path: str) -> None:
 def run_elastic_job(work: str, cfg: dict, plan, env_extra=None,
                     timeout: float = ELASTIC_TIMEOUT, output=None,
                     hosts: str = ELASTIC_HOSTS, nps=(2, 2, 2),
-                    launcher_args=(), watch=None):
-    """One launcher run of this script's elastic workers:
+                    launcher_args=(), watch=None,
+                    worker: str = "--elastic-worker"):
+    """One launcher run of this script's elastic workers (``worker``,
+    default ``--elastic-worker``):
     ``hvdtpurun-torch --elastic -np NP --min-np MIN --max-np MAX -H
     HOSTS`` (``nps``; phase 8: 2, 2, 2 over hostA:1,hostB:1) plus
     ``launcher_args``, its output streamed to ``output`` (default
@@ -5252,8 +5530,8 @@ def run_elastic_job(work: str, cfg: dict, plan, env_extra=None,
             "--max-np", str(nps[2]), "-H", hosts, *launcher_args]
     if plan is not None:
         argv += ["--fault-plan", json.dumps(plan)]
-    argv += ["--", sys.executable, os.path.abspath(__file__),
-             "--elastic-worker", cfg_path]
+    argv += ["--", sys.executable, os.path.abspath(__file__), worker,
+             cfg_path]
     t0 = time.perf_counter()
     log_file = output or os.path.join(work, "launcher.log")
     stop = threading.Event()
@@ -5339,13 +5617,11 @@ def elastic_report(events: dict, injections: list) -> dict:
 
 
 def phase_elastic(torch, out_dir: str) -> dict:
-    """Phase 8: two uninterrupted launcher runs of ``ELASTIC_RUN`` (they
-    must end bitwise equal), then the run under
-    ``ELASTIC_PLAN``: exit 0, the final step, the four sites, every
-    restore bitwise its commit, the persisted state the last commit, and
-    the final state bitwise the clean runs' (or, if those differ from
-    each other, the final losses within 1e-3). Returns the phase's record
-    with ``launches``, the clean run's rank 0 counts."""
+    """Phase 8: an uninterrupted launcher run of ``ELASTIC_RUN``, then the
+    run under ``ELASTIC_PLAN``: exit 0, the final step, the four sites,
+    every restore bitwise its commit, the persisted state the last
+    commit, and the final state bitwise the clean run's. Returns the
+    phase's record with ``launches``, the clean run's rank 0 counts."""
     import shutil
     import tempfile
 
@@ -5362,7 +5638,7 @@ def phase_elastic(torch, out_dir: str) -> dict:
         return _phase_elastic(torch, out_dir, root, cfg, steps,
                               model_name, batch, seq, every)
     finally:
-        for name in ("clean1", "clean2", "chaos"):
+        for name in ("clean1", "chaos"):
             src = os.path.join(root, name)
             dst = os.path.join(out_dir, f"elastic_{name}")
             os.makedirs(dst, exist_ok=True)
@@ -5379,21 +5655,17 @@ def phase_elastic(torch, out_dir: str) -> dict:
 def _phase_elastic(torch, out_dir, root, cfg, steps, model_name, batch,
                    seq, every) -> dict:
 
-    # The clean runs persist nothing (persistence changes no value) and
-    # run one after the other: four such ranks at once, each with its
+    # The clean run persists nothing (persistence changes no value) and
+    # runs before the chaos run: four such ranks at once, each with its
     # commit snapshot on the card, would crowd its 80 GB.
     clean_cfg = dict(cfg, persist_every=0, final_check=False)
     clean = [run_elastic_job(
-        os.path.join(root, f"clean{i}"), clean_cfg, None,
-        output=os.path.join(out_dir, f"elastic_clean{i}.log"))
-        for i in (1, 2)]
-    for i, (rc, wall, events, inj, log) in enumerate(clean):
-        check(rc == 0, f"elastic clean run {i + 1}: exit {rc}:\n"
-                       f"{log[-3000:]}")
-        check(not inj, f"elastic clean run {i + 1}: injections {inj}")
+        os.path.join(root, "clean1"), clean_cfg, None,
+        output=os.path.join(out_dir, "elastic_clean1.log"))]
+    rc, _, _, inj, log = clean[0]
+    check(rc == 0, f"elastic clean run: exit {rc}:\n{log[-3000:]}")
+    check(not inj, f"elastic clean run: injections {inj}")
     reps = [elastic_report(c[2], c[3]) for c in clean]
-    same_clean = all(reps[0]["finals"][r]["digest"] ==
-                     reps[1]["finals"][r]["digest"] for r in (0, 1))
     rc, wall, events, inj, log = run_elastic_job(
         os.path.join(root, "chaos"), dict(cfg, final_check=True),
         ELASTIC_PLAN, output=os.path.join(out_dir, "elastic_chaos.log"))
@@ -5411,27 +5683,17 @@ def _phase_elastic(torch, out_dir, root, cfg, steps, model_name, batch,
               f"elastic: rank {r} final {fin}")
     check(all(f["recover_s"] is not None for f in rep["faults"]),
           f"elastic: a fault was not recovered from: {rep['faults']}")
-    if same_clean:
-        for r in (0, 1):
-            check(rep["finals"][r]["digest"] ==
-                  reps[0]["finals"][r]["digest"],
-                  f"elastic: rank {r}'s final state differs from the "
-                  "uninterrupted run's")
-        compared = "bitwise"
-    else:
-        last = reps[0]["losses_rank0"][-1][1]
-        got = rep["losses_rank0"][-1][1]
-        check(abs(got - last) <= ELASTIC_LOSS_RTOL * abs(last),
-              f"elastic: final loss {got} vs the clean run's {last}")
-        compared = f"final loss within {ELASTIC_LOSS_RTOL} (the two clean " \
-                   "runs differ)"
+    for r in (0, 1):
+        check(rep["finals"][r]["digest"] == reps[0]["finals"][r]["digest"],
+              f"elastic: rank {r}'s final state differs from the "
+              "uninterrupted run's")
+    compared = "bitwise"
     launches = reps[0]["finals"][0].get("launches", {})
     res = {"label": "gloo, 2 processes on one card (not NCCL or NVLink)",
            "model": model_name, "layers": ELASTIC_LAYERS,
            "batch_per_rank": batch, "seq_len": seq,
            "steps": steps, "persist_every": every,
            "clean_wall_s": [c[1] for c in clean], "chaos_wall_s": wall,
-           "clean_runs_bitwise_equal": same_clean,
            "final_vs_uninterrupted": compared, "sites": sites,
            "faults": rep["faults"], "commit_ms_median":
            rep["commit_ms_median"], "persist_s_median":
@@ -5462,11 +5724,11 @@ def _phase_elastic(torch, out_dir, root, cfg, steps, model_name, batch,
 TELEMETRY_HOSTS = "hostA:1,hostB:1,hostC:1"
 # model, per-rank batch, sequence length, steps
 TELEMETRY_RUN = ("gpt_medium", 4, 512, 50)
-# The control run's depth: GPT-2 medium's widths at 4 of its 24 layers
-# (the cut that makes room for phase 12, as phase 8's made room for
-# phase 9). A step is then shorter, so the run takes more of them: the
-# world at 2 must not reach the last step before hostC is back.
-TELEMETRY_LAYERS = 4
+# The control run's depth: GPT-2 medium's widths at 2 of its 24 layers
+# (4 made room for phase 12, 2 for phase 13: the role-aware elastic
+# slice's named cut). A step is then shorter, so the run takes more of
+# them: the world at 2 must not reach the last step before hostC is back.
+TELEMETRY_LAYERS = 2
 # hostC's extra seconds a commit (at full depth about one clean step of
 # the world of 3, 1.0-1.1 s on the H100; several at 4 layers), for its
 # first process's first commits only: a regrown hostC never fires it
@@ -6465,6 +6727,51 @@ def _parallel_arm(torch, hvd, gpt_mod, C, K, ring, label, spec_str, kw,
     return rec
 
 
+def _parallel_adasum(torch, hvd, gpt_mod, C, K, ring, spec_str, kw, rank,
+                     dev) -> dict:
+    """The tp arm's world again: one checked AdamW step under
+    ``DistributedOptimizer(op=Adasum, parallel=dp=2,tp=2)`` (each
+    gradient combined over tp, each delta's Adasum over dp through the
+    router): K8 and K9 once a parameter (one Adasum level over the dp
+    pair), and the masters bitwise equal on all four ranks."""
+    _, model_name, rows, seq, _ = PARALLEL_RUN
+    spec = hvd.parallel_spec()
+    model = _make_model(torch, gpt_mod, model_name, dev, **kw)
+    params = list(model.parameters())
+    digest = _Digest(torch, params)
+    tokens = _parallel_tokens(torch, rows, seq, model.vocab_size, dev)
+    x, y = _parallel_shard(ring, spec, rank, tokens, kw)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(params, lr=1e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(), op=hvd.Adasum,
+        parallel=spec_str)
+    loss = gpt_mod.next_token_loss(model(x), y)
+    loss.backward()
+    _sync(torch, dev)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    opt.step()
+    _sync(torch, dev)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(K.LAUNCHES)
+    every = C.all_gather_stack(digest(params))
+    equal = bool((every == every[0]).all())
+    loss = C.allreduce(loss.detach().reshape(1).float(), hvd.Average).item()
+    check(equal and math.isfinite(loss),
+          f"parallel adasum: masters equal {equal}, loss {loss}")
+    _expect(launches, "parallel adasum", adasum_dot_norms=len(params),
+            adasum_combine=len(params))
+    del model, opt, params, digest, every
+    import gc
+
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return {"spec": spec_str, "loss": loss, "masters_equal": equal,
+            "step_call_ms": step_ms,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
 def _ring_check(torch, hvd, C, ring, rank, dev) -> dict:
     """The striped ring over the sp axis with the kernels against the
     same ring with plain blocks (``use_flash=False``) on the same bf16
@@ -6525,6 +6832,9 @@ def parallel_worker(config: str, rank: int, out_path: str,
         if label == "ring":
             rec["kernels_vs_plain"] = _ring_check(torch, hvd, C, ring, rank,
                                                   dev)
+        if label == "tp":
+            rec["adasum"] = _parallel_adasum(torch, hvd, gpt_mod, C, K, ring,
+                                             spec, kw, rank, dev)
         out["arms"][label] = rec
         print(f"rank {rank} parallel {label} ({spec}): losses "
               f"{rec['losses']} final {rec['final_loss']}, step ms "
@@ -7096,6 +7406,559 @@ def phase_pipeline(torch, out_dir: str) -> dict:
     return res
 
 
+# -- phase 13: the elastic hybrid world ----------------------------------------
+
+HYBRID_HOSTS = "hostA:1,hostB:1,hostC:1,hostD:1"
+HYBRID_SPEC = "dp=2,pp=2"
+# GPT-2 medium's widths at 2 of its 24 layers, one a pipeline stage: the
+# depth cut that fits the phase into its 150 s (this slice's named cut).
+HYBRID_LAYERS = 2
+# Global rows of SEQ tokens a step (one row a microbatch): k = rows / dp
+# microbatches a replica, so the global batch stays 4 x 512 when dp
+# halves (the dp = 1 world runs twice the microbatches).
+HYBRID_RUN = {"rows": 4, "seq": 512, "steps": 8, "lr": 1e-4}
+HYBRID_ROUTE = "dp:int8"            # K3 on the dp reduce-scatter
+HYBRID_KEEP = 3                     # sharded steps kept a rank (walk-back)
+# hostC (role dp1/pp0) sleeps this long at each commit of its first
+# process: replica dp1's median busy time is then well over 1.5 x
+# replica dp0's, and hostC strictly its slowest rank (hostD waits on it
+# in the pipeline exchanges, which are waits, not busy time). A tick
+# spans a step period of the world of 4 (the straggled step and its
+# save, ≈ 10 s on the H100), so every rank reports in each scoring tick;
+# one flagged tick convicts (patience 1), so the eviction lands by the
+# third or fourth step and the world of 2 takes the rest.
+HYBRID_STRAGGLE = {"site": "straggler", "step": 1, "times": 50,
+                   "host": "hostC", "delay_s": 6.0}
+HYBRID_POLICY = {"tick_interval_s": 12.0, "publish_interval_s": 0.0,
+                 "window": 4, "straggler_ratio": 1.5,
+                 "straggler_patience": 1, "min_ranks": 4,
+                 "evict_ttl_s": 3600.0, "evict_cooldown_s": 0.0,
+                 "grow_cooldown_s": 0.0, "grow_min_comm_fraction": 0.0}
+HYBRID_ENV = {"HVD_TPU_PARALLEL": HYBRID_SPEC,
+              "HVD_TPU_STALL_CHECK_TIME_SECONDS": "60",
+              "HVD_TPU_POD_METRICS_INTERVAL_S": "1",
+              "HVD_TPU_ELASTIC_GRACE_SECS": "30"}
+HYBRID_TIMEOUT = 420                # seconds a launcher run may take
+
+
+def _bits_digest(torch, named) -> str:
+    """sha256 over ``(name, bits sum, position-weighted bits sum)`` of
+    each tensor, the sums taken on the tensor's device."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(named):
+        flat = named[name].detach().reshape(-1)
+        bits = flat.view(torch.int32).to(torch.int64) \
+            if flat.dtype == torch.float32 else \
+            flat.to(torch.float64).view(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device,
+                         dtype=torch.int64) % 1000003 + 1
+        h.update(name.encode())
+        h.update(torch.stack([bits.sum(), (bits * w).sum()]).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _gathered_leaves(torch, fusion, opt, names) -> dict:
+    """``{name/key: tensor}`` of a ZeroOptimizer's state gathered over its
+    grid (``gather_state``), cut by leaf: the vector state and the EF
+    residual's sum."""
+    out = {}
+    full = opt.gather_state()
+    plan = opt.shard_state.plan
+    for bi, entry in full["state"].items():
+        for k, v in entry.items():
+            if torch.is_tensor(v) and v.dim():
+                for i, view in fusion.unfuse_bucket(v,
+                                                    plan.buckets[int(bi)]):
+                    out[f"{names[i]}/{k}"] = view
+    for r, b in zip(full["ef_state"]["residual"], plan.buckets):
+        for i, view in fusion.unfuse_bucket(r, b):
+            out[f"{names[i]}/residual"] = view
+    return out
+
+
+def hybrid_elastic_worker(cfg_path: str) -> None:
+    """One worker of phase 13 (``--hybrid-elastic-worker CFG``), started
+    by the port's launcher under ``HVD_TPU_PARALLEL``: this rank's stage
+    of the seeded GPT (GPT-2 medium's widths, or ``gpt_tiny`` on the
+    CPU), 1F1B ``pipeline_accumulate_gradients`` over ``rows / dp``
+    microbatches, ``ZeroOptimizer(zero_stage=1, compression="int8_ef",
+    parallel=)`` AdamW; with ``reference`` the first world first runs
+    the same steps uninterrupted in its own model and optimizer (no
+    commit, no save; ``ref_step`` events); ``restore_sharded`` at start
+    (the restored state checked by digest against the saved pieces
+    assembled whole), and ``save_sharded`` of the state under its global
+    leaf names before each commit. Logs every event with its time and
+    each step's launches."""
+    import time as time_mod
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import checkpoint as ckpt
+    from horovod_tpu_torch import elastic
+    from horovod_tpu_torch.common import faults
+    from horovod_tpu_torch.common import fusion
+    from horovod_tpu_torch.common.exceptions import HostsUpdatedInterrupt
+    from horovod_tpu_torch.models import gpt as gpt_mod
+    from horovod_tpu_torch.ops import collectives as C
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.parallel import pipeline as pl
+    from horovod_tpu_torch.parallel.mesh import local_batch
+
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    dev = cfg["device"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = hvd.init(device="cpu") if dev == "cpu" else \
+        hvd.init(backend="gloo")
+    rank, n = hvd.rank(), hvd.size()
+    spec = hvd.parallel_spec()
+    check(spec is not None and spec.total == n,
+          f"hybrid worker: spec {spec} for a world of {n}")
+    dp, npp = spec.size_of("dp"), spec.size_of("pp")
+    s = spec.coords(rank)["pp"]
+    host = os.environ.get("HVD_TPU_HOSTNAME", "")
+    work = cfg["workdir"]
+    events_path = os.path.join(work, f"events.rank{rank}.jsonl")
+
+    def log(event, **kw):
+        with open(events_path, "a") as f:
+            f.write(json.dumps({"event": event, "t": time_mod.time(),
+                                "pid": os.getpid(), "host": host, "n": n,
+                                "spec": spec.describe(),
+                                "role": spec.role_label(rank),
+                                "metrics_port": ctx.metrics_port, **kw})
+                    + "\n")
+
+    widths = cfg["widths"]
+    k = cfg["rows"] // dp
+
+    def build():
+        """This rank's stage of the seeded GPT, its global leaf names, the
+        optimizer and the 1F1B step's closure."""
+        with torch.device(dev):
+            full = gpt_mod.GPT(num_layers=cfg["layers"], **widths)
+        full.init_weights(torch.Generator(device=dev).manual_seed(0))
+        stages, shared = gpt_mod.stack_stage_params(full.state_dict(), npp)
+        state = {**stages[s], **shared}
+        del full, stages, shared
+        with torch.device(dev):
+            model = gpt_mod.GPT(num_layers=cfg["layers"] // npp, **widths)
+        model.load_state_dict(state)
+        opt = hvd.ZeroOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=cfg["lr"],
+                              weight_decay=1e-4),
+            zero_stage=1, compression="int8_ef", route=cfg["route"],
+            parallel=spec.describe())
+        sf, pf, lf = gpt_mod.pipeline_fns(model)
+        vg = pl.pipeline_accumulate_gradients(sf, lf, accum_steps=k,
+                                              axis_name="pp", pre_fn=pf)
+        tree = {"stages": gpt_mod.stage_params(model),
+                "shared": gpt_mod.shared_params(model)}
+        return (model, gpt_mod.global_param_names(model, s, npp), opt,
+                lambda x, y: vg(tree, x, y))
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def train_step(opt, vg, step):
+        """One optimizer step on the step's seeded global batch (this
+        rank's dp rows): the global loss, the ms and the launches."""
+        toks = torch.randint(
+            0, widths["vocab_size"], (cfg["rows"], cfg["seq"] + 1),
+            generator=torch.Generator().manual_seed(1000 + step)).to(dev)
+        x = local_batch(toks[:, :-1], spec, rank)
+        y = local_batch(toks[:, 1:], spec, rank)
+        before = dict(K.LAUNCHES)
+        sync()
+        t = time_mod.perf_counter()
+        opt.zero_grad()
+        loss, _ = vg(x, y)
+        opt.step()
+        sync()
+        step_ms = (time_mod.perf_counter() - t) * 1e3
+        launches = {name: K.LAUNCHES[name] - before.get(name, 0)
+                    for name in K.LAUNCHES}
+        gloss = float(C.allreduce(loss.detach().reshape(1).float(),
+                                  C.Average, axis="dp"))
+        return dict(step=step, loss=gloss, step_ms=step_ms, micro=k,
+                    launches=launches,
+                    buckets=len(opt.shard_state.plan.buckets))
+
+    ckdir = os.path.join(work, "ckpt")
+    if cfg.get("reference") and not os.path.isdir(
+            os.path.join(ckdir, "rank0")):
+        # The uninterrupted reference, in the first world's processes
+        # before the elastic run: the same steps and data, no commit (so
+        # no fault fires and nothing is published), no save.
+        ref_model, _, ref_opt, ref_vg = build()
+        for step in range(1, cfg["steps"] + 1):
+            log("ref_step", **train_step(ref_opt, ref_vg, step))
+        del ref_model, ref_opt, ref_vg
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    model, names, opt, vg = build()
+
+    start = 0
+    if os.path.isdir(os.path.join(ckdir, "rank0")):
+        t0 = time_mod.perf_counter()
+        restored, start = ckpt.restore_sharded(opt.restore_template(names),
+                                               ckdir)
+        opt.load_sharded_tree(restored, names)
+        sync()
+        secs = time_mod.perf_counter() - t0
+        del restored
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for r in os.listdir(ckdir)
+                     for d, _, fs in os.walk(os.path.join(
+                         ckdir, r, str(start))) for f in fs)
+        # The restored stage state against the saved pieces assembled
+        # whole, each leaf by digest.
+        whole, _ = ckpt.restore_sharded(opt.sharded_tree(names, whole=True),
+                                        ckdir)
+        saved = {f"{nm}/{key}": v for nm, rec in whole["leaves"].items()
+                 for key, v in rec.items()
+                 if torch.is_tensor(v) and v.dim()}
+        saved.update({f"{nm}/residual": v for nm, v in
+                      whole["ef_state"]["residual"].items()})
+        del whole
+        live = _gathered_leaves(torch, fusion, opt, names)
+        log("restore", step=start, seconds=secs, bytes=nbytes,
+            by=opt.last_restore, leaves=len(saved),
+            digest_ok=_bits_digest(torch, live) ==
+            _bits_digest(torch, saved))
+        del saved, live
+    else:
+        log("start", step=0)
+    raw = os.environ.get("HVD_TPU_FAULT_PLAN")
+    if raw:
+        faults.install(_shifted_plan(faults, raw,
+                                     os.environ["HVD_TPU_FAULT_LOG"], start))
+
+    def peak_gib():
+        return (torch.cuda.max_memory_allocated() / 2 ** 30
+                if dev == "cuda" else 0.0)
+
+    st = elastic.ObjectState(step=start)
+
+    @elastic.run
+    def train(st):
+        while st.step < cfg["steps"]:
+            step = st.step + 1
+            rec = train_step(opt, vg, step)
+            t = time_mod.perf_counter()
+            ckpt.save_sharded(opt.sharded_tree(names), ckdir, step,
+                              max_to_keep=HYBRID_KEEP)
+            st.step = step
+            rec.update(save_s=time_mod.perf_counter() - t,
+                       peak_gib=peak_gib())
+            try:
+                st.commit()
+            except HostsUpdatedInterrupt:
+                log("step", interrupted=True, **rec)
+                raise
+            log("step", **rec)
+
+    try:
+        train(st)
+    except SystemExit as e:
+        log("exit", step=int(st.step), code=e.code, peak_gib=peak_gib())
+        raise
+    except BaseException as e:
+        import traceback
+
+        log("error", step=int(st.step), error=f"{type(e).__name__}: {e}",
+            traceback=traceback.format_exc()[-3000:])
+        raise
+    log("final", step=int(st.step), peak_gib=peak_gib())
+    hvd.shutdown()
+
+
+class HybridWatch:
+    """What phase 13's parent sees while the launcher runs, polled every
+    ``poll_s``: the decision log's lines with the time each was first
+    seen, the pod monitor's ``/pod/metrics`` text (its port from the
+    launcher's output) and the driver's own registry (``/pod/driver``)."""
+
+    def __init__(self, launcher_log: str, decision_log: str,
+                 poll_s: float = 0.5):
+        self.launcher_log, self.decision_log = launcher_log, decision_log
+        self.poll_s = poll_s
+        self.pod_port = None
+        self.pod = []              # (t, /pod/metrics text)
+        self.driver = []           # (t, /pod/driver text)
+        self.decisions = []        # (t first seen, line)
+
+    def _poll(self):
+        import re
+
+        if os.path.exists(self.decision_log):
+            with open(self.decision_log) as f:
+                lines = [x.strip() for x in f if x.strip()]
+            for line in lines[len(self.decisions):]:
+                self.decisions.append((time.time(), line))
+        if self.pod_port is None and os.path.exists(self.launcher_log):
+            with open(self.launcher_log) as f:
+                m = re.search(r"/pod/metrics on port (\d+)", f.read())
+            if m:
+                self.pod_port = int(m.group(1))
+        if self.pod_port is not None:
+            for path, into in (("/pod/metrics", self.pod),
+                               ("/pod/driver", self.driver)):
+                body, _ = _http_get(
+                    f"http://127.0.0.1:{self.pod_port}{path}")
+                if body is not None:
+                    into.append((time.time(), body))
+
+    def run(self, stop) -> None:
+        while not stop.wait(self.poll_s):
+            try:
+                self._poll()
+            except (OSError, ValueError) as e:
+                print(f"hybrid watch: {type(e).__name__}: {e}", flush=True)
+
+
+def _hybrid_launch(work: str, cfg: dict, env_extra: dict, nps, args,
+                   output: str, timeout: float = HYBRID_TIMEOUT,
+                   watch=None, plan=None):
+    """One launcher run of the hybrid worker (``run_elastic_job``'s
+    machinery with ``--hybrid-elastic-worker``)."""
+    return run_elastic_job(work, cfg, plan, env_extra=env_extra,
+                           timeout=timeout, output=output,
+                           hosts=HYBRID_HOSTS, nps=nps,
+                           launcher_args=args, watch=watch,
+                           worker="--hybrid-elastic-worker")
+
+
+def _hybrid_steps(events: dict, n: int) -> list:
+    """Every step event of a world of ``n``, in time order."""
+    return sorted((e for evs in events.values() for e in evs
+                   if e["event"] == "step" and e["n"] == n),
+                  key=lambda e: e["t"])
+
+
+def elastic_hybrid(root: str, out_dir: str, dev: str = "cuda",
+                   widths=None, layers: int = HYBRID_LAYERS, run=None,
+                   straggle=None, policy=None, env_extra=None,
+                   timeout: float = HYBRID_TIMEOUT,
+                   expect_launches: bool = True) -> dict:
+    """Phase 13 (the CPU journey with ``dev="cpu"`` and ``gpt_tiny``'s
+    widths): the respec run (``-np 4 --min-np 2 --max-np 4 -H hostA..D
+    --pod-metrics-port 0 --autoscale-policy JSON --autoscale-log FILE
+    --host-discovery-script SCRIPT`` under ``HVD_TPU_PARALLEL=dp=2,pp=2``,
+    a straggler on hostC's first process; its first world runs the
+    uninterrupted dp=2,pp=2 reference first), watched by a
+    :class:`HybridWatch`, and beside it a ``--min-np 3`` launch that must
+    fail naming the roles. Checks and returns the record."""
+    run = dict(HYBRID_RUN, **(run or {}))
+    widths = widths or dict(PIPE_WIDTHS)
+    straggle = dict(HYBRID_STRAGGLE, **(straggle or {}))
+    policy = dict(HYBRID_POLICY, **(policy or {}))
+    env = dict(HYBRID_ENV, **(env_extra or {}))
+    cfg = {"device": dev, "widths": widths, "layers": layers,
+           "route": HYBRID_ROUTE, **run}
+    hosts_file = os.path.join(root, "hosts.txt")
+    with open(hosts_file, "w") as f:
+        f.write("\n".join(HYBRID_HOSTS.split(",")) + "\n")
+    discover = os.path.join(root, "discover.sh")
+    with open(discover, "w") as f:
+        f.write(f"#!/bin/sh\ncat {hosts_file}\n")
+    os.chmod(discover, 0o755)
+    t_phase = time.perf_counter()
+    rec = {"label": "gloo, 4 then 2 processes on one card (not NCCL or "
+                    "NVLink)" if dev == "cuda" else "gloo on the CPU",
+           "spec": HYBRID_SPEC, "layers": layers,
+           "global_batch": [run["rows"], run["seq"]], "steps": run["steps"]}
+
+    # The respec run (its first world also runs the uninterrupted
+    # reference before the elastic steps) and, beside it, a launch whose
+    # floor splits a replica: it must fail before any worker starts,
+    # naming the roles.
+    from concurrent.futures import ThreadPoolExecutor
+
+    work = os.path.join(root, "respec")
+    os.makedirs(work, exist_ok=True)
+    decision_log = os.path.join(work, "decisions.jsonl")
+    launcher_log = os.path.join(out_dir, "elastic_hybrid.log")
+    watch = HybridWatch(launcher_log, decision_log)
+    plan = {"seed": 17, "faults": [straggle]}
+    t = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        bad = pool.submit(
+            _hybrid_launch, os.path.join(root, "bad"), cfg, env, (4, 3, 4),
+            ["--autoscale-policy", json.dumps(policy)],
+            os.path.join(out_dir, "elastic_hybrid_min_np3.log"), 120)
+        rc, wall, events, inj, log = _hybrid_launch(
+            work, dict(cfg, reference=True), env, (4, 2, 4),
+            ["--pod-metrics-port", "0", "--autoscale-policy",
+             json.dumps(policy), "--autoscale-log", decision_log,
+             "--host-discovery-script", discover], launcher_log,
+            timeout=timeout, watch=watch.run, plan=plan)
+        bad_rc, _, bad_events, _, bad_log = bad.result()
+    rec["respec_wall_s"] = time.perf_counter() - t
+    check(bad_rc not in (0, None) and not bad_events
+          and "model-replica size 2" in bad_log and "pp=2" in bad_log,
+          f"hybrid: --min-np 3 launch: exit {bad_rc}, events "
+          f"{list(bad_events)}:\n{bad_log[-2000:]}")
+    rec["min_np3"] = {"rc": bad_rc, "message": next(
+        (line for line in bad_log.splitlines() if "model-replica" in line),
+        "")}
+    check(rc == 0, f"hybrid respec run: exit {rc}:\n{log[-3000:]}")
+    ref_steps = sorted((e for evs in events.values() for e in evs
+                        if e["event"] == "ref_step"), key=lambda e: e["t"])
+    check(len(ref_steps) == 4 * run["steps"],
+          f"hybrid reference: steps {[e['step'] for e in ref_steps]}")
+    ref_loss = [e["loss"] for e in ref_steps if e["step"] == run["steps"]][0]
+    decisions = [json.loads(line) for _, line in watch.decisions]
+    got = [(d["action"], d["target"], d.get("role"), d["reason"])
+           for d in decisions]
+    check(got == [("evict", "hostC", "dp1/pp0", "straggler"),
+                  ("respec", "dp=1,pp=2", None, "shed_dp")],
+          f"hybrid: decisions {got}")
+    t_evict = watch.decisions[0][0]
+    # The pod view while the straggler ran: replica 1 stalled, 0 not, and
+    # every per-rank series labelled with its role coordinates.
+    def gauge(text):
+        return {lb.get("replica"): v for v, lb in
+                _labeled(text, "hvd_tpu_pod_replica_stalled")}
+
+    stalled = [text for tt, text in watch.pod
+               if tt < t_evict and gauge(text) == {"0": 0.0, "1": 1.0}]
+    check(stalled, "hybrid: /pod/metrics never showed replica 1 stalled "
+                   f"and 0 not before the eviction (last: "
+                   f"{[gauge(x) for _, x in watch.pod][-3:]})")
+    per_rank = _labeled(stalled[-1], "hvd_tpu_pod_step_time_seconds")
+    check(len(per_rank) == 4 and all(
+        {"dp", "pp"} <= set(lb) for _, lb in per_rank),
+          f"hybrid: per-rank series without role labels: {per_rank}")
+    respec_total = [v for _, text in watch.driver for v, lb in _labeled(
+        text, "hvd_tpu_respec_total")
+        if lb.get("from") == HYBRID_SPEC and lb.get("to") == "dp=1,pp=2"]
+    check(respec_total and respec_total[-1] == 1.0,
+          f"hybrid: driver hvd_tpu_respec_total {respec_total}")
+    worlds = _world_sequence(events)
+    check(worlds == [4, 2], f"hybrid: world sizes {worlds}")
+    n2 = _hybrid_steps(events, 2)
+    check(n2 and all(e["spec"] == "dp=1,pp=2" for e in n2)
+          and {e["pid"] for e in n2} and len({e["pid"] for e in n2}) == 2,
+          f"hybrid: the relaunched world {[(e['pid'], e['spec']) for e in n2]}")
+    check(len({e["step"] for e in n2}) >= 3,
+          f"hybrid: {len({e['step'] for e in n2})} steps after the respec")
+    restores = [e for evs in events.values() for e in evs
+                if e["event"] == "restore"]
+    n4 = _hybrid_steps(events, 4)
+    newest_everywhere = max(st for st in {e["step"] for e in n4} if sum(
+        1 for e in n4 if e["step"] == st) == 4)
+    check(len(restores) == 2 and all(
+        e["digest_ok"] and e["step"] == newest_everywhere
+        and e["by"] == "piecewise" for e in restores),
+          f"hybrid: restores {restores} (newest step saved by every rank "
+          f"{newest_everywhere})")
+    final_loss = [e["loss"] for e in n2 if e["step"] == run["steps"]]
+    check(final_loss, "hybrid: the respec run never reached its last step")
+    bound = 0.02 * abs(ref_loss) + 1e-3
+    check(abs(final_loss[0] - ref_loss) <= bound,
+          f"hybrid: final loss {final_loss[0]} vs uninterrupted {ref_loss} "
+          f"(bound {bound})")
+    # Exact launches a rank a step: K5 twice (the forward slot and the
+    # recompute) and K6/K7 once a layer a microbatch; K3 once a bucket of
+    # the int8 dp reduce-scatter, on an axis of one as well (the
+    # quantized reduce-scatter quantizes whatever the axis size, as the
+    # JAX one does); nothing else. The reference's steps as well.
+    lps = layers // 2
+    for e in ref_steps + n4 + n2:
+        want = {"flash_fwd": 2 * lps * e["micro"],
+                "flash_bwd_dq": lps * e["micro"],
+                "flash_bwd_dkv": lps * e["micro"],
+                "quantize_int8_stochastic": e["buckets"]}
+        if expect_launches:
+            got = {name: v for name, v in e["launches"].items() if v}
+            check(got == want, f"hybrid: rank {e['role']} step "
+                               f"{e['step']} launches {got} vs {want}")
+    t_n2 = min(e["t"] for e in n2)
+    rec.update({
+        "decisions": decisions, "worlds": worlds,
+        "ref_loss": ref_loss, "final_loss": final_loss[0],
+        "loss_bound": bound,
+        "step_ms_n4": statistics.median(e["step_ms"] for e in n4),
+        "step_ms_n2": statistics.median(e["step_ms"] for e in n2),
+        "ref_step_ms": statistics.median(e["step_ms"] for e in ref_steps),
+        "save_s_n4": statistics.median(e["save_s"] for e in n4),
+        "save_s_n2": statistics.median(e["save_s"] for e in n2),
+        "evict_to_first_n2_step_s": t_n2 - t_evict,
+        "restore_s": [e["seconds"] for e in restores],
+        "restore_bytes": [e["bytes"] for e in restores],
+        "restored_step": newest_everywhere,
+        "peak_gib_n4": max(e["peak_gib"] for e in n4),
+        "peak_gib_n2": max(e["peak_gib"] for e in n2),
+        "launches_n4": n4[0]["launches"], "launches_n2": n2[0]["launches"],
+        "micro_n4": n4[0]["micro"], "micro_n2": n2[0]["micro"],
+        "launches": _role_launches(n4 + n2, "dp0/pp0"),
+        "injections": inj, "phase_s": time.perf_counter() - t_phase})
+    return rec
+
+
+def _role_launches(steps: list, role: str) -> dict:
+    """The launches of the rank with ``role`` (in every world), summed
+    over its steps."""
+    out = {}
+    for e in steps:
+        if e["role"] == role:
+            for name, v in e["launches"].items():
+                out[name] = out.get(name, 0) + v
+    return out
+
+
+def phase_elastic_hybrid(torch, out_dir: str) -> dict:
+    """Phase 13: :func:`elastic_hybrid` on the card at GPT-2 medium's
+    widths; returns the record with ``launches`` (the dp0/pp0 rank of
+    both worlds over every step)."""
+    import shutil
+    import tempfile
+
+    parent = _free_parent(torch)
+    root = tempfile.mkdtemp(prefix="hvd_hybrid_")
+    try:
+        rec = elastic_hybrid(root, out_dir)
+    finally:
+        for name in ("faults.jsonl", "decisions.jsonl") + tuple(
+                f"events.rank{r}.jsonl" for r in range(4)):
+            src = os.path.join(root, "respec", name)
+            if os.path.exists(src):
+                with open(src, "rb") as fi, open(os.path.join(
+                        out_dir, f"elastic_hybrid_{name}"), "wb") as fo:
+                    fo.write(fi.read()[-400_000:])
+        shutil.rmtree(root, ignore_errors=True)
+    rec["parent_gib"] = parent
+    with open(os.path.join(out_dir, "chip_smoke_elastic_hybrid.json"),
+              "w") as f:
+        json.dump(rec, f, indent=1)
+    print(f"elastic hybrid ({rec['label']}): decisions "
+          f"{[(d['action'], d['target'], d.get('role'), d['reason']) for d in rec['decisions']]}"
+          f", worlds {rec['worlds']}; step {rec['step_ms_n4']:.1f} ms at "
+          f"dp=2,pp=2 (k={rec['micro_n4']}) -> {rec['step_ms_n2']:.1f} ms at "
+          f"dp=1,pp=2 (k={rec['micro_n2']}), reference "
+          f"{rec['ref_step_ms']:.1f} ms; save {rec['save_s_n4']:.2f} -> "
+          f"{rec['save_s_n2']:.2f} s; eviction -> first n=2 step "
+          f"{rec['evict_to_first_n2_step_s']:.1f} s; restore "
+          f"{[round(x, 2) for x in rec['restore_s']]} s, "
+          f"{[round(b / 1e9, 3) for b in rec['restore_bytes']]} GB (step "
+          f"{rec['restored_step']}); peak {rec['peak_gib_n4']:.2f} / "
+          f"{rec['peak_gib_n2']:.2f} GiB a rank; final loss "
+          f"{rec['final_loss']:.6f} vs {rec['ref_loss']:.6f} (bound "
+          f"{rec['loss_bound']:.2e}); launches a step n4 "
+          f"{json.dumps(rec['launches_n4'])}, n2 "
+          f"{json.dumps(rec['launches_n2'])}; phase {rec['phase_s']:.1f} s",
+          flush=True)
+    return rec
+
+
 def _step_seconds(events: dict) -> list:
     """Rank 0's seconds between consecutive completed steps of one
     process (a clean run's step time, commits included)."""
@@ -7114,8 +7977,14 @@ def main(argv=None) -> int:
                          "run's wall numbers are then not the unprofiled "
                          "ones)")
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--zygote"]:
+        zygote_main(main)
+        return 0
     if argv[:1] == ["--elastic-worker"]:
         elastic_worker(argv[1])
+        return 0
+    if argv[:1] == ["--hybrid-elastic-worker"]:
+        hybrid_elastic_worker(argv[1])
         return 0
     if argv[:1] == ["--telemetry-worker"]:
         telemetry_worker(argv[1])
@@ -7163,25 +8032,41 @@ def main(argv=None) -> int:
 
         from horovod_tpu_torch import native
 
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            # The native host library (g++) beside the kernels (nvcc).
-            host = pool.submit(lambda: (native.build(),
-                                        time.perf_counter() - t0))
-            libs = K.build_all()
-            built = time.perf_counter() - t0
-            host_lib, host_s = host.result()
+        warm = bytecode_cache()
+        zygote()
+        try:
+            with ThreadPoolExecutor(max_workers=1) as pool:
+                # The native host library (g++) beside the kernels (nvcc).
+                host = pool.submit(lambda: (native.build(),
+                                            time.perf_counter() - t0))
+                libs = K.build_all()
+                built = time.perf_counter() - t0
+                host_lib, host_s = host.result()
+            # The warm-up and the zygote's imports end before the first
+            # timed phase starts.
+            warm_err = warm.communicate(timeout=600)[1]
+            zygote().wait_ready()
+        finally:
+            if warm.poll() is None:
+                warm.kill()
+                warm.wait()
+        check(warm.returncode == 0, f"bytecode warm-up: exit "
+                                    f"{warm.returncode}:\n{warm_err[-3000:]}")
         print(f"build: {', '.join(lib.name for lib in libs)} in "
-              f"{built:.1f} s; native {host_lib.name} in {host_s:.1f} s",
+              f"{built:.1f} s; native {host_lib.name} in {host_s:.1f} s; "
+              f"bytecode cache warm at {time.perf_counter() - t0:.1f} s",
               flush=True)
         check(native.available(), "the native library does not load")
         from horovod_tpu_torch.ops import collectives as C
 
         marks = [time.perf_counter()]
+        phase_s = {}
 
         def mark(name: str) -> None:
             # Each phase's seconds: the smoke runs against a time limit.
             marks.append(time.perf_counter())
-            print(f"phase {name}: {marks[-1] - marks[-2]:.1f} s", flush=True)
+            phase_s[name] = marks[-1] - marks[-2]
+            print(f"phase {name}: {phase_s[name]:.1f} s", flush=True)
 
         records = phase_scale_kernel(torch, K, C)
         records.update(phase_kernels(torch, K))
@@ -7215,6 +8100,8 @@ def main(argv=None) -> int:
         mark("parallel")
         pipe = phase_pipeline(torch, args.out)
         mark("pipeline")
+        hybrid = phase_elastic_hybrid(torch, args.out)
+        mark("elastic hybrid")
         n2 = multi["n2_gpt_medium"]["modes"]
         # Every path a kernel runs on, each counted from zero around it;
         # the mesh path (phase 7b) is one of them for K1-K4, K8 and K9.
@@ -7240,7 +8127,8 @@ def main(argv=None) -> int:
                        "autotune": autotune["launches"],
                        "parallel": parallel["launches"],
                        "pipeline": pipe["launches"]["pipeline"],
-                       "moe": pipe["launches"]["moe"]}
+                       "moe": pipe["launches"]["moe"],
+                       "elastic_hybrid": hybrid["launches"]}
         # K1 runs on the eager path (pre/postscale) and as the guard's
         # unscale on the integrity path.
         paths["scale_buffer"] = {
@@ -7266,6 +8154,10 @@ def main(argv=None) -> int:
             telemetry["launches"]
         # Phase 10: K3 and the flash kernels, rank 0 over the whole run.
         paths["quantize_int8_stochastic"]["autotune"] = autotune["launches"]
+        # Phase 13: K3 on the int8 dp hop and the flash kernels, the
+        # dp0/pp0 rank of both worlds.
+        paths["quantize_int8_stochastic"]["elastic_hybrid"] = \
+            hybrid["launches"]
         # Phase 11: the flash kernels on every arm (through flash_paths),
         # K2 and K4 on the ring_int8 arm's K/V hops.
         for name in ("quantize_int8", "dequantize_int8"):
@@ -7290,9 +8182,12 @@ def main(argv=None) -> int:
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)
         return 1
+    finally:
+        close_zygote()
     kernels = {"kernels": list(records.values())}
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-        json.dump({"card": card, "kind": kind, **kernels,
+        json.dump({"card": card, "kind": kind, "phase_s": phase_s,
+                   "phases_total_s": sum(phase_s.values()), **kernels,
                    "serve": serve, "train": train, "integrity": integ,
                    "bert": bert,
                    "vit": vit, "resnet": resnet, "zoo": zoo,
@@ -7304,7 +8199,7 @@ def main(argv=None) -> int:
                    "mesh": mesh, "zero": zero, "overlap": overlap,
                    "elastic": elastic, "telemetry": telemetry,
                    "autotune": autotune, "parallel": parallel,
-                   "pipeline": pipe}, f, indent=1)
+                   "pipeline": pipe, "elastic_hybrid": hybrid}, f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

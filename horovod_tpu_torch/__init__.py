@@ -101,7 +101,15 @@ Ported so far:
   (``parallel.moe``, ``GPT(moe_experts=)``), per-layer remat
   (``GPT(remat=True)``), ``DistributedOptimizer``/``ZeroOptimizer(
   parallel=)`` over pp and ep specs, and the respec solver
-  (``solve_respec``, ``RespecDecision``, ``min_world``).
+  (``solve_respec``, ``RespecDecision``, ``min_world``);
+* slice 17 — the role-aware elastic path: the autoscale engine under a
+  hybrid spec (replica-grouped scoring, the whole-replica floor,
+  ``plan_respec``), the pod monitor's role views, the elastic driver's
+  respec epochs and the sharded state carried across them
+  (``ZeroOptimizer.sharded_tree(names)``/``restore_template``,
+  ``models.gpt.global_param_names``); ``DistributedGradFn``,
+  ``DistributedOptimizer(op=Adasum, parallel=)``, ``tpu_available``,
+  ``collective_ops``.
 
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request they raise.
@@ -118,7 +126,8 @@ from .common.basics import (ccl_built, cross_rank, cross_size, cuda_built,
                             is_homogeneous, is_initialized, local_rank,
                             local_size, mpi_built, mpi_enabled,
                             mpi_threads_supported, nccl_built, rank,
-                            rocm_built, shutdown, size, xla_built)
+                            rocm_built, shutdown, size, tpu_available,
+                            xla_built)
 from .common.device import resolve_device
 from .common import integrity
 from .common.exceptions import (AlltoallvLayoutError,
@@ -143,9 +152,10 @@ from .ops.collectives import (Adasum, Average, AxisPhase, Max, Min, Product,
                               ReduceOp, Sum, WirePlan, broadcast_,
                               quantized_allreduce)
 from .ops.compression import Compression
+from .ops import collectives as collective_ops
 from .ops import eager as _eager
-from .optim import (AutotunedStepper, DistributedOptimizer,
-                    accumulate_gradients,
+from .optim import (AutotunedStepper, DistributedGradFn,
+                    DistributedOptimizer, accumulate_gradients,
                     broadcast_optimizer_state, broadcast_parameters,
                     observe_ef_residual, resolve_remat_policy, StepTimer)
 from .process_set import (ProcessSet, add_process_set,
@@ -175,7 +185,9 @@ __all__ = [
     "Adasum", "AlltoallvLayoutError", "AutotunedStepper", "Average",
     "BackgroundPrefetcher",
     "CheckpointCorruptError", "CheckpointManager", "Compression",
-    "DeviceInfeed", "DistributedOptimizer", "DivergenceDetector",
+    "DeviceInfeed", "DistributedGradFn", "DistributedOptimizer",
+    "DivergenceDetector", "__version__",
+    "collective_ops", "serve", "tpu_available",
     "DivergenceError", "DuplicateTensorNameError", "ElasticSampler",
     "HorovodInternalError", "HorovodTpuError", "HostsUpdatedInterrupt",
     "Max", "Min",
@@ -216,6 +228,19 @@ __all__ = [
     "shard_column", "shard_row", "shard_heads", "shard_head_rows",
     "combine_slice_grads",
 ]
+
+
+def __getattr__(name):
+    # ``serve`` (the serving plane) is imported on first use, as in the
+    # JAX package: it pulls the models and the scheduler.
+    if name == "serve":
+        import importlib
+
+        mod = importlib.import_module(".serve", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(
+        f"module 'horovod_tpu_torch' has no attribute {name!r}")
 
 
 # -- the eager API (the JAX package's signatures, one rank per process) ----

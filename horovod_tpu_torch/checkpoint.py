@@ -28,9 +28,17 @@ such as an error-feedback residual) — through its own
 ``CheckpointManager`` under ``<dir>/rank<r>``, so the crc32 sidecar and
 the walk-back apply unchanged, and the boxes travel in the payload.
 :func:`restore_sharded` cuts each target piece out of the recorded
-boxes, so a checkpoint of one shard grid restores into another. An
-elastic state's ``save_state``/``restore_state`` come with the elastic
-and launcher slice.
+boxes, so a checkpoint of one shard grid restores into another. Under a
+hybrid ParallelSpec each rank's file also records its replica group (its
+coordinates other than dp: ``"pp1"``), and a value is restored from one
+group only: this rank's own when it wrote the value, else the first
+group (in rank order) that did. With trees keyed by global names (a
+pipeline stage's ``ZeroOptimizer.sharded_tree(names)``) a respec that
+sheds dp replicas, grows them back or folds pipeline stages finds each
+leaf in the rank files that wrote it: ``ZeroOptimizer.restore_template``
+cuts this rank's pieces where only the dp grid changed, and takes whole
+leaves to reshard where the pipeline layout changed.
+``save_state``/``restore_state`` persist an elastic state.
 """
 
 from __future__ import annotations
@@ -467,10 +475,12 @@ class Shard:
 @dataclasses.dataclass
 class Partial:
     """This rank's addend of a tensor whose value is the SUM over the
-    ranks (an error-feedback residual): restored as the sum on rank 0
-    and zeros elsewhere."""
+    ranks of its group (an error-feedback residual): restored as the sum
+    where the template's ``primary`` is true (None: on rank 0) and zeros
+    elsewhere."""
 
     data: torch.Tensor
+    primary: Optional[bool] = None
 
 
 def _pieces_to_host(tree):
@@ -481,7 +491,8 @@ def _pieces_to_host(tree):
                      tuple(tuple(int(v) for v in b) for b in tree.box),
                      tuple(int(d) for d in tree.shape))
     if isinstance(tree, Partial):
-        return Partial(tree.data.detach().to("cpu", copy=True))
+        return Partial(tree.data.detach().to("cpu", copy=True),
+                       tree.primary)
     if isinstance(tree, dict):
         return type(tree)((k, _pieces_to_host(v)) for k, v in tree.items())
     if isinstance(tree, (list, tuple)):
@@ -495,6 +506,28 @@ def _world() -> Tuple[int, int]:
     if basics.is_initialized():
         return basics.rank(), basics.size()
     return 0, 1
+
+
+def _group(rank: Optional[int] = None) -> str:
+    """A rank's replica group (default this rank's): its coordinates
+    other than dp under the world's ParallelSpec (``"pp1"``,
+    ``"pp0/tp1"``), ``""`` without one."""
+    spec = basics.context().parallel_spec if basics.is_initialized() \
+        else None
+    if spec is None:
+        return ""
+    rank = basics.rank() if rank is None else rank
+    return "/".join(f"{r}{i}" for r, i in spec.coords(rank).items()
+                    if r != "dp")
+
+
+def layout_changed(groups: List[str]) -> bool:
+    """Whether the replica groups of a checkpoint's writing ranks
+    (:func:`restore_sharded` hands them to a callable template) differ
+    from this world's: a respec that folded or unfolded pp (or tp, sp)
+    rather than one that changed only the dp grid."""
+    _, size = _world()
+    return set(groups) != {_group(r) for r in range(size)}
 
 
 def save_sharded(tree: Any, directory: str, step: int,
@@ -514,7 +547,7 @@ def save_sharded(tree: Any, directory: str, step: int,
         stale = mgr._step_dir(step)
         if os.path.isdir(stale):
             shutil.rmtree(stale, ignore_errors=True)
-        mgr.save(step, {"world": size, "rank": rank,
+        mgr.save(step, {"world": size, "rank": rank, "group": _group(),
                         "tree": _pieces_to_host(tree)}, force=True)
         mgr.wait()
     finally:
@@ -522,8 +555,11 @@ def save_sharded(tree: Any, directory: str, step: int,
     if size > 1:
         import torch.distributed as dist
 
+        from .common import autoscale as autoscale_lib
+
         overlap_lib.drain_before_collective()
-        dist.barrier()
+        with autoscale_lib.comm_clock.waiting():
+            dist.barrier()
 
 
 def _load_sharded(directory: str):
@@ -591,36 +627,53 @@ def _assemble(target: Shard, sources: List[Shard]) -> torch.Tensor:
     return val
 
 
-def _rebuild(template, sources: List[Any], rank: int):
-    """The restored value of ``template`` from the source ranks' values
-    at the same place."""
+def _rebuild(template, sources: List[Tuple[str, Any]], rank: int,
+             group: str):
+    """The restored value of ``template`` from the writing ranks' values
+    at the same place (``(group, value)`` in rank order; a dict key is
+    looked up in the ranks that hold it). A piece or value is taken from
+    one group: ``group`` (this rank's) when it wrote one, else the first
+    group that did."""
+    if isinstance(template, dict):
+        out = []
+        for k, v in template.items():
+            held = [(g, s[k]) for g, s in sources
+                    if isinstance(s, dict) and k in s]
+            if not held:
+                raise KeyError(f"the sharded checkpoint holds no value for "
+                               f"{k!r} on any rank")
+            out.append((k, _rebuild(v, held, rank, group)))
+        return type(template)(out)
+    if isinstance(template, (list, tuple)):
+        return type(template)(
+            _rebuild(v, [(g, s[i]) for g, s in sources], rank, group)
+            for i, v in enumerate(template))
+    pick = group if any(g == group for g, _ in sources) else sources[0][0]
+    values = [v for g, v in sources if g == pick]
     if isinstance(template, Shard):
-        val = _assemble(template, sources)
+        val = _assemble(template, values)
         return val.to(device=template.data.device,
                       dtype=template.data.dtype)
     if isinstance(template, Partial):
         # Summed in rank order in the addends' dtype, as
         # ZeroOptimizer.gather_state sums them.
-        total = sources[0].data.clone()
-        for s in sources[1:]:
-            total += s.data
-        val = total if rank == 0 else torch.zeros_like(total)
+        total = values[0].data.clone()
+        for v in values[1:]:
+            total += v.data
+        primary = rank == 0 if template.primary is None \
+            else template.primary
+        val = total if primary else torch.zeros_like(total)
         return val.to(device=template.data.device,
                       dtype=template.data.dtype)
-    if isinstance(template, dict):
-        return type(template)(
-            (k, _rebuild(v, [s[k] for s in sources], rank))
-            for k, v in template.items())
-    if isinstance(template, (list, tuple)):
-        return type(template)(_rebuild(v, [s[i] for s in sources], rank)
-                              for i, v in enumerate(template))
-    return _like(sources[0], template) \
-        if isinstance(template, torch.Tensor) else sources[0]
+    return _like(values[0], template) \
+        if isinstance(template, torch.Tensor) else values[0]
 
 
 def restore_sharded(template: Any, directory: str):
     """Inverse of :func:`save_sharded`: ``template`` is this rank's tree
-    of the resumed world (e.g. a fresh optimizer's ``sharded_tree()``),
+    of the resumed world (e.g. a fresh optimizer's ``sharded_tree()``, or
+    a callable that takes the writing ranks' replica groups, in rank
+    order, and returns the tree: ``ZeroOptimizer.restore_template``),
     whose :class:`Shard` leaves give the boxes wanted here — the same
     grid or another one (a resized world), cut out of the recorded
     pieces. Returns ``(tree, step)`` with tensors in place of the pieces
@@ -628,7 +681,10 @@ def restore_sharded(template: Any, directory: str):
     verifies on every writing rank."""
     rank, _ = _world()
     step, payloads = _load_sharded(directory)
-    return _rebuild(template, [p["tree"] for p in payloads], rank), step
+    if callable(template):
+        template = template([p.get("group", "") for p in payloads])
+    return _rebuild(template, [(p.get("group", ""), p["tree"])
+                               for p in payloads], rank, _group()), step
 
 
 # -- an elastic state's persistence ------------------------------------------

@@ -19,7 +19,13 @@ driver's ``HostManager`` blacklist and its host-update channel.
   before each epoch it evaluates the freshest reports and decides
   (evict a straggler after ``straggler_patience`` flagged ticks, shrink a
   stalled or diverging host, grow onto returned or new capacity, keep),
-  never taking a voluntary reshape below ``min_np``. Every decision
+  never taking a voluntary reshape below ``min_np``. Under a hybrid
+  ParallelSpec (``parallel=``, the driver's ``HVD_TPU_PARALLEL``) it also
+  validates the floor to whole pp x tp (x sp, ep) replicas, scores
+  stragglers by dp replica (convicting the HOST of the strictly slowest
+  rank of a slow replica, never its 1F1B-stalled pipeline peers), and
+  re-solves the mesh before each epoch through :meth:`plan_respec` —
+  the fifth action, ``respec``, whose target is the solved spec. Every decision
   bumps ``hvd_tpu_autoscale_decisions_total{action=}``; every non-keep
   decision is appended to the JSON-lines decision log
   (``HVD_TPU_AUTOSCALE_LOG``) with deterministic fields only, so a
@@ -39,11 +45,6 @@ waits for its own device's work, so a rank's slow card counts as its
 busy time, not as a wait. The report's fields and the engine are the JAX
 package's. ``comm_fraction`` is the window's blocked share of the
 interval.
-
-The role-aware parts of the JAX engine (replica-grouped scoring, a
-whole-replica floor, the ``respec`` action) need a hybrid ParallelSpec,
-which comes with the role-aware elastic slice of the port: asking for
-one raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -70,7 +71,6 @@ ENV_LOG = "HVD_TPU_AUTOSCALE_LOG"       # driver-side decision log (JSONL)
 KV_SCOPE = "autoscale"                  # rendezvous KV scope for reports
 
 ACTIONS = ("keep", "grow", "shrink", "evict", "respec")
-_ROLES_SLICE = "the role-aware elastic slice"
 
 # Pre-seeding every action at 0 makes "no decision yet" distinguishable
 # from "metrics broken" on the very first scrape.
@@ -144,7 +144,9 @@ class AutoscalePolicy:
     # grows by this much (0 = off).
     max_divergence_resyncs: int = 0
     # Hard world floor for VOLUNTARY reshapes (evict/shrink). 0 = the
-    # driver's --min-np wins.
+    # driver's --min-np wins. Under a hybrid ParallelSpec the floor must
+    # hold whole model replicas (a multiple of pp x tp (x sp, ep)): the
+    # engine rejects any other value when it is built.
     min_np: int = 0
 
     @classmethod
@@ -212,10 +214,27 @@ class AutoscalePolicy:
                     f"(0 disables), got {getattr(self, name)}")
         return self
 
-    def resolve_min_np(self, engine_min_np: int) -> int:
+    def resolve_min_np(self, engine_min_np: int, parallel=None) -> int:
         """The effective voluntary-reshape floor: the policy's
-        ``min_np`` when set, else the driver's."""
-        return self.min_np if self.min_np > 0 else int(engine_min_np)
+        ``min_np`` when set, else the driver's. With a ParallelSpec the
+        floor must hold WHOLE model replicas: a value that is not a
+        multiple of the replica size raises, naming the roles (a floor
+        that splits a replica strands partial pipelines whose peers'
+        shards nothing can serve)."""
+        floor = self.min_np if self.min_np > 0 else int(engine_min_np)
+        if parallel is None:
+            return floor
+        replica = parallel.replica_ranks
+        if replica > 1 and floor % replica != 0:
+            roles = ", ".join(f"{r}={s}" for r, s in parallel.dims
+                              if r != "dp")
+            raise ValueError(
+                f"autoscale policy: min_np={floor} is not a multiple "
+                f"of the model-replica size {replica} (roles {roles} "
+                f"from parallel spec {parallel.describe()!r}) — a "
+                "floor that splits a replica strands partial "
+                f"pipelines; use {replica}, {2 * replica}, ...")
+        return floor
 
     @classmethod
     def from_json(cls, text: str) -> "AutoscalePolicy":
@@ -333,6 +352,23 @@ class StepReport:
         return json.dumps(d, sort_keys=True)
 
 
+def _role_from_env(rank: int) -> Optional[str]:
+    """This worker's role label (``"dp1/pp0"``) when a hybrid
+    ParallelSpec is declared in ``HVD_TPU_PARALLEL``: stamped on every
+    step report so the driver can tell a straggling host from its
+    1F1B-stalled pipeline peers. None when role-blind (no spec, or the
+    rank lies outside it)."""
+    try:
+        from ..parallel.spec import spec_from_env
+
+        spec = spec_from_env()
+        if spec is not None and 0 <= int(rank) < spec.total:
+            return spec.role_label(int(rank))
+    except Exception:  # noqa: BLE001 — telemetry must not kill a worker
+        pass
+    return None
+
+
 def _comm_fraction_from_metrics() -> Optional[float]:
     """Comm share of step time from the StepTimer phase histogram
     (``optim.StepTimer``); None otherwise — the grow gate treats absent
@@ -409,7 +445,7 @@ class StepPublisher:
         self._client = client
         self.rank = rank
         self.host = host
-        self.role = role
+        self.role = role if role is not None else _role_from_env(rank)
         self._window = deque(maxlen=max(1, int(window)))
         self._comm_window = deque(maxlen=max(1, int(window)))
         self._interval = publish_interval_s
@@ -559,7 +595,8 @@ class Decision:
     deterministic decision-log sequence); keeps carry seq 0."""
 
     action: str
-    target: Optional[str] = None    # hostname, or str(n) for grow
+    target: Optional[str] = None    # hostname, str(n) for grow, or the
+    #                                 solved spec string for respec
     reason: str = ""                # stable code, not measured numbers
     permanent: bool = False
     ttl_s: Optional[float] = None
@@ -594,13 +631,14 @@ class AutoscaleEngine:
                  log_path: Optional[str] = None,
                  parallel=None):
         self.policy = policy
-        if parallel is not None:
-            raise NotImplementedError(
-                "the role-aware autoscale engine (a hybrid ParallelSpec: "
-                "replica-grouped scoring, respec) is not ported yet; it "
-                f"comes with {_ROLES_SLICE} of the port")
-        self.parallel = None
-        self.min_np = policy.resolve_min_np(min_np)
+        # A declared ParallelSpec makes the engine role-aware: scoring by
+        # dp replica (1F1B stalls a replica collectively, so per-rank
+        # scoring would convict innocent pipeline peers), a floor of
+        # whole replicas, and the respec ladder before each epoch.
+        from ..parallel.spec import ParallelSpec
+
+        self.parallel = ParallelSpec.resolve(parallel)
+        self.min_np = policy.resolve_min_np(min_np, self.parallel)
         self.max_np = max_np
         self._fetch = fetch_reports
         self._clock = clock
@@ -620,9 +658,22 @@ class AutoscaleEngine:
         self._last_assignment: set = set()
         self._grown_for: set = set()  # adoption recorded, not yet assigned
         self._permanent: set = set()
+        self._convicted_role: Dict[str, str] = {}    # host -> role label
         self._last_evict_t = -float("inf")
         self._last_grow_t = -float("inf")
         self._last_comm_fraction: Optional[float] = None
+        self._current_spec = self.parallel
+        # The involuntary-survival floor: how far the respec ladder can
+        # fold the declared mesh (the driver waits at this, not at
+        # min_np, when capacity is LOST rather than evicted).
+        if self.parallel is not None:
+            from ..parallel import respec as respec_lib
+
+            self.min_world = (respec_lib.min_world(self.parallel)
+                              if respec_lib.respec_enabled()
+                              else self.parallel.total)
+        else:
+            self.min_world = None
 
     # -- bookkeeping the driver feeds ---------------------------------------
 
@@ -785,11 +836,16 @@ class AutoscaleEngine:
         if len(advanced) >= p.min_ranks:
             import statistics
 
-            med = statistics.median(r.p50 for r in advanced)
-            if med > 0:
-                for r in advanced:
-                    if r.p50 > p.straggler_ratio * med:
-                        flagged.add(r.host)
+            if self.parallel is not None:
+                # Replicas are compared, and the conviction lands on ONE
+                # host inside a slow replica, not on its pipeline peers.
+                flagged = self._flag_by_replica(advanced)
+            else:
+                med = statistics.median(r.p50 for r in advanced)
+                if med > 0:
+                    for r in advanced:
+                        if r.p50 > p.straggler_ratio * med:
+                            flagged.add(r.host)
             for host in set(r.host for r in advanced):
                 if host in flagged:
                     self._strikes[host] = self._strikes.get(host, 0) + 1
@@ -813,12 +869,14 @@ class AutoscaleEngine:
                              and count >= p.evict_permanent_after)
                 if permanent:
                     self._permanent.add(host)
+                role = self._convicted_role.get(host)
                 self._purge_host(host)
                 self._last_evict_t = now
                 decisions.append(self._record(Decision(
                     action="evict", target=host, reason="straggler",
                     permanent=permanent,
-                    ttl_s=None if permanent else p.evict_ttl_s)))
+                    ttl_s=None if permanent else p.evict_ttl_s,
+                    role=role)))
                 break  # one eviction per tick — reshape, re-measure
 
         # Remember the freshest comm fraction for the grow gate.
@@ -831,6 +889,78 @@ class AutoscaleEngine:
             self._record(Decision(action="keep"))
         return decisions
 
+    def _flag_by_replica(self, advanced: List[StepReport]) -> set:
+        """Role-aware straggler scoring: group the advancing ranks by dp
+        replica (coordinates from the CURRENT, possibly re-solved,
+        spec), compare each replica's median p50 against the median of
+        the OTHER replicas' medians (in a world of two replicas the
+        straggler must not pollute its own baseline), and within a
+        flagged replica convict only the STRICTLY slowest rank's host. A
+        uniformly slow replica has no distinguishable source (a stall
+        signature, not a straggler) and stays unconvicted."""
+        import statistics
+
+        spec = self._current_spec or self.parallel
+        groups: Dict[int, List[StepReport]] = {}
+        for r in advanced:
+            if 0 <= r.rank < spec.total:
+                groups.setdefault(spec.replica_of(r.rank), []).append(r)
+        flagged: set = set()
+        if len(groups) < 2:
+            return flagged       # nothing to compare a replica against
+        med_by_rep = {k: statistics.median([r.p50 for r in v])
+                      for k, v in groups.items()}
+        for rep in sorted(groups):
+            others = [m for k, m in med_by_rep.items() if k != rep]
+            base = statistics.median(others)
+            if base <= 0 or med_by_rep[rep] <= \
+                    self.policy.straggler_ratio * base:
+                continue
+            members = sorted(groups[rep], key=lambda r: (-r.p50, r.rank))
+            worst = members[0]
+            if len(members) > 1 and worst.p50 <= members[1].p50:
+                continue         # no strict maximum -> no conviction
+            flagged.add(worst.host)
+            self._convicted_role[worst.host] = (
+                worst.role or spec.role_label(worst.rank))
+        return flagged
+
+    def plan_respec(self, capacity: int) -> Optional[Any]:
+        """Driver hook, called with the usable slot count before a new
+        epoch's assignments: re-solve the hybrid mesh for that capacity
+        through the preference ladder (``parallel/respec.py``). Returns
+        the :class:`~..parallel.respec.RespecDecision` when the solved
+        spec DIFFERS from the running one — the driver then re-exports
+        ``HVD_TPU_PARALLEL`` and pins np at ``.np`` so the assigned world
+        factors the mesh exactly. None when role-blind, the solver is
+        disabled, no permitted rung fits, or the shape already matches.
+        Every applied reshape appends a deterministic ``respec``
+        decision-log line and bumps ``hvd_tpu_respec_total{from,to}``."""
+        if self.parallel is None:
+            return None
+        from ..parallel import respec as respec_lib
+
+        if not respec_lib.respec_enabled():
+            return None
+        dec = respec_lib.solve_respec(self.parallel,
+                                      min(int(capacity), self.max_np))
+        if dec is None or dec.spec == self._current_spec:
+            return None
+        prev = self._current_spec
+        self._current_spec = dec.spec
+        respec_lib.note_respec(prev.describe(), dec.spec.describe())
+        self._record(Decision(
+            action="respec", target=dec.spec.describe(),
+            reason=dec.action if dec.action != "keep" else "restore"))
+        return dec
+
+    @property
+    def current_spec(self):
+        """The spec the engine believes is RUNNING (the declared one
+        until a :meth:`plan_respec` reshapes it; re-solved back on
+        recovery)."""
+        return self._current_spec
+
     def _slots_after_evict(self, usable: Dict[str, int],
                            host: str) -> int:
         return sum(s for h, s in usable.items() if h != host)
@@ -840,6 +970,7 @@ class AutoscaleEngine:
         it must earn `patience` FRESH advancing flags again (stale
         pre-eviction reports cannot re-convict it)."""
         self._strikes.pop(host, None)
+        self._convicted_role.pop(host, None)
         self._last_advance.pop(host, None)
         for key in [k for k in self._last_step if k[0] == host]:
             self._last_step.pop(key, None)

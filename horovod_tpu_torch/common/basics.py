@@ -764,3 +764,9 @@ def rocm_built() -> bool:
 
 def xla_built() -> bool:
     return False
+
+
+def tpu_available() -> bool:
+    """False: the port's devices are CUDA GPUs (or the CPU), never a
+    TPU."""
+    return False

@@ -103,6 +103,8 @@ RUNTIME_KNOBS = {
     "METRICS_ADVERTISE": "endpoint address advertised to the pod monitor",
     "POD_METRICS_ENDPOINTS": "static scrape endpoints for the pod monitor",
     "POD_METRICS_INTERVAL_S": "the pod monitor's scrape interval",
+    "POD_REPLICA_SKEW_RATIO": "the replica-stall gauge's skew threshold "
+                              "(1.5)",
     "STALL_CHECK_DISABLE": "stall inspector off (0/1; Config field)",
     "STALL_FATAL": "'raise': a fatal stall raises StallTimeoutError "
                    "(Config field)",

@@ -18,16 +18,18 @@ background scraper in the DRIVER process that:
   (max − min of per-rank step time), ``hvd_tpu_pod_slowest_rank``,
   per-family min/max/p50 (``hvd_tpu_pod_stat{family=,stat=}``) and
   scrape health — on ONE endpoint, ``/pod/metrics`` (and
-  ``/pod/metrics.json``), through ``common/httpd.py``;
+  ``/pod/metrics.json``), through ``common/httpd.py``; ``/pod/driver``
+  serves the monitor's own process's registry (in the elastic driver:
+  ``hvd_tpu_autoscale_decisions_total``, ``hvd_tpu_respec_total``);
 * hands the merged snapshots to the
   :class:`~.autoscale.AutoscaleEngine` as a second signal source
   (:func:`scrape_report_fetcher` / :func:`merged_report_fetcher`).
 
 Enable with ``hvdtpurun-torch --pod-metrics-port N``
-(``HVD_TPU_POD_METRICS_PORT``; 0 = ephemeral). Role-grouped views need a
-hybrid ParallelSpec's role-aware elastic path, which comes with the
-role-aware elastic slice of the port: asking for one raises. Stdlib-only
-at import.
+(``HVD_TPU_POD_METRICS_PORT``; 0 = ephemeral). Under a hybrid
+ParallelSpec (``parallel=``, else ``HVD_TPU_PARALLEL``) every per-rank
+series carries its dp/pp/tp/sp labels and the role-grouped replica skew
+feeds ``hvd_tpu_pod_replica_stalled{replica}``. Stdlib-only at import.
 """
 
 from __future__ import annotations
@@ -50,7 +52,10 @@ ENV_PORT = "HVD_TPU_POD_METRICS_PORT"
 ENV_INTERVAL = "HVD_TPU_POD_METRICS_INTERVAL_S"
 ENV_ENDPOINTS = "HVD_TPU_POD_METRICS_ENDPOINTS"
 ENV_ADVERTISE = "HVD_TPU_METRICS_ADVERTISE"
-_ROLES_SLICE = "the role-aware elastic slice"
+# Role-grouped skew threshold: a dp replica whose median step time
+# exceeds this ratio x the median of the OTHER replicas' medians is
+# flagged stalled (hvd_tpu_pod_replica_stalled).
+ENV_REPLICA_RATIO = "HVD_TPU_POD_REPLICA_SKEW_RATIO"
 
 KV_SCOPE = "podmon"                 # rendezvous KV scope for endpoints
 
@@ -60,6 +65,7 @@ POD_SLOWEST = "hvd_tpu_pod_slowest_rank"
 POD_STEP_TIME = "hvd_tpu_pod_step_time_seconds"
 POD_RANKS = "hvd_tpu_pod_ranks_scraped"
 POD_ERRORS = "hvd_tpu_pod_scrape_errors_total"
+POD_REPLICA_STALLED = "hvd_tpu_pod_replica_stalled"
 POD_STAT = "hvd_tpu_pod_stat"
 
 
@@ -246,11 +252,17 @@ class PodMonitor:
                  clock: Callable[[], float] = time.monotonic,
                  parallel=None):
         self._endpoints = endpoints_fn
-        if parallel is not None or runtime_env("PARALLEL"):
-            raise NotImplementedError(
-                "role-grouped pod views (a hybrid ParallelSpec) are not "
-                f"ported yet; they come with {_ROLES_SLICE} of the port")
-        self.parallel = None
+        # A declared ParallelSpec (explicit, else HVD_TPU_PARALLEL): every
+        # per-rank series carries its role labels and the role-grouped
+        # replica skew feeds hvd_tpu_pod_replica_stalled{replica}.
+        from ..parallel.spec import ParallelSpec, spec_from_env
+
+        if parallel is None:
+            try:
+                parallel = spec_from_env()
+            except Exception:  # noqa: BLE001 — the scraper must start
+                parallel = None
+        self.parallel = ParallelSpec.resolve(parallel)
         if interval_s is None:
             try:
                 interval_s = float(runtime_env("POD_METRICS_INTERVAL_S", "2.0"))
@@ -407,13 +419,39 @@ class PodMonitor:
         for fname, vals in per_family.items():
             stats[fname] = {"min": min(vals), "max": max(vals),
                             "p50": statistics.median(vals)}
-        # The role view (rank -> (dp,pp,tp), replica medians, stalled
-        # replicas) needs a hybrid spec: empty, as in the JAX monitor
-        # without one.
+        # The role view: rank -> (dp,pp,tp) coordinates, the replicas'
+        # median step times and the stalled-replica flags: a replica
+        # whose ranks are COLLECTIVELY slow (the 1F1B signature of one
+        # bad member) is named as a replica, while slowest_rank keeps
+        # naming the individual laggard.
         roles: Dict[int, str] = {}
         coords: Dict[int, Dict[str, int]] = {}
         replica_step: Dict[int, float] = {}
         stalled: List[int] = []
+        if self.parallel is not None:
+            for r in sorted(ranks):
+                if 0 <= r < self.parallel.total:
+                    roles[r] = self.parallel.role_label(r)
+                    coords[r] = self.parallel.coords(r)
+            groups: Dict[int, List[float]] = {}
+            for r, st in step_times.items():
+                if r in coords:
+                    groups.setdefault(coords[r].get("dp", 0),
+                                      []).append(st)
+            replica_step = {k: statistics.median(v)
+                            for k, v in groups.items()}
+            if len(replica_step) >= 2:
+                try:
+                    ratio = float(runtime_env("POD_REPLICA_SKEW_RATIO",
+                                              "1.5"))
+                except ValueError:
+                    ratio = 1.5
+                for rep in sorted(replica_step):
+                    others = [m for k, m in replica_step.items()
+                              if k != rep]
+                    base = statistics.median(others)
+                    if base > 0 and replica_step[rep] > ratio * base:
+                        stalled.append(rep)
         return {
             "ranks": sorted(ranks),
             "hosts": {r: rec.get("host", "") for r, rec in ranks.items()},
@@ -490,12 +528,26 @@ class PodMonitor:
                 lines.append(metrics_lib._sample_line(name, labels, value))
 
         def rank_labels(r):
-            return {"rank": str(r), "host": m["hosts"].get(r, "")}
+            labels = {"rank": str(r), "host": m["hosts"].get(r, "")}
+            # Role labels: dashboards group by replica or stage without a
+            # rank -> role lookup table.
+            for role, idx in m["role_coords"].get(r, {}).items():
+                labels[role] = str(idx)
+            return labels
 
         emit(POD_STEP_TIME, "gauge",
              "per-rank step time as seen by the pod aggregator",
              [(rank_labels(r), v)
               for r, v in sorted(m["step_time_seconds"].items())])
+        if m["replica_step_time_seconds"]:
+            emit(POD_REPLICA_STALLED, "gauge",
+                 "1 when a dp replica's role-grouped median step time "
+                 "exceeds HVD_TPU_POD_REPLICA_SKEW_RATIO x the median "
+                 "of its peer replicas (the 1F1B collective-stall "
+                 "signature)",
+                 [({"replica": str(k)},
+                   1.0 if k in m["stalled_replicas"] else 0.0)
+                  for k in sorted(m["replica_step_time_seconds"])])
         emit(POD_SKEW, "gauge",
              "max-min spread of per-rank step time across the pod",
              [({}, m["step_skew_seconds"])])
@@ -559,6 +611,9 @@ class PodMonitor:
                         if s.get("labels", {}).get("phase") == "comm":
                             comm += float(v.get("sum", 0.0))
             role = None
+            if self.parallel is not None and \
+                    0 <= r < self.parallel.total:
+                role = self.parallel.role_label(r)
             out[r] = StepReport(
                 rank=r, host=rec.get("host", ""),
                 step=step_count_from_snapshot(snap),
@@ -617,6 +672,11 @@ def _pod_handler_cls():
                 merged.pop("snapshots", None)  # keep the JSON view lean
                 body = json.dumps(merged).encode()
                 ctype = "application/json"
+            elif path == "/pod/driver":
+                # This process's own registry: in the elastic driver, the
+                # engine's decision and respec counters.
+                body = metrics_lib.prometheus_text().encode()
+                ctype = "text/plain; version=0.0.4; charset=utf-8"
             elif path == "/pod/serve":
                 body = mon.serve_text().encode()
                 ctype = "text/plain; charset=utf-8"

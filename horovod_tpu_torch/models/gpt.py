@@ -678,6 +678,25 @@ def stage_params(model: GPT) -> Dict[str, torch.Tensor]:
             if n.startswith("layers.")}
 
 
+def global_param_names(model: GPT, stage: int, num_stages: int) -> list:
+    """The whole model's names of a stage model's parameters, in
+    ``model.parameters()`` order: stage ``stage`` of ``num_stages``
+    holds global layers ``stage * L .. (stage + 1) * L - 1`` (``L`` its
+    own layer count) as ``layers.0 .. L - 1``, the inverse of
+    :func:`stack_stage_params`; the shared entries keep their names.
+    Checkpoint keys that name the same leaf on every pipeline layout
+    (``ZeroOptimizer.sharded_tree(names)``)."""
+    if not 0 <= stage < num_stages:
+        raise ValueError(f"stage {stage} of {num_stages}")
+    out = []
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            parts[1] = str(stage * model.num_layers + int(parts[1]))
+        out.append(".".join(parts))
+    return out
+
+
 def shared_params(model: GPT) -> Dict[str, torch.Tensor]:
     """The shared tree of a stage model: ``tok_emb`` and ``final_ln``."""
     return {n: p for n, p in model.named_parameters()

@@ -153,6 +153,7 @@ reset ``rebind()`` takes the new world's axis handles.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import math
 from typing import Any, Callable, Dict, List, Optional
@@ -1156,9 +1157,13 @@ class _DistributedAdasumMixin:
 
     def _dist_init(self, base_cls, named_parameters, wire, axis=None,
                    route=None, guard_policy=None, scale_cfg=None,
-                   accum_k=1, remat_name="none", overlap=False):
+                   accum_k=1, remat_name="none", overlap=False,
+                   combine_axes=()):
         self._base_cls = base_cls
         self._adasum_wire = wire
+        #: ``parallel=``: the tp then sp axes each gradient is
+        #: pmean-combined over before the guard and the base step.
+        self._combine_axes = tuple(combine_axes)
         self._axis = C._axis(axis)
         self._route = route
         self._dist_names = {}
@@ -1255,6 +1260,13 @@ class _DistributedAdasumMixin:
         and changes nothing."""
         params = self._all_params()
         faults_lib.maybe_collective_fault()
+        if self._combine_axes:
+            # parallel=: slice gradients reassemble (pmean over tp, then
+            # sp) before everything downstream, as in the JAX core.
+            for p in params:
+                if p.grad is not None and p.grad.is_floating_point():
+                    for ax in self._combine_axes:
+                        p.grad = C.allreduce(p.grad, C.Average, axis=ax)
         if self._guard is not None and not self._guarded(params):
             return None
         with torch.no_grad():
@@ -1359,7 +1371,10 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     own, as in the JAX package (a pipeline stage's shared gradients are
     already summed over ``pp`` by ``pipeline_accumulate_gradients``). A
     ``dp=1`` spec binds a one-rank dp axis whose reduction is a no-op.
-    With ``zero_stage`` the spec goes to ``ZeroOptimizer(parallel=)``.
+    With ``zero_stage`` the spec goes to ``ZeroOptimizer(parallel=)``;
+    with ``op=Adasum`` each gradient is combined over tp then sp before
+    the guard and the base step, and each delta's Adasum runs through
+    the router over dp (``mesh_allreduce(op=ADASUM)``, the JAX route).
     The world must have been made with the same spec
     (``init(parallel=)``); the spec needs a dp axis, and ``route=``, if
     given, must run over exactly the dp axes."""
@@ -1442,7 +1457,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
         obj = _graft(optimizer, _DistributedAdasumMixin)
         obj._dist_init(optimizer.__class__, named_parameters, wire, axis,
                        plan, guard_policy, scale_cfg, accum_k, remat_name,
-                       overlap)
+                       overlap, combine_axes)
         return obj
     threshold = basics.context().fusion_threshold() \
         if fusion_threshold_bytes is None else int(fusion_threshold_bytes)
@@ -1471,9 +1486,6 @@ def _resolve_parallel(parallel, route, process_set, zero_stage, op):
     if process_set is not None:
         raise ValueError("parallel= and process_set= do not combine: the "
                          "spec's dp axis is the reduction's scope")
-    if C.ReduceOp(op) == C.Adasum:
-        raise NotImplementedError(
-            "DistributedOptimizer(op=Adasum, parallel=...) is not ported")
     if route is not None:
         rt = C.WirePlan.resolve(route)
         if rt is not None and set(rt.axis_names) != set(pspec.dp_axes):
@@ -1492,6 +1504,181 @@ def _resolve_parallel(parallel, route, process_set, zero_stage, op):
     combine = tuple(ctx.axis(a) for a in (pspec.tp_axis, pspec.sp_axis)
                     if a is not None)
     return pspec, combine
+
+
+class _GradSlots(torch.optim.Optimizer):
+    """A gradient tree's slots as the parameters of an optimizer whose
+    step does nothing: what :func:`DistributedGradFn` wraps in a
+    ``DistributedOptimizer`` to reduce a tree with its machinery."""
+
+    def __init__(self, slots):
+        super().__init__(slots, {})
+
+    def step(self, closure=None):
+        return None
+
+
+@dataclasses.dataclass
+class GradFnEFState:
+    """:func:`DistributedGradFn`'s error-feedback state under ``int8_ef``:
+    the residual of each int8 bucket (fp32 flat, by bucket index; a
+    bucket without one starts from zeros) and the stochastic-rounding
+    step."""
+
+    residual: Dict[int, torch.Tensor]
+    step: int = 0
+
+
+def DistributedGradFn(grad_fn: Callable,
+                      op: C.ReduceOp = C.Average,
+                      compression=None,
+                      fusion_threshold_bytes: Optional[int] = None,
+                      has_value: bool = False,
+                      reduce_value: bool = True,
+                      overlap: bool = False,
+                      quantize_min_bucket_bytes: Optional[int] = None,
+                      nonfinite_policy: Optional[str] = None,
+                      route=None,
+                      accum_steps: Optional[int] = None,
+                      remat_policy: Optional[str] = None,
+                      process_set=None):
+    """The DistributedGradientTape analog (the JAX package's
+    ``DistributedGradFn``): wraps ``grad_fn``, a callable that returns a
+    tree of gradient tensors (or ``(value, grads)`` with
+    ``has_value=True``), so that the tree comes back reduced across the
+    ranks: in fused buckets, with the compression, the route, the
+    non-finite guard and ``overlap`` of a :func:`DistributedOptimizer`,
+    whose machinery reduces it (the tree's leaves are the slots of a
+    ``DistributedOptimizer`` over an optimizer that does not step). The
+    value is averaged across the ranks when ``reduce_value``.
+
+    ``accum_steps`` (explicit only: it changes what ``grad_fn`` is) makes
+    ``grad_fn`` the LOSS, called as ``loss(params, *batch)``: the wrapper
+    splits the batch arguments into k microbatches along their leading
+    dim, takes the mean gradient with respect to ``params`` (a tree of
+    tensors that require grad; their ``.grad`` is left as it was) under
+    ``remat_policy``, and reduces it once::
+
+        gfn = hvd.DistributedGradFn(loss, accum_steps=4, has_value=True)
+        loss, grads = gfn(params, x, y)        # x, y rows = 4 * mb
+
+    With ``compression="int8_ef"`` the wrapped function takes an
+    ``ef_state=`` keyword (a :class:`GradFnEFState`,
+    ``wrapped.init_ef_state()``; None starts from a zero residual) and
+    returns ``(result, new_ef_state)``. ``nonfinite_policy`` (explicit
+    only: it changes the returns) adds a ``guard_state=`` keyword
+    (``wrapped.init_guard_state()``) and appends the new guard state to
+    the returns; an agreed non-finite step returns zero gradients and
+    leaves the residual and the rounding step as they were. ``op``
+    Average or Sum (Min, Max, Product elementwise); ``process_set``
+    reduces over a registered set's ranks."""
+    from torch.utils import _pytree as pytree
+
+    compressor = _resolve_compression(compression)
+    _check_reduce_safe(compressor)
+    ef = getattr(compressor, "error_feedback", False)
+    accum_k = int(accum_steps) if accum_steps is not None else 1
+    if accum_k < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_k}")
+    if accum_k == 1 and remat_policy is not None:
+        raise ValueError(
+            "remat_policy on DistributedGradFn requires accum_steps > 1: "
+            "remat wraps the LOSS, which this surface only owns under the "
+            "microbatch split (use torch.utils.checkpoint in your loss "
+            "otherwise)")
+    remat_name, _, _ = resolve_remat_policy(remat_policy)
+    produces_value = has_value or accum_k > 1
+    policy = integrity_lib.resolve_nonfinite_policy(nonfinite_policy) \
+        if nonfinite_policy is not None else None
+    scale_cfg = integrity_lib.ScaleConfig.from_env()
+    plan = _resolve_route(route)
+    built: Dict[tuple, Any] = {}
+
+    def optimizer_for(grads):
+        sig = tuple((tuple(g.shape), g.dtype, g.device) for g in grads)
+        if sig not in built:
+            slots = [torch.zeros_like(g).requires_grad_() for g in grads]
+            opt = DistributedOptimizer(
+                _GradSlots(slots), compression=compressor, op=op,
+                fusion_threshold_bytes=fusion_threshold_bytes,
+                quantize_min_bucket_bytes=quantize_min_bucket_bytes,
+                process_set=process_set, nonfinite_policy=policy or "off",
+                route=plan, overlap=overlap)
+            for h in opt._dist_hooks:
+                h.remove()
+            built[sig] = (opt, slots)
+        return built[sig]
+
+    def grads_of(args, kwargs):
+        if accum_k == 1:
+            out = grad_fn(*args, **kwargs)
+            return out if produces_value else (None, out)
+        params, batch = args[0], args[1:]
+        leaves = pytree.tree_leaves(params)
+        stashed = [p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
+        try:
+            value = _accumulate_run(
+                lambda *mb: grad_fn(params, *mb, **kwargs), accum_k,
+                remat_name, False, batch)
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in leaves]
+        finally:
+            for p, g in zip(leaves, stashed):
+                p.grad = g
+        return value, pytree.tree_unflatten(grads,
+                                            pytree.tree_structure(params))
+
+    def reduce_value_(opt, val):
+        if not reduce_value or val is None:
+            return val
+        if opt._route is not None:
+            return pytree.tree_map(lambda v: C.mesh_allreduce(
+                v, C.Average, opt._route.with_wires("none")), val)
+        return pytree.tree_map(
+            lambda v: C.allreduce(v, C.Average, axis=opt._axis), val)
+
+    def wrapped(*args, ef_state=None, guard_state=None, **kwargs):
+        val, grads = grads_of(args, kwargs)
+        leaves, spec = pytree.tree_flatten(grads)
+        opt, slots = optimizer_for(leaves)
+        for s, g in zip(slots, leaves):
+            s.grad = g.detach().clone()
+        if ef:
+            st = ef_state or GradFnEFState({})
+            opt._ef_residual = {int(b): r.clone()
+                                for b, r in st.residual.items()}
+            opt._ef_step = int(st.step)
+        if policy is not None:
+            opt._guard.load((guard_state or wrapped.init_guard_state())
+                            .snapshot())
+        opt._dist_dirty = True
+        opt.synchronize()
+        skipped, opt._guard_skip = opt._guard_skip, False
+        reduced = pytree.tree_unflatten(
+            [torch.zeros_like(s.grad) if skipped else s.grad.clone()
+             for s in slots], spec)
+        for s in slots:
+            s.grad = None
+        result = (reduce_value_(opt, val), reduced) if has_value \
+            else reduced
+        out = (result,)
+        if ef:
+            out += (GradFnEFState(dict(opt._ef_residual), opt._ef_step),)
+        if policy is not None:
+            new = integrity_lib.init_guard_state(
+                policy, scale_cfg, opt._guard.nonfinite_steps.device
+                if torch.is_tensor(opt._guard.nonfinite_steps) else None)
+            new.load(opt._guard.snapshot())
+            out += (new,)
+        return out[0] if len(out) == 1 else out
+
+    wrapped.init_ef_state = lambda *_: GradFnEFState({})
+    if policy is not None:
+        wrapped.init_guard_state = lambda: integrity_lib.init_guard_state(
+            policy, scale_cfg)
+    return wrapped
 
 
 class AutotunedStepper:

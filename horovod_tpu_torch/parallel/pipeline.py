@@ -90,8 +90,14 @@ def _count_send_bytes(axis_name: str, wire: str, nelems: int,
 def _send(x: torch.Tensor, ax, perm, wire: str, key, salt: int):
     """One stage-boundary hop in the schedule's wire (``key`` folded by
     ``salt``, the tick, so every tick rounds independently)."""
+    from ..optim import _comm_phase
+
     kk = None if key is None else C.fold_in(key, salt)
-    return C.wired_ppermute(x, ax, perm, wire=wire, key=kk)
+    # A wait on the neighbouring stage: the autoscale publisher leaves it
+    # out of this rank's busy time (a stage stalled by a slow peer is not
+    # the straggler).
+    with _comm_phase(x.device):
+        return C.wired_ppermute(x, ax, perm, wire=wire, key=kk)
 
 
 def select_last_stage(outs: torch.Tensor, axis_name="pp") -> torch.Tensor:

@@ -33,9 +33,10 @@ defers to the next, and capacity that covers the declared spec answers
 ``HVD_TPU_RESPEC_MIN_DP`` (the replica floor; ``dp_only`` ignores it).
 ``hvd_tpu_respec_total{from,to}`` counts applied reshapes.
 
-The control plane that applies a decision (the autoscale engine's
-``plan_respec``, the elastic driver's respec epochs) comes with the
-role-aware elastic slice of the port. Stdlib-only at import.
+The autoscale engine's ``plan_respec`` applies a decision and the
+elastic driver's respec epochs relaunch the world on the solved spec
+(``common/autoscale.py``, ``runner/elastic_driver.py``). Stdlib-only at
+import.
 """
 
 from __future__ import annotations

@@ -50,9 +50,16 @@ remote worker, as in the JAX driver: a remote survivor leaves through
 its own failed collective (the process group's timeout is the stall
 bound under elastic).
 
-Not ported yet: a hybrid ParallelSpec's respec epochs (the role-aware
-elastic slice; the solver, ``parallel.respec``, is ported). A caller's spawner or rendezvous server (the Spark and Ray
-launches) has no counterpart.
+Hybrid worlds: under ``HVD_TPU_PARALLEL`` (the caller's environment or
+the launcher's) the autoscale engine is role-aware (a ``min_np`` that
+splits a model replica fails the launch, naming the roles), the epoch
+loop waits at the respec ladder's floor (``engine.min_world``), and
+before each epoch ``engine.plan_respec`` re-solves the mesh for the
+usable capacity: a new spec is re-exported to the workers as
+``HVD_TPU_PARALLEL`` and the world is pinned to its exact size. The
+workers carry their state across through ``checkpoint.restore_sharded``.
+A caller's spawner or rendezvous server (the Spark and Ray launches) has
+no counterpart.
 """
 
 from __future__ import annotations
@@ -674,12 +681,11 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
     faults_lib.refresh_from_env()
     from ..common import autoscale as autoscale_lib
     from ..common import podmon as podmon_lib
+    from ..parallel.spec import ENV_PARALLEL, spec_from_env
 
-    if {**os.environ, **env_extra}.get("HVD_TPU_PARALLEL"):
-        raise NotImplementedError(
-            "an elastic world with a hybrid ParallelSpec (HVD_TPU_PARALLEL: "
-            "role-grouped autoscaling, respec) is not ported yet; it comes "
-            "with the role-aware elastic slice of the port")
+    # A hybrid spec (the launcher's or the caller's HVD_TPU_PARALLEL)
+    # makes the autoscale engine role-aware.
+    parallel_spec = spec_from_env({**os.environ, **env_extra})
     # The autoscale policy: the launcher's knobs (env_extra, validated)
     # over the caller's environment. A bad policy fails the launch.
     autoscale_env = {**os.environ, **{
@@ -692,6 +698,9 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
             autoscale_policy = policy
             logger.warning("autoscale: enabled (policy: %s)",
                            policy.to_json())
+            # A floor that splits a model replica fails the launch here,
+            # before the driver starts anything.
+            policy.resolve_min_np(min_np, parallel_spec)
     driver = ElasticDriver(discovery, min_np, max_np)
     driver.start_discovery()
     # A fresh secret a job, kept out of this process's environment.
@@ -739,7 +748,8 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
             fetch = podmon_lib.merged_report_fetcher(fetch, pod_monitor)
         engine = autoscale_lib.AutoscaleEngine(
             autoscale_policy, min_np, max_np, fetch,
-            log_path=autoscale_env.get(autoscale_lib.ENV_LOG, ""))
+            log_path=autoscale_env.get(autoscale_lib.ENV_LOG, ""),
+            parallel=parallel_spec)
         env_extra[autoscale_lib.ENV_ENABLE] = "1"
         env_extra[autoscale_lib.ENV_POLICY] = autoscale_policy.to_json()
 
@@ -773,10 +783,18 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
         prev_np: Optional[int] = None
         epoch_down_since: Optional[float] = None
         while True:
+            # Under a hybrid spec a LOST host is survived by reshaping as
+            # far as the permitted rungs allow: wait at the ladder's floor
+            # (below it no rung gives a mesh), not at min_np, which floors
+            # the engine's voluntary decisions.
+            wait_floor = min_np
+            if engine is not None and engine.min_world is not None:
+                wait_floor = engine.min_world
             try:
                 driver.wait_for_available_slots(
-                    min_np, timeout_s=(600.0 if slot_wait_timeout_s is None
-                                       else slot_wait_timeout_s))
+                    wait_floor,
+                    timeout_s=(600.0 if slot_wait_timeout_s is None
+                               else slot_wait_timeout_s))
             except TimeoutError:
                 logger.error(
                     "elastic: world shrank below min_np=%d and stayed "
@@ -794,12 +812,53 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
             driver.clear_host_updates()
             driver.host_manager.update_available_hosts()
             np_cap = None
+            np_exact = None
             if engine is not None:
                 # The grow gate: capacity beyond the previous world is
                 # adopted (a grow decision) or held (np capped).
                 np_cap = engine.pre_epoch(
                     prev_np, driver.host_manager.current_hosts())
-            slots = driver.update_assignments(np_cap=np_cap)
+                # The respec: re-solve the mesh for the capacity the epoch
+                # will get (a held grow caps it); a new spec goes to the
+                # workers and pins np to its exact size (a partial mesh
+                # would drop ranks from the reduction).
+                capacity = sum(driver.host_manager.current_hosts().values())
+                if np_cap is not None:
+                    capacity = min(capacity, np_cap)
+                rd = engine.plan_respec(capacity)
+                if rd is not None:
+                    env_extra[ENV_PARALLEL] = rd.spec.describe()
+                    logger.warning("elastic: respec %s -> %s (np=%d)",
+                                   parallel_spec.describe(),
+                                   rd.spec.describe(), rd.np)
+                if engine.current_spec is not None:
+                    np_exact = engine.current_spec.total
+            slots = driver.update_assignments(np_cap=np_cap,
+                                              np_exact=np_exact)
+            if engine is not None and engine.current_spec is not None \
+                    and len(slots) != engine.current_spec.total:
+                # The assignable world moved between planning and
+                # assignment (a host dropped in the window): re-solve for
+                # what was assignable; if no permitted rung fits, wait for
+                # capacity rather than launch a spec the world cannot
+                # factor.
+                rd = engine.plan_respec(len(slots))
+                if rd is not None:
+                    env_extra[ENV_PARALLEL] = rd.spec.describe()
+                    slots = driver.update_assignments(np_cap=np_cap,
+                                                      np_exact=rd.np)
+                if len(slots) != engine.current_spec.total:
+                    logger.warning(
+                        "elastic: assignable world (%d slots) cannot factor "
+                        "the solved spec %s; waiting for capacity",
+                        len(slots), engine.current_spec.describe())
+                    faults_lib.stats.bump("resets")
+                    attempts += 1
+                    if attempts > limit:
+                        logger.error("elastic: reset limit exceeded")
+                        return 1
+                    time.sleep(driver.discovery_interval)
+                    continue
             if engine is not None:
                 engine.observe_assignment({s.hostname for s in slots})
             prev_np = len(slots)

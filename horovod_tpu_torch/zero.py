@@ -633,8 +633,13 @@ def _step(state: ShardState, params, grads, shard_grads=None,
         state.refresh(params)
     residual = None
     if shard_grads is None:
-        pairs = [state.reduce(bi, _grad_flat(params, grads, b))
-                 for bi, b in enumerate(state.plan.buckets)]
+        # The reduction waits on the grid's peers: the autoscale
+        # publisher leaves it out of this rank's busy time.
+        dev = state.shards[0].device if state.shards else \
+            torch.device("cpu")
+        with optim_lib._comm_phase(dev):
+            pairs = [state.reduce(bi, _grad_flat(params, grads, b))
+                     for bi, b in enumerate(state.plan.buckets)]
         shard_grads = [g for g, _ in pairs]
         if state.ef:
             residual = [r for _, r in pairs]
@@ -799,6 +804,10 @@ class ZeroOptimizer(torch.optim.Optimizer):
         self.overlap = bool(overlap)
         self._worker: Optional[overlap_lib.IssueWorker] = None
         self._prefetch: Optional[_Prefetch] = None
+        #: How the last :meth:`load_sharded_tree` restored: "piecewise"
+        #: (this rank's pieces) or "gathered" (by leaf, then resharded).
+        self.last_restore: Optional[str] = None
+        self._restore_whole = False
         if stage == 3:
             self._free_params()
         else:
@@ -955,65 +964,215 @@ class ZeroOptimizer(torch.optim.Optimizer):
                 [r.to(device=m.device, dtype=torch.float32).clone()
                  for r, m in zip(ef["residual"], mine)], int(ef["step"]))
 
-    def sharded_tree(self) -> dict:
-        """This rank's state as pieces for ``checkpoint.save_sharded``:
-        each vector state tensor a :class:`~.checkpoint.Shard` of its
-        bucket (the box clipped to the bucket's length, so a restore can
-        re-cut it for any grid), the EF residuals as
-        :class:`~.checkpoint.Partial` addends, scalars as they are; under
-        stage 3 the parameter shards too."""
+    def sharded_tree(self, names: Optional[Sequence[str]] = None,
+                     whole: bool = False) -> dict:
+        """This rank's state as pieces for ``checkpoint.save_sharded``,
+        keyed by leaf: ``names[i]`` names ``params[i]`` (default its
+        index; a pipeline stage passes global names, e.g.
+        ``gpt.global_param_names``, so a restore on another pp layout
+        finds each leaf in the rank file that wrote it). Each vector
+        state tensor is cut into one :class:`~.checkpoint.Shard` a leaf
+        (this rank's chunk of the leaf, boxed in the leaf's flat
+        coordinates, so a restore can re-cut it for any grid and any
+        bucket plan), scalars ride beside them, the EF residuals are
+        :class:`~.checkpoint.Partial` addends a leaf (restored on grid
+        rank 0), and the parameters come as this rank's chunk too (at
+        stages 1 and 2 a copy of the replicated masters: each rank writes
+        1/n of them). An optimizer that has not stepped yet gives its
+        inner optimizer's state keys, so a fresh one is a restore
+        template. ``whole=True`` gives a restore template only: every
+        leaf boxed whole, so ``restore_sharded`` returns the gathered,
+        world-size-independent state by leaf (the form a changed layout
+        goes through; see :meth:`restore_template`)."""
         st = self.shard_state
+        names = self._leaf_names(names)
+        if self.zero_stage < 3:
+            st.refresh(self.params)
         st.sync_hyper()
         sd = st.inner.state_dict()
-        tree = {"param_groups": sd["param_groups"], "state": {
-            i: {k: (self._piece(i, v) if torch.is_tensor(v) and v.dim()
-                    else v) for k, v in entry.items()}
-            for i, entry in sd["state"].items()}}
-        if self.zero_stage == 3:
-            tree["shards"] = [self._piece(i, s)
-                              for i, s in enumerate(st.shards)]
+        hyper = {k: v for k, v in sd["param_groups"][0].items()
+                 if k != "params"}
+        blank = None
+        leaves, params = {}, {}
+        for bi, b in enumerate(st.plan.buckets):
+            entry = sd["state"].get(bi)
+            if entry is None:
+                if blank is None:
+                    blank = self._blank_state()
+                entry = {k: (torch.zeros_like(st.shards[bi], dtype=v.dtype)
+                             if torch.is_tensor(v) and v.dim() else v)
+                         for k, v in blank.items()}
+            for i, a, z, box, n in self._leaf_cuts(bi):
+                if whole:
+                    a, z, box = 0, 0, (0, n)
+                leaves[names[i]] = {
+                    k: (Shard(v[a:z], (box,), (n,))
+                        if torch.is_tensor(v) and v.dim() else v)
+                    for k, v in entry.items()}
+                params[names[i]] = Shard(st.shards[bi][a:z], (box,), (n,))
+        tree = {"hyper": hyper, "leaves": leaves, "params": params}
         if st.ef:
-            tree["ef_state"] = {"step": st.ef_state.step, "residual": [
-                Partial(r[:b.total_elems]) for r, b in
-                zip(st.ef_state.residual, st.plan.buckets)]}
+            res = {}
+            for r, b in zip(st.ef_state.residual, st.plan.buckets):
+                off = 0
+                for i, shape in zip(b.leaf_indices, b.shapes):
+                    n = math.prod(shape)
+                    res[names[i]] = Partial(r[off:off + n],
+                                            primary=st.index == 0)
+                    off += n
+            tree["ef_state"] = {"step": st.ef_state.step, "residual": res}
         if st._guard is not None:
             tree["guard_state"] = st._guard.snapshot()
         return tree
 
-    def _piece(self, bi: int, v: torch.Tensor) -> Shard:
-        b = self.shard_state.plan.buckets[bi]
-        start = min(self.shard_state.start(b), b.total_elems)
-        stop = min(start + v.numel(), b.total_elems)
-        return Shard(v[:stop - start], ((start, stop),), (b.total_elems,))
+    def restore_template(self, names: Optional[Sequence[str]] = None):
+        """The ``checkpoint.restore_sharded`` template for this optimizer,
+        chosen by the checkpoint's layout: where the saved ranks' replica
+        groups are this world's (a respec that changed only the dp grid,
+        ``shed_dp`` or its way back) each rank restores its pieces
+        directly (:meth:`sharded_tree`); where they differ (``fold_pp``:
+        the stacked stage leaves change their global shape in the JAX
+        package, which restores such a change through ``gather_state``
+        and ``reshard_state``) each rank restores the gathered state by
+        leaf and reshards it (``whole=True``). The next
+        :meth:`load_sharded_tree` loads the form chosen and records it in
+        :attr:`last_restore`."""
+        from . import checkpoint as ckpt_lib
 
-    def load_sharded_tree(self, tree: dict) -> None:
-        """Load what ``checkpoint.restore_sharded`` rebuilt from a
-        :meth:`sharded_tree` template."""
-        full = {"param_groups": tree["param_groups"], "state": {}}
+        def template(groups):
+            self._restore_whole = ckpt_lib.layout_changed(groups)
+            return self.sharded_tree(names, whole=self._restore_whole)
+
+        return template
+
+    def _leaf_names(self, names) -> List[str]:
+        if names is None:
+            return [str(i) for i in range(len(self.params))]
+        names = [str(n) for n in names]
+        if len(names) != len(self.params) or len(set(names)) != len(names):
+            raise ValueError(
+                f"sharded_tree: {len(names)} names for "
+                f"{len(self.params)} parameters (one distinct name each)")
+        return names
+
+    def _leaf_cuts(self, bi: int):
+        """``(leaf index, chunk start, chunk stop, leaf box, leaf numel)``
+        of each leaf of bucket ``bi``: the part of the leaf in this
+        rank's chunk (an empty box where they do not meet)."""
         st = self.shard_state
-        for i, entry in tree["state"].items():
-            chunk = _chunk(st.plan.buckets[int(i)].total_elems, st.n,
-                           st.align)
-            full["state"][int(i)] = {
-                k: (torch.nn.functional.pad(v, (0, chunk - v.numel()))
-                    if torch.is_tensor(v) and v.dim() else v)
-                for k, v in entry.items()}
-        st.inner.load_state_dict(full)
+        b = st.plan.buckets[bi]
+        start = st.start(b)
+        stop = start + st.shards[bi].numel()
+        off = 0
+        for i, shape in zip(b.leaf_indices, b.shapes):
+            n = math.prod(shape)
+            lo = min(max(start, off), off + n)
+            hi = max(min(stop, off + n), lo)
+            a, z = (lo - start, hi - start) if hi > lo else (0, 0)
+            yield i, a, z, (lo - off, hi - off), n
+            off += n
+
+    def _blank_state(self) -> dict:
+        """The per-parameter state the inner optimizer keeps (its keys,
+        a vector where it keeps one), from a throwaway copy stepped once
+        on one zero element."""
+        st = self.shard_state
+        cls, kw = _inner_spec(st.inner)
+        probe = torch.zeros(1, dtype=st.shards[0].dtype,
+                            device=st.shards[0].device, requires_grad=True)
+        probe.grad = torch.zeros_like(probe)
+        opt = cls([probe], **kw)
+        opt.step()
+        return dict(opt.state[probe])
+
+    def load_sharded_tree(self, tree: dict,
+                          names: Optional[Sequence[str]] = None) -> None:
+        """Load what ``checkpoint.restore_sharded`` rebuilt from a
+        :meth:`sharded_tree` template (with the same ``names``; either
+        form). This rank's pieces go straight into its shards (at stages
+        1 and 2 the parameter chunks are then all-gathered into the
+        parameters: every rank of the grid calls it together); the
+        gathered form goes through :meth:`reshard_state`."""
+        st = self.shard_state
+        names = self._leaf_names(names)
+        whole, self._restore_whole = self._restore_whole, False
+        if whole:
+            self._load_gathered(tree, names)
+            self.last_restore = "gathered"
+            return
+        self.last_restore = "piecewise"
+        state = {}
+        for bi, b in enumerate(st.plan.buckets):
+            entry = {}
+            for i, a, z, _, _ in self._leaf_cuts(bi):
+                for k, v in tree["leaves"][names[i]].items():
+                    if torch.is_tensor(v) and v.dim():
+                        if k not in entry:
+                            entry[k] = torch.zeros_like(st.shards[bi],
+                                                        dtype=v.dtype)
+                        entry[k][a:z] = v
+                    elif k not in entry:
+                        entry[k] = v      # every bucket steps together
+            state[bi] = entry
+        groups = [dict(tree["hyper"], params=list(range(len(st.shards))))]
+        st.inner.load_state_dict({"state": state, "param_groups": groups})
         st.push_hyper()
         ef = tree.get("ef_state")
         if st.ef and ef is not None:
-            st.ef_state = _EFShardState(
-                [torch.nn.functional.pad(r.to(m.device, torch.float32),
-                                         (0, m.numel() - r.numel()))
-                 for r, m in zip(ef["residual"], st.ef_state.residual)],
-                int(ef["step"]))
+            res = []
+            for r, b in zip(st.ef_state.residual, st.plan.buckets):
+                out = torch.zeros_like(r)
+                off = 0
+                for i, shape in zip(b.leaf_indices, b.shapes):
+                    n = math.prod(shape)
+                    out[off:off + n] = ef["residual"][names[i]]
+                    off += n
+                res.append(out)
+            st.ef_state = _EFShardState(res, int(ef["step"]))
         if st._guard is not None and "guard_state" in tree:
             st._guard.load(tree["guard_state"])
-        if self.zero_stage == 3 and "shards" in tree:
-            with torch.no_grad():
-                for s, v in zip(st.shards, tree["shards"]):
-                    s.zero_()
-                    s[:v.numel()].copy_(v)
+        with torch.no_grad():
+            for bi in range(len(st.shards)):
+                st.shards[bi].zero_()
+                for i, a, z, _, _ in self._leaf_cuts(bi):
+                    st.shards[bi][a:z] = tree["params"][names[i]]
+        if self.zero_stage < 3:
+            _write_gathered(st, self.params, "param")
+
+    def _load_gathered(self, tree: dict, names: List[str]) -> None:
+        """The gathered state by leaf (a ``whole`` template's restore)
+        moved into this plan's buckets, as :func:`_moved_state` moves a
+        :meth:`gather_state`, and resharded."""
+        st = self.shard_state
+        full = {"state": {}, "param_groups": [
+            dict(tree["hyper"], params=list(range(len(st.shards))))]}
+        for bi, b in enumerate(st.plan.buckets):
+            first = tree["leaves"][names[b.leaf_indices[0]]]
+            full["state"][bi] = {
+                k: (torch.cat([tree["leaves"][names[i]][k]
+                               for i in b.leaf_indices])
+                    if torch.is_tensor(v) and v.dim() else v)
+                for k, v in first.items()}
+        ef = tree.get("ef_state")
+        if ef is not None:
+            full["ef_state"] = {"step": ef["step"], "residual": [
+                torch.cat([ef["residual"][names[i]] for i in b.leaf_indices])
+                for b in st.plan.buckets]}
+        if "guard_state" in tree:
+            full["guard_state"] = tree["guard_state"]
+        st.reshard_state(full)
+        with torch.no_grad():
+            for bi, b in enumerate(st.plan.buckets):
+                flat = torch.cat([tree["params"][names[i]]
+                                  for i in b.leaf_indices])
+                if self.zero_stage == 3:
+                    st.shards[bi].copy_(_shard_of(flat, st.n, st.index,
+                                                  st.align))
+                else:
+                    for i, view in fusion_lib.unfuse_bucket(flat, b):
+                        self.params[i].copy_(view)
+        if self.zero_stage < 3:
+            st.refresh(self.params)
 
     # -- stage-3 parameter residency -----------------------------------------
 

@@ -287,8 +287,17 @@ def test_decision_log_is_byte_identical_to_jax(J, name, tmp_path):
 
 
 def test_engine_refuses_a_parallel_spec():
-    with pytest.raises(NotImplementedError,
-                       match="the role-aware elastic slice"):
+    """The role-aware engine is ported: a ParallelSpec is taken, and what
+    it refuses is a floor that splits a model replica (naming the roles)
+    or a value that is no spec."""
+    eng = P.AutoscaleEngine(P.AutoscalePolicy(), 2, 4, dict,
+                            parallel="dp=2,pp=2")
+    assert eng.current_spec.describe() == "dp=2,pp=2"
+    assert eng.min_world == 1
+    with pytest.raises(ValueError, match="roles pp=2"):
+        P.AutoscaleEngine(P.AutoscalePolicy(), 3, 4, dict,
+                          parallel="dp=2,pp=2")
+    with pytest.raises((TypeError, ValueError)):
         P.AutoscaleEngine(P.AutoscalePolicy(), 1, 3, dict,
                           parallel=object())
 

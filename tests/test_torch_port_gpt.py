@@ -129,8 +129,9 @@ def test_unported_paths_raise(tiny_pair):
     runs in ``test_torch_port_moe.py`` and ``test_torch_port_pipeline.py``).
     The full-sequence forward is ported (the training slice) and gives
     logits; tensor and sequence parallelism construct (their parity runs
-    in ``test_torch_port_parallel.py``). The role-aware elastic path
-    still raises naming its slice."""
+    in ``test_torch_port_parallel.py``). The role-aware elastic path is
+    ported: the pod monitor takes a spec (its role views run in
+    ``test_torch_port_elastic_hybrid.py``)."""
     from horovod_tpu_torch.common import podmon
 
     _, _, tm = tiny_pair
@@ -145,9 +146,8 @@ def test_unported_paths_raise(tiny_pair):
     assert torch.equal(remat(toks), logits)
     for kw in ({"tp_axis": "tp"}, {"seq_parallel": "sp"}):
         assert isinstance(gpt.gpt_tiny(**kw), gpt.GPT)
-    with pytest.raises(NotImplementedError,
-                       match="the role-aware elastic slice"):
-        podmon.PodMonitor(lambda: [], parallel=object())
+    mon = podmon.PodMonitor(lambda: [], parallel="dp=2,pp=2")
+    assert mon.parallel.describe() == "dp=2,pp=2"
 
 
 def test_init_kv_cache_device_rule(tiny_pair):

@@ -430,7 +430,9 @@ def test_later_roles_raise_naming_their_slice():
     """The pipeline, MoE and respec names are ported (slice 16) and the
     optimizers take pp and ep specs and zero_stage with a spec: outside a
     world made with the spec they ask for it (here: no world at all). The
-    role-aware elastic driver path still raises naming its slice."""
+    role-aware elastic driver path is ported: under ``HVD_TPU_PARALLEL``
+    an epoch runs, and an autoscale floor that splits a replica fails the
+    launch naming the roles."""
     import horovod_tpu_torch.parallel as P
     from horovod_tpu_torch.runner import elastic_driver
 
@@ -452,11 +454,16 @@ def test_later_roles_raise_naming_their_slice():
                                  zero_stage=1, parallel="dp=2,tp=2")
     args = types.SimpleNamespace(min_np=2, max_np=2, num_proc=2,
                                  host_discovery_script=None, hosts=None)
-    with pytest.raises(NotImplementedError,
-                       match="the role-aware elastic slice"):
+    assert elastic_driver.run_elastic(
+        args, ["true"], {"HVD_TPU_PARALLEL": "dp=1,pp=2"},
+        discovery=elastic_driver.FixedHostDiscovery({"localhost": 2})) == 0
+    with pytest.raises(ValueError, match="roles pp=2"):
         elastic_driver.run_elastic(
-            args, ["true"], {"HVD_TPU_PARALLEL": "dp=2,pp=2"},
-            discovery=elastic_driver.FixedHostDiscovery({"localhost": 2}))
+            types.SimpleNamespace(min_np=3, max_np=4, num_proc=4,
+                                  host_discovery_script=None, hosts=None),
+            ["true"], {"HVD_TPU_PARALLEL": "dp=2,pp=2",
+                       "HVD_TPU_AUTOSCALE_POLICY": '{"enabled": true}'},
+            discovery=elastic_driver.FixedHostDiscovery({"localhost": 4}))
     with pytest.raises(NotImplementedError, match="later serve slice"):
         mm = gpt.gpt_tiny(tp_axis="tp")
         mm(torch.zeros((1, 2), dtype=torch.long),

@@ -72,10 +72,11 @@ def _imports(path: Path):
 @pytest.mark.parametrize("path", sorted(
     p.relative_to(REPO).as_posix()
     for p in list((REPO / "horovod_tpu_torch").rglob("*.py"))
-    + [REPO / "chip_smoke.py"]))
+    + [REPO / "chip_smoke.py", REPO / "chip_startup.py"]))
 def test_port_imports_no_jax(path):
-    """No module of the port, and not ``chip_smoke.py``, imports jax,
-    flax or the JAX package (``horovod_tpu``)."""
+    """No module of the port, and neither ``chip_smoke.py`` nor
+    ``chip_startup.py``, imports jax, flax or the JAX package
+    (``horovod_tpu``)."""
     banned = ("jax", "flax", "horovod_tpu")
     bad = [m for m in _imports(REPO / path)
            if m.split(".")[0] in banned]

@@ -698,13 +698,16 @@ def test_pod_monitor_scrapes_live_endpoints_and_serves_pod_metrics():
 
 
 def test_role_views_raise_naming_their_slice(monkeypatch):
-    with pytest.raises(NotImplementedError,
-                       match="the role-aware elastic slice"):
+    """The role views are ported: an explicit spec, else
+    ``HVD_TPU_PARALLEL``, labels the per-rank series (their parity with
+    JAX runs in ``test_torch_port_elastic_hybrid.py``); what still raises
+    is a value that is no spec."""
+    with pytest.raises((TypeError, ValueError)):
         P_podmon.PodMonitor(lambda: [], parallel=object())
     monkeypatch.setenv("HVD_TPU_PARALLEL", "dp=2,pp=2")
-    with pytest.raises(NotImplementedError,
-                       match="the role-aware elastic slice"):
-        P_podmon.PodMonitor(lambda: [])
+    mon = P_podmon.PodMonitor(lambda: [])
+    assert mon.parallel.describe() == "dp=2,pp=2"
+    assert mon.reports() == {} and mon.merged()["roles"] == {}
 
 
 if __name__ == "__main__":

@@ -329,9 +329,10 @@ def test_later_slices_raise_not_implemented(name):
     ``save_sharded``, ...) and slice 12 (``chaos_poison``, ``run``,
     ``save_state``, ...), slice 13 (``flight_recorder``, the metrics
     server, ``StepTimer``), slice 14 (``AutotunedStepper``), slice 15
-    (``ParallelSpec``, the tp primitives) and slice 16 (the pipeline and
-    the respec solver) are ported: their names resolve. The role-aware
-    elastic path still raises naming its slice."""
+    (``ParallelSpec``, the tp primitives), slice 16 (the pipeline and
+    the respec solver) and slice 17 (the role-aware elastic path,
+    ``DistributedGradFn``, ``tpu_available``) are ported: their names
+    resolve and the role-aware engine takes a spec."""
     import horovod_tpu_torch.models as models
     from horovod_tpu_torch.common import autoscale
 
@@ -342,10 +343,11 @@ def test_later_slices_raise_not_implemented(name):
                   "pipeline_accumulate_gradients", "select_last_stage",
                   "solve_respec", "RespecDecision", "min_world"):
         assert callable(getattr(hvd, later)), later
-    with pytest.raises(NotImplementedError,
-                       match="the role-aware elastic slice"):
-        autoscale.AutoscaleEngine(autoscale.AutoscalePolicy(), 1, 3, dict,
-                                  parallel=object())
+    for later in ("DistributedGradFn", "tpu_available"):
+        assert callable(getattr(hvd, later)), later
+    eng = autoscale.AutoscaleEngine(autoscale.AutoscalePolicy(), 2, 4, dict,
+                                    parallel="dp=2,pp=2")
+    assert eng.current_spec.describe() == "dp=2,pp=2"
     with pytest.raises(AttributeError):
         getattr(mod, "no_such_name")
 
