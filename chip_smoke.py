@@ -504,7 +504,49 @@ Phases (any failure exits non-zero and prints no result line):
    Phase 11's tp world also takes one checked step of
    ``DistributedOptimizer(op=Adasum, parallel="dp=2,tp=2")``: K8 and K9
    once a parameter, the masters bitwise equal on all four ranks.
-14. Result lines: the per-kernel JSON record (K1-K9, each with
+14. Serve levers, right after phase 5 on its GPT-2 medium weights (8
+   slots, 1,024 lines, prompts up to 256 tokens, seeded Poisson traces
+   at 20 rps, outputs of 16 or 32 tokens). Each "lever on / lever off"
+   identity pair runs in fp32 compute (TF32 off) at 8 requests: its
+   greedy streams must be identical or first differ at a near-tie, a
+   position where the lever-off stream's top-2 logit gap, recomputed by
+   one full fp32 forward over the prompt and that stream, is at most
+   1e-4 x max|logit|; each near-tie is reported (rid, position, gap).
+   (a) Shared-prefix forks: traces with a 128-token system prompt and
+   tails of 16, 64 or 128 tokens; the identity pair is a colocated
+   cluster with a ``PrefixCache`` against one without; then a bf16
+   disaggregated pair at 8 requests, timed. Checks: ``prefill_tokens``
+   drops by exactly the cache's ``tokens_saved``, hits >= 1, and in the
+   cached disaggregated run K2 and K4 each launch exactly once a handoff
+   with 48 leaves (the forks are exact slot copies and launch nothing).
+   (b) Speculative decoding on colocated clusters (a migrated slot's
+   draft ring would be cold): the fp32 self-draft pair at k = 4, whose
+   acceptance must be (k - 1) / k less the rounds whose rejection is a
+   reported near-tie (found from the tracer's ``spec`` spans); then, at
+   8 requests in bf16, a plain run, a self-draft run (the acceptance
+   ceiling) and a GPT-2 small draft run (12 layers, 768, 12 heads,
+   seeded weights: it shares GPT-2's vocab and accepts almost nothing),
+   each with its acceptance, rounds, tokens/s and TPOT. (c) Overload:
+   ``SLOPolicy(overload=True)`` with the JAX bench's overload fields on
+   bf16 self-draft engines, one replica, a class-mixed trace rated to
+   reach the brownout ladder's ``spec_off`` rung: the rung enters and
+   exits, only fallback rounds run while it holds (``spec_fallback_rounds``
+   > 0), and every request ends completed, shed or rejected (none lost);
+   the rungs taken and the speculative rounds after the exit are
+   printed. (d) tp-sharded decode: the
+   script relaunches itself as 2 gloo rank workers (``--rank-worker
+   n2_serve_tp``, ``init(parallel="tp=2")``) on ``GPT(tp_axis="tp")``
+   with 8 of 16 heads a rank, the weights regenerated from phase 5's
+   seed (checked by digest): the fp32 engine-level identity pair (the tp
+   engine against the unsharded engine's stream, which this process
+   computes and passes in), then a bf16 disaggregated tp cluster at 8
+   requests: every request completes with zero drops, both ranks' event
+   logs and token streams are identical, and on each rank K2 and K4
+   launch exactly once a handoff, coding 48 leaves of 524,288 elements
+   (half of phase 5's). Printed: one summary line an arm, the decode
+   round ms and tokens/s of (d) as "gloo, 2 processes on one card";
+   records in ``chip_smoke_serve_levers.json``.
+15. Result lines: the per-kernel JSON record (K1-K9, each with
    ``launches_by_path``, every path above 0, and ``launches`` their
    sum: K5/K6/K7 for the GPT training, BERT, ViT and the two guarded
    integrity runs and the ZeRO phase; K1 for the eager loop, the
@@ -516,7 +558,9 @@ Phases (any failure exits non-zero and prints no result line):
    K5-K7; phase 11 for K5-K7 and, on ring_int8, K2 and K4; phase 12's
    ``pipeline`` and ``moe`` paths for K5-K7 and, on its int8 arms, K2
    and K4; phase 13's ``elastic_hybrid`` path, its dp0/pp0 rank in both
-   worlds, for K3 and K5-K7), the card line, and last ``{"ok": true,
+   worlds, for K3 and K5-K7; phase 14's ``serve_prefix`` (the cached
+   disaggregated run) and ``serve_tp`` (rank 0's tp cluster) paths for
+   K2 and K4), the card line, and last ``{"ok": true,
    "device": {...}}``.
 
 ``--profile`` also traces the serve run and two extra training steps of
@@ -1513,7 +1557,8 @@ def reference_check(torch, model, gpt_mod) -> float:
     return worst
 
 
-def phase_serve(torch, K, out_dir: str, profile: bool = False) -> dict:
+def phase_serve(torch, K, out_dir: str, profile: bool = False,
+                keep=None) -> dict:
     from horovod_tpu_torch.models import gpt as gpt_mod
     from horovod_tpu_torch.serve import tracing
     from horovod_tpu_torch.serve.controller import ServeCluster, SLOPolicy
@@ -1597,23 +1642,7 @@ def phase_serve(torch, K, out_dir: str, profile: bool = False) -> dict:
               f"{name}: {codec_leaves[name]} leaves coded != {leaves} x "
               f"{rep['handoffs']} handoffs")
 
-    # Wall-clock view of the virtual-time run: a round's wall span is
-    # hook(r) .. hook(r + 1).
-    step = c.step_s
-    route_round = {e[2]: e[0] for e in c.events if e[1] == "route"}
-
-    def wall_end(r):
-        return round_t[min(int(r) + 1, len(round_t) - 1)]
-
-    ttft, tpot = [], []
-    for r in c.completed:
-        rf = round(r.first_token_t / step)
-        rfin = round(r.finish_t / step)
-        ttft.append(wall_end(rf) - round_t[route_round[r.rid]])
-        if len(r.tokens) > 1:
-            tpot.append((wall_end(rfin) - wall_end(rf))
-                        / (len(r.tokens) - 1))
-    wall_s = round_t[-1] - round_t[0]
+    ttft, tpot, wall_s = wall_view(c, round_t)
     result = {
         "model": "gpt_medium", "layers": 24, "hidden": 1024,
         "heads": 16, "mlp": 4096, "vocab": 50257, "dtype": "bfloat16",
@@ -1646,7 +1675,628 @@ def phase_serve(torch, K, out_dir: str, profile: bool = False) -> dict:
           f"{result['ttft_wall_p50_s'] * 1e3:.1f} ms, TPOT p50 "
           f"{(result['tpot_wall_p50_s'] or 0) * 1e3:.1f} ms (wall); "
           f"{rep['handoffs']} handoffs; launches {launches}", flush=True)
+    if keep is not None:
+        keep["model"] = model
     return result
+
+
+def wall_view(c, round_t):
+    """Wall-clock view of a virtual-time cluster run whose round hook
+    stamped ``round_t`` (one stamp a round, one after the run): a
+    round's wall span is hook(r) .. hook(r + 1). Returns each completed
+    request's TTFT, each multi-token request's TPOT, and the run's wall
+    seconds."""
+    step = c.step_s
+    route_round = {e[2]: e[0] for e in c.events if e[1] == "route"}
+
+    def wall_end(r):
+        return round_t[min(int(r) + 1, len(round_t) - 1)]
+
+    ttft, tpot = [], []
+    for r in c.completed:
+        rf = round(r.first_token_t / step)
+        rfin = round(r.finish_t / step)
+        ttft.append(wall_end(rf) - round_t[route_round[r.rid]])
+        if len(r.tokens) > 1:
+            tpot.append((wall_end(rfin) - wall_end(rf))
+                        / (len(r.tokens) - 1))
+    return ttft, tpot, round_t[-1] - round_t[0]
+
+
+# -- phase 14: the serve levers ----------------------------------------------
+
+LEVER_GEOMETRY = dict(slots=8, max_len=1024, max_prompt_len=256,
+                      kv_kind="fp32")
+LEVER_IDENTITY_REQUESTS = 8         # each fp32 lever on / off pair
+# Each bf16 timed run: 8, half the 16 first run, so the smoke stays
+# inside its time limit on a slow host (the one cut of this phase).
+LEVER_TIMED_REQUESTS = 8
+LEVER_SHARED_PREFIX = 128           # the system prompt's tokens
+LEVER_TAILS = (16, 64, 128)         # each request's own tokens after it
+LEVER_SPEC_K = 4
+NEAR_TIE_RTOL = 1e-4                # top-2 gap, of max |logit|
+# The JAX bench's overload arm's policy fields (bench.py), one replica.
+LEVER_OVERLOAD_POLICY = dict(
+    tick_interval_s=0.1, window=8, min_replicas=1, max_replicas=1,
+    overload=True, latency_deadline_s=3.0, throughput_deadline_s=5.0,
+    admission_safety=1.2, brownout_enter_depth=10, brownout_exit_depth=2,
+    brownout_enter_ticks=2, brownout_exit_ticks=2, brownout_clamp_tokens=4)
+LEVER_OVERLOAD_MIX = [("latency", 0.5), ("throughput", 0.3),
+                      ("batch", 0.2)]
+# A class-mixed load past one replica's speculative rate: the queue
+# crosses the ladder's entry depth with a margin (spec_off enters; the
+# slower plain rounds then take the ladder further) and drains before
+# the trace ends (every rung exits).
+LEVER_OVERLOAD_TRACE = dict(n=40, seed=3, rate_rps=50.0)
+SERVE_TP_CONFIG = "n2_serve_tp"
+SERVE_TP_SPEC = "tp=2"
+SERVE_TP_TIMEOUT = 600
+LEVERS_TP_IN = "chip_smoke_serve_tp_in.json"
+
+
+def lever_trace(n: int, seed: int = 14, shared: bool = False, **kw):
+    """The phase's seeded Poisson trace at phase 5's rate and lengths;
+    ``shared`` puts the 128-token system prompt before every prompt."""
+    from horovod_tpu_torch.serve.traffic import poisson_trace
+
+    if shared:
+        kw.update(shared_prefix_len=LEVER_SHARED_PREFIX,
+                  prompt_lens=LEVER_TAILS)
+    else:
+        kw.setdefault("prompt_lens", (64, 128, 256))
+    kw.setdefault("rate_rps", 20.0)
+    return poisson_trace(seed=seed, n_requests=n, output_lens=(16, 32),
+                         vocab_size=50257, **kw)
+
+
+def param_digest(model) -> float:
+    """A float64 sum over every parameter: equal weights give equal
+    bits (the same values summed in the same order)."""
+    return float(sum(p.detach().double().sum() for p in
+                     model.parameters()).item())
+
+
+def near_ties(torch, m32, trace, on: dict, off: dict, what: str) -> list:
+    """The identity rule: streams ``on`` and ``off`` (rid -> tokens)
+    are identical or first differ at a near-tie of the lever-off stream
+    (its top-2 logit gap, recomputed by one full fp32 forward over the
+    prompt and that stream, at most NEAR_TIE_RTOL x max |logit|). Returns
+    the near-ties; any other difference fails."""
+    ties = []
+    prompts = {r.rid: list(r.prompt)[-LEVER_GEOMETRY["max_prompt_len"]:]
+               for r in trace.requests}
+    check(set(on) == set(off) == set(prompts),
+          f"{what}: the runs completed different requests")
+    for rid in sorted(off):
+        a, b = list(on[rid]), list(off[rid])
+        if a == b:
+            continue
+        check(len(a) == len(b), f"{what}: rid {rid} {len(a)} vs {len(b)} "
+                                "tokens")
+        i = next(j for j in range(len(b)) if a[j] != b[j])
+        ties.append(dict(tie_gap(torch, m32, prompts[rid] + b[:i]),
+                         rid=rid, position=i, on=a[i], off=b[i]))
+        t = ties[-1]
+        check(t["rel_gap"] <= NEAR_TIE_RTOL,
+              f"{what}: rid {rid} parts at token {i} ({a[i]} vs {b[i]}) "
+              f"where the top-2 gap is {t['gap']:.3g} = {t['rel_gap']:.3g}"
+              f" of max|logit| > {NEAR_TIE_RTOL}: not a near-tie")
+    return ties
+
+
+def tie_gap(torch, m32, tokens) -> dict:
+    """The next-token top-2 logit gap after ``tokens`` (one full fp32
+    forward), absolute and of max |logit|."""
+    with torch.no_grad():
+        row = m32(torch.tensor([tokens], device="cuda"))[0, -1]
+    top = torch.topk(row, 2)
+    gap = float(top.values[0] - top.values[1])
+    return {"gap": gap, "rel_gap": gap / float(row.abs().max()),
+            "top": [int(i) for i in top.indices]}
+
+
+def spec_rejections(tracer, c, k: int) -> list:
+    """Each speculative round that rejected a draft token, from the
+    tracer's ``spec`` spans: (rid, index in the stream of the target's
+    correction token, tokens accepted). Needs a run without fallback
+    rounds (those leave no span), which the stream lengths confirm."""
+    out = []
+    for r in c.completed:
+        n = 1                             # the prefill's token
+        for span in tracer.trace(r.rid):
+            if span["phase"] != "spec":
+                continue
+            m, _ = (int(x) for x in span["detail"].split("/"))
+            if m < k - 1:
+                out.append((r.rid, n + m, m))
+            n = min(n + m + 1, len(r.tokens))
+        check(n == len(r.tokens),
+              f"spec: rid {r.rid}'s rounds commit {n} of "
+              f"{len(r.tokens)} tokens")
+    return out
+
+
+def _lever_cluster(factory, roles=None, policy=None):
+    from horovod_tpu_torch.serve import tracing
+    from horovod_tpu_torch.serve.controller import ServeCluster, SLOPolicy
+
+    tracing.reset()
+    if policy is None:
+        policy = SLOPolicy() if roles else SLOPolicy(min_replicas=1,
+                                                     max_replicas=1)
+    return ServeCluster(factory, policy=policy, replicas=1, roles=roles,
+                        step_s=0.05, log_path="")
+
+
+def _lever_run(torch, K, c, trace, hook=None):
+    """Run ``c`` over ``trace`` with the launch counts zeroed just
+    before and read just after; returns the report, the round stamps,
+    the launches and the coded leaves."""
+    round_t = []
+
+    def stamp(cluster, idx):
+        round_t.append(time.perf_counter())
+        if hook is not None:
+            hook(cluster, idx)
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    rep = c.run(trace, round_hook=stamp)
+    torch.cuda.synchronize()
+    round_t.append(time.perf_counter())
+    check(rep["dropped"] == 0, f"dropped {rep['dropped']}")
+    return rep, round_t, dict(K.LAUNCHES), dict(K.CODEC_LEAVES)
+
+
+def _tokens(c) -> dict:
+    return {r.rid: list(r.tokens) for r in c.completed}
+
+
+def _timed(c, rep, round_t) -> dict:
+    ttft, tpot, wall_s = wall_view(c, round_t)
+    return {"requests": rep["submitted"], "completed": rep["completed"],
+            "rounds": rep["rounds"], "handoffs": rep.get("handoffs", 0),
+            "prefill_tokens": rep["prefill_tokens"],
+            "generated_tokens": rep["generated_tokens"], "wall_s": wall_s,
+            "tokens_per_wall_s": rep["generated_tokens"] / wall_s,
+            "wall_ms_per_round": wall_s * 1e3 / rep["rounds"],
+            "ttft_wall_p50_s": statistics.median(ttft),
+            "tpot_wall_p50_s": statistics.median(tpot) if tpot else None}
+
+
+def _check_codec(launches, leaves, handoffs: int, what: str) -> None:
+    for name in ("quantize_int8", "dequantize_int8"):
+        check(launches[name] == handoffs and handoffs >= 1,
+              f"{what}: {name} launched {launches[name]} times for "
+              f"{handoffs} handoffs (one grouped launch a handoff side)")
+        check(leaves[name] == HANDOFF_LEAVES * handoffs,
+              f"{what}: {name} coded {leaves[name]} leaves != "
+              f"{HANDOFF_LEAVES} x {handoffs} handoffs")
+
+
+def levers_prefix(torch, K, model, m32) -> dict:
+    """(a): the fp32 identity pair (colocated), then the bf16
+    disaggregated pair, timed."""
+    from horovod_tpu_torch.serve.engine import make_engine_factory
+    from horovod_tpu_torch.serve.prefix import PrefixCache
+
+    out = {}
+    for label, m, n, roles in (
+            ("fp32", m32, LEVER_IDENTITY_REQUESTS, None),
+            ("bf16_disagg", model, LEVER_TIMED_REQUESTS,
+             {"prefill": 1, "decode": 1})):
+        trace = lever_trace(n, shared=True)
+        runs = {}
+        for arm in ("cached", "uncached"):
+            pc = PrefixCache() if arm == "cached" else None
+            c = _lever_cluster(make_engine_factory(
+                m, device="cuda", prefix_cache=pc, **LEVER_GEOMETRY), roles)
+            rep, round_t, launches, leaves = _lever_run(
+                torch, K, c, lever_trace(n, shared=True))
+            check(rep["completed"] == rep["submitted"] == n,
+                  f"prefix {label} {arm}: completed {rep['completed']}")
+            runs[arm] = dict(_timed(c, rep, round_t), tokens=_tokens(c),
+                             launches=launches, codec_leaves=leaves,
+                             prefix=pc.stats() if pc else None)
+        st = runs["cached"]["prefix"]
+        saved = runs["uncached"]["prefill_tokens"] \
+            - runs["cached"]["prefill_tokens"]
+        check(st["hits"] >= 1, f"prefix {label}: no fork ({st})")
+        check(saved == st["tokens_saved"],
+              f"prefix {label}: prefill dropped by {saved} tokens, the "
+              f"cache saved {st['tokens_saved']}")
+        rec = {"requests": n, "stats": st, "prefill_tokens_saved": saved,
+               "runs": runs}
+        if label == "fp32":
+            rec["near_ties"] = near_ties(
+                torch, m32, trace, runs["cached"]["tokens"],
+                runs["uncached"]["tokens"], f"prefix {label}")
+        else:
+            for arm in ("cached", "uncached"):
+                r = runs[arm]
+                _check_codec(r["launches"], r["codec_leaves"],
+                             r["handoffs"], f"prefix {label} {arm}")
+        out[label] = rec
+    return out
+
+
+def levers_spec(torch, K, model, m32, draft) -> dict:
+    """(b): the fp32 self-draft pair at k = 4 on colocated clusters, then
+    plain, self-draft and GPT-2 small draft runs in bf16, timed."""
+    from horovod_tpu_torch.serve import tracing
+    from horovod_tpu_torch.serve.engine import make_engine_factory
+
+    k = LEVER_SPEC_K
+    out = {}
+    trace = lever_trace(LEVER_IDENTITY_REQUESTS, seed=15)
+    runs = {}
+    for arm in ("spec", "plain"):
+        kw = dict(draft_model=m32, spec_k=k) if arm == "spec" else {}
+        c = _lever_cluster(make_engine_factory(m32, device="cuda", **kw,
+                                               **LEVER_GEOMETRY))
+        rep, round_t, _, _ = _lever_run(
+            torch, K, c, lever_trace(LEVER_IDENTITY_REQUESTS, seed=15))
+        runs[arm] = dict(_timed(c, rep, round_t), tokens=_tokens(c),
+                         proposed=rep["spec_proposed"],
+                         accepted=rep["spec_accepted"])
+        if arm == "spec":
+            eng = next(iter(c.batchers.values())).engine
+            check(eng.spec_fallback_rounds == 0 and eng.spec_rounds > 0,
+                  f"spec fp32: {eng.spec_rounds} speculative and "
+                  f"{eng.spec_fallback_rounds} fallback rounds")
+            rejected = spec_rejections(tracing.tracer(), c, k)
+            streams = _tokens(c)
+            prompts = {r.rid: list(r.prompt) for r in trace.requests}
+            rej = []
+            for rid, i, m in rejected:
+                if i > len(streams[rid]):
+                    # Past the stream's end: its context was never
+                    # committed, so there is no gap to recompute.
+                    rej.append({"rid": rid, "position": i, "accepted": m,
+                                "gap": None})
+                    continue
+                t = dict(tie_gap(torch, m32, prompts[rid]
+                                 + streams[rid][:i]), rid=rid, position=i,
+                         accepted=m)
+                check(t["rel_gap"] <= NEAR_TIE_RTOL,
+                      f"spec fp32: self-draft rejected a token at rid "
+                      f"{rid} position {i}, top-2 gap {t['rel_gap']:.3g} "
+                      f"of max|logit| > {NEAR_TIE_RTOL}: not a near-tie")
+                rej.append(t)
+            runs[arm]["rejections"] = rej
+    spec = runs["spec"]
+    ceiling = spec["proposed"] * (k - 1) // k
+    check(spec["proposed"] % k == 0 and spec["accepted"] <= ceiling,
+          f"spec fp32: accepted {spec['accepted']} of {spec['proposed']}")
+    short = sum(k - 1 - r["accepted"] for r in spec["rejections"])
+    check(ceiling - spec["accepted"] == short,
+          f"spec fp32: {ceiling - spec['accepted']} tokens short of the "
+          f"ceiling, the rejections found account for {short}")
+    out["fp32_self"] = {
+        "k": k, "requests": LEVER_IDENTITY_REQUESTS, "runs": runs,
+        "acceptance": spec["accepted"] / spec["proposed"],
+        "ceiling": (k - 1) / k,
+        "near_ties": near_ties(torch, m32, trace, spec["tokens"],
+                               runs["plain"]["tokens"], "spec fp32")}
+    timed = {}
+    for arm, dm in (("plain", None), ("self", model), ("gpt2_small", draft)):
+        kw = dict(draft_model=dm, spec_k=k) if dm is not None else {}
+        c = _lever_cluster(make_engine_factory(model, device="cuda", **kw,
+                                               **LEVER_GEOMETRY))
+        rep, round_t, _, _ = _lever_run(
+            torch, K, c, lever_trace(LEVER_TIMED_REQUESTS, seed=15))
+        check(rep["completed"] == rep["submitted"] == LEVER_TIMED_REQUESTS,
+              f"spec bf16 {arm}: completed {rep['completed']}")
+        eng = next(iter(c.batchers.values())).engine
+        timed[arm] = dict(_timed(c, rep, round_t),
+                          acceptance=rep["spec_acceptance_rate"],
+                          spec_rounds=getattr(eng, "spec_rounds", 0),
+                          fallback_rounds=getattr(
+                              eng, "spec_fallback_rounds", 0))
+    out["bf16"] = timed
+    return out
+
+
+def levers_overload(torch, K, model) -> dict:
+    """(c): the overload controls on bf16 self-draft engines over a
+    class-mixed trace that reaches the spec_off rung."""
+    from horovod_tpu_torch.serve.controller import SLOPolicy
+    from horovod_tpu_torch.serve.engine import make_engine_factory
+
+    pol = LEVER_OVERLOAD_POLICY
+    trace_kw = dict(class_mix=LEVER_OVERLOAD_MIX, class_deadlines={
+        "latency": pol["latency_deadline_s"],
+        "throughput": pol["throughput_deadline_s"]}, **LEVER_OVERLOAD_TRACE)
+    samples = []
+
+    def hook(c, _idx):
+        engines = [b.engine for b in c.batchers.values()]
+        samples.append((c.controller.brownout.active("spec_off"),
+                        sum(e.spec_rounds for e in engines),
+                        sum(e.spec_fallback_rounds for e in engines)))
+
+    c = _lever_cluster(make_engine_factory(
+        model, device="cuda", draft_model=model, spec_k=LEVER_SPEC_K,
+        **LEVER_GEOMETRY), policy=SLOPolicy(**pol))
+    rep, round_t, _, _ = _lever_run(torch, K, c, lever_trace(**trace_kw),
+                                    hook)
+    n = trace_kw["n"]
+    check(rep["submitted"] == n and rep["completed"] + rep["shed"]
+          + rep["rejected"] == n,
+          f"overload: {rep['completed']} completed + {rep['shed']} shed + "
+          f"{rep['rejected']} rejected != {n}")
+    ends = {r.rid for r in c.completed + c.shed + c.rejected}
+    check(len(ends) == n, f"overload: {len(ends)} requests ended of {n}")
+    rungs = [json.loads(d)["reason"] for d in rep["decisions"]
+             if json.loads(d)["action"] == "brownout"]
+    check(any(r.startswith("spec_off:enter") for r in rungs)
+          and any(r.startswith("spec_off:exit") for r in rungs),
+          f"overload: spec_off did not enter and exit: {rungs}")
+    # Round i ran with the flag the tick of round i set: sample i + 1's.
+    during = [(samples[i + 1][1] - samples[i][1],
+               samples[i + 1][2] - samples[i][2])
+              for i in range(len(samples) - 1) if samples[i + 1][0]]
+    held = [i for i, smp in enumerate(samples) if smp[0]]
+    after = samples[held[-1] + 1:] if held else []
+    check(bool(during) and all(d[0] == 0 for d in during)
+          and sum(d[1] for d in during) > 0,
+          "overload: speculative rounds ran while spec_off held, or no "
+          "fallback round did")
+    return dict(_timed(c, rep, round_t), rungs=rungs,
+                shed=rep["shed"], rejected=rep["rejected"],
+                rounds_held=len(during),
+                fallback_rounds_held=sum(d[1] for d in during),
+                spec_rounds_after=(after[-1][1] - after[0][1]
+                                   if after else 0),
+                acceptance=rep["spec_acceptance_rate"])
+
+
+def serve_tp_worker(config: str, rank: int, out_path: str,
+                    dev: str = "cuda") -> None:
+    """One rank of phase 14 (d) (``--rank-worker n2_serve_tp``): the fp32
+    tp engine over the parent's requests, then a bf16 disaggregated tp
+    cluster; both ranks run the same requests in the same order."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import gpt as gpt_mod
+    from horovod_tpu_torch.ops import kernels as K
+    from horovod_tpu_torch.serve.controller import ServeCluster, SLOPolicy
+    from horovod_tpu_torch.serve.engine import (DecodeEngine,
+                                                make_engine_factory)
+    from horovod_tpu_torch.serve.queue import Request
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ctx = hvd.init(backend="gloo", parallel=SERVE_TP_SPEC) if dev == "cuda" \
+        else hvd.init(device="cpu", parallel=SERVE_TP_SPEC)
+    with open(os.path.join(os.path.dirname(out_path), LEVERS_TP_IN)) as f:
+        inp = json.load(f)
+    with torch.device(dev):
+        m32 = gpt_mod.GPT(**inp["widths"], dtype=torch.float32,
+                          tp_axis="tp")
+    m32.init_weights(torch.Generator(device=dev).manual_seed(inp["seed"]))
+    check(param_digest(m32) == inp["digest"],
+          f"serve tp rank {rank}: the weights differ from the parent's")
+    geo = dict(inp["geometry"])
+    eng = DecodeEngine(m32, device=dev, parallel=SERVE_TP_SPEC, **geo)
+    reqs = [Request(**r) for r in inp["requests"]]
+    for r in reqs:
+        eng.admit(r)
+    t0 = time.perf_counter()
+    while eng.active_count():
+        eng.step(0.0)
+    _sync(torch, dev)
+    fp32 = {"tokens": {str(r.rid): list(r.tokens) for r in reqs},
+            "cache_shape": list(eng.cache["layers"][0]["k"].shape),
+            "rounds": eng.decode_steps,
+            "wall_ms_per_round": (time.perf_counter() - t0) * 1e3
+            / max(1, eng.decode_steps)}
+    del eng
+    with torch.device(dev):
+        m16 = gpt_mod.GPT(**inp["widths"], tp_axis="tp")
+    m16.load_state_dict(m32.state_dict())
+    del m32
+    coded = []
+    group = K.quantize_int8_group
+
+    def counting(xs):
+        xs = list(xs)
+        coded.extend(x.numel() for x in xs)
+        return group(xs)
+
+    K.quantize_int8_group = counting
+    try:
+        factory = make_engine_factory(m16, device=dev,
+                                      parallel=SERVE_TP_SPEC, **geo)
+        c = ServeCluster(factory, policy=SLOPolicy(),
+                         roles={"prefill": 1, "decode": 1}, step_s=0.05,
+                         log_path="")
+        round_t = []
+        trace = lever_trace(inp["cluster_requests"], seed=16)
+        _sync(torch, dev)
+        K.reset_launch_counts()
+        rep = c.run(trace, round_hook=lambda *_: round_t.append(
+            time.perf_counter()))
+        _sync(torch, dev)
+        round_t.append(time.perf_counter())
+        launches, leaves = dict(K.LAUNCHES), dict(K.CODEC_LEAVES)
+    finally:
+        K.quantize_int8_group = group
+    shapes = {list(b.engine.cache["layers"][0]["k"].shape)[2]
+              for b in c.batchers.values()}
+    wall = round_t[-1] - round_t[0]
+    out = {"config": config, "rank": rank, "backend": ctx.backend,
+           "fp32": fp32, "tokens": {str(r.rid): list(r.tokens)
+                                    for r in c.completed},
+           "events": rep["events"], "decisions": rep["decisions"],
+           "report": {k: rep[k] for k in (
+               "submitted", "completed", "dropped", "handoffs",
+               "pending_handoffs", "rounds", "generated_tokens")},
+           "launches": launches, "codec_leaves": leaves,
+           "coded_elements": sorted(set(coded)), "n_coded": len(coded),
+           "heads_a_rank": sorted(shapes), "wall_s": wall,
+           "wall_ms_per_round": wall * 1e3 / rep["rounds"],
+           "tokens_per_wall_s": rep["generated_tokens"] / wall,
+           "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                            if dev == "cuda" else 0.0)}
+    print(f"rank {rank} serve tp: fp32 engine {fp32['rounds']} rounds, "
+          f"{fp32['wall_ms_per_round']:.1f} ms a round; bf16 cluster "
+          f"{rep['handoffs']} handoffs, {out['wall_ms_per_round']:.1f} ms "
+          f"a round, launches {launches}", flush=True)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    hvd.shutdown()
+
+
+def levers_tp(torch, m32, out_dir: str) -> dict:
+    """(d): the unsharded fp32 engine's stream here, then the two tp rank
+    workers on the card."""
+    from horovod_tpu_torch.serve.engine import DecodeEngine
+    from horovod_tpu_torch.serve.queue import Request
+
+    trace = lever_trace(LEVER_IDENTITY_REQUESTS, seed=17)
+    reqs = [{k: getattr(r, k) for k in ("rid", "prompt", "max_new_tokens")}
+            for r in trace.requests]
+    eng = DecodeEngine(m32, device="cuda", **LEVER_GEOMETRY)
+    done = [Request(**r) for r in reqs]
+    for r in done:
+        eng.admit(r)
+    while eng.active_count():
+        eng.step(0.0)
+    plain = {str(r.rid): list(r.tokens) for r in done}
+    del eng
+    widths = {k: getattr(m32, k) for k in ("vocab_size", "num_layers",
+                                           "hidden", "num_heads",
+                                           "mlp_dim")}
+    with open(os.path.join(out_dir, LEVERS_TP_IN), "w") as f:
+        json.dump({"widths": widths, "seed": 0, "digest":
+                   param_digest(m32), "geometry": LEVER_GEOMETRY,
+                   "requests": [dict(r, prompt=list(r["prompt"]))
+                                for r in reqs],
+                   "cluster_requests": LEVER_IDENTITY_REQUESTS}, f)
+    parent = _free_parent(torch)
+    ranks, wall = run_workers(SERVE_TP_CONFIG, 2, SERVE_TP_TIMEOUT, out_dir)
+    a, b = ranks
+    for key in ("tokens", "events", "decisions", "report", "launches",
+                "codec_leaves"):
+        check(a[key] == b[key], f"serve tp: ranks differ in {key}")
+    check(a["fp32"]["tokens"] == b["fp32"]["tokens"],
+          "serve tp: the ranks' fp32 streams differ")
+    rep = a["report"]
+    n = LEVER_IDENTITY_REQUESTS
+    check(rep["dropped"] == 0 and rep["completed"] == rep["submitted"] == n
+          and rep["pending_handoffs"] == 0,
+          f"serve tp: {rep}")
+    half = LEVER_GEOMETRY["max_len"] * (m32.hidden // 2)
+    for r in ranks:
+        check(r["fp32"]["cache_shape"][2] == m32.num_heads // 2
+              and r["heads_a_rank"] == [m32.num_heads // 2],
+              f"serve tp rank {r['rank']}: heads a rank "
+              f"{r['heads_a_rank']}")
+        _check_codec(r["launches"], r["codec_leaves"],
+                     r["report"]["handoffs"], f"serve tp rank {r['rank']}")
+        check(r["coded_elements"] == [half]
+              and r["n_coded"] == HANDOFF_LEAVES * rep["handoffs"],
+              f"serve tp rank {r['rank']}: coded {r['n_coded']} leaves of "
+              f"{r['coded_elements']} elements, expected "
+              f"{HANDOFF_LEAVES} x {rep['handoffs']} of {half}")
+    ties = near_ties(torch, m32, trace,
+                     {int(k): v for k, v in a["fp32"]["tokens"].items()},
+                     {int(k): v for k, v in plain.items()}, "serve tp fp32")
+    return {"label": "gloo, 2 processes on one card (not NCCL or NVLink)",
+            "spec": SERVE_TP_SPEC, "parent_gib": parent, "wall_s": wall,
+            "near_ties": ties, "fp32_rounds": a["fp32"]["rounds"],
+            "fp32_wall_ms_per_round": a["fp32"]["wall_ms_per_round"],
+            "handoffs": rep["handoffs"], "rounds": rep["rounds"],
+            "wall_ms_per_round": a["wall_ms_per_round"],
+            "tokens_per_wall_s": a["tokens_per_wall_s"],
+            "launches": a["launches"], "codec_leaves": a["codec_leaves"],
+            "elements_a_leaf": half,
+            "peak_mem_gib": max(r["peak_mem_gib"] for r in ranks)}
+
+
+def phase_serve_levers(torch, K, out_dir: str, model) -> dict:
+    """Phase 14 on phase 5's GPT-2 medium ``model`` (bf16 compute): its
+    fp32 twin (the same weights) for the identity pairs, a seeded GPT-2
+    small draft, then arms (a)-(d). Returns the phase's record with
+    ``launches``: K2/K4 on the cached disaggregated prefix run and on tp
+    rank 0's cluster."""
+    from horovod_tpu_torch.models import gpt as gpt_mod
+
+    t0 = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "serve levers: TF32 must be off for the fp32 identity pairs")
+    with torch.device("cuda"):
+        m32 = gpt_mod.gpt_medium(dtype=torch.float32)
+        draft = gpt_mod.gpt_small()
+    m32.load_state_dict(model.state_dict())
+    m32.eval()
+    draft.init_weights(torch.Generator(device="cuda").manual_seed(1))
+    check(draft.vocab_size == model.vocab_size and draft.num_layers == 12
+          and draft.hidden == 768 and draft.num_heads == 12,
+          "gpt_small geometry")
+    res = {"model": "gpt_medium", "draft": "gpt_small",
+           "geometry": LEVER_GEOMETRY}
+    marks = {}
+    res["prefix"] = levers_prefix(torch, K, model, m32)
+    marks["prefix"] = time.perf_counter() - t0
+    res["spec"] = levers_spec(torch, K, model, m32, draft)
+    marks["spec"] = time.perf_counter() - t0 - sum(marks.values())
+    res["overload"] = levers_overload(torch, K, model)
+    marks["overload"] = time.perf_counter() - t0 - sum(marks.values())
+    del draft
+    res["tp"] = levers_tp(torch, m32, out_dir)
+    marks["tp"] = time.perf_counter() - t0 - sum(marks.values())
+    del m32
+    torch.cuda.empty_cache()
+    res["arm_s"] = marks
+    res["phase_s"] = time.perf_counter() - t0
+    cached = res["prefix"]["bf16_disagg"]["runs"]["cached"]
+    res["launches"] = {"serve_prefix": cached["launches"],
+                       "serve_tp": res["tp"]["launches"]}
+    with open(os.path.join(out_dir, "chip_smoke_serve_levers.json"),
+              "w") as f:
+        json.dump(res, f, indent=1)
+    p, sp, ov, tp = res["prefix"], res["spec"], res["overload"], res["tp"]
+    pb = p["bf16_disagg"]["runs"]
+    print(f"serve levers (a) prefix: fp32 pair near-ties "
+          f"{p['fp32']['near_ties']}; bf16 disaggregated "
+          f"{LEVER_TIMED_REQUESTS} requests: "
+          f"{p['bf16_disagg']['stats']['hits']} forks saved "
+          f"{p['bf16_disagg']['prefill_tokens_saved']} prefill tokens; "
+          f"cached {pb['cached']['tokens_per_wall_s']:.1f} tok/s, TTFT p50 "
+          f"{pb['cached']['ttft_wall_p50_s'] * 1e3:.1f} ms vs uncached "
+          f"{pb['uncached']['tokens_per_wall_s']:.1f} tok/s, "
+          f"{pb['uncached']['ttft_wall_p50_s'] * 1e3:.1f} ms; K2/K4 "
+          f"{cached['launches']['quantize_int8']}/"
+          f"{cached['launches']['dequantize_int8']} for "
+          f"{cached['handoffs']} handoffs", flush=True)
+    sb = sp["bf16"]
+    print(f"serve levers (b) spec k={LEVER_SPEC_K}: fp32 self-draft "
+          f"acceptance {sp['fp32_self']['acceptance']:.4f} (ceiling "
+          f"{sp['fp32_self']['ceiling']:.4f}; rejections "
+          f"{sp['fp32_self']['runs']['spec']['rejections']}), near-ties "
+          f"{sp['fp32_self']['near_ties']}; bf16 {LEVER_TIMED_REQUESTS} "
+          "requests: " + "; ".join(
+              f"{arm} {r['rounds']} rounds, acceptance "
+              f"{r['acceptance']:.4f}, {r['tokens_per_wall_s']:.1f} tok/s, "
+              f"TPOT p50 {(r['tpot_wall_p50_s'] or 0) * 1e3:.1f} ms"
+              for arm, r in sb.items()), flush=True)
+    print(f"serve levers (c) overload: rungs {ov['rungs']}; spec_off held "
+          f"{ov['rounds_held']} rounds ({ov['fallback_rounds_held']} "
+          f"fallback rounds), {ov['spec_rounds_after']} speculative rounds "
+          f"after; {ov['completed']} completed, {ov['shed']} shed, "
+          f"{ov['rejected']} rejected", flush=True)
+    print(f"serve levers (d) tp ({tp['label']}): fp32 near-ties "
+          f"{tp['near_ties']}; bf16 disaggregated {tp['handoffs']} "
+          f"handoffs, {tp['wall_ms_per_round']:.1f} ms a round, "
+          f"{tp['tokens_per_wall_s']:.1f} tok/s; K2/K4 "
+          f"{tp['launches']['quantize_int8']}/"
+          f"{tp['launches']['dequantize_int8']} a rank of "
+          f"{tp['elements_a_leaf']} elements a leaf; phase "
+          f"{res['phase_s']:.1f} s ({json.dumps(marks)})", flush=True)
+    return res
 
 
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
@@ -7999,7 +8649,8 @@ def main(argv=None) -> int:
                   OVERLAP_N4: overlap_worker,
                   PARALLEL_CONFIG: parallel_worker,
                   PIPE_CONFIG: pipeline_worker,
-                  MOE_REF_CONFIG: pipeline_worker}.get(argv[1],
+                  MOE_REF_CONFIG: pipeline_worker,
+                  SERVE_TP_CONFIG: serve_tp_worker}.get(argv[1],
                                                         rank_worker)
         worker(argv[1], int(argv[2]), argv[3])
         return 0
@@ -8073,10 +8724,13 @@ def main(argv=None) -> int:
         records.update(phase_flash(torch, K))
         records.update(phase_reduce_kernels(torch, K))
         mark("kernels")
-        serve = phase_serve(torch, K, args.out, args.profile)
+        keep = {}
+        serve = phase_serve(torch, K, args.out, args.profile, keep)
+        levers = phase_serve_levers(torch, K, args.out, keep.pop("model"))
+        mark("serve, serve levers")
         train = phase_train(torch, K, args.out, args.profile)
         integ = phase_integrity(torch, K, args.out, args.profile)
-        mark("serve, train, integrity")
+        mark("train, integrity")
         bert = phase_bert(torch, K, args.out, args.profile)
         vit = phase_vit(torch, K, args.out, args.profile)
         resnet = phase_resnet(torch, K, args.out, args.profile)
@@ -8105,8 +8759,10 @@ def main(argv=None) -> int:
         n2 = multi["n2_gpt_medium"]["modes"]
         # Every path a kernel runs on, each counted from zero around it;
         # the mesh path (phase 7b) is one of them for K1-K4, K8 and K9.
-        paths = {"quantize_int8": {"serve": serve["launches"]},
-                 "dequantize_int8": {"serve": serve["launches"]},
+        paths = {"quantize_int8": {"serve": serve["launches"],
+                                   **levers["launches"]},
+                 "dequantize_int8": {"serve": serve["launches"],
+                                     **levers["launches"]},
                  "quantize_int8_stochastic": {
                      "multirank_n2": n2["int8_ef"]["launches"]},
                  "adasum_dot_norms": {
@@ -8188,7 +8844,8 @@ def main(argv=None) -> int:
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "phase_s": phase_s,
                    "phases_total_s": sum(phase_s.values()), **kernels,
-                   "serve": serve, "train": train, "integrity": integ,
+                   "serve": serve, "serve_levers": levers,
+                   "train": train, "integrity": integ,
                    "bert": bert,
                    "vit": vit, "resnet": resnet, "zoo": zoo,
                    "multirank": {c: {k: v for k, v in r.items()

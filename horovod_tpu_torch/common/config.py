@@ -146,6 +146,8 @@ RUNTIME_KNOBS = {
                            "Config field)",
     # Serve plane.
     "SERVE_LOG": "serve-controller decision log",
+    "SERVE_PREFIX_CAP": "shared-prefix KV cache entry cap (0 disables)",
+    "SERVE_SPEC_K": "speculative-decoding draft depth (0 disables)",
     "SERVE_TRACE": "request-span tracer enable (0 = shared no-op)",
     "SERVE_TRACE_DIR": "trace JSONL dump directory (unset = no dump)",
     "SERVE_TRACE_SIZE": "retained completed request-trace cap",

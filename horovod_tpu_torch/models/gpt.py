@@ -20,7 +20,9 @@ end to end; :func:`next_token_loss` is the training loss.
 
 ``GPT(tp_axis=)`` shards heads and MLP width over a tensor-parallel axis
 (column-parallel fused QKV sliced by head, row-parallel output
-projection, the column/row MLP pair: two allreduces a layer), and
+projection, the column/row MLP pair: two allreduces a layer) — on the
+incremental path too, over a cache holding this rank's heads
+(:func:`init_kv_cache`), which is tensor-parallel decode — and
 ``GPT(seq_parallel=, seq_impl=, seq_wire=)`` shards the sequence over a
 sequence-parallel axis (``"ring"``: the striped causal ring, tokens in
 ``stripe_layout`` order; ``"ulysses"``: the head scatter, contiguous
@@ -177,11 +179,16 @@ class CausalSelfAttention(nn.Module):
                                  self.seq_wire)
         return _causal_attend
 
-    def _forward_tp(self, x, positions, attend_fn):
+    def _forward_tp(self, x, positions, attend_fn, cache=None,
+                    cache_ctx=None):
         """Sharded-head attention over the tp axis: the master fused QKV
         kernel ``(h, 3h)`` (the transpose of the ``nn.Linear`` weight)
         sliced by head for q, k and v, attention on this rank's heads,
-        the output projection's head rows row-parallel (one allreduce)."""
+        the output projection's head rows row-parallel (one allreduce).
+        With a cache (the serve path) the cache is this rank's head
+        shard: q and k rotate with each token's global position, k/v
+        land in the shard's ring lines and the local heads attend over
+        it; returns ``(y, cache)``."""
         from ..parallel import tensor_parallel as tp_lib
 
         b, s, h = x.shape
@@ -200,15 +207,27 @@ class CausalSelfAttention(nn.Module):
                          b3[i].reshape(heads_l * head_dim).to(self.dtype))
             return y.reshape(b, s, heads_l, head_dim)
 
-        q = rope(proj(0), positions)
-        k = rope(proj(1), positions)
-        v = proj(2)
-        o = (attend_fn or self._resolve_attend())(q, k, v)
+        if cache is None:
+            q = rope(proj(0), positions)
+            k = rope(proj(1), positions)
+            v = proj(2)
+            o = (attend_fn or self._resolve_attend())(q, k, v)
+        else:
+            from ..serve import kvcache as kv_lib
+
+            idx, q_pos, k_pos = cache_ctx
+            q = rope(proj(0), q_pos)
+            k = rope(proj(1), q_pos)
+            v = proj(2)
+            cache = kv_lib.layer_write(cache, idx, k, v)
+            k_all, v_all = kv_lib.layer_read(cache, torch.float32)
+            o = _cache_attend(q, k_all, v_all, q_pos, k_pos)
         w_loc = tp_lib.shard_head_rows(self.out.weight.t(), self.num_heads,
                                        ax)           # (hl*hd, h)
-        return tp_lib.row_parallel(
+        y = tp_lib.row_parallel(
             o.reshape(b, s, heads_l * head_dim), w_loc.to(self.dtype), ax,
             self.out.bias.to(self.dtype))
+        return y if cache is None else (y, cache)
 
     def forward(self, x: torch.Tensor,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -229,12 +248,8 @@ class CausalSelfAttention(nn.Module):
             positions = seq_positions(self.seq_axis, self.seq_impl, s,
                                       x.device)
         if self.tp_axis:
-            if cache is not None:
-                raise NotImplementedError(
-                    "GPT(tp_axis=) with a KV cache (tensor-parallel "
-                    "decode) is not ported yet; it comes with a later "
-                    "serve slice of the port")
-            return self._forward_tp(x, positions, attend_fn)
+            return self._forward_tp(x, positions, attend_fn, cache,
+                                    cache_ctx)
         q, k, v = _dense(self.qkv, x, self.dtype).split(h, dim=-1)
         if cache is None:
             q = rope(q.reshape(b, s, self.num_heads, head_dim), positions)
@@ -383,7 +398,7 @@ class DecoderLayer(nn.Module):
                 tp_lib.shard_row(self.mlp_out.weight.t(),
                                  ax).to(self.dtype),
                 self.mlp_out.bias.to(self.dtype), ax)
-            return out
+            return out if cache is None else (out, cache)
         y = F.gelu(_dense(self.mlp_in, y, self.dtype), approximate="tanh")
         out = x + _dense(self.mlp_out, y, self.dtype)
         return out if cache is None else (out, cache)
@@ -587,11 +602,19 @@ def init_kv_cache(model: GPT, slots: int, max_len: int,
     """A fresh KV cache matching ``model``'s geometry — the ``cache=``
     argument of the incremental forward. ``kind`` is ``"fp32"``
     (model-dtype storage) or ``"int8"`` (block-scaled, ~4x smaller).
-    ``device`` defaults to ``"cuda"`` and raises without a GPU."""
+    ``device`` defaults to ``"cuda"`` and raises without a GPU.
+
+    A tensor-parallel model (``tp_axis``) gets THIS rank's head shard:
+    ``num_heads / tp`` heads a line, the shard the JAX package's
+    ``P(None, None, tp)`` cache spec hands each device of its tp mesh
+    (rank ``i`` holds heads ``i * num_heads / tp`` onward). The tp
+    world must exist (``init(parallel=...)``)."""
     from ..serve import kvcache as kv_lib
 
-    return kv_lib.init_cache(model.num_layers, slots, max_len,
-                             model.num_heads,
+    heads = model.num_heads
+    if model.tp_axis:
+        heads //= C._axis(model.tp_axis).size
+    return kv_lib.init_cache(model.num_layers, slots, max_len, heads,
                              model.hidden // model.num_heads,
                              kind=kind, dtype=model.dtype,
                              device=resolve_device(device))

@@ -3,8 +3,9 @@ GPT decode over an explicit ring-buffer KV cache (``kvcache``), the
 continuous batcher and request queue (``batcher``/``queue``), the
 per-replica decode engine (``engine``), seeded open-loop traffic
 (``traffic``), request tracing (``tracing``), overload control
-(``overload``), and the SLO-driven replica controller with
-prefill/decode disaggregation (``controller``).
+(``overload``), the shared-prefix KV cache (``prefix``), and the
+SLO-driven replica controller with prefill/decode disaggregation
+(``controller``).
 
 Public names are imported lazily, as in the JAX package.
 """
@@ -17,6 +18,7 @@ _LAZY = {
     "TrafficTrace": ("traffic", "TrafficTrace"),
     "poisson_trace": ("traffic", "poisson_trace"),
     "DecodeEngine": ("engine", "DecodeEngine"),
+    "PrefixCache": ("prefix", "PrefixCache"),
     "make_engine_factory": ("engine", "make_engine_factory"),
     "ContinuousBatcher": ("batcher", "ContinuousBatcher"),
     "SLOPolicy": ("controller", "SLOPolicy"),
@@ -32,7 +34,7 @@ _LAZY = {
 }
 
 _LAZY_MODULES = ("kvcache", "queue", "batcher", "engine", "controller",
-                 "traffic", "tracing", "overload")
+                 "traffic", "tracing", "overload", "prefix")
 
 __all__ = sorted(list(_LAZY) + list(_LAZY_MODULES))
 

@@ -520,8 +520,13 @@ class ServeCluster:
             else SLOPolicy.from_env()
         self.step_s = float(step_s)
         self._now = 0.0
-        self.controller = ServeController(self.policy,
-                                          log_path=log_path)
+        # Every rank of a tp replica runs this cluster over the same
+        # trace on the virtual clock, so their decisions agree by
+        # construction; only tp rank 0 writes the decision log and the
+        # trace dump.
+        self._writes_logs = getattr(engine_factory, "tp_rank", 0) == 0
+        self.controller = ServeController(
+            self.policy, log_path=log_path if self._writes_logs else "")
         # A cluster run is one trace session: the ledger resets here so
         # seeded repeat runs produce byte-identical summaries.
         self.tracer = tracing.tracer()
@@ -999,7 +1004,8 @@ class ServeCluster:
                             for b in self.batchers.values()):
                 break
         wall_s = self._clock() - wall0
-        self.tracer.maybe_dump()
+        if self._writes_logs:
+            self.tracer.maybe_dump()
         return self.report(len(trace.requests), wall_s)
 
     def report(self, submitted: int, wall_s: float = 0.0) -> Dict:

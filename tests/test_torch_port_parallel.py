@@ -432,7 +432,7 @@ def test_later_roles_raise_naming_their_slice():
     world made with the spec they ask for it (here: no world at all). The
     role-aware elastic driver path is ported: under ``HVD_TPU_PARALLEL``
     an epoch runs, and an autoscale floor that splits a replica fails the
-    launch naming the roles."""
+    launch naming the roles. The tp model's KV-cache path is ported."""
     import horovod_tpu_torch.parallel as P
     from horovod_tpu_torch.runner import elastic_driver
 
@@ -464,10 +464,21 @@ def test_later_roles_raise_naming_their_slice():
             ["true"], {"HVD_TPU_PARALLEL": "dp=2,pp=2",
                        "HVD_TPU_AUTOSCALE_POLICY": '{"enabled": true}'},
             discovery=elastic_driver.FixedHostDiscovery({"localhost": 4}))
-    with pytest.raises(NotImplementedError, match="later serve slice"):
-        mm = gpt.gpt_tiny(tp_axis="tp")
-        mm(torch.zeros((1, 2), dtype=torch.long),
-           gpt.init_kv_cache(mm, 1, 4, device="cpu"))
+    # The tp model with a KV cache is ported: over a tp axis of one
+    # rank it decodes as the dense model does; over a mesh axis name
+    # its cache (this rank's heads) needs the world that names it.
+    from horovod_tpu_torch.common.topology import Axis
+
+    mm = gpt.gpt_tiny(tp_axis=Axis("tp", None, 1, 0, (0,)))
+    dense = gpt.gpt_tiny()
+    dense.load_state_dict(mm.state_dict())
+    toks = torch.tensor([[3, 5, 7, 2]])
+    got, cache = mm(toks, gpt.init_kv_cache(mm, 1, 8, device="cpu"))
+    want, _ = dense(toks, gpt.init_kv_cache(dense, 1, 8, device="cpu"))
+    assert cache["layers"][0]["k"].shape == (1, 8, 4, 16)
+    torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+    with pytest.raises(hvd.NotInitializedError):
+        gpt.init_kv_cache(gpt.gpt_tiny(tp_axis="tp"), 1, 4, device="cpu")
 
 
 # -- the tp world ---------------------------------------------------------------

@@ -449,20 +449,32 @@ def test_sampling_is_seeded_and_greedy_is_default(flax_tiny):
 
 def test_entry_points_follow_the_device_rule(flax_tiny):
     """No GPU and no explicit device="cpu": the factory and the engine
-    raise instead of falling back; unported levers raise
-    NotImplementedError naming a later slice."""
+    raise instead of falling back, with every serve lever too. On the
+    CPU the levers are ported: the factory takes a prefix cache and a
+    draft model (moved to the engine's device), and refuses a tp spec
+    over a model built without the axis, naming ``tp_axis``."""
+    from horovod_tpu_torch.serve.prefix import PrefixCache
+
     _, _, np_params = flax_tiny
     tm = _port_model(np_params)
-    for kw in ({"parallel": object()}, {"spec_k": 2},
-               {"prefix_cache": object()}):
-        with pytest.raises(NotImplementedError, match="later serve slice"):
-            engine.make_engine_factory(tm, device="cpu", **kw)
+    draft = gpt.gpt_tiny()
+    levers = ({"parallel": "tp=2"}, {"draft_model": draft, "spec_k": 2},
+              {"prefix_cache": PrefixCache()})
+    eng = engine.make_engine_factory(tm, device="cpu", **levers[1],
+                                     **levers[2], **GEOMETRY)("r0")
+    assert eng.spec_k == 2 and eng.spec_enabled
+    assert eng.prefix_cache is levers[2]["prefix_cache"]
+    assert {p.device.type for p in eng.draft_model.parameters()} == {"cpu"}
+    with pytest.raises(ValueError, match="tp_axis"):
+        engine.make_engine_factory(tm, device="cpu", **levers[0],
+                                   **GEOMETRY)
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        engine.make_engine_factory(tm, **GEOMETRY)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        engine.DecodeEngine(tm, **GEOMETRY)
+    for kw in ({},) + levers:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            engine.make_engine_factory(tm, **kw, **GEOMETRY)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            engine.DecodeEngine(tm, **kw, **GEOMETRY)
 
 
 def test_metrics_and_flight_recorder_see_the_run(runs):
