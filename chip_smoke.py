@@ -546,7 +546,36 @@ Phases (any failure exits non-zero and prints no result line):
    (half of phase 5's). Printed: one summary line an arm, the decode
    round ms and tokens/s of (d) as "gloo, 2 processes on one card";
    records in ``chip_smoke_serve_levers.json``.
-15. Result lines: the per-kernel JSON record (K1-K9, each with
+15. Cluster layer, 2 processes on the card each, gloo. (a)
+   ``TorchEstimator`` (``horovod_tpu_torch.spark.torch``) fits ViT-B/16
+   (224x224, 1,000 classes, bf16 compute over seeded fp32 weights, as in
+   phase 6c) over an ``Executor`` pool of 2: 16 seeded images in the
+   pickle format in a ``LocalStore`` under ``--out``, 4 a rank a step,
+   SGD, 1 epoch (2 steps a rank); then ``TrainedTorchModel.load`` and
+   ``transform`` of 8 images on the card. The oracle runs here from the
+   same starting weights: 2 SGD steps, each on the 8 images of the two
+   ranks' s-th batches (``rank_shard`` is strided). Checks: each rank's
+   step losses within 2e-2 relative of the oracle's; rank 0's final
+   weights within 2e-2 of the largest update (the largest |dw| over it);
+   ``transform``'s logits within 2e-2 of the oracle model's largest;
+   K5, K6 and K7 exactly 12 a step on every rank and K1 never
+   (``Average`` divides); ``transform`` 12 K5 launches and no backward.
+   (b) ``Estimator`` fits the MLP (64 -> 128 -> 10) on the same pool
+   (``fit(executor=)``): softmax cross-entropy, 2 epochs, its per-epoch
+   history and final weights within 1e-5 of an in-process oracle (the
+   strided shards, the shared seeded permutation, the two gradients
+   averaged). (c) ``spark.run`` over ``FakeSparkContext`` and (d)
+   ``RayExecutor`` over ``fake_ray``, each 2 processes running
+   :func:`cluster_allreduce_task`: ``init(backend="gloo")`` on the card,
+   a seeded bf16 ``allreduce(op=Sum, prescale_factor=1/3,
+   postscale_factor=1.5)``; the results in rank order, bitwise the hand
+   value (digest), K1 exactly twice a rank. Both run in one fork of the
+   zygote, whose fakes fork (``start_method="fork"``) their tasks and
+   actors with torch imported. Printed: the pool's start-up s, the fit's
+   s and each rank's step ms, the Spark and Ray worlds' s; records in
+   ``chip_smoke_cluster.json``;
+   the run's store (ViT-B/16's checkpoint) is deleted.
+16. Result lines: the per-kernel JSON record (K1-K9, each with
    ``launches_by_path``, every path above 0, and ``launches`` their
    sum: K5/K6/K7 for the GPT training, BERT, ViT and the two guarded
    integrity runs and the ZeRO phase; K1 for the eager loop, the
@@ -560,7 +589,9 @@ Phases (any failure exits non-zero and prints no result line):
    and K4; phase 13's ``elastic_hybrid`` path, its dp0/pp0 rank in both
    worlds, for K3 and K5-K7; phase 14's ``serve_prefix`` (the cached
    disaggregated run) and ``serve_tp`` (rank 0's tp cluster) paths for
-   K2 and K4), the card line, and last ``{"ok": true,
+   K2 and K4; phase 15's ``cluster`` path (rank 0 of the ViT-B/16 fit)
+   for K5-K7 and its ``spark`` and ``ray`` paths (rank 0 of each world)
+   for K1), the card line, and last ``{"ok": true,
    "device": {...}}``.
 
 ``--profile`` also traces the serve run and two extra training steps of
@@ -568,6 +599,13 @@ GPT-2 medium, each integrity run, BERT-large, ViT-B/16 and ResNet-50
 with torch.profiler
 (after the timed steps, so the timed numbers stay unprofiled) and prints
 the device busy share and the top device ops.
+
+Processes: a zygote (``--zygote``) imports torch once, touches no card,
+and forks the multi-rank phases' rank workers. The workers a launcher
+starts (phases 8, 9, 10 and 13), and those launchers (``--module``),
+run as ``--via-zygote`` processes, which have the zygote fork the
+worker on their own environment and streams, pass signals on and end
+with its exit code; without a zygote they run the worker themselves.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -610,7 +648,13 @@ PYCACHE_WARM = ("torch", "torch._dynamo", "torch.distributed",
                 "horovod_tpu_torch.optim", "horovod_tpu_torch.zero",
                 "horovod_tpu_torch.elastic", "horovod_tpu_torch.checkpoint",
                 "horovod_tpu_torch.runner.launch",
-                "horovod_tpu_torch.runner.elastic_driver")
+                "horovod_tpu_torch.runner.elastic_driver",
+                "horovod_tpu_torch.executor",
+                "horovod_tpu_torch.torch_estimator",
+                "horovod_tpu_torch.models.vit", "horovod_tpu_torch.spark",
+                "horovod_tpu_torch.ray",
+                "horovod_tpu_torch.testing.fake_spark",
+                "horovod_tpu_torch.testing.fake_ray")
 
 
 def bytecode_cache() -> subprocess.Popen:
@@ -3778,18 +3822,130 @@ def sync_bn_check(torch, hvd, rank: int) -> dict:
 #: module of the port: those read their environment at import, and each
 #: world sets its own.
 ZYGOTE_PRELOAD = ("torch", "torch._dynamo")
+#: The environment variable that tells a ``--via-zygote`` process where
+#: this run's zygote listens (an abstract socket name, ``@`` for NUL).
+ZYGOTE_ENV = "CHIP_SMOKE_ZYGOTE"
+#: The signals a ``--via-zygote`` process passes on to its worker.
+FORWARDED_SIGNALS = ("SIGTERM", "SIGINT", "SIGHUP", "SIGQUIT", "SIGUSR1",
+                     "SIGUSR2")
 
 
-def zygote_main(run) -> None:
-    """``--zygote``: import ``ZYGOTE_PRELOAD``, print ``ready``, then
-    fork one child per JSON request line on stdin (``argv``, ``env``,
-    ``cwd``, ``log``) and print its pid. The child takes the request's
-    environment and directory, sends stdout and stderr to ``log``, runs
-    ``run(argv)`` and writes its exit code to ``log + ".rc"``. Children
-    are reaped by the kernel (SIGCHLD ignored); the zygote never touches
-    the card, so each child makes its own CUDA context."""
-    import importlib
+def _zygote_child(run, req: dict, fds=(None, None, None)) -> None:
+    """In a fresh fork of the zygote: take the request's environment,
+    directory and standard streams (``fds``, else ``/dev/null`` in and
+    ``req["log"]`` out), run ``run(argv)`` and never return. With a
+    ``log``, the exit code goes to ``log + ".rc"``."""
+    import atexit
     import random
+    import signal
+    import traceback
+
+    rc = 1
+    try:
+        signal.signal(signal.SIGCHLD, signal.SIG_DFL)
+        random.seed()
+        os.chdir(req["cwd"])
+        os.environ.clear()
+        os.environ.update(req["env"])
+        for entry in reversed(req["env"].get("PYTHONPATH", "").split(
+                os.pathsep)):
+            if entry and entry not in sys.path:
+                sys.path.insert(0, entry)
+        sys.argv = [os.path.abspath(__file__), *req["argv"]]
+        if fds[0] is None:
+            fds = (os.open(os.devnull, os.O_RDONLY),
+                   *[os.open(req["log"], os.O_WRONLY | os.O_CREAT
+                             | os.O_TRUNC)] * 2)
+        for target, fd in enumerate(fds):
+            os.dup2(fd, target)
+        for fd in set(fds):
+            if fd > 2:
+                os.close(fd)
+        for stream in (sys.stdout, sys.stderr):
+            stream.reconfigure(line_buffering=True)
+        try:
+            rc = run(req["argv"]) or 0
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else 1
+        except BaseException:
+            traceback.print_exc()
+        atexit._run_exitfuncs()
+    finally:
+        # Whatever happens, the child never returns into the zygote.
+        try:
+            sys.stdout.flush()
+            sys.stderr.flush()
+            if req.get("log"):
+                with open(req["log"] + ".rc.tmp", "w") as f:
+                    f.write(str(rc))
+                os.replace(req["log"] + ".rc.tmp", req["log"] + ".rc")
+        finally:
+            os._exit(rc)
+
+
+def _zygote_exec(run, conn, listener) -> None:
+    """Serve one ``--via-zygote`` process on ``conn``: fork a monitor,
+    which forks the worker on the process's own streams, sends back its
+    pid, then its wait status when it ends — or kills it when the
+    process is gone (the launcher killed it)."""
+    import select
+    import signal
+    import struct
+
+    head, fds, _, _ = socket.recv_fds(conn, 4, 3)
+    (size,) = struct.unpack(">I", head)
+    payload = b""
+    while len(payload) < size:
+        chunk = conn.recv(size - len(payload))
+        if not chunk:
+            break
+        payload += chunk
+    if len(fds) != 3 or len(payload) != size:
+        for fd in fds:
+            os.close(fd)
+        conn.close()
+        return
+    if os.fork():
+        conn.close()
+        for fd in fds:
+            os.close(fd)
+        return
+    try:
+        signal.signal(signal.SIGCHLD, signal.SIG_DFL)
+        listener.close()
+        req = json.loads(payload)
+        worker = os.fork()
+        if not worker:
+            conn.close()
+            _zygote_child(run, req, tuple(fds))
+        for fd in fds:
+            os.close(fd)
+        conn.sendall(json.dumps({"pid": worker}).encode() + b"\n")
+        while True:
+            done, status = os.waitpid(worker, os.WNOHANG)
+            if done:
+                conn.sendall(json.dumps({"status": status}).encode()
+                             + b"\n")
+                break
+            if select.select([conn], [], [], 0.05)[0] and not conn.recv(64):
+                os.kill(worker, signal.SIGKILL)
+                os.waitpid(worker, 0)
+                break
+    finally:
+        os._exit(0)
+
+
+def zygote_main(run, address=None) -> None:
+    """``--zygote [ADDRESS]``: import ``ZYGOTE_PRELOAD``, print ``ready``,
+    then fork one child per JSON request line on stdin (``argv``,
+    ``env``, ``cwd``, ``log``) and print its pid; the child runs
+    ``run(argv)`` with its output in ``log`` and its exit code in
+    ``log + ".rc"``. On the abstract unix socket ``ADDRESS`` it serves
+    ``--via-zygote`` processes (:func:`via_zygote`). Children of stdin
+    requests are reaped by the kernel (SIGCHLD ignored); the zygote never
+    touches the card, so each child makes its own CUDA context."""
+    import importlib
+    import selectors
     import signal
 
     for name in ZYGOTE_PRELOAD:
@@ -3797,58 +3953,127 @@ def zygote_main(run) -> None:
     torch = sys.modules["torch"]
     check(not torch.cuda.is_initialized(), "zygote: CUDA initialized")
     signal.signal(signal.SIGCHLD, signal.SIG_IGN)
+    sel = selectors.DefaultSelector()
+    sel.register(0, selectors.EVENT_READ, "stdin")
+    listener = None
+    if address:
+        listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        listener.bind(address.replace("@", "\0", 1))
+        listener.listen(64)
+        sel.register(listener, selectors.EVENT_READ, "exec")
     print("ready", flush=True)
-    for line in sys.stdin:
-        req = json.loads(line)
-        sys.stdout.flush()
-        sys.stderr.flush()
-        pid = os.fork()
-        if pid:
-            print(json.dumps({"pid": pid}), flush=True)
-            continue
-        rc = 1
-        try:
-            signal.signal(signal.SIGCHLD, signal.SIG_DFL)
-            random.seed()
-            os.chdir(req["cwd"])
-            os.environ.clear()
-            os.environ.update(req["env"])
-            null = os.open(os.devnull, os.O_RDONLY)
-            os.dup2(null, 0)
-            out = os.open(req["log"], os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
-            os.dup2(out, 1)
-            os.dup2(out, 2)
-            try:
-                rc = run(req["argv"]) or 0
-            except SystemExit as e:
-                rc = e.code if isinstance(e.code, int) else 1
-            except BaseException:
-                import traceback
-
-                traceback.print_exc()
-            import atexit
-
-            atexit._run_exitfuncs()
-        finally:
-            # Whatever happens, the child never returns into the loop.
-            try:
+    pending = b""
+    while True:
+        for key, _ in sel.select():
+            if key.data == "exec":
+                conn, _ = listener.accept()
+                try:
+                    _zygote_exec(run, conn, listener)
+                except OSError:
+                    conn.close()
+                continue
+            chunk = os.read(0, 1 << 16)
+            if not chunk:
+                return
+            pending += chunk
+            while b"\n" in pending:
+                line, pending = pending.split(b"\n", 1)
+                req = json.loads(line)
                 sys.stdout.flush()
                 sys.stderr.flush()
-                with open(req["log"] + ".rc.tmp", "w") as f:
-                    f.write(str(rc))
-                os.replace(req["log"] + ".rc.tmp", req["log"] + ".rc")
-            finally:
-                os._exit(rc)
+                pid = os.fork()
+                if not pid:
+                    if listener is not None:
+                        listener.close()
+                    _zygote_child(run, req)
+                print(json.dumps({"pid": pid}), flush=True)
+
+
+def via_zygote(argv) -> int:
+    """``--via-zygote ARGV``: run this script's ``main(ARGV)`` as a fork of
+    the zygote named in ``ZYGOTE_ENV`` (torch already imported), on this
+    process's environment, directory and standard streams; pass the
+    signals of ``FORWARDED_SIGNALS`` on, end with the worker's exit
+    code or signal, and take the worker down when killed. Without a
+    zygote, run ``main(ARGV)`` here. A launcher runs its workers through
+    this, so they start in ≈ 1 s instead of re-importing torch."""
+    import signal
+    import struct
+
+    child, queued = [], []
+
+    def forward(signum, frame):
+        if child:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(child[0], signum)
+        else:
+            queued.append(signum)
+
+    signums = [getattr(signal, name) for name in FORWARDED_SIGNALS]
+    previous = {s: signal.signal(s, forward) for s in signums}
+    address = os.environ.get(ZYGOTE_ENV)
+    reply = None
+    if address:
+        sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        try:
+            sock.connect(address.replace("@", "\0", 1))
+            payload = json.dumps({"argv": list(argv), "cwd": os.getcwd(),
+                                  "env": dict(os.environ)}).encode()
+            socket.send_fds(sock, [struct.pack(">I", len(payload))],
+                            [0, 1, 2])
+            sock.sendall(payload)
+            reply = sock.makefile("rb")
+            child.append(json.loads(reply.readline())["pid"])
+        except (OSError, ValueError):
+            reply = None
+    if reply is None:
+        for s in signums:
+            signal.signal(s, previous[s])
+        for s in queued:
+            os.kill(os.getpid(), s)
+        return main(list(argv))
+    for s in queued:
+        forward(s, None)
+    line = reply.readline()
+    if not line:
+        return 1
+    status = json.loads(line)["status"]
+    if os.WIFSIGNALED(status):
+        sig = os.WTERMSIG(status)
+        if sig in signums:
+            signal.signal(sig, signal.SIG_DFL)
+        os.kill(os.getpid(), sig)
+    return os.waitstatus_to_exitcode(status)
+
+
+def worker_argv(*args) -> list:
+    """The command line of one of this script's workers that a launcher
+    (or a plain ``Popen``) starts: through :func:`via_zygote`."""
+    return [sys.executable, os.path.abspath(__file__), "--via-zygote",
+            *args]
+
+
+def launcher_argv(*args) -> list:
+    """``python -m horovod_tpu_torch.runner.launch ARGS`` through
+    :func:`via_zygote` (``--module``): the launcher imports torch too."""
+    return worker_argv("--module", "horovod_tpu_torch.runner.launch", *args)
 
 
 class Zygote:
     """A ``--zygote`` process of this script: ``spawn`` forks a child
     that runs this script's ``main(argv)`` with torch already imported,
-    so a rank worker starts without re-importing it."""
+    so a rank worker starts without re-importing it. Its socket's name is
+    exported in ``ZYGOTE_ENV`` for the ``--via-zygote`` processes of the
+    launchers this script starts."""
 
     def __init__(self):
+        import secrets
+
+        self.address = (f"@chip-smoke-zygote-{os.getpid()}-"
+                        f"{secrets.token_hex(4)}")
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--zygote"],
+            [sys.executable, os.path.abspath(__file__), "--zygote",
+             self.address],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
             cwd=os.path.dirname(os.path.abspath(__file__)))
         self.ready = False
@@ -3861,6 +4086,7 @@ class Zygote:
                 self.close()
                 raise SmokeError(f"zygote did not start (said {line!r})")
             self.ready = True
+            os.environ[ZYGOTE_ENV] = self.address
 
     def spawn(self, argv, env: dict, log: str) -> int:
         """Fork a child running ``main(argv)`` under ``env`` with its
@@ -3877,6 +4103,8 @@ class Zygote:
         return json.loads(self.proc.stdout.readline())["pid"]
 
     def close(self) -> None:
+        if os.environ.get(ZYGOTE_ENV) == self.address:
+            del os.environ[ZYGOTE_ENV]
         if self.proc.poll() is None:
             self.proc.stdin.close()
             try:
@@ -3909,6 +4137,40 @@ def _alive(pid: int) -> bool:
     return True
 
 
+def _await_forked(pids, logs, t0: float, timeout: float, what: str):
+    """Wait for the zygote's children ``pids`` (output in ``logs``) until
+    each has written its exit code or is gone, killing them all past
+    ``timeout`` s from ``t0``; returns each one's output and exit code
+    (None without one) and removes the logs."""
+    try:
+        # A child is done once its exit code is written or it is gone.
+        while any(_alive(pid) and not os.path.exists(log + ".rc")
+                  for pid, log in zip(pids, logs)):
+            if time.perf_counter() - t0 > timeout:
+                raise SmokeError(f"{what}: a worker passed its {timeout} s "
+                                 f"limit")
+            time.sleep(0.1)
+    finally:
+        for pid in pids:
+            if _alive(pid):
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(pid, 9)
+        while any(_alive(pid) for pid in pids):
+            time.sleep(0.05)
+    texts, rcs = [], []
+    for log in logs:
+        with open(log, errors="replace") as f:
+            texts.append(f.read())
+        rc = None
+        if os.path.exists(log + ".rc"):
+            with open(log + ".rc") as f:
+                rc = int(f.read())
+            os.remove(log + ".rc")
+        os.remove(log)
+        rcs.append(rc)
+    return texts, rcs
+
+
 def run_workers(config: str, n: int, timeout: float, out_dir: str,
                 env_extra=None):
     """Run this script's ``--rank-worker`` ``config`` as n rank processes
@@ -3934,32 +4196,8 @@ def run_workers(config: str, n: int, timeout: float, out_dir: str,
     pids = [zy.spawn(["--rank-worker", config, str(r), paths[r]],
                      dict(env, HVD_TPU_PROC_ID=str(r)), rank_logs[r])
             for r in range(n)]
-    try:
-        # A rank is done once its exit code is written or it is gone.
-        while any(_alive(pid) and not os.path.exists(log + ".rc")
-                  for pid, log in zip(pids, rank_logs)):
-            if time.perf_counter() - t0 > timeout:
-                raise SmokeError(f"multi-rank {config}: a worker passed "
-                                 f"its {timeout} s limit")
-            time.sleep(0.1)
-    finally:
-        for pid in pids:
-            if _alive(pid):
-                with contextlib.suppress(ProcessLookupError):
-                    os.kill(pid, 9)
-        while any(_alive(pid) for pid in pids):
-            time.sleep(0.05)
-    logs, rcs = [], []
-    for log in rank_logs:
-        with open(log, errors="replace") as f:
-            logs.append(f.read())
-        rc = None
-        if os.path.exists(log + ".rc"):
-            with open(log + ".rc") as f:
-                rc = int(f.read())
-            os.remove(log + ".rc")
-        os.remove(log)
-        rcs.append(rc)
+    logs, rcs = _await_forked(pids, rank_logs, t0, timeout,
+                              f"multi-rank {config}")
     with open(os.path.join(out_dir, f"multirank_{config}.log"), "w") as f:
         f.write("\n".join(f"--- rank {r}\n{log}"
                           for r, log in enumerate(logs)))
@@ -3973,6 +4211,29 @@ def run_workers(config: str, n: int, timeout: float, out_dir: str,
         with open(path) as f:
             ranks.append(json.load(f))
     return ranks, time.perf_counter() - t0
+
+
+def run_forked(argv, name: str, timeout: float, out_dir: str) -> dict:
+    """Run this script's ``main(argv + [OUT])`` in one fork of the zygote
+    (torch imported, no CUDA context), its output in ``<name>.log``;
+    returns the JSON it wrote to OUT (``<name>.json``) with its wall
+    seconds as ``wall_s``. Its failure or overrun fails the phase."""
+    path = os.path.join(out_dir, f"{name}.json")
+    log = os.path.join(out_dir, f"{name}.out")
+    if os.path.exists(path):
+        os.remove(path)
+    t0 = time.perf_counter()
+    pid = zygote().spawn([*argv, path], dict(os.environ), log)
+    (text,), (rc,) = _await_forked([pid], [log], t0, timeout, name)
+    with open(os.path.join(out_dir, f"{name}.log"), "w") as f:
+        f.write(text)
+    check(rc == 0, f"{name}: exited "
+                   f"{'without an exit code' if rc is None else rc}:\n"
+                   f"{text[-3000:]}")
+    with open(path) as f:
+        rec = json.load(f)
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
 
 
 def phase_multirank(torch, out_dir: str) -> dict:
@@ -6175,13 +6436,12 @@ def run_elastic_job(work: str, cfg: dict, plan, env_extra=None,
     env = {**os.environ, **ELASTIC_ENV, **(env_extra or {}),
            "HVD_TPU_FAULT_LOG": log_path}
     env.pop("HVD_TPU_FAULT_PLAN", None)
-    argv = [sys.executable, "-m", "horovod_tpu_torch.runner.launch",
-            "--elastic", "-np", str(nps[0]), "--min-np", str(nps[1]),
-            "--max-np", str(nps[2]), "-H", hosts, *launcher_args]
+    argv = launcher_argv("--elastic", "-np", str(nps[0]), "--min-np",
+                         str(nps[1]), "--max-np", str(nps[2]), "-H", hosts,
+                         *launcher_args)
     if plan is not None:
         argv += ["--fault-plan", json.dumps(plan)]
-    argv += ["--", sys.executable, os.path.abspath(__file__), worker,
-             cfg_path]
+    argv += ["--", *worker_argv(worker, cfg_path)]
     t0 = time.perf_counter()
     log_file = output or os.path.join(work, "launcher.log")
     stop = threading.Event()
@@ -6541,8 +6801,7 @@ def _overhead_arm(work: str, arm: str, cfg: dict, out_dir: str) -> dict:
     t = threading.Thread(target=scrape, daemon=True)
     with open(log, "w") as out:
         proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__),
-             "--telemetry-worker", cfg_path], env=env, stdout=out,
+            worker_argv("--telemetry-worker", cfg_path), env=env, stdout=out,
             stderr=subprocess.STDOUT,
             cwd=os.path.dirname(os.path.abspath(__file__)))
         if arm == "on":
@@ -7116,10 +7375,9 @@ def autotune_run(out_dir: str, dev: str = "cuda", run=AUTOTUNE_RUN,
            "PATH": f"{work}:{os.environ['PATH']}"}
     for var in ("LSB_DJOB_HOSTFILE", "LSB_HOSTS", "HVD_TPU_FAULT_PLAN"):
         env.pop(var, None)
-    argv = [sys.executable, "-m", "horovod_tpu_torch.runner.launch", "-np",
-            "2", "--autotune", "--autotune-log-file", csv_path,
-            "--metrics-port", "0", "--", sys.executable,
-            os.path.abspath(__file__), "--autotune-worker", cfg_path]
+    argv = launcher_argv("-np", "2", "--autotune", "--autotune-log-file",
+                         csv_path, "--metrics-port", "0", "--",
+                         *worker_argv("--autotune-worker", cfg_path))
     log_path = os.path.join(work, "launcher.log")
     t0 = time.perf_counter()
     with open(log_path, "w") as out:
@@ -8616,6 +8874,365 @@ def _step_seconds(events: dict) -> list:
     return [b - a for a, b in zip(t, t[1:])]
 
 
+# -- phase 15: the cluster layer ----------------------------------------------
+
+CLUSTER_IMAGES = 32                 # (a): 2 ranks x 2 steps x 8 images
+CLUSTER_BATCH = 8                   # images a rank a step
+CLUSTER_LR = 1e-2                   # (a)'s SGD
+CLUSTER_LOSS_RTOL = 2e-2            # a rank's step loss vs the oracle's (bf16)
+# Rank 0's final weights vs the oracle's: the largest |dw| over the
+# largest update. Both average the same two bf16-computed gradients,
+# only in another order, so the bound is the bf16 one of phases 11-12.
+CLUSTER_WEIGHT_RTOL = 2e-2
+CLUSTER_LOGIT_RTOL = 2e-2           # transform's logits, of max |logit|
+CLUSTER_TRANSFORM = 8               # images transform() takes on the card
+# (b): the port's MLP on seeded rows, softmax cross-entropy, 2 epochs.
+CLUSTER_MLP = dict(in_features=64, features=(128,), num_classes=10)
+CLUSTER_MLP_RUN = {"rows": 64, "batch": 8, "epochs": 2, "lr": 0.05,
+                   "seed": 0}
+CLUSTER_MLP_RTOL = 1e-5             # fp32 history and weights, of max |value|
+CLUSTER_ELEMS = 1 << 20             # (c)/(d): one bf16 tensor a rank
+CLUSTER_PRE, CLUSTER_POST = 1 / 3, 1.5
+CLUSTER_WORLDS_TIMEOUT = 300        # s: (c) and (d) together
+
+
+def _cluster_input(torch, rank: int):
+    gen = torch.Generator(device="cuda").manual_seed(1500 + rank)
+    return torch.randn(CLUSTER_ELEMS, generator=gen,
+                       device="cuda").to(torch.bfloat16)
+
+
+def _digest(torch, t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().view(torch.int16).cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def cluster_allreduce_task() -> dict:
+    """(c) and (d)'s function, run in every Spark task and Ray actor:
+    ``init(backend="gloo")`` on the card, one bf16 ``allreduce(op=Sum)``
+    with a pre- and a postscale, K1's launches counted from zero around
+    it."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import kernels as K
+
+    t0 = time.perf_counter()
+    ctx = hvd.init(backend="gloo")
+    init_s = time.perf_counter() - t0
+    try:
+        x = _cluster_input(torch, hvd.rank())
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        out = hvd.allreduce(x, op=hvd.Sum, name="cluster.scaled",
+                            prescale_factor=CLUSTER_PRE,
+                            postscale_factor=CLUSTER_POST)
+        torch.cuda.synchronize()
+        return {"rank": hvd.rank(), "size": hvd.size(),
+                "device": str(out.device), "backend": ctx.backend,
+                "digest": _digest(torch, out), "init_s": init_s,
+                "scale_buffer": K.LAUNCHES["scale_buffer"],
+                "launches": dict(K.LAUNCHES)}
+    finally:
+        hvd.shutdown()
+
+
+def cluster_worlds(out_path: str) -> None:
+    """``--cluster-worlds OUT``: phase 15 (c) and (d) in a fork of the
+    zygote, which holds no CUDA context, so the fakes fork their tasks
+    and actors from it with torch imported (spawned, each re-imports
+    torch): ``spark.run`` over ``FakeSparkContext`` and ``RayExecutor``
+    over ``fake_ray``, 2 processes each, run
+    :func:`cluster_allreduce_task`. Their results and seconds go to OUT
+    as JSON."""
+    import importlib
+
+    from horovod_tpu_torch import spark as spark_mod
+    from horovod_tpu_torch.testing import fake_ray
+    from horovod_tpu_torch.testing.fake_spark import FakeSparkContext
+
+    # The function the tasks and actors run, by its module's name (this
+    # file is __main__ here, which a pickle cannot name).
+    task = importlib.import_module("chip_smoke").cluster_allreduce_task
+    rec = {}
+    t0 = time.perf_counter()
+    rec["spark"] = spark_mod.run(
+        task, num_proc=2, spark_context=FakeSparkContext(
+            2, start_method="fork"), start_timeout=CLUSTER_WORLDS_TIMEOUT)
+    rec["spark_run_s"] = time.perf_counter() - t0
+    sys.modules.setdefault("ray", fake_ray)
+    from horovod_tpu_torch.ray import RayExecutor
+
+    fake_ray.init(start_method="fork")
+    try:
+        t0 = time.perf_counter()
+        ex = RayExecutor(RayExecutor.create_settings(CLUSTER_WORLDS_TIMEOUT),
+                         num_workers=2)
+        ex.start()
+        rec["ray_start_s"] = time.perf_counter() - t0
+        try:
+            rec["ray"] = ex.run(task)
+        finally:
+            ex.shutdown()
+        rec["ray_run_s"] = time.perf_counter() - t0
+    finally:
+        fake_ray.shutdown()
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+
+
+def _check_world(torch, res: list, what: str) -> None:
+    pre = torch.tensor(CLUSTER_PRE, dtype=torch.bfloat16, device="cuda")
+    post = torch.tensor(CLUSTER_POST, dtype=torch.bfloat16, device="cuda")
+    want = _digest(torch, (_cluster_input(torch, 0) * pre
+                           + _cluster_input(torch, 1) * pre) * post)
+    check([(r["rank"], r["size"]) for r in res] == [(0, 2), (1, 2)],
+          f"{what}: results not in rank order of a world of 2: "
+          f"{[(r['rank'], r['size']) for r in res]}")
+    for r in res:
+        check(r["device"].startswith("cuda") and r["backend"] == "gloo",
+              f"{what}: rank {r['rank']} on {r['device']} / {r['backend']}")
+        check(r["digest"] == want, f"{what}: rank {r['rank']}'s allreduce "
+                                   f"differs from the hand value")
+        check(r["scale_buffer"] == 2 and sum(r["launches"].values()) == 2,
+              f"{what}: rank {r['rank']} launched {r['launches']}, "
+              f"expected K1 exactly twice (pre and post)")
+
+
+def _vit_oracle(torch, model, images, labels) -> dict:
+    """(a)'s oracle in this process: the same 2 SGD steps, each on the
+    images of the two ranks' s-th batches (``rank_shard`` is strided),
+    each rank's loss over its own; returns the per-rank step losses."""
+    import torch.nn.functional as F
+
+    opt = torch.optim.SGD(model.parameters(), lr=CLUSTER_LR)
+    shard = [(images[r::2][:CLUSTER_IMAGES // 2],
+              labels[r::2][:CLUSTER_IMAGES // 2]) for r in range(2)]
+    losses = [[], []]
+    for s in range(CLUSTER_IMAGES // 2 // CLUSTER_BATCH):
+        opt.zero_grad()
+        for r, (x, y) in enumerate(shard):
+            b = slice(s * CLUSTER_BATCH, (s + 1) * CLUSTER_BATCH)
+            loss = F.cross_entropy(model(x[b]), y[b])
+            (loss / 2).backward()
+            losses[r].append(loss.item())
+        opt.step()
+    del opt
+    return losses
+
+
+def _mlp_oracle(torch, model, X, y) -> dict:
+    """(b)'s oracle: the estimator's loop for 2 ranks in this process
+    (strided shards, the shared seeded permutation, the two ranks'
+    gradients averaged), rank 0's per-epoch history."""
+    import numpy as np
+
+    from horovod_tpu_torch.estimator import _softmax_cross_entropy
+
+    run = CLUSTER_MLP_RUN
+    params = list(model.parameters())
+    opt = torch.optim.SGD(params, lr=run["lr"])
+    shards = [(X[r::2][:len(X) // 2], y[r::2][:len(X) // 2])
+              for r in range(2)]
+    rows, bs = len(X) // 2, run["batch"]
+    rng = np.random.default_rng(run["seed"])
+    history = []
+    for _ in range(run["epochs"]):
+        order = torch.from_numpy(rng.permutation(rows)).cuda()
+        total = 0.0
+        for s in range(rows // bs):
+            idx = order[s * bs:(s + 1) * bs]
+            grads = []
+            for r, (xs, ys) in enumerate(shards):
+                loss = _softmax_cross_entropy(model(xs[idx]), ys[idx])
+                grads.append(torch.autograd.grad(loss, params))
+                if r == 0:
+                    total += loss.item()
+            for p, g0, g1 in zip(params, *grads):
+                p.grad = (g0 + g1) / 2
+            opt.step()
+        history.append(total / (rows // bs))
+    return history
+
+
+def phase_cluster(torch, K, out_dir: str) -> dict:
+    """Phase 15: the cluster layer on the card. (a) ``TorchEstimator``
+    (``spark.torch``) fits ViT-B/16 over an ``Executor`` pool of 2 gloo
+    ranks, then ``transform``; (b) ``Estimator`` fits the MLP on the same
+    pool; (c) ``spark.run`` over ``FakeSparkContext`` and (d)
+    ``RayExecutor`` over ``fake_ray``, 2 processes each, run
+    :func:`cluster_allreduce_task` in a fork of the zygote
+    (:func:`cluster_worlds`). Returns the record with the paths'
+    launches (``cluster``: (a)'s rank 0; ``spark``, ``ray``: rank 0)."""
+    import copy
+    import functools
+    import shutil
+
+    import numpy as np
+
+    from horovod_tpu_torch import estimator as est_mod
+    from horovod_tpu_torch.executor import Executor
+    from horovod_tpu_torch.models import mlp as mlp_mod
+    from horovod_tpu_torch.models import vit as vit_mod
+    from horovod_tpu_torch.spark.torch import TorchEstimator
+    from horovod_tpu_torch.store import LocalStore
+
+    t_phase = time.perf_counter()
+    rec = {"world": "gloo, 2 processes on one card"}
+    store_dir = os.path.join(out_dir, "cluster_store")
+    shutil.rmtree(store_dir, ignore_errors=True)
+    store = LocalStore(store_dir)
+    _free_parent(torch)
+    model = seeded(torch, vit_mod.vit_base, image_size=VIT_IMAGE)
+    images, labels = image_batch(torch, CLUSTER_IMAGES, VIT_IMAGE, 1000, 15)
+    X, Y = images.cpu().numpy(), labels.cpu().numpy()
+    est_model = copy.deepcopy(model).cpu()
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    try:
+        t0 = time.perf_counter()
+        with Executor(np=2) as pool:
+            rec["pool_start_s"] = time.perf_counter() - t0
+            # (a) ViT-B/16 through the TorchEstimator.
+            t0 = time.perf_counter()
+            trained = TorchEstimator(
+                model=est_model, optimizer=functools.partial(
+                    torch.optim.SGD, lr=CLUSTER_LR), loss="cross_entropy",
+                store=store, num_proc=2, epochs=1, batch_size=CLUSTER_BATCH,
+                run_id="cluster_vit", device="cuda", backend="gloo").fit(
+                    X, Y, executor=pool)
+            rec["fit_s"] = time.perf_counter() - t0
+            workers = trained.worker_results
+            # (b) the MLP through the Estimator, on the same pool.
+            g = np.random.default_rng(16)
+            run = CLUSTER_MLP_RUN
+            mx = g.standard_normal((run["rows"], CLUSTER_MLP["in_features"])
+                                   ).astype(np.float32)
+            my = g.integers(0, CLUSTER_MLP["num_classes"], run["rows"])
+            mlp = mlp_mod.MLP(**CLUSTER_MLP).init_weights(
+                torch.Generator().manual_seed(5))
+            t0 = time.perf_counter()
+            mlp_trained = est_mod.Estimator(
+                model=mlp, optimizer=functools.partial(torch.optim.SGD,
+                                                       lr=run["lr"]),
+                loss="softmax_cross_entropy", store=store, num_proc=2,
+                epochs=run["epochs"], batch_size=run["batch"],
+                run_id="cluster_mlp", seed=run["seed"], device="cuda",
+                backend="gloo").fit(mx, my, executor=pool)
+            rec["mlp_fit_s"] = time.perf_counter() - t0
+        # (a)'s checks: every rank's launches, losses against the oracle.
+        steps = CLUSTER_IMAGES // 2 // CLUSTER_BATCH
+        for w in workers:
+            for name in FLASH_NAMES:
+                check(w["launches"][name] == model.num_layers * steps,
+                      f"cluster (a): rank {w['rank']} {name} launched "
+                      f"{w['launches'][name]} times, expected "
+                      f"{model.num_layers} x {steps}")
+            check(w["launches"]["scale_buffer"] == 0,
+                  f"cluster (a): rank {w['rank']} launched K1 "
+                  f"{w['launches']['scale_buffer']} times (Average must not)")
+        oracle_losses = _vit_oracle(torch, model, images, labels)
+        loss_err = max(abs(a - b) / abs(b) for w in workers
+                       for a, b in zip(w["losses"],
+                                       oracle_losses[w["rank"]]))
+        check(loss_err <= CLUSTER_LOSS_RTOL,
+              f"cluster (a): step losses {[w['losses'] for w in workers]} "
+              f"vs the oracle's {oracle_losses}: {loss_err} > "
+              f"{CLUSTER_LOSS_RTOL}")
+        final = store.read_obj(store.path_join(
+            store.get_checkpoint_path("cluster_vit"), "torch_final.pkl"))
+        want = model.state_dict()
+        dw = max((torch.from_numpy(final[k]).cuda() - want[k]).abs().max()
+                 .item() for k in want)
+        update = max((want[k] - init[k]).abs().max().item() for k in want)
+        check(update > 0 and dw <= CLUSTER_WEIGHT_RTOL * update,
+              f"cluster (a): rank 0's weights off the oracle's by {dw}, "
+              f"the largest update {update}")
+        x8 = X[:CLUSTER_TRANSFORM]
+        logits, t_launch = _counted(torch, K, lambda: trained.transform(x8))
+        check(t_launch["flash_fwd"] == model.num_layers
+              and t_launch["flash_bwd_dq"] == t_launch["flash_bwd_dkv"] == 0,
+              f"cluster (a): transform launched {t_launch}")
+        model.eval()
+        with torch.no_grad():
+            ref = model(images[:CLUSTER_TRANSFORM]).float().cpu().numpy()
+        logit_err = float(np.abs(logits - ref).max())
+        check(logits.shape == (CLUSTER_TRANSFORM, 1000)
+              and np.isfinite(logits).all()
+              and logit_err <= CLUSTER_LOGIT_RTOL * np.abs(ref).max(),
+              f"cluster (a): transform's logits off the oracle's by "
+              f"{logit_err}")
+        rec["vit"] = {
+            "model": "vit_base", "image": VIT_IMAGE, "tokens": VIT_PATH[1],
+            "images": CLUSTER_IMAGES, "batch_a_rank": CLUSTER_BATCH,
+            "steps": steps, "lr": CLUSTER_LR,
+            "losses": {w["rank"]: w["losses"] for w in workers},
+            "oracle_losses": oracle_losses, "loss_rel_err": loss_err,
+            "step_ms": {w["rank"]: w["step_ms"] for w in workers},
+            "launches": {w["rank"]: w["launches"] for w in workers},
+            "weight_dw": dw, "largest_update": update,
+            "weight_ratio": dw / update,
+            "weight_bound": CLUSTER_WEIGHT_RTOL,
+            "transform_launches": t_launch, "logit_err": logit_err,
+            "logit_bound": CLUSTER_LOGIT_RTOL * float(np.abs(ref).max())}
+        del model, want, init, trained
+        # (b)'s checks against its oracle on the card.
+        mlp_ref = mlp_mod.MLP(**CLUSTER_MLP).init_weights(
+            torch.Generator().manual_seed(5)).cuda()
+        history = _mlp_oracle(torch, mlp_ref, torch.from_numpy(mx).cuda(),
+                              torch.from_numpy(my).cuda())
+        h_err = max(abs(a - b) for a, b in zip(mlp_trained.history, history))
+        w_err = max((torch.from_numpy(np.asarray(mlp_trained.params[k]))
+                     .cuda() - v).abs().max().item()
+                    for k, v in mlp_ref.state_dict().items())
+        w_max = max(v.abs().max().item()
+                    for v in mlp_ref.state_dict().values())
+        check(len(mlp_trained.history) == run["epochs"]
+              and h_err <= CLUSTER_MLP_RTOL * max(map(abs, history))
+              and w_err <= CLUSTER_MLP_RTOL * w_max,
+              f"cluster (b): history {mlp_trained.history} vs {history}, "
+              f"weights off by {w_err} (largest {w_max})")
+        rec["mlp"] = {"history": mlp_trained.history,
+                      "oracle_history": history, "history_err": h_err,
+                      "weight_err": w_err, "largest_weight": w_max,
+                      "step_ms": {r["rank"]: r["step_ms"]
+                                  for r in mlp_trained.worker_results}}
+        # (c) and (d) in a fork of the zygote (no CUDA context), whose
+        # fakes fork their tasks and actors with torch imported.
+        worlds = run_forked(["--cluster-worlds"], "cluster_worlds",
+                            CLUSTER_WORLDS_TIMEOUT, out_dir)
+        spark_res, ray_res = worlds.pop("spark"), worlds.pop("ray")
+        rec["worlds_s"] = worlds.pop("wall_s")
+        rec.update(worlds)
+        _check_world(torch, spark_res, "cluster (c) spark.run")
+        _check_world(torch, ray_res, "cluster (d) RayExecutor")
+        rec["spark"] = spark_res
+        rec["ray"] = ray_res
+    finally:
+        # The checkpoint (ViT-B/16's fp32 weights) is too large to keep.
+        shutil.rmtree(store_dir, ignore_errors=True)
+    rec["launches"] = {"cluster": workers[0]["launches"],
+                       "spark": spark_res[0]["launches"],
+                       "ray": ray_res[0]["launches"]}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    with open(os.path.join(out_dir, "chip_smoke_cluster.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    step_ms = {r: [round(t, 1) for t in v]
+               for r, v in rec["vit"]["step_ms"].items()}
+    print(f"cluster: pool of 2 up in {rec['pool_start_s']:.1f} s; vit_base "
+          f"fit {rec['fit_s']:.1f} s, step ms {json.dumps(step_ms)}, loss "
+          f"rel err {loss_err:.2e}, weights "
+          f"{rec['vit']['weight_ratio']:.2e} of the largest update, logits "
+          f"off {logit_err:.3e}; mlp fit {rec['mlp_fit_s']:.1f} s (history "
+          f"err {h_err:.1e}); spark.run {rec['spark_run_s']:.1f} s, "
+          f"RayExecutor up {rec['ray_start_s']:.1f} s, run "
+          f"{rec['ray_run_s']:.1f} s ((c) and (d) {rec['worlds_s']:.1f} s "
+          f"in a fork of the zygote); phase {rec['phase_s']:.1f} s "
+          f"(gloo, 2 processes on one card)", flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out",
@@ -8628,7 +9245,19 @@ def main(argv=None) -> int:
                          "ones)")
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--zygote"]:
-        zygote_main(main)
+        zygote_main(main, *argv[1:2])
+        return 0
+    if argv[:1] == ["--via-zygote"]:
+        return via_zygote(argv[1:])
+    if argv[:1] == ["--module"]:
+        # ``python -m MODULE ARGS`` in this process (a zygote's fork).
+        import runpy
+
+        sys.argv = list(argv[1:])
+        runpy.run_module(argv[1], run_name="__main__", alter_sys=True)
+        return 0
+    if argv[:1] == ["--cluster-worlds"]:
+        cluster_worlds(argv[1])
         return 0
     if argv[:1] == ["--elastic-worker"]:
         elastic_worker(argv[1])
@@ -8756,6 +9385,8 @@ def main(argv=None) -> int:
         mark("pipeline")
         hybrid = phase_elastic_hybrid(torch, args.out)
         mark("elastic hybrid")
+        cluster = phase_cluster(torch, K, args.out)
+        mark("cluster")
         n2 = multi["n2_gpt_medium"]["modes"]
         # Every path a kernel runs on, each counted from zero around it;
         # the mesh path (phase 7b) is one of them for K1-K4, K8 and K9.
@@ -8784,13 +9415,19 @@ def main(argv=None) -> int:
                        "parallel": parallel["launches"],
                        "pipeline": pipe["launches"]["pipeline"],
                        "moe": pipe["launches"]["moe"],
-                       "elastic_hybrid": hybrid["launches"]}
+                       "elastic_hybrid": hybrid["launches"],
+                       # Phase 15 (a): rank 0 of the TorchEstimator fit.
+                       "cluster": cluster["launches"]["cluster"]}
         # K1 runs on the eager path (pre/postscale) and as the guard's
         # unscale on the integrity path.
         paths["scale_buffer"] = {
             "eager": eager["launches"],
             "integrity_unscale": {"scale_buffer": sum(
-                r["launches"]["scale_buffer"] for r in integ_runs.values())}}
+                r["launches"]["scale_buffer"] for r in integ_runs.values())},
+            # Phase 15 (c) and (d): rank 0 of the spark.run and
+            # RayExecutor worlds (pre- and postscale).
+            "spark": cluster["launches"]["spark"],
+            "ray": cluster["launches"]["ray"]}
         for name in ("scale_buffer", "quantize_int8", "dequantize_int8",
                      "quantize_int8_stochastic", "adasum_dot_norms",
                      "adasum_combine"):
@@ -8856,7 +9493,8 @@ def main(argv=None) -> int:
                    "mesh": mesh, "zero": zero, "overlap": overlap,
                    "elastic": elastic, "telemetry": telemetry,
                    "autotune": autotune, "parallel": parallel,
-                   "pipeline": pipe, "elastic_hybrid": hybrid}, f, indent=1)
+                   "pipeline": pipe, "elastic_hybrid": hybrid,
+                   "cluster": cluster}, f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -109,7 +109,16 @@ Ported so far:
   (``ZeroOptimizer.sharded_tree(names)``/``restore_template``,
   ``models.gpt.global_param_names``); ``DistributedGradFn``,
   ``DistributedOptimizer(op=Adasum, parallel=)``, ``tpu_available``,
-  ``collective_ops``.
+  ``collective_ops``;
+* slice 18 — the serve levers: shared-prefix forks, speculative
+  decoding with a draft model, tp-sharded decode over a head-sharded KV
+  ring and the brownout ladder's ``spec_off`` rung;
+* slice 19 — the cluster layer: the persistent worker pool
+  (``executor``), the parquet shards (``parquet``), the Store-backed
+  ``Estimator`` and ``TorchEstimator`` (``estimator``,
+  ``torch_estimator``, ``spark.torch``), ``spark.run``/``run_elastic``
+  over the task pool (``spark``), ``RayExecutor``/``ElasticRayExecutor``
+  (``ray``) and the process-backed Spark and Ray fakes (``testing``).
 
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request they raise.
@@ -231,12 +240,13 @@ __all__ = [
 
 
 def __getattr__(name):
-    # ``serve`` (the serving plane) is imported on first use, as in the
-    # JAX package: it pulls the models and the scheduler.
-    if name == "serve":
+    # The serving plane and the cluster layer are imported on first use,
+    # as in the JAX package: they pull the models, the scheduler, the
+    # Store and the cluster adapters.
+    if name in ("executor", "store", "estimator", "spark", "serve"):
         import importlib
 
-        mod = importlib.import_module(".serve", __name__)
+        mod = importlib.import_module(f".{name}", __name__)
         globals()[name] = mod
         return mod
     raise AttributeError(

@@ -30,6 +30,7 @@ RUNTIME_KNOBS = {
     "TOPOLOGY_VERSION": "the elastic driver's topology version when it "
                         "started this worker",
     "RENDEZVOUS_SECRET": "shared secret (HMAC) of the KV server",
+    "SPARK_EPOCH": "the elastic epoch a Spark pool worker joined",
     "RENDEZVOUS_RETRIES": "client retry budget for 5xx/connection errors",
     "RENDEZVOUS_WAIT_MAX_POLL_S": "wait() poll backoff cap",
     "ELASTIC_FORCE_LOCAL": "run an elastic job's named hosts on localhost",

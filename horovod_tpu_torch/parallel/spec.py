@@ -4,11 +4,12 @@ one mesh; the port of ``horovod_tpu/parallel/spec.py``.
 Each mesh axis plays a ROLE:
 
   ``dp``  data parallelism      — batch shards, gradient allreduce
-  ``pp``  pipeline parallelism  — decoder stages (a later slice of the port)
+  ``pp``  pipeline parallelism  — decoder stages, GPipe and 1F1B
+                                  (parallel/pipeline.py)
   ``tp``  tensor parallelism    — column/row-parallel weights and
                                   sharded-head attention
                                   (parallel/tensor_parallel.py)
-  ``ep``  expert parallelism    — MoE dispatch (a later slice of the port)
+  ``ep``  expert parallelism    — GShard MoE dispatch (parallel/moe.py)
   ``sp``  sequence parallelism  — ring/Ulysses attention over
                                   sequence-sharded activations
                                   (parallel/ring_attention.py,

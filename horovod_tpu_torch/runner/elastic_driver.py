@@ -58,8 +58,12 @@ before each epoch ``engine.plan_respec`` re-solves the mesh for the
 usable capacity: a new spec is re-exported to the workers as
 ``HVD_TPU_PARALLEL`` and the world is pinned to its exact size. The
 workers carry their state across through ``checkpoint.restore_sharded``.
-A caller's spawner or rendezvous server (the Spark and Ray launches) has
-no counterpart.
+A caller may bring its own spawner and rendezvous server (the Spark task
+pool, ``spark/task_pool.py``): ``spawner(slots, command, env_extra)``
+returns ``[(hostname, handle)]`` with Popen-like handles (``poll``,
+``terminate``, ``send_signal``, ``wait``) and builds the slots'
+environment itself; the caller's KV then carries the topology version
+too, at the address and secret it gives, and the caller stops it.
 """
 
 from __future__ import annotations
@@ -524,7 +528,7 @@ def _run_epoch(driver: ElasticDriver, slots: List[hosts_lib.SlotInfo],
                poll_interval: float = 0.1, on_hosts_updated=None,
                grace_secs: Optional[float] = None, on_tick=None,
                tick_interval_s: Optional[float] = None,
-               ssh_port: Optional[int] = None):
+               ssh_port: Optional[int] = None, spawner=None):
     """Run one epoch and track each worker's exit. Returns ``(rc,
     failed_hosts, interrupted)``: ``failed_hosts`` exited non-zero on
     their own (blacklist candidates); ``interrupted`` means a discovery
@@ -535,11 +539,16 @@ def _run_epoch(driver: ElasticDriver, slots: List[hosts_lib.SlotInfo],
     are terminated; a peer-failure exit ends the epoch the same way.
     ``on_tick`` (the autoscale tick) runs every ``tick_interval_s``; it
     returns True when it reshaped the world. The first failure exit
-    sends SIGUSR2 to every live worker (its black box)."""
+    sends SIGUSR2 to every live worker (its black box). ``spawner``
+    (see the module docstring) starts the workers instead of local or
+    ssh processes."""
     from ..common.elastic import (HOSTS_UPDATED_EXIT_CODE,
                                   PEER_FAILURE_EXIT_CODE)
 
-    procs, threads = _spawn_epoch(slots, command, env_extra, ssh_port)
+    if spawner is not None:
+        procs, threads = list(spawner(slots, command, env_extra)), []
+    else:
+        procs, threads = _spawn_epoch(slots, command, env_extra, ssh_port)
     rc = 0
     failed: Set[str] = set()
     interrupted = terminated = epoch_ending = False
@@ -661,11 +670,18 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
                 discovery: Optional[HostDiscovery] = None,
                 reset_limit: Optional[int] = None,
                 slot_wait_timeout_s: Optional[float] = None,
-                grace_secs: Optional[float] = None) -> int:
+                grace_secs: Optional[float] = None,
+                spawner=None,
+                rdv_server: Optional[RendezvousServer] = None,
+                rdv_advertise: Optional[str] = None,
+                rdv_secret: Optional[str] = None) -> int:
     """The driver side of an elastic launch (see the module docstring).
     Returns 0 once an epoch ends with every worker at 0; 1 (or the
     epoch's code) past the reset limit, when every host is permanently
-    blacklisted, or when fewer than ``min_np`` slots stay available."""
+    blacklisted, or when fewer than ``min_np`` slots stay available.
+    ``spawner`` and ``rdv_server`` (with the address the workers reach
+    it at and its secret) are the caller's, as the module docstring
+    says."""
     import secrets as secrets_lib
 
     min_np = args.min_np or args.num_proc
@@ -704,19 +720,25 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
     driver = ElasticDriver(discovery, min_np, max_np)
     driver.start_discovery()
     # A fresh secret a job, kept out of this process's environment.
-    job_secret = secrets_lib.token_hex(16)
-    # Workers on other hosts reach the KV at this machine's name: it
-    # listens on every interface (the job's secret signs every request)
-    # unless the job runs on this machine by construction.
-    rdv = RendezvousServer(
-        "127.0.0.1" if runtime_env("ELASTIC_FORCE_LOCAL") else "0.0.0.0",
-        secret=job_secret.encode())
-    rdv_port = rdv.start()
+    owns_rdv = rdv_server is None
+    if owns_rdv:
+        job_secret = secrets_lib.token_hex(16)
+        # Workers on other hosts reach the KV at this machine's name: it
+        # listens on every interface (the job's secret signs every
+        # request) unless the job runs on this machine by construction.
+        rdv = RendezvousServer(
+            "127.0.0.1" if runtime_env("ELASTIC_FORCE_LOCAL")
+            else "0.0.0.0", secret=job_secret.encode())
+        advertise = f"127.0.0.1:{rdv.start()}"
+    else:
+        rdv, job_secret = rdv_server, rdv_secret
+        advertise = rdv_advertise or f"127.0.0.1:{rdv.port()}"
     topo_version = 0
     rdv.put("elastic", "topology_version", str(topo_version).encode())
     env_extra = dict(env_extra)
-    env_extra["HVD_TPU_RENDEZVOUS"] = f"127.0.0.1:{rdv_port}"
-    env_extra["HVD_TPU_RENDEZVOUS_SECRET"] = job_secret
+    env_extra["HVD_TPU_RENDEZVOUS"] = advertise
+    if job_secret:
+        env_extra["HVD_TPU_RENDEZVOUS_SECRET"] = job_secret
     env_extra["HVD_TPU_ELASTIC"] = "1"
     for chaos_var in (faults_lib.ENV_PLAN, faults_lib.ENV_LOG):
         if chaos_var in os.environ:
@@ -873,7 +895,7 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
                 tick_interval_s=(autoscale_policy.tick_interval_s
                                  if autoscale_policy is not None
                                  else None),
-                ssh_port=getattr(args, "ssh_port", None))
+                ssh_port=getattr(args, "ssh_port", None), spawner=spawner)
             if rc == 0 and not failed_hosts and not interrupted:
                 return 0
             epoch_down_since = time.monotonic()
@@ -895,5 +917,6 @@ def run_elastic(args, command: List[str], env_extra: Dict[str, str],
     finally:
         if pod_monitor is not None:
             pod_monitor.stop()
-        rdv.stop()
+        if owns_rdv:
+            rdv.stop()
         driver.stop()

@@ -979,6 +979,68 @@ def test_mesh_subgroups_on_card_run_the_kernels(tmp_path):
             none, quantize_int8=1), r
 
 
+@pytest.mark.cuda
+def test_torch_estimator_fit_on_card_matches_cpu(tmp_path):
+    """``TorchEstimator`` at n = 1 fits an fp32 ViT of head dim 64 (hidden
+    128, 2 heads, 2 layers, 32x32 images in 8x8 patches: S = 17) for 2
+    SGD steps on the card through the flash kernels (K5/K6/K7 once a
+    layer a step each), and ``transform`` runs on the card; against the
+    same fit with ``device="cpu"``: rank 0's final weights within 1e-2
+    of the largest update (K6/K7's fp32 bound is 5e-3), the step losses
+    to 1e-4 relative, the logits to 1e-3 of the largest. The workers
+    run with ``NVIDIA_TF32_OVERRIDE=0`` and ``transform`` with cuDNN's
+    TF32 off: its default TF32 patch convolution put the card's logits
+    2.7e-3 of the largest off the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import functools
+
+    import numpy as np
+
+    from horovod_tpu_torch.models.vit import vit_tiny
+    from horovod_tpu_torch.store import LocalStore
+    from horovod_tpu_torch.torch_estimator import TorchEstimator
+
+    def model():
+        m = vit_tiny(hidden=128, num_heads=2, mlp_dim=256)
+        return m.init_weights(torch.Generator().manual_seed(3))
+
+    g = np.random.default_rng(4)
+    X = g.standard_normal((16, 3, 32, 32)).astype(np.float32)
+    y = g.integers(0, 10, 16)
+    init = model().state_dict()
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        t = TorchEstimator(
+            model=model(), optimizer=functools.partial(torch.optim.SGD,
+                                                       lr=0.05),
+            loss="cross_entropy", store=LocalStore(str(tmp_path / dev)),
+            num_proc=1, epochs=1, batch_size=8, run_id="vit",
+            device=dev, worker_env={"NVIDIA_TF32_OVERRIDE": "0"}).fit(X, y)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            fits[dev] = (t, t.transform(X[:4]), dict(kernels.LAUNCHES))
+    (card, card_logits, card_launch), (cpu, cpu_logits, _) = \
+        fits["cuda"], fits["cpu"]
+    w = card.worker_results[0]
+    assert {k: w["launches"][k] for k in
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")} == {
+        "flash_fwd": 4, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
+    assert card_launch["flash_fwd"] == 2        # transform: one batch
+    assert card.model.head.weight.device.type == "cuda"
+    losses = cpu.worker_results[0]["losses"]
+    assert all(abs(a - b) <= 1e-4 * abs(b)
+               for a, b in zip(w["losses"], losses))
+    got, want = card.model.state_dict(), cpu.model.state_dict()
+    dw = max((got[k].cpu() - want[k]).abs().max().item() for k in want)
+    update = max((want[k] - init[k]).abs().max().item() for k in want)
+    gap = np.abs(card_logits - cpu_logits).max() / np.abs(cpu_logits).max()
+    print(f"card vs cpu: weights {dw / update:.3e} of the largest update, "
+          f"logits {gap:.3e} of the largest")
+    assert update > 0 and dw <= 1e-2 * update, (dw, update)
+    assert gap <= 1e-3
+
+
 if __name__ == "__main__" and sys.argv[1:2] == ["--card-worker"]:
     _card_worker(int(sys.argv[2]), sys.argv[3])
 if __name__ == "__main__" and sys.argv[1:2] == ["--mesh-card-worker"]:

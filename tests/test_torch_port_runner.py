@@ -364,3 +364,100 @@ def test_chaos_run_ends_bitwise_as_an_uninterrupted_run(tmp_path_factory):
     for step, loss in runs["chaos"]["report"]["losses_rank0"]:
         assert losses.setdefault(step, loss) == loss, step
     assert losses == dict(clean["report"]["losses_rank0"])
+
+
+# -- the smoke's zygote ---------------------------------------------------------
+
+#: A zygote of ``chip_smoke.py``'s kind whose children run these modes
+#: instead of the smoke's workers.
+ZYGOTE_SCRIPT = """
+import os, signal, sys, time
+sys.path.insert(0, {repo!r})
+import chip_smoke
+
+
+def run(argv):
+    if argv[0] == "exit":
+        print("out", os.getpid(), os.environ.get("TAG"), flush=True)
+        print("err", file=sys.stderr, flush=True)
+        return int(argv[1])
+    if argv[0] == "hard":
+        os._exit(5)
+    if argv[0] == "kill9":
+        os.kill(os.getpid(), signal.SIGKILL)
+    if argv[0] == "sleep":
+        signal.signal(signal.SIGUSR2, lambda s, f: print("usr2", flush=True))
+        signal.signal(signal.SIGTERM, lambda s, f: sys.exit(7))
+        print("up", os.getpid(), flush=True)
+        time.sleep(60)
+    return 0
+
+
+chip_smoke.zygote_main(run, sys.argv[1])
+"""
+
+
+def _ppid(pid: int) -> int:
+    with open(f"/proc/{pid}/stat") as f:
+        return int(f.read().rsplit(")", 1)[1].split()[1])
+
+
+def test_via_zygote_forks_the_worker_and_passes_its_end_on(tmp_path):
+    """``chip_smoke.py --via-zygote``: the worker is a fork of the zygote
+    (not of the ``--via-zygote`` process) on that process's environment
+    and streams; its exit code, a hard exit and a death by signal come
+    back as the process's own; SIGUSR2 and SIGTERM are passed on; a
+    SIGKILLed process takes its worker down; with no zygote listening,
+    the process runs ``main`` itself."""
+    import signal
+    import subprocess
+
+    script = tmp_path / "zygote.py"
+    script.write_text(ZYGOTE_SCRIPT.format(repo=str(REPO)))
+    address = f"@test-zygote-{os.getpid()}"
+    zy = subprocess.Popen([sys.executable, str(script), address],
+                          stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                          text=True)
+    proxy = [sys.executable, str(REPO / "chip_smoke.py"), "--via-zygote"]
+    env = dict(os.environ, CHIP_SMOKE_ZYGOTE=address, TAG="t1")
+    try:
+        assert zy.stdout.readline().strip() == "ready"
+        r = subprocess.run(proxy + ["exit", "3"], env=env,
+                           capture_output=True, text=True, timeout=60)
+        assert r.returncode == 3 and r.stderr == "err\n", r
+        tag, _, val = r.stdout.split()
+        assert (tag, val) == ("out", "t1")
+        assert subprocess.run(proxy + ["hard"], env=env,
+                              timeout=60).returncode == 5
+        assert subprocess.run(proxy + ["kill9"], env=env,
+                              timeout=60).returncode == -signal.SIGKILL
+        p = subprocess.Popen(proxy + ["sleep"], env=env, text=True,
+                             stdout=subprocess.PIPE, start_new_session=True)
+        worker = int(p.stdout.readline().split()[1])
+        # The zygote forks a monitor, the monitor the worker.
+        assert _ppid(_ppid(worker)) == zy.pid != p.pid
+        os.killpg(p.pid, signal.SIGUSR2)
+        assert p.stdout.readline().strip() == "usr2"
+        os.killpg(p.pid, signal.SIGTERM)
+        assert p.wait(timeout=30) == 7
+        p = subprocess.Popen(proxy + ["sleep"], env=env, text=True,
+                             stdout=subprocess.PIPE, start_new_session=True)
+        worker = int(p.stdout.readline().split()[1])
+        os.killpg(p.pid, signal.SIGKILL)
+        p.wait(timeout=30)
+        deadline = time.time() + 10
+        while time.time() < deadline:
+            try:
+                os.kill(worker, 0)
+            except ProcessLookupError:
+                break
+            time.sleep(0.05)
+        else:
+            raise AssertionError(f"worker {worker} outlived its process")
+    finally:
+        zy.stdin.close()
+        zy.wait(timeout=30)
+    # No zygote: main() runs in the process (argparse refuses the mode).
+    r = subprocess.run(proxy + ["exit", "3"], env=env, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 2 and "unrecognized arguments" in r.stderr, r
