@@ -575,7 +575,29 @@ Phases (any failure exits non-zero and prints no result line):
    s and each rank's step ms, the Spark and Ray worlds' s; records in
    ``chip_smoke_cluster.json``;
    the run's store (ViT-B/16's checkpoint) is deleted.
-16. Result lines: the per-kernel JSON record (K1-K9, each with
+16. Fleet twin and framework shims, right after phase 14 on phase 5's
+   GPT-2 medium. (a) ``common/fleetsim.run_scenario`` of the banked
+   scenarios ``preempt_storm_4k`` (4,096 simulated hosts, host only),
+   ``diurnal_serve`` and ``overload_storm`` (a seeded ``gpt_tiny`` on
+   the card): each record must equal ``results/fleetsim/<name>.json``
+   exactly; K4 must launch once a migrated sequence and K2 at least
+   that. (b) ``run_serve_world`` at full width: diurnal_serve's policy
+   and world (6 hosts, 2 replicas, ``drain_mode="migrate"``), a seeded
+   diurnal trace of 48 requests at 2 -> 24 rps with phase 5's prompt
+   (64-256) and output (16, 32) lengths, 4 slots of 320 fp32 KV lines
+   a replica, one ``replica_kill`` from a seeded plan; run twice, then
+   once with ``drain_mode="local"``. Every request must complete once
+   with its full token count, none dropped, at least one sequence
+   migrate (K4 once for each, K2 at least that), and the two migrate
+   runs give byte-identical decision logs and events; printed: how many
+   migrated streams equal the local drain's (where one parts, the top-2
+   logit gap at the first differing token), tokens/s and ms a round.
+   (c) the MXNet shim on numpy arrays in a one-rank NCCL world:
+   ``allreduce``/``allreduce_`` with pre- and postscale (fp32, fp16;
+   2^20 elements), ``broadcast_``, ``allgather`` and
+   ``DistributedOptimizer``, each bitwise its hand value, K1 exactly
+   twice a scaled call. Records in ``chip_smoke_fleet.json``.
+17. Result lines: the per-kernel JSON record (K1-K9, each with
    ``launches_by_path``, every path above 0, and ``launches`` their
    sum: K5/K6/K7 for the GPT training, BERT, ViT and the two guarded
    integrity runs and the ZeRO phase; K1 for the eager loop, the
@@ -591,7 +613,10 @@ Phases (any failure exits non-zero and prints no result line):
    disaggregated run) and ``serve_tp`` (rank 0's tp cluster) paths for
    K2 and K4; phase 15's ``cluster`` path (rank 0 of the ViT-B/16 fit)
    for K5-K7 and its ``spark`` and ``ray`` paths (rank 0 of each world)
-   for K1), the card line, and last ``{"ok": true,
+   for K1; phase 16's ``fleet`` path for K2 and K4 (the serve cache
+   path attends in plain PyTorch: K5 is counted there and launches
+   none) and its ``mxnet`` path for K1), the card line, and
+   last ``{"ok": true,
    "device": {...}}``.
 
 ``--profile`` also traces the serve run and two extra training steps of
@@ -9233,6 +9258,311 @@ def phase_cluster(torch, K, out_dir: str) -> dict:
     return rec
 
 
+# -- phase 16: the fleet twin and the framework shims -------------------------
+
+#: (a): the banked records the port replays on the card, by kind.
+FLEET_SCENARIOS = ("preempt_storm_4k", "diurnal_serve", "overload_storm")
+#: (b): the fleet serving world at full width — diurnal_serve's policy,
+#: hosts and replicas, a diurnal trace at phase 5's prompt and output
+#: lengths, 4 slots a replica (diurnal_serve's) with lines for the longest
+#: prompt and output, fp32 KV, and one replica_kill from a seeded plan.
+#: The seed is one whose last drain (r5, on the way down) finds a sequence
+#: in flight, so that it migrates (the decisions do not depend on the
+#: weights: the CPU run of a tiny GPT gives this log too).
+FLEET_WORLD = {"requests": 48, "base_rps": 2.0, "peak_rps": 24.0,
+               "period_s": 8.0, "seed": 20, "hosts": 6, "replicas": 2,
+               "slots": 4, "max_len": 320, "max_prompt_len": 256,
+               "prompt_lens": (64, 128, 256), "output_lens": (16, 32),
+               "kill": {"seed": 20, "faults": [
+                   {"site": "replica_kill", "step": 30, "target": "r0"}]}}
+#: (c): the MXNet shim's arrays (GPT-2 medium's bias width x 1,024).
+MX_ELEMENTS = 1 << 20
+MX_PRE, MX_POST = 0.5, 3.0
+
+
+def _fleet_record_diff(got: dict, want: dict) -> str:
+    """The first key where a fleet record differs from its banked one."""
+    for key in sorted(set(got) | set(want)):
+        if got.get(key) != want.get(key):
+            return f"{key}: {json.dumps(got.get(key))[:300]} vs " \
+                   f"{json.dumps(want.get(key))[:300]}"
+    return ""
+
+
+def _stream_gap(torch, model, tokens) -> dict:
+    """The next-token top-2 logit gap after ``tokens`` (one full
+    forward of ``model``), absolute and of max |logit|."""
+    dev = next(model.parameters()).device
+    with torch.no_grad():
+        row = model(torch.tensor([tokens], device=dev))[0, -1].float()
+    top = torch.topk(row, 2)
+    gap = float(top.values[0] - top.values[1])
+    return {"gap": gap, "rel_gap": gap / float(row.abs().max())}
+
+
+def fleet_world(torch, K, factory, drain_mode: str, dev: str = "cuda"):
+    """One run of (b): the port's ``run_serve_world`` over FLEET_WORLD
+    under diurnal_serve's policy with ``drain_mode``. Returns (report,
+    cluster, launches counted around the run, each round's wall ms)."""
+    from horovod_tpu_torch.common import faults as faults_lib
+    from horovod_tpu_torch.common import fleetsim
+    from horovod_tpu_torch.serve.controller import SLOPolicy
+
+    w = FLEET_WORLD
+    policy = SLOPolicy.from_dict(dict(
+        fleetsim.builtin_scenarios()["diurnal_serve"].policy,
+        drain_mode=drain_mode))
+    trace = fleetsim.diurnal_trace(
+        w["seed"], w["requests"], w["base_rps"], w["peak_rps"],
+        w["period_s"], prompt_lens=w["prompt_lens"],
+        output_lens=w["output_lens"], vocab_size=50257)
+    kill = faults_lib.FaultInjector(
+        faults_lib.FaultPlan.from_json(json.dumps(w["kill"])), log_path="",
+        rank="driver", host="sim")
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    stamps = []
+    sync()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    rep, _hm, cluster = fleetsim.run_serve_world(
+        factory=factory, policy=policy, trace=trace,
+        hosts=[f"host{i}" for i in range(w["hosts"])],
+        replicas=w["replicas"], kill_injector=kill,
+        on_round=lambda c, i: stamps.append(time.perf_counter()))
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    rep["wall_s"] = wall
+    rep["kill_injections"] = len(kill.injections)
+    ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    return rep, cluster, launches, ms, trace
+
+
+def phase_fleet(torch, K, out_dir: str, model, dev: str = "cuda") -> dict:
+    """Phase 16: (a) the banked fleet scenarios through the port's
+    ``run_scenario``; (b) the fleet serving world on phase 5's GPT-2
+    medium ``model`` (migrate twice, local once); (c) the MXNet shim in a
+    one-rank NCCL world. Returns the record with ``launches`` (K2/K4 and
+    K5 over (a)'s serve scenarios and (b)'s runs) and
+    ``mxnet_launches`` (K1 over (c))."""
+    import numpy as np
+
+    from horovod_tpu_torch.common import fleetsim
+    from horovod_tpu_torch.serve.engine import make_engine_factory
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)
+    total = {k: 0 for k in K.LAUNCHES}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] += v
+
+    # (a) Each banked record, exactly, on the port with no jax here.
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "results", "fleetsim")
+    scen = {}
+    for name in FLEET_SCENARIOS:
+        with open(os.path.join(root, f"{name}.json")) as f:
+            want = json.load(f)
+        sync()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        if want["kind"] == "serve":
+            got, rep = fleetsim.serve_scenario_report(name, device=dev)
+        else:
+            got, rep = fleetsim.run_scenario(name, device=dev), {}
+        sync()
+        secs = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        check(got == want, f"fleet (a): {name} differs from "
+                           f"results/fleetsim/{name}.json at "
+                           f"{_fleet_record_diff(got, want)}")
+        moved = sum(1 for e in rep.get("events", ()) if e[1] == "migrate")
+        if dev == "cuda":
+            check(launches["dequantize_int8"] == moved
+                  and launches["quantize_int8"] >= moved,
+                  f"fleet (a): {name} migrated {moved} sequences; K2/K4 "
+                  f"launched {launches['quantize_int8']}/"
+                  f"{launches['dequantize_int8']}")
+        add(launches)
+        scen[name] = {"s": secs, "decisions": len(got["decisions"]),
+                      "migrated": moved, "launches": launches}
+        print(f"fleet (a): {name} equals the banked record "
+              f"({len(got['decisions'])} decisions, {moved} migrated) in "
+              f"{secs:.2f} s", flush=True)
+
+    # (b) The serving world at full width: migrate twice, local once.
+    w = FLEET_WORLD
+    factory = make_engine_factory(model, device=dev, slots=w["slots"],
+                                  max_len=w["max_len"],
+                                  max_prompt_len=w["max_prompt_len"],
+                                  kv_kind="fp32")
+    runs = {}
+    for arm in ("migrate", "migrate_again", "local"):
+        rep, cluster, launches, ms, trace = fleet_world(
+            torch, K, factory, "local" if arm == "local" else "migrate", dev)
+        by_rid = {}
+        for r in cluster.completed:
+            check(r.rid not in by_rid, f"fleet (b) {arm}: rid {r.rid} "
+                                       "completed twice")
+            by_rid[r.rid] = list(r.tokens)
+        check(rep["dropped"] == 0 and sorted(by_rid) == sorted(
+            r.rid for r in trace.requests),
+              f"fleet (b) {arm}: dropped {rep['dropped']}, completed "
+              f"{len(by_rid)} of {len(trace.requests)}")
+        for req in trace.requests:
+            check(len(by_rid[req.rid]) == req.max_new_tokens,
+                  f"fleet (b) {arm}: rid {req.rid} {len(by_rid[req.rid])} "
+                  f"tokens of {req.max_new_tokens}")
+        moved = [e[2] for e in rep["events"] if e[1] == "migrate"]
+        if dev == "cuda":
+            check(launches["dequantize_int8"] == len(moved)
+                  and launches["quantize_int8"] >= len(moved),
+                  f"fleet (b) {arm}: {len(moved)} migrated; K2/K4 "
+                  f"launched {launches['quantize_int8']}/"
+                  f"{launches['dequantize_int8']}")
+        if arm != "local":
+            add(launches)
+        runs[arm] = {"rep": rep, "tokens": by_rid, "moved": moved,
+                     "launches": launches, "round_ms": ms}
+    a, b, loc = runs["migrate"], runs["migrate_again"], runs["local"]
+    check(a["moved"], "fleet (b): no drain migrated a sequence")
+    check(a["rep"]["kill_injections"] == 1
+          and any(e[1] == "replica_kill" for e in a["rep"]["events"]),
+          "fleet (b): the replica_kill did not land")
+    check(json.dumps(a["rep"]["decisions"]) ==
+          json.dumps(b["rep"]["decisions"])
+          and a["rep"]["events"] == b["rep"]["events"],
+          "fleet (b): two runs of the migrate arm gave different decision "
+          "logs or events")
+    # Migrated streams against the same requests drained locally.
+    prompts = {r.rid: list(r.prompt)[-w["max_prompt_len"]:]
+               for r in trace.requests}
+    same, parted = 0, []
+    for rid in a["moved"]:
+        x, y = a["tokens"][rid], loc["tokens"][rid]
+        if x == y:
+            same += 1
+            continue
+        i = next(j for j in range(len(y)) if x[j] != y[j])
+        parted.append(dict(_stream_gap(torch, model, prompts[rid] + y[:i]),
+                           rid=rid, position=i, migrate=x[i], local=y[i]))
+    gen = a["rep"]["generated_tokens"]
+    res_b = {
+        "model": "gpt_medium", "layers": model.num_layers,
+        "kv_kind": "fp32", **{k: v for k, v in w.items() if k != "kill"},
+        "kill": w["kill"], "policy": "diurnal_serve",
+        "decisions": a["rep"]["decisions"],
+        "decision_actions": [json.loads(d)["action"]
+                             for d in a["rep"]["decisions"]],
+        "rounds": a["rep"]["rounds"], "generated_tokens": gen,
+        "wall_s": {k: r["rep"]["wall_s"] for k, r in runs.items()},
+        "tokens_per_wall_s": {k: r["rep"]["generated_tokens"]
+                              / r["rep"]["wall_s"] for k, r in runs.items()},
+        "round_ms_median": {k: statistics.median(r["round_ms"])
+                            for k, r in runs.items()},
+        "latency_p99_s": a["rep"]["latency_p99_s"],
+        "migrated": len(a["moved"]), "migrated_rids": a["moved"],
+        "local_migrated": len(loc["moved"]),
+        "launches": {k: r["launches"] for k, r in runs.items()},
+        "streams_equal_local": same, "streams_parted": parted,
+        "repeat_identical": True}
+    print(f"fleet (b): gpt_medium {w['requests']} requests over "
+          f"{a['rep']['rounds']} rounds, {len(a['moved'])} migrated "
+          f"(K2/K4 {a['launches']['quantize_int8']}/"
+          f"{a['launches']['dequantize_int8']}), dropped 0; "
+          f"{res_b['tokens_per_wall_s']['migrate']:.1f} tok/s, "
+          f"{res_b['round_ms_median']['migrate']:.1f} ms a round (median); "
+          f"decision log identical over two runs; {same} of "
+          f"{len(a['moved'])} migrated streams equal the local drain's"
+          + "".join(f"; rid {p['rid']} parts at token {p['position']} "
+                    f"(top-2 gap {p['gap']:.4g} = {p['rel_gap']:.3g} of "
+                    f"max|logit|)" for p in parted), flush=True)
+
+    # (c) The MXNet shim on a one-rank NCCL world: numpy in, K1 on the
+    # card for each scaled allreduce's pre- and postscale.
+    import horovod_tpu_torch as hvd
+    import horovod_tpu_torch.mxnet as hvdm
+
+    ctx = hvd.init(device=None if dev == "cuda" else dev)
+    check(hvdm.size() == 1 and (dev != "cuda" or ctx.backend == "nccl"),
+          f"fleet (c): world {hvdm.size()} over {ctx.backend}")
+    g = np.random.default_rng(160)
+    cases = 0
+    t0 = time.perf_counter()
+    sync()
+    K.reset_launch_counts()
+    for dt in (np.float32, np.float16):
+        x = (g.standard_normal(MX_ELEMENTS) * 3).astype(dt)
+        pre, post = dt(MX_PRE), dt(MX_POST)
+        for average in (False, True):
+            got = hvdm.allreduce(x, average=average, name=f"mx.{dt.__name__}"
+                                 f".{average}", prescale_factor=MX_PRE,
+                                 postscale_factor=MX_POST)
+            check(got.dtype == x.dtype and np.array_equal(
+                got, (x * pre) * post),
+                  f"fleet (c): allreduce {dt.__name__} average={average} "
+                  "differs from (x * pre) * post")
+            cases += 1
+        t = x.copy()
+        ret = hvdm.allreduce_(t, average=False, name=f"mx_.{dt.__name__}",
+                              prescale_factor=MX_PRE,
+                              postscale_factor=MX_POST)
+        check(ret is t and np.array_equal(t, (x * pre) * post),
+              f"fleet (c): allreduce_ {dt.__name__} differs")
+        u = np.zeros_like(x)
+        hvdm.broadcast_(u, root_rank=0, name=f"mxb.{dt.__name__}")
+        check(np.array_equal(u, np.zeros_like(x))
+              and np.array_equal(hvdm.broadcast(x, 0, name=f"mxb2."
+                                                f"{dt.__name__}"), x),
+              f"fleet (c): broadcast {dt.__name__} differs")
+        ag = hvdm.allgather(x.reshape(1024, -1), name=f"mxg.{dt.__name__}")
+        check(np.array_equal(ag, x.reshape(1024, -1)),
+              f"fleet (c): allgather {dt.__name__} differs")
+        cases += 3
+    mx_launches = (sync(), dict(K.LAUNCHES))[1]
+    mx_s = time.perf_counter() - t0
+
+    class _SGD:
+        """A duck-typed mx.optimizer.Optimizer."""
+        lr, rescale_grad = 0.1, 1.0
+
+        def update(self, index, weight, grad, state):
+            weight -= np.float32(self.lr * self.rescale_grad) * grad
+
+    opt = hvdm.DistributedOptimizer(_SGD())
+    w0 = g.standard_normal(MX_ELEMENTS).astype(np.float32)
+    grad = g.standard_normal(MX_ELEMENTS).astype(np.float32)
+    wt = w0.copy()
+    opt.update(0, wt, grad.copy(), None)
+    check(np.array_equal(wt, w0 - np.float32(0.1) * grad),
+          "fleet (c): DistributedOptimizer's step differs from SGD's")
+    cases += 1
+    scaled = 2 * 3                    # two dtypes x three scaled calls
+    if dev == "cuda":
+        check(mx_launches["scale_buffer"] == 2 * scaled,
+              f"fleet (c): K1 launched {mx_launches['scale_buffer']} times, "
+              f"expected 2 x {scaled} (pre- and postscale)")
+    hvd.shutdown()
+    print(f"fleet (c): the MXNet shim on a one-rank {ctx.backend} world, "
+          f"{cases} results equal their hand values, K1 "
+          f"{mx_launches['scale_buffer']} launches, {mx_s:.2f} s",
+          flush=True)
+
+    rec = {"scenarios": scen, "world": res_b,
+           "mxnet": {"cases": cases, "elements": MX_ELEMENTS,
+                     "launches": mx_launches, "s": mx_s},
+           "launches": total, "mxnet_launches": mx_launches,
+           "phase_s": time.perf_counter() - t_phase}
+    with open(os.path.join(out_dir, "chip_smoke_fleet.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+    print(f"fleet: K2/K4 {total['quantize_int8']}/"
+          f"{total['dequantize_int8']} launches, K5 {total['flash_fwd']} "
+          f"over (a) and (b); phase {rec['phase_s']:.1f} s", flush=True)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="chiprun_out",
@@ -9355,8 +9685,12 @@ def main(argv=None) -> int:
         mark("kernels")
         keep = {}
         serve = phase_serve(torch, K, args.out, args.profile, keep)
-        levers = phase_serve_levers(torch, K, args.out, keep.pop("model"))
+        levers = phase_serve_levers(torch, K, args.out, keep["model"])
         mark("serve, serve levers")
+        # Phase 16 on phase 5's model, while it is on the card.
+        fleet = phase_fleet(torch, K, args.out, keep.pop("model"))
+        torch.cuda.empty_cache()
+        mark("fleet, shims")
         train = phase_train(torch, K, args.out, args.profile)
         integ = phase_integrity(torch, K, args.out, args.profile)
         mark("train, integrity")
@@ -9427,7 +9761,9 @@ def main(argv=None) -> int:
             # Phase 15 (c) and (d): rank 0 of the spark.run and
             # RayExecutor worlds (pre- and postscale).
             "spark": cluster["launches"]["spark"],
-            "ray": cluster["launches"]["ray"]}
+            "ray": cluster["launches"]["ray"],
+            # Phase 16 (c): the MXNet shim's scaled allreduces.
+            "mxnet": fleet["mxnet_launches"]}
         for name in ("scale_buffer", "quantize_int8", "dequantize_int8",
                      "quantize_int8_stochastic", "adasum_dot_norms",
                      "adasum_combine"):
@@ -9459,6 +9795,9 @@ def main(argv=None) -> int:
             # moe_ep_int8 arm's ep exchanges.
             paths[name]["pipeline"] = pipe["launches"]["pipeline"]
             paths[name]["moe"] = pipe["launches"]["moe"]
+            # Phase 16: the fleet serving world's migrate drains (and
+            # (a)'s serve scenarios, whose drains find none in flight).
+            paths[name]["fleet"] = fleet["launches"]
         for name in FLASH_NAMES:
             paths[name] = flash_paths
         for name, rec in records.items():
@@ -9494,7 +9833,7 @@ def main(argv=None) -> int:
                    "elastic": elastic, "telemetry": telemetry,
                    "autotune": autotune, "parallel": parallel,
                    "pipeline": pipe, "elastic_hybrid": hybrid,
-                   "cluster": cluster}, f, indent=1)
+                   "cluster": cluster, "fleet": fleet}, f, indent=1)
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

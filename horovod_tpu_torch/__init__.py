@@ -118,7 +118,15 @@ Ported so far:
   ``Estimator`` and ``TorchEstimator`` (``estimator``,
   ``torch_estimator``, ``spark.torch``), ``spark.run``/``run_elastic``
   over the task pool (``spark``), ``RayExecutor``/``ElasticRayExecutor``
-  (``ray``) and the process-backed Spark and Ray fakes (``testing``).
+  (``ray``) and the process-backed Spark and Ray fakes (``testing``);
+* slice 20 — the fleet twin (``common/fleetsim.py``: the scenario
+  library, trace replay and the virtual-clock serving world, replayed
+  byte-identically against the JAX package's banked records) and the
+  framework shims over the eager engine: ``tensorflow`` (collectives in
+  eager and graph mode, ``DistributedGradientTape``,
+  ``DistributedOptimizer``, the Keras callbacks, ``elastic``),
+  ``keras``, ``mxnet`` and ``KerasEstimator`` (``keras_estimator``,
+  ``spark.keras``).
 
 Entry points run on the GPU (``device="cuda"``) unless the caller passes
 ``device="cpu"``; with no GPU and no explicit CPU request they raise.
@@ -240,10 +248,11 @@ __all__ = [
 
 
 def __getattr__(name):
-    # The serving plane and the cluster layer are imported on first use,
-    # as in the JAX package: they pull the models, the scheduler, the
-    # Store and the cluster adapters.
-    if name in ("executor", "store", "estimator", "spark", "serve"):
+    # The serving plane, the cluster layer and the framework shims are
+    # imported on first use, as in the JAX package: they pull the models,
+    # the scheduler, the Store, the cluster adapters and TensorFlow.
+    if name in ("executor", "store", "estimator", "spark", "serve",
+                "tensorflow", "mxnet"):
         import importlib
 
         mod = importlib.import_module(f".{name}", __name__)

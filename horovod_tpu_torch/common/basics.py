@@ -770,3 +770,16 @@ def tpu_available() -> bool:
     """False: the port's devices are CUDA GPUs (or the CPU), never a
     TPU."""
     return False
+
+
+CAPABILITY_QUERY_NAMES = (
+    "mpi_built", "mpi_enabled", "mpi_threads_supported", "gloo_built",
+    "gloo_enabled", "nccl_built", "ddl_built", "ccl_built", "cuda_built",
+    "rocm_built", "xla_built", "tpu_available",
+)
+
+
+def export_capability_queries(namespace: dict) -> None:
+    """Copy every capability query into a shim's module globals."""
+    for _name in CAPABILITY_QUERY_NAMES:
+        namespace[_name] = globals()[_name]

@@ -135,6 +135,10 @@ RUNTIME_KNOBS = {
     # Native host runtime (native/) and the controller codec.
     "WIRE_FORMAT": "controller codec override (json = skip native)",
     "DISABLE_NATIVE": "skip the native acceleration library",
+    # Fleet digital twin (common/fleetsim.py).
+    "FLEETSIM_BASELINE_DIR": "banked decision-log baseline directory",
+    "FLEETSIM_SEED": "default scenario seed for the fleetsim CLI",
+    "FLEETSIM_TICK_CAP": "runaway guard: max virtual ticks per run",
     # Sequence parallelism (parallel/ring_attention.py, ulysses.py).
     "SEQ_WIRE": "sequence K/V exchange wire (also a Config field)",
     # Pipeline and expert parallelism (parallel/pipeline.py, moe.py).

@@ -25,6 +25,12 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 LOCK_NAME = "hvd_tpu_torch_gloo_worlds.lock"
+#: The environment of a process that runs TensorFlow: its default thread
+#: pools take every core and spin between ops, which starves the rest of
+#: the suite; one intra-op and two inter-op threads (a graph's
+#: ``py_function`` collectives run on the inter-op pool), quiet logs.
+TF_ENV = {"TF_NUM_INTRAOP_THREADS": "1", "TF_NUM_INTEROP_THREADS": "2",
+          "TF_CPP_MIN_LOG_LEVEL": "2"}
 
 
 @contextlib.contextmanager
