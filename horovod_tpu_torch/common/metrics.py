@@ -25,11 +25,15 @@
      global labels (``rank``/``size``/``host``, stamped by
      ``hvd.init()``) so a pod scrape aggregates by rank.
 
-* **The profiler bridge**: :meth:`Histogram.time` spans and
-  :func:`step_annotation` also open a ``torch.profiler.record_function``
-  range when ``HVD_TPU_METRICS_TRACE=1`` (or :func:`enable_trace_bridge`),
-  so the host-side phase timings line up with a ``torch.profiler``
-  trace of the card.
+* **The profiler bridge**: :func:`span` opens a
+  ``torch.profiler.record_function`` range while :func:`tracing` holds:
+  while a ``torch.profiler`` (or ``emit_nvtx``) records on the calling
+  thread, or with ``HVD_TPU_METRICS_TRACE=1`` (or
+  :func:`enable_trace_bridge`). :meth:`Histogram.time` spans and
+  :func:`step_annotation` open theirs under the same test, so the
+  host-side phase timings line up with a profiler trace of the card,
+  on its clock. Otherwise a span is the shared no-op: one test of the
+  profiler's state.
 
 Stdlib-only at import (torch loads lazily inside the bridge and the
 profile capture), so any layer can import it without cycles.
@@ -41,6 +45,7 @@ import json
 import math
 import os
 import re
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -301,9 +306,10 @@ class _HistState:
 
 
 class _Timer:
-    """Times a with-block into a histogram; when the trace bridge is on,
-    the same span is opened as a ``torch.profiler.record_function`` range
-    so it shows up in a profiler trace of the card."""
+    """Times a with-block into a histogram; while :func:`tracing` held
+    when the timer was made, the same span is opened as a
+    ``torch.profiler.record_function`` range so it shows up in a
+    profiler trace of the card."""
 
     __slots__ = ("_target", "_annotation", "_t0", "_trace_cm")
 
@@ -337,12 +343,7 @@ class _HistogramChild(_Child):
         self._family._observe(self._key, value)
 
     def time(self, annotation: Optional[str] = None):
-        name = annotation
-        if name is None and self._family.registry.trace_bridge:
-            name = self._family.name
-        if not self._family.registry.trace_bridge:
-            name = None
-        return _Timer(self, name)
+        return _Timer(self, _range_name(annotation, self._family.name))
 
 
 class Histogram(_Family):
@@ -380,12 +381,7 @@ class Histogram(_Family):
     def time(self, annotation: Optional[str] = None):
         if self.labelnames:
             raise ValueError(f"{self.name}: labeled family needs .labels()")
-        name = annotation
-        if name is None and self.registry.trace_bridge:
-            name = self.name
-        if not self.registry.trace_bridge:
-            name = None
-        return _Timer(self, name)
+        return _Timer(self, _range_name(annotation, self.name))
 
     def samples(self):
         out = []
@@ -417,16 +413,44 @@ def _profiler_annotation(name: str):
         return None
 
 
+def tracing() -> bool:
+    """Whether spans are recorded now: the bridge's switch is on, or a
+    ``torch.profiler`` (``emit_nvtx`` too) records on this thread and
+    the threads autograd runs for it. torch is looked up, never
+    imported: a process without it records nothing."""
+    if registry().trace_bridge:
+        return True
+    torch = sys.modules.get("torch")
+    return torch is not None and torch._C._autograd._profiler_enabled()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range named ``name`` while
+    :func:`tracing` holds, else the shared no-op. It shares the device
+    trace's clock, and the launches inside it carry their
+    ``correlation`` ids. Callers that put numbers in ``name`` build it
+    only after :func:`tracing`."""
+    if not tracing():
+        return _NOOP_TIMER
+    cm = _profiler_annotation(name)
+    return _NOOP_TIMER if cm is None else cm
+
+
+def _range_name(annotation: Optional[str], default: str) -> Optional[str]:
+    """A timer's range name while :func:`tracing` holds, else None."""
+    if not tracing():
+        return None
+    return default if annotation is None else annotation
+
+
 def step_annotation(step_num: Optional[int] = None, name: str = "hvd_step"):
     """Context manager for one training step: a
-    ``torch.profiler.record_function`` range named ``name#step_num`` when
-    the trace bridge is on (a trace then groups per step), else a
+    ``torch.profiler.record_function`` range named ``name#step_num``
+    while :func:`tracing` holds (a trace then groups per step), else a
     no-op."""
-    if not registry().trace_bridge:
+    if not tracing():
         return _NOOP_TIMER
-    label = name if step_num is None else f"{name}#{step_num}"
-    cm = _profiler_annotation(label)
-    return _NOOP_TIMER if cm is None else cm
+    return span(name if step_num is None else f"{name}#{step_num}")
 
 
 # -- registry ---------------------------------------------------------------
@@ -583,7 +607,9 @@ def set_global_labels(**labels: str) -> None:
 
 def enable_trace_bridge(on: bool = True) -> None:
     """Turn the torch.profiler bridge on/off at runtime (also:
-    HVD_TPU_METRICS_TRACE=1). No-op on a disabled registry."""
+    HVD_TPU_METRICS_TRACE=1): spans then open their ranges with no
+    profiler running too. No-op on a disabled registry; a running
+    profiler still sees the spans."""
     reg = registry()
     reg.trace_bridge = bool(on) and reg.enabled
 

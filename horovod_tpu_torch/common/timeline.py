@@ -5,7 +5,16 @@
 event when a collective is submitted (activity ``ALLREDUCE``,
 ``ALLGATHER``, ...; the event's ``tid`` is the tensor's full name, cut to
 63 bytes by the native writer, and the Python writer's ``cat`` too) and
-an end event when its result is synchronized. The writer is
+an end event when its result is synchronized. ``DistributedOptimizer``
+writes each fused bucket the same way, as ``ALLREDUCE`` on ``tid``
+``bucket.<index>``: begin when the bucket is handed to its reduction,
+end when ``synchronize()`` has its result.
+
+``ts`` is microseconds since the epoch (``time.time_ns() / 1e3`` read
+when the timeline starts, ``perf_counter`` after it), the clock a
+``torch.profiler`` trace takes its ``baseTimeNanoseconds`` from: the
+same instant reads ``ts`` in the timeline and ``ts +
+baseTimeNanoseconds / 1000`` in the profiler's Chrome trace. The writer is
 the native one (``native/timeline.cc``: an MPSC ring drained by a
 writer thread, dropping and counting events when the ring is full —
 :meth:`Timeline.dropped`), or, under ``HVD_TPU_DISABLE_NATIVE=1``, a
@@ -60,6 +69,11 @@ def readiness_order_from_trace(filename: str,
     return sorted(first, key=lambda n: (first[n], n))
 
 
+def _wall_offset_us() -> float:
+    """Epoch microseconds less ``perf_counter`` microseconds, now."""
+    return time.time_ns() / 1e3 - time.perf_counter() * 1e6
+
+
 class Timeline:
     """Writes chrome-trace JSON events; safe to call from any thread."""
 
@@ -70,7 +84,7 @@ class Timeline:
         self._queue: "queue.Queue" = queue.Queue()
         self._thread: Optional[threading.Thread] = None
         self._active = False
-        self._start_ts = time.perf_counter()
+        self._offset_us = _wall_offset_us()
         self._lock = threading.Lock()
         self._native = None
         self._last_dropped = 0
@@ -93,6 +107,7 @@ class Timeline:
             if self._active:
                 return
             self._filename = filename
+            self._offset_us = _wall_offset_us()
             from ..native import NativeTimelineWriter
 
             native = NativeTimelineWriter()
@@ -162,7 +177,10 @@ class Timeline:
             else self._last_dropped
 
     def _now_us(self) -> float:
-        return (time.perf_counter() - self._start_ts) * 1e6
+        """Microseconds since the epoch, the profiler's base clock, as
+        read when the timeline started; ``perf_counter`` since then, so
+        a reset of the system clock moves no event."""
+        return time.perf_counter() * 1e6 + self._offset_us
 
     def _emit(self, tid: str, name: str, phase: str, ev: dict) -> None:
         native = self._native

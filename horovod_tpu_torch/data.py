@@ -15,7 +15,9 @@ Batches are trees (tensors or numpy arrays in dicts, lists and tuples).
 Consumer starvation is measured at the consumer's edge:
 ``hvd_tpu_infeed_wait_seconds`` (how long ``next`` blocked),
 ``hvd_tpu_infeed_queue_depth``, ``hvd_tpu_infeed_batches_total`` and
-``hvd_tpu_infeed_bytes_total`` (host bytes handed to placement).
+``hvd_tpu_infeed_bytes_total`` (host bytes handed to placement). While a
+profiler records, a :class:`DeviceInfeed`'s whole ``__next__`` (the wait
+and the hand-over) is the span ``hvd.infeed.next``.
 """
 
 from __future__ import annotations
@@ -312,17 +314,18 @@ class DeviceInfeed:
     def __next__(self):
         if self._closed:
             raise StopIteration
-        t0 = time.perf_counter()
-        item = self._q.get()
-        _M_WAIT.observe(time.perf_counter() - t0)
-        _M_DEPTH.set(self._q.qsize())
-        if item is self._DONE:
-            self.close()
-            if self._error is not None:
-                raise self._error
-            raise StopIteration
-        _M_BATCHES.inc()
-        return _hand_over(*item)
+        with metrics_lib.span("hvd.infeed.next"):
+            t0 = time.perf_counter()
+            item = self._q.get()
+            _M_WAIT.observe(time.perf_counter() - t0)
+            _M_DEPTH.set(self._q.qsize())
+            if item is self._DONE:
+                self.close()
+                if self._error is not None:
+                    raise self._error
+                raise StopIteration
+            _M_BATCHES.inc()
+            return _hand_over(*item)
 
     def close(self) -> None:
         """Stop the worker, drain queued batches, join the thread.

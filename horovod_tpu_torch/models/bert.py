@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..common import metrics as metrics_lib
 from ..ops.flash_attention import attend as default_attend
 from ._layers import LN_EPS, dense, init_weights, layer_norm
 
@@ -113,17 +114,18 @@ class Bert(nn.Module):
     def forward(self, input_ids: torch.Tensor,
                 mask: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = self.tok_emb(input_ids.long()).to(self.dtype)
-        if positions is None:
-            pe = self.pos_emb[None, :x.shape[1]]
-        else:
-            pe = self.pos_emb[positions.long()]
-        x = x + pe.to(self.dtype)
-        for layer in self.layers:
-            x = layer(x, mask, self.attend_fn)
-        x = layer_norm(self.final_ln, x, self.dtype)
-        emb = self.tok_emb.weight.to(self.dtype).to(torch.float32)
-        return torch.matmul(x.to(torch.float32), emb.t())
+        with metrics_lib.span("hvd.model.forward"):
+            x = self.tok_emb(input_ids.long()).to(self.dtype)
+            if positions is None:
+                pe = self.pos_emb[None, :x.shape[1]]
+            else:
+                pe = self.pos_emb[positions.long()]
+            x = x + pe.to(self.dtype)
+            for layer in self.layers:
+                x = layer(x, mask, self.attend_fn)
+            x = layer_norm(self.final_ln, x, self.dtype)
+            emb = self.tok_emb.weight.to(self.dtype).to(torch.float32)
+            return torch.matmul(x.to(torch.float32), emb.t())
 
 
 def mlm_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -131,10 +133,11 @@ def mlm_loss(logits: torch.Tensor, labels: torch.Tensor,
     """Masked-LM loss: softmax cross-entropy of fp32 ``logits`` against
     ``labels`` (B, S), averaged over the positions where ``weights`` is
     nonzero — the JAX package's benchmark BERT loss."""
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    per_tok = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
-    w = weights.to(torch.float32)
-    return (per_tok * w).sum() / w.sum().clamp_min(1.0)
+    with metrics_lib.span("hvd.model.loss"):
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        per_tok = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+        w = weights.to(torch.float32)
+        return (per_tok * w).sum() / w.sum().clamp_min(1.0)
 
 
 def bert_large(**kw) -> Bert:

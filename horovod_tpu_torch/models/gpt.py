@@ -56,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..common import metrics as metrics_lib
 from ..common.device import resolve_device
 from ..ops import collectives as C
 from ..ops.flash_attention import flash_attention
@@ -508,8 +509,9 @@ class GPT(nn.Module):
         if cache is not None:
             with torch.no_grad():
                 return self._forward_cached(tokens, cache)
-        x = self.tok_emb(tokens.long()).to(self.dtype)
-        return self._head(self.run_layers(x))
+        with metrics_lib.span("hvd.model.forward"):
+            x = self.tok_emb(tokens.long()).to(self.dtype)
+            return self._head(self.run_layers(x))
 
     def run_layers(self, x: torch.Tensor) -> torch.Tensor:
         """The decoder layers on activations ``x`` (B, S, hidden), each
@@ -571,9 +573,10 @@ def next_token_loss(logits: torch.Tensor,
     """Mean next-token softmax cross-entropy of fp32 ``logits`` (B, S, V)
     against ``targets`` (B, S) — the JAX package's ``pipeline_fns``
     ``loss_fn`` and its benchmark's GPT loss."""
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
-    return -ll.mean()
+    with metrics_lib.span("hvd.model.loss"):
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        ll = torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+        return -ll.mean()
 
 
 def gpt_small(**kw) -> GPT:

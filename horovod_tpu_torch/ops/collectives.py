@@ -757,15 +757,36 @@ def quantized_hierarchical_allreduce(x: torch.Tensor,
 # the plan says so. Here each phase is a collective over its axis's
 # subgroup, run to its end before the next.
 
-# Telemetry: per-axis wire bytes of each routed allreduce (the eager
-# engine's family, axis="flat" there).
+# Telemetry: allreduce wire bytes, the one family for every path: per
+# axis for each routed allreduce, axis="flat" for the eager engine's
+# calls and DistributedOptimizer's buckets.
 _METRICS_ON = metrics_lib.enabled()
-_M_AXIS_BYTES = metrics_lib.counter(
+_M_ALLREDUCE_BYTES = metrics_lib.counter(
     "hvd_tpu_allreduce_bytes_total",
     "allreduce bytes on the wire by wire format and mesh axis "
-    "(axis=flat: eager per-call accounting; int8 includes the "
-    "per-4096-block fp32 scales)",
+    "(axis=flat: eager per-call accounting and the optimizer's "
+    "buckets; int8 includes the per-4096-block fp32 scales)",
     labels=("wire", "axis"))
+
+
+def wire_of(dtype: torch.dtype, numel: int, compressor=None,
+            int8: bool = False) -> Tuple[str, int]:
+    """``(wire label, bytes)`` of a flat allreduce of ``numel`` elements
+    of ``dtype``, as :data:`_M_ALLREDUCE_BYTES` counts it: ``int8`` with
+    its per-block fp32 scales, a compressor's bf16/fp16 cast of a
+    float32/float64 tensor, or ``none`` at the native size."""
+    if int8:
+        return "int8", _wire_bytes_int8(numel)
+    cast = getattr(compressor, "wire_dtype", None)
+    if cast is not None and dtype in (torch.float32, torch.float64):
+        return ("bf16" if cast == torch.bfloat16 else "fp16",
+                numel * cast.itemsize)
+    return "none", numel * dtype.itemsize
+
+
+def _wire_bytes_int8(elems: int) -> int:
+    """int8 wire cost: 1 byte per element + one fp32 scale per block."""
+    return elems + 4 * ((elems + _Q_BLOCK - 1) // _Q_BLOCK)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -917,7 +938,7 @@ def _count_mesh_bytes(plan: WirePlan, nelems: int, ns, op) -> None:
         return
     cost = mesh_wire_cost(plan, nelems, ns, op)
     for p in plan.phases:
-        _M_AXIS_BYTES.labels(wire=p.wire, axis=p.axis).inc(
+        _M_ALLREDUCE_BYTES.labels(wire=p.wire, axis=p.axis).inc(
             cost[p.axis]["bytes"])
 
 

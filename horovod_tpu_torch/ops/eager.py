@@ -125,12 +125,6 @@ _M_BYTES = metrics_lib.counter(
     "per-process payload bytes per eager collective: raw (caller "
     "dtype) vs wire (what crosses the interconnect)",
     labels=("op", "kind"))
-_M_AR_WIRE = metrics_lib.counter(
-    "hvd_tpu_allreduce_bytes_total",
-    "allreduce bytes on the wire by wire format and mesh axis "
-    "(axis=flat: eager per-call accounting; int8 includes the "
-    "per-4096-block fp32 scales)",
-    labels=("wire", "axis"))
 _M_A2A_WIRE = metrics_lib.counter(
     "hvd_tpu_alltoall_bytes_total",
     "alltoall bytes on the wire by wire format and mesh axis "
@@ -138,11 +132,6 @@ _M_A2A_WIRE = metrics_lib.counter(
     "crosses the wire and is excluded; int8 includes the per-4096-block "
     "fp32 scales)",
     labels=("wire", "axis"))
-
-
-def _wire_bytes_int8(elems: int) -> int:
-    """int8 wire cost: 1 byte per element + one fp32 scale per block."""
-    return elems + 4 * ((elems + 4095) // 4096)
 
 
 def _count_bytes(op: str, raw: int, wire: Optional[int] = None) -> None:
@@ -776,18 +765,11 @@ class EagerEngine:
                           and x.element_size() > 2)
             cast = BF16Compressor if small_bf16 else (
                 NoneCompressor if quantized else compression)
-            cast_dt = getattr(cast, "wire_dtype", None)
-            if quant:
-                wire, wire_bytes = "int8", _wire_bytes_int8(x.numel())
-            elif cast_dt is not None and x.dtype in (torch.float32,
-                                                     torch.float64):
-                wire = "bf16" if cast_dt == torch.bfloat16 else "fp16"
-                wire_bytes = x.numel() * 2
-            else:
-                wire, wire_bytes = "none", nbytes
+            wire, wire_bytes = C.wire_of(x.dtype, x.numel(), cast, quant)
             _count_bytes("allreduce", nbytes, wire_bytes)
             if _METRICS_ON:
-                _M_AR_WIRE.labels(wire=wire, axis="flat").inc(wire_bytes)
+                C._M_ALLREDUCE_BYTES.labels(wire=wire,
+                                            axis="flat").inc(wire_bytes)
             flightrec_lib.recorder().annotate(full, nbytes=nbytes,
                                               wire=wire)
             if quant:
@@ -993,7 +975,7 @@ class EagerEngine:
 
         def issue(full):
             elems = x.numel()
-            wire_bytes = (_wire_bytes_int8(elems) if w == "int8" else
+            wire_bytes = (C._wire_bytes_int8(elems) if w == "int8" else
                           elems * 2 if w == "bf16" else _nbytes(x))
             _count_bytes("alltoall", _nbytes(x), wire_bytes)
             if _METRICS_ON:
@@ -1064,7 +1046,7 @@ class EagerEngine:
                                for k in range(1, n))
                 welems = hop_rows * math.prod(rest)
                 _M_A2A_WIRE.labels(wire=w, axis="flat").inc(
-                    welems * 2 if w == "bf16" else _wire_bytes_int8(welems))
+                    welems * 2 if w == "bf16" else C._wire_bytes_int8(welems))
             max_send = max(sum(row) for row in matrix)
             send = torch.cat([x, x.new_zeros((max_send - x.shape[0],)
                                              + rest)])

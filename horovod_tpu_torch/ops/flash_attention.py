@@ -10,7 +10,9 @@ backward's ``ds``, which blockwise callers such as ring attention need).
 :class:`_FlashAttention` wraps the forward kernel K5
 (``ops.kernels.flash_fwd``) and the backward kernels K6/K7
 (``ops.kernels.flash_bwd``, one C call for both) as one
-``torch.autograd.Function``.
+``torch.autograd.Function``; while a profiler records, the forward runs
+in the span ``hvd.attn.fwd`` and the backward, on autograd's thread, in
+``hvd.attn.bwd``.
 A CUDA tensor launches the kernels or raises; a CPU tensor takes their
 plain PyTorch versions. ``delta = rowsum(do * o)`` stays a plain torch
 op, as it is plain jnp in the JAX package.
@@ -31,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..common import metrics as metrics_lib
 from ..common.config import runtime_env
 from . import kernels
 
@@ -65,7 +68,8 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, mask, causal):
-        o, lse = kernels.flash_fwd(q, k, v, mask, causal)
+        with metrics_lib.span("hvd.attn.fwd"):
+            o, lse = kernels.flash_fwd(q, k, v, mask, causal)
         ctx.save_for_backward(q, k, v, mask, o, lse)
         ctx.causal = causal
         # An unused output's cotangent arrives as None, not as zeros
@@ -76,12 +80,13 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, dlse):
         q, k, v, mask, o, lse = ctx.saved_tensors
-        if do is None:
-            do = torch.zeros_like(o)
-        elif do.stride(-1) != 1:
-            do = do.contiguous()
-        dq, dk, dv = kernels.flash_bwd(q, k, v, mask, ctx.causal, o, lse,
-                                       do, dlse)
+        with metrics_lib.span("hvd.attn.bwd"):
+            if do is None:
+                do = torch.zeros_like(o)
+            elif do.stride(-1) != 1:
+                do = do.contiguous()
+            dq, dk, dv = kernels.flash_bwd(q, k, v, mask, ctx.causal, o,
+                                           lse, do, dlse)
         return dq, dk, dv, None, None
 
 

@@ -143,6 +143,16 @@ step, the guard and the inner optimizer's state stay; the rounding keys
 then use the new bucket indices. A re-plan with a step in progress
 raises.
 
+Tracing: while a profiler records (``common/metrics.py`` ``tracing()``),
+each bucket runs in the span ``hvd.bucket/<index>/<wire bytes>`` from its
+fusing to its issue (an int8_ef, routed or D2 bucket where it is reduced,
+in ``_chain``), ``synchronize()`` in ``hvd_step/comm`` and the base
+optimizer's update in ``hvd.opt.apply``. The same wire bytes of every
+bucket not routed are counted in ``hvd_tpu_allreduce_bytes_total{wire,
+axis="flat"}`` (the router counts its own per axis), and a running
+timeline gets ``ALLREDUCE`` on ``bucket.<index>``, from the issue to the
+result in ``synchronize()``.
+
 The ``collective`` fault site (``common/faults.py``) is consulted once a
 reduction round, at ``synchronize()``. After a failure the elastic
 restore calls ``abort_step()``, which drops the step in progress (its
@@ -156,6 +166,7 @@ import contextlib
 import dataclasses
 import functools
 import math
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
@@ -195,8 +206,8 @@ _M_REBUILDS = metrics_lib.counter(
 class StepTimer:
     """Host-side step-phase breakdown — the grad/comm/apply split of the
     ``hvd_tpu_step_phase_seconds`` histogram (the JAX package's
-    ``StepTimer``). With the profiler bridge on
-    (``HVD_TPU_METRICS_TRACE=1``) each phase is also a
+    ``StepTimer``). While a profiler records (or with the bridge's
+    switch, ``HVD_TPU_METRICS_TRACE=1``, on) each phase is also a
     ``torch.profiler.record_function`` range named ``<name>/<phase>``.
     A ``"comm"`` phase also runs on ``autoscale.comm_clock``: the
     autoscale publisher leaves it out of the rank's step time.
@@ -214,8 +225,9 @@ class StepTimer:
         opt.step()      # synchronize() times its wait as "comm"
 
     ``DistributedOptimizer.synchronize()`` times its own wait as
-    ``"comm"`` unless the caller already times one. Zero-cost when
-    metrics are disabled (every call lands on the no-op singleton; the
+    ``"comm"`` unless the caller already times one. Near zero-cost when
+    metrics are disabled and no profiler records (the histogram is the
+    no-op singleton and the range one test of the profiler's state; the
     comm clock still runs)."""
 
     def __init__(self, name: str = "hvd_step"):
@@ -223,15 +235,19 @@ class StepTimer:
 
     @contextlib.contextmanager
     def phase(self, phase: str):
-        """Context manager timing one named phase."""
-        timer = _M_PHASE.labels(phase=phase).time(
-            annotation=f"{self.name}/{phase}"
-            if metrics_lib.registry().trace_bridge else None)
+        """Context manager timing one named phase. Its range is a
+        :func:`~.common.metrics.span`, recorded whenever a profiler
+        records, with metrics off too; the histogram opens none."""
+        hist = _M_PHASE.labels(phase=phase)
         with contextlib.ExitStack() as stack:
             if phase == "comm":
                 stack.enter_context(autoscale_lib.comm_clock.waiting())
-            stack.enter_context(timer)
-            yield
+            stack.enter_context(metrics_lib.span(f"{self.name}/{phase}"))
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                hist.observe(time.perf_counter() - t0)
 
     def timed(self, phase: str, fn, *args, **kwargs):
         """Run ``fn`` and wait until its outputs are ready on their
@@ -254,10 +270,10 @@ def _synchronize_devices(out) -> None:
 @contextlib.contextmanager
 def _comm_phase(device: torch.device):
     """The optimizer's wait on its own collectives: StepTimer's
-    ``"comm"`` phase, unless the caller already times one. While the
-    autoscale publisher measures this rank's busy time, the rank's own
-    device work is finished first: waiting for it is busy time, not a
-    wait for peers."""
+    ``"comm"`` phase (the range ``hvd_step/comm``), unless the caller
+    already times one. While the autoscale publisher measures this
+    rank's busy time, the rank's own device work is finished first:
+    waiting for it is busy time, not a wait for peers."""
     if autoscale_lib.comm_clock.active():
         yield
         return
@@ -265,6 +281,16 @@ def _comm_phase(device: torch.device):
         torch.cuda.synchronize(device)
     with StepTimer().phase("comm"):
         yield
+
+
+def _timeline():
+    """The context's timeline while it records (the optimizer's buckets
+    write ``ALLREDUCE`` on ``bucket.<index>``), else None."""
+    if not basics.is_initialized():
+        return None
+    tl = basics.context().timeline
+    return tl if tl is not None and tl.active else None
+
 
 # Base seed of the stochastic rounding: bucket i at step t rounds with the
 # key (_EF_SEED, t, i), the same on every rank and on every rerun.
@@ -650,6 +676,37 @@ class _DistributedOptimizerMixin:
         for bi, bucket in enumerate(self._dist_plan.buckets):
             for i in bucket.leaf_indices:
                 self._bucket_of[id(self._dist_params[i])] = bi
+        # Each bucket's wire: its label and the bytes this rank hands to
+        # the reduction, which its span names and the flat byte counter
+        # counts (a routed bucket's bytes are the router's, per axis).
+        self._wire_bytes, self._wire_counters, counters = [], [], {}
+        for bi, bucket in enumerate(self._dist_plan.buckets):
+            label, nbytes = C.wire_of(bucket.dtype, bucket.total_elems,
+                                      self._wire_compressor(bi),
+                                      self._int8_bucket(bi))
+            if label not in counters:
+                counters[label] = C._M_ALLREDUCE_BYTES.labels(wire=label,
+                                                              axis="flat")
+            self._wire_bytes.append(nbytes)
+            self._wire_counters.append(None if self._route is not None
+                                       else counters[label])
+
+    def _bucket_span(self, bi: int):
+        """Bucket ``bi``'s span ``hvd.bucket/<index>/<wire bytes>`` while
+        a profiler records, else the no-op."""
+        if not metrics_lib.tracing():
+            return metrics_lib.NOOP.time()
+        return metrics_lib.span(f"hvd.bucket/{bi}/{self._wire_bytes[bi]}")
+
+    def _issued(self, bi: int) -> None:
+        """Bucket ``bi`` handed to its reduction: the flat byte counter,
+        and the timeline's begin while one records."""
+        counter = self._wire_counters[bi]
+        if counter is not None:
+            counter.inc(self._wire_bytes[bi])
+        tl = _timeline()
+        if tl is not None:
+            tl.begin(f"bucket.{bi}", "ALLREDUCE")
 
     def replan(self, fusion_threshold_bytes: Optional[int] = None,
                compression=None, overlap: Optional[bool] = None,
@@ -876,9 +933,17 @@ class _DistributedOptimizerMixin:
         return None
 
     def _launch(self, bi: int) -> None:
-        """Fuse, guard, compress, prescale and issue bucket ``bi``'s SUM;
-        an int8_ef bucket is only fused (and guarded) here and reduced at
-        :meth:`synchronize`."""
+        """Fuse, guard, compress, prescale and issue bucket ``bi``'s SUM,
+        in its span; an int8_ef or routed bucket is only fused (and
+        guarded) here and reduced, in its span, at :meth:`synchronize`,
+        and under D2 every bucket is reduced, in its span, on the
+        worker."""
+        deferred = (self.overlap or self._route is not None
+                    or self._int8_bucket(bi))
+        with metrics_lib.NOOP.time() if deferred else self._bucket_span(bi):
+            self._fuse_and_issue(bi)
+
+    def _fuse_and_issue(self, bi: int) -> None:
         bucket = self._dist_plan.buckets[bi]
         grads = {}
         for i in bucket.leaf_indices:
@@ -912,6 +977,7 @@ class _DistributedOptimizerMixin:
             self._submit_in_order(bi, rec)
             return
         if rec[0] == _ISSUED:
+            self._issued(bi)
             rec = (C._allreduce_async_inplace(rec[1], self._sum_op(),
                                               self._axis),) + rec[1:]
         self._dist_inflight[bi] = rec
@@ -936,16 +1002,21 @@ class _DistributedOptimizerMixin:
     def _chain(self, bi: int, kind, wire: torch.Tensor, ctx):
         """Bucket ``bi``'s whole reduction (on the worker under D2, at
         ``synchronize()`` otherwise): ``(reduced gradients, new residual
-        or None)``. Reads the residual and step; commits nothing."""
-        if kind == _DEFERRED_INT8:
-            return self._reduce_int8(bi, wire)
-        if kind == _DEFERRED_ROUTED:
-            wire = self._reduce_routed(wire)
-        elif kind == _ISSUED:
-            C._allreduce_async_inplace(wire, self._sum_op(),
-                                       self._axis).wait()
-        else:
+        or None)``. Reads the residual and step; commits nothing. A
+        bucket reduced here (any under D2, an int8_ef or routed one
+        otherwise) is issued in its span."""
+        if not isinstance(kind, str):
             kind.wait()         # the work handle issued in _launch
+            return self._finish_bucket(bi, wire, ctx), None
+        with self._bucket_span(bi):
+            self._issued(bi)
+            if kind == _DEFERRED_INT8:
+                return self._reduce_int8(bi, wire)
+            if kind == _DEFERRED_ROUTED:
+                wire = self._reduce_routed(wire)
+            else:
+                C._allreduce_async_inplace(wire, self._sum_op(),
+                                           self._axis).wait()
         return self._finish_bucket(bi, wire, ctx), None
 
     def _finish_bucket(self, bi: int, wire: torch.Tensor, ctx):
@@ -1014,19 +1085,25 @@ class _DistributedOptimizerMixin:
             if bi not in self._dist_inflight and bi not in self._ov_ready:
                 self._launch(bi)
         done = {}
+        # The timeline's bucket ends as each bucket's result arrives.
+        tl = _timeline()
+        end = (lambda bi: tl.end(f"bucket.{bi}", "ALLREDUCE")) \
+            if tl is not None else (lambda bi: None)
         if self.overlap:
             # Every chain, in plan order; a failed hop raises here.
             for bi in sorted(self._dist_inflight):
                 done[bi] = self._dist_inflight[bi][0].wait()
+                end(bi)
         if self._guard is not None and self._agree() is False:
             # A globally agreed bad step: finish the bucket collectives
             # every rank issued, discard their results, reduce no int8
             # bucket (residual and rounding step unchanged) and leave
             # p.grad as backprop left it; step() skips the update.
             if not self.overlap:
-                for work, _, _ in self._dist_inflight.values():
+                for bi, (work, _, _) in self._dist_inflight.items():
                     if not isinstance(work, str):
                         work.wait()
+                        end(bi)
             self._dist_inflight.clear()
             self._reset_counts()
             self._dist_dirty = False
@@ -1036,6 +1113,7 @@ class _DistributedOptimizerMixin:
         if not self.overlap:
             for bi in sorted(self._dist_inflight):
                 done[bi] = self._chain(bi, *self._dist_inflight[bi])
+                end(bi)
         for bi in sorted(done):
             flat, res = done[bi]
             for i, view in fusion_lib.unfuse_bucket(
@@ -1127,13 +1205,15 @@ class _DistributedOptimizerMixin:
 
     def step(self, closure=None):
         """Synchronize (unless inside ``skip_synchronize``), then the base
-        optimizer's step, which a step the guard skipped does not run."""
+        optimizer's step (the span ``hvd.opt.apply``), which a step the
+        guard skipped does not run."""
         if self._should_synchronize:
             self.synchronize()
         if self._guard_skip:
             self._guard_skip = False
             return None
-        return self._base_cls.step(self, closure)
+        with metrics_lib.span("hvd.opt.apply"):
+            return self._base_cls.step(self, closure)
 
     def zero_grad(self, set_to_none: bool = True):
         if self._dist_dirty or self._dist_inflight:

@@ -183,19 +183,38 @@ def test_debug_profile_is_one_capture_at_a_time(tmp_path):
         srv.stop()
 
 
-def test_trace_bridge_opens_record_function_ranges():
+def test_trace_bridge_opens_record_function_ranges(monkeypatch):
+    """With the switch on, and with it off while a profiler records, a
+    histogram's timer opens its range; with the switch off and no
+    profiler it opens none."""
     import torch
 
-    reg = P_metrics.MetricsRegistry(enabled=True, trace_bridge=True)
-    h = reg.histogram("hvd_tpu_test_phase_seconds", "", ("phase",))
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        with h.labels(phase="comm").time(annotation="hvd_step/comm"):
-            torch.ones(8).sum()
-    names = {e.key for e in prof.key_averages()}
-    assert "hvd_step/comm" in names
+    opened = []
+    real = torch.profiler.record_function
+
+    def counting(name, *a, **kw):
+        opened.append(name)
+        return real(name, *a, **kw)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    for switch in (True, False):
+        reg = P_metrics.MetricsRegistry(enabled=True, trace_bridge=switch)
+        monkeypatch.setattr(P_metrics, "_registry", reg)
+        h = reg.histogram("hvd_tpu_test_phase_seconds", "", ("phase",))
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            with h.labels(phase="comm").time(annotation="hvd_step/comm"):
+                torch.ones(8).sum()
+        names = {e.key for e in prof.key_averages()}
+        assert "hvd_step/comm" in names, switch
+        assert reg.snapshot()["hvd_tpu_test_phase_seconds"]["samples"][0][
+            "value"]["count"] == 1
+    del opened[:]
+    with h.labels(phase="comm").time(annotation="hvd_step/comm"):
+        torch.ones(8).sum()
+    assert opened == []
     assert reg.snapshot()["hvd_tpu_test_phase_seconds"]["samples"][0][
-        "value"]["count"] == 1
+        "value"]["count"] == 2
 
 
 def test_init_stamps_labels_and_falls_back_to_an_ephemeral_port(
